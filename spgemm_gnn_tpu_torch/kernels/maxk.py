@@ -1,0 +1,81 @@
+"""MaxK on its CUDA kernels (counterpart of `spgemm_gnn_tpu/kernels/
+maxk_pallas.py`; sources in `csrc/maxk.cu`).
+
+`maxk_fwd` and `maxk_bwd` launch the kernels on CUDA tensors and take the
+plain versions (ops/maxk.py) on CPU tensors. `MaxK` is the autograd Function:
+its forward keeps (x, meta), and its backward rebuilds the mask from them.
+"""
+from __future__ import annotations
+
+import torch
+
+from spgemm_gnn_tpu_torch.kernels import _build
+from spgemm_gnn_tpu_torch.ops.maxk import maxk_backward, maxk_forward
+
+MAX_DIM = 1024   # a row lives in one warp's registers
+
+
+def maxk_fwd(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y, meta) = MaxK of the rows of x (f32 [N, dim]); meta int32 [N, 2]."""
+    if _build.on_cpu(x):
+        return maxk_forward(x, k)
+    _build.require(x, "x", torch.float32, x.device, (None, None))
+    n, dim = x.shape
+    if dim > MAX_DIM:
+        raise ValueError(f"maxk_fwd supports dim <= {MAX_DIM}; got {dim}")
+    if not 1 <= k < dim:
+        raise ValueError(f"maxk_fwd needs 1 <= k < dim; got k={k}, dim={dim}")
+    _build.require_aligned(x, "x")
+    y = torch.empty_like(x)
+    meta = torch.empty((n, 2), dtype=torch.int32, device=x.device)
+    if n:
+        with torch.cuda.device(x.device):
+            status = _build.library("maxk").maxk_fwd(
+                x.data_ptr(), y.data_ptr(), meta.data_ptr(), n, dim, k,
+                _build.stream_of(x))
+        _build.check(status, "maxk_fwd")
+        _build.launches["maxk_fwd"] += 1
+    return y, meta
+
+
+def maxk_bwd(x: torch.Tensor, meta: torch.Tensor,
+             g: torch.Tensor) -> torch.Tensor:
+    """dx = g · mask(x, meta) (all f32 [N, dim], meta int32 [N, 2])."""
+    if _build.on_cpu(x):
+        return maxk_backward(x, meta, g)
+    _build.require(x, "x", torch.float32, x.device, (None, None))
+    n, dim = x.shape
+    _build.require(meta, "meta", torch.int32, x.device, (n, 2))
+    _build.require(g, "g", torch.float32, x.device, (n, dim))
+    for t, what in ((x, "x"), (g, "g")):
+        _build.require_aligned(t, what)
+    dx = torch.empty_like(g)
+    if n:
+        with torch.cuda.device(x.device):
+            status = _build.library("maxk").maxk_bwd(
+                x.data_ptr(), meta.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                n, dim, _build.stream_of(x))
+        _build.check(status, "maxk_bwd")
+        _build.launches["maxk_bwd"] += 1
+    return dx
+
+
+class MaxK(torch.autograd.Function):
+    """y = x · topk_mask(x); dx = g · topk_mask(x), the mask rebuilt from
+    the per-row (pivot, bound) meta."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, k: int) -> torch.Tensor:
+        y, meta = maxk_fwd(x, k)
+        ctx.save_for_backward(x, meta)
+        return y
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, meta = ctx.saved_tensors
+        return maxk_bwd(x, meta, g.contiguous()), None
+
+
+def maxk(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Differentiable MaxK through the kernels (1 <= k < dim)."""
+    return MaxK.apply(x.contiguous(), k)

@@ -1,0 +1,164 @@
+"""Training configuration (counterpart of `spgemm_gnn_tpu/train/config.py`):
+the JAX package's flag names, plus `--device`.
+
+Flags whose path this slice of the port does not have yet raise
+NotImplementedError naming their ROADMAP item (`check_supported`).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import Any
+
+from spgemm_gnn_tpu_torch.graphs.datasets import DATASETS
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    dataset: str = "yelp"
+    data_path: str = "./data/"
+    model: str = "sage"
+    selfloop: bool = False
+    epochs: int = 1000
+    w_lr: float = 0.01
+    w_weight_decay: float = 0.0
+    enable_lookahead: bool = False
+    hidden_dim: int = 256
+    hidden_layers: int = 3
+    nonlinear: str = "maxk"              # maxk | relu
+    maxk: int = 32
+    dropout: float = 0.5
+    norm: bool = False
+    seed: int = 97
+    evaluate: str | None = None
+    path: str = "./run/"
+    impl: str = "auto"                   # auto | torch | cuda (kernels/api.py)
+    device: str = "cuda"                 # cuda | cpu
+    remat: bool = False
+    eval_every: int = 1
+    # eval metrics stay on the device and reach the host in batches of this
+    # many evaluations (each host read waits for the device)
+    eval_fetch_every: int = 8
+    steps_per_call: int = 1
+    checkpoint_every: int = 0
+    resume: bool = False
+    dtype: str = "float32"
+    synthetic: bool = False              # allow synthetic stand-in datasets
+    synthetic_scale: float = 1.0
+    device_inputs: bool = False
+    mesh_shape: int = 1
+    multihost: bool = False
+    coordinator: str | None = None
+    num_processes: int | None = None
+    process_id: int | None = None
+    log_every: int = 1
+    tensorboard: bool = False
+    timing: bool = False
+    profile: str | None = None
+    cache_strategy: str = "none"
+    cache_size_ratio: float = 0.05
+    stream: str = "f32"
+
+    def print_params(self, prtf=print) -> None:
+        prtf("")
+        prtf("Parameters:")
+        for f in sorted(dataclasses.fields(self), key=lambda f: f.name):
+            prtf(f"{f.name.upper()}={getattr(self, f.name)}")
+        prtf("")
+
+    def replace(self, **kw: Any) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# (flag, test of a value this slice cannot run, ROADMAP item)
+_NOT_YET = (
+    ("model", lambda v: v != "sage", "Queue A9 (GCN, GIN, GNNRes, "
+     "integrated models)"),
+    ("dtype", lambda v: v != "float32", "Queue A9 (--dtype bfloat16)"),
+    ("remat", bool, "Queue A9 (--remat)"),
+    ("stream", lambda v: v != "f32", "Queue B2 follow-up (bf16x2 stream)"),
+    ("mesh_shape", lambda v: v > 1, "Queue A13 (multi-GPU)"),
+    ("multihost", bool, "Queue A13 (multi-GPU)"),
+    ("coordinator", bool, "Queue A13 (multi-GPU)"),
+    ("cache_strategy", lambda v: v != "none", "Queue A11 (feature stores)"),
+    ("evaluate", bool, "Queue A11 (checkpoints)"),
+    ("checkpoint_every", bool, "Queue A11 (checkpoints)"),
+    ("resume", bool, "Queue A11 (checkpoints)"),
+    ("device_inputs", bool, "Queue A11 (device-side synthetic inputs)"),
+    ("steps_per_call", lambda v: v > 1, "Queue A12 (batched steps)"),
+    ("timing", bool, "Queue A12 (timing)"),
+    ("profile", bool, "Queue A12 (timing)"),
+    ("tensorboard", bool, "Queue A12 (timing)"),
+    ("dataset", lambda v: v == "ogbn-proteins", "Queue A7 (ROC-AUC)"),
+)
+
+
+def check_supported(config: TrainConfig) -> None:
+    """Raise NotImplementedError for a flag whose path is not ported yet."""
+    for flag, not_yet, item in _NOT_YET:
+        value = getattr(config, flag)
+        if not_yet(value):
+            raise NotImplementedError(
+                f"--{flag} {value!r} is not ported to spgemm_gnn_tpu_torch "
+                f"yet (ROADMAP {item})")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        "MaxK-GNN training (PyTorch/CUDA port)",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    d = TrainConfig()
+    p.add_argument("--dataset", default=d.dataset, choices=list(DATASETS))
+    p.add_argument("--data_path", default=d.data_path)
+    p.add_argument("--model", default=d.model,
+                   choices=["sage", "gcn", "gin", "gnn_res", "sage_integrated",
+                            "gcn_integrated", "gin_integrated"])
+    p.add_argument("--selfloop", action="store_true")
+    p.add_argument("--epochs", type=int, default=d.epochs)
+    p.add_argument("--w_lr", type=float, default=d.w_lr)
+    p.add_argument("--w_weight_decay", type=float, default=d.w_weight_decay)
+    p.add_argument("--enable_lookahead", action="store_true")
+    p.add_argument("--hidden_dim", type=int, default=d.hidden_dim)
+    p.add_argument("--hidden_layers", type=int, default=d.hidden_layers)
+    p.add_argument("--nonlinear", default=d.nonlinear, choices=["maxk", "relu"])
+    p.add_argument("--maxk", type=int, default=d.maxk)
+    p.add_argument("--dropout", type=float, default=d.dropout)
+    p.add_argument("--norm", action="store_true")
+    p.add_argument("--seed", type=int, default=d.seed)
+    p.add_argument("-e", "--evaluate", default=None, metavar="PATH")
+    p.add_argument("--path", default=d.path, metavar="PATH")
+    p.add_argument("--impl", default=d.impl, choices=["auto", "torch", "cuda"],
+                   help="auto: CUDA kernels on the GPU, plain PyTorch on the "
+                        "CPU; cuda: kernels only; torch: plain PyTorch only")
+    p.add_argument("--device", default=d.device,
+                   help="cuda (default; raises without a GPU) or cpu")
+    p.add_argument("--remat", action="store_true")
+    p.add_argument("--eval_every", type=int, default=d.eval_every)
+    p.add_argument("--eval_fetch_every", type=int, default=d.eval_fetch_every)
+    p.add_argument("--steps_per_call", type=int, default=d.steps_per_call)
+    p.add_argument("--checkpoint_every", type=int, default=d.checkpoint_every)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--dtype", default=d.dtype)
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--synthetic_scale", type=float, default=d.synthetic_scale)
+    p.add_argument("--device_inputs", action="store_true")
+    p.add_argument("--mesh_shape", type=int, default=d.mesh_shape)
+    p.add_argument("--multihost", action="store_true")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--log_every", type=int, default=d.log_every)
+    p.add_argument("--tensorboard", action="store_true")
+    p.add_argument("--timing", action="store_true")
+    p.add_argument("--profile", default=None, metavar="DIR")
+    p.add_argument("--cache-strategy", dest="cache_strategy", default="none",
+                   choices=["none", "direct", "static-outd", "fifo", "lru"])
+    p.add_argument("--cache-size-ratio", dest="cache_size_ratio", type=float,
+                   default=d.cache_size_ratio)
+    p.add_argument("--stream", default=d.stream, choices=["f32", "bf16x2"])
+    return p
+
+
+def from_args(argv=None) -> TrainConfig:
+    args = build_parser().parse_args(argv)
+    return TrainConfig(**vars(args))

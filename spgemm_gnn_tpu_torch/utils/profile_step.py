@@ -1,0 +1,68 @@
+"""Where one train step's device time goes, on the GPU: the Reddit recipe
+(SAGE, MaxK k=32, hidden 256, 4 layers, LayerNorm, dropout 0.5) on the
+synthetic Reddit stand-in, one warm step, then one step under
+`torch.profiler`, with device time summed by kernel name.
+
+    python -m spgemm_gnn_tpu_torch.utils.profile_step [--synthetic_scale S]
+
+Prints the card's name and power limit, the step's wall time, the device's
+busy time and idle share, and the kernels that took the most device time.
+"""
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+
+import torch
+
+
+def profile_step(synthetic_scale: float, seed: int, top: int) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    from spgemm_gnn_tpu_torch.train.config import TrainConfig
+    from spgemm_gnn_tpu_torch.train.loop import Trainer
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip(), flush=True)
+    cfg = TrainConfig(dataset="reddit", model="sage", nonlinear="maxk", maxk=32,
+                      hidden_dim=256, hidden_layers=4, norm=True, dropout=0.5,
+                      w_lr=0.01, seed=seed, device="cuda", impl="auto",
+                      synthetic=True, synthetic_scale=synthetic_scale,
+                      data_path="/nonexistent")
+    trainer = Trainer(cfg)
+    state = trainer.init_state()
+    gen = torch.Generator(device=trainer.device).manual_seed(seed)
+    trainer.train_step(state, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(state, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only: a host op's own device time repeats the
+    # kernels it launched (the ctypes launches have no aten op of their own)
+    rows = [(evt.self_device_time_total / 1e3, evt.key, evt.count)
+            for evt in prof.key_averages()
+            if evt.device_type == torch.autograd.DeviceType.CUDA
+            and evt.self_device_time_total > 0]
+    busy = sum(r[0] for r in rows)
+    print(f"one train step (profiler on): wall {wall_ms:.2f} ms, device busy "
+          f"{busy:.2f} ms, idle {1 - busy / wall_ms:.1%}")
+    for ms, key, count in sorted(rows, reverse=True)[:top]:
+        print(f"  {ms:9.3f} ms  {count:4d}x  {key[:90]}")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--synthetic_scale", type=float, default=1.0)
+    ap.add_argument("--seed", type=int, default=97)
+    ap.add_argument("--top", type=int, default=12)
+    args = ap.parse_args(argv)
+    profile_step(args.synthetic_scale, args.seed, args.top)
+
+
+if __name__ == "__main__":
+    main()
