@@ -5,23 +5,41 @@
 
 Phases, each of which raises (exit code != 0, no result line) on failure:
   1. device: a CUDA device must exist; prints the card's name and power limit;
-  2. build: compiles every CUDA kernel of the port (nvcc, sm_90a);
+  2. build: compiles every CUDA kernel of the port (nvcc, sm_90a, one nvcc per
+     source, all started together);
   3. graph: the synthetic Reddit stand-in at full width (602 features,
-     41 classes, N = 232,965, E about 114.6M);
-  4. kernels: each kernel at the training path's shapes against its plain
+     41 classes, N = 232,965, E about 113.3M); the plan rule must pick the
+     "windowed" kind (csr_spmm);
+  4. kernels: each kernel of the Reddit path at its shapes against its plain
      PyTorch version (MaxK forward/backward bitwise; the CSR product within
      1e-5 of the largest output magnitude of a float64 run of the plain
-     version), timed with CUDA events beside its
-     plain version, a PyTorch library call computing the same function, and
-     the least time the card could take (bytes over 3.35 TB/s or operations
-     over 67 TFLOP/s f32, H100 SXM peaks at 700 W);
+     version, and bitwise equal across two runs), timed with CUDA events
+     beside its plain version, a PyTorch library call computing the same
+     function, and the least time the card could take (bytes over 3.35 TB/s
+     or operations over 67 TFLOP/s f32, H100 SXM peaks at 700 W); the stream
+     kernel on the same graph, checked the same way (it only measures: the
+     rule keeps Reddit on csr_spmm);
   5. train: `Trainer` on the Reddit recipe (SAGE, MaxK k=32, hidden 256,
      4 layers, LayerNorm, dropout 0.5, lr 0.01) for 5 epochs; the losses must
      be finite and fall, and every kernel's launch count must match the
      model's structure exactly;
   6. model check: on a small graph (3000 nodes, 2 layers, ReLU, so only the
      aggregation kernel), the model through the kernels against the model
-     through the plain versions on the same card.
+     through the plain versions on the same card, on a windowed plan and on
+     a stream plan;
+  7. graph 2: the synthetic ogbn-products stand-in at full size (N =
+     2,449,029, E about 123.7M, 100 features, 47 classes); the plan rule must
+     pick the "stream" kind (stream_spmm);
+  8. kernels on products: stream_spmm on A and Aᵀ, and csr_spmm on A, checked
+     as in phase 4;
+  9. CBSR: cbsr_compact, cbsr_densify and cbsr_sample at the products shapes
+     (dim 256, k 32), bitwise against their plain versions and timed; then
+     `aggregate_cbsr` forward and backward through the kernels, with its
+     launches counted, against the dense path;
+ 10. train 2: the products recipe (SAGE, MaxK k=32, hidden 256, 3 layers,
+     LayerNorm, dropout 0.5, lr 0.003): its first two train steps through the
+     kernels within 1e-4 relative of the plain path's (same weights and
+     dropout seed), then 5 epochs with finite losses and exact launch counts.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -35,11 +53,13 @@ import time
 
 PEAK_BYTES_S = 3.35e12    # H100 SXM HBM3
 PEAK_F32_FLOP_S = 67e12   # H100 SXM f32 outside the tensor cores
-# the Reddit stand-in at full size, the recipe's epochs, and the seed of the
-# graph, the inputs and the weights
+# the stand-ins at full size, the recipes' epochs, and the seed of the
+# graphs, the inputs and the weights
 SCALE = 1.0
 EPOCHS = 5
 SEED = 97
+HIDDEN, K = 256, 32
+HUB_ROWS = 1024   # 128 blocks of 8 warps: one wave on the H100's 132 SMs
 
 
 def log(msg: str) -> None:
@@ -78,15 +98,130 @@ def rel_err(a, b) -> tuple[float, float]:
     return err, err / max(float(b.abs().max()), 1e-30)
 
 
-def kernel_phase(torch, g, dim: int, k: int, seed: int) -> list[dict]:
-    from spgemm_gnn_tpu_torch.kernels.maxk import maxk_bwd, maxk_fwd
+def sparse_input(torch, n: int, dim: int, k: int, gen):
+    """MaxK of random rows, then dropout 0.5: the aggregation's input on the
+    training path (k-sparse, some rows shorter)."""
+    from spgemm_gnn_tpu_torch.kernels.maxk import maxk_fwd
+    x = torch.randn((n, dim), generator=gen, device="cuda")
+    y, _ = maxk_fwd(x, k)
+    keep = torch.rand((n, dim), generator=gen, device="cuda") >= 0.5
+    return torch.where(keep, y / 0.5, torch.zeros_like(y))
+
+
+def hub_rows(torch, indptr, indices, rows: int):
+    """The CSR (indptr, indices) of only the `rows` rows of highest degree:
+    timed alone, it shows how much of the product the longest rows take by
+    themselves."""
+    deg = indptr.diff()
+    top = torch.topk(deg, min(rows, deg.numel())).indices
+    d = deg[top].long()
+    sub_indptr = torch.zeros(d.numel() + 1, dtype=torch.long,
+                             device=indptr.device)
+    torch.cumsum(d, 0, out=sub_indptr[1:])
+    total = int(sub_indptr[-1])
+    offset = torch.repeat_interleave(indptr[top].long() - sub_indptr[:-1], d,
+                                     output_size=total)
+    pos = torch.arange(total, device=indptr.device) + offset
+    return sub_indptr.int(), indices[pos].contiguous()
+
+
+def product_check(torch, kernel: str, g, inp, pre_f, post_f,
+                  transpose: bool = False) -> dict:
+    """Check and time one use of an aggregation kernel ("csr_spmm" or
+    "stream_spmm") on the graph's CSR (or its transpose). The reference is
+    the plain version in float64, so that the error read is the kernel's own;
+    two runs must give the same bits. Also times the kernel on the HUB_ROWS
+    rows of highest degree alone, the plain version, and `torch.sparse.mm` on
+    a CSR tensor of the same weights."""
+    from spgemm_gnn_tpu_torch.graphs.stream_tiles import build_stream_plan
     from spgemm_gnn_tpu_torch.kernels.spmm import csr_spmm
-    from spgemm_gnn_tpu_torch.ops.maxk import maxk_backward, maxk_forward
-    from spgemm_gnn_tpu_torch.ops.norms import node_factors
+    from spgemm_gnn_tpu_torch.kernels.stream import stream_spmm
     from spgemm_gnn_tpu_torch.ops.spmm import csr_spmm_plain
+    from spgemm_gnn_tpu_torch.ops.stream import stream_spmm_plain
+
+    indptr = g.t_indptr if transpose else g.indptr
+    indices = g.t_indices if transpose else g.indices
+    rows = g.t_edge_dst if transpose else g.edge_dst
+    n, e, dim = g.num_nodes, g.num_edges, inp.shape[1]
+    if kernel == "stream_spmm":
+        plan = build_stream_plan(indptr, indices)
+        hub_ip, hub_ix = hub_rows(torch, indptr, indices, HUB_ROWS)
+        hub_plan = build_stream_plan(hub_ip, hub_ix)
+        hub_edges = hub_ix.numel()
+        plan_bytes = (plan.num_chunks + plan.carry_rows.numel()) * 4
+
+        def run(x):
+            return stream_spmm(plan, x, pre_f, post_f)
+
+        def run_plain(x):
+            return stream_spmm_plain(plan, x, pre_f, post_f)
+
+        def run_hub():
+            return stream_spmm(hub_plan, inp)
+    else:
+        hub = hub_rows(torch, indptr, indices, HUB_ROWS)
+        hub_edges = hub[1].numel()
+        plan_bytes = 0
+
+        def run(x):
+            return csr_spmm(indptr, indices, x, pre_f, post_f)
+
+        def run_plain(x):
+            return csr_spmm_plain(indptr, indices, x, pre_f, post_f)
+
+        def run_hub():
+            return csr_spmm(*hub, inp)
+
+    ref = run_plain(inp.double())
+    got, again = run(inp), run(inp)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    if not rel <= 1e-5:
+        raise AssertionError(f"{kernel} error {rel:.3e} of max |y| > 1e-5")
+    if not bits_equal(torch, got, again):
+        raise AssertionError(f"{kernel}: two runs differ")
+    w = torch.ones(e, device=inp.device)
+    if pre_f is not None:
+        w = w * pre_f[indices.long()]
+    if post_f is not None:
+        w = w * post_f[rows.long()]
+    a = torch.sparse_csr_tensor(indptr, indices, w, size=(n, n))
+    lib_rel = rel_err(torch.sparse.mm(a, inp), ref)[1]
+    del ref, again
+    # the products this input needs: a multiply-add per nonzero of each
+    # gathered row
+    gathered = torch.bincount(indices, minlength=n).double()
+    ops = 2.0 * float(((inp != 0).sum(1).double() * gathered).sum())
+    n_bytes = (2 * n * dim * 4 + (n + 1) * 4 + e * 4 + plan_bytes
+               + 4 * n * ((pre_f is not None) + (post_f is not None)))
+    b_ms, b_by = bound_ms(n_bytes, ops)
+    ms = time_ms(torch, lambda: run(inp), 5)
+    hub_ms = time_ms(torch, run_hub, 5)
+    return dict(err=err, rel=rel, bound_ms=b_ms, bound_by=b_by, ms=ms,
+                plain_ms=time_ms(torch, lambda: run_plain(inp), 2),
+                library_ms=time_ms(torch, lambda: torch.sparse.mm(a, inp), 5),
+                library_rel=lib_rel, hub_ms=hub_ms,
+                hub_edge_share=hub_edges / e,
+                gather_ms=e * dim * 4 / PEAK_BYTES_S * 1e3)
+
+
+def log_product(kernel: str, what: str, r: dict) -> None:
+    log(f"kernel {kernel} ({what}): max abs err {r['err']:.3e}, "
+        f"{r['rel']:.3e} of max |y| (cuSPARSE {r['library_rel']:.3e}); "
+        f"bitwise equal across two runs; {r['ms']:.3f} ms "
+        f"(plain {r['plain_ms']:.3f}, torch.sparse.mm {r['library_ms']:.3f}, "
+        f"bound {r['bound_ms']:.3f} by {r['bound_by']}, no-reuse gather "
+        f"{r['gather_ms']:.3f}); the {HUB_ROWS} rows of highest degree "
+        f"({r['hub_edge_share']:.1%} of the edges) alone {r['hub_ms']:.3f} ms "
+        f"({r['hub_ms'] / r['ms']:.1%})")
+
+
+def maxk_phase(torch, g, dim: int, k: int, seed: int) -> list[dict]:
+    from spgemm_gnn_tpu_torch.kernels.maxk import maxk_bwd, maxk_fwd
+    from spgemm_gnn_tpu_torch.ops.maxk import maxk_backward, maxk_forward
 
     dev = g.device
-    n, e = g.num_nodes, g.num_edges
+    n = g.num_nodes
     gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((n, dim), generator=gen, device=dev)
     # rows of repeated values and all-zero rows exercise the tie rule
@@ -128,102 +263,41 @@ def kernel_phase(torch, g, dim: int, k: int, seed: int) -> list[dict]:
         plain_ms=time_ms(torch, lambda: maxk_backward(x, meta, gy), 3),
         bound_ms=b, bound_by=by, library_ms=None))
     log("kernel maxk_bwd: bitwise equal to plain")
-
-    # K3 csr_spmm: forward on A (k-sparse input after dropout, mean norm) and
-    # the backward's use on the transpose (dense cotangent, factors swapped)
-    _, post = node_factors(g, "mean")
-    keep = torch.rand((n, dim), generator=gen, device=dev) >= 0.5
-    xs = torch.where(keep, y / 0.5, torch.zeros_like(y))
-    del x, y, y_p, meta, meta_p, dx, dx_p, keep
-
-    def spmm_entry(indptr, indices, inp, pre_f, post_f, edge_values):
-        """Check and time one use; `edge_values` are the same weights per
-        edge, for the library's CSR tensor. The reference is the plain
-        version in float64, so that the error read is the kernel's own."""
-        ref = csr_spmm_plain(indptr, indices, inp.double(), pre_f, post_f)
-        got = csr_spmm(indptr, indices, inp, pre_f, post_f)
-        torch.cuda.synchronize()
-        err, rel = rel_err(got, ref)
-        if not rel <= 1e-5:
-            raise AssertionError(f"csr_spmm error {rel:.3e} of max |y| > 1e-5")
-        # the products this input needs: a multiply-add per nonzero of each
-        # gathered row
-        gathered = torch.bincount(indices, minlength=n).double()
-        ops = 2.0 * float(((inp != 0).sum(1).double() * gathered).sum())
-        n_bytes = 2 * n * dim * f32 + (n + 1) * 4 + e * 4 + n * 4
-        b_ms, b_by = bound_ms(n_bytes, ops)
-        a = torch.sparse_csr_tensor(indptr, indices, edge_values, size=(n, n))
-        lib = torch.sparse.mm(a, inp)
-        lib_err = rel_err(lib, ref)[1]
-        return dict(err=err, rel=rel, ops=ops, bound_ms=b_ms, bound_by=b_by,
-                    ms=time_ms(torch, lambda: csr_spmm(
-                        indptr, indices, inp, pre_f, post_f), 5),
-                    plain_ms=time_ms(torch, lambda: csr_spmm_plain(
-                        indptr, indices, inp, pre_f, post_f), 2),
-                    library_ms=time_ms(torch, lambda: torch.sparse.mm(a, inp),
-                                       5),
-                    library_rel_err=lib_err)
-
-    fwd = spmm_entry(g.indptr, g.indices, xs, None, post,
-                     post[g.edge_dst.long()])
-    log(f"kernel csr_spmm (A, k-sparse x): max abs err {fwd['err']:.3e}, "
-        f"{fwd['rel']:.3e} of max |y|; library err {fwd['library_rel_err']:.3e}")
-    hub = hub_rows(torch, g.indptr, g.indices, HUB_ROWS)
-    hub_ms = time_ms(torch, lambda: csr_spmm(*hub, xs), 5)
-    log(f"kernel csr_spmm on the {HUB_ROWS} rows of highest in-degree only "
-        f"(max {int(g.in_degrees.max())}, {hub[1].numel() / e:.1%} of the "
-        f"edges): {hub_ms:.3f} ms of the whole product's {fwd['ms']:.3f} ms")
-    del hub, xs
-    bwd = spmm_entry(g.t_indptr, g.t_indices, gy, post, None,
-                     post[g.t_indices.long()])
-    log(f"kernel csr_spmm (A^T, dense g): max abs err {bwd['err']:.3e}, "
-        f"{bwd['rel']:.3e} of max |y|; library err {bwd['library_rel_err']:.3e}")
-    out.append(dict(
-        name="csr_spmm", route="cuda", source="spgemm_gnn_tpu_torch/csrc/spmm.cu",
-        replaces="spgemm_gnn_tpu/kernels/spgemm_pallas.py:97",
-        max_abs_err=fwd["err"], ms=fwd["ms"], plain_ms=fwd["plain_ms"],
-        bound_ms=fwd["bound_ms"], bound_by=fwd["bound_by"],
-        library_ms=fwd["library_ms"],
-        transpose_max_abs_err=bwd["err"], transpose_ms=bwd["ms"],
-        transpose_plain_ms=bwd["plain_ms"],
-        transpose_bound_ms=bwd["bound_ms"], transpose_bound_by=bwd["bound_by"],
-        transpose_library_ms=bwd["library_ms"], hub_rows_ms=hub_ms))
-    log(f"kernel csr_spmm: gather traffic without reuse (E*dim*4 B) over "
-        f"{PEAK_BYTES_S / 1e12} TB/s would take "
-        f"{e * dim * f32 / PEAK_BYTES_S * 1e3:.3f} ms")
     return out
 
 
-HUB_ROWS = 1024   # 128 blocks of 8 warps: one wave on the H100's 132 SMs
+def product_entry(name: str, a: dict, t: dict | None = None, **other) -> dict:
+    """The kernels-line entry of an aggregation kernel: A (`a`), and Aᵀ and
+    other graphs' uses under prefixed keys."""
+    source = {"csr_spmm": "spgemm_gnn_tpu_torch/csrc/spmm.cu",
+              "stream_spmm": "spgemm_gnn_tpu_torch/csrc/stream.cu"}[name]
+    replaces = {"csr_spmm": "spgemm_gnn_tpu/kernels/spgemm_pallas.py:97",
+                "stream_spmm": "spgemm_gnn_tpu/kernels/stream_pallas.py:37"}
+    entry = dict(name=name, route="cuda", source=source,
+                 replaces=replaces[name], max_abs_err=a["err"], ms=a["ms"],
+                 plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
+                 bound_by=a["bound_by"], library_ms=a["library_ms"],
+                 hub_rows_ms=a["hub_ms"])
+    for prefix, r in (("transpose_", t), *other.items()):
+        if r is not None:
+            for key in ("err", "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms", "hub_ms"):
+                entry[prefix + {"err": "max_abs_err",
+                                "hub_ms": "hub_rows_ms"}.get(key, key)] = r[key]
+    return entry
 
 
-def hub_rows(torch, indptr, indices, rows: int):
-    """The CSR (indptr, indices) of only the `rows` rows of highest degree:
-    timed alone, it shows how much of the product the longest rows' warps
-    take by themselves (one warp per row, so they are the launch's tail)."""
-    deg = indptr.diff()
-    top = torch.topk(deg, min(rows, deg.numel())).indices
-    d = deg[top].long()
-    sub_indptr = torch.zeros(d.numel() + 1, dtype=torch.long,
-                             device=indptr.device)
-    torch.cumsum(d, 0, out=sub_indptr[1:])
-    total = int(sub_indptr[-1])
-    offset = torch.repeat_interleave(indptr[top].long() - sub_indptr[:-1], d,
-                                     output_size=total)
-    pos = torch.arange(total, device=indptr.device) + offset
-    return sub_indptr.int(), indices[pos].contiguous()
-
-
-def model_check(torch, seed: int) -> None:
+def model_check(torch, seed: int, kind: str) -> None:
     """The model through the kernels against the model through the plain
     versions, on the same card: 3000 nodes, 2 layers, ReLU (so that no top-k
     selection can flip on a last-bit difference of the summation order), so
     only the aggregation kernel is held here at the model level."""
     from spgemm_gnn_tpu_torch.graphs.synthetic import powerlaw_graph
+    from spgemm_gnn_tpu_torch.kernels.planned import plan_graph
     from spgemm_gnn_tpu_torch.models.models import build_model
 
     dev = torch.device("cuda")
-    g = powerlaw_graph(3000, 60000, seed=seed).to(dev)
+    g = plan_graph(powerlaw_graph(3000, 60000, seed=seed).to(dev), kind=kind)
     gen = torch.Generator(device=dev).manual_seed(seed)
     feats = torch.randn((g.num_nodes, 64), generator=gen, device=dev)
     results = {}
@@ -243,8 +317,131 @@ def model_check(torch, seed: int) -> None:
             raise AssertionError(f"model check: {name} not finite or misshaped")
         err, rel = rel_err(a, b)
         if not rel <= 1e-4:
-            raise AssertionError(f"model check: {name} error {rel:.3e}")
-        log(f"model check ({name}): kernels vs plain, {rel:.3e} of max")
+            raise AssertionError(f"model check ({kind}): {name} error {rel:.3e}")
+        log(f"model check ({kind} plan, {name}): kernels vs plain, "
+            f"{rel:.3e} of max")
+
+
+def run_training(torch, trainer, expected: dict, what: str) -> dict:
+    """Trainer.run from zeroed launch counts; checks finite losses and the
+    exact counts. Returns the run's result and counts."""
+    from spgemm_gnn_tpu_torch.kernels import _build
+    torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    res = trainer.run()
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    losses = [r.loss for r in res["history"]]
+    log(f"{what}: losses {losses}")
+    log(f"{what}: val acc {[r.val_acc for r in res['history']]}")
+    log(f"{what}: steady_epoch_s {res['steady_epoch_s']}, wall "
+        f"{res['wall_time_s']:.2f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if len(losses) != EPOCHS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{what}: losses not finite: {losses}")
+    if counts != expected:
+        raise AssertionError(f"{what}: launch counts {counts} != expected "
+                             f"{expected}")
+    log(f"{what}: launches {counts}")
+    return dict(res=res, losses=losses, counts=counts)
+
+
+def cbsr_phase(torch, pg, dim: int, k: int, seed: int) -> list[dict]:
+    """K5-K7 at the graph's node count, bitwise against their plain versions
+    and timed; then the explicit CBSR path (compact → aggregate_cbsr forward
+    and backward) through the kernels with its launches counted, held to the
+    dense path."""
+    from spgemm_gnn_tpu_torch.kernels import _build
+    from spgemm_gnn_tpu_torch.kernels import api
+    from spgemm_gnn_tpu_torch.kernels.cbsr import (cbsr_compact, cbsr_densify,
+                                                   cbsr_sample)
+    from spgemm_gnn_tpu_torch.ops import maxk as plain
+
+    n = pg.num_nodes
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xs = sparse_input(torch, n, dim, k, gen)
+    z = torch.randn((n, dim), generator=gen, device="cuda")
+    out = []
+
+    vals, ch = cbsr_compact(xs, k)
+    vals_p, ch_p = plain.cbsr_compact_plain(xs, k)
+    dense = cbsr_densify(vals, ch, dim)
+    sampled = cbsr_sample(z, ch)
+    torch.cuda.synchronize()
+    checks = (("cbsr_compact", (vals, ch), (vals_p, ch_p)),
+              ("cbsr_densify", (dense,), (plain.cbsr_to_dense(vals, ch, dim),)),
+              ("cbsr_sample", (sampled,), (plain.sample_channels(z, ch),)))
+    errs = {}
+    for name, got, want in checks:
+        if not all(bits_equal(torch, a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name} differs from its plain version")
+        # the channels' difference counts too (as ids, for cbsr_compact)
+        errs[name] = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        log(f"kernel {name}: bitwise equal to plain, N={n} dim={dim} k={k}, "
+            f"max abs err {errs[name]}")
+    del vals_p, ch_p, checks
+    ch_long = ch.long()
+    nk = n * k * 4
+    timings = (
+        ("cbsr_compact", "spgemm_gnn_tpu/kernels/maxk_pallas.py:166",
+         lambda: cbsr_compact(xs, k), lambda: plain.cbsr_compact_plain(xs, k),
+         None, n * dim * 4 + 2 * nk),
+        ("cbsr_densify", "spgemm_gnn_tpu/kernels/spgemm_pallas.py:340",
+         lambda: cbsr_densify(vals, ch, dim),
+         lambda: plain.cbsr_to_dense(vals, ch, dim),
+         lambda: torch.zeros((n, dim), device="cuda").scatter_(1, ch_long,
+                                                                vals),
+         2 * nk + n * dim * 4),
+        ("cbsr_sample", "spgemm_gnn_tpu/kernels/spgemm_pallas.py:385",
+         lambda: cbsr_sample(z, ch), lambda: plain.sample_channels(z, ch),
+         lambda: torch.gather(z, 1, ch_long), 3 * nk))
+    for name, replaces, fn, fn_plain, fn_lib, n_bytes in timings:
+        b, by = bound_ms(n_bytes, 0.0)
+        out.append(dict(
+            name=name, route="cuda", source="spgemm_gnn_tpu_torch/csrc/cbsr.cu",
+            replaces=replaces, max_abs_err=errs[name],
+            ms=time_ms(torch, fn, 10),
+            plain_ms=time_ms(torch, fn_plain, 3), bound_ms=b, bound_by=by,
+            library_ms=None if fn_lib is None else time_ms(torch, fn_lib, 10)))
+        log(f"kernel {name}: {out[-1]['ms']:.3f} ms (plain "
+            f"{out[-1]['plain_ms']:.3f}, library {out[-1]['library_ms']}, "
+            f"bound {b:.3f} by {by})")
+    out[1]["also_replaces"] = "spgemm_gnn_tpu/kernels/spgemm_pallas.py:285"
+    del dense, sampled, z, ch_long
+
+    # the explicit CBSR path, through the entry points a user calls
+    ct = torch.randn((n, dim), generator=gen, device="cuda")
+    x_in = xs.clone().requires_grad_(True)
+    _build.launches.clear()
+    v, c = api.cbsr_compact(x_in, k, impl="cuda")
+    v.retain_grad()
+    y = api.aggregate_cbsr(pg, v, c, dim, "mean", impl="cuda")
+    (y * ct).sum().backward()
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    expected = {"cbsr_compact": 1, "cbsr_densify": 2, "cbsr_sample": 1,
+                f"{'stream' if pg.kind == 'stream' else 'csr'}_spmm": 2}
+    if counts != expected:
+        raise AssertionError(f"CBSR path: launch counts {counts} != "
+                             f"{expected}")
+    log(f"CBSR path (cbsr_compact → aggregate_cbsr → backward): launches "
+        f"{counts}")
+    for entry in out:
+        entry["launches"] = counts[entry["name"]]
+        entry["launches_path"] = "cbsr"
+    if not bits_equal(torch, x_in.grad, plain.cbsr_to_dense(v.grad, c, dim)):
+        raise AssertionError("CBSR path: dx is not the densify of dvalues")
+    xd = plain.cbsr_to_dense(v.detach(), c, dim).requires_grad_(True)
+    y_ref = api.aggregate(pg, xd, "mean", impl="torch")
+    (y_ref * ct).sum().backward()
+    _, rel_y = rel_err(y.detach(), y_ref.detach())
+    _, rel_dv = rel_err(v.grad, plain.sample_channels(xd.grad, c))
+    if not (rel_y <= 1e-5 and rel_dv <= 1e-5):
+        raise AssertionError(f"CBSR path against the dense path: y "
+                             f"{rel_y:.3e}, dvalues {rel_dv:.3e} of max > 1e-5")
+    log(f"CBSR path against the dense plain path: y {rel_y:.3e}, dvalues "
+        f"{rel_dv:.3e} of max")
+    return out
 
 
 def main() -> int:
@@ -255,6 +452,8 @@ def main() -> int:
         return 1
     from spgemm_gnn_tpu_torch.graphs.datasets import load_dataset
     from spgemm_gnn_tpu_torch.kernels import _build
+    from spgemm_gnn_tpu_torch.kernels.planned import plan_graph
+    from spgemm_gnn_tpu_torch.ops.norms import node_factors
     from spgemm_gnn_tpu_torch.train.config import TrainConfig
     from spgemm_gnn_tpu_torch.train.loop import Trainer
     from spgemm_gnn_tpu_torch.utils.device import resolve_device
@@ -272,6 +471,7 @@ def main() -> int:
     _build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
+    # ---- Reddit: the windowed kind -----------------------------------------
     t0 = time.perf_counter()
     ds = load_dataset("reddit", allow_synthetic=True, data_path="/nonexistent",
                       synthetic_scale=SCALE, seed=SEED)
@@ -279,47 +479,126 @@ def main() -> int:
         f"E={ds.graph.num_edges} features={ds.features.shape[1]} "
         f"classes={ds.num_classes}, host build {time.perf_counter() - t0:.1f} s")
     g = ds.graph = ds.graph.to(dev)
+    if plan_graph(g).kind != "windowed":
+        raise AssertionError("plan rule: reddit must take the windowed kind")
+    log("plan: reddit takes the windowed kind (csr_spmm)")
 
-    hidden, k, layers = 256, 32, 4
-    kernels = kernel_phase(torch, g, hidden, k, SEED)
+    layers = 4
+    kernels = maxk_phase(torch, g, HIDDEN, K, SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    xs = sparse_input(torch, g.num_nodes, HIDDEN, K, gen)
+    gy = torch.randn((g.num_nodes, HIDDEN), generator=gen, device=dev)
+    _, post = node_factors(g, "mean")
+    csr_a = product_check(torch, "csr_spmm", g, xs, None, post)
+    log_product("csr_spmm", "reddit, A, k-sparse x", csr_a)
+    csr_t = product_check(torch, "csr_spmm", g, gy, post, None, transpose=True)
+    log_product("csr_spmm", "reddit, A^T, dense g", csr_t)
+    stream_reddit = product_check(torch, "stream_spmm", g, xs, None, post)
+    log_product("stream_spmm", "reddit, A, k-sparse x; measure only",
+                stream_reddit)
+    del xs, gy
     torch.cuda.empty_cache()
 
     cfg = TrainConfig(dataset="reddit", model="sage", nonlinear="maxk",
-                      maxk=k, hidden_dim=hidden, hidden_layers=layers,
+                      maxk=K, hidden_dim=HIDDEN, hidden_layers=layers,
                       norm=True, dropout=0.5, w_lr=0.01, epochs=EPOCHS,
                       eval_every=1, seed=SEED, device="cuda",
                       impl="auto", synthetic=True,
                       synthetic_scale=SCALE)
-    trainer = Trainer(cfg, dataset=ds)
-    _build.launches.clear()
-    res = trainer.run()
-    torch.cuda.synchronize()
-    counts = dict(_build.launches)
-    losses = [r.loss for r in res["history"]]
-    log(f"train: losses {losses}")
-    log(f"train: val acc {[r.val_acc for r in res['history']]}")
-    log(f"train: steady_epoch_s {res['steady_epoch_s']}, wall "
-        f"{res['wall_time_s']:.2f} s, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if len(losses) != EPOCHS or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"train: losses not finite: {losses}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"train: loss did not fall: {losses}")
     # per epoch: a train step (forward + backward) and an eval forward
-    expected = {"maxk_fwd": EPOCHS * 2 * layers,
-                "maxk_bwd": EPOCHS * layers,
-                "csr_spmm": EPOCHS * 3 * layers}
-    if counts != expected:
-        raise AssertionError(f"launch counts {counts} != expected {expected}")
-    log(f"train: launches {counts} (per train step: maxk_fwd {layers}, "
-        f"maxk_bwd {layers}, csr_spmm {2 * layers}; per eval: maxk_fwd "
-        f"{layers}, csr_spmm {layers})")
+    reddit = run_training(torch, Trainer(cfg, dataset=ds), {
+        "maxk_fwd": EPOCHS * 2 * layers, "maxk_bwd": EPOCHS * layers,
+        "csr_spmm": EPOCHS * 3 * layers}, "train reddit")
+    if not reddit["losses"][-1] < reddit["losses"][0]:
+        raise AssertionError(f"train reddit: loss did not fall: "
+                             f"{reddit['losses']}")
+    reddit_counts = reddit["counts"]
     for entry in kernels:
-        entry["launches"] = counts[entry["name"]]
-    del trainer, res
+        entry["launches"] = reddit_counts[entry["name"]]
+        entry["launches_path"] = "train reddit"
+    del ds, g, reddit
     torch.cuda.empty_cache()
 
-    model_check(torch, SEED)
+    for kind in ("windowed", "stream"):
+        model_check(torch, SEED, kind)
+
+    # ---- ogbn-products: the stream kind ------------------------------------
+    t0 = time.perf_counter()
+    ds2 = load_dataset("ogbn-products", allow_synthetic=True,
+                       data_path="/nonexistent", synthetic_scale=SCALE,
+                       seed=SEED)
+    g2 = ds2.graph
+    deg = g2.in_degrees
+    log(f"graph 2: ogbn-products stand-in scale {SCALE}: N={g2.num_nodes} "
+        f"E={g2.num_edges} features={ds2.features.shape[1]} "
+        f"classes={ds2.num_classes}, median in-degree "
+        f"{int(deg.median())}, max {int(deg.max())}, rows without in-edges "
+        f"{int((deg == 0).sum())}, host build {time.perf_counter() - t0:.1f} s")
+    g2 = ds2.graph = g2.to(dev)
+    pg2 = plan_graph(g2)
+    if pg2.kind != "stream":
+        raise AssertionError("plan rule: ogbn-products must take the stream "
+                             "kind")
+    log(f"plan: ogbn-products takes the stream kind (stream_spmm): "
+        f"{pg2.fwd_plan.num_chunks} chunks of {pg2.fwd_plan.chunk} edges, "
+        f"{pg2.fwd_plan.carry_rows.numel()} carry rows")
+
+    xs = sparse_input(torch, g2.num_nodes, HIDDEN, K, gen)
+    gy = torch.randn((g2.num_nodes, HIDDEN), generator=gen, device=dev)
+    _, post = node_factors(g2, "mean")
+    stream_a = product_check(torch, "stream_spmm", g2, xs, None, post)
+    log_product("stream_spmm", "products, A, k-sparse x", stream_a)
+    stream_t = product_check(torch, "stream_spmm", g2, gy, post, None,
+                             transpose=True)
+    log_product("stream_spmm", "products, A^T, dense g", stream_t)
+    csr_products = product_check(torch, "csr_spmm", g2, xs, None, post)
+    log_product("csr_spmm", "products, A, k-sparse x; measure only",
+                csr_products)
+    del xs, gy
+    torch.cuda.empty_cache()
+
+    kernels.append(product_entry("csr_spmm", csr_a, csr_t,
+                                 products_=csr_products))
+    kernels[-1].update(launches=reddit_counts["csr_spmm"],
+                       launches_path="train reddit")
+    kernels += cbsr_phase(torch, pg2, HIDDEN, K, SEED)
+    torch.cuda.empty_cache()
+
+    layers2 = 3
+    cfg2 = TrainConfig(dataset="ogbn-products", model="sage",
+                       nonlinear="maxk", maxk=K, hidden_dim=HIDDEN,
+                       hidden_layers=layers2, norm=True, dropout=0.5,
+                       w_lr=0.003, epochs=EPOCHS, eval_every=1, seed=SEED,
+                       device="cuda", impl="auto", synthetic=True,
+                       synthetic_scale=SCALE)
+    first = {}
+    for impl in ("auto", "torch"):     # the kernels, then the plain ops
+        tr = Trainer(cfg2.replace(impl=impl), dataset=ds2)
+        state = tr.init_state()
+        drop = torch.Generator(device=dev).manual_seed(SEED + 1)
+        first[impl] = [float(tr.train_step(state, drop)) for _ in range(2)]
+        del tr, state
+        torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(first["auto"], first["torch"])]
+    if not max(rel) <= 1e-4:
+        raise AssertionError(f"train products: first steps {first['auto']} "
+                             f"vs plain {first['torch']} ({rel})")
+    log(f"train products: first two steps through the kernels "
+        f"{first['auto']}, plain {first['torch']}, relative {rel}")
+    trainer2 = Trainer(cfg2, dataset=ds2)
+    products = run_training(torch, trainer2, {
+        "maxk_fwd": EPOCHS * 2 * layers2, "maxk_bwd": EPOCHS * layers2,
+        "stream_spmm": EPOCHS * 3 * layers2}, "train products")
+    fell = products["losses"][-1] < products["losses"][0]
+    log(f"train products: the loss {'fell' if fell else 'did not fall'} "
+        f"over {EPOCHS} epochs at lr {cfg2.w_lr}")
+    stream_entry = product_entry("stream_spmm", stream_a, stream_t,
+                                 reddit_=stream_reddit)
+    stream_entry.update(launches=products["counts"]["stream_spmm"],
+                        launches_path="train products")
+    kernels.insert(3, stream_entry)
+    del trainer2, products
+    torch.cuda.empty_cache()
 
     log(json.dumps({"kernels": kernels}))
     log(card)

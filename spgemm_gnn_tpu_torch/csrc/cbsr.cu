@@ -1,0 +1,202 @@
+// CBSR (per node, k values and k channel ids) for Hopper (sm_90a): the
+// compaction of a MaxK-masked row, its inverse, and the channel sampling of
+// the SSpMM backward.
+//
+// Replaces three TPU kernels:
+//   cbsr_compact  <- spgemm_gnn_tpu/kernels/maxk_pallas.py::
+//                    _cbsr_compact_kernel (through cbsr_compact_pallas);
+//   cbsr_densify  <- spgemm_gnn_tpu/kernels/spgemm_pallas.py::
+//                    _densify_rows_kernel (densify_rows) and
+//                    _densify_t_kernel (densify_transpose, whose [dim, N]
+//                    layout is a TPU lane artefact: the port's products read
+//                    rows, so one row-major kernel serves both);
+//   cbsr_sample   <- spgemm_gnn_tpu/kernels/spgemm_pallas.py::
+//                    _sample_channels_kernel (sample_channels).
+//
+// Semantics, bit for bit those of the plain versions (ops/maxk.py):
+//   cbsr_compact: per row, the nonzero channels in ascending order, then the
+//     lowest zero channels up to k, with x's values there (the slot order of
+//     cbsr_compact_pallas);
+//   cbsr_densify: out[n, ch[n, j]] = vals[n, j], 0 elsewhere;
+//   cbsr_sample:  out[n, j] = z[n, ch[n, j]].
+// Channels are int32 in [0, dim) and distinct within a row (the contract of
+// the CBSR producers), so no id wraps at dim > 256.
+//
+// Bound on this card: memory, all three. At ogbn-products (N = 2,449,029,
+// dim 256, k 32): compact reads x (2.5 GB) and writes 0.63 GB, about 0.94 ms
+// at 3.35 TB/s; densify the reverse; sample moves 0.94 GB (ids, the sampled
+// entries and the output), about 0.28 ms.
+//
+// Design: compact, one warp per row; lane l holds channels l + 32 t, so a
+// warp ballot per t lists the nonzero channels of a 32-channel block in
+// ascending order and a popcount of the lower lanes gives each its slot; a
+// second ballot pass places the zero channels when the row has fewer than k
+// nonzeros. Densify, one warp per row: the warp zeroes the row with 16-byte
+// stores, then (after __syncwarp, which orders the lanes' stores) lane j
+// writes value j at its channel; the row's lines are still in L2 for the
+// second pass, so device memory sees each row written about once. (Setting
+// each value in its owning lane's registers after k shuffle rounds, and
+// writing the row once, took 4.65 ms at these shapes on an H100 at 700 W:
+// slower than torch.zeros and scatter_.) Sample, one thread per output
+// element.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarpsPerBlock = 8;
+
+// NB: 32-channel blocks per row, ceil(dim / 32) rounded up to a power of two
+template <int NB>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+cbsr_compact_kernel(const float* __restrict__ x, float* __restrict__ vals,
+                    int* __restrict__ ch, int64_t n, int dim, int k) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row =
+      (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= n) return;  // row is uniform across the warp
+  const float* xr = x + row * dim;
+  float* vr = vals + row * k;
+  int* cr = ch + row * k;
+  const unsigned lower = (1u << lane) - 1u;
+
+  float v[NB];
+#pragma unroll
+  for (int t = 0; t < NB; ++t) {
+    const int c = lane + 32 * t;
+    v[t] = c < dim ? xr[c] : 0.f;
+  }
+  // nonzeros first (NaN counts as nonzero, as x != 0 in the plain version)
+  int base = 0;
+#pragma unroll
+  for (int t = 0; t < NB; ++t) {
+    const int c = lane + 32 * t;
+    const bool take = c < dim && v[t] != 0.f;
+    const unsigned m = __ballot_sync(kFull, take);
+    const int slot = base + __popc(m & lower);
+    if (take && slot < k) {
+      vr[slot] = v[t];
+      cr[slot] = c;
+    }
+    base += __popc(m);
+  }
+  if (base >= k) return;  // base is uniform across the warp
+  // then the lowest zero channels
+#pragma unroll
+  for (int t = 0; t < NB; ++t) {
+    const int c = lane + 32 * t;
+    const bool take = c < dim && v[t] == 0.f;
+    const unsigned m = __ballot_sync(kFull, take);
+    const int slot = base + __popc(m & lower);
+    if (take && slot < k) {
+      vr[slot] = v[t];
+      cr[slot] = c;
+    }
+    base += __popc(m);
+  }
+}
+
+// NV: float4 slices per lane, ceil(dim / 128) rounded up to a power of two
+template <int NV>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+cbsr_densify_kernel(const float* __restrict__ vals, const int* __restrict__ ch,
+                    float* __restrict__ out, int64_t n, int k, int dim) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row =
+      (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= n) return;  // row is uniform across the warp
+  float* orow = out + row * dim;
+  float4* orow4 = reinterpret_cast<float4*>(orow);
+  const int dim4 = dim / 4;
+#pragma unroll
+  for (int t = 0; t < NV; ++t) {
+    const int col = lane + 32 * t;
+    if (col < dim4) orow4[col] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __syncwarp();  // the zeros land before the values, lane to lane
+  for (int j = lane; j < k; j += 32) {
+    const int c = ch[row * k + j];
+    if (c >= 0 && c < dim) orow[c] = vals[row * k + j];
+  }
+}
+
+__global__ void cbsr_sample_kernel(const float* __restrict__ z,
+                                   const int* __restrict__ ch,
+                                   float* __restrict__ out, int64_t n, int k,
+                                   int dim) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n * k) return;
+  out[i] = z[(i / k) * dim + ch[i]];
+}
+
+unsigned warp_blocks(int64_t rows) {
+  return (unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
+}
+
+}  // namespace
+
+// vals f32 [n, k], ch int32 [n, k] <- the CBSR of x f32 [n, dim].
+// Needs 1 <= k <= dim <= 1024.
+extern "C" int cbsr_compact(const void* x, void* vals, void* ch, int64_t n,
+                            int dim, int k, void* stream) {
+  if (dim < 1 || dim > 1024 || k < 1 || k > dim)
+    return (int)cudaErrorInvalidValue;
+  const float* xp = static_cast<const float*>(x);
+  float* vp = static_cast<float*>(vals);
+  int* cp = static_cast<int*>(ch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = warp_blocks(n);
+  const int threads = kWarpsPerBlock * 32;
+  const int nb = (dim + 31) / 32;
+  if (nb <= 1)
+    cbsr_compact_kernel<1><<<blocks, threads, 0, s>>>(xp, vp, cp, n, dim, k);
+  else if (nb <= 2)
+    cbsr_compact_kernel<2><<<blocks, threads, 0, s>>>(xp, vp, cp, n, dim, k);
+  else if (nb <= 4)
+    cbsr_compact_kernel<4><<<blocks, threads, 0, s>>>(xp, vp, cp, n, dim, k);
+  else if (nb <= 8)
+    cbsr_compact_kernel<8><<<blocks, threads, 0, s>>>(xp, vp, cp, n, dim, k);
+  else if (nb <= 16)
+    cbsr_compact_kernel<16><<<blocks, threads, 0, s>>>(xp, vp, cp, n, dim, k);
+  else
+    cbsr_compact_kernel<32><<<blocks, threads, 0, s>>>(xp, vp, cp, n, dim, k);
+  return (int)cudaGetLastError();
+}
+
+// out f32 [n, dim] <- CBSR (vals f32 [n, k], ch int32 [n, k]) made dense.
+// Needs k >= 1, dim % 4 == 0, 4 <= dim <= 1024 and a 16-byte aligned out.
+extern "C" int cbsr_densify(const void* vals, const void* ch, void* out,
+                            int64_t n, int k, int dim, void* stream) {
+  if (k < 1 || dim < 4 || dim % 4 != 0 || dim > 1024)
+    return (int)cudaErrorInvalidValue;
+  const float* vp = static_cast<const float*>(vals);
+  const int* cp = static_cast<const int*>(ch);
+  float* op = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = warp_blocks(n);
+  const int threads = kWarpsPerBlock * 32;
+  const int nv = (dim / 4 + 31) / 32;
+  if (nv <= 1)
+    cbsr_densify_kernel<1><<<blocks, threads, 0, s>>>(vp, cp, op, n, k, dim);
+  else if (nv <= 2)
+    cbsr_densify_kernel<2><<<blocks, threads, 0, s>>>(vp, cp, op, n, k, dim);
+  else if (nv <= 4)
+    cbsr_densify_kernel<4><<<blocks, threads, 0, s>>>(vp, cp, op, n, k, dim);
+  else
+    cbsr_densify_kernel<8><<<blocks, threads, 0, s>>>(vp, cp, op, n, k, dim);
+  return (int)cudaGetLastError();
+}
+
+// out f32 [n, k] <- z f32 [n, dim] sampled at ch int32 [n, k].
+extern "C" int cbsr_sample(const void* z, const void* ch, void* out,
+                           int64_t n, int k, int dim, void* stream) {
+  if (k < 1 || dim < 1) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((n * k + threads - 1) / threads);
+  cbsr_sample_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(z), static_cast<const int*>(ch),
+      static_cast<float*>(out), n, k, dim);
+  return (int)cudaGetLastError();
+}

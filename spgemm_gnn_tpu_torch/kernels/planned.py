@@ -1,0 +1,171 @@
+"""PlannedGraph: a Graph with its forward and backward plans, the autograd
+pair over them, and the explicit CBSR forward/backward (counterpart of
+`spgemm_gnn_tpu/kernels/planned.py`).
+
+Two plan kinds, chosen per graph by the reference's rule (`plan_kind`):
+- "windowed" (graphs/tiles.py::CSRPlan): the `csr_spmm` kernel over the CSR,
+  one warp per destination row. The name is the JAX package's, whose plan
+  buckets edges into source windows; on the card it means the CSR itself.
+- "stream" (graphs/stream_tiles.py::StreamPlan): the `stream_spmm` kernel
+  over fixed-size edge chunks, for graphs of low degree.
+
+Entry points:
+- `planned_aggregate` (the models' path): dense (MaxK-masked) activations in;
+  forward = the plan's kernel on A, backward = the same kernel on Aᵀ with the
+  node factors swapped. The aggregation is linear, so no forward residual is
+  kept and MaxK's own backward applies the mask.
+- `spgemm_forward` / `sspmm_backward` (the explicit CBSR API,
+  kernels/api.py::aggregate_cbsr): CBSR → densify → the plan's kernel; the
+  backward is the transpose product sampled at the k channels.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from spgemm_gnn_tpu_torch.graphs.csr import Graph
+from spgemm_gnn_tpu_torch.graphs.stream_tiles import (StreamPlan,
+                                                      stream_plan_for_graph)
+from spgemm_gnn_tpu_torch.graphs.tiles import (CHUNK, CSRPlan, auto_window,
+                                               predicted_windowed_fill)
+from spgemm_gnn_tpu_torch.kernels.cbsr import cbsr_densify, cbsr_sample
+from spgemm_gnn_tpu_torch.kernels.spmm import csr_spmm
+from spgemm_gnn_tpu_torch.kernels.stream import stream_spmm
+from spgemm_gnn_tpu_torch.ops.norms import node_factors
+from spgemm_gnn_tpu_torch.ops.spmm import _scale
+
+# below this predicted chunk fill of the TPU's windowed plan the reference
+# switches to the stream plan (the JAX package's cutover and source block)
+WINDOWED_FILL_CUTOVER = 0.25
+KIND_SRC_BLOCK = 256
+
+KINDS = ("auto", "windowed", "stream")
+
+
+@dataclasses.dataclass(frozen=True)
+class PlannedGraph:
+    """Graph + plans. Quacks like Graph for the norms' degrees and for the
+    plain aggregation (`indices`, `edge_dst`)."""
+    graph: Graph
+    fwd_plan: CSRPlan | StreamPlan
+    bwd_plan: CSRPlan | StreamPlan     # on the transpose CSR
+
+    @property
+    def kind(self) -> str:
+        return self.fwd_plan.kind
+
+    @property
+    def num_nodes(self) -> int:
+        return self.graph.num_nodes
+
+    @property
+    def num_edges(self) -> int:
+        return self.graph.num_edges
+
+    @property
+    def in_degrees(self) -> torch.Tensor:
+        return self.graph.in_degrees
+
+    @property
+    def out_degrees(self) -> torch.Tensor:
+        return self.graph.out_degrees
+
+    @property
+    def indices(self) -> torch.Tensor:
+        return self.graph.indices
+
+    @property
+    def edge_dst(self) -> torch.Tensor:
+        return self.graph.edge_dst
+
+
+def plan_kind(num_nodes: int, num_edges: int) -> str:
+    """The reference's rule (`spgemm_gnn_tpu/kernels/planned.py:99-112`):
+    predict the TPU windowed plan's chunk fill at source block 256 and take
+    the stream plan below the cutover."""
+    rw = auto_window(num_nodes, num_edges, KIND_SRC_BLOCK)
+    fill = predicted_windowed_fill(num_nodes, num_edges, KIND_SRC_BLOCK,
+                                   num_nodes, rw)
+    return "windowed" if fill >= WINDOWED_FILL_CUTOVER else "stream"
+
+
+def plan_graph(g: Graph, *, kind: str = "auto",
+               chunk: int = CHUNK) -> PlannedGraph:
+    """Both plans of a graph, on its device. kind: "auto" (the reference's
+    rule, `plan_kind`), "windowed" or "stream"; chunk: edges per chunk of a
+    stream plan. A symmetric graph's backward plan is its forward plan."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown plan kind {kind!r}; expected one of "
+                         f"{KINDS}")
+    if kind == "auto":
+        kind = plan_kind(g.num_nodes, g.num_edges)
+
+    def one(transpose: bool):
+        if kind == "stream":
+            return stream_plan_for_graph(g, transpose=transpose, chunk=chunk)
+        if transpose:
+            return CSRPlan(g.t_indptr, g.t_indices)
+        return CSRPlan(g.indptr, g.indices)
+
+    fwd = one(False)
+    return PlannedGraph(graph=g, fwd_plan=fwd,
+                        bwd_plan=fwd if g.symmetric else one(True))
+
+
+def graph_plans(g) -> tuple[CSRPlan | StreamPlan, CSRPlan | StreamPlan]:
+    """(forward, backward) plans: a PlannedGraph's own; for a plain Graph,
+    `csr_spmm` over its CSR and its transpose."""
+    if isinstance(g, PlannedGraph):
+        return g.fwd_plan, g.bwd_plan
+    return CSRPlan(g.indptr, g.indices), CSRPlan(g.t_indptr, g.t_indices)
+
+
+def plan_spmm(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
+              post: torch.Tensor | None = None) -> torch.Tensor:
+    """y = post ⊙ A (pre ⊙ x) through the plan's kernel."""
+    if isinstance(plan, StreamPlan):
+        return stream_spmm(plan, x, pre, post)
+    return csr_spmm(plan.indptr, plan.indices, x, pre, post)
+
+
+class Aggregate(torch.autograd.Function):
+    """y = post ⊙ A (pre ⊙ x); dx = pre ⊙ Aᵀ (post ⊙ g), each through its
+    plan's kernel. The cotangent keeps the primal's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, fwd_plan, bwd_plan, pre, post):
+        ctx.save_for_backward(pre, post)
+        ctx.bwd_plan = bwd_plan
+        ctx.x_dtype = x.dtype
+        return plan_spmm(fwd_plan, x, pre, post)
+
+    @staticmethod
+    def backward(ctx, g):
+        pre, post = ctx.saved_tensors
+        dx = plan_spmm(ctx.bwd_plan, g.contiguous(), post, pre)
+        return dx.to(ctx.x_dtype), None, None, None, None
+
+
+def planned_aggregate(g, x: torch.Tensor, norm: str = "sum") -> torch.Tensor:
+    """y = A_w x through the kernel pair of `g`'s plans (a PlannedGraph's, or
+    `csr_spmm` for a plain Graph)."""
+    src_f, dst_f = node_factors(g, norm)
+    fwd, bwd = graph_plans(g)
+    return Aggregate.apply(x.contiguous(), fwd, bwd, src_f, dst_f)
+
+
+def spgemm_forward(dim: int, values: torch.Tensor, channels: torch.Tensor,
+                   src_f, dst_f, plans) -> torch.Tensor:
+    """CBSR forward: y = dst_f ⊙ A densify(src_f ⊙ values) through the
+    forward plan's kernel."""
+    x = cbsr_densify(_scale(values, src_f).contiguous(), channels, dim)
+    return plan_spmm(plans[0], x, None, dst_f)
+
+
+def sspmm_backward(g_ct: torch.Tensor, channels: torch.Tensor, src_f, dst_f,
+                   plans) -> torch.Tensor:
+    """Sampled backward: dvalues = src_f ⊙ (Aᵀ (dst_f ⊙ g)) at the channels,
+    the transpose product through the backward plan's kernel."""
+    z = plan_spmm(plans[1], g_ct.contiguous(), dst_f, None)
+    return _scale(cbsr_sample(z, channels), src_f)

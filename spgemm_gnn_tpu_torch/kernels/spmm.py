@@ -1,18 +1,14 @@
-"""The aggregation autograd pair on the `csr_spmm` CUDA kernel (counterpart
-of `spgemm_gnn_tpu/kernels/planned.py::planned_aggregate` and
-`spgemm_pallas.py::planned_spmm`; source in `csrc/spmm.cu`).
-
-Forward: y = post ⊙ (A (pre ⊙ x)) on the in-CSR. The aggregation is linear,
-so its backward is the same kernel on the transpose CSR with pre and post
-swapped, and needs no forward residual but the graph. The cotangent keeps the
-primal's dtype.
+"""The `csr_spmm` CUDA kernel: y = A_w x over a CSR, one warp per
+destination row (counterpart of `spgemm_gnn_tpu/kernels/spgemm_pallas.py::
+planned_spmm`, the windowed regime; source in `csrc/spmm.cu`, plain version
+in `ops/spmm.py`). The autograd pair around it is
+`kernels/planned.py::Aggregate`.
 """
 from __future__ import annotations
 
 import torch
 
 from spgemm_gnn_tpu_torch.kernels import _build
-from spgemm_gnn_tpu_torch.ops.norms import node_factors
 from spgemm_gnn_tpu_torch.ops.spmm import csr_spmm_plain
 
 MAX_DIM = 1024   # a row's accumulators live in one warp's registers
@@ -53,26 +49,3 @@ def csr_spmm(indptr: torch.Tensor, indices: torch.Tensor, x: torch.Tensor,
         _build.check(status, "csr_spmm")
         _build.launches["csr_spmm"] += 1
     return y
-
-
-class Aggregate(torch.autograd.Function):
-    """y = post ⊙ A (pre ⊙ x); dx = pre ⊙ Aᵀ (post ⊙ g)."""
-
-    @staticmethod
-    def forward(ctx, x, indptr, indices, t_indptr, t_indices, pre, post):
-        ctx.save_for_backward(t_indptr, t_indices, pre, post)
-        ctx.x_dtype = x.dtype
-        return csr_spmm(indptr, indices, x, pre, post)
-
-    @staticmethod
-    def backward(ctx, g):
-        t_indptr, t_indices, pre, post = ctx.saved_tensors
-        dx = csr_spmm(t_indptr, t_indices, g.contiguous(), post, pre)
-        return dx.to(ctx.x_dtype), None, None, None, None, None, None
-
-
-def aggregate(g, x: torch.Tensor, norm: str = "sum") -> torch.Tensor:
-    """y = A_w x through the kernel pair (forward on A, backward on Aᵀ)."""
-    src_f, dst_f = node_factors(g, norm)
-    return Aggregate.apply(x.contiguous(), g.indptr, g.indices, g.t_indptr,
-                           g.t_indices, src_f, dst_f)

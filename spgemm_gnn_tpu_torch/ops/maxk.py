@@ -12,6 +12,13 @@ the k-th largest key (its uint32 bits) and the first channel of a tie that
 was dropped (dim when none was). The backward rebuilds the mask from
 (x, meta) in one pass; no [N, dim] mask is kept. These are the plain
 versions of the `maxk_fwd` / `maxk_bwd` CUDA kernels (kernels/maxk.py).
+
+The CBSR helpers (per node, k values and k int32 channel ids) follow:
+`maxk_cbsr`, `cbsr_from_masked` and `cbsr_to_dense`, with the plain versions
+of the `cbsr_compact`, `cbsr_densify` and `cbsr_sample` kernels
+(kernels/cbsr.py): `cbsr_compact_plain`, `cbsr_to_dense` and
+`sample_channels`. The differentiable compaction that chooses between the
+kernel and its plain version is `kernels/api.py::cbsr_compact`.
 """
 from __future__ import annotations
 
@@ -77,3 +84,58 @@ def maxk(x: torch.Tensor, k: int) -> torch.Tensor:
     """MaxK: y = x · topk_mask(x); the mask is a constant to autograd, so the
     gradient is g · mask."""
     return x * maxk_mask(x.detach(), k)
+
+
+# ---------------------------------------------------------------------------
+# CBSR: per node, k values and their k channel ids (int32, so no id wraps at
+# a hidden dim above 256)
+# ---------------------------------------------------------------------------
+
+def _first_channels(keep: torch.Tensor, k: int) -> torch.Tensor:
+    """int32 [N, k]: per row the channels where `keep` holds, ascending, then
+    the others, ascending, cut to k."""
+    dim = keep.shape[-1]
+    iota = torch.arange(dim, device=keep.device)
+    keys = torch.where(keep, iota, dim + iota)     # distinct per row
+    return (torch.topk(keys, k, dim=-1, largest=False).values % dim).int()
+
+
+def maxk_cbsr(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """MaxK → CBSR: (values [N, k], channels int32 [N, k]), channels
+    ascending, ties kept as `maxk` keeps them. `values` carries the gradient
+    (a gather of x)."""
+    ch = _first_channels(maxk_mask(x.detach(), k) != 0, k)
+    return torch.gather(x, 1, ch.long()), ch
+
+
+def cbsr_from_masked(x: torch.Tensor, k: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """CBSR of an already MaxK-masked x (≤ k nonzeros per row): the nonzero
+    channels and, on shorter rows, the lowest zero channels, all in ascending
+    order (the JAX oracle's channel set and order)."""
+    ch = torch.sort(_first_channels(x.detach() != 0, k), dim=-1).values
+    return torch.gather(x, 1, ch.long()), ch
+
+
+def cbsr_compact_plain(x: torch.Tensor, k: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the `cbsr_compact` kernel (kernels/cbsr.py): the
+    nonzero channels in ascending order, then the lowest zero channels, with
+    x's values there (the slot order of the JAX `cbsr_compact_pallas`).
+    The values are a gather of x, so autograd carries their gradient."""
+    ch = _first_channels(x != 0, k)
+    return torch.gather(x, 1, ch.long()), ch
+
+
+def cbsr_to_dense(values: torch.Tensor, channels: torch.Tensor,
+                  dim: int) -> torch.Tensor:
+    """Scatter CBSR back to a dense [N, dim] array (zeros elsewhere): the
+    plain version of the `cbsr_densify` kernel."""
+    out = values.new_zeros((values.shape[0], dim))
+    return out.scatter(1, channels.long(), values)
+
+
+def sample_channels(z: torch.Tensor, channels: torch.Tensor) -> torch.Tensor:
+    """dv[n, j] = z[n, channels[n, j]]: the plain version of the
+    `cbsr_sample` kernel."""
+    return torch.gather(z, 1, channels.long())

@@ -1,6 +1,9 @@
 """Plain PyTorch sparse aggregation (counterpart of `spgemm_gnn_tpu/ops/
-spmm.py`): a row gather over edges followed by `index_add_` into the
-destinations.
+spmm.py`): a row gather over edges followed by `scatter_add_` into the
+destinations. Not `index_add_`: autograd keeps index_add's source for its
+backward, so the differentiated oracle would hold every gathered message
+(E·dim·4 B, 127 GB at ogbn-products' width 256); scatter_add keeps only its
+index, here an expanded view of the edge rows.
 
 `csr_spmm_plain` is the plain version of the `csr_spmm` CUDA kernel
 (kernels/spmm.py): the CPU path, and the reference the kernel is held to on
@@ -22,14 +25,15 @@ def _scale(x: torch.Tensor, f: torch.Tensor | None) -> torch.Tensor:
     return x if f is None else x * f[:, None].to(x.dtype)
 
 
-def _gather_index_add(indices: torch.Tensor, rows: torch.Tensor,
+def _gather_add(indices: torch.Tensor, rows: torch.Tensor,
                       x: torch.Tensor, num_out: int) -> torch.Tensor:
     """out[rows[e]] += x[indices[e]] over all edges e, chunked by bytes."""
-    out = x.new_zeros((num_out, x.shape[-1]))
-    chunk = max(_MSG_BYTES_CAP // max(x.shape[-1] * x.element_size(), 1), 1)
+    dim = x.shape[-1]
+    out = x.new_zeros((num_out, dim))
+    chunk = max(_MSG_BYTES_CAP // max(dim * x.element_size(), 1), 1)
     for lo in range(0, indices.numel(), chunk):
-        out.index_add_(0, rows[lo:lo + chunk],
-                       x.index_select(0, indices[lo:lo + chunk]))
+        index = rows[lo:lo + chunk].long()[:, None].expand(-1, dim)
+        out.scatter_add_(0, index, x.index_select(0, indices[lo:lo + chunk]))
     return out
 
 
@@ -42,7 +46,7 @@ def csr_spmm_plain(indptr: torch.Tensor, indices: torch.Tensor,
     rows = torch.repeat_interleave(
         torch.arange(n_out, dtype=torch.int32, device=indptr.device),
         indptr.diff(), output_size=indices.numel())
-    return _scale(_gather_index_add(indices, rows, _scale(x, pre), n_out),
+    return _scale(_gather_add(indices, rows, _scale(x, pre), n_out),
                   post)
 
 
@@ -50,6 +54,6 @@ def spmm(g, x: torch.Tensor, norm: str = "sum") -> torch.Tensor:
     """y[v] = Σ_{in-edges u→v} w_e · x[u] with w from `norm`, differentiated
     by autograd."""
     src_f, dst_f = node_factors(g, norm)
-    y = _gather_index_add(g.indices, g.edge_dst, _scale(x, src_f),
+    y = _gather_add(g.indices, g.edge_dst, _scale(x, src_f),
                           g.num_nodes)
     return _scale(y, dst_f)

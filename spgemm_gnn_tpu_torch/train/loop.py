@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from spgemm_gnn_tpu_torch.graphs.datasets import Dataset, load_dataset
+from spgemm_gnn_tpu_torch.kernels.planned import plan_graph
 from spgemm_gnn_tpu_torch.models.models import build_model
 from spgemm_gnn_tpu_torch.train.config import TrainConfig, check_supported
 from spgemm_gnn_tpu_torch.train.losses import loss_fn
@@ -55,7 +56,11 @@ class Trainer:
                 synthetic_scale=config.synthetic_scale, seed=config.seed)
         self.dataset = dataset
         dev = self.device
-        self.g = dataset.graph.to(dev)
+        g = dataset.graph.to(dev)
+        # the kernels' impls plan the graph, so that each graph takes the
+        # reference's kernel (csr_spmm, or stream_spmm at low degree); the
+        # plain ops read the raw graph
+        self.g = g if config.impl == "torch" else plan_graph(g)
         self.features = torch.from_numpy(
             np.asarray(dataset.features, np.float32)).to(dev)
         self.labels = torch.from_numpy(np.asarray(dataset.labels)).to(dev)

@@ -1,12 +1,19 @@
-"""Where one train step's device time goes, on the GPU: the Reddit recipe
-(SAGE, MaxK k=32, hidden 256, 4 layers, LayerNorm, dropout 0.5) on the
-synthetic Reddit stand-in, one warm step, then one step under
-`torch.profiler`, with device time summed by kernel name.
+"""Where one train step's device time goes, on the GPU: a dataset's recipe on
+its synthetic stand-in, one warm step, then one step under `torch.profiler`,
+with device time summed by kernel name.
 
-    python -m spgemm_gnn_tpu_torch.utils.profile_step [--synthetic_scale S]
+    python -m spgemm_gnn_tpu_torch.utils.profile_step \
+        [--dataset reddit|ogbn-products] [--synthetic_scale S]
 
-Prints the card's name and power limit, the step's wall time, the device's
-busy time and idle share, and the kernels that took the most device time.
+Recipes (scripts_train/*_maxk.sh): reddit (the default) SAGE, MaxK k=32,
+hidden 256, 4 layers, LayerNorm, dropout 0.5, lr 0.01; ogbn-products the
+same with 3 layers and lr 0.003. The Trainer plans the graph, so the step
+runs the kernel the reference's rule picks (csr_spmm on reddit, stream_spmm
+on ogbn-products).
+
+Prints the card's name and power limit, the plan kind, the step's wall time,
+the device's busy time and idle share, and the kernels that took the most
+device time.
 """
 from __future__ import annotations
 
@@ -16,8 +23,14 @@ import time
 
 import torch
 
+RECIPES = {
+    "reddit": dict(hidden_layers=4, w_lr=0.01),
+    "ogbn-products": dict(hidden_layers=3, w_lr=0.003),
+}
 
-def profile_step(synthetic_scale: float, seed: int, top: int) -> None:
+
+def profile_step(dataset: str, synthetic_scale: float, seed: int,
+                 top: int) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from spgemm_gnn_tpu_torch.train.config import TrainConfig
@@ -26,12 +39,14 @@ def profile_step(synthetic_scale: float, seed: int, top: int) -> None:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip(), flush=True)
-    cfg = TrainConfig(dataset="reddit", model="sage", nonlinear="maxk", maxk=32,
-                      hidden_dim=256, hidden_layers=4, norm=True, dropout=0.5,
-                      w_lr=0.01, seed=seed, device="cuda", impl="auto",
-                      synthetic=True, synthetic_scale=synthetic_scale,
-                      data_path="/nonexistent")
+    cfg = TrainConfig(dataset=dataset, model="sage", nonlinear="maxk", maxk=32,
+                      hidden_dim=256, norm=True, dropout=0.5, seed=seed,
+                      device="cuda", impl="auto", synthetic=True,
+                      synthetic_scale=synthetic_scale,
+                      data_path="/nonexistent", **RECIPES[dataset])
     trainer = Trainer(cfg)
+    print(f"{dataset}: N={trainer.g.num_nodes} E={trainer.g.num_edges}, "
+          f"plan kind {trainer.g.kind}", flush=True)
     state = trainer.init_state()
     gen = torch.Generator(device=trainer.device).manual_seed(seed)
     trainer.train_step(state, gen)
@@ -57,11 +72,12 @@ def profile_step(synthetic_scale: float, seed: int, top: int) -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dataset", default="reddit", choices=sorted(RECIPES))
     ap.add_argument("--synthetic_scale", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=97)
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
-    profile_step(args.synthetic_scale, args.seed, args.top)
+    profile_step(args.dataset, args.synthetic_scale, args.seed, args.top)
 
 
 if __name__ == "__main__":

@@ -20,6 +20,7 @@ from spgemm_gnn_tpu_torch.graphs import synthetic as tsyn
 from spgemm_gnn_tpu_torch.kernels import _build
 from spgemm_gnn_tpu_torch.kernels import api as tapi
 from spgemm_gnn_tpu_torch.kernels import maxk as tmaxk
+from spgemm_gnn_tpu_torch.kernels import planned as tplanned
 from spgemm_gnn_tpu_torch.kernels import spmm as tspmm
 from spgemm_gnn_tpu_torch.ops import maxk as tmaxk_plain
 from spgemm_gnn_tpu_torch.ops import spmm as tspmm_plain
@@ -177,7 +178,7 @@ def test_aggregate_cotangent_keeps_primal_dtype(rng):
     g = tsyn.random_graph(30, 120, seed=4)
     x = torch.tensor(rng.standard_normal((30, 8)).astype(np.float32),
                      requires_grad=True)
-    tspmm.aggregate(g, x, "gcn").sum().backward()
+    tplanned.planned_aggregate(g, x, "gcn").sum().backward()
     assert x.grad.dtype == x.dtype and x.grad.shape == x.shape
 
 
@@ -231,7 +232,7 @@ def test_csr_spmm_matches_plain_on_gpu(cuda, dim, norm, symmetric):
     y_p = tspmm_plain.csr_spmm_plain(g.indptr, g.indices, x.detach(), pre,
                                      post)
     before = _build.launches["csr_spmm"]
-    out = tspmm.aggregate(g, x, norm)
+    out = tplanned.planned_aggregate(g, x, norm)
     (out * out).sum().backward()
     assert _build.launches["csr_spmm"] == before + 2
     x_ref = x.detach().clone().requires_grad_(True)
