@@ -24,27 +24,44 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      be finite and fall, and every kernel's launch count must match the
      model's structure exactly;
   6. model check: on a small graph (3000 nodes, 2 layers, ReLU, so only the
-     aggregation kernel), the model through the kernels against the model
-     through the plain versions on the same card, on a windowed plan and on
-     a stream plan;
+     aggregation kernel), every model family (SAGE, GCN, GIN, GNNRes and the
+     three integrated MaxK models) through the kernels against the same
+     model through the plain versions on the same card, on a windowed plan
+     and on a stream plan; then each family with MaxK on the stream plan,
+     STREAM_CBSR_FORWARD set against unset, logits and input gradient equal
+     by value;
   7. graph 2: the synthetic ogbn-products stand-in at full size (N =
      2,449,029, E about 123.7M, 100 features, 47 classes); the plan rule must
      pick the "stream" kind (stream_spmm);
   8. kernels on products: stream_spmm on A and Aᵀ, and csr_spmm on A, checked
-     as in phase 4;
+     as in phase 4; then stream_cbsr_spmm (the CBSR edge-gather forward) on
+     A at dim 256, k 32, under the mean and the gcn factors: within 1e-5 of
+     its plain version in float64, equal by value to stream_spmm on the same
+     masked input, bitwise equal across two runs, and timed beside
+     stream_spmm, its plain version, torch.sparse.mm on the dense input,
+     and cbsr_compact with it;
   9. CBSR: cbsr_compact, cbsr_densify and cbsr_sample at the products shapes
      (dim 256, k 32), bitwise against their plain versions and timed; then
      `aggregate_cbsr` forward and backward through the kernels, with its
-     launches counted, against the dense path;
+     launches counted, against the dense path, with STREAM_CBSR_FORWARD
+     unset and then set (no densify in the forward);
  10. train 2: the products recipe (SAGE, MaxK k=32, hidden 256, 3 layers,
      LayerNorm, dropout 0.5, lr 0.003): its first two train steps through the
      kernels within 1e-4 relative of the plain path's (same weights and
-     dropout seed), then 5 epochs with finite losses and exact launch counts.
+     dropout seed), then 5 epochs with finite losses and exact launch counts;
+     then 5 epochs more with STREAM_CBSR_FORWARD set, their losses within
+     1e-6 relative of the flag-off run's;
+ 11. train 3: the products recipe with GCN and self-loops (`--model gcn
+     --selfloop`) and STREAM_CBSR_FORWARD set: its first two train steps
+     within 1e-4 relative of the plain path's, then 5 epochs with finite
+     losses and exact launch counts (stream_cbsr_spmm forward, stream_spmm
+     backward).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -287,39 +304,210 @@ def product_entry(name: str, a: dict, t: dict | None = None, **other) -> dict:
     return entry
 
 
-def model_check(torch, seed: int, kind: str) -> None:
-    """The model through the kernels against the model through the plain
-    versions, on the same card: 3000 nodes, 2 layers, ReLU (so that no top-k
-    selection can flip on a last-bit difference of the summation order), so
-    only the aggregation kernel is held here at the model level."""
-    from spgemm_gnn_tpu_torch.graphs.synthetic import powerlaw_graph
-    from spgemm_gnn_tpu_torch.kernels.planned import plan_graph
+def _model_run(torch, name: str, g, feats, seed: int, nonlinear: str,
+               impl: str):
+    """(logits, input gradient) of a 2-layer, hidden-256 model of family
+    `name` (LayerNorm or BatchNorm on, dropout off) on the graph."""
     from spgemm_gnn_tpu_torch.models.models import build_model
+    model = build_model(name, in_dim=feats.shape[1], hidden_dim=HIDDEN,
+                        num_layers=2, out_dim=41, maxk=K, feat_drop=0.0,
+                        use_norm=True, nonlinear=nonlinear, impl=impl)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    model.to(feats.device)
+    x = feats.clone().requires_grad_(True)
+    logits = model(g, x)
+    (logits.square().sum()).backward()
+    return logits.detach(), x.grad
+
+
+class ReluPattern:
+    """Stands in for `torch.relu` in the model check: on the first run it
+    records each call's mask (x > 0); on the second (after `replay()`) it
+    applies the recorded masks in the same order, so that both runs take the
+    same ReLU pattern, and counts the units whose sign differs. A ReLU after
+    an aggregation (every family has one from its second layer on) can see a
+    pre-activation within f32 rounding of 0, and the plain path adds with
+    atomics, in an order that changes from run to run: without the replay
+    one such unit flips its derivative in some runs, and its gradient
+    reaches every neighbour's input row."""
+
+    def __init__(self, torch):
+        self.relu = torch.relu
+        self.masks: list = []
+        self.pos = None
+        self.flips = 0
+
+    def replay(self) -> None:
+        self.pos = 0
+
+    def __call__(self, x):
+        if self.pos is None:
+            self.masks.append(x > 0)
+            return self.relu(x)
+        mask = self.masks[self.pos]
+        self.pos += 1
+        self.flips += int(((x > 0) != mask).sum())
+        return x * mask
+
+
+def model_check(torch, seed: int, kind: str) -> None:
+    """Every family through the kernels against the same family through the
+    plain versions, on the same card: 3000 nodes, 2 layers, ReLU (so that no
+    top-k selection can flip on a last-bit difference of the summation
+    order), so only the aggregation kernel is held here at the model level:
+    logits and input gradient within 1e-4 of their largest magnitude, the
+    plain run taking the kernel run's ReLU pattern (`ReluPattern`).
+    On the stream plan, each family with MaxK also runs with
+    STREAM_CBSR_FORWARD set and unset: the logits and input gradients must
+    be equal by value, and the flag-on run must launch stream_cbsr_spmm once
+    per layer of a family that aggregates a k-sparse input."""
+    from spgemm_gnn_tpu_torch.graphs.synthetic import powerlaw_graph
+    from spgemm_gnn_tpu_torch.kernels import _build, planned
+    from spgemm_gnn_tpu_torch.models.models import MODELS
 
     dev = torch.device("cuda")
-    g = plan_graph(powerlaw_graph(3000, 60000, seed=seed).to(dev), kind=kind)
+    g = planned.plan_graph(powerlaw_graph(3000, 60000, seed=seed).to(dev),
+                           kind=kind)
     gen = torch.Generator(device=dev).manual_seed(seed)
     feats = torch.randn((g.num_nodes, 64), generator=gen, device=dev)
-    results = {}
-    for impl in ("cuda", "torch"):
-        model = build_model("sage", in_dim=64, hidden_dim=256, num_layers=2,
-                            out_dim=41, feat_drop=0.0, use_norm=True,
-                            nonlinear="relu", impl=impl)
-        model.reset_parameters(torch.Generator().manual_seed(seed))
-        model.to(dev)
-        x = feats.clone().requires_grad_(True)
-        logits = model(g, x)
-        (logits.square().sum()).backward()
-        results[impl] = (logits.detach(), x.grad)
-    for name, a, b in (("logits", results["cuda"][0], results["torch"][0]),
-                       ("input grad", results["cuda"][1], results["torch"][1])):
-        if not (torch.isfinite(a).all() and a.shape == b.shape):
-            raise AssertionError(f"model check: {name} not finite or misshaped")
-        err, rel = rel_err(a, b)
-        if not rel <= 1e-4:
-            raise AssertionError(f"model check ({kind}): {name} error {rel:.3e}")
-        log(f"model check ({kind} plan, {name}): kernels vs plain, "
-            f"{rel:.3e} of max")
+    for name in MODELS:
+        pattern = ReluPattern(torch)
+        torch.relu = pattern
+        try:
+            got = _model_run(torch, name, g, feats, seed, "relu", "cuda")
+            pattern.replay()
+            want = _model_run(torch, name, g, feats, seed, "relu", "torch")
+        finally:
+            torch.relu = pattern.relu
+        rels = []
+        for what, a, b in zip(("logits", "input grad"), got, want):
+            if not (torch.isfinite(a).all() and a.shape == b.shape):
+                raise AssertionError(f"model check ({name}): {what} not "
+                                     f"finite or misshaped")
+            rels.append(rel_err(a, b)[1])
+            if not rels[-1] <= 1e-4:
+                raise AssertionError(f"model check ({kind}, {name}): {what} "
+                                     f"error {rels[-1]:.3e}")
+        log(f"model check ({kind} plan, {name}, ReLU): kernels vs plain, "
+            f"logits {rels[0]:.3e}, input grad {rels[1]:.3e} of max; "
+            f"{pattern.flips} ReLU units of the plain run on the other side "
+            f"of 0")
+    if kind != "stream":
+        return
+    for name in MODELS:
+        runs = {}
+        for flag in (True, False):
+            planned.STREAM_CBSR_FORWARD = flag
+            _build.launches.clear()
+            runs[flag] = (_model_run(torch, name, g, feats, seed, "maxk",
+                                     "cuda"), dict(_build.launches))
+        planned.STREAM_CBSR_FORWARD = False
+        (on, counts), (off, _) = runs[True], runs[False]
+        if not all(torch.equal(a, b) for a, b in zip(on, off)):
+            raise AssertionError(f"model check ({name}, MaxK): the flag-on "
+                                 f"model differs from the flag-off one")
+        want = 0 if name == "gnn_res" else 2      # gnn_res is ReLU-only
+        if counts.get("stream_cbsr_spmm", 0) != want:
+            raise AssertionError(f"model check ({name}, MaxK): launches "
+                                 f"{counts}, expected stream_cbsr_spmm "
+                                 f"{want}")
+    log(f"model check (stream plan, {len(MODELS)} families, MaxK k={K}): "
+        f"STREAM_CBSR_FORWARD on and off give equal logits and input "
+        f"gradients; stream_cbsr_spmm launched once per layer")
+
+
+def stream_cbsr_check(torch, g, dim: int, k: int, seed: int) -> dict:
+    """stream_cbsr_spmm on A of the graph at (dim, k), under the mean (post
+    only) and gcn (pre and post) factors: within 1e-5 of max |y| of its
+    plain version in float64, equal by value to stream_spmm on the same
+    masked input, bitwise equal across two runs. Timed beside stream_spmm
+    on that input, the plain version, torch.sparse.mm on the dense input,
+    and cbsr_compact + pack_channels + stream_cbsr_spmm (the forward of the
+    flag-on path). Returns the kernels-line entry (mean factors; gcn under
+    prefixed keys)."""
+    from spgemm_gnn_tpu_torch.graphs.stream_tiles import build_stream_plan
+    from spgemm_gnn_tpu_torch.kernels.cbsr import cbsr_compact
+    from spgemm_gnn_tpu_torch.kernels.stream import (stream_cbsr_spmm,
+                                                     stream_spmm)
+    from spgemm_gnn_tpu_torch.ops.maxk import (pack_channels,
+                                               packed_channel_words)
+    from spgemm_gnn_tpu_torch.ops.norms import node_factors
+    from spgemm_gnn_tpu_torch.ops.stream import stream_cbsr_spmm_plain
+
+    n, e = g.num_nodes, g.num_edges
+    plan = build_stream_plan(g.indptr, g.indices)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    xs = sparse_input(torch, n, dim, k, gen)
+    vals, ch = cbsr_compact(xs, k)
+    pch = pack_channels(ch, dim)
+    kp = packed_channel_words(k, dim)
+    gathered = torch.bincount(g.indices, minlength=n).double()
+    ops = 2.0 * float(((xs != 0).sum(1).double() * gathered).sum())
+    entry = dict(name="stream_cbsr_spmm", route="cuda",
+                 source="spgemm_gnn_tpu_torch/csrc/stream.cu",
+                 replaces="spgemm_gnn_tpu/kernels/stream_pallas.py:90")
+    for norm in ("mean", "gcn"):
+        pre, post = node_factors(g, norm)
+
+        def run():
+            return stream_cbsr_spmm(plan, vals, pch, dim, pre, post)
+
+        def run_with_compact():
+            v, c = cbsr_compact(xs, k)
+            return stream_cbsr_spmm(plan, v, pack_channels(c, dim), dim, pre,
+                                    post)
+
+        got, again = run(), run()
+        ref = stream_cbsr_spmm_plain(plan, vals.double(), pch, dim, pre, post)
+        dense = stream_spmm(plan, xs, pre, post)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        if not rel <= 1e-5:
+            raise AssertionError(f"stream_cbsr_spmm ({norm}) error {rel:.3e} "
+                                 f"of max |y| > 1e-5")
+        if not torch.equal(got, dense):
+            raise AssertionError(f"stream_cbsr_spmm ({norm}) differs from "
+                                 f"stream_spmm on the same input")
+        if not bits_equal(torch, got, again):
+            raise AssertionError(f"stream_cbsr_spmm ({norm}): two runs differ")
+        del ref, again, dense
+        w = torch.ones(e, device="cuda")
+        if pre is not None:
+            w = w * pre[g.indices.long()]
+        w = w * post[g.edge_dst.long()]
+        a = torch.sparse_csr_tensor(g.indptr, g.indices, w, size=(n, n))
+        n_bytes = (n * k * 4 + n * kp * 4 + e * 4 + (n + 1) * 4
+                   + n * dim * 4 + (plan.num_chunks + plan.carry_rows.numel())
+                   * 4 + 4 * n * ((pre is not None) + (post is not None)))
+        b_ms, b_by = bound_ms(n_bytes, ops)
+        r = dict(max_abs_err=err, rel=rel, ms=time_ms(torch, run, 10),
+                 stream_spmm_ms=time_ms(
+                     torch, lambda: stream_spmm(plan, xs, pre, post), 5),
+                 plain_ms=time_ms(torch, lambda: stream_cbsr_spmm_plain(
+                     plan, vals, pch, dim, pre, post), 2),
+                 library_ms=time_ms(torch, lambda: torch.sparse.mm(a, xs), 5),
+                 compact_and_ms=time_ms(torch, run_with_compact, 10),
+                 bound_ms=b_ms, bound_by=b_by)
+        del a, w
+        log(f"kernel stream_cbsr_spmm (products, A, {norm} factors, dim "
+            f"{dim}, k {k}): max abs err {err:.3e}, {rel:.3e} of max |y|; "
+            f"equal by value to stream_spmm; bitwise equal across two runs; "
+            f"{r['ms']:.3f} ms (stream_spmm on the same input "
+            f"{r['stream_spmm_ms']:.3f}, plain {r['plain_ms']:.3f}, "
+            f"torch.sparse.mm {r['library_ms']:.3f}, bound {b_ms:.3f} by "
+            f"{b_by}, no-reuse gather "
+            f"{e * (k * 4 + kp * 4 + 4) / PEAK_BYTES_S * 1e3:.3f}; "
+            f"cbsr_compact + pack + stream_cbsr_spmm "
+            f"{r['compact_and_ms']:.3f})")
+        if norm == "mean":
+            entry.update({key: r[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "stream_spmm_ms", "compact_and_ms")})
+        else:
+            entry.update({f"gcn_{key}": r[key] for key in (
+                "max_abs_err", "ms", "bound_ms", "stream_spmm_ms",
+                "library_ms")})
+    return entry
 
 
 def run_training(torch, trainer, expected: dict, what: str) -> dict:
@@ -336,7 +524,8 @@ def run_training(torch, trainer, expected: dict, what: str) -> dict:
     log(f"{what}: val acc {[r.val_acc for r in res['history']]}")
     log(f"{what}: steady_epoch_s {res['steady_epoch_s']}, wall "
         f"{res['wall_time_s']:.2f} s, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, allocator "
+        f"retries {torch.cuda.memory_stats()['num_alloc_retries']}")
     if len(losses) != EPOCHS or not all(map(math.isfinite, losses)):
         raise AssertionError(f"{what}: losses not finite: {losses}")
     if counts != expected:
@@ -344,6 +533,28 @@ def run_training(torch, trainer, expected: dict, what: str) -> dict:
                              f"{expected}")
     log(f"{what}: launches {counts}")
     return dict(res=res, losses=losses, counts=counts)
+
+
+def first_steps(torch, cfg, ds, what: str) -> None:
+    """The first two train steps through the kernels (impl auto, with
+    STREAM_CBSR_FORWARD as the caller set it) against the plain ops (impl
+    torch): the same weights and dropout seed, losses within 1e-4
+    relative."""
+    from spgemm_gnn_tpu_torch.train.loop import Trainer
+    first = {}
+    for impl in ("auto", "torch"):     # the kernels, then the plain ops
+        tr = Trainer(cfg.replace(impl=impl), dataset=ds)
+        state = tr.init_state()
+        drop = torch.Generator(device=tr.device).manual_seed(SEED + 1)
+        first[impl] = [float(tr.train_step(state, drop)) for _ in range(2)]
+        del tr, state
+        torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(first["auto"], first["torch"])]
+    if not max(rel) <= 1e-4:
+        raise AssertionError(f"{what}: first steps {first['auto']} vs plain "
+                             f"{first['torch']} ({rel})")
+    log(f"{what}: first two steps through the kernels {first['auto']}, "
+        f"plain {first['torch']}, relative {rel}")
 
 
 def cbsr_phase(torch, pg, dim: int, k: int, seed: int) -> list[dict]:
@@ -441,6 +652,34 @@ def cbsr_phase(torch, pg, dim: int, k: int, seed: int) -> list[dict]:
                              f"{rel_y:.3e}, dvalues {rel_dv:.3e} of max > 1e-5")
     log(f"CBSR path against the dense plain path: y {rel_y:.3e}, dvalues "
         f"{rel_dv:.3e} of max")
+    del xd, y_ref
+
+    # the same path with STREAM_CBSR_FORWARD set: the forward takes
+    # stream_cbsr_spmm on (values, channels) and densifies nothing
+    from spgemm_gnn_tpu_torch.kernels import planned
+    planned.STREAM_CBSR_FORWARD = True
+    x_on = xs.clone().requires_grad_(True)
+    _build.launches.clear()
+    v_on, c_on = api.cbsr_compact(x_on, k, impl="cuda")
+    v_on.retain_grad()
+    y_on = api.aggregate_cbsr(pg, v_on, c_on, dim, "mean", impl="cuda")
+    (y_on * ct).sum().backward()
+    torch.cuda.synchronize()
+    planned.STREAM_CBSR_FORWARD = False
+    counts = dict(_build.launches)
+    expected = {"cbsr_compact": 1, "stream_cbsr_spmm": 1, "stream_spmm": 1,
+                "cbsr_sample": 1, "cbsr_densify": 1}
+    if counts != expected:
+        raise AssertionError(f"CBSR path, STREAM_CBSR_FORWARD: launch counts "
+                             f"{counts} != {expected}")
+    if not (torch.equal(y_on, y) and bits_equal(torch, v_on.grad, v.grad)
+            and bits_equal(torch, x_on.grad, x_in.grad)):
+        raise AssertionError("CBSR path, STREAM_CBSR_FORWARD: y or the "
+                             "gradients differ from the flag-off path's")
+    log(f"CBSR path with STREAM_CBSR_FORWARD: launches {counts} (the "
+        f"forward densifies nothing); y equal by value, dvalues and dx "
+        f"bitwise equal to the flag-off path's, so within {rel_y:.3e} and "
+        f"{rel_dv:.3e} of the dense plain path")
     return out
 
 
@@ -450,8 +689,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script measures the card",
               file=sys.stderr)
         return 1
+    from spgemm_gnn_tpu_torch.graphs.csr import add_self_loops
     from spgemm_gnn_tpu_torch.graphs.datasets import load_dataset
-    from spgemm_gnn_tpu_torch.kernels import _build
+    from spgemm_gnn_tpu_torch.kernels import _build, planned
     from spgemm_gnn_tpu_torch.kernels.planned import plan_graph
     from spgemm_gnn_tpu_torch.ops.norms import node_factors
     from spgemm_gnn_tpu_torch.train.config import TrainConfig
@@ -556,6 +796,8 @@ def main() -> int:
                 csr_products)
     del xs, gy
     torch.cuda.empty_cache()
+    cbsr_entry = stream_cbsr_check(torch, g2, HIDDEN, K, SEED)
+    torch.cuda.empty_cache()
 
     kernels.append(product_entry("csr_spmm", csr_a, csr_t,
                                  products_=csr_products))
@@ -571,22 +813,8 @@ def main() -> int:
                        w_lr=0.003, epochs=EPOCHS, eval_every=1, seed=SEED,
                        device="cuda", impl="auto", synthetic=True,
                        synthetic_scale=SCALE)
-    first = {}
-    for impl in ("auto", "torch"):     # the kernels, then the plain ops
-        tr = Trainer(cfg2.replace(impl=impl), dataset=ds2)
-        state = tr.init_state()
-        drop = torch.Generator(device=dev).manual_seed(SEED + 1)
-        first[impl] = [float(tr.train_step(state, drop)) for _ in range(2)]
-        del tr, state
-        torch.cuda.empty_cache()
-    rel = [abs(a - b) / abs(b) for a, b in zip(first["auto"], first["torch"])]
-    if not max(rel) <= 1e-4:
-        raise AssertionError(f"train products: first steps {first['auto']} "
-                             f"vs plain {first['torch']} ({rel})")
-    log(f"train products: first two steps through the kernels "
-        f"{first['auto']}, plain {first['torch']}, relative {rel}")
-    trainer2 = Trainer(cfg2, dataset=ds2)
-    products = run_training(torch, trainer2, {
+    first_steps(torch, cfg2, ds2, "train products")
+    products = run_training(torch, Trainer(cfg2, dataset=ds2), {
         "maxk_fwd": EPOCHS * 2 * layers2, "maxk_bwd": EPOCHS * layers2,
         "stream_spmm": EPOCHS * 3 * layers2}, "train products")
     fell = products["losses"][-1] < products["losses"][0]
@@ -597,7 +825,50 @@ def main() -> int:
     stream_entry.update(launches=products["counts"]["stream_spmm"],
                         launches_path="train products")
     kernels.insert(3, stream_entry)
-    del trainer2, products
+    torch.cuda.empty_cache()
+
+    # the same recipe with the CBSR stream forward: the same losses
+    flag_on = {"maxk_fwd": EPOCHS * 2 * layers2, "maxk_bwd": EPOCHS * layers2,
+               "cbsr_compact": EPOCHS * 2 * layers2,
+               "stream_cbsr_spmm": EPOCHS * 2 * layers2,
+               "stream_spmm": EPOCHS * layers2}
+    planned.STREAM_CBSR_FORWARD = True
+    products_on = run_training(torch, Trainer(cfg2, dataset=ds2), flag_on,
+                               "train products, STREAM_CBSR_FORWARD")
+    planned.STREAM_CBSR_FORWARD = False
+    rel = max(abs(a - b) / abs(b) for a, b in zip(products_on["losses"],
+                                                   products["losses"]))
+    if not rel <= 1e-6:
+        raise AssertionError(f"train products: flag-on losses "
+                             f"{products_on['losses']} vs flag-off "
+                             f"{products['losses']} ({rel:.3e})")
+    same = products_on["losses"] == products["losses"]
+    log(f"train products: STREAM_CBSR_FORWARD on against off: losses "
+        f"{'bit-equal' if same else f'within {rel:.3e} relative'}; steady "
+        f"epoch {products_on['res']['steady_epoch_s']} s on, "
+        f"{products['res']['steady_epoch_s']} s off")
+    del products, products_on
+    torch.cuda.empty_cache()
+
+    # ---- train 3: the products recipe with GCN and self-loops, flag set --
+    t0 = time.perf_counter()
+    ds3 = dataclasses.replace(ds2, graph=add_self_loops(g2))
+    log(f"graph 3: ogbn-products stand-in with self-loops: "
+        f"E={ds3.graph.num_edges}, host build {time.perf_counter() - t0:.1f} s")
+    if plan_graph(ds3.graph).kind != "stream":
+        raise AssertionError("plan rule: ogbn-products with self-loops must "
+                             "take the stream kind")
+    cfg3 = cfg2.replace(model="gcn", selfloop=True)
+    planned.STREAM_CBSR_FORWARD = True
+    first_steps(torch, cfg3, ds3, "train 3 (GCN)")
+    gcn = run_training(torch, Trainer(cfg3, dataset=ds3), flag_on,
+                       "train 3 (GCN, products, self-loops, "
+                       "STREAM_CBSR_FORWARD)")
+    planned.STREAM_CBSR_FORWARD = False
+    cbsr_entry.update(launches=gcn["counts"]["stream_cbsr_spmm"],
+                      launches_path="train 3 (GCN)")
+    kernels.insert(4, cbsr_entry)
+    del gcn, ds3
     torch.cuda.empty_cache()
 
     log(json.dumps({"kernels": kernels}))

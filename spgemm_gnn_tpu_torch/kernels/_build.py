@@ -37,7 +37,10 @@ SIGNATURES = {
              "maxk_bwd": [_P, _P, _P, _P, _I64, _INT, _P]},
     "spmm": {"csr_spmm": [_P, _P, _P, _P, _P, _P, _I64, _INT, _P]},
     "stream": {"stream_spmm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
-                               _I64, _INT, _INT, _P]},
+                               _I64, _INT, _INT, _P],
+               "stream_cbsr_spmm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I64, _I64, _I64, _INT, _INT, _INT, _INT,
+                                    _P]},
     "cbsr": {"cbsr_compact": [_P, _P, _P, _I64, _INT, _INT, _P],
              "cbsr_densify": [_P, _P, _P, _I64, _INT, _INT, _P],
              "cbsr_sample": [_P, _P, _P, _I64, _INT, _INT, _P]},

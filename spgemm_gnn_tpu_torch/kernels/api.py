@@ -67,15 +67,16 @@ def aggregate(g, x: torch.Tensor, norm: str = "sum", k: int | None = None,
 
     A PlannedGraph aggregates through its plan's kernel pair (`csr_spmm` for
     the "windowed" kind, `stream_spmm` for "stream"); a plain Graph through
-    `csr_spmm`. `k` states that x is MaxK top-k sparse per row. Dense and
-    masked inputs take the same kernel pair (the aggregation is linear and
-    MaxK's own backward applies the mask), so it is not read.
+    `csr_spmm`. `k` states that x is MaxK top-k sparse per row: with
+    `kernels.planned.STREAM_CBSR_FORWARD` set, a stream plan's forward then
+    takes `stream_cbsr_spmm` on x's CBSR. The backward is the dense kernel
+    on Aᵀ either way (the aggregation is linear and MaxK's own backward
+    applies the mask). impl "torch" takes the plain dense product.
     """
-    del k
     _check_impl(impl, x)
     if impl == "torch":
         return _spmm_plain.spmm(g, x, norm)
-    return planned_aggregate(g, x, norm)
+    return planned_aggregate(g, x, norm, k)
 
 
 class SpGEMM(torch.autograd.Function):

@@ -17,6 +17,9 @@ Entry points:
 - `spgemm_forward` / `sspmm_backward` (the explicit CBSR API,
   kernels/api.py::aggregate_cbsr): CBSR → densify → the plan's kernel; the
   backward is the transpose product sampled at the k channels.
+With `STREAM_CBSR_FORWARD` set, the forward of either entry point on a
+stream plan takes `stream_cbsr_spmm` on CBSR instead (the models' path
+compacts its k-sparse input first).
 """
 from __future__ import annotations
 
@@ -29,9 +32,11 @@ from spgemm_gnn_tpu_torch.graphs.stream_tiles import (StreamPlan,
                                                       stream_plan_for_graph)
 from spgemm_gnn_tpu_torch.graphs.tiles import (CHUNK, CSRPlan, auto_window,
                                                predicted_windowed_fill)
-from spgemm_gnn_tpu_torch.kernels.cbsr import cbsr_densify, cbsr_sample
+from spgemm_gnn_tpu_torch.kernels.cbsr import (cbsr_compact, cbsr_densify,
+                                               cbsr_sample)
 from spgemm_gnn_tpu_torch.kernels.spmm import csr_spmm
-from spgemm_gnn_tpu_torch.kernels.stream import stream_spmm
+from spgemm_gnn_tpu_torch.kernels.stream import stream_cbsr_spmm, stream_spmm
+from spgemm_gnn_tpu_torch.ops.maxk import pack_channels
 from spgemm_gnn_tpu_torch.ops.norms import node_factors
 from spgemm_gnn_tpu_torch.ops.spmm import _scale
 
@@ -39,6 +44,14 @@ from spgemm_gnn_tpu_torch.ops.spmm import _scale
 # switches to the stream plan (the JAX package's cutover and source block)
 WINDOWED_FILL_CUTOVER = 0.25
 KIND_SRC_BLOCK = 256
+
+# The CBSR edge-gather stream forward (`stream_cbsr_spmm`): a k-sparse input
+# over a stream plan is compacted to k values and packed channel ids per
+# node, and the forward gathers those per edge instead of a dense row. The
+# name and the default are the reference's (`spgemm_gnn_tpu/kernels/
+# planned.py`); read at each call, so a caller may set it on the module.
+# Windowed plans ignore it, and every backward takes the dense kernel.
+STREAM_CBSR_FORWARD = False
 
 KINDS = ("auto", "windowed", "stream")
 
@@ -122,45 +135,61 @@ def graph_plans(g) -> tuple[CSRPlan | StreamPlan, CSRPlan | StreamPlan]:
 
 
 def plan_spmm(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
-              post: torch.Tensor | None = None) -> torch.Tensor:
-    """y = post ⊙ A (pre ⊙ x) through the plan's kernel."""
+              post: torch.Tensor | None = None,
+              k: int | None = None) -> torch.Tensor:
+    """y = post ⊙ A (pre ⊙ x) through the plan's kernel. `k` states that x
+    has at most k nonzeros per row: with STREAM_CBSR_FORWARD set, a stream
+    plan then compacts x to CBSR and takes `stream_cbsr_spmm` (the same y by
+    value)."""
     if isinstance(plan, StreamPlan):
+        dim = x.shape[1]
+        if STREAM_CBSR_FORWARD and k is not None and k < dim:
+            vals, ch = cbsr_compact(x, k)
+            return stream_cbsr_spmm(plan, vals, pack_channels(ch, dim), dim,
+                                    pre, post)
         return stream_spmm(plan, x, pre, post)
     return csr_spmm(plan.indptr, plan.indices, x, pre, post)
 
 
 class Aggregate(torch.autograd.Function):
     """y = post ⊙ A (pre ⊙ x); dx = pre ⊙ Aᵀ (post ⊙ g), each through its
-    plan's kernel. The cotangent keeps the primal's dtype."""
+    plan's kernel (the forward reads `k` as `plan_spmm` does; the cotangent
+    is dense). The cotangent keeps the primal's dtype."""
 
     @staticmethod
-    def forward(ctx, x, fwd_plan, bwd_plan, pre, post):
+    def forward(ctx, x, fwd_plan, bwd_plan, pre, post, k):
         ctx.save_for_backward(pre, post)
         ctx.bwd_plan = bwd_plan
         ctx.x_dtype = x.dtype
-        return plan_spmm(fwd_plan, x, pre, post)
+        return plan_spmm(fwd_plan, x, pre, post, k)
 
     @staticmethod
     def backward(ctx, g):
         pre, post = ctx.saved_tensors
         dx = plan_spmm(ctx.bwd_plan, g.contiguous(), post, pre)
-        return dx.to(ctx.x_dtype), None, None, None, None
+        return dx.to(ctx.x_dtype), None, None, None, None, None
 
 
-def planned_aggregate(g, x: torch.Tensor, norm: str = "sum") -> torch.Tensor:
+def planned_aggregate(g, x: torch.Tensor, norm: str = "sum",
+                      k: int | None = None) -> torch.Tensor:
     """y = A_w x through the kernel pair of `g`'s plans (a PlannedGraph's, or
-    `csr_spmm` for a plain Graph)."""
+    `csr_spmm` for a plain Graph). `k` (optional) states that x is MaxK
+    top-k sparse per row (see `plan_spmm`)."""
     src_f, dst_f = node_factors(g, norm)
     fwd, bwd = graph_plans(g)
-    return Aggregate.apply(x.contiguous(), fwd, bwd, src_f, dst_f)
+    return Aggregate.apply(x.contiguous(), fwd, bwd, src_f, dst_f, k)
 
 
 def spgemm_forward(dim: int, values: torch.Tensor, channels: torch.Tensor,
                    src_f, dst_f, plans) -> torch.Tensor:
     """CBSR forward: y = dst_f ⊙ A densify(src_f ⊙ values) through the
-    forward plan's kernel."""
-    x = cbsr_densify(_scale(values, src_f).contiguous(), channels, dim)
-    return plan_spmm(plans[0], x, None, dst_f)
+    forward plan's kernel; on a stream plan with STREAM_CBSR_FORWARD set,
+    (src_f ⊙ values, channels) go to `stream_cbsr_spmm` with no densify."""
+    v = _scale(values, src_f).contiguous()
+    if STREAM_CBSR_FORWARD and isinstance(plans[0], StreamPlan):
+        return stream_cbsr_spmm(plans[0], v, pack_channels(channels, dim),
+                                dim, None, dst_f)
+    return plan_spmm(plans[0], cbsr_densify(v, channels, dim), None, dst_f)
 
 
 def sspmm_backward(g_ct: torch.Tensor, channels: torch.Tensor, src_f, dst_f,

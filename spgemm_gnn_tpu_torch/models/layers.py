@@ -3,6 +3,9 @@
 Initialisation follows the JAX package: Xavier-uniform weights (gain √2 on
 the layer's `fc_*` projections, DGL SAGEConv's relu gain), zero biases, drawn
 from an explicit `torch.Generator`.
+
+Layers: `SAGEConv` (mean), `GraphConvAgg` (gcn norm plus bias), `GINAgg`
+(sum plus (1 + eps)·x), and `BatchNorm` with flax's statistics for GNNRes.
 """
 from __future__ import annotations
 
@@ -64,3 +67,82 @@ class SAGEConv(nn.Module):
         if self.norm is not None:
             out = self.norm(out)
         return out
+
+
+class GraphConvAgg(nn.Module):
+    """GCN aggregation with the symmetric norm and a bias (DGL
+    GraphConv(weight=None, norm='both', bias=True)):
+    y = D_in^-1/2 · A · D_out^-1/2 · x + b, degrees clamped at 1."""
+
+    def __init__(self, features: int, k_sparse: int | None = None,
+                 impl: str = "auto"):
+        super().__init__()
+        self.k_sparse = k_sparse
+        self.impl = impl
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def reset_parameters(self) -> None:
+        nn.init.zeros_(self.bias)
+
+    def forward(self, g, x: torch.Tensor) -> torch.Tensor:
+        y = aggregate(g, x, norm="gcn", k=self.k_sparse, impl=self.impl)
+        return y + self.bias.to(y.dtype)
+
+
+class GINAgg(nn.Module):
+    """GIN aggregation (DGL GINConv(learn_eps=True, apply_func=None)):
+    y = (1 + eps)·x + sum-agg(x), eps a learned scalar starting at 0."""
+
+    def __init__(self, k_sparse: int | None = None, impl: str = "auto"):
+        super().__init__()
+        self.k_sparse = k_sparse
+        self.impl = impl
+        self.eps = nn.Parameter(torch.zeros(()))
+
+    def reset_parameters(self) -> None:
+        nn.init.zeros_(self.eps)
+
+    def forward(self, g, x: torch.Tensor) -> torch.Tensor:
+        agg = aggregate(g, x, norm="sum", k=self.k_sparse, impl=self.impl)
+        return (1.0 + self.eps).to(x.dtype) * x + agg
+
+
+class BatchNorm(nn.Module):
+    """Batch normalisation over the nodes with flax.linen.BatchNorm's rule,
+    which `torch.nn.BatchNorm1d` does not follow: the running variance takes
+    the biased batch variance (BatchNorm1d's takes the unbiased one, n/(n−1)
+    larger), and the running averages move as r ← momentum·r + (1 −
+    momentum)·batch with momentum 0.9. The batch variance is E[x²] − E[x]²
+    clipped at 0, as flax computes it. Training normalises by the batch's
+    statistics and updates the running ones; eval normalises by the running
+    ones. Parameters `weight` (flax `scale`) and `bias`; buffers
+    `running_mean` and `running_var` (flax `batch_stats` mean and var)."""
+
+    def __init__(self, features: int, momentum: float = 0.9,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def reset_parameters(self) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            mean = x.mean(0)
+            var = torch.clamp((x * x).mean(0) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1.0 - m) * mean)
+                self.running_var.mul_(m).add_((1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias

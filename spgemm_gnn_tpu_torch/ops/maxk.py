@@ -19,6 +19,8 @@ of the `cbsr_compact`, `cbsr_densify` and `cbsr_sample` kernels
 (kernels/cbsr.py): `cbsr_compact_plain`, `cbsr_to_dense` and
 `sample_channels`. The differentiable compaction that chooses between the
 kernel and its plain version is `kernels/api.py::cbsr_compact`.
+`pack_channels` / `unpack_channels` pack the channel ids into int32 words for
+the `stream_cbsr_spmm` kernel.
 """
 from __future__ import annotations
 
@@ -139,3 +141,49 @@ def sample_channels(z: torch.Tensor, channels: torch.Tensor) -> torch.Tensor:
     """dv[n, j] = z[n, channels[n, j]]: the plain version of the
     `cbsr_sample` kernel."""
     return torch.gather(z, 1, channels.long())
+
+
+# ---------------------------------------------------------------------------
+# Packed channel ids: the payload the `stream_cbsr_spmm` kernel gathers per
+# edge (kernels/stream.py). Four uint8 ids per int32 word at dim <= 256, two
+# uint16 ids above; k is padded to a whole word with channel 0.
+# ---------------------------------------------------------------------------
+
+def _ids_per_word(dim: int) -> int:
+    if dim > 65536:
+        raise ValueError(f"pack_channels supports dim <= 65536; got {dim}")
+    return 4 if dim <= 256 else 2
+
+
+def packed_channel_words(k: int, dim: int) -> int:
+    """int32 words per row of a packed channel payload."""
+    per = _ids_per_word(dim)
+    return -(-k // per)
+
+
+def pack_channels(channels: torch.Tensor, dim: int = 256) -> torch.Tensor:
+    """int32 [N, packed_channel_words(k, dim)] of channel ids [N, k], id j
+    of a word in bits [b·j, b·(j + 1)) with b = 32 / ids per word (the JAX
+    package's words bit for bit: an id >= 128 in the top byte sets the
+    word's sign bit). `dim` is the width the ids index into."""
+    per = _ids_per_word(dim)
+    n, k = channels.shape
+    # in int32: OR and a left shift that drops the high bits give the JAX
+    # function's uint32 bits
+    c = torch.nn.functional.pad(channels.to(torch.int32), (0, (-k) % per))
+    c = c.reshape(n, -1, per)
+    words = c[..., 0]
+    for j in range(1, per):
+        words = words | (c[..., j] << (32 // per * j))
+    return words.contiguous()
+
+
+def unpack_channels(packed: torch.Tensor, k: int, dim: int = 256
+                    ) -> torch.Tensor:
+    """Inverse of `pack_channels` (with the same `dim`): int32 [N, k]."""
+    per = _ids_per_word(dim)
+    bits = 32 // per
+    p = packed.long() & (_U32 - 1)
+    shifts = torch.arange(per, device=p.device) * bits
+    parts = (p[..., None] >> shifts) & ((1 << bits) - 1)
+    return parts.reshape(packed.shape[0], -1)[:, :k].to(torch.int32)

@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the `stream_spmm` CUDA kernel (kernels/stream.py;
+"""Plain PyTorch versions of the stream CUDA kernels (kernels/stream.py;
 counterpart of `spgemm_gnn_tpu/kernels/stream_pallas.py::stream_spmm`).
 
 It follows the StreamPlan as the kernel does, so that a fault in the
@@ -15,11 +15,16 @@ chunk → row mapping shows on the CPU and not first on the card:
      order, then takes its post factor.
 Rows that no step writes stay NaN, so a plan that misses a row fails the
 comparison instead of passing on a zero.
+
+`stream_cbsr_spmm_plain` is the plain version of the `stream_cbsr_spmm`
+kernel (counterpart of `stream_pallas.py::stream_spmm_cbsr`): the same
+product with the input given as CBSR values and packed channel ids.
 """
 from __future__ import annotations
 
 import torch
 
+from spgemm_gnn_tpu_torch.ops.maxk import cbsr_to_dense, unpack_channels
 from spgemm_gnn_tpu_torch.ops.spmm import _gather_add, _scale
 
 
@@ -71,3 +76,14 @@ def stream_spmm_plain(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
     acc.index_add_(0, pos, carry[(a // c)[pos] + 1 + step])
     y[r] = _scale(acc, None if post is None else post[r])
     return y
+
+
+def stream_cbsr_spmm_plain(plan, values: torch.Tensor, pchannels: torch.Tensor,
+                           dim: int, pre: torch.Tensor | None = None,
+                           post: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of the `stream_cbsr_spmm` kernel (kernels/stream.py):
+    y = post ⊙ A (pre ⊙ cbsr(values, channels)) with the channels unpacked
+    from `pchannels` (ops/maxk.py::pack_channels at this `dim`), densified,
+    and summed over the plan as `stream_spmm_plain` does."""
+    ch = unpack_channels(pchannels, values.shape[1], dim)
+    return stream_spmm_plain(plan, cbsr_to_dense(values, ch, dim), pre, post)

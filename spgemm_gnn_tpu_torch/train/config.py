@@ -11,6 +11,7 @@ import dataclasses
 from typing import Any
 
 from spgemm_gnn_tpu_torch.graphs.datasets import DATASETS
+from spgemm_gnn_tpu_torch.models.models import MODELS
 
 
 @dataclasses.dataclass
@@ -72,11 +73,10 @@ class TrainConfig:
 
 # (flag, test of a value this slice cannot run, ROADMAP item)
 _NOT_YET = (
-    ("model", lambda v: v != "sage", "Queue A9 (GCN, GIN, GNNRes, "
-     "integrated models)"),
-    ("dtype", lambda v: v != "float32", "Queue A9 (--dtype bfloat16)"),
-    ("remat", bool, "Queue A9 (--remat)"),
-    ("stream", lambda v: v != "f32", "Queue B2 follow-up (bf16x2 stream)"),
+    ("dtype", lambda v: v != "float32", "slice 4, Queue A9 (--dtype "
+     "bfloat16)"),
+    ("remat", bool, "slice 4, Queue A9 (--remat)"),
+    ("stream", lambda v: v != "f32", "slice 4, Queue B2 (bf16x2 stream)"),
     ("mesh_shape", lambda v: v > 1, "Queue A13 (multi-GPU)"),
     ("multihost", bool, "Queue A13 (multi-GPU)"),
     ("coordinator", bool, "Queue A13 (multi-GPU)"),
@@ -110,9 +110,7 @@ def build_parser() -> argparse.ArgumentParser:
     d = TrainConfig()
     p.add_argument("--dataset", default=d.dataset, choices=list(DATASETS))
     p.add_argument("--data_path", default=d.data_path)
-    p.add_argument("--model", default=d.model,
-                   choices=["sage", "gcn", "gin", "gnn_res", "sage_integrated",
-                            "gcn_integrated", "gin_integrated"])
+    p.add_argument("--model", default=d.model, choices=list(MODELS))
     p.add_argument("--selfloop", action="store_true")
     p.add_argument("--epochs", type=int, default=d.epochs)
     p.add_argument("--w_lr", type=float, default=d.w_lr)

@@ -3,13 +3,18 @@ its synthetic stand-in, one warm step, then one step under `torch.profiler`,
 with device time summed by kernel name.
 
     python -m spgemm_gnn_tpu_torch.utils.profile_step \
-        [--dataset reddit|ogbn-products] [--synthetic_scale S]
+        [--dataset reddit|ogbn-products] [--model sage|gcn|...] \
+        [--stream_cbsr_forward] [--synthetic_scale S]
 
-Recipes (scripts_train/*_maxk.sh): reddit (the default) SAGE, MaxK k=32,
-hidden 256, 4 layers, LayerNorm, dropout 0.5, lr 0.01; ogbn-products the
-same with 3 layers and lr 0.003. The Trainer plans the graph, so the step
-runs the kernel the reference's rule picks (csr_spmm on reddit, stream_spmm
-on ogbn-products).
+Recipes (scripts_train/*_maxk.sh): reddit (the default) MaxK k=32, hidden
+256, 4 layers, LayerNorm, dropout 0.5, lr 0.01; ogbn-products the same with
+3 layers and lr 0.003. The model is SAGE unless `--model` names another
+family (the JAX CLI's flag); every other family takes self-loops, as the
+recipes give them. The Trainer plans the graph, so the step runs the kernel
+the reference's rule picks (csr_spmm on reddit, stream_spmm on
+ogbn-products); `--stream_cbsr_forward` sets
+`kernels.planned.STREAM_CBSR_FORWARD`, so a stream plan's forward takes
+stream_cbsr_spmm.
 
 Prints the card's name and power limit, the plan kind, the step's wall time,
 the device's busy time and idle share, and the kernels that took the most
@@ -23,30 +28,36 @@ import time
 
 import torch
 
+from spgemm_gnn_tpu_torch.models.models import MODELS
+
 RECIPES = {
     "reddit": dict(hidden_layers=4, w_lr=0.01),
     "ogbn-products": dict(hidden_layers=3, w_lr=0.003),
 }
 
 
-def profile_step(dataset: str, synthetic_scale: float, seed: int,
-                 top: int) -> None:
+def profile_step(dataset: str, model: str, stream_cbsr_forward: bool,
+                 synthetic_scale: float, seed: int, top: int) -> None:
     from torch.profiler import ProfilerActivity, profile
 
+    from spgemm_gnn_tpu_torch.kernels import planned
     from spgemm_gnn_tpu_torch.train.config import TrainConfig
     from spgemm_gnn_tpu_torch.train.loop import Trainer
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip(), flush=True)
-    cfg = TrainConfig(dataset=dataset, model="sage", nonlinear="maxk", maxk=32,
+    planned.STREAM_CBSR_FORWARD = stream_cbsr_forward
+    cfg = TrainConfig(dataset=dataset, model=model, selfloop=model != "sage",
+                      nonlinear="maxk", maxk=32,
                       hidden_dim=256, norm=True, dropout=0.5, seed=seed,
                       device="cuda", impl="auto", synthetic=True,
                       synthetic_scale=synthetic_scale,
                       data_path="/nonexistent", **RECIPES[dataset])
     trainer = Trainer(cfg)
-    print(f"{dataset}: N={trainer.g.num_nodes} E={trainer.g.num_edges}, "
-          f"plan kind {trainer.g.kind}", flush=True)
+    print(f"{dataset}, {model}: N={trainer.g.num_nodes} "
+          f"E={trainer.g.num_edges}, plan kind {trainer.g.kind}, "
+          f"STREAM_CBSR_FORWARD {stream_cbsr_forward}", flush=True)
     state = trainer.init_state()
     gen = torch.Generator(device=trainer.device).manual_seed(seed)
     trainer.train_step(state, gen)
@@ -73,11 +84,14 @@ def profile_step(dataset: str, synthetic_scale: float, seed: int,
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dataset", default="reddit", choices=sorted(RECIPES))
+    ap.add_argument("--model", default="sage", choices=list(MODELS))
+    ap.add_argument("--stream_cbsr_forward", action="store_true")
     ap.add_argument("--synthetic_scale", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=97)
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
-    profile_step(args.dataset, args.synthetic_scale, args.seed, args.top)
+    profile_step(args.dataset, args.model, args.stream_cbsr_forward,
+                 args.synthetic_scale, args.seed, args.top)
 
 
 if __name__ == "__main__":

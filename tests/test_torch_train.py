@@ -118,7 +118,7 @@ def test_default_device_without_gpu_raises():
 
 
 @pytest.mark.parametrize("flag", [
-    dict(model="gcn"), dict(dtype="bfloat16"), dict(remat=True),
+    dict(timing=True), dict(dtype="bfloat16"), dict(remat=True),
     dict(stream="bf16x2"), dict(mesh_shape=2), dict(checkpoint_every=5),
     dict(resume=True), dict(evaluate="ckpt"), dict(cache_strategy="lru"),
     dict(steps_per_call=4), dict(dataset="ogbn-proteins")])
