@@ -16,13 +16,18 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      version, and bitwise equal across two runs), timed with CUDA events
      beside its plain version, a PyTorch library call computing the same
      function, and the least time the card could take (bytes over 3.35 TB/s
-     or operations over 67 TFLOP/s f32, H100 SXM peaks at 700 W); the stream
-     kernel on the same graph, checked the same way (it only measures: the
-     rule keeps Reddit on csr_spmm);
-  5. train: `Trainer` on the Reddit recipe (SAGE, MaxK k=32, hidden 256,
-     4 layers, LayerNorm, dropout 0.5, lr 0.01) for 5 epochs; the losses must
-     be finite and fall, and every kernel's launch count must match the
-     model's structure exactly;
+     or operations over 67 TFLOP/s f32, H100 SXM peaks at 700 W); for
+     csr_spmm also its schedule (source blocks, segment size, segments,
+     split runs, bytes beyond the CSR) and the same product with one source
+     block (the row split alone, also within 1e-5), timed; the stream kernel
+     on the same graph, checked the same way (it only measures: the rule
+     keeps Reddit on csr_spmm);
+  5. train: the Reddit recipe (SAGE, MaxK k=32, hidden 256, 4 layers,
+     LayerNorm, dropout 0.5, lr 0.01): its first two train steps through the
+     kernels within 1e-4 relative of the plain path's (same weights and
+     dropout seed), then `Trainer` for 5 epochs; the losses must be finite
+     and fall, and every kernel's launch count must match the model's
+     structure exactly;
   6. model check: on a small graph (3000 nodes, 2 layers, ReLU, so only the
      aggregation kernel), every model family (SAGE, GCN, GIN, GNNRes and the
      three integrated MaxK models) through the kernels against the same
@@ -34,12 +39,12 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      2,449,029, E about 123.7M, 100 features, 47 classes); the plan rule must
      pick the "stream" kind (stream_spmm);
   8. kernels on products: stream_spmm on A and Aᵀ, and csr_spmm on A, checked
-     as in phase 4; then stream_cbsr_spmm (the CBSR edge-gather forward) on
-     A at dim 256, k 32, under the mean and the gcn factors: within 1e-5 of
-     its plain version in float64, equal by value to stream_spmm on the same
-     masked input, bitwise equal across two runs, and timed beside
-     stream_spmm, its plain version, torch.sparse.mm on the dense input,
-     and cbsr_compact with it;
+     as in phase 4 (the rule must give csr_spmm one source block here); then
+     stream_cbsr_spmm (the CBSR edge-gather forward) on A at dim 256, k 32,
+     under the mean and the gcn factors: within 1e-5 of its plain version in
+     float64, equal by value to stream_spmm on the same masked input,
+     bitwise equal across two runs, and timed beside stream_spmm, its plain
+     version, torch.sparse.mm on the dense input, and cbsr_compact with it;
   9. CBSR: cbsr_compact, cbsr_densify and cbsr_sample at the products shapes
      (dim 256, k 32), bitwise against their plain versions and timed; then
      `aggregate_cbsr` forward and backward through the kernels, with its
@@ -148,9 +153,11 @@ def product_check(torch, kernel: str, g, inp, pre_f, post_f,
     "stream_spmm") on the graph's CSR (or its transpose). The reference is
     the plain version in float64, so that the error read is the kernel's own;
     two runs must give the same bits. Also times the kernel on the HUB_ROWS
-    rows of highest degree alone, the plain version, and `torch.sparse.mm` on
-    a CSR tensor of the same weights."""
+    rows of highest degree alone (for csr_spmm under the product's number of
+    source blocks), the plain version, and `torch.sparse.mm` on a CSR tensor
+    of the same weights."""
     from spgemm_gnn_tpu_torch.graphs.stream_tiles import build_stream_plan
+    from spgemm_gnn_tpu_torch.graphs.tiles import CSRPlan
     from spgemm_gnn_tpu_torch.kernels.spmm import csr_spmm
     from spgemm_gnn_tpu_torch.kernels.stream import stream_spmm
     from spgemm_gnn_tpu_torch.ops.spmm import csr_spmm_plain
@@ -176,18 +183,20 @@ def product_check(torch, kernel: str, g, inp, pre_f, post_f,
         def run_hub():
             return stream_spmm(hub_plan, inp)
     else:
-        hub = hub_rows(torch, indptr, indices, HUB_ROWS)
-        hub_edges = hub[1].numel()
+        plan = CSRPlan(indptr, indices)
+        hub_plan = CSRPlan(*hub_rows(torch, indptr, indices, HUB_ROWS),
+                           src_blocks=plan.schedule(n, dim).nb)
+        hub_edges = hub_plan.indices.numel()
         plan_bytes = 0
 
-        def run(x):
-            return csr_spmm(indptr, indices, x, pre_f, post_f)
+        def run(x, p=plan):
+            return csr_spmm(p, x, pre_f, post_f)
 
         def run_plain(x):
             return csr_spmm_plain(indptr, indices, x, pre_f, post_f)
 
         def run_hub():
-            return csr_spmm(*hub, inp)
+            return csr_spmm(hub_plan, inp)
 
     ref = run_plain(inp.double())
     got, again = run(inp), run(inp)
@@ -197,6 +206,24 @@ def product_check(torch, kernel: str, g, inp, pre_f, post_f,
         raise AssertionError(f"{kernel} error {rel:.3e} of max |y| > 1e-5")
     if not bits_equal(torch, got, again):
         raise AssertionError(f"{kernel}: two runs differ")
+    extra = {}
+    if kernel == "csr_spmm":
+        # the same product with one source block (the row split alone)
+        one = CSRPlan(indptr, indices, src_blocks=1)
+        single = run(inp, p=one)
+        torch.cuda.synchronize()
+        single_rel = rel_err(single, ref)[1]
+        if not single_rel <= 1e-5:
+            raise AssertionError(f"csr_spmm, one block: error "
+                                 f"{single_rel:.3e} of max |y| > 1e-5")
+        del single
+        sched = plan.schedule(n, dim)
+        extra = dict(
+            nb=sched.nb, block_rows=sched.block_rows, segment=sched.segment,
+            segments=sched.num_segments, split_runs=sched.num_split_runs,
+            slots=sched.n_slots, plan_extra_bytes=sched.extra_bytes(indices),
+            nb1_rel=single_rel,
+            nb1_ms=time_ms(torch, lambda: run(inp, p=one), 5))
     w = torch.ones(e, device=inp.device)
     if pre_f is not None:
         w = w * pre_f[indices.long()]
@@ -219,7 +246,7 @@ def product_check(torch, kernel: str, g, inp, pre_f, post_f,
                 library_ms=time_ms(torch, lambda: torch.sparse.mm(a, inp), 5),
                 library_rel=lib_rel, hub_ms=hub_ms,
                 hub_edge_share=hub_edges / e,
-                gather_ms=e * dim * 4 / PEAK_BYTES_S * 1e3)
+                gather_ms=e * dim * 4 / PEAK_BYTES_S * 1e3, **extra)
 
 
 def log_product(kernel: str, what: str, r: dict) -> None:
@@ -231,6 +258,13 @@ def log_product(kernel: str, what: str, r: dict) -> None:
         f"{r['gather_ms']:.3f}); the {HUB_ROWS} rows of highest degree "
         f"({r['hub_edge_share']:.1%} of the edges) alone {r['hub_ms']:.3f} ms "
         f"({r['hub_ms'] / r['ms']:.1%})")
+    if "nb" in r:
+        log(f"  schedule ({what}): {r['nb']} source blocks of "
+            f"{r['block_rows']} rows, segments of at most {r['segment']} "
+            f"edges: {r['segments']} segments, {r['split_runs']} split runs, "
+            f"{r['slots']} scratch slots, {r['plan_extra_bytes'] / 2**20:.1f} "
+            f"MiB beyond the CSR; one source block (the row split alone) "
+            f"{r['nb1_ms']:.3f} ms ({r['nb1_rel']:.3e} of max |y|)")
 
 
 def maxk_phase(torch, g, dim: int, k: int, seed: int) -> list[dict]:
@@ -290,17 +324,16 @@ def product_entry(name: str, a: dict, t: dict | None = None, **other) -> dict:
               "stream_spmm": "spgemm_gnn_tpu_torch/csrc/stream.cu"}[name]
     replaces = {"csr_spmm": "spgemm_gnn_tpu/kernels/spgemm_pallas.py:97",
                 "stream_spmm": "spgemm_gnn_tpu/kernels/stream_pallas.py:37"}
+    names = {"err": "max_abs_err", "hub_ms": "hub_rows_ms",
+             "gather_ms": "no_reuse_gather_ms"}
+    keys = ("err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "hub_ms", "gather_ms", "nb", "segments", "split_runs", "nb1_ms")
     entry = dict(name=name, route="cuda", source=source,
-                 replaces=replaces[name], max_abs_err=a["err"], ms=a["ms"],
-                 plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
-                 bound_by=a["bound_by"], library_ms=a["library_ms"],
-                 hub_rows_ms=a["hub_ms"])
-    for prefix, r in (("transpose_", t), *other.items()):
+                 replaces=replaces[name])
+    for prefix, r in (("", a), ("transpose_", t), *other.items()):
         if r is not None:
-            for key in ("err", "ms", "plain_ms", "bound_ms", "bound_by",
-                        "library_ms", "hub_ms"):
-                entry[prefix + {"err": "max_abs_err",
-                                "hub_ms": "hub_rows_ms"}.get(key, key)] = r[key]
+            entry.update({prefix + names.get(key, key): r[key]
+                          for key in keys if key in r})
     return entry
 
 
@@ -480,6 +513,7 @@ def stream_cbsr_check(torch, g, dim: int, k: int, seed: int) -> dict:
                    + n * dim * 4 + (plan.num_chunks + plan.carry_rows.numel())
                    * 4 + 4 * n * ((pre is not None) + (post is not None)))
         b_ms, b_by = bound_ms(n_bytes, ops)
+        gather_ms = e * (k * 4 + kp * 4 + 4) / PEAK_BYTES_S * 1e3
         r = dict(max_abs_err=err, rel=rel, ms=time_ms(torch, run, 10),
                  stream_spmm_ms=time_ms(
                      torch, lambda: stream_spmm(plan, xs, pre, post), 5),
@@ -487,7 +521,7 @@ def stream_cbsr_check(torch, g, dim: int, k: int, seed: int) -> dict:
                      plan, vals, pch, dim, pre, post), 2),
                  library_ms=time_ms(torch, lambda: torch.sparse.mm(a, xs), 5),
                  compact_and_ms=time_ms(torch, run_with_compact, 10),
-                 bound_ms=b_ms, bound_by=b_by)
+                 bound_ms=b_ms, bound_by=b_by, no_reuse_gather_ms=gather_ms)
         del a, w
         log(f"kernel stream_cbsr_spmm (products, A, {norm} factors, dim "
             f"{dim}, k {k}): max abs err {err:.3e}, {rel:.3e} of max |y|; "
@@ -495,14 +529,14 @@ def stream_cbsr_check(torch, g, dim: int, k: int, seed: int) -> dict:
             f"{r['ms']:.3f} ms (stream_spmm on the same input "
             f"{r['stream_spmm_ms']:.3f}, plain {r['plain_ms']:.3f}, "
             f"torch.sparse.mm {r['library_ms']:.3f}, bound {b_ms:.3f} by "
-            f"{b_by}, no-reuse gather "
-            f"{e * (k * 4 + kp * 4 + 4) / PEAK_BYTES_S * 1e3:.3f}; "
+            f"{b_by}, no-reuse gather {gather_ms:.3f}; "
             f"cbsr_compact + pack + stream_cbsr_spmm "
             f"{r['compact_and_ms']:.3f})")
         if norm == "mean":
             entry.update({key: r[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "stream_spmm_ms", "compact_and_ms")})
+                "library_ms", "stream_spmm_ms", "compact_and_ms",
+                "no_reuse_gather_ms")})
         else:
             entry.update({f"gcn_{key}": r[key] for key in (
                 "max_abs_err", "ms", "bound_ms", "stream_spmm_ms",
@@ -733,6 +767,9 @@ def main() -> int:
     log_product("csr_spmm", "reddit, A, k-sparse x", csr_a)
     csr_t = product_check(torch, "csr_spmm", g, gy, post, None, transpose=True)
     log_product("csr_spmm", "reddit, A^T, dense g", csr_t)
+    if not csr_a["nb"] > 1:
+        raise AssertionError("csr_spmm on reddit: the rule gave one source "
+                             "block")
     stream_reddit = product_check(torch, "stream_spmm", g, xs, None, post)
     log_product("stream_spmm", "reddit, A, k-sparse x; measure only",
                 stream_reddit)
@@ -745,6 +782,7 @@ def main() -> int:
                       eval_every=1, seed=SEED, device="cuda",
                       impl="auto", synthetic=True,
                       synthetic_scale=SCALE)
+    first_steps(torch, cfg, ds, "train reddit")
     # per epoch: a train step (forward + backward) and an eval forward
     reddit = run_training(torch, Trainer(cfg, dataset=ds), {
         "maxk_fwd": EPOCHS * 2 * layers, "maxk_bwd": EPOCHS * layers,
@@ -792,6 +830,9 @@ def main() -> int:
                              transpose=True)
     log_product("stream_spmm", "products, A^T, dense g", stream_t)
     csr_products = product_check(torch, "csr_spmm", g2, xs, None, post)
+    if csr_products["nb"] != 1:
+        raise AssertionError(f"csr_spmm on products: the rule gave "
+                             f"{csr_products['nb']} source blocks, not 1")
     log_product("csr_spmm", "products, A, k-sparse x; measure only",
                 csr_products)
     del xs, gy

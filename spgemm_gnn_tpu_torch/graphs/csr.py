@@ -10,9 +10,13 @@ Built once on the host with numpy, then moved to the device with `.to()`.
 from __future__ import annotations
 
 import dataclasses
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
+
+if TYPE_CHECKING:
+    from spgemm_gnn_tpu_torch.kernels.planned import PlannedGraph
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +32,9 @@ class Graph:
       in_degrees / out_degrees: int32[N] raw degrees.
       num_nodes / num_edges: Python ints.
       symmetric: True if the edge set equals its transpose.
+      plans:    the windowed plans of this plain graph, made at its first
+                planned aggregation (kernels/planned.py::graph_plans) and
+                kept; None until then, and on a moved copy.
     """
 
     indptr: torch.Tensor
@@ -41,6 +48,8 @@ class Graph:
     num_nodes: int
     num_edges: int
     symmetric: bool = False
+    plans: PlannedGraph | None = dataclasses.field(default=None, init=False,
+                                                   compare=False, repr=False)
 
     @property
     def device(self) -> torch.device:

@@ -35,7 +35,8 @@ _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 SIGNATURES = {
     "maxk": {"maxk_fwd": [_P, _P, _P, _I64, _INT, _INT, _P],
              "maxk_bwd": [_P, _P, _P, _P, _I64, _INT, _P]},
-    "spmm": {"csr_spmm": [_P, _P, _P, _P, _P, _P, _I64, _INT, _P]},
+    "spmm": {"csr_spmm": [_P, _P, _P, _P, _INT, _P, _P, _P, _P, _P, _P, _INT,
+                          _P]},
     "stream": {"stream_spmm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                                _I64, _INT, _INT, _P],
                "stream_cbsr_spmm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -3,9 +3,10 @@ pair over them, and the explicit CBSR forward/backward (counterpart of
 `spgemm_gnn_tpu/kernels/planned.py`).
 
 Two plan kinds, chosen per graph by the reference's rule (`plan_kind`):
-- "windowed" (graphs/tiles.py::CSRPlan): the `csr_spmm` kernel over the CSR,
-  one warp per destination row. The name is the JAX package's, whose plan
-  buckets edges into source windows; on the card it means the CSR itself.
+- "windowed" (graphs/tiles.py::CSRPlan): the `csr_spmm` kernel over the CSR
+  re-bucketed into L2-sized source blocks and cut into row segments of at
+  most `segment` edges (the plan's schedule). The name is the JAX package's,
+  whose plan buckets edges into source windows.
 - "stream" (graphs/stream_tiles.py::StreamPlan): the `stream_spmm` kernel
   over fixed-size edge chunks, for graphs of low degree.
 
@@ -103,11 +104,13 @@ def plan_kind(num_nodes: int, num_edges: int) -> str:
     return "windowed" if fill >= WINDOWED_FILL_CUTOVER else "stream"
 
 
-def plan_graph(g: Graph, *, kind: str = "auto",
-               chunk: int = CHUNK) -> PlannedGraph:
+def plan_graph(g: Graph, *, kind: str = "auto", chunk: int = CHUNK,
+               dim: int | None = None) -> PlannedGraph:
     """Both plans of a graph, on its device. kind: "auto" (the reference's
     rule, `plan_kind`), "windowed" or "stream"; chunk: edges per chunk of a
-    stream plan. A symmetric graph's backward plan is its forward plan."""
+    stream plan. A windowed plan's `csr_spmm` schedule is built here for
+    width `dim` when it is given (else at the first product of each width).
+    A symmetric graph's backward plan is its forward plan."""
     if kind not in KINDS:
         raise ValueError(f"unknown plan kind {kind!r}; expected one of "
                          f"{KINDS}")
@@ -117,9 +120,11 @@ def plan_graph(g: Graph, *, kind: str = "auto",
     def one(transpose: bool):
         if kind == "stream":
             return stream_plan_for_graph(g, transpose=transpose, chunk=chunk)
-        if transpose:
-            return CSRPlan(g.t_indptr, g.t_indices)
-        return CSRPlan(g.indptr, g.indices)
+        plan = (CSRPlan(g.t_indptr, g.t_indices) if transpose
+                else CSRPlan(g.indptr, g.indices))
+        if dim is not None:
+            plan.schedule(g.num_nodes, dim)
+        return plan
 
     fwd = one(False)
     return PlannedGraph(graph=g, fwd_plan=fwd,
@@ -128,10 +133,14 @@ def plan_graph(g: Graph, *, kind: str = "auto",
 
 def graph_plans(g) -> tuple[CSRPlan | StreamPlan, CSRPlan | StreamPlan]:
     """(forward, backward) plans: a PlannedGraph's own; for a plain Graph,
-    `csr_spmm` over its CSR and its transpose."""
+    windowed plans over its CSR and its transpose, made at the first call
+    and kept in `g.plans`, so that their schedules are built once."""
     if isinstance(g, PlannedGraph):
         return g.fwd_plan, g.bwd_plan
-    return CSRPlan(g.indptr, g.indices), CSRPlan(g.t_indptr, g.t_indices)
+    if g.plans is None:
+        # Graph is frozen; `plans` is its one slot set after construction
+        object.__setattr__(g, "plans", plan_graph(g, kind="windowed"))
+    return g.plans.fwd_plan, g.plans.bwd_plan
 
 
 def plan_spmm(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
@@ -148,7 +157,7 @@ def plan_spmm(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
             return stream_cbsr_spmm(plan, vals, pack_channels(ch, dim), dim,
                                     pre, post)
         return stream_spmm(plan, x, pre, post)
-    return csr_spmm(plan.indptr, plan.indices, x, pre, post)
+    return csr_spmm(plan, x, pre, post)
 
 
 class Aggregate(torch.autograd.Function):
@@ -173,7 +182,7 @@ class Aggregate(torch.autograd.Function):
 def planned_aggregate(g, x: torch.Tensor, norm: str = "sum",
                       k: int | None = None) -> torch.Tensor:
     """y = A_w x through the kernel pair of `g`'s plans (a PlannedGraph's, or
-    `csr_spmm` for a plain Graph). `k` (optional) states that x is MaxK
+    windowed plans for a plain Graph). `k` (optional) states that x is MaxK
     top-k sparse per row (see `plan_spmm`)."""
     src_f, dst_f = node_factors(g, norm)
     fwd, bwd = graph_plans(g)

@@ -273,11 +273,11 @@ def build_model(model: str, *, in_dim: int, hidden_dim: int, num_layers: int,
         raise ValueError(f"unknown model {model!r}; expected one of "
                          f"{sorted(MODELS)}")
     if remat:
-        raise NotImplementedError("--remat is not ported yet (ROADMAP, "
-                                  "slice 4)")
+        raise NotImplementedError("--remat is not ported yet (ROADMAP "
+                                  "Queue A9)")
     if dtype not in (None, "float32"):
         raise NotImplementedError(f"dtype {dtype!r} is not ported yet "
-                                  f"(ROADMAP, slice 4); f32 only")
+                                  f"(ROADMAP Queue A9); f32 only")
     return MODELS[model](in_dim, hidden_dim=hidden_dim, num_layers=num_layers,
                          out_dim=out_dim, maxk=maxk, feat_drop=feat_drop,
                          use_norm=use_norm, nonlinear=nonlinear, impl=impl)

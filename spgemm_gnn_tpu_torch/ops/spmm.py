@@ -6,9 +6,11 @@ backward, so the differentiated oracle would hold every gathered message
 index, here an expanded view of the edge rows.
 
 `csr_spmm_plain` is the plain version of the `csr_spmm` CUDA kernel
-(kernels/spmm.py): the CPU path, and the reference the kernel is held to on
-the card. `spmm` is the differentiable oracle the tests compare the autograd
-pair with; its gradient comes from autograd, not from the transpose CSR.
+(kernels/spmm.py) and the reference the kernel is held to on the card;
+`csr_blocked_plain` takes it block by block over the kernel's schedule (one
+block is the whole CSR), and is the wrapper's CPU path. `spmm` is the
+differentiable oracle the tests compare the autograd pair with; its gradient
+comes from autograd, not from the transpose CSR.
 """
 from __future__ import annotations
 
@@ -48,6 +50,22 @@ def csr_spmm_plain(indptr: torch.Tensor, indices: torch.Tensor,
         indptr.diff(), output_size=indices.numel())
     return _scale(_gather_add(indices, rows, _scale(x, pre), n_out),
                   post)
+
+
+def csr_blocked_plain(block_indptr: torch.Tensor, indices: torch.Tensor,
+                      x: torch.Tensor, pre: torch.Tensor | None = None,
+                      post: torch.Tensor | None = None) -> torch.Tensor:
+    """`csr_spmm_plain` block by block over a CSR re-bucketed by source
+    block (graphs/tiles.py::CSRSchedule: block b's edges of row r are
+    indices[block_indptr[b, r]:block_indptr[b, r + 1]]), the blocks' sums
+    added in block order, then the post factor: the order of the `csr_spmm`
+    kernel's passes. One block is `csr_spmm_plain` itself."""
+    y = None
+    for bptr in block_indptr:
+        lo, hi = int(bptr[0]), int(bptr[-1])
+        part = csr_spmm_plain(bptr - lo, indices[lo:hi], x, pre)
+        y = part if y is None else y + part
+    return _scale(y, post)
 
 
 def spmm(g, x: torch.Tensor, norm: str = "sum") -> torch.Tensor:

@@ -73,10 +73,9 @@ class TrainConfig:
 
 # (flag, test of a value this slice cannot run, ROADMAP item)
 _NOT_YET = (
-    ("dtype", lambda v: v != "float32", "slice 4, Queue A9 (--dtype "
-     "bfloat16)"),
-    ("remat", bool, "slice 4, Queue A9 (--remat)"),
-    ("stream", lambda v: v != "f32", "slice 4, Queue B2 (bf16x2 stream)"),
+    ("dtype", lambda v: v != "float32", "Queue A9 (--dtype bfloat16)"),
+    ("remat", bool, "Queue A9 (--remat)"),
+    ("stream", lambda v: v != "f32", "Queue B2 (bf16x2 stream)"),
     ("mesh_shape", lambda v: v > 1, "Queue A13 (multi-GPU)"),
     ("multihost", bool, "Queue A13 (multi-GPU)"),
     ("coordinator", bool, "Queue A13 (multi-GPU)"),

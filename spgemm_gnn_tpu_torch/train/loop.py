@@ -60,7 +60,8 @@ class Trainer:
         # the kernels' impls plan the graph, so that each graph takes the
         # reference's kernel (csr_spmm, or stream_spmm at low degree); the
         # plain ops read the raw graph
-        self.g = g if config.impl == "torch" else plan_graph(g)
+        self.g = (g if config.impl == "torch"
+                  else plan_graph(g, dim=config.hidden_dim))
         self.features = torch.from_numpy(
             np.asarray(dataset.features, np.float32)).to(dev)
         self.labels = torch.from_numpy(np.asarray(dataset.labels)).to(dev)

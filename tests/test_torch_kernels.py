@@ -17,6 +17,8 @@ import pytest
 import torch
 
 from spgemm_gnn_tpu_torch.graphs import synthetic as tsyn
+from spgemm_gnn_tpu_torch.graphs.csr import from_edges
+from spgemm_gnn_tpu_torch.graphs.tiles import SEGMENT, CSRPlan
 from spgemm_gnn_tpu_torch.kernels import _build
 from spgemm_gnn_tpu_torch.kernels import api as tapi
 from spgemm_gnn_tpu_torch.kernels import maxk as tmaxk
@@ -217,30 +219,61 @@ def test_maxk_kernels_bitwise_plain_on_gpu(cuda, dim, k):
                                   bits(tmaxk_plain.maxk_backward(x, meta, g)))
 
 
+def hub_graph(n: int, n_edges: int, hub_edges: int, seed: int,
+              symmetric: bool):
+    """Random edges among the first n - 20 nodes (the last 20 have none),
+    plus `hub_edges` in-edges of node 3 from random sources."""
+    rng = np.random.default_rng(seed)
+    src = np.concatenate([rng.integers(0, n - 20, n_edges),
+                          rng.integers(0, n - 20, hub_edges)])
+    dst = np.concatenate([rng.integers(0, n - 20, n_edges),
+                          np.full(hub_edges, 3)])
+    src, dst = src[src != dst], dst[src != dst]
+    if symmetric:   # repeats kept, so the hub keeps its 3000 edges
+        return from_edges(np.concatenate([src, dst]),
+                          np.concatenate([dst, src]), n, symmetric=True)
+    return from_edges(src, dst, n, symmetric=False)
+
+
+# (source blocks, segment): the rule's, and forced ones that split the hub
+# row (3000 edges) into pieces of 64 in one, two and five blocks
+SCHEDULES = {"auto": (None, SEGMENT), "nb1_s64": (1, 64), "nb2_s64": (2, 64),
+             "nb5_s64": (5, 64)}
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("schedule", sorted(SCHEDULES))
 @pytest.mark.parametrize("dim", [4, 36, 256, 1024])
 @pytest.mark.parametrize("norm", ["sum", "mean", "gcn"])
 @pytest.mark.parametrize("symmetric", [True, False])
-def test_csr_spmm_matches_plain_on_gpu(cuda, dim, norm, symmetric):
+def test_csr_spmm_matches_plain_on_gpu(cuda, dim, norm, symmetric, schedule):
     from spgemm_gnn_tpu_torch.ops.norms import node_factors
-    g = tsyn.random_graph(700, 9000, seed=dim, symmetric=symmetric).to(cuda)
+    nb, segment = SCHEDULES[schedule]
+    g = hub_graph(700, 9000, 3000, seed=dim, symmetric=symmetric).to(cuda)
     rng = np.random.default_rng(dim)
     x = torch.tensor(rng.standard_normal((700, dim)).astype(np.float32),
                      device=cuda, requires_grad=True)
     pre, post = node_factors(g, norm)
-    y = tspmm.csr_spmm(g.indptr, g.indices, x.detach(), pre, post)
-    y_p = tspmm_plain.csr_spmm_plain(g.indptr, g.indices, x.detach(), pre,
-                                     post)
+    plan = CSRPlan(g.indptr, g.indices, nb, segment)
+    y = tspmm.csr_spmm(plan, x.detach(), pre, post)
+    again = tspmm.csr_spmm(plan, x.detach(), pre, post)
+    # the sum's order is fixed: two runs give the same bits
+    np.testing.assert_array_equal(bits(again), bits(y))
+    y_p = tspmm_plain.csr_spmm_plain(g.indptr, g.indices, x.detach().double(),
+                                     pre, post)
+    bwd = plan if symmetric else CSRPlan(g.t_indptr, g.t_indices, nb,
+                                         segment)
+    pg = tplanned.PlannedGraph(graph=g, fwd_plan=plan, bwd_plan=bwd)
     before = _build.launches["csr_spmm"]
-    out = tplanned.planned_aggregate(g, x, norm)
+    out = tplanned.planned_aggregate(pg, x, norm)
     (out * out).sum().backward()
     assert _build.launches["csr_spmm"] == before + 2
     x_ref = x.detach().clone().requires_grad_(True)
     ref = tspmm_plain.spmm(g, x_ref, norm)
     (ref * ref).sum().backward()
-    # the kernel sums in CSR order, the plain version with atomics: within
-    # 1e-5 of the output's largest magnitude (elementwise relative error is
-    # unbounded where a sum cancels)
+    # the kernel sums in a fixed order, the plain version with atomics (or
+    # in float64): within 1e-5 of the output's largest magnitude
+    # (elementwise relative error is unbounded where a sum cancels)
     for got, want in ((y, y_p), (out, ref), (x.grad, x_ref.grad)):
         err = float((got - want).detach().abs().max())
         assert err <= 1e-5 * float(want.detach().abs().max()), err
@@ -250,9 +283,10 @@ def test_csr_spmm_matches_plain_on_gpu(cuda, dim, norm, symmetric):
 def test_kernel_wrappers_raise_on_bad_input(cuda):
     g = tsyn.random_graph(50, 200, seed=1).to(cuda)
     with pytest.raises(ValueError, match="dim % 4"):
-        tspmm.csr_spmm(g.indptr, g.indices, torch.zeros((50, 6), device=cuda))
+        tspmm.csr_spmm(CSRPlan(g.indptr, g.indices),
+                       torch.zeros((50, 6), device=cuda))
     with pytest.raises(ValueError, match="dtype"):
-        tspmm.csr_spmm(g.indptr, g.indices,
+        tspmm.csr_spmm(CSRPlan(g.indptr, g.indices),
                        torch.zeros((50, 8), device=cuda, dtype=torch.float64))
     with pytest.raises(ValueError, match="contiguous"):
         tmaxk.maxk_fwd(torch.zeros((16, 50), device=cuda).t(), 4)

@@ -79,12 +79,13 @@ def test_init_follows_jax_scheme():
 
 
 def test_unported_models_raise():
-    """Every family is ported; the 16-bit model and --remat wait for slice
-    4, and an unknown model is a ValueError, as in the JAX package."""
+    """Every family is ported; the 16-bit model and --remat wait (ROADMAP
+    Queue A9), and an unknown model is a ValueError, as in the JAX
+    package."""
     kw = dict(in_dim=4, hidden_dim=8, num_layers=1, out_dim=2)
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="Queue A9"):
         tbuild("gcn", dtype="bfloat16", **kw)
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="Queue A9"):
         tbuild("sage", remat=True, **kw)
     with pytest.raises(ValueError, match="unknown model"):
         tbuild("gat", **kw)
