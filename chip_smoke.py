@@ -40,11 +40,15 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      pick the "stream" kind (stream_spmm);
   8. kernels on products: stream_spmm on A and Aᵀ, and csr_spmm on A, checked
      as in phase 4 (the rule must give csr_spmm one source block here); then
-     stream_cbsr_spmm (the CBSR edge-gather forward) on A at dim 256, k 32,
-     under the mean and the gcn factors: within 1e-5 of its plain version in
-     float64, equal by value to stream_spmm on the same masked input,
-     bitwise equal across two runs, and timed beside stream_spmm, its plain
-     version, torch.sparse.mm on the dense input, and cbsr_compact with it;
+     stream_cbsr_spmm (the CBSR edge-gather forward, on one record per node)
+     on A at dim 256, k 32, under the mean and the gcn factors: within 1e-5
+     of the plain version in float64, equal by value to stream_spmm on the
+     same masked input, bitwise equal across two runs, and timed beside
+     stream_spmm, its plain version, torch.sparse.mm on the dense input, and
+     cbsr_compact + cbsr_records with it. Each stream kernel (and stream_spmm
+     on Reddit in phase 4) also runs with no hot set (budget 0): bitwise
+     equal to the default run, and timed, so that the hot set's share of
+     the time is on record;
   9. CBSR: cbsr_compact, cbsr_densify and cbsr_sample at the products shapes
      (dim 256, k 32), bitwise against their plain versions and timed; then
      `aggregate_cbsr` forward and backward through the kernels, with its
@@ -159,7 +163,7 @@ def product_check(torch, kernel: str, g, inp, pre_f, post_f,
     from spgemm_gnn_tpu_torch.graphs.stream_tiles import build_stream_plan
     from spgemm_gnn_tpu_torch.graphs.tiles import CSRPlan
     from spgemm_gnn_tpu_torch.kernels.spmm import csr_spmm
-    from spgemm_gnn_tpu_torch.kernels.stream import stream_spmm
+    from spgemm_gnn_tpu_torch.kernels.stream import stream_spmm, stream_spmm_at
     from spgemm_gnn_tpu_torch.ops.spmm import csr_spmm_plain
     from spgemm_gnn_tpu_torch.ops.stream import stream_spmm_plain
 
@@ -207,6 +211,15 @@ def product_check(torch, kernel: str, g, inp, pre_f, post_f,
     if not bits_equal(torch, got, again):
         raise AssertionError(f"{kernel}: two runs differ")
     extra = {}
+    if kernel == "stream_spmm":
+        # the same product with no hot set: the same bits, and its time
+        def run_hot0():
+            return stream_spmm_at(plan, inp, pre_f, post_f, hot_budget=0)
+        if not bits_equal(torch, got, run_hot0()):
+            raise AssertionError("stream_spmm: hot budget 0 differs from the "
+                                 "default")
+        extra = hot_keys(plan.hot_set(4 * dim))
+        extra["hot0_ms"] = time_ms(torch, run_hot0, 5)
     if kernel == "csr_spmm":
         # the same product with one source block (the row split alone)
         one = CSRPlan(indptr, indices, src_blocks=1)
@@ -249,6 +262,22 @@ def product_check(torch, kernel: str, g, inp, pre_f, post_f,
                 gather_ms=e * dim * 4 / PEAK_BYTES_S * 1e3, **extra)
 
 
+HOT_KEYS = ("hot_rows", "hot_edge_share", "hot_budget_bytes", "hot0_ms")
+
+
+def hot_keys(hot) -> dict:
+    """A stream kernel's hot set, for its log line and kernels-line entry."""
+    return dict(hot_rows=hot.rows, hot_edge_share=hot.edge_share,
+                hot_budget_bytes=hot.budget)
+
+
+def log_hot(what: str, r: dict) -> None:
+    log(f"  hot set ({what}): {r['hot_rows']} rows, "
+        f"{r['hot_edge_share']:.2%} of the edges, budget "
+        f"{r['hot_budget_bytes'] / 2**20:.0f} MiB; with no hot set "
+        f"{r['hot0_ms']:.3f} ms (bitwise equal), with it {r['ms']:.3f} ms")
+
+
 def log_product(kernel: str, what: str, r: dict) -> None:
     log(f"kernel {kernel} ({what}): max abs err {r['err']:.3e}, "
         f"{r['rel']:.3e} of max |y| (cuSPARSE {r['library_rel']:.3e}); "
@@ -258,6 +287,8 @@ def log_product(kernel: str, what: str, r: dict) -> None:
         f"{r['gather_ms']:.3f}); the {HUB_ROWS} rows of highest degree "
         f"({r['hub_edge_share']:.1%} of the edges) alone {r['hub_ms']:.3f} ms "
         f"({r['hub_ms'] / r['ms']:.1%})")
+    if "hot0_ms" in r:
+        log_hot(what, r)
     if "nb" in r:
         log(f"  schedule ({what}): {r['nb']} source blocks of "
             f"{r['block_rows']} rows, segments of at most {r['segment']} "
@@ -327,7 +358,8 @@ def product_entry(name: str, a: dict, t: dict | None = None, **other) -> dict:
     names = {"err": "max_abs_err", "hub_ms": "hub_rows_ms",
              "gather_ms": "no_reuse_gather_ms"}
     keys = ("err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "hub_ms", "gather_ms", "nb", "segments", "split_runs", "nb1_ms")
+            "hub_ms", "gather_ms", "nb", "segments", "split_runs", "nb1_ms",
+            *HOT_KEYS)
     entry = dict(name=name, route="cuda", source=source,
                  replaces=replaces[name])
     for prefix, r in (("", a), ("transpose_", t), *other.items()):
@@ -451,29 +483,34 @@ def model_check(torch, seed: int, kind: str) -> None:
 
 def stream_cbsr_check(torch, g, dim: int, k: int, seed: int) -> dict:
     """stream_cbsr_spmm on A of the graph at (dim, k), under the mean (post
-    only) and gcn (pre and post) factors: within 1e-5 of max |y| of its
-    plain version in float64, equal by value to stream_spmm on the same
-    masked input, bitwise equal across two runs. Timed beside stream_spmm
-    on that input, the plain version, torch.sparse.mm on the dense input,
-    and cbsr_compact + pack_channels + stream_cbsr_spmm (the forward of the
-    flag-on path). Returns the kernels-line entry (mean factors; gcn under
-    prefixed keys)."""
+    only) and gcn (pre and post) factors: within 1e-5 of max |y| of the
+    plain version in float64 (on the same masked input, which the records
+    hold), equal by value to stream_spmm on that input, bitwise equal across
+    two runs and to a run with no hot set. Timed beside stream_spmm on that
+    input, the plain version, torch.sparse.mm on the dense input, the run
+    with no hot set, and cbsr_compact + cbsr_records + stream_cbsr_spmm (the
+    forward of the flag-on path). Returns the kernels-line entry (mean
+    factors; gcn under prefixed keys)."""
     from spgemm_gnn_tpu_torch.graphs.stream_tiles import build_stream_plan
     from spgemm_gnn_tpu_torch.kernels.cbsr import cbsr_compact
     from spgemm_gnn_tpu_torch.kernels.stream import (stream_cbsr_spmm,
+                                                     stream_cbsr_spmm_at,
                                                      stream_spmm)
-    from spgemm_gnn_tpu_torch.ops.maxk import (pack_channels,
+    from spgemm_gnn_tpu_torch.ops.maxk import (cbsr_records,
                                                packed_channel_words)
     from spgemm_gnn_tpu_torch.ops.norms import node_factors
-    from spgemm_gnn_tpu_torch.ops.stream import stream_cbsr_spmm_plain
+    from spgemm_gnn_tpu_torch.ops.stream import (stream_cbsr_spmm_plain,
+                                                 stream_spmm_plain)
 
     n, e = g.num_nodes, g.num_edges
     plan = build_stream_plan(g.indptr, g.indices)
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
     xs = sparse_input(torch, n, dim, k, gen)
     vals, ch = cbsr_compact(xs, k)
-    pch = pack_channels(ch, dim)
+    rec = cbsr_records(vals, ch, dim)
+    del vals, ch
     kp = packed_channel_words(k, dim)
+    hot = hot_keys(plan.hot_set(4 * (k + kp)))
     gathered = torch.bincount(g.indices, minlength=n).double()
     ops = 2.0 * float(((xs != 0).sum(1).double() * gathered).sum())
     entry = dict(name="stream_cbsr_spmm", route="cuda",
@@ -483,15 +520,19 @@ def stream_cbsr_check(torch, g, dim: int, k: int, seed: int) -> dict:
         pre, post = node_factors(g, norm)
 
         def run():
-            return stream_cbsr_spmm(plan, vals, pch, dim, pre, post)
+            return stream_cbsr_spmm(plan, rec, k, dim, pre, post)
+
+        def run_hot0():
+            return stream_cbsr_spmm_at(plan, rec, k, dim, pre, post,
+                                       hot_budget=0)
 
         def run_with_compact():
             v, c = cbsr_compact(xs, k)
-            return stream_cbsr_spmm(plan, v, pack_channels(c, dim), dim, pre,
-                                    post)
+            return stream_cbsr_spmm(plan, cbsr_records(v, c, dim), k, dim,
+                                    pre, post)
 
         got, again = run(), run()
-        ref = stream_cbsr_spmm_plain(plan, vals.double(), pch, dim, pre, post)
+        ref = stream_spmm_plain(plan, xs.double(), pre, post)
         dense = stream_spmm(plan, xs, pre, post)
         torch.cuda.synchronize()
         err, rel = rel_err(got, ref)
@@ -503,6 +544,9 @@ def stream_cbsr_check(torch, g, dim: int, k: int, seed: int) -> dict:
                                  f"stream_spmm on the same input")
         if not bits_equal(torch, got, again):
             raise AssertionError(f"stream_cbsr_spmm ({norm}): two runs differ")
+        if not bits_equal(torch, got, run_hot0()):
+            raise AssertionError(f"stream_cbsr_spmm ({norm}): hot budget 0 "
+                                 f"differs from the default")
         del ref, again, dense
         w = torch.ones(e, device="cuda")
         if pre is not None:
@@ -518,9 +562,10 @@ def stream_cbsr_check(torch, g, dim: int, k: int, seed: int) -> dict:
                  stream_spmm_ms=time_ms(
                      torch, lambda: stream_spmm(plan, xs, pre, post), 5),
                  plain_ms=time_ms(torch, lambda: stream_cbsr_spmm_plain(
-                     plan, vals, pch, dim, pre, post), 2),
+                     plan, rec, k, dim, pre, post), 2),
                  library_ms=time_ms(torch, lambda: torch.sparse.mm(a, xs), 5),
                  compact_and_ms=time_ms(torch, run_with_compact, 10),
+                 hot0_ms=time_ms(torch, run_hot0, 10), **hot,
                  bound_ms=b_ms, bound_by=b_by, no_reuse_gather_ms=gather_ms)
         del a, w
         log(f"kernel stream_cbsr_spmm (products, A, {norm} factors, dim "
@@ -530,17 +575,18 @@ def stream_cbsr_check(torch, g, dim: int, k: int, seed: int) -> dict:
             f"{r['stream_spmm_ms']:.3f}, plain {r['plain_ms']:.3f}, "
             f"torch.sparse.mm {r['library_ms']:.3f}, bound {b_ms:.3f} by "
             f"{b_by}, no-reuse gather {gather_ms:.3f}; "
-            f"cbsr_compact + pack + stream_cbsr_spmm "
+            f"cbsr_compact + records + stream_cbsr_spmm "
             f"{r['compact_and_ms']:.3f})")
+        log_hot(f"stream_cbsr_spmm, {norm} factors", r)
         if norm == "mean":
             entry.update({key: r[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "stream_spmm_ms", "compact_and_ms",
-                "no_reuse_gather_ms")})
+                "no_reuse_gather_ms", *HOT_KEYS)})
         else:
             entry.update({f"gcn_{key}": r[key] for key in (
                 "max_abs_err", "ms", "bound_ms", "stream_spmm_ms",
-                "library_ms")})
+                "library_ms", "hot0_ms")})
     return entry
 
 

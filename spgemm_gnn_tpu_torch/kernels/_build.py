@@ -37,10 +37,8 @@ SIGNATURES = {
              "maxk_bwd": [_P, _P, _P, _P, _I64, _INT, _P]},
     "spmm": {"csr_spmm": [_P, _P, _P, _P, _INT, _P, _P, _P, _P, _P, _P, _INT,
                           _P]},
-    "stream": {"stream_spmm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
-                               _I64, _INT, _INT, _P],
-               "stream_cbsr_spmm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I64, _I64, _I64, _INT, _INT, _INT, _INT,
+    "stream": {"stream_spmm": [*[_P] * 10, *[_I64] * 4, *[_INT] * 4, _P],
+               "stream_cbsr_spmm": [*[_P] * 10, *[_I64] * 4, *[_INT] * 7,
                                     _P]},
     "cbsr": {"cbsr_compact": [_P, _P, _P, _I64, _INT, _INT, _P],
              "cbsr_densify": [_P, _P, _P, _I64, _INT, _INT, _P],

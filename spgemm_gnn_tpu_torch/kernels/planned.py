@@ -37,7 +37,7 @@ from spgemm_gnn_tpu_torch.kernels.cbsr import (cbsr_compact, cbsr_densify,
                                                cbsr_sample)
 from spgemm_gnn_tpu_torch.kernels.spmm import csr_spmm
 from spgemm_gnn_tpu_torch.kernels.stream import stream_cbsr_spmm, stream_spmm
-from spgemm_gnn_tpu_torch.ops.maxk import pack_channels
+from spgemm_gnn_tpu_torch.ops.maxk import cbsr_records
 from spgemm_gnn_tpu_torch.ops.norms import node_factors
 from spgemm_gnn_tpu_torch.ops.spmm import _scale
 
@@ -108,9 +108,10 @@ def plan_graph(g: Graph, *, kind: str = "auto", chunk: int = CHUNK,
                dim: int | None = None) -> PlannedGraph:
     """Both plans of a graph, on its device. kind: "auto" (the reference's
     rule, `plan_kind`), "windowed" or "stream"; chunk: edges per chunk of a
-    stream plan. A windowed plan's `csr_spmm` schedule is built here for
-    width `dim` when it is given (else at the first product of each width).
-    A symmetric graph's backward plan is its forward plan."""
+    stream plan. A windowed plan's `csr_spmm` schedule, or a stream plan's
+    hot set for rows of `dim` floats, is built here for width `dim` when it
+    is given (else at the first product of each width). A symmetric graph's
+    backward plan is its forward plan."""
     if kind not in KINDS:
         raise ValueError(f"unknown plan kind {kind!r}; expected one of "
                          f"{KINDS}")
@@ -119,7 +120,10 @@ def plan_graph(g: Graph, *, kind: str = "auto", chunk: int = CHUNK,
 
     def one(transpose: bool):
         if kind == "stream":
-            return stream_plan_for_graph(g, transpose=transpose, chunk=chunk)
+            plan = stream_plan_for_graph(g, transpose=transpose, chunk=chunk)
+            if dim is not None:
+                plan.hot_set(4 * dim)
+            return plan
         plan = (CSRPlan(g.t_indptr, g.t_indices) if transpose
                 else CSRPlan(g.indptr, g.indices))
         if dim is not None:
@@ -154,8 +158,8 @@ def plan_spmm(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
         dim = x.shape[1]
         if STREAM_CBSR_FORWARD and k is not None and k < dim:
             vals, ch = cbsr_compact(x, k)
-            return stream_cbsr_spmm(plan, vals, pack_channels(ch, dim), dim,
-                                    pre, post)
+            return stream_cbsr_spmm(plan, cbsr_records(vals, ch, dim), k,
+                                    dim, pre, post)
         return stream_spmm(plan, x, pre, post)
     return csr_spmm(plan, x, pre, post)
 
@@ -196,8 +200,8 @@ def spgemm_forward(dim: int, values: torch.Tensor, channels: torch.Tensor,
     (src_f ⊙ values, channels) go to `stream_cbsr_spmm` with no densify."""
     v = _scale(values, src_f).contiguous()
     if STREAM_CBSR_FORWARD and isinstance(plans[0], StreamPlan):
-        return stream_cbsr_spmm(plans[0], v, pack_channels(channels, dim),
-                                dim, None, dst_f)
+        return stream_cbsr_spmm(plans[0], cbsr_records(v, channels, dim),
+                                values.shape[1], dim, None, dst_f)
     return plan_spmm(plans[0], cbsr_densify(v, channels, dim), None, dst_f)
 
 

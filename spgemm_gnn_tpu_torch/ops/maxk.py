@@ -19,8 +19,9 @@ of the `cbsr_compact`, `cbsr_densify` and `cbsr_sample` kernels
 (kernels/cbsr.py): `cbsr_compact_plain`, `cbsr_to_dense` and
 `sample_channels`. The differentiable compaction that chooses between the
 kernel and its plain version is `kernels/api.py::cbsr_compact`.
-`pack_channels` / `unpack_channels` pack the channel ids into int32 words for
-the `stream_cbsr_spmm` kernel.
+`pack_channels` / `unpack_channels` pack the channel ids into int32 words, and
+`cbsr_records` / `split_records` put a node's values and packed ids in one
+record, the layout the `stream_cbsr_spmm` kernel gathers.
 """
 from __future__ import annotations
 
@@ -187,3 +188,21 @@ def unpack_channels(packed: torch.Tensor, k: int, dim: int = 256
     shifts = torch.arange(per, device=p.device) * bits
     parts = (p[..., None] >> shifts) & ((1 << bits) - 1)
     return parts.reshape(packed.shape[0], -1)[:, :k].to(torch.int32)
+
+
+def cbsr_records(values: torch.Tensor, channels: torch.Tensor,
+                 dim: int) -> torch.Tensor:
+    """One record per node, what `stream_cbsr_spmm` gathers per edge: int32
+    [N, k + packed_channel_words(k, dim)], the f32 values' bits, then the
+    packed channel ids (`pack_channels`). At k 32 and dim 256 a record is
+    160 B, so an edge reads one contiguous run of five 32-B sectors."""
+    bits = values.to(torch.float32).contiguous().view(torch.int32)
+    return torch.cat([bits, pack_channels(channels, dim)], dim=1)
+
+
+def split_records(records: torch.Tensor, k: int, dim: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of `cbsr_records`: (values f32 [N, k], channels int32
+    [N, k])."""
+    values = records[:, :k].contiguous().view(torch.float32)
+    return values, unpack_channels(records[:, k:], k, dim)

@@ -6,25 +6,26 @@ chunk → row mapping shows on the CPU and not first on the card:
   1. the row of each edge is found from its chunk's `chunk_row0`;
   2. every (chunk, row) segment gets its partial sum (`scatter_add_`, in edge
      chunks bounded in bytes, as ops/spmm.py);
-  3. a row that starts and ends inside one chunk is written from its one
-     segment; a row's first segment, where the row goes on into later
-     chunks, is written unscaled; a chunk's first segment, where its row
-     began in an earlier chunk, goes to the chunk's carry slot;
+  3. a row's segments in the span of `warp_chunks` chunks where it starts
+     are added in chunk order (a warp's walk); a row that ends in that span
+     is written whole, times post, one that goes on past it unscaled; a
+     segment of a later span goes to its chunk's carry slot;
   4. the carry pass walks `carry_rows`: a row with no edges comes out 0, a
-     row across chunks adds the carry slots of its later chunks in chunk
-     order, then takes its post factor.
+     row across spans adds the carry slots of its chunks past its first
+     span in chunk order, then takes its post factor.
 Rows that no step writes stay NaN, so a plan that misses a row fails the
 comparison instead of passing on a zero.
 
 `stream_cbsr_spmm_plain` is the plain version of the `stream_cbsr_spmm`
 kernel (counterpart of `stream_pallas.py::stream_spmm_cbsr`): the same
-product with the input given as CBSR values and packed channel ids.
+product with the input given as one CBSR record per node (values and packed
+channel ids, `ops/maxk.py::cbsr_records`).
 """
 from __future__ import annotations
 
 import torch
 
-from spgemm_gnn_tpu_torch.ops.maxk import cbsr_to_dense, unpack_channels
+from spgemm_gnn_tpu_torch.ops.maxk import cbsr_to_dense, split_records
 from spgemm_gnn_tpu_torch.ops.spmm import _gather_add, _scale
 
 
@@ -52,38 +53,42 @@ def stream_spmm_plain(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
     seg = new_seg.cumsum(0) - 1
     partial = _gather_add(plan.indices, seg, _scale(x, pre), first.numel())
 
-    # 3. direct writes, and the carry slots
-    lo = seg_chunk * c
-    head = ip[seg_row] < lo
-    cont = ~head & (ip[seg_row + 1] > torch.clamp(lo + c, max=n_edges))
-    done = ~head & ~cont
-    rows = seg_row[done]
-    y[rows] = _scale(partial[done], None if post is None else post[rows])
-    y[seg_row[cont]] = partial[cont]
+    # 3. the segments of a row's first span, added in chunk order; the
+    # others to their chunks' carry slots
+    wc = plan.warp_chunks
+    in_first = seg_chunk // wc == ip[seg_row] // c // wc
+    has = ip[:-1] < ip[1:]
+    y[has] = 0.0
+    y.index_add_(0, seg_row[in_first], partial[in_first])
     carry = x.new_zeros((plan.num_chunks, x.shape[1]))
-    carry[seg_chunk[head]] = partial[head]
+    carry[seg_chunk[~in_first]] = partial[~in_first]
+    done = has.clone()
+    done[plan.carry_rows.long()] = False
+    y[done] = _scale(y[done], None if post is None else post[done])
 
-    # 4. carry pass: y[r] = post[r] · (y[r] + Σ carry[q], q = first + 1 ..
-    # last chunk of r), in chunk order
+    # 4. carry pass: y[r] = post[r] · (y[r] + Σ carry[q], q = the first
+    # chunk past r's first span .. r's last chunk), in chunk order
     r = plan.carry_rows.long()
     a, b = ip[r], ip[r + 1]
     full = a < b
     acc = torch.where(full[:, None], y[r], 0.0)
-    count = torch.where(full, (b - 1) // c - a // c, 0)
+    q0 = (a // c // wc + 1) * wc
+    count = torch.where(full, torch.clamp((b - 1) // c - q0 + 1, min=0), 0)
     pos = torch.repeat_interleave(torch.arange(r.numel(), device=dev), count)
     step = (torch.arange(pos.numel(), device=dev)
             - torch.repeat_interleave(count.cumsum(0) - count, count))
-    acc.index_add_(0, pos, carry[(a // c)[pos] + 1 + step])
+    acc.index_add_(0, pos, carry[q0[pos] + step])
     y[r] = _scale(acc, None if post is None else post[r])
     return y
 
 
-def stream_cbsr_spmm_plain(plan, values: torch.Tensor, pchannels: torch.Tensor,
-                           dim: int, pre: torch.Tensor | None = None,
+def stream_cbsr_spmm_plain(plan, records: torch.Tensor, k: int, dim: int,
+                           pre: torch.Tensor | None = None,
                            post: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of the `stream_cbsr_spmm` kernel (kernels/stream.py):
-    y = post ⊙ A (pre ⊙ cbsr(values, channels)) with the channels unpacked
-    from `pchannels` (ops/maxk.py::pack_channels at this `dim`), densified,
-    and summed over the plan as `stream_spmm_plain` does."""
-    ch = unpack_channels(pchannels, values.shape[1], dim)
+    y = post ⊙ A (pre ⊙ cbsr(values, channels)) with (values, channels)
+    split from the records (ops/maxk.py::cbsr_records at this `k` and
+    `dim`), densified, and summed over the plan as `stream_spmm_plain`
+    does."""
+    values, ch = split_records(records, k, dim)
     return stream_spmm_plain(plan, cbsr_to_dense(values, ch, dim), pre, post)

@@ -22,7 +22,7 @@ from spgemm_gnn_tpu_torch.graphs.stream_tiles import (StreamPlan,
 from spgemm_gnn_tpu_torch.kernels import _build
 from spgemm_gnn_tpu_torch.kernels import api as tapi
 from spgemm_gnn_tpu_torch.kernels import planned as tplanned
-from spgemm_gnn_tpu_torch.kernels.stream import stream_spmm
+from spgemm_gnn_tpu_torch.kernels.stream import stream_spmm, stream_spmm_at
 from spgemm_gnn_tpu_torch.ops import spmm as tspmm_plain
 from spgemm_gnn_tpu_torch.ops.stream import stream_spmm_plain
 
@@ -113,65 +113,74 @@ def test_plan_graph_kinds_and_aliasing():
 # ---------------------------------------------------------------------------
 
 def walk_plan(plan: StreamPlan):
-    """The kernel's walk, in Python: per row the edges its segments cover,
-    the chunk that writes it (and whether whole), and each chunk's carry
-    row."""
+    """The kernel's walk, in Python: a warp per span of `warp_chunks`
+    chunks. Per row the edges its segments cover and the spans whose warp
+    writes it (and whether whole), and each chunk's carry row."""
     ip = plan.indptr.numpy().astype(np.int64)
-    n_edges, c = plan.num_edges, plan.chunk
+    n_edges, c, wc = plan.num_edges, plan.chunk, plan.warp_chunks
     covered = np.zeros(plan.num_rows, np.int64)
     writes: dict[int, list[tuple[int, bool]]] = {}
     carry_of: dict[int, int] = {}
-    for q, r in enumerate(plan.chunk_row0.numpy().astype(np.int64)):
-        lo, hi = q * c, min(q * c + c, n_edges)
-        e = lo
-        while e < hi:
-            rs, re = ip[r], ip[r + 1]
-            if rs == re:
-                r += 1
-                continue
-            assert rs <= e < re          # the walk stands inside row r
-            end = min(re, hi)
-            covered[r] += end - e
-            if rs < lo:
-                assert e == lo and q not in carry_of
-                carry_of[q] = r
-            else:
-                writes.setdefault(r, []).append((q, re <= hi))
-            e, r = end, r + 1
+    row0 = plan.chunk_row0.numpy().astype(np.int64)
+    for s0 in range(0, plan.num_chunks, wc):
+        span_lo = s0 * c
+        span_hi = min(min(s0 + wc, plan.num_chunks) * c, n_edges)
+        for q in range(s0, min(s0 + wc, plan.num_chunks)):
+            lo, hi, r, e = q * c, min(q * c + c, n_edges), row0[q], q * c
+            while e < hi:
+                rs, re = ip[r], ip[r + 1]
+                if rs == re:
+                    r += 1
+                    continue
+                assert rs <= e < re          # the walk stands inside row r
+                end = min(re, hi)
+                covered[r] += end - e
+                if rs < span_lo:             # began before the span
+                    assert e == lo and q not in carry_of
+                    carry_of[q] = r
+                elif re <= hi or hi == span_hi:   # the warp writes it here
+                    writes.setdefault(r, []).append((s0, re <= span_hi))
+                e, r = end, r + 1
     return covered, writes, carry_of
 
 
 @pytest.mark.parametrize("chunk", [1, 3, 4, 5, 8, 35, 128])
 def test_stream_plan_conserves_edges_and_covers_rows(chunk):
     """Every edge is summed once; every row is written once by the chunk pass
-    or is a carry row; a carry row is empty or spans chunks, and the carry
-    slots of its later chunks all belong to it. Chunk 4 ends chunks mid-row
-    (edge 4) and at a row end (edge 8), and chunk 3 inside the hub row."""
+    or is a carry row; a carry row is empty or reaches past the span of
+    warp_chunks chunks where it starts, and the carry slots of its chunks
+    past that span all belong to it. Chunk 4 ends chunks mid-row (edge 4)
+    and at a row end (edge 8), and chunk 3 inside the hub row; spans of 1
+    chunk are the first design's per-chunk rule."""
     g = degree_graph(DEGREES)
-    plan = build_stream_plan(g.indptr, g.indices, chunk=chunk)
     ip = g.indptr.numpy().astype(np.int64)
     n_edges = g.num_edges
-    assert plan.num_chunks == -(-n_edges // chunk)
-    np.testing.assert_array_equal(
-        plan.chunk_row0.numpy(),
-        np.searchsorted(ip, np.arange(0, n_edges, chunk), side="right") - 1)
-    covered, writes, carry_of = walk_plan(plan)
-    np.testing.assert_array_equal(covered, np.diff(ip))
-    carry = set(plan.carry_rows.tolist())
-    assert plan.carry_rows.tolist() == sorted(carry)
-    for r in range(g.num_nodes):
-        a, b = ip[r], ip[r + 1]
-        if a == b:
-            assert r in carry and r not in writes
-            continue
-        (q, whole), = writes[r]              # one direct write per row
-        assert q == a // chunk
-        assert (r in carry) == (not whole) == (a // chunk != (b - 1) // chunk)
-        for q2 in range(a // chunk + 1, (b - 1) // chunk + 1):
-            assert carry_of[q2] == r
-    assert len(carry_of) == sum(
-        (b - 1) // chunk - a // chunk for a, b in zip(ip[:-1], ip[1:])
-        if a < b)
+    for wc in (1, 2, 3, 8):
+        plan = build_stream_plan(g.indptr, g.indices, chunk=chunk,
+                                 warp_chunks=wc)
+        assert plan.num_chunks == -(-n_edges // chunk)
+        np.testing.assert_array_equal(
+            plan.chunk_row0.numpy(),
+            np.searchsorted(ip, np.arange(0, n_edges, chunk), side="right")
+            - 1)
+        covered, writes, carry_of = walk_plan(plan)
+        np.testing.assert_array_equal(covered, np.diff(ip))
+        carry = set(plan.carry_rows.tolist())
+        assert plan.carry_rows.tolist() == sorted(carry)
+        span = chunk * wc
+        for r in range(g.num_nodes):
+            a, b = ip[r], ip[r + 1]
+            if a == b:
+                assert r in carry and r not in writes
+                continue
+            (s0, whole), = writes[r]         # one direct write per row
+            assert s0 == a // span * wc
+            assert (r in carry) == (not whole) == (a // span != (b - 1) // span)
+            for q2 in range((a // span + 1) * wc, (b - 1) // chunk + 1):
+                assert carry_of[q2] == r
+        assert len(carry_of) == sum(
+            max((b - 1) // chunk - (a // span + 1) * wc + 1, 0)
+            for a, b in zip(ip[:-1], ip[1:]) if a < b)
 
 
 def test_stream_plan_without_edges():
@@ -475,8 +484,10 @@ def _bits(t: torch.Tensor) -> np.ndarray:
 @pytest.mark.parametrize("norm", ["sum", "mean", "gcn"])
 def test_stream_spmm_matches_plain_on_gpu(cuda, dim, chunk, norm):
     """Within 1e-5 of the largest |y| of the plain version run in float64,
-    on A and Aᵀ of a directed graph with empty rows and a hub row; bitwise
-    equal across two runs."""
+    on A and Aᵀ of a directed graph with empty rows and a hub row of 3000
+    edges; bitwise equal across two runs, and across hot budgets (none, a
+    few rows, every row), fetch depths and warp spans (1 and 3 chunks)."""
+    from spgemm_gnn_tpu_torch.kernels import stream as tstream
     from spgemm_gnn_tpu_torch.ops.norms import node_factors
     rng = np.random.default_rng(dim + chunk)
     degrees = rng.integers(0, 12, 700)
@@ -496,6 +507,18 @@ def test_stream_spmm_matches_plain_on_gpu(cuda, dim, chunk, norm):
         assert err <= 1e-5 * float(ref.abs().max()), err
         np.testing.assert_array_equal(_bits(y), _bits(again))
         assert (y[indptr.diff() == 0] == 0).all()
+        depths = tstream.DEPTHS[tstream._slices(dim // 4)]
+        for budget, depth in ((0, None), (5 * 4 * dim, None),
+                              (700 * 4 * dim, None),
+                              *((None, d) for d in depths)):
+            other = tstream.stream_spmm_at(plan, x, a, b, hot_budget=budget,
+                                           depth=depth)
+            np.testing.assert_array_equal(_bits(y), _bits(other))
+        for wc in (1, 3):
+            span_plan = build_stream_plan(indptr, indices, chunk=chunk,
+                                          warp_chunks=wc)
+            np.testing.assert_array_equal(
+                _bits(y), _bits(stream_spmm(span_plan, x, a, b)))
 
 
 @pytest.mark.gpu
@@ -529,3 +552,7 @@ def test_stream_wrapper_raises_on_bad_input(cuda):
                     torch.zeros((50, 8), device=cuda))
     with pytest.raises(ValueError, match="contiguous"):
         stream_spmm(plan, torch.zeros((8, 50), device=cuda).t())
+    with pytest.raises(ValueError, match="aligned"):
+        stream_spmm(plan, torch.zeros(50 * 8 + 1, device=cuda)[1:].view(50, 8))
+    with pytest.raises(ValueError, match="depth"):
+        stream_spmm_at(plan, torch.zeros((50, 8), device=cuda), depth=5)

@@ -128,7 +128,7 @@ def test_stream_cbsr_spmm_matches_jax(dim, k, norm):
         want = want * post.numpy()[:, None]
 
     plan = tplanned.plan_graph(tg, kind="stream", chunk=9).fwd_plan
-    got = stream_cbsr_spmm(plan, vals, tmaxk_plain.pack_channels(ch, dim),
+    got = stream_cbsr_spmm(plan, tmaxk_plain.cbsr_records(vals, ch, dim), k,
                            dim, pre, post)
     assert got.shape == (n, dim) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, **scale_tol(want))
@@ -139,17 +139,20 @@ def test_stream_cbsr_spmm_matches_jax(dim, k, norm):
 
 def test_stream_cbsr_spmm_limits():
     """The reference's contract (stream_pallas.py: dim <= 256, uint8 ids),
-    on the CPU too; and 1 <= k < dim."""
+    on the CPU too; 1 <= k < dim; and records of k values and the packed
+    ids."""
     g = tsyn.random_graph(20, 60, seed=1)
     plan = build_stream_plan(g.indptr, g.indices, chunk=8)
     ch = torch.zeros((20, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="dim <= 256"):
-        stream_cbsr_spmm(plan, torch.zeros((20, 4)),
-                         tmaxk_plain.pack_channels(ch, 264), 264)
+        stream_cbsr_spmm(plan, tmaxk_plain.cbsr_records(torch.zeros((20, 4)),
+                                                        ch, 264), 4, 264)
     for k, dim in ((8, 8), (12, 8), (0, 8)):
         with pytest.raises(ValueError, match="1 <= k < dim"):
-            stream_cbsr_spmm(plan, torch.zeros((20, k)),
-                             torch.zeros((20, 2), dtype=torch.int32), dim)
+            stream_cbsr_spmm(plan, torch.zeros((20, k + 2), dtype=torch.int32),
+                             k, dim)
+    with pytest.raises(ValueError, match="expected"):
+        stream_cbsr_spmm(plan, torch.zeros((20, 4), dtype=torch.int32), 4, 64)
 
 
 # ---------------------------------------------------------------------------
@@ -305,9 +308,12 @@ def _bits(t: torch.Tensor) -> np.ndarray:
 @pytest.mark.parametrize("k", [8, 30, 32, 64])
 def test_stream_cbsr_spmm_matches_plain_on_gpu(cuda, k, chunk, factors):
     """dim 256, on A and Aᵀ of a directed graph with empty rows and a hub
-    row: within 1e-5 of the largest |y| of the plain version run in
-    float64, equal by value to stream_spmm on the densified input, bitwise
-    equal across two runs, and 0 on rows without edges."""
+    row of 3000 edges: within 1e-5 of the largest |y| of the plain version
+    run in float64, equal by value to stream_spmm on the densified input,
+    bitwise equal across two runs and across hot budgets (none, a few rows,
+    every row), edges loaded ahead and warp spans (1 and 3 chunks), and 0 on
+    rows without edges."""
+    from spgemm_gnn_tpu_torch.kernels import stream as tstream
     dim = 256
     rng = np.random.default_rng(k + chunk)
     degrees = rng.integers(0, 12, 700)
@@ -316,20 +322,35 @@ def test_stream_cbsr_spmm_matches_plain_on_gpu(cuda, k, chunk, factors):
     g = degree_graph(degrees.tolist(), seed=k).to(cuda)
     x = torch.tensor(sparse_rows(rng, 700, dim, k), device=cuda)
     vals, ch = tmaxk_plain.cbsr_compact_plain(x, k)
-    pch = tmaxk_plain.pack_channels(ch, dim)
+    rec = tmaxk_plain.cbsr_records(vals, ch, dim)
     f = torch.tensor(rng.random(700).astype(np.float32) + 0.5, device=cuda)
     pre = f if factors in ("pre", "both") else None
     post = f.flip(0) if factors in ("post", "both") else None
+    row_bytes = 4 * rec.shape[1]
     for indptr, indices in ((g.indptr, g.indices), (g.t_indptr, g.t_indices)):
         plan = build_stream_plan(indptr, indices, chunk=chunk)
-        y = stream_cbsr_spmm(plan, vals, pch, dim, pre, post)
-        again = stream_cbsr_spmm(plan, vals, pch, dim, pre, post)
+        y = stream_cbsr_spmm(plan, rec, k, dim, pre, post)
+        again = stream_cbsr_spmm(plan, rec, k, dim, pre, post)
         ref = stream_spmm_plain(plan, x.double(), pre, post)
         err = float((y.double() - ref).abs().max())
         assert err <= 1e-5 * float(ref.abs().max()), err
         assert torch.equal(y, stream_spmm(plan, x, pre, post))
         np.testing.assert_array_equal(_bits(y), _bits(again))
         assert (y[indptr.diff() == 0] == 0).all()
+        batches = tstream.BATCHES[1 if k <= 32 else 2]
+        for budget, batch in ((0, None), (5 * row_bytes, None),
+                              (700 * row_bytes, None),
+                              *((None, b) for b in batches)):
+            other = tstream.stream_cbsr_spmm_at(
+                plan, rec, k, dim, pre, post, hot_budget=budget, batch=batch)
+            np.testing.assert_array_equal(_bits(y), _bits(other))
+        for wc in (1, 3):
+            span_plan = build_stream_plan(indptr, indices, chunk=chunk,
+                                          warp_chunks=wc)
+            np.testing.assert_array_equal(_bits(y), _bits(stream_cbsr_spmm(
+                span_plan, rec, k, dim, pre, post)))
+        assert plan.hot_set(row_bytes, 700 * row_bytes).rows == int(
+            (torch.bincount(indices) > 0).sum())
 
 
 @pytest.mark.gpu
@@ -359,19 +380,25 @@ def test_flag_launches_stream_cbsr_spmm_on_gpu(cuda, norm, monkeypatch):
 
 @pytest.mark.gpu
 def test_stream_cbsr_wrapper_raises_on_bad_input(cuda):
+    from spgemm_gnn_tpu_torch.kernels.stream import stream_cbsr_spmm_at
     g = tsyn.random_graph(50, 200, seed=1).to(cuda)
     plan = build_stream_plan(g.indptr, g.indices)
-    vals = torch.zeros((50, 8), device=cuda)
-    pch = torch.zeros((50, 2), dtype=torch.int32, device=cuda)
+    rec = torch.zeros((50, 10), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="dim <= 256"):
-        stream_cbsr_spmm(plan, vals, pch, 264)
+        stream_cbsr_spmm(plan, rec, 8, 264)
     with pytest.raises(ValueError, match="1 <= k < dim"):
-        stream_cbsr_spmm(plan, vals, pch, 8)
+        stream_cbsr_spmm(plan, rec, 8, 8)
     with pytest.raises(ValueError, match="dim % 4"):
-        stream_cbsr_spmm(plan, vals, pch, 18)
+        stream_cbsr_spmm(plan, rec, 8, 18)
     with pytest.raises(ValueError, match="dtype"):
-        stream_cbsr_spmm(plan, vals.double(), pch, 64)
+        stream_cbsr_spmm(plan, rec.float(), 8, 64)
     with pytest.raises(ValueError, match="shape"):
-        stream_cbsr_spmm(plan, vals, pch[:, :1].contiguous(), 64)
+        stream_cbsr_spmm(plan, rec[:, :9].contiguous(), 8, 64)
     with pytest.raises(ValueError, match="is on cpu"):
-        stream_cbsr_spmm(plan, vals, pch.cpu(), 64)
+        stream_cbsr_spmm(build_stream_plan(g.indptr.cpu(), g.indices.cpu()),
+                         rec, 8, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        stream_cbsr_spmm(plan, torch.zeros((10, 50), dtype=torch.int32,
+                                           device=cuda).t(), 8, 64)
+    with pytest.raises(ValueError, match="batch"):
+        stream_cbsr_spmm_at(plan, rec, 8, 64, batch=12)
