@@ -21,13 +21,23 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      split runs, bytes beyond the CSR) and the same product with one source
      block (the row split alone, also within 1e-5), timed; the stream kernel
      on the same graph, checked the same way (it only measures: the rule
-     keeps Reddit on csr_spmm);
+     keeps Reddit on csr_spmm); then the 16-bit stream's form of the
+     product, csr_spmm_bf16, on A and Aᵀ: the messages round_rows(x, pre),
+     within 1e-5 of max |y| of the plain version in float64 on the same bf16
+     rows, bitwise equal across two runs, on fewer source blocks than the
+     f32 rows take, timed beside its f32 form, its plain version, its bound,
+     the no-reuse gather of 2-byte rows and torch.sparse.mm on a bf16 CSR
+     tensor (or "none" and its error where the card's PyTorch refuses it);
   5. train: the Reddit recipe (SAGE, MaxK k=32, hidden 256, 4 layers,
      LayerNorm, dropout 0.5, lr 0.01): its first two train steps through the
      kernels within 1e-4 relative of the plain path's (same weights and
      dropout seed), then `Trainer` for 5 epochs; the losses must be finite
      and fall, and every kernel's launch count must match the model's
-     structure exactly;
+     structure exactly; then the same with `--stream bf16x2`: its first two
+     steps within 1e-4 relative of the same planned path through the plain
+     versions (both round the same messages), 5 epochs with finite losses
+     and exact launch counts (round_rows and csr_spmm_bf16, no f32
+     aggregation launch);
   6. model check: on a small graph (3000 nodes, 2 layers, ReLU, so only the
      aggregation kernel), every model family (SAGE, GCN, GIN, GNNRes and the
      three integrated MaxK models) through the kernels against the same
@@ -48,7 +58,13 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      cbsr_compact + cbsr_records with it. Each stream kernel (and stream_spmm
      on Reddit in phase 4) also runs with no hot set (budget 0): bitwise
      equal to the default run, and timed, so that the hot set's share of
-     the time is on record;
+     the time is on record. The 16-bit forms: stream_spmm_bf16 on A and Aᵀ
+     as csr_spmm_bf16 in phase 4 (also with no hot set, bitwise equal);
+     round_rows at [N, 256] with a node factor, bitwise equal to its plain
+     version and timed; stream_cbsr_spmm_bf16 on 96-B records (the values
+     rounded after the pre factor) under the mean and gcn factors, within
+     1e-5 of float64, equal by value to stream_spmm_bf16 on the same masked
+     input, bitwise equal across runs and with no hot set, timed;
   9. CBSR: cbsr_compact, cbsr_densify and cbsr_sample at the products shapes
      (dim 256, k 32), bitwise against their plain versions and timed; then
      `aggregate_cbsr` forward and backward through the kernels, with its
@@ -59,12 +75,21 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      kernels within 1e-4 relative of the plain path's (same weights and
      dropout seed), then 5 epochs with finite losses and exact launch counts;
      then 5 epochs more with STREAM_CBSR_FORWARD set, their losses within
-     1e-6 relative of the flag-off run's;
+     1e-6 relative of the flag-off run's; then both runs again with
+     `--stream bf16x2` (first steps against the plain versions with the
+     same stream, exact launch counts of round_rows and the bf16 kernels,
+     flag-on losses within 1e-6 relative of flag-off);
  11. train 3: the products recipe with GCN and self-loops (`--model gcn
      --selfloop`) and STREAM_CBSR_FORWARD set: its first two train steps
      within 1e-4 relative of the plain path's, then 5 epochs with finite
      losses and exact launch counts (stream_cbsr_spmm forward, stream_spmm
-     backward).
+     backward);
+ 12. accuracy: the reference's 80-epoch trajectory gate (TRAJ_r03.json's
+     config: the Reddit stand-in at scale 0.02, SAGE MaxK k=32, 3 x 256,
+     LayerNorm, dropout 0, seed 97) through the port's Trainer with the f32
+     and the bf16x2 stream: each best test accuracy within 0.03 of the JAX
+     oracle's from the same initial weights (0.8873,
+     scripts/port_accuracy_oracle.py), and bf16x2 within 0.03 of f32.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -86,6 +111,14 @@ EPOCHS = 5
 SEED = 97
 HIDDEN, K = 256, 32
 HUB_ROWS = 1024   # 128 blocks of 8 warps: one wave on the H100's 132 SMs
+# the accuracy check: TRAJ_r03.json's config; the best test accuracy the
+# JAX package's CPU oracle reaches from the initial weights the port's
+# Trainer draws at seed 97 (scripts/port_accuracy_oracle.py: 0.8873; 0.8573
+# from the JAX package's own draw, 0.849 in TRAJ_r03.json), held within the
+# tolerance TRAJ_r03's cross-seed spread (0.0226) grounds
+ACC_SCALE, ACC_EPOCHS = 0.02, 80
+ACC_ORACLE, ACC_TOL = 0.8873, 0.03
+ACC_TRAJ_R03 = 0.849
 
 
 def log(msg: str) -> None:
@@ -590,6 +623,343 @@ def stream_cbsr_check(torch, g, dim: int, k: int, seed: int) -> dict:
     return entry
 
 
+def library16(torch, indptr, indices, w, n: int, x16):
+    """(ms, error) of `torch.sparse.mm` on a bf16 CSR tensor of the edge
+    weights times the bf16 rows: the library call of the 16-bit products.
+    A call the card's PyTorch refuses gives (None, its error)."""
+    try:
+        a = torch.sparse_csr_tensor(indptr, indices, w.to(torch.bfloat16),
+                                    size=(n, n))
+        torch.sparse.mm(a, x16)
+        torch.cuda.synchronize()
+        return time_ms(torch, lambda: torch.sparse.mm(a, x16), 5), None
+    except (RuntimeError, NotImplementedError) as err:
+        return None, f"{type(err).__name__}: {str(err).splitlines()[0][:160]}"
+
+
+def product16_check(torch, kernel: str, g, inp, pre_f, post_f, f32: dict,
+                    transpose: bool = False) -> dict:
+    """Check and time the bf16 form of an aggregation kernel ("csr_spmm" or
+    "stream_spmm") on the graph's CSR (or its transpose), as the planner
+    runs it under the 16-bit stream: the messages round_rows(inp, pre_f),
+    the kernel with no pre factor. Held within 1e-5 of max |y| of the plain
+    version run in float64 on the same bf16 rows, bitwise equal across two
+    runs (the stream kernel also with no hot set), and timed beside its f32
+    form on the same input (`f32`, product_check's result), the plain
+    version, the bound, the no-reuse gather of 2-byte rows and
+    torch.sparse.mm on a bf16 CSR tensor."""
+    from spgemm_gnn_tpu_torch.graphs.stream_tiles import build_stream_plan
+    from spgemm_gnn_tpu_torch.graphs.tiles import CSRPlan
+    from spgemm_gnn_tpu_torch.kernels.round import round_rows
+    from spgemm_gnn_tpu_torch.kernels.spmm import csr_spmm
+    from spgemm_gnn_tpu_torch.kernels.stream import stream_spmm, stream_spmm_at
+    from spgemm_gnn_tpu_torch.ops.spmm import csr_spmm_plain
+    from spgemm_gnn_tpu_torch.ops.stream import stream_spmm_plain
+
+    indptr = g.t_indptr if transpose else g.indptr
+    indices = g.t_indices if transpose else g.indices
+    rows = g.t_edge_dst if transpose else g.edge_dst
+    n, e, dim = g.num_nodes, g.num_edges, inp.shape[1]
+    x16 = round_rows(inp, pre_f)
+    if kernel == "stream_spmm":
+        plan = build_stream_plan(indptr, indices)
+        plan_bytes = (plan.num_chunks + plan.carry_rows.numel()) * 4
+
+        def run():
+            return stream_spmm(plan, x16, None, post_f)
+
+        def run_plain(x):
+            return stream_spmm_plain(plan, x, None, post_f)
+    else:
+        plan = CSRPlan(indptr, indices)
+        plan_bytes = 0
+
+        def run():
+            return csr_spmm(plan, x16, None, post_f)
+
+        def run_plain(x):
+            return csr_spmm_plain(indptr, indices, x, None, post_f)
+
+    ref = run_plain(x16.double())
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    if not rel <= 1e-5:
+        raise AssertionError(f"{kernel} (bf16) error {rel:.3e} of max |y| > "
+                             f"1e-5")
+    if not bits_equal(torch, got, again):
+        raise AssertionError(f"{kernel} (bf16): two runs differ")
+    del ref, again
+    extra = {}
+    if kernel == "stream_spmm":
+        def run_hot0():
+            return stream_spmm_at(plan, x16, None, post_f, hot_budget=0)
+        if not bits_equal(torch, got, run_hot0()):
+            raise AssertionError("stream_spmm (bf16): hot budget 0 differs "
+                                 "from the default")
+        extra = hot_keys(plan.hot_set(2 * dim))
+        extra["hot0_ms"] = time_ms(torch, run_hot0, 5)
+    else:
+        sched = plan.schedule(n, dim, 2)
+        extra = dict(nb=sched.nb, block_rows=sched.block_rows,
+                     segments=sched.num_segments,
+                     split_runs=sched.num_split_runs)
+    w = torch.ones(e, device=inp.device)
+    if post_f is not None:
+        w = w * post_f[rows.long()]
+    lib_ms, lib_err = library16(torch, indptr, indices, w, n, x16)
+    del w
+    gathered = torch.bincount(indices, minlength=n).double()
+    ops = 2.0 * float(((x16 != 0).sum(1).double() * gathered).sum())
+    n_bytes = (n * dim * 2 + n * dim * 4 + (n + 1) * 4 + e * 4 + plan_bytes
+               + 4 * n * (post_f is not None))
+    b_ms, b_by = bound_ms(n_bytes, ops)
+    return dict(err=err, rel=rel, bound_ms=b_ms, bound_by=b_by,
+                ms=time_ms(torch, run, 5), f32_ms=f32["ms"],
+                plain_ms=time_ms(torch, lambda: run_plain(x16), 2),
+                library_ms=lib_ms, library_error=lib_err,
+                gather_ms=e * dim * 2 / PEAK_BYTES_S * 1e3, **extra)
+
+
+def log_product16(kernel: str, what: str, r: dict) -> None:
+    lib = (f"{r['library_ms']:.3f}" if r["library_ms"] is not None
+           else f"none ({r['library_error']})")
+    log(f"kernel {kernel}_bf16 ({what}): max abs err {r['err']:.3e}, "
+        f"{r['rel']:.3e} of max |y| against float64 on the same bf16 rows; "
+        f"bitwise equal across two runs; {r['ms']:.3f} ms (f32 form "
+        f"{r['f32_ms']:.3f}, plain {r['plain_ms']:.3f}, torch.sparse.mm bf16 "
+        f"{lib}, bound {r['bound_ms']:.3f} by {r['bound_by']}, no-reuse "
+        f"gather of 2-byte rows {r['gather_ms']:.3f})")
+    if "hot0_ms" in r:
+        log_hot(f"{what}, bf16", r)
+    if "nb" in r:
+        log(f"  schedule ({what}, bf16 rows): {r['nb']} source blocks of "
+            f"{r['block_rows']} rows, {r['segments']} segments, "
+            f"{r['split_runs']} split runs")
+
+
+def entry16(name: str, source: str, replaces: str, a: dict,
+            t: dict | None = None) -> dict:
+    """The kernels-line entry of a 16-bit kernel: A (`a`), Aᵀ (`t`) under
+    prefixed keys."""
+    names = {"err": "max_abs_err", "gather_ms": "no_reuse_gather_ms"}
+    keys = ("err", "max_abs_err", "ms", "f32_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_error", "gather_ms",
+            "no_reuse_gather_ms", "nb", *HOT_KEYS)
+    entry = dict(name=name, route="cuda", source=source, replaces=replaces)
+    for prefix, r in (("", a), ("transpose_", t)):
+        if r is not None:
+            entry.update({prefix + names.get(key, key): r[key]
+                          for key in keys if key in r})
+    return entry
+
+
+def round_rows_check(torch, n: int, dim: int, pre, seed: int) -> dict:
+    """round_rows at [n, dim] with a node factor: bitwise equal to its plain
+    version, timed beside it and against its bound (each f32 read once,
+    each bf16 written once)."""
+    from spgemm_gnn_tpu_torch.kernels.round import round_rows
+    from spgemm_gnn_tpu_torch.ops.spmm import round_rows_plain
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n, dim), generator=gen, device="cuda")
+    got, want = round_rows(x, pre), round_rows_plain(x, pre)
+    torch.cuda.synchronize()
+    if not bool(torch.equal(got.view(torch.int16), want.view(torch.int16))):
+        raise AssertionError("round_rows differs from its plain version")
+    err = float((got.float() - want.float()).abs().max())
+    b_ms, b_by = bound_ms(n * dim * 4 + n * dim * 2 + 4 * n, n * dim)
+    r = dict(name="round_rows", route="cuda",
+             source="spgemm_gnn_tpu_torch/csrc/round.cu",
+             replaces="spgemm_gnn_tpu/kernels/spgemm_pallas.py:433 "
+                      "(_pack_bf16x2's rounding and stream_pallas.py:227; "
+                      "XLA glue in the JAX package, no pallas_call)",
+             max_abs_err=err, ms=time_ms(torch, lambda: round_rows(x, pre), 20),
+             plain_ms=time_ms(torch, lambda: round_rows_plain(x, pre), 5),
+             bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"kernel round_rows (N={n}, dim {dim}, with a node factor): bitwise "
+        f"equal to plain; {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, bound "
+        f"{b_ms:.3f} by {b_by})")
+    return r
+
+
+def stream_cbsr16_check(torch, g, dim: int, k: int, seed: int,
+                        f32: dict) -> dict:
+    """stream_cbsr_spmm_bf16 on A of the graph at (dim, k), under the mean
+    and gcn factors, on the 16-bit stream's records (the CBSR values
+    rounded after the pre factor, 96 B at k 32): within 1e-5 of max |y| of
+    the plain version in float64 on the same values, equal by value to
+    stream_spmm_bf16 on the same masked input, bitwise equal across two runs
+    and to a run with no hot set. Timed beside its f32 form (`f32`,
+    stream_cbsr_check's entry), the plain version, the bound, the no-reuse
+    gather of its records and torch.sparse.mm on a bf16 CSR tensor."""
+    from spgemm_gnn_tpu_torch.graphs.stream_tiles import build_stream_plan
+    from spgemm_gnn_tpu_torch.kernels.cbsr import cbsr_compact
+    from spgemm_gnn_tpu_torch.kernels.round import round_rows
+    from spgemm_gnn_tpu_torch.kernels.stream import (stream_cbsr_spmm,
+                                                     stream_cbsr_spmm_at,
+                                                     stream_spmm)
+    from spgemm_gnn_tpu_torch.ops.maxk import cbsr_records, cbsr_to_dense
+    from spgemm_gnn_tpu_torch.ops.norms import node_factors
+    from spgemm_gnn_tpu_torch.ops.stream import (stream_cbsr_spmm_plain,
+                                                 stream_spmm_plain)
+
+    bf16 = torch.bfloat16
+    n, e = g.num_nodes, g.num_edges
+    plan = build_stream_plan(g.indptr, g.indices)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    xs = sparse_input(torch, n, dim, k, gen)
+    vals, ch = cbsr_compact(xs, k)
+    del xs
+    entry = dict(name="stream_cbsr_spmm_bf16", route="cuda",
+                 source="spgemm_gnn_tpu_torch/csrc/stream.cu",
+                 replaces="spgemm_gnn_tpu/kernels/stream_pallas.py:90 "
+                          "(bf16 values, :158-159)")
+    for norm in ("mean", "gcn"):
+        pre, post = node_factors(g, norm)
+        v16 = round_rows(vals, pre)
+        rec = cbsr_records(v16, ch, dim)
+        dense = cbsr_to_dense(v16.float(), ch, dim).to(bf16)
+        del v16
+
+        def run():
+            return stream_cbsr_spmm(plan, rec, k, dim, None, post, bf16)
+
+        got, again = run(), run()
+        ref = stream_spmm_plain(plan, dense.double(), None, post)
+        by_b3 = stream_spmm(plan, dense, None, post)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        if not rel <= 1e-5:
+            raise AssertionError(f"stream_cbsr_spmm_bf16 ({norm}) error "
+                                 f"{rel:.3e} of max |y| > 1e-5")
+        if not torch.equal(got, by_b3):
+            raise AssertionError(f"stream_cbsr_spmm_bf16 ({norm}) differs "
+                                 f"from stream_spmm_bf16 on the same input")
+        if not bits_equal(torch, got, again):
+            raise AssertionError(f"stream_cbsr_spmm_bf16 ({norm}): two runs "
+                                 f"differ")
+
+        def run_hot0():
+            return stream_cbsr_spmm_at(plan, rec, k, dim, None, post,
+                                       hot_budget=0, value_dtype=bf16)
+        if not bits_equal(torch, got, run_hot0()):
+            raise AssertionError(f"stream_cbsr_spmm_bf16 ({norm}): hot budget "
+                                 f"0 differs from the default")
+        del ref, again, by_b3
+        row = rec.shape[1] * 4
+        lib_ms, lib_err = library16(torch, g.indptr, g.indices,
+                                    post[g.edge_dst.long()], n, dense)
+        gathered = torch.bincount(g.indices, minlength=n).double()
+        ops = 2.0 * float(((dense != 0).sum(1).double() * gathered).sum())
+        n_bytes = (n * row + e * 4 + (n + 1) * 4 + n * dim * 4
+                   + (plan.num_chunks + plan.carry_rows.numel()) * 4 + 4 * n)
+        b_ms, b_by = bound_ms(n_bytes, ops)
+        r = dict(max_abs_err=err, rel=rel, ms=time_ms(torch, run, 10),
+                 f32_ms=f32["ms"] if norm == "mean" else f32["gcn_ms"],
+                 plain_ms=time_ms(torch, lambda: stream_cbsr_spmm_plain(
+                     plan, rec, k, dim, None, post, bf16), 2),
+                 library_ms=lib_ms, library_error=lib_err,
+                 hot0_ms=time_ms(torch, run_hot0, 10),
+                 **hot_keys(plan.hot_set(row)), record_bytes=row,
+                 bound_ms=b_ms, bound_by=b_by,
+                 no_reuse_gather_ms=e * (row + 4) / PEAK_BYTES_S * 1e3)
+        del dense, rec
+        lib = (f"{lib_ms:.3f}" if lib_ms is not None else f"none ({lib_err})")
+        log(f"kernel stream_cbsr_spmm_bf16 (products, A, {norm} factors, dim "
+            f"{dim}, k {k}, {row}-B records): max abs err {err:.3e}, "
+            f"{rel:.3e} of max |y|; equal by value to stream_spmm_bf16; "
+            f"bitwise equal across two runs; {r['ms']:.3f} ms (f32 form "
+            f"{r['f32_ms']:.3f}, plain {r['plain_ms']:.3f}, torch.sparse.mm "
+            f"bf16 {lib}, bound {b_ms:.3f} by {b_by}, no-reuse gather "
+            f"{r['no_reuse_gather_ms']:.3f})")
+        log_hot(f"stream_cbsr_spmm_bf16, {norm} factors", r)
+        if norm == "mean":
+            entry.update({key: r[key] for key in (
+                "max_abs_err", "ms", "f32_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "library_error", "record_bytes",
+                "no_reuse_gather_ms", *HOT_KEYS)})
+        else:
+            entry.update({f"gcn_{key}": r[key] for key in (
+                "max_abs_err", "ms", "f32_ms", "bound_ms", "hot0_ms")})
+    return entry
+
+
+def first_steps16(torch, cfg, ds, what: str) -> None:
+    """Under the 16-bit stream: the first two train steps through the
+    kernels against the same planned path through the plain versions (every
+    wrapper made to take its plain version, so that both round the same
+    messages), same weights and dropout seed, losses within 1e-4
+    relative."""
+    from spgemm_gnn_tpu_torch.kernels import _build
+    from spgemm_gnn_tpu_torch.train.loop import Trainer
+    first = {}
+    for plain in (False, True):
+        real = _build.on_cpu
+        if plain:
+            _build.on_cpu = lambda t: True
+        try:
+            tr = Trainer(cfg, dataset=ds)
+            state = tr.init_state()
+            drop = torch.Generator(device=tr.device).manual_seed(SEED + 1)
+            first[plain] = [float(tr.train_step(state, drop))
+                            for _ in range(2)]
+        finally:
+            _build.on_cpu = real
+        del tr, state
+        torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(first[False], first[True])]
+    if not max(rel) <= 1e-4:
+        raise AssertionError(f"{what}: first steps {first[False]} vs plain "
+                             f"{first[True]} ({rel})")
+    log(f"{what}: first two steps through the kernels {first[False]}, the "
+        f"plain versions with the same stream {first[True]}, relative {rel}")
+
+
+def accuracy_check(torch) -> dict:
+    """The 80-epoch accuracy check of the reference's trajectory gate
+    (TRAJ_r03.json's config): the Reddit stand-in at scale 0.02, SAGE MaxK
+    k 32, 3 x 256, LayerNorm, dropout 0, lr 0.01, seed 97, through the
+    port's Trainer with the f32 and the bf16x2 stream. Each best test
+    accuracy (best-val-selects-test) within 0.03 of the JAX oracle's from
+    the same initial weights (ACC_ORACLE), and bf16x2 within 0.03 of f32;
+    the distance to TRAJ_r03.json's 0.849 (the oracle from the JAX
+    package's own draw) is printed beside it."""
+    from spgemm_gnn_tpu_torch.train.config import TrainConfig
+    from spgemm_gnn_tpu_torch.train.loop import Trainer
+    best = {}
+    for stream in ("f32", "bf16x2"):
+        cfg = TrainConfig(dataset="reddit", model="sage", nonlinear="maxk",
+                          maxk=K, hidden_dim=HIDDEN, hidden_layers=3,
+                          norm=True, dropout=0.0, w_lr=0.01,
+                          epochs=ACC_EPOCHS, eval_every=1, log_every=0,
+                          seed=SEED, device="cuda", impl="auto",
+                          synthetic=True, synthetic_scale=ACC_SCALE,
+                          stream=stream)
+        res = Trainer(cfg).run()
+        best[stream] = res["best_test_accuracy"]
+        log(f"accuracy ({stream}): best test {best[stream]:.4f} at epoch "
+            f"{res['best_epoch']} (val {res['best_val_accuracy']:.4f}), last "
+            f"loss {res['history'][-1].loss:.6f}, steady epoch "
+            f"{res['steady_epoch_s']}")
+    for stream, acc in best.items():
+        if not abs(acc - ACC_ORACLE) <= ACC_TOL:
+            raise AssertionError(f"accuracy ({stream}): best test {acc:.4f} "
+                                 f"is not within {ACC_TOL} of the oracle's "
+                                 f"{ACC_ORACLE} from the same initial "
+                                 f"weights")
+    if not abs(best["bf16x2"] - best["f32"]) <= ACC_TOL:
+        raise AssertionError(f"accuracy: bf16x2 {best['bf16x2']:.4f} is not "
+                             f"within {ACC_TOL} of f32 {best['f32']:.4f}")
+    log(f"accuracy check ({ACC_EPOCHS} epochs, reddit stand-in scale "
+        f"{ACC_SCALE}): best test f32 {best['f32']:.4f}, bf16x2 "
+        f"{best['bf16x2']:.4f}; each within {ACC_TOL} of the JAX oracle's "
+        f"{ACC_ORACLE} from the same initial weights, and of each other; "
+        f"from TRAJ_r03.json's {ACC_TRAJ_R03} (other initial weights): "
+        f"{best['f32'] - ACC_TRAJ_R03:+.4f} f32, "
+        f"{best['bf16x2'] - ACC_TRAJ_R03:+.4f} bf16x2")
+    return best
+
+
 def run_training(torch, trainer, expected: dict, what: str) -> dict:
     """Trainer.run from zeroed launch counts; checks finite losses and the
     exact counts. Returns the run's result and counts."""
@@ -819,6 +1189,15 @@ def main() -> int:
     stream_reddit = product_check(torch, "stream_spmm", g, xs, None, post)
     log_product("stream_spmm", "reddit, A, k-sparse x; measure only",
                 stream_reddit)
+    # the 16-bit stream's form of the Reddit product, on the same inputs
+    csr16_a = product16_check(torch, "csr_spmm", g, xs, None, post, csr_a)
+    log_product16("csr_spmm", "reddit, A, k-sparse x", csr16_a)
+    csr16_t = product16_check(torch, "csr_spmm", g, gy, post, None, csr_t,
+                              transpose=True)
+    log_product16("csr_spmm", "reddit, A^T, dense g", csr16_t)
+    if not csr16_a["nb"] < csr_a["nb"]:
+        raise AssertionError("csr_spmm_bf16 on reddit: bf16 rows did not "
+                             "take fewer source blocks than f32 ones")
     del xs, gy
     torch.cuda.empty_cache()
 
@@ -840,7 +1219,20 @@ def main() -> int:
     for entry in kernels:
         entry["launches"] = reddit_counts[entry["name"]]
         entry["launches_path"] = "train reddit"
-    del ds, g, reddit
+
+    # the same recipe with the 16-bit stream: round_rows and csr_spmm_bf16,
+    # no f32 aggregation launch
+    cfg16 = cfg.replace(stream="bf16x2")
+    first_steps16(torch, cfg16, ds, "train reddit, bf16x2")
+    reddit16 = run_training(torch, Trainer(cfg16, dataset=ds), {
+        "maxk_fwd": EPOCHS * 2 * layers, "maxk_bwd": EPOCHS * layers,
+        "round_rows": EPOCHS * 3 * layers,
+        "csr_spmm_bf16": EPOCHS * 3 * layers}, "train reddit, bf16x2")
+    planned.DEFAULT_STREAM = "f32"
+    log(f"train reddit: steady epoch {reddit16['res']['steady_epoch_s']} s "
+        f"with bf16x2, {reddit['res']['steady_epoch_s']} s with f32")
+    reddit16_counts = reddit16["counts"]
+    del ds, g, reddit, reddit16
     torch.cuda.empty_cache()
 
     for kind in ("windowed", "stream"):
@@ -881,9 +1273,19 @@ def main() -> int:
                              f"{csr_products['nb']} source blocks, not 1")
     log_product("csr_spmm", "products, A, k-sparse x; measure only",
                 csr_products)
+    stream16_a = product16_check(torch, "stream_spmm", g2, xs, None, post,
+                                 stream_a)
+    log_product16("stream_spmm", "products, A, k-sparse x", stream16_a)
+    stream16_t = product16_check(torch, "stream_spmm", g2, gy, post, None,
+                                 stream_t, transpose=True)
+    log_product16("stream_spmm", "products, A^T, dense g", stream16_t)
     del xs, gy
     torch.cuda.empty_cache()
+    round_entry = round_rows_check(torch, g2.num_nodes, HIDDEN, post, SEED)
+    torch.cuda.empty_cache()
     cbsr_entry = stream_cbsr_check(torch, g2, HIDDEN, K, SEED)
+    torch.cuda.empty_cache()
+    cbsr16_entry = stream_cbsr16_check(torch, g2, HIDDEN, K, SEED, cbsr_entry)
     torch.cuda.empty_cache()
 
     kernels.append(product_entry("csr_spmm", csr_a, csr_t,
@@ -937,6 +1339,40 @@ def main() -> int:
     del products, products_on
     torch.cuda.empty_cache()
 
+    # the products recipe with the 16-bit stream, flag off then on
+    cfg2_16 = cfg2.replace(stream="bf16x2")
+    first_steps16(torch, cfg2_16, ds2, "train products, bf16x2")
+    products16 = run_training(torch, Trainer(cfg2_16, dataset=ds2), {
+        "maxk_fwd": EPOCHS * 2 * layers2, "maxk_bwd": EPOCHS * layers2,
+        "round_rows": EPOCHS * 3 * layers2,
+        "stream_spmm_bf16": EPOCHS * 3 * layers2}, "train products, bf16x2")
+    planned.STREAM_CBSR_FORWARD = True
+    first_steps16(torch, cfg2_16, ds2,
+                  "train products, bf16x2, STREAM_CBSR_FORWARD")
+    products16_on = run_training(torch, Trainer(cfg2_16, dataset=ds2), {
+        "maxk_fwd": EPOCHS * 2 * layers2, "maxk_bwd": EPOCHS * layers2,
+        "cbsr_compact": EPOCHS * 2 * layers2,
+        "round_rows": EPOCHS * 3 * layers2,
+        "stream_cbsr_spmm_bf16": EPOCHS * 2 * layers2,
+        "stream_spmm_bf16": EPOCHS * layers2},
+        "train products, bf16x2, STREAM_CBSR_FORWARD")
+    planned.STREAM_CBSR_FORWARD = False
+    planned.DEFAULT_STREAM = "f32"
+    rel = max(abs(a - b) / abs(b) for a, b in zip(products16_on["losses"],
+                                                   products16["losses"]))
+    if not rel <= 1e-6:
+        raise AssertionError(f"train products, bf16x2: flag-on losses "
+                             f"{products16_on['losses']} vs flag-off "
+                             f"{products16['losses']} ({rel:.3e})")
+    log(f"train products, bf16x2: STREAM_CBSR_FORWARD on against off: "
+        f"losses within {rel:.3e} relative; steady epoch "
+        f"{products16_on['res']['steady_epoch_s']} s on, "
+        f"{products16['res']['steady_epoch_s']} s off")
+    products16_counts = products16["counts"]
+    products16_on_counts = products16_on["counts"]
+    del products16, products16_on
+    torch.cuda.empty_cache()
+
     # ---- train 3: the products recipe with GCN and self-loops, flag set --
     t0 = time.perf_counter()
     ds3 = dataclasses.replace(ds2, graph=add_self_loops(g2))
@@ -957,6 +1393,30 @@ def main() -> int:
     kernels.insert(4, cbsr_entry)
     del gcn, ds3
     torch.cuda.empty_cache()
+
+    # the 16-bit stream's kernels
+    kernels.append(entry16(
+        "csr_spmm_bf16", "spgemm_gnn_tpu_torch/csrc/spmm.cu",
+        "spgemm_gnn_tpu/kernels/spgemm_pallas.py:97 (packed branch "
+        ":124-129, :183-186)", csr16_a, csr16_t))
+    kernels[-1].update(launches=reddit16_counts["csr_spmm_bf16"],
+                       launches_path="train reddit, bf16x2")
+    kernels.append(entry16(
+        "stream_spmm_bf16", "spgemm_gnn_tpu_torch/csrc/stream.cu",
+        "spgemm_gnn_tpu/kernels/stream_pallas.py:37 (bf16 stream, "
+        ":227-228)", stream16_a, stream16_t))
+    kernels[-1].update(launches=products16_counts["stream_spmm_bf16"],
+                       launches_path="train products, bf16x2")
+    cbsr16_entry.update(
+        launches=products16_on_counts["stream_cbsr_spmm_bf16"],
+        launches_path="train products, bf16x2, STREAM_CBSR_FORWARD")
+    kernels.append(cbsr16_entry)
+    round_entry.update(launches=products16_counts["round_rows"],
+                       launches_path="train products, bf16x2")
+    kernels.append(round_entry)
+
+    # ---- the 80-epoch accuracy check, f32 and bf16x2 ----------------------
+    accuracy_check(torch)
 
     log(json.dumps({"kernels": kernels}))
     log(card)

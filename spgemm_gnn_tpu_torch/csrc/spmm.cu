@@ -43,6 +43,18 @@
 // row drifted by 1e-5 of the output's largest magnitude; the layers keep it
 // near 2e-7 at Reddit (PERF.md).
 
+//
+// csr_spmm_bf16, the second export, is the bf16 form of the same product:
+// the TPU kernel's packed branch (spgemm_pallas.py:124-129, :183-186, two
+// bf16 per 32-bit lane, selected by planned_spmm(stream="bf16x2")). Here x
+// holds bf16 rows (2 B a channel: 512 B at dim 256), already rounded from
+// pre * x by round_rows (csrc/round.cu), so the planner passes no pre. A
+// lane loads 16 B, 8 channels, and widens them to f32 in registers (exact:
+// bf16 is the top half of f32); sums, scratch, y and post stay f32, and the
+// schedule, the fetch, the layers of the sum and the fix-up are the f32
+// kernel's. The gather's bytes halve (E dim 2 B, about 58 GB at Reddit), and
+// a source block of half of L2 holds twice the rows (graphs/tiles.py sizes
+// blocks by row bytes: 5 at Reddit instead of 10).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -53,8 +65,8 @@ constexpr int kWarpsPerBlock = 8;
 constexpr int kFirst = 1;  // graphs/tiles.py::FIRST
 constexpr int kLast = 2;   // graphs/tiles.py::LAST
 
-// rows fetched ahead per warp: 8 at NV <= 2 (dim <= 256), then about 8 KB
-// per warp
+// rows fetched ahead per warp: 8 at NV <= 2 16-byte slices per lane (dim <=
+// 256 in f32, <= 512 in bf16), then about 8 KB per warp
 template <int NV>
 constexpr int kAhead = NV <= 2 ? 8 : 16 / NV;
 
@@ -72,21 +84,63 @@ __device__ __forceinline__ void add4(float4& acc, const float4& v) {
   acc.w += v.w;
 }
 
+// The rows a lane gathers: NV 16-byte slices lane + 32 t of a row, summed
+// into kAcc float4 accumulators; accumulator a is float4 pos(a, lane) of the
+// f32 output row.
+// F32: a slice is 4 channels, one accumulator.
+template <int NV>
+struct F32 {
+  using V = float4;
+  static constexpr int kSlices = NV, kAcc = NV;
+  __device__ __forceinline__ static int pos(int a, int lane) {
+    return lane + 32 * a;
+  }
+  __device__ __forceinline__ static void fma(float4 (&acc)[kAcc], int t,
+                                             float s, const float4& q) {
+    fma4(acc[t], s, q);
+  }
+};
+
+// BF16: a slice is 8 bf16 channels (channel 2i in the low half of word i),
+// widened exactly to two float4 accumulators.
+template <int NV>
+struct BF16 {
+  using V = uint4;
+  static constexpr int kSlices = NV, kAcc = 2 * NV;
+  __device__ __forceinline__ static int pos(int a, int lane) {
+    return 2 * (lane + 32 * (a >> 1)) + (a & 1);
+  }
+  __device__ __forceinline__ static void fma(float4 (&acc)[kAcc], int t,
+                                             float s, const uint4& q) {
+    fma4(acc[2 * t], s,
+         make_float4(__uint_as_float(q.x << 16),
+                     __uint_as_float(q.x & 0xffff0000u),
+                     __uint_as_float(q.y << 16),
+                     __uint_as_float(q.y & 0xffff0000u)));
+    fma4(acc[2 * t + 1], s,
+         make_float4(__uint_as_float(q.z << 16),
+                     __uint_as_float(q.z & 0xffff0000u),
+                     __uint_as_float(q.w << 16),
+                     __uint_as_float(q.w & 0xffff0000u)));
+  }
+};
+
 // A row's sum over one pass goes to y: written on the row's first block,
 // else added to what earlier blocks left; scaled by post on its last block.
-template <int NV>
-__device__ __forceinline__ void store_row(const float4 (&acc)[NV], int row,
-                                          int flags,
+// acc[a] is float4 R::pos(a) of the row (dim4 float4s).
+template <class R>
+__device__ __forceinline__ void store_row(const float4 (&acc)[R::kAcc],
+                                          int row, int flags,
                                           const float* __restrict__ post,
                                           float4* __restrict__ y, int dim4,
                                           int lane) {
   float4* yr = y + (int64_t)row * dim4;
   const float p = ((flags & kLast) && post != nullptr) ? post[row] : 1.f;
 #pragma unroll
-  for (int t = 0; t < NV; ++t) {
-    const int c = lane + 32 * t;
+  for (int a = 0; a < R::kAcc; ++a) {
+    const int c = R::pos(a, lane);
     if (c < dim4) {
-      float4 v = acc[t];
+      float4 v = acc[a];
       if (!(flags & kFirst)) {
         float4 old = yr[c];
         add4(old, v);
@@ -99,44 +153,28 @@ __device__ __forceinline__ void store_row(const float4 (&acc)[NV], int row,
   }
 }
 
-// A segment's sum: a whole run's to y, a piece of a split run's to its slot.
-template <int NV>
-__device__ __forceinline__ void finish(const float4 (&acc)[NV], int4 s,
-                                       const float* __restrict__ post,
-                                       float4* __restrict__ y,
-                                       float4* __restrict__ scratch, int dim4,
-                                       int lane) {
-  if (s.w < 0) {
-    store_row<NV>(acc, s.x, -1 - s.w, post, y, dim4, lane);
-    return;
-  }
-  float4* out = scratch + (int64_t)s.w * dim4;
-#pragma unroll
-  for (int t = 0; t < NV; ++t) {
-    const int c = lane + 32 * t;
-    if (c < dim4) out[c] = acc[t];
-  }
-}
-
 // One warp per segment (row, lo, hi, out), rows fetched kAhead ahead into
-// registers. NV: float4 slices per lane, ceil(dim / 128) rounded up to a
-// power of two.
-template <int NV>
+// registers: a whole run's sum to y, a piece of a split run's to its slot.
+// nx: R::V slices per row of x; dim4: float4s per row of y.
+template <class R>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 csr_segment_kernel(const int4* __restrict__ seg, int64_t n_seg,
                    const int* __restrict__ indices,
-                   const float4* __restrict__ x, const float* __restrict__ pre,
+                   const typename R::V* __restrict__ x,
+                   const float* __restrict__ pre,
                    const float* __restrict__ post, float4* __restrict__ y,
-                   float4* __restrict__ scratch, int dim4) {
+                   float4* __restrict__ scratch, int nx, int dim4) {
+  constexpr int NV = R::kSlices;
   constexpr int D = kAhead<NV>;
+  using V = typename R::V;
   const int lane = threadIdx.x & 31;
   const int64_t i = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (i >= n_seg) return;  // i is uniform across the warp
   const int4 s = seg[i];
 
-  float4 acc[NV];
+  float4 acc[R::kAcc];
 #pragma unroll
-  for (int t = 0; t < NV; ++t) acc[t] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int a = 0; a < R::kAcc; ++a) acc[a] = make_float4(0.f, 0.f, 0.f, 0.f);
   // a batch's source ids are loaded one batch ahead
   int un = s.y + lane < s.z ? indices[s.y + lane] : 0;
   for (int base = s.y; base < s.z; base += 32) {
@@ -144,20 +182,20 @@ csr_segment_kernel(const int4* __restrict__ seg, int64_t n_seg,
     un = base + 32 + lane < s.z ? indices[base + 32 + lane] : 0;
     const float sc = (pre != nullptr && base + lane < s.z) ? pre[u] : 1.f;
     const int cnt = min(32, s.z - base);
-    float4 part[NV];  // this batch's sum
+    float4 part[R::kAcc];  // this batch's sum
 #pragma unroll
-    for (int t = 0; t < NV; ++t) part[t] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int a = 0; a < R::kAcc; ++a) part[a] = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int j = 0; j < cnt; j += D) {  // D divides 32: j + d < 32
-      float4 q[D][NV];
+      V q[D][NV];
 #pragma unroll
       for (int d = 0; d < D; ++d) {
         const int ud = __shfl_sync(kFull, u, j + d);
         if (j + d < cnt) {
-          const float4* xr = x + (int64_t)ud * dim4;
+          const V* xr = x + (int64_t)ud * nx;
 #pragma unroll
           for (int t = 0; t < NV; ++t) {
             const int c = lane + 32 * t;
-            if (c < dim4) q[d][t] = __ldg(xr + c);
+            if (c < nx) q[d][t] = __ldg(xr + c);
           }
         }
       }
@@ -168,19 +206,29 @@ csr_segment_kernel(const int4* __restrict__ seg, int64_t n_seg,
 #pragma unroll
           for (int t = 0; t < NV; ++t) {
             const int c = lane + 32 * t;
-            if (c < dim4) fma4(part[t], sd, q[d][t]);
+            if (c < nx) R::fma(part, t, sd, q[d][t]);
           }
         }
       }
     }
 #pragma unroll
-    for (int t = 0; t < NV; ++t) add4(acc[t], part[t]);
+    for (int a = 0; a < R::kAcc; ++a) add4(acc[a], part[a]);
   }
-  finish<NV>(acc, s, post, y, scratch, dim4, lane);
+  if (s.w < 0) {
+    store_row<R>(acc, s.x, -1 - s.w, post, y, dim4, lane);
+    return;
+  }
+  float4* out = scratch + (int64_t)s.w * dim4;
+#pragma unroll
+  for (int a = 0; a < R::kAcc; ++a) {
+    const int c = R::pos(a, lane);
+    if (c < dim4) out[c] = acc[a];
+  }
 }
 
 // One warp per split run (row, slot_lo, slot_hi, flags): its pieces' sums in
-// order, then to y as a whole segment's.
+// order, then to y as a whole segment's. Element by element, so it serves
+// either row type: NV float4 slices lane + 32 t per lane.
 template <int NV>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 csr_fixup_kernel(const int4* __restrict__ fix, int64_t n_fix,
@@ -205,35 +253,97 @@ csr_fixup_kernel(const int4* __restrict__ fix, int64_t n_fix,
       if (c < dim4) add4(acc[t], scratch[(int64_t)q * dim4 + c]);
     }
   }
-  store_row<NV>(acc, f.x, f.w, post, y, dim4, lane);
+  store_row<F32<NV>>(acc, f.x, f.w, post, y, dim4, lane);
 }
 
 unsigned blocks_for(int64_t n) {
   return (unsigned)((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
-template <int NV>
+// float4 or uint4 slices per lane for n of them per row: ceil(n / 32)
+// rounded up to a power of two
+int slices(int n) { return n <= 32 ? 1 : n <= 64 ? 2 : n <= 128 ? 4 : 8; }
+
+void launch_fixup(const int4* fix, int64_t n_fix, const float* post,
+                  const float4* scratch, float4* y, int dim4,
+                  cudaStream_t s) {
+  const unsigned blocks = blocks_for(n_fix);
+  const int threads = kWarpsPerBlock * 32;
+  switch (slices(dim4)) {
+    case 1:
+      csr_fixup_kernel<1><<<blocks, threads, 0, s>>>(fix, n_fix, post,
+                                                     scratch, y, dim4);
+      break;
+    case 2:
+      csr_fixup_kernel<2><<<blocks, threads, 0, s>>>(fix, n_fix, post,
+                                                     scratch, y, dim4);
+      break;
+    case 4:
+      csr_fixup_kernel<4><<<blocks, threads, 0, s>>>(fix, n_fix, post,
+                                                     scratch, y, dim4);
+      break;
+    default:
+      csr_fixup_kernel<8><<<blocks, threads, 0, s>>>(fix, n_fix, post,
+                                                     scratch, y, dim4);
+  }
+}
+
+// One pass per source block: its segments, then its split runs' fix-ups.
+template <class R>
 int run(const int4* seg, const int4* fix, const int64_t* pass_seg,
-        const int64_t* pass_fix, int nb, const int* indices, const float4* x,
-        const float* pre, const float* post, float4* y, float4* scratch,
-        int dim4, cudaStream_t s) {
+        const int64_t* pass_fix, int nb, const int* indices,
+        const typename R::V* x, const float* pre, const float* post,
+        float4* y, float4* scratch, int nx, int dim4, cudaStream_t s) {
   for (int b = 0; b < nb; ++b) {
     const int64_t n_seg = pass_seg[b + 1] - pass_seg[b];
     if (n_seg > 0) {
-      csr_segment_kernel<NV><<<blocks_for(n_seg), kWarpsPerBlock * 32, 0, s>>>(
-          seg + pass_seg[b], n_seg, indices, x, pre, post, y, scratch, dim4);
+      csr_segment_kernel<R><<<blocks_for(n_seg), kWarpsPerBlock * 32, 0, s>>>(
+          seg + pass_seg[b], n_seg, indices, x, pre, post, y, scratch, nx,
+          dim4);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
     const int64_t n_fix = pass_fix[b + 1] - pass_fix[b];
     if (n_fix > 0) {
-      csr_fixup_kernel<NV><<<blocks_for(n_fix), kWarpsPerBlock * 32, 0, s>>>(
-          fix + pass_fix[b], n_fix, post, scratch, y, dim4);
+      launch_fixup(fix + pass_fix[b], n_fix, post, scratch, y, dim4, s);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
   }
   return (int)cudaGetLastError();
+}
+
+// The product over x's row type R; nx: R::V slices per row.
+template <template <int> class R>
+int dispatch(const void* seg, const void* fix, const void* pass_seg,
+             const void* pass_fix, int nb, const void* indices, const void* x,
+             const void* pre, const void* post, void* y, void* scratch,
+             int nx, int dim4, void* stream) {
+  const int4* sp = static_cast<const int4*>(seg);
+  const int4* fp = static_cast<const int4*>(fix);
+  const int64_t* ps = static_cast<const int64_t*>(pass_seg);
+  const int64_t* pf = static_cast<const int64_t*>(pass_fix);
+  const int* ix = static_cast<const int*>(indices);
+  const float* pp = static_cast<const float*>(pre);
+  const float* qp = static_cast<const float*>(post);
+  float4* yp = static_cast<float4*>(y);
+  float4* sc = static_cast<float4*>(scratch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RUN(NV_)                                                          \
+  run<R<NV_>>(sp, fp, ps, pf, nb, ix,                                     \
+              static_cast<const typename R<NV_>::V*>(x), pp, qp, yp, sc, nx, \
+              dim4, s)
+  switch (slices(nx)) {
+    case 1:
+      return RUN(1);
+    case 2:
+      return RUN(2);
+    case 4:
+      return RUN(4);
+    default:
+      return RUN(8);
+  }
+#undef RUN
 }
 
 }  // namespace
@@ -251,24 +361,20 @@ extern "C" int csr_spmm(const void* seg, const void* fix, const void* pass_seg,
                         void* y, void* scratch, int dim, void* stream) {
   if (dim < 4 || dim % 4 != 0 || dim > 1024 || nb < 1)
     return (int)cudaErrorInvalidValue;
-  const int dim4 = dim / 4;
-  const int4* sp = static_cast<const int4*>(seg);
-  const int4* fp = static_cast<const int4*>(fix);
-  const int64_t* ps = static_cast<const int64_t*>(pass_seg);
-  const int64_t* pf = static_cast<const int64_t*>(pass_fix);
-  const int* ix = static_cast<const int*>(indices);
-  const float4* xp = static_cast<const float4*>(x);
-  const float* pp = static_cast<const float*>(pre);
-  const float* qp = static_cast<const float*>(post);
-  float4* yp = static_cast<float4*>(y);
-  float4* sc = static_cast<float4*>(scratch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nv = (dim4 + 31) / 32;
-  if (nv <= 1)
-    return run<1>(sp, fp, ps, pf, nb, ix, xp, pp, qp, yp, sc, dim4, s);
-  if (nv <= 2)
-    return run<2>(sp, fp, ps, pf, nb, ix, xp, pp, qp, yp, sc, dim4, s);
-  if (nv <= 4)
-    return run<4>(sp, fp, ps, pf, nb, ix, xp, pp, qp, yp, sc, dim4, s);
-  return run<8>(sp, fp, ps, pf, nb, ix, xp, pp, qp, yp, sc, dim4, s);
+  return dispatch<F32>(seg, fix, pass_seg, pass_fix, nb, indices, x, pre,
+                       post, y, scratch, dim / 4, dim / 4, stream);
+}
+
+// csr_spmm on x bf16 [n_src, dim] (the rows of round_rows; y, scratch, pre
+// and post as in csr_spmm). Needs dim % 8 == 0, dim <= 1024 and 16-byte
+// aligned x, y and scratch.
+extern "C" int csr_spmm_bf16(const void* seg, const void* fix,
+                             const void* pass_seg, const void* pass_fix,
+                             int nb, const void* indices, const void* x,
+                             const void* pre, const void* post, void* y,
+                             void* scratch, int dim, void* stream) {
+  if (dim < 8 || dim % 8 != 0 || dim > 1024 || nb < 1)
+    return (int)cudaErrorInvalidValue;
+  return dispatch<BF16>(seg, fix, pass_seg, pass_fix, nb, indices, x, pre,
+                        post, y, scratch, dim / 8, dim / 4, stream);
 }

@@ -74,6 +74,24 @@
 // channels hold zeros, and adding a zero product to a sum that started at
 // +0 leaves it as it is, so y equals stream_spmm's y on the densified input
 // by value.
+//
+// The bf16 forms (the 16-bit feature stream, "bf16x2"): stream_spmm_bf16
+// replaces the TPU kernel's bf16 stream (stream_pallas.py::stream_spmm,
+// messages cast at :227-228) and stream_cbsr_spmm_bf16 its bf16 values
+// (stream_spmm_cbsr, :158-159). The rows or the record values are bf16,
+// already rounded from pre * x by round_rows (csrc/round.cu), so the planner
+// passes no pre; each is widened exactly to f32 in registers, and the sums,
+// carry slots, y and post stay f32. The walk, the carry pass, the hot set
+// (at the 16-bit row or record size) and the L2 hints are the f32 kernels'.
+// A dense row is 512 B at dim 256 (a lane loads 16 B, 8 channels), so the
+// no-reuse gather falls to E * 512 B, about 63 GB or 19 ms at ogbn-products,
+// and the same L2 budget holds twice the hot rows. A record holds ceil(k / 2)
+// words of bf16 values (two to a word) and the packed ids: 96 B at k 32,
+// three 32-byte sectors instead of five. Its lanes load the record as
+// 32-bit words, one load per lane at k <= 32, and take their value and id
+// from it with shuffles. A first version loaded each value with a 16-bit
+// load and read 16.1 ms on ogbn-products, slower than the f32 records
+// (utils/stream_sweep.py; PERF.md has both designs' times).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -113,6 +131,14 @@ __device__ __forceinline__ float4 ld_hint(const float4* a, uint64_t pol) {
   float4 v;
   asm("ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
       : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(a), "l"(pol));
+  return v;
+}
+
+__device__ __forceinline__ uint4 ld_hint(const uint4* a, uint64_t pol) {
+  uint4 v;
+  asm("ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
       : "l"(a), "l"(pol));
   return v;
 }
@@ -202,6 +228,82 @@ struct DenseRows {
     for (int t = 0; t < NV; ++t) {
       const int col = lane + 32 * t;
       if (col < dim4) __stcs(out + col, scale4(head[t], p));
+    }
+  }
+};
+
+// stream_spmm_bf16's rows: NV uint4 slices per lane (lane + 32 t), 8 bf16
+// channels each (channel 2i in the low half of word i), widened exactly to
+// two float4 sums in registers: float4s 2 (lane + 32 t) and 2 (lane + 32 t)
+// + 1 of the f32 row.
+template <int NV>
+struct Bf16Rows {
+  struct Src {
+    const uint4* x;
+  };
+  struct Slot {
+    uint4 v[NV];
+  };
+  static constexpr int kSmemFloats = 0;
+
+  const uint4* x;
+  int dim8, lane;
+  float4 acc[2 * NV];   // the current chunk's segment
+  float4 head[2 * NV];  // the row's sum over the span's chunks so far
+
+  __device__ __forceinline__ Bf16Rows(const Src& s, float4*, int dim4,
+                                      int lane_)
+      : x(s.x), dim8(dim4 / 2), lane(lane_) {
+#pragma unroll
+    for (int t = 0; t < 2 * NV; ++t) acc[t] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  __device__ __forceinline__ void load(Slot& sl, int u, uint64_t pol) const {
+    const uint4* xr = x + (int64_t)u * dim8;
+#pragma unroll
+    for (int t = 0; t < NV; ++t) {
+      const int col = lane + 32 * t;
+      if (col < dim8) sl.v[t] = ld_hint(xr + col, pol);
+    }
+  }
+
+  __device__ __forceinline__ void consume(const Slot& sl, float s) {
+#pragma unroll
+    for (int t = 0; t < NV; ++t) {
+      const int col = lane + 32 * t;
+      if (col < dim8) {
+        const uint4 q = sl.v[t];
+        fma4(acc[2 * t], s,
+             make_float4(__uint_as_float(q.x << 16),
+                         __uint_as_float(q.x & 0xffff0000u),
+                         __uint_as_float(q.y << 16),
+                         __uint_as_float(q.y & 0xffff0000u)));
+        fma4(acc[2 * t + 1], s,
+             make_float4(__uint_as_float(q.z << 16),
+                         __uint_as_float(q.z & 0xffff0000u),
+                         __uint_as_float(q.w << 16),
+                         __uint_as_float(q.w & 0xffff0000u)));
+      }
+    }
+  }
+
+  // a segment ends: head = its sum (the row's first) or head + its sum
+  __device__ __forceinline__ void take(bool first) {
+#pragma unroll
+    for (int t = 0; t < 2 * NV; ++t) {
+      head[t] = first ? acc[t] : add4(head[t], acc[t]);
+      acc[t] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+
+  __device__ __forceinline__ void write(float4* out, float p) const {
+#pragma unroll
+    for (int t = 0; t < NV; ++t) {
+      const int col = lane + 32 * t;
+      if (col < dim8) {
+        __stcs(out + 2 * col, scale4(head[2 * t], p));
+        __stcs(out + 2 * col + 1, scale4(head[2 * t + 1], p));
+      }
     }
   }
 };
@@ -312,6 +414,75 @@ struct CbsrRecords {
       const int q = lane + 32 * t;
       if (q < dim4) __stcs(out + q, scale4(head[t], p));
     }
+  }
+};
+
+// stream_cbsr_spmm_bf16's rows: CbsrRecords' accumulator, sums and writes
+// over a record of vw = ceil(k / 2) words of bf16 values (value 2i in the
+// low half of word i) and kp packed id words (rw16 = vw + kp words). Lane l
+// loads record words l, l + 32, ... (kW of them: one at k <= 32), and slot
+// j = lane + 32 t takes its value, the half j & 1 of word j / 2, and its id,
+// byte j & 3 of word vw + j / 4, from those words with shuffles; a value
+// widens exactly to f32 and is scattered as CbsrRecords' is.
+template <int KV>
+struct Cbsr16Records : CbsrRecords<KV, true> {
+  using Base = CbsrRecords<KV, true>;
+  static constexpr int kW = (3 * KV + 3) / 4;  // ceil(24 KV / 32) words
+  struct Src {
+    const unsigned* rec;
+    int k, kp;
+  };
+  struct Slot {
+    unsigned w[kW];
+  };
+
+  int vw, rw16;
+
+  __device__ __forceinline__ Cbsr16Records(const Src& s, float4* smem,
+                                           int dim4_, int lane_)
+      : Base(typename Base::Src{s.rec, s.k, s.kp}, smem, dim4_, lane_),
+        vw((s.k + 1) / 2), rw16((s.k + 1) / 2 + s.kp) {}
+
+  __device__ __forceinline__ void load(Slot& sl, int u, uint64_t pol) const {
+    const unsigned* rr = this->rec + (int64_t)u * rw16;
+#pragma unroll
+    for (int i = 0; i < kW; ++i) {
+      const int j = this->lane + 32 * i;
+      sl.w[i] = j < rw16 ? ld_hint(rr + j, pol) : 0u;
+    }
+  }
+
+  __device__ __forceinline__ void consume(const Slot& sl, float s) {
+    const int lane = this->lane;
+#pragma unroll
+    for (int t = 0; t < KV; ++t) {
+      // the value: word 16 t + lane / 2, of the words loaded in round t / 2
+      const unsigned vwd =
+          __shfl_sync(kFull, sl.w[t >> 1], 16 * (t & 1) + (lane >> 1));
+      // the id: word q, in round i0 or i0 + 1 (round 0 at k <= 32)
+      const int q = vw + 8 * t + (lane >> 2);
+      unsigned iw;
+      if constexpr (kW == 1) {
+        iw = __shfl_sync(kFull, sl.w[0], q);
+      } else {
+        const int i0 = (vw + 8 * t) >> 5;
+        unsigned lo = 0u, hi = 0u;
+#pragma unroll
+        for (int i = 0; i < kW; ++i) {
+          if (i == i0) lo = sl.w[i];
+          if (i == i0 + 1) hi = sl.w[i];
+        }
+        const unsigned a = __shfl_sync(kFull, lo, q & 31);
+        const unsigned b = __shfl_sync(kFull, hi, q & 31);
+        iw = (q >> 5) == i0 ? a : b;
+      }
+      const float v = __uint_as_float((lane & 1) ? (vwd & 0xffff0000u)
+                                                 : (vwd << 16));
+      const unsigned c = (iw >> (8 * (lane & 3))) & 0xffu;
+      if (lane + 32 * t < this->k && v != 0.f)
+        this->acc[c] = fmaf(s, v, this->acc[c]);
+    }
+    __syncwarp();
   }
 };
 
@@ -669,6 +840,101 @@ extern "C" int stream_cbsr_spmm(const void* indptr, const void* indices,
   else
     return (int)cudaErrorInvalidValue;
 #undef CBSR
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  launch_carry(dim4 <= 32 ? 1 : 2, w.indptr,
+               static_cast<const int*>(carry_rows), w.post, w.carry, w.y,
+               n_carry, chunk, warp_chunks, dim4, s);
+  return (int)cudaGetLastError();
+}
+
+// stream_spmm on x bf16 [n_src, dim] (the rows of round_rows), as
+// stream_spmm otherwise: depth 4, 8 or 16 at dim <= 512, 4 at dim <= 1024.
+// Needs dim % 8 == 0, dim <= 1024 and 16-byte aligned x, y and carry.
+extern "C" int stream_spmm_bf16(const void* indptr, const void* indices,
+                                const void* x, const void* pre,
+                                const void* post, const void* chunk_row0,
+                                const void* carry_rows, const void* hot,
+                                void* y, void* carry, int64_t n_rows,
+                                int64_t n_chunks, int64_t n_carry,
+                                int64_t n_edges, int chunk, int dim,
+                                int depth, int warp_chunks, void* stream) {
+  if (dim < 8 || dim % 8 != 0 || dim > 1024 || chunk < 1 || chunk > 512 ||
+      warp_chunks < 1 || !fits_int(n_rows, n_edges))
+    return (int)cudaErrorInvalidValue;
+  const int dim4 = dim / 4;
+  const int nv = slices(dim / 8);
+  const Walk w = make_walk(indptr, indices, pre, post, chunk_row0, hot, y,
+                           carry, n_rows, n_chunks, n_edges, chunk,
+                           warp_chunks, dim4);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint4* xp = static_cast<const uint4*>(x);
+#define DENSE16(NV_, D_) launch_walk<Bf16Rows<NV_>, D_>(w, {xp}, s)
+  if (nv == 1 && depth == 4)
+    DENSE16(1, 4);
+  else if (nv == 1 && depth == 8)
+    DENSE16(1, 8);
+  else if (nv == 1 && depth == 16)
+    DENSE16(1, 16);
+  else if (nv == 2 && depth == 4)
+    DENSE16(2, 4);
+  else if (nv == 2 && depth == 8)
+    DENSE16(2, 8);
+  else if (nv == 2 && depth == 16)
+    DENSE16(2, 16);
+  else if (nv == 4 && depth == 4)
+    DENSE16(4, 4);
+  else
+    return (int)cudaErrorInvalidValue;
+#undef DENSE16
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  launch_carry(slices(dim4), w.indptr, static_cast<const int*>(carry_rows),
+               w.post, w.carry, w.y, n_carry, chunk, warp_chunks, dim4, s);
+  return (int)cudaGetLastError();
+}
+
+// stream_cbsr_spmm on records with bf16 values: int32 [n_src, vw + kp],
+// vw = ceil(k / 2) words of bf16 values, two to a word (value 2i in the low
+// half of word i), then kp = ceil(k / 4) words of uint8 channel ids
+// (ops/maxk.py::cbsr_records on bf16 values; 96 B at k 32). batch: 4, 8 or
+// 16 at k <= 32, 8 at k <= 64, 4 above. Otherwise as stream_cbsr_spmm.
+extern "C" int stream_cbsr_spmm_bf16(const void* indptr, const void* indices,
+                                     const void* records, const void* pre,
+                                     const void* post, const void* chunk_row0,
+                                     const void* carry_rows, const void* hot,
+                                     void* y, void* carry, int64_t n_rows,
+                                     int64_t n_chunks, int64_t n_carry,
+                                     int64_t n_edges, int chunk, int k,
+                                     int kp, int dim, int batch,
+                                     int warp_chunks, void* stream) {
+  if (dim < 4 || dim % 4 != 0 || dim > 256 || k < 1 || k >= dim ||
+      kp != (k + 3) / 4 || chunk < 1 || chunk > 512 || warp_chunks < 1 ||
+      !fits_int(n_rows, n_edges))
+    return (int)cudaErrorInvalidValue;
+  const int dim4 = dim / 4;
+  const Walk w = make_walk(indptr, indices, pre, post, chunk_row0, hot, y,
+                           carry, n_rows, n_chunks, n_edges, chunk,
+                           warp_chunks, dim4);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned* rp = static_cast<const unsigned*>(records);
+  const int kv = slices(k);
+#define CBSR16(KV_, B_) launch_walk<Cbsr16Records<KV_>, B_>(w, {rp, k, kp}, s)
+  if (kv == 1 && batch == 4)
+    CBSR16(1, 4);
+  else if (kv == 1 && batch == 8)
+    CBSR16(1, 8);
+  else if (kv == 1 && batch == 16)
+    CBSR16(1, 16);
+  else if (kv == 2 && batch == 8)
+    CBSR16(2, 8);
+  else if (kv == 4 && batch == 4)
+    CBSR16(4, 4);
+  else if (kv == 8 && batch == 4)
+    CBSR16(8, 4);
+  else
+    return (int)cudaErrorInvalidValue;
+#undef CBSR16
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   launch_carry(dim4 <= 32 ? 1 : 2, w.indptr,

@@ -11,7 +11,8 @@ On the card the "windowed" kind is `CSRPlan`: the CSR, and the schedule the
 `csr_spmm` kernel runs (`CSRSchedule`, built once per plan and width):
 - source blocks: the source ids cut into `nb` contiguous blocks, each a slab
   of x small enough for the card's L2 (`auto_src_blocks`, the counterpart of
-  the JAX package's `auto_src_block`, sized for L2 instead of VMEM). The
+  the JAX package's `auto_src_block`, sized for L2 instead of VMEM, by row
+  bytes: bf16 rows take half the blocks of f32 ones). The
   edges are re-bucketed by (source block, destination row), stably, so each
   row keeps its CSR order inside a block. The kernel runs one pass per block,
   in block order, and every warp of a pass gathers from that block's slab;
@@ -50,12 +51,15 @@ LAST = 2    # the row's last block with edges: multiply by post
 
 
 def auto_src_blocks(num_rows: int, num_edges: int, dim: int,
-                    num_src_nodes: int | None = None) -> int:
-    """Source blocks for `csr_spmm` at width `dim`: enough that each block's
-    slab of x (rows × dim × 4 B) fits in L2_BLOCK_BYTES, or 1 where the
-    expected edges per (row, block) fall below MIN_EDGES_PER_BLOCK_ROW."""
+                    num_src_nodes: int | None = None,
+                    elem_bytes: int = 4) -> int:
+    """Source blocks for `csr_spmm` at width `dim` and `elem_bytes` a
+    channel (4 for f32 rows, 2 for the 16-bit stream's bf16 rows): enough
+    that each block's slab of x (rows × dim × elem_bytes) fits in
+    L2_BLOCK_BYTES, or 1 where the expected edges per (row, block) fall
+    below MIN_EDGES_PER_BLOCK_ROW."""
     n_src = num_src_nodes if num_src_nodes is not None else num_rows
-    block_rows = max(L2_BLOCK_BYTES // (4 * dim), 1)
+    block_rows = max(L2_BLOCK_BYTES // (elem_bytes * dim), 1)
     nb = max(-(-n_src // block_rows), 1)
     if num_edges / max(num_rows, 1) / nb < MIN_EDGES_PER_BLOCK_ROW:
         return 1
@@ -215,8 +219,10 @@ def build_csr_schedule(indptr: torch.Tensor, indices: torch.Tensor,
 class CSRPlan:
     """The "windowed" plan kind on the card: the CSR (indptr int32 [R + 1],
     indices int32 [E]) and its `csr_spmm` schedules, built at first use per
-    (blocks, source count) and kept. `src_blocks` forces nb (None: the rule
-    `auto_src_blocks` at the call's width); `segment` is the segment size."""
+    (blocks, source count) and kept, so the schedules of two row sizes (f32
+    and bf16 rows) sit side by side. `src_blocks` forces nb (None: the rule
+    `auto_src_blocks` at the call's row bytes); `segment` is the segment
+    size."""
     indptr: torch.Tensor
     indices: torch.Tensor
     src_blocks: int | None = None
@@ -230,10 +236,13 @@ class CSRPlan:
     def num_rows(self) -> int:
         return self.indptr.numel() - 1
 
-    def schedule(self, num_src_nodes: int, dim: int) -> CSRSchedule:
-        """The schedule for an x of num_src_nodes rows of width dim."""
+    def schedule(self, num_src_nodes: int, dim: int,
+                 elem_bytes: int = 4) -> CSRSchedule:
+        """The schedule for an x of num_src_nodes rows of width dim, with
+        elem_bytes a channel."""
         nb = self.src_blocks or auto_src_blocks(
-            self.num_rows, self.indices.numel(), dim, num_src_nodes)
+            self.num_rows, self.indices.numel(), dim, num_src_nodes,
+            elem_bytes)
         key = (nb, num_src_nodes)
         if key not in self._schedules:
             self._schedules[key] = build_csr_schedule(

@@ -35,11 +35,16 @@ _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 SIGNATURES = {
     "maxk": {"maxk_fwd": [_P, _P, _P, _I64, _INT, _INT, _P],
              "maxk_bwd": [_P, _P, _P, _P, _I64, _INT, _P]},
-    "spmm": {"csr_spmm": [_P, _P, _P, _P, _INT, _P, _P, _P, _P, _P, _P, _INT,
-                          _P]},
+    "spmm": {name: [_P, _P, _P, _P, _INT, _P, _P, _P, _P, _P, _P, _INT, _P]
+             for name in ("csr_spmm", "csr_spmm_bf16")},
     "stream": {"stream_spmm": [*[_P] * 10, *[_I64] * 4, *[_INT] * 4, _P],
+               "stream_spmm_bf16": [*[_P] * 10, *[_I64] * 4, *[_INT] * 4,
+                                    _P],
                "stream_cbsr_spmm": [*[_P] * 10, *[_I64] * 4, *[_INT] * 7,
-                                    _P]},
+                                    _P],
+               "stream_cbsr_spmm_bf16": [*[_P] * 10, *[_I64] * 4,
+                                         *[_INT] * 6, _P]},
+    "round": {"round_rows": [_P, _P, _P, _I64, _INT, _P]},
     "cbsr": {"cbsr_compact": [_P, _P, _P, _I64, _INT, _INT, _P],
              "cbsr_densify": [_P, _P, _P, _I64, _INT, _INT, _P],
              "cbsr_sample": [_P, _P, _P, _I64, _INT, _INT, _P]},

@@ -21,6 +21,13 @@ Entry points:
 With `STREAM_CBSR_FORWARD` set, the forward of either entry point on a
 stream plan takes `stream_cbsr_spmm` on CBSR instead (the models' path
 compacts its k-sparse input first).
+
+`DEFAULT_STREAM` selects the feature stream of every product, forward on A
+and backward on Aᵀ: "f32" (exact), or "bf16x2", the reference's 16-bit
+stream. Its messages are bf16(pre ⊙ x) (the node factor in f32, then one
+rounding, `kernels/round.py::round_rows`), gathered by the bf16 form of the
+plan's kernel with no pre factor, summed in f32, with the post factor on the
+f32 sum; the output stays f32.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ from spgemm_gnn_tpu_torch.graphs.tiles import (CHUNK, CSRPlan, auto_window,
                                                predicted_windowed_fill)
 from spgemm_gnn_tpu_torch.kernels.cbsr import (cbsr_compact, cbsr_densify,
                                                cbsr_sample)
+from spgemm_gnn_tpu_torch.kernels.round import round_rows
 from spgemm_gnn_tpu_torch.kernels.spmm import csr_spmm
 from spgemm_gnn_tpu_torch.kernels.stream import stream_cbsr_spmm, stream_spmm
 from spgemm_gnn_tpu_torch.ops.maxk import cbsr_records
@@ -54,7 +62,22 @@ KIND_SRC_BLOCK = 256
 # Windowed plans ignore it, and every backward takes the dense kernel.
 STREAM_CBSR_FORWARD = False
 
+# The feature stream of the planned products: "f32" or "bf16x2" (the name,
+# values and default of the reference's `DEFAULT_STREAM`, which its Trainer
+# sets from `--stream`; read at each call). The name is the TPU kernel's,
+# which packs two bf16 to a 32-bit lane; here a bf16 row is a bf16 tensor.
+DEFAULT_STREAM = "f32"
+STREAMS = ("f32", "bf16x2")
+
 KINDS = ("auto", "windowed", "stream")
+
+
+def _stream16() -> bool:
+    """True under the 16-bit stream (DEFAULT_STREAM "bf16x2")."""
+    if DEFAULT_STREAM not in STREAMS:
+        raise ValueError(f"unknown stream {DEFAULT_STREAM!r}; expected one "
+                         f"of {STREAMS}")
+    return DEFAULT_STREAM == "bf16x2"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,25 +132,27 @@ def plan_graph(g: Graph, *, kind: str = "auto", chunk: int = CHUNK,
     """Both plans of a graph, on its device. kind: "auto" (the reference's
     rule, `plan_kind`), "windowed" or "stream"; chunk: edges per chunk of a
     stream plan. A windowed plan's `csr_spmm` schedule, or a stream plan's
-    hot set for rows of `dim` floats, is built here for width `dim` when it
-    is given (else at the first product of each width). A symmetric graph's
+    hot set, is built here for rows of width `dim` in DEFAULT_STREAM's
+    feature stream (4 B a channel in "f32", 2 in "bf16x2") when `dim` is
+    given (else at the first product of each row size). A symmetric graph's
     backward plan is its forward plan."""
     if kind not in KINDS:
         raise ValueError(f"unknown plan kind {kind!r}; expected one of "
                          f"{KINDS}")
     if kind == "auto":
         kind = plan_kind(g.num_nodes, g.num_edges)
+    elem = 2 if _stream16() else 4
 
     def one(transpose: bool):
         if kind == "stream":
             plan = stream_plan_for_graph(g, transpose=transpose, chunk=chunk)
             if dim is not None:
-                plan.hot_set(4 * dim)
+                plan.hot_set(elem * dim)
             return plan
         plan = (CSRPlan(g.t_indptr, g.t_indices) if transpose
                 else CSRPlan(g.indptr, g.indices))
         if dim is not None:
-            plan.schedule(g.num_nodes, dim)
+            plan.schedule(g.num_nodes, dim, elem)
         return plan
 
     fwd = one(False)
@@ -153,14 +178,29 @@ def plan_spmm(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
     """y = post ⊙ A (pre ⊙ x) through the plan's kernel. `k` states that x
     has at most k nonzeros per row: with STREAM_CBSR_FORWARD set, a stream
     plan then compacts x to CBSR and takes `stream_cbsr_spmm` (the same y by
-    value)."""
+    value). Under the 16-bit stream (DEFAULT_STREAM "bf16x2") the kernel
+    gathers bf16(pre ⊙ x), or the CBSR values so rounded, with no pre
+    factor; a windowed plan then needs dim % 16 == 0, as the reference's
+    packed stream does."""
+    stream16 = _stream16()
+    dim = x.shape[1]
     if isinstance(plan, StreamPlan):
-        dim = x.shape[1]
         if STREAM_CBSR_FORWARD and k is not None and k < dim:
             vals, ch = cbsr_compact(x, k)
+            if stream16:
+                return stream_cbsr_spmm(
+                    plan, cbsr_records(round_rows(vals, pre), ch, dim), k,
+                    dim, None, post, torch.bfloat16)
             return stream_cbsr_spmm(plan, cbsr_records(vals, ch, dim), k,
                                     dim, pre, post)
+        if stream16:
+            return stream_spmm(plan, round_rows(x, pre), None, post)
         return stream_spmm(plan, x, pre, post)
+    if stream16:
+        if dim % 16:
+            raise ValueError(f"the bf16x2 stream needs dim % 16 == 0 on a "
+                             f"windowed plan; got {dim}")
+        return csr_spmm(plan, round_rows(x, pre), None, post)
     return csr_spmm(plan, x, pre, post)
 
 
@@ -197,11 +237,19 @@ def spgemm_forward(dim: int, values: torch.Tensor, channels: torch.Tensor,
                    src_f, dst_f, plans) -> torch.Tensor:
     """CBSR forward: y = dst_f ⊙ A densify(src_f ⊙ values) through the
     forward plan's kernel; on a stream plan with STREAM_CBSR_FORWARD set,
-    (src_f ⊙ values, channels) go to `stream_cbsr_spmm` with no densify."""
-    v = _scale(values, src_f).contiguous()
+    (src_f ⊙ values, channels) go to `stream_cbsr_spmm` with no densify
+    (under the 16-bit stream, the values rounded to bf16 after the
+    factor)."""
     if STREAM_CBSR_FORWARD and isinstance(plans[0], StreamPlan):
-        return stream_cbsr_spmm(plans[0], cbsr_records(v, channels, dim),
-                                values.shape[1], dim, None, dst_f)
+        k = values.shape[1]
+        if _stream16():
+            rec = cbsr_records(round_rows(values, src_f), channels, dim)
+            return stream_cbsr_spmm(plans[0], rec, k, dim, None, dst_f,
+                                    torch.bfloat16)
+        v = _scale(values, src_f).contiguous()
+        return stream_cbsr_spmm(plans[0], cbsr_records(v, channels, dim), k,
+                                dim, None, dst_f)
+    v = _scale(values, src_f).contiguous()
     return plan_spmm(plans[0], cbsr_densify(v, channels, dim), None, dst_f)
 
 

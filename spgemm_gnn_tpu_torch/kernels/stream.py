@@ -10,6 +10,11 @@ with an L2 evict-last hint. `stream_spmm_at` and `stream_cbsr_spmm_at` take
 the hot-set budget and the kernels' launch shape as arguments, for
 `utils/stream_sweep.py` and chip_smoke.py; the wrappers run them at the
 defaults below.
+
+Each also takes the 16-bit feature stream's input: bf16 rows for
+`stream_spmm`, records with bf16 values (`value_dtype`) for
+`stream_cbsr_spmm`, launching the bf16 form of its kernel (`stream_spmm_bf16`,
+`stream_cbsr_spmm_bf16`, counted under those names); the sums and y stay f32.
 """
 from __future__ import annotations
 
@@ -17,21 +22,30 @@ import torch
 
 from spgemm_gnn_tpu_torch.kernels import _build
 from spgemm_gnn_tpu_torch.kernels.spmm import MAX_DIM
-from spgemm_gnn_tpu_torch.ops.maxk import packed_channel_words
+from spgemm_gnn_tpu_torch.ops.maxk import (packed_channel_words,
+                                           record_value_words)
 from spgemm_gnn_tpu_torch.ops.stream import (stream_cbsr_spmm_plain,
                                              stream_spmm_plain)
 
 # stream_cbsr_spmm's channel ids are packed as uint8 (the JAX kernel's limit)
 MAX_CBSR_DIM = 256
 
-# The launch shapes the kernels are built for, keyed by float4 slices per
-# lane (dim <= 128, 256, 512, 1024) for stream_spmm's rows fetched ahead, and
-# by value slots per lane (k <= 32, 64, 128, 256) for stream_cbsr_spmm's
-# edges loaded ahead. The first entry is the default: at dim 256 and k 32,
-# the best of utils/stream_sweep.py on the ogbn-products stand-in (PERF.md);
-# wider rows keep about 8 KB of registers in flight per warp.
+# The launch shapes the kernels are built for, keyed by a row's 16-byte
+# slices per lane (row bytes <= 512, 1024, 2048, 4096: f32 dim 256 and bf16
+# dim 512 share a key) for stream_spmm's rows fetched ahead, and by value
+# slots per lane (k <= 32, 64, 128, 256) for stream_cbsr_spmm's edges loaded
+# ahead, BATCHES for records of f32 values and BATCHES16 for records of
+# bf16 ones (a lane holds one 32-bit word of such a record per edge at
+# k <= 32, against two of an f32 one, so more edges fit ahead). The first
+# entry is the default: at dim 256 and k 32, the best of
+# utils/stream_sweep.py on the ogbn-products stand-in (PERF.md); wider rows
+# keep about 8 KB of registers in flight per warp.
 DEPTHS = {1: (8, 4, 16), 2: (8, 4, 16), 4: (4,), 8: (2,)}
 BATCHES = {1: (8, 4, 16), 2: (8,), 4: (4,), 8: (4,)}
+BATCHES16 = {1: (16, 4, 8), 2: (8,), 4: (4,), 8: (4,)}
+
+
+STREAM_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _slices(n: int) -> int:
@@ -75,11 +89,21 @@ def _choose(value: int | None, allowed: tuple, what: str) -> int:
     return value
 
 
+def _check_rows(x: torch.Tensor) -> None:
+    """The 16-bit rows' width rule, on every device: one 16-B load per 8
+    channels (the reference's stream needs dim % 8 == 0 for any dtype)."""
+    if x.dtype == torch.bfloat16 and x.shape[-1] % 8:
+        raise ValueError(f"stream_spmm on bf16 rows needs dim % 8 == 0; got "
+                         f"{x.shape[-1]}")
+
+
 def stream_spmm(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
                 post: torch.Tensor | None = None) -> torch.Tensor:
     """y[v] = post[v] · Σ_{u ∈ in(v)} pre[u] · x[u] over the StreamPlan's
-    CSR (a None factor is 1); x f32 [S, dim] → y f32 [plan.num_rows, dim].
-    Indices are trusted to lie in [0, S): graphs come from `from_edges`."""
+    CSR (a None factor is 1); x f32 or bf16 [S, dim] → y f32
+    [plan.num_rows, dim]. Indices are trusted to lie in [0, S): graphs come
+    from `from_edges`."""
+    _check_rows(x)
     if _build.on_cpu(x):
         return stream_spmm_plain(plan, x, pre, post)
     return stream_spmm_at(plan, x, pre, post)
@@ -94,19 +118,24 @@ def stream_spmm_at(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
     fetched ahead into registers (None: the default of DEPTHS). Every
     choice gives the same bits."""
     dev = x.device
-    _build.require(x, "x", torch.float32, dev, (None, None))
+    bf16 = x.dtype == torch.bfloat16
+    _build.require(x, "x", torch.bfloat16 if bf16 else torch.float32, dev,
+                   (None, None))
+    _check_rows(x)
     n_src, dim = x.shape
     if dim % 4 or not 4 <= dim <= MAX_DIM:
         raise ValueError(f"stream_spmm needs dim % 4 == 0 and 4 <= dim <= "
                          f"{MAX_DIM}; got {dim}")
-    depth = _choose(depth, DEPTHS[_slices(dim // 4)], "depth")
+    row_bytes = dim * x.element_size()
+    depth = _choose(depth, DEPTHS[_slices(row_bytes // 16)], "depth")
     _require_plan(plan, dev, n_src, pre, post)
     _build.require_aligned(x, "x")
     y, carry = _outputs(plan, dim, dev)
     if plan.num_rows:
-        hot = plan.hot_set(4 * dim, hot_budget)
+        hot = plan.hot_set(row_bytes, hot_budget)
+        name = "stream_spmm_bf16" if bf16 else "stream_spmm"
         with torch.cuda.device(dev):
-            status = _build.library("stream").stream_spmm(
+            status = getattr(_build.library("stream"), name)(
                 plan.indptr.data_ptr(), plan.indices.data_ptr(),
                 x.data_ptr(), _ptr(pre), _ptr(post),
                 plan.chunk_row0.data_ptr(), plan.carry_rows.data_ptr(),
@@ -114,37 +143,46 @@ def stream_spmm_at(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
                 plan.num_rows, plan.num_chunks, plan.carry_rows.numel(),
                 plan.num_edges, plan.chunk, dim, depth, plan.warp_chunks,
                 _build.stream_of(x))
-        _build.check(status, "stream_spmm")
-        _build.launches["stream_spmm"] += 1
+        _build.check(status, name)
+        _build.launches[name] += 1
     return y
 
 
-def _check_cbsr(records: torch.Tensor, k: int, dim: int) -> None:
+def _check_cbsr(records: torch.Tensor, k: int, dim: int,
+                value_dtype: torch.dtype) -> None:
+    if value_dtype not in STREAM_DTYPES:
+        raise ValueError(f"record values are f32 or bf16; got {value_dtype}")
     if dim > MAX_CBSR_DIM:
         raise ValueError(f"stream_cbsr_spmm supports dim <= {MAX_CBSR_DIM} "
                          f"(uint8 channel ids); got dim={dim}")
     if not 1 <= k < dim:
         raise ValueError(f"stream_cbsr_spmm needs 1 <= k < dim; got k={k}, "
                          f"dim={dim}")
-    width = k + packed_channel_words(k, dim)
+    width = record_value_words(k, value_dtype) + packed_channel_words(k, dim)
     if records.dim() != 2 or records.shape[1] != width:
         raise ValueError(f"records has shape {tuple(records.shape)}, expected "
-                         f"[S, {width}] (k values and the packed ids)")
+                         f"[S, {width}] (k {value_dtype} values and the "
+                         f"packed ids)")
 
 
 def stream_cbsr_spmm(plan, records: torch.Tensor, k: int, dim: int,
                      pre: torch.Tensor | None = None,
-                     post: torch.Tensor | None = None) -> torch.Tensor:
+                     post: torch.Tensor | None = None,
+                     value_dtype: torch.dtype = torch.float32
+                     ) -> torch.Tensor:
     """y = post ⊙ A (pre ⊙ cbsr(values, channels)) over the StreamPlan:
-    records int32 [S, k + ceil(k/4)] from `ops.maxk.cbsr_records(values,
-    channels, dim)` (channels distinct within a row) → y f32
-    [plan.num_rows, dim], equal by value to `stream_spmm` on the densified
-    input. Needs 1 <= k < dim <= 256, on the CPU too: the ids are packed as
-    uint8, as in the JAX kernel."""
-    _check_cbsr(records, k, dim)
+    records int32 [S, record_value_words(k, value_dtype) + ceil(k/4)] from
+    `ops.maxk.cbsr_records(values, channels, dim)` with values of
+    `value_dtype` (f32, or bf16 for the 16-bit stream; channels distinct
+    within a row) → y f32 [plan.num_rows, dim], equal by value to
+    `stream_spmm` on the densified input. Needs 1 <= k < dim <= 256, on the
+    CPU too: the ids are packed as uint8, as in the JAX kernel."""
+    _check_cbsr(records, k, dim, value_dtype)
     if _build.on_cpu(records):
-        return stream_cbsr_spmm_plain(plan, records, k, dim, pre, post)
-    return stream_cbsr_spmm_at(plan, records, k, dim, pre, post)
+        return stream_cbsr_spmm_plain(plan, records, k, dim, pre, post,
+                                      value_dtype)
+    return stream_cbsr_spmm_at(plan, records, k, dim, pre, post,
+                               value_dtype=value_dtype)
 
 
 def stream_cbsr_spmm_at(plan, records: torch.Tensor, k: int, dim: int,
@@ -152,36 +190,45 @@ def stream_cbsr_spmm_at(plan, records: torch.Tensor, k: int, dim: int,
                         post: torch.Tensor | None = None, *,
                         hot_budget: int | None = None,
                         batch: int | None = None,
-                        scatter: bool = True) -> torch.Tensor:
+                        scatter: bool = True,
+                        value_dtype: torch.dtype = torch.float32
+                        ) -> torch.Tensor:
     """`stream_cbsr_spmm`'s kernel on CUDA records with the hot set of
     `hot_budget` bytes (None: `stream_tiles.HOT_BUDGET`; 0: none), `batch`
     edges loaded ahead into registers (None: the default of BATCHES); every
     choice gives the same bits. `scatter=False` is utils/stream_sweep.py's
     timing variant (values summed in registers, no shared-memory scatter):
-    its y is wrong by design."""
-    _check_cbsr(records, k, dim)
+    its y is wrong by design, and built for f32 values only."""
+    _check_cbsr(records, k, dim, value_dtype)
     dev = records.device
+    bf16 = value_dtype == torch.bfloat16
     if dim % 4 or dim < 4:
         raise ValueError(f"stream_cbsr_spmm needs dim % 4 == 0; got {dim}")
     kp = packed_channel_words(k, dim)
-    batch = _choose(batch, BATCHES[_slices(k)], "batch")
-    if not scatter and _slices(k) != 1:
-        raise ValueError("the scatter-free variant is built for k <= 32")
+    batch = _choose(batch, (BATCHES16 if bf16 else BATCHES)[_slices(k)],
+                    "batch")
+    if not scatter and (_slices(k) != 1 or bf16):
+        raise ValueError("the scatter-free variant is built for k <= 32 and "
+                         "f32 values")
     n_src = records.shape[0]
-    _build.require(records, "records", torch.int32, dev, (n_src, k + kp))
+    width = record_value_words(k, value_dtype) + kp
+    _build.require(records, "records", torch.int32, dev, (n_src, width))
     _require_plan(plan, dev, n_src, pre, post)
     y, carry = _outputs(plan, dim, dev)
     if plan.num_rows:
-        hot = plan.hot_set(4 * (k + kp), hot_budget)
-        with torch.cuda.device(dev):
-            status = _build.library("stream").stream_cbsr_spmm(
-                plan.indptr.data_ptr(), plan.indices.data_ptr(),
+        hot = plan.hot_set(4 * width, hot_budget)
+        name = "stream_cbsr_spmm_bf16" if bf16 else "stream_cbsr_spmm"
+        args = (plan.indptr.data_ptr(), plan.indices.data_ptr(),
                 records.data_ptr(), _ptr(pre), _ptr(post),
                 plan.chunk_row0.data_ptr(), plan.carry_rows.data_ptr(),
                 _ptr(hot.mask), y.data_ptr(), carry.data_ptr(),
                 plan.num_rows, plan.num_chunks, plan.carry_rows.numel(),
                 plan.num_edges, plan.chunk, k, kp, dim, batch,
-                plan.warp_chunks, int(scatter), _build.stream_of(records))
-        _build.check(status, "stream_cbsr_spmm")
-        _build.launches["stream_cbsr_spmm"] += 1
+                plan.warp_chunks)
+        with torch.cuda.device(dev):
+            fn = getattr(_build.library("stream"), name)
+            status = (fn(*args, _build.stream_of(records)) if bf16
+                      else fn(*args, int(scatter), _build.stream_of(records)))
+        _build.check(status, name)
+        _build.launches[name] += 1
     return y

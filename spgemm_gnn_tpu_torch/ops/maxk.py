@@ -190,19 +190,33 @@ def unpack_channels(packed: torch.Tensor, k: int, dim: int = 256
     return parts.reshape(packed.shape[0], -1)[:, :k].to(torch.int32)
 
 
+def record_value_words(k: int, dtype: torch.dtype = torch.float32) -> int:
+    """int32 words of a record's k values: k f32, or ceil(k / 2) bf16."""
+    return -(-k // 2) if dtype == torch.bfloat16 else k
+
+
 def cbsr_records(values: torch.Tensor, channels: torch.Tensor,
                  dim: int) -> torch.Tensor:
     """One record per node, what `stream_cbsr_spmm` gathers per edge: int32
-    [N, k + packed_channel_words(k, dim)], the f32 values' bits, then the
-    packed channel ids (`pack_channels`). At k 32 and dim 256 a record is
-    160 B, so an edge reads one contiguous run of five 32-B sectors."""
-    bits = values.to(torch.float32).contiguous().view(torch.int32)
+    [N, record_value_words(k, dtype) + packed_channel_words(k, dim)], the
+    values' bits, then the packed channel ids (`pack_channels`). bf16 values
+    (the 16-bit stream) go two to a word, value 2i in the low half of word
+    i, k padded to even with a zero; any other dtype as f32. At k 32 and
+    dim 256 a record is 160 B with f32 values (five 32-B sectors) and 96 B
+    with bf16 ones (three)."""
+    if values.dtype == torch.bfloat16:
+        bits = torch.nn.functional.pad(values, (0, values.shape[1] % 2))
+    else:
+        bits = values.to(torch.float32)
+    bits = bits.contiguous().view(torch.int32)
     return torch.cat([bits, pack_channels(channels, dim)], dim=1)
 
 
-def split_records(records: torch.Tensor, k: int, dim: int
+def split_records(records: torch.Tensor, k: int, dim: int,
+                  dtype: torch.dtype = torch.float32
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Inverse of `cbsr_records`: (values f32 [N, k], channels int32
-    [N, k])."""
-    values = records[:, :k].contiguous().view(torch.float32)
-    return values, unpack_channels(records[:, k:], k, dim)
+    """Inverse of `cbsr_records` for values of `dtype` (f32 or bf16):
+    (values [N, k], channels int32 [N, k])."""
+    vw = record_value_words(k, dtype)
+    values = records[:, :vw].contiguous().view(dtype)[:, :k].contiguous()
+    return values, unpack_channels(records[:, vw:], k, dim)

@@ -11,6 +11,11 @@ index, here an expanded view of the edge rows.
 block is the whole CSR), and is the wrapper's CPU path. `spmm` is the
 differentiable oracle the tests compare the autograd pair with; its gradient
 comes from autograd, not from the transpose CSR.
+
+The 16-bit feature stream: `round_rows_plain` makes its messages, bf16(pre ⊙
+x) (the plain version of the `round_rows` kernel, kernels/round.py); the
+plain sums take bf16 rows by widening them exactly to f32 first, so that
+they sum what the bf16 kernels gather.
 """
 from __future__ import annotations
 
@@ -25,6 +30,17 @@ _MSG_BYTES_CAP = 1 << 30
 
 def _scale(x: torch.Tensor, f: torch.Tensor | None) -> torch.Tensor:
     return x if f is None else x * f[:, None].to(x.dtype)
+
+
+def _widen(x: torch.Tensor) -> torch.Tensor:
+    """bf16 rows as f32 (exact); any other dtype as it is."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+def round_rows_plain(x: torch.Tensor, pre: torch.Tensor | None = None
+                     ) -> torch.Tensor:
+    """bf16(pre ⊙ x): the f32 product rounded once to nearest even."""
+    return _scale(x, pre).to(torch.bfloat16)
 
 
 def _gather_add(indices: torch.Tensor, rows: torch.Tensor,
@@ -43,7 +59,9 @@ def csr_spmm_plain(indptr: torch.Tensor, indices: torch.Tensor,
                    x: torch.Tensor, pre: torch.Tensor | None = None,
                    post: torch.Tensor | None = None) -> torch.Tensor:
     """y[v] = post[v] · Σ_{u ∈ in(v)} pre[u] · x[u] over the CSR
-    (indptr, indices); a None factor is 1. Output rows = len(indptr) - 1."""
+    (indptr, indices); a None factor is 1. Output rows = len(indptr) - 1.
+    bf16 x is summed in f32."""
+    x = _widen(x)
     n_out = indptr.numel() - 1
     rows = torch.repeat_interleave(
         torch.arange(n_out, dtype=torch.int32, device=indptr.device),
@@ -60,6 +78,7 @@ def csr_blocked_plain(block_indptr: torch.Tensor, indices: torch.Tensor,
     indices[block_indptr[b, r]:block_indptr[b, r + 1]]), the blocks' sums
     added in block order, then the post factor: the order of the `csr_spmm`
     kernel's passes. One block is `csr_spmm_plain` itself."""
+    x = _widen(x)
     y = None
     for bptr in block_indptr:
         lo, hi = int(bptr[0]), int(bptr[-1])

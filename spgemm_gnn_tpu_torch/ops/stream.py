@@ -20,19 +20,24 @@ comparison instead of passing on a zero.
 kernel (counterpart of `stream_pallas.py::stream_spmm_cbsr`): the same
 product with the input given as one CBSR record per node (values and packed
 channel ids, `ops/maxk.py::cbsr_records`).
+
+Both take the 16-bit stream's input as the bf16 kernels do: bf16 rows, or
+records with bf16 values, widened exactly to f32 before the f32 sums.
 """
 from __future__ import annotations
 
 import torch
 
 from spgemm_gnn_tpu_torch.ops.maxk import cbsr_to_dense, split_records
-from spgemm_gnn_tpu_torch.ops.spmm import _gather_add, _scale
+from spgemm_gnn_tpu_torch.ops.spmm import _gather_add, _scale, _widen
 
 
 def stream_spmm_plain(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
                       post: torch.Tensor | None = None) -> torch.Tensor:
     """y[v] = post[v] · Σ_{u ∈ in(v)} pre[u] · x[u] over the plan's CSR (a
-    None factor is 1); y has plan.num_rows rows and x's dtype."""
+    None factor is 1); y has plan.num_rows rows and x's dtype (f32 for bf16
+    x)."""
+    x = _widen(x)
     ip = plan.indptr.long()
     n, n_edges, c = plan.num_rows, plan.num_edges, plan.chunk
     dev = x.device
@@ -84,11 +89,14 @@ def stream_spmm_plain(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
 
 def stream_cbsr_spmm_plain(plan, records: torch.Tensor, k: int, dim: int,
                            pre: torch.Tensor | None = None,
-                           post: torch.Tensor | None = None) -> torch.Tensor:
+                           post: torch.Tensor | None = None,
+                           value_dtype: torch.dtype = torch.float32
+                           ) -> torch.Tensor:
     """Plain version of the `stream_cbsr_spmm` kernel (kernels/stream.py):
     y = post ⊙ A (pre ⊙ cbsr(values, channels)) with (values, channels)
-    split from the records (ops/maxk.py::cbsr_records at this `k` and
-    `dim`), densified, and summed over the plan as `stream_spmm_plain`
-    does."""
-    values, ch = split_records(records, k, dim)
-    return stream_spmm_plain(plan, cbsr_to_dense(values, ch, dim), pre, post)
+    split from the records (ops/maxk.py::cbsr_records at this `k`, `dim`
+    and `value_dtype`), densified, and summed over the plan as
+    `stream_spmm_plain` does."""
+    values, ch = split_records(records, k, dim, value_dtype)
+    return stream_spmm_plain(plan, cbsr_to_dense(_widen(values), ch, dim),
+                             pre, post)

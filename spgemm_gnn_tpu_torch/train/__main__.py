@@ -6,6 +6,9 @@ Examples:
       --dropout 0.5 --norm --w_lr 0.01
   python -m spgemm_gnn_tpu_torch.train --dataset flickr --synthetic \
       --synthetic_scale 0.01 --epochs 20 --device cpu
+  # the 16-bit feature stream (bf16 messages, f32 sums)
+  python -m spgemm_gnn_tpu_torch.train --dataset ogbn-products --synthetic \
+      --hidden_layers 3 --norm --w_lr 0.003 --stream bf16x2
 """
 from __future__ import annotations
 

@@ -58,7 +58,7 @@ class TrainConfig:
     profile: str | None = None
     cache_strategy: str = "none"
     cache_size_ratio: float = 0.05
-    stream: str = "f32"
+    stream: str = "f32"                  # feature stream: f32 | bf16x2
 
     def print_params(self, prtf=print) -> None:
         prtf("")
@@ -75,7 +75,6 @@ class TrainConfig:
 _NOT_YET = (
     ("dtype", lambda v: v != "float32", "Queue A9 (--dtype bfloat16)"),
     ("remat", bool, "Queue A9 (--remat)"),
-    ("stream", lambda v: v != "f32", "Queue B2 (bf16x2 stream)"),
     ("mesh_shape", lambda v: v > 1, "Queue A13 (multi-GPU)"),
     ("multihost", bool, "Queue A13 (multi-GPU)"),
     ("coordinator", bool, "Queue A13 (multi-GPU)"),
@@ -152,7 +151,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["none", "direct", "static-outd", "fifo", "lru"])
     p.add_argument("--cache-size-ratio", dest="cache_size_ratio", type=float,
                    default=d.cache_size_ratio)
-    p.add_argument("--stream", default=d.stream, choices=["f32", "bf16x2"])
+    p.add_argument("--stream", default=d.stream, choices=["f32", "bf16x2"],
+                   help="the aggregation kernels' feature stream: f32 "
+                        "(exact), or bf16x2 (messages bf16(pre * x), f32 "
+                        "sums; kernels.planned.DEFAULT_STREAM)")
     return p
 
 

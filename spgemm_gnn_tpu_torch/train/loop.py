@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from spgemm_gnn_tpu_torch.graphs.datasets import Dataset, load_dataset
-from spgemm_gnn_tpu_torch.kernels.planned import plan_graph
+from spgemm_gnn_tpu_torch.kernels import planned
 from spgemm_gnn_tpu_torch.models.models import build_model
 from spgemm_gnn_tpu_torch.train.config import TrainConfig, check_supported
 from spgemm_gnn_tpu_torch.train.losses import loss_fn
@@ -57,11 +57,14 @@ class Trainer:
         self.dataset = dataset
         dev = self.device
         g = dataset.graph.to(dev)
+        # set unconditionally, as the reference does: the stream is
+        # process-global, and an earlier Trainer may have changed it
+        planned.DEFAULT_STREAM = config.stream
         # the kernels' impls plan the graph, so that each graph takes the
-        # reference's kernel (csr_spmm, or stream_spmm at low degree); the
-        # plain ops read the raw graph
+        # reference's kernel (csr_spmm, or stream_spmm at low degree), for
+        # the stream's row size; the plain ops read the raw graph
         self.g = (g if config.impl == "torch"
-                  else plan_graph(g, dim=config.hidden_dim))
+                  else planned.plan_graph(g, dim=config.hidden_dim))
         self.features = torch.from_numpy(
             np.asarray(dataset.features, np.float32)).to(dev)
         self.labels = torch.from_numpy(np.asarray(dataset.labels)).to(dev)

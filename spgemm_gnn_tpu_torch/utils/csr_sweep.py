@@ -3,7 +3,8 @@ source blocks and segment sizes (the measurements behind
 `graphs/tiles.py::MIN_EDGES_PER_BLOCK_ROW` and `SEGMENT`).
 
     python -m spgemm_gnn_tpu_torch.utils.csr_sweep [--dataset reddit] \
-        [--blocks auto,1,10] [--segments 512,1024] [--dim 256] [--iters 5]
+        [--blocks auto,1,10] [--segments 512,1024] [--dim 256] [--iters 5] \
+        [--stream f32|bf16x2]
 
 On the synthetic stand-in at full size (seed 97), for A (the input MaxK at
 k 32 then dropout 0.5, under the mean factors, as on the training path) and
@@ -11,7 +12,10 @@ Aᵀ (a dense cotangent): each schedule's sizes and build time, the kernel's
 time over `--iters` launches (CUDA events), its error against the plain
 version in float64 (as a share of max |y|), and `torch.sparse.mm` on the
 same product. "auto" is the rule (`graphs/tiles.py::auto_src_blocks`);
-`--segments` defaults to `SEGMENT`, the path's.
+`--segments` defaults to `SEGMENT`, the path's. `--stream bf16x2` runs the
+16-bit form (csr_spmm_bf16 on the rows of round_rows, the pre factor folded
+into them, as the planner does; "auto" then sizes blocks for 2-byte
+channels), held to the plain version on the same bf16 rows.
 Prints the card's name and power limit first.
 """
 from __future__ import annotations
@@ -37,10 +41,11 @@ def time_ms(fn, iters: int) -> float:
 
 
 def sweep(dataset: str, blocks: list, segments: list[int], dim: int,
-          iters: int, seed: int) -> None:
+          iters: int, seed: int, stream: str) -> None:
     from spgemm_gnn_tpu_torch.graphs.datasets import load_dataset
     from spgemm_gnn_tpu_torch.graphs.tiles import CSRPlan
     from spgemm_gnn_tpu_torch.kernels.maxk import maxk_fwd
+    from spgemm_gnn_tpu_torch.kernels.round import round_rows
     from spgemm_gnn_tpu_torch.kernels.spmm import csr_spmm
     from spgemm_gnn_tpu_torch.ops.norms import node_factors
     from spgemm_gnn_tpu_torch.ops.spmm import csr_spmm_plain
@@ -52,7 +57,7 @@ def sweep(dataset: str, blocks: list, segments: list[int], dim: int,
                       synthetic_scale=1.0, seed=seed)
     g = ds.graph.to("cuda")
     n, e = g.num_nodes, g.num_edges
-    print(f"{dataset}: N={n} E={e} dim={dim}", flush=True)
+    print(f"{dataset}: N={n} E={e} dim={dim} stream {stream}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     y, _ = maxk_fwd(torch.randn((n, dim), generator=gen, device="cuda"), 32)
     keep = torch.rand((n, dim), generator=gen, device="cuda") >= 0.5
@@ -62,6 +67,8 @@ def sweep(dataset: str, blocks: list, segments: list[int], dim: int,
     for what, indptr, indices, rows, x, pre, pst in (
             ("A", g.indptr, g.indices, g.edge_dst, xs, None, post),
             ("A^T", g.t_indptr, g.t_indices, g.t_edge_dst, gy, post, None)):
+        if stream == "bf16x2":
+            x, pre = round_rows(x, pre), None
         ref = csr_spmm_plain(indptr, indices, x.double(), pre, pst)
         scale = float(ref.abs().max())
         w = torch.ones(e, device="cuda")
@@ -69,7 +76,8 @@ def sweep(dataset: str, blocks: list, segments: list[int], dim: int,
             w = w * pre[indices.long()]
         if pst is not None:
             w = w * pst[rows.long()]
-        a = torch.sparse_csr_tensor(indptr, indices, w, size=(n, n))
+        a = torch.sparse_csr_tensor(indptr, indices, w.to(x.dtype),
+                                    size=(n, n))
         print(f"{what}: torch.sparse.mm {time_ms(lambda: torch.sparse.mm(a, x), iters):.3f} ms",
               flush=True)
         del a, w
@@ -78,7 +86,7 @@ def sweep(dataset: str, blocks: list, segments: list[int], dim: int,
                 plan = CSRPlan(indptr, indices,
                                None if nb == "auto" else int(nb), seg)
                 t0 = time.perf_counter()
-                s = plan.schedule(n, dim)
+                s = plan.schedule(n, dim, x.element_size())
                 torch.cuda.synchronize()
                 build_s = time.perf_counter() - t0
                 got = csr_spmm(plan, x, pre, pst)
@@ -105,10 +113,11 @@ def main(argv=None) -> None:
     ap.add_argument("--dim", type=int, default=256)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--seed", type=int, default=97)
+    ap.add_argument("--stream", default="f32", choices=["f32", "bf16x2"])
     args = ap.parse_args(argv)
     sweep(args.dataset, args.blocks.split(","),
           [int(s) for s in args.segments.split(",")], args.dim, args.iters,
-          args.seed)
+          args.seed, args.stream)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,7 @@ with device time summed by kernel name.
 
     python -m spgemm_gnn_tpu_torch.utils.profile_step \
         [--dataset reddit|ogbn-products] [--model sage|gcn|...] \
-        [--stream_cbsr_forward] [--synthetic_scale S]
+        [--stream_cbsr_forward] [--stream f32|bf16x2] [--synthetic_scale S]
 
 Recipes (scripts_train/*_maxk.sh): reddit (the default) MaxK k=32, hidden
 256, 4 layers, LayerNorm, dropout 0.5, lr 0.01; ogbn-products the same with
@@ -14,7 +14,8 @@ recipes give them. The Trainer plans the graph, so the step runs the kernel
 the reference's rule picks (csr_spmm on reddit, stream_spmm on
 ogbn-products); `--stream_cbsr_forward` sets
 `kernels.planned.STREAM_CBSR_FORWARD`, so a stream plan's forward takes
-stream_cbsr_spmm.
+stream_cbsr_spmm; `--stream bf16x2` runs the 16-bit feature stream (the
+Trainer's `--stream`: round_rows and the bf16 forms of the kernels).
 
 Prints the card's name and power limit, the plan kind, the step's wall time,
 the device's busy time and idle share, and the kernels that took the most
@@ -37,7 +38,8 @@ RECIPES = {
 
 
 def profile_step(dataset: str, model: str, stream_cbsr_forward: bool,
-                 synthetic_scale: float, seed: int, top: int) -> None:
+                 stream: str, synthetic_scale: float, seed: int,
+                 top: int) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from spgemm_gnn_tpu_torch.kernels import planned
@@ -51,13 +53,15 @@ def profile_step(dataset: str, model: str, stream_cbsr_forward: bool,
     cfg = TrainConfig(dataset=dataset, model=model, selfloop=model != "sage",
                       nonlinear="maxk", maxk=32,
                       hidden_dim=256, norm=True, dropout=0.5, seed=seed,
+                      stream=stream,
                       device="cuda", impl="auto", synthetic=True,
                       synthetic_scale=synthetic_scale,
                       data_path="/nonexistent", **RECIPES[dataset])
     trainer = Trainer(cfg)
     print(f"{dataset}, {model}: N={trainer.g.num_nodes} "
           f"E={trainer.g.num_edges}, plan kind {trainer.g.kind}, "
-          f"STREAM_CBSR_FORWARD {stream_cbsr_forward}", flush=True)
+          f"STREAM_CBSR_FORWARD {stream_cbsr_forward}, stream {stream}",
+          flush=True)
     state = trainer.init_state()
     gen = torch.Generator(device=trainer.device).manual_seed(seed)
     trainer.train_step(state, gen)
@@ -86,12 +90,13 @@ def main(argv=None) -> None:
     ap.add_argument("--dataset", default="reddit", choices=sorted(RECIPES))
     ap.add_argument("--model", default="sage", choices=list(MODELS))
     ap.add_argument("--stream_cbsr_forward", action="store_true")
+    ap.add_argument("--stream", default="f32", choices=["f32", "bf16x2"])
     ap.add_argument("--synthetic_scale", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=97)
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
     profile_step(args.dataset, args.model, args.stream_cbsr_forward,
-                 args.synthetic_scale, args.seed, args.top)
+                 args.stream, args.synthetic_scale, args.seed, args.top)
 
 
 if __name__ == "__main__":

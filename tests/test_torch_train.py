@@ -119,12 +119,25 @@ def test_default_device_without_gpu_raises():
 
 @pytest.mark.parametrize("flag", [
     dict(timing=True), dict(dtype="bfloat16"), dict(remat=True),
-    dict(stream="bf16x2"), dict(mesh_shape=2), dict(checkpoint_every=5),
+    dict(mesh_shape=2), dict(checkpoint_every=5),
     dict(resume=True), dict(evaluate="ckpt"), dict(cache_strategy="lru"),
     dict(steps_per_call=4), dict(dataset="ogbn-proteins")])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_supported(TrainConfig(**{**COMMON, **flag}))
+
+
+def test_stream_flag_is_supported_and_sets_default_stream(monkeypatch):
+    """`--stream bf16x2` is ported: check_supported accepts it, and the
+    Trainer sets `kernels.planned.DEFAULT_STREAM` from it unconditionally,
+    as the reference's does (a later f32 Trainer sets "f32" back)."""
+    from spgemm_gnn_tpu_torch.kernels import planned as tplanned
+    monkeypatch.setattr(tplanned, "DEFAULT_STREAM", "f32")
+    for stream in ("bf16x2", "f32"):
+        cfg = TrainConfig(**{**COMMON, "stream": stream, "device": "cpu"})
+        check_supported(cfg)
+        Trainer(cfg)
+        assert tplanned.DEFAULT_STREAM == stream
 
 
 def test_chip_smoke_fails_without_gpu(tmp_path):
