@@ -28,6 +28,14 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      f32 rows take, timed beside its f32 form, its plain version, its bound,
      the no-reuse gather of 2-byte rows and torch.sparse.mm on a bf16 CSR
      tensor (or "none" and its error where the card's PyTorch refuses it);
+     then the 16-bit model's forms: maxk_fwd_bf16 and maxk_bwd_bf16 on
+     bf16 rows, bitwise against their plain versions, and
+     csr_spmm_bf16_out on A and Aᵀ (bf16 rows pre ⊙ x in, bf16 out),
+     bitwise equal to bf16(bf16(y) · bf16(post)) of the same kernel's
+     f32-output run and across two runs, and within 1 bf16 ulp of its
+     plain version (1e-5 of max |y| where a sum cancels) with at most
+     0.5 % of the values off, each timed beside
+     its f32 form, its plain version and its bound;
   5. train: the Reddit recipe (SAGE, MaxK k=32, hidden 256, 4 layers,
      LayerNorm, dropout 0.5, lr 0.01): its first two train steps through the
      kernels within 1e-4 relative of the plain path's (same weights and
@@ -37,7 +45,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      steps within 1e-4 relative of the same planned path through the plain
      versions (both round the same messages), 5 epochs with finite losses
      and exact launch counts (round_rows and csr_spmm_bf16, no f32
-     aggregation launch);
+     aggregation launch); then with `--dtype bfloat16` (first steps within
+     1e-3 relative of the plain versions, exact counts of the 16-bit forms
+     only, no round_rows, falling losses);
   6. model check: on a small graph (3000 nodes, 2 layers, ReLU, so only the
      aggregation kernel), every model family (SAGE, GCN, GIN, GNNRes and the
      three integrated MaxK models) through the kernels against the same
@@ -64,12 +74,20 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      version and timed; stream_cbsr_spmm_bf16 on 96-B records (the values
      rounded after the pre factor) under the mean and gcn factors, within
      1e-5 of float64, equal by value to stream_spmm_bf16 on the same masked
-     input, bitwise equal across runs and with no hot set, timed;
+     input, bitwise equal across runs and with no hot set, timed; the
+     bf16-output forms stream_spmm_bf16_out (A, Aᵀ) and
+     stream_cbsr_spmm_bf16_out (mean and gcn factors), each bitwise equal
+     to the rounding of its f32-output run, across two runs and with no hot
+     set (B8 also equal by value to B3), within 1 bf16 ulp of its plain
+     version (1e-5 of max |y| where a sum cancels) with at most 0.5 % of
+     the values off, timed;
   9. CBSR: cbsr_compact, cbsr_densify and cbsr_sample at the products shapes
      (dim 256, k 32), bitwise against their plain versions and timed; then
      `aggregate_cbsr` forward and backward through the kernels, with its
      launches counted, against the dense path, with STREAM_CBSR_FORWARD
-     unset and then set (no densify in the forward);
+     unset and then set (no densify in the forward); cbsr_compact_bf16
+     bitwise against its plain version, and the bf16 LayerNorm kernels
+     (layer_norm16_fwd / _bwd) within 1 bf16 ulp of theirs, timed;
  10. train 2: the products recipe (SAGE, MaxK k=32, hidden 256, 3 layers,
      LayerNorm, dropout 0.5, lr 0.003): its first two train steps through the
      kernels within 1e-4 relative of the plain path's (same weights and
@@ -78,18 +96,23 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      1e-6 relative of the flag-off run's; then both runs again with
      `--stream bf16x2` (first steps against the plain versions with the
      same stream, exact launch counts of round_rows and the bf16 kernels,
-     flag-on losses within 1e-6 relative of flag-off);
+     flag-on losses within 1e-6 relative of flag-off); then both runs with
+     `--dtype bfloat16` (first steps within 1e-3 of the plain versions,
+     exact counts of the 16-bit forms, falling losses, flag-on within 1e-6
+     of flag-off);
  11. train 3: the products recipe with GCN and self-loops (`--model gcn
      --selfloop`) and STREAM_CBSR_FORWARD set: its first two train steps
      within 1e-4 relative of the plain path's, then 5 epochs with finite
      losses and exact launch counts (stream_cbsr_spmm forward, stream_spmm
-     backward);
+     backward); then the same with `--dtype bfloat16` (both node factors in
+     bf16, the bf16-output forms);
  12. accuracy: the reference's 80-epoch trajectory gate (TRAJ_r03.json's
      config: the Reddit stand-in at scale 0.02, SAGE MaxK k=32, 3 x 256,
      LayerNorm, dropout 0, seed 97) through the port's Trainer with the f32
-     and the bf16x2 stream: each best test accuracy within 0.03 of the JAX
-     oracle's from the same initial weights (0.8873,
-     scripts/port_accuracy_oracle.py), and bf16x2 within 0.03 of f32.
+     and the bf16x2 stream and with `--dtype bfloat16`: each best test
+     accuracy within 0.03 of the JAX oracle's from the same initial weights
+     in its dtype (scripts/port_accuracy_oracle.py: ACC_ORACLE f32,
+     ACC_ORACLE16 bf16), and each 16-bit run within 0.03 of f32.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -119,6 +142,25 @@ HUB_ROWS = 1024   # 128 blocks of 8 warps: one wave on the H100's 132 SMs
 ACC_SCALE, ACC_EPOCHS = 0.02, 80
 ACC_ORACLE, ACC_TOL = 0.8873, 0.03
 ACC_TRAJ_R03 = 0.849
+# the same oracle with `--dtype bfloat16` (flax dtype=bfloat16, impl
+# "pallas" in interpret mode: scripts/port_accuracy_oracle.py --dtype
+# bfloat16 --starts port, CPU; its JSON line, best_test_accuracy
+# 0.8766094446182251 at best_epoch 61, stands verbatim in PERF.md §6)
+ACC_ORACLE16 = 0.8766
+# the 16-bit model's first two steps, kernels against plain versions: the
+# same bf16 roundings but where the f32 sums of two summation orders
+# straddle a bf16 rounding boundary (one bf16 ulp is 2^-8 to 2^-7 relative)
+STEP_TOL16 = 1e-3
+# a bf16-output aggregation against its plain version: the same bf16 values
+# summed in f32 in another order, rounded once to bf16 (then by bf16 post),
+# so within one bf16 ulp (2^-7 of the plain value's power of two) with at
+# most 0.5 % of the values off (tests/test_torch_dtype16.py::near16), but
+# where a row's sum cancels to near 0, an ulp of it lies far below the f32
+# ordering error of its terms: there, within the f32 checks' 1e-5 of max |y|
+AGG_ULPS, AGG_ABS, AGG_SHARE = 1, 1e-5, 0.005
+# near16's results under their kernels-line names
+NEAR_KEYS = {"ulps": "plain_ulps", "abs_off": "plain_abs_off",
+             "off": "plain_share_off"}
 
 
 def log(msg: str) -> None:
@@ -742,10 +784,11 @@ def entry16(name: str, source: str, replaces: str, a: dict,
             t: dict | None = None) -> dict:
     """The kernels-line entry of a 16-bit kernel: A (`a`), Aᵀ (`t`) under
     prefixed keys."""
-    names = {"err": "max_abs_err", "gather_ms": "no_reuse_gather_ms"}
+    names = {"err": "max_abs_err", "gather_ms": "no_reuse_gather_ms",
+             **NEAR_KEYS}
     keys = ("err", "max_abs_err", "ms", "f32_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_error", "gather_ms",
-            "no_reuse_gather_ms", "nb", *HOT_KEYS)
+            "no_reuse_gather_ms", "nb", *NEAR_KEYS, *HOT_KEYS)
     entry = dict(name=name, route="cuda", source=source, replaces=replaces)
     for prefix, r in (("", a), ("transpose_", t)):
         if r is not None:
@@ -884,12 +927,12 @@ def stream_cbsr16_check(torch, g, dim: int, k: int, seed: int,
     return entry
 
 
-def first_steps16(torch, cfg, ds, what: str) -> None:
-    """Under the 16-bit stream: the first two train steps through the
-    kernels against the same planned path through the plain versions (every
-    wrapper made to take its plain version, so that both round the same
-    messages), same weights and dropout seed, losses within 1e-4
-    relative."""
+def first_steps16(torch, cfg, ds, what: str, tol: float = 1e-4) -> None:
+    """Under the 16-bit stream or the 16-bit model: the first two train
+    steps through the kernels against the same planned path through the
+    plain versions (every wrapper made to take its plain version, so that
+    both round the same messages), same weights and dropout seed, losses
+    within `tol` relative."""
     from spgemm_gnn_tpu_torch.kernels import _build
     from spgemm_gnn_tpu_torch.train.loop import Trainer
     first = {}
@@ -908,55 +951,496 @@ def first_steps16(torch, cfg, ds, what: str) -> None:
         del tr, state
         torch.cuda.empty_cache()
     rel = [abs(a - b) / abs(b) for a, b in zip(first[False], first[True])]
-    if not max(rel) <= 1e-4:
+    if not max(rel) <= tol:
         raise AssertionError(f"{what}: first steps {first[False]} vs plain "
                              f"{first[True]} ({rel})")
     log(f"{what}: first two steps through the kernels {first[False]}, the "
-        f"plain versions with the same stream {first[True]}, relative {rel}")
+        f"plain versions with the same stream and dtype {first[True]}, "
+        f"relative {rel} (tolerance {tol})")
+
+
+def maxk16_phase(torch, g, dim: int, k: int, seed: int,
+                 f32: list[dict]) -> list[dict]:
+    """B1 on bf16 rows (the 16-bit model): maxk_fwd_bf16 (y and meta) and
+    maxk_bwd_bf16 bitwise against their plain versions at the graph's node
+    count, on rows rounded to bf16 (tie-heavy: every 97th row of integers,
+    every 1009th of zeros), timed beside their f32 forms (`f32`,
+    maxk_phase's entries), the plain versions, torch.topk on the bf16 rows
+    and the bound."""
+    from spgemm_gnn_tpu_torch.kernels.maxk import maxk_bwd, maxk_fwd
+    from spgemm_gnn_tpu_torch.ops.maxk import maxk_backward, maxk_forward
+
+    dev = g.device
+    n = g.num_nodes
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, dim), generator=gen, device=dev)
+    x[::97] = x[::97].round()
+    x[::1009] = 0.0
+    x = x.to(torch.bfloat16)
+    gy = torch.randn((n, dim), generator=gen, device=dev).to(torch.bfloat16)
+    y, meta = maxk_fwd(x, k)
+    y_p, meta_p = maxk_forward(x, k)
+    dx = maxk_bwd(x, meta, gy)
+    dx_p = maxk_backward(x, meta, gy)
+    torch.cuda.synchronize()
+    if not (bits_equal(torch, y, y_p) and bits_equal(torch, meta, meta_p)):
+        raise AssertionError("maxk_fwd_bf16 differs from its plain version")
+    if not bits_equal(torch, dx, dx_p):
+        raise AssertionError("maxk_bwd_bf16 differs from its plain version")
+    kth = torch.sort(x.float(), dim=1, descending=True).values[:, k - 1:k]
+    ties = int(((x.float() == kth).sum(1) > 1).sum())
+    out = []
+    for name, f32_entry, fn, fn_plain, n_bytes, lib, got, want in (
+            ("maxk_fwd_bf16", f32[0], lambda: maxk_fwd(x, k),
+             lambda: maxk_forward(x, k), 2 * n * dim * 2 + n * 2 * 4,
+             lambda: torch.topk(x, k, dim=1), y, y_p),
+            ("maxk_bwd_bf16", f32[1], lambda: maxk_bwd(x, meta, gy),
+             lambda: maxk_backward(x, meta, gy), 3 * n * dim * 2 + n * 2 * 4,
+             None, dx, dx_p)):
+        b, by = bound_ms(n_bytes, n * dim)
+        out.append(dict(
+            name=name, route="cuda",
+            source="spgemm_gnn_tpu_torch/csrc/maxk.cu",
+            replaces=f32_entry["replaces"] + " (bf16 rows, :38, :80, :119)",
+            max_abs_err=float((got.float() - want.float()).abs().max()),
+            ms=time_ms(torch, fn, 20), f32_ms=f32_entry["ms"],
+            plain_ms=time_ms(torch, fn_plain, 3), bound_ms=b, bound_by=by,
+            library_ms=None if lib is None else time_ms(torch, lib, 20)))
+        log(f"kernel {name}: bitwise equal to plain, N={n} dim={dim} k={k} "
+            f"({ties} rows with a tie at the k-th value); "
+            f"{out[-1]['ms']:.3f} ms (f32 form {f32_entry['ms']:.3f}, plain "
+            f"{out[-1]['plain_ms']:.3f}, library {out[-1]['library_ms']}, "
+            f"bound {b:.3f} by {by})")
+    return out
+
+
+def compact16_check(torch, n: int, dim: int, k: int, seed: int,
+                    f32_ms: float) -> dict:
+    """B7 on bf16 rows: cbsr_compact_bf16 at [n, dim] on the training
+    path's input (MaxK, then dropout 0.5) in bf16, values and channels
+    bitwise against the plain version, timed beside its f32 form (`f32_ms`),
+    the plain version and the bound."""
+    from spgemm_gnn_tpu_torch.kernels.cbsr import cbsr_compact
+    from spgemm_gnn_tpu_torch.ops.maxk import cbsr_compact_plain
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xs = sparse_input(torch, n, dim, k, gen).to(torch.bfloat16)
+    (v, c), (v_p, c_p) = cbsr_compact(xs, k), cbsr_compact_plain(xs, k)
+    torch.cuda.synchronize()
+    if not (bits_equal(torch, v, v_p) and torch.equal(c, c_p)):
+        raise AssertionError("cbsr_compact_bf16 differs from its plain "
+                             "version")
+    b, by = bound_ms(n * dim * 2 + n * k * 2 + n * k * 4, 0.0)
+    r = dict(name="cbsr_compact_bf16", route="cuda",
+             source="spgemm_gnn_tpu_torch/csrc/cbsr.cu",
+             replaces="spgemm_gnn_tpu/kernels/maxk_pallas.py:166 (values "
+                      "in x's dtype, :177-186, :212)",
+             max_abs_err=max(float((v.float() - v_p.float()).abs().max()),
+                             float((c - c_p).abs().max())),
+             ms=time_ms(torch, lambda: cbsr_compact(xs, k), 10),
+             f32_ms=f32_ms,
+             plain_ms=time_ms(torch, lambda: cbsr_compact_plain(xs, k), 3),
+             bound_ms=b, bound_by=by, library_ms=None)
+    log(f"kernel cbsr_compact_bf16: bitwise equal to plain, N={n} dim={dim} "
+        f"k={k}; {r['ms']:.3f} ms (f32 form {f32_ms:.3f}, plain "
+        f"{r['plain_ms']:.3f}, bound {b:.3f} by {by})")
+    return r
+
+
+def layer_norm16_check(torch, n: int, dim: int, seed: int) -> list[dict]:
+    """The bf16 LayerNorm kernels at [n, dim] against their plain versions:
+    y and dx within 1 bf16 ulp of their row's largest magnitude (a value
+    near 0 sums larger terms), at most 0.5 % of them off (the statistics'
+    f32 sums run in another order), mean and rstd
+    within 1e-5 relative, dweight and dbias within 1e-5 of their largest
+    magnitude, each kernel bitwise repeatable. Timed beside the plain
+    versions, the bound and F.layer_norm on the bf16 rows with bf16
+    parameters (the nearest one PyTorch call; it rounds the parameters and
+    folds the affine step, so not the same function) and its backward."""
+    import torch.nn.functional as F
+
+    from spgemm_gnn_tpu_torch.kernels.layernorm import (layer_norm16_bwd,
+                                                        layer_norm16_fwd)
+    from spgemm_gnn_tpu_torch.ops.layernorm import (layer_norm16_backward,
+                                                    layer_norm16_forward)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (3 * torch.randn((n, dim), generator=gen, device="cuda") + 1).to(bf16)
+    w = torch.rand(dim, generator=gen, device="cuda") + 0.5
+    b = torch.randn(dim, generator=gen, device="cuda")
+    g = torch.randn((n, dim), generator=gen, device="cuda").to(bf16)
+    y, mean, rstd = layer_norm16_fwd(x, w, b, 1e-5)
+    dx, dw, db = layer_norm16_bwd(x, mean, rstd, w, g)
+    y_p, mean_p, rstd_p = layer_norm16_forward(x, w, b, 1e-5)
+    dx_p, dw_p, db_p = layer_norm16_backward(x, mean, rstd, w, g)
+    again = (layer_norm16_fwd(x, w, b, 1e-5)[0],
+             layer_norm16_bwd(x, mean, rstd, w, g)[0])
+    torch.cuda.synchronize()
+    if not (bits_equal(torch, y, again[0]) and bits_equal(torch, dx,
+                                                          again[1])):
+        raise AssertionError("layer_norm16: two runs differ")
+    worst = {}
+    for what, a, e in (("y", y, y_p), ("dx", dx, dx_p)):
+        a, e = a.float(), e.float()
+        top = e.abs().amax(-1, keepdim=True).clamp(min=2.0 ** -120)
+        ulps = (a - e).abs() / torch.exp2(torch.floor(torch.log2(top)) - 7)
+        worst[what] = (float(ulps.max()), float((ulps > 0).float().mean()))
+        if not (worst[what][0] <= 1 and worst[what][1] <= 0.005):
+            raise AssertionError(f"layer_norm16 {what}: {worst[what]} (max "
+                                 f"ulps of the row's largest, share off) "
+                                 f"against plain")
+    for what, a, e in (("mean", mean, mean_p), ("rstd", rstd, rstd_p)):
+        if not bool(((a - e).abs() <= 1e-5 * e.abs() + 1e-6).all()):
+            raise AssertionError(f"layer_norm16 {what}: beyond 1e-5 relative")
+    for what, a, e in (("dweight", dw, dw_p), ("dbias", db, db_p)):
+        if not float((a - e).abs().max()) <= 1e-5 * float(e.abs().max()):
+            raise AssertionError(f"layer_norm16 {what}: beyond 1e-5 of max")
+    xl = x.clone().requires_grad_(True)
+    w16, b16 = (w.to(bf16).requires_grad_(True),
+                b.to(bf16).requires_grad_(True))
+    yl = F.layer_norm(xl, (dim,), w16, b16, 1e-5)
+    out = []
+    for name, fn, fn_plain, lib, n_bytes, got, want in (
+            ("layer_norm16_fwd", lambda: layer_norm16_fwd(x, w, b, 1e-5),
+             lambda: layer_norm16_forward(x, w, b, 1e-5),
+             lambda: F.layer_norm(x, (dim,), w16, b16, 1e-5),
+             2 * n * dim * 2 + n * 8 + 2 * dim * 4, y, y_p),
+            ("layer_norm16_bwd",
+             lambda: layer_norm16_bwd(x, mean, rstd, w, g),
+             lambda: layer_norm16_backward(x, mean, rstd, w, g),
+             lambda: torch.autograd.grad(yl, (xl, w16, b16), g,
+                                         retain_graph=True),
+             3 * n * dim * 2 + n * 8 + 2 * 1024 * dim * 4, dx, dx_p)):
+        bnd, by = bound_ms(n_bytes, 8.0 * n * dim)
+        out.append(dict(
+            name=name, route="cuda",
+            source="spgemm_gnn_tpu_torch/csrc/norm.cu",
+            replaces="XLA glue in the JAX package (flax LayerNorm(dtype="
+                     "bfloat16), no pallas_call)",
+            max_abs_err=float((got.float() - want.float()).abs().max()),
+            ms=time_ms(torch, fn, 10), plain_ms=time_ms(torch, fn_plain, 3),
+            bound_ms=bnd, bound_by=by, library_ms=time_ms(torch, lib, 10),
+            library_call="F.layer_norm on bf16 rows with bf16 parameters"))
+        ulps, share = worst["y" if name.endswith("fwd") else "dx"]
+        log(f"kernel {name} (N={n}, dim {dim}): {ulps:.2f} ulp (of the row's "
+            f"largest) from plain at most, on {share:.3%} of the values; "
+            f"bitwise repeatable; "
+            f"{out[-1]['ms']:.3f} ms (plain "
+            f"{out[-1]['plain_ms']:.3f}, F.layer_norm bf16 "
+            f"{out[-1]['library_ms']:.3f}, bound {bnd:.3f} by {by})")
+    return out
+
+
+def rounded16(torch, y32, post):
+    """bf16(bf16(y32) · bf16(post)) in torch's bf16 arithmetic: what a
+    bf16-output form must give, bit for bit, from the same kernel's
+    f32-output run with no post."""
+    y = y32.to(torch.bfloat16)
+    return y if post is None else y * post.to(torch.bfloat16)[:, None]
+
+
+def near16(torch, got, want, what: str) -> dict:
+    """Raise unless each value of the bf16 `got` lies within the larger of
+    AGG_ULPS bf16 ulps of the bf16 `want` and AGG_ABS of max |want|, and at
+    most AGG_SHARE of the values differ. Returns the most ulps off among the
+    values the ulp bound holds (`ulps`), the most |got - want| / max |want|
+    among those the absolute one holds (`abs_off`), and the share of values
+    off (`off`)."""
+    top = float(want.abs().max().float())
+    floor = AGG_ABS * top
+    ulps, abs_off, off, bad = 0.0, 0.0, 0, 0
+    for a, b in zip(got.split(1 << 18), want.split(1 << 18)):
+        a, b = a.float(), b.float()
+        _, e = torch.frexp(b.abs().clamp_min(2.0 ** -120))   # m * 2^e
+        ulp = torch.ldexp(torch.ones_like(b), e - 8)
+        err = (a - b).abs()
+        by_ulp = AGG_ULPS * ulp >= floor
+        bad += int((err > torch.where(by_ulp, AGG_ULPS * ulp,
+                                      torch.full_like(ulp, floor))).sum())
+        rel, tiny = (err / ulp)[by_ulp], err[~by_ulp]
+        if rel.numel():
+            ulps = max(ulps, float(rel.max()))
+        if tiny.numel():
+            abs_off = max(abs_off, float(tiny.max()) / top)
+        off += int((err > 0).sum())
+    share = off / max(got.numel(), 1)
+    if bad or share > AGG_SHARE:
+        raise AssertionError(f"{what}: {bad} values beyond {AGG_ULPS} bf16 "
+                             f"ulp and {AGG_ABS} of max |y| from the plain "
+                             f"version (most {ulps} ulp, {abs_off:.3e} of "
+                             f"max |y|), {share:.3e} of the values off "
+                             f"(bound {AGG_SHARE})")
+    return dict(ulps=ulps, abs_off=abs_off, off=share)
+
+
+def near_text(r: dict) -> str:
+    return (f"at most {r['ulps']:g} bf16 ulp off it where an ulp is at "
+            f"least {AGG_ABS} of max |y| (bound {AGG_ULPS}), "
+            f"{r['abs_off']:.3e} of max |y| elsewhere (bound {AGG_ABS}), "
+            f"{r['off']:.3e} of the values off (bound {AGG_SHARE})")
+
+
+def product16out_check(torch, kernel: str, g, inp, pre_f, post_f,
+                       transpose: bool = False) -> dict:
+    """The bf16-output form of an aggregation kernel ("csr_spmm" or
+    "stream_spmm") on the graph's CSR (or its transpose), as the planner
+    runs it on bf16 activations: the rows pre ⊙ x in bf16, no pre factor,
+    the post factor in the kernel's bf16 epilogue. Bitwise equal to
+    `rounded16` of the same kernel's f32-output run with no post, and
+    across two runs (the stream kernel also with no hot set); timed beside
+    the f32-output form on the same rows, the plain version, the bound and
+    torch.sparse.mm on a bf16 CSR tensor; held to the plain version by
+    `near16`."""
+    from spgemm_gnn_tpu_torch.graphs.stream_tiles import build_stream_plan
+    from spgemm_gnn_tpu_torch.graphs.tiles import CSRPlan
+    from spgemm_gnn_tpu_torch.kernels.spmm import csr_spmm
+    from spgemm_gnn_tpu_torch.kernels.stream import stream_spmm, stream_spmm_at
+    from spgemm_gnn_tpu_torch.ops.spmm import _scale, csr_spmm_plain
+    from spgemm_gnn_tpu_torch.ops.stream import stream_spmm_plain
+
+    bf16 = torch.bfloat16
+    indptr = g.t_indptr if transpose else g.indptr
+    indices = g.t_indices if transpose else g.indices
+    rows = g.t_edge_dst if transpose else g.edge_dst
+    n, e, dim = g.num_nodes, g.num_edges, inp.shape[1]
+    x16 = _scale(inp.to(bf16), pre_f)
+    if kernel == "stream_spmm":
+        plan = build_stream_plan(indptr, indices)
+        plan_bytes = (plan.num_chunks + plan.carry_rows.numel()) * 4
+        run = stream_spmm
+
+        def run_plain():
+            return stream_spmm_plain(plan, x16, None, post_f, bf16)
+    else:
+        plan = CSRPlan(indptr, indices)
+        plan_bytes = 0
+        run = csr_spmm
+
+        def run_plain():
+            return csr_spmm_plain(indptr, indices, x16, None, post_f, bf16)
+
+    got = run(plan, x16, None, post_f, out_dtype=bf16)
+    again = run(plan, x16, None, post_f, out_dtype=bf16)
+    want = rounded16(torch, run(plan, x16), post_f)
+    torch.cuda.synchronize()
+    if not bits_equal(torch, got, want):
+        raise AssertionError(f"{kernel}_bf16_out differs from the rounding "
+                             f"of its f32-output run")
+    if not bits_equal(torch, got, again):
+        raise AssertionError(f"{kernel}_bf16_out: two runs differ")
+    del want, again
+    extra = {}
+    if kernel == "stream_spmm":
+        def run_hot0():
+            return stream_spmm_at(plan, x16, None, post_f, hot_budget=0,
+                                  out_dtype=bf16)
+        if not bits_equal(torch, got, run_hot0()):
+            raise AssertionError("stream_spmm_bf16_out: hot budget 0 "
+                                 "differs from the default")
+        extra = hot_keys(plan.hot_set(2 * dim))
+        extra["hot0_ms"] = time_ms(torch, run_hot0, 5)
+    else:
+        extra = dict(nb=plan.schedule(n, dim, 2).nb)
+    plain = run_plain()
+    err = float((got.float() - plain.float()).abs().max())
+    near = near16(torch, got, plain, f"{kernel}_bf16_out")
+    del plain
+    w = torch.ones(e, device=inp.device)
+    if post_f is not None:
+        w = w * post_f[rows.long()]
+    lib_ms, lib_err = library16(torch, indptr, indices, w, n, x16)
+    del w
+    gathered = torch.bincount(indices, minlength=n).double()
+    ops = 2.0 * float(((x16 != 0).sum(1).double() * gathered).sum())
+    n_bytes = (2 * n * dim * 2 + (n + 1) * 4 + e * 4 + plan_bytes
+               + 4 * n * (post_f is not None))
+    b_ms, b_by = bound_ms(n_bytes, ops)
+    return dict(err=err, **near, bound_ms=b_ms, bound_by=b_by,
+                ms=time_ms(torch, lambda: run(plan, x16, None, post_f,
+                                              out_dtype=bf16), 5),
+                f32_ms=time_ms(torch, lambda: run(plan, x16, None, post_f),
+                               5),
+                plain_ms=time_ms(torch, run_plain, 2),
+                library_ms=lib_ms, library_error=lib_err,
+                gather_ms=e * dim * 2 / PEAK_BYTES_S * 1e3, **extra)
+
+
+def log_product16out(kernel: str, what: str, r: dict) -> None:
+    lib = (f"{r['library_ms']:.3f}" if r["library_ms"] is not None
+           else f"none ({r['library_error']})")
+    log(f"kernel {kernel}_bf16_out ({what}): bitwise equal to bf16(bf16(y) "
+        f"* bf16(post)) of its f32-output run, and across two runs; "
+        f"{r['err']:.3e} max abs from the plain version, {near_text(r)}; "
+        f"{r['ms']:.3f} ms "
+        f"(f32-output form {r['f32_ms']:.3f}, plain {r['plain_ms']:.3f}, "
+        f"torch.sparse.mm bf16 {lib}, bound {r['bound_ms']:.3f} by "
+        f"{r['bound_by']}, no-reuse gather {r['gather_ms']:.3f})")
+    if "hot0_ms" in r:
+        log_hot(f"{what}, bf16 output", r)
+
+
+def stream_cbsr16out_check(torch, g, dim: int, k: int, seed: int) -> dict:
+    """stream_cbsr_spmm_bf16_out on A of the graph at (dim, k) under the
+    mean and gcn factors, as the planner runs it on bf16 activations: the
+    bf16 rows pre ⊙ x compacted by cbsr_compact_bf16 into 96-B records.
+    Bitwise equal to `rounded16` of the f32-output run with no post, across
+    two runs and with no hot set; equal by value to stream_spmm_bf16_out on
+    the same rows; timed beside the f32-output form, the plain version, the
+    bound and torch.sparse.mm on a bf16 CSR tensor; held to the plain
+    version by `near16`. Returns the kernels-line entry (mean factors; gcn
+    under prefixed keys)."""
+    from spgemm_gnn_tpu_torch.graphs.stream_tiles import build_stream_plan
+    from spgemm_gnn_tpu_torch.kernels.cbsr import cbsr_compact
+    from spgemm_gnn_tpu_torch.kernels.stream import (stream_cbsr_spmm,
+                                                     stream_cbsr_spmm_at,
+                                                     stream_spmm)
+    from spgemm_gnn_tpu_torch.ops.maxk import cbsr_records
+    from spgemm_gnn_tpu_torch.ops.norms import node_factors
+    from spgemm_gnn_tpu_torch.ops.spmm import _scale
+    from spgemm_gnn_tpu_torch.ops.stream import stream_cbsr_spmm_plain
+
+    bf16 = torch.bfloat16
+    n, e = g.num_nodes, g.num_edges
+    plan = build_stream_plan(g.indptr, g.indices)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    xs = sparse_input(torch, n, dim, k, gen).to(bf16)
+    entry = dict(name="stream_cbsr_spmm_bf16_out", route="cuda",
+                 source="spgemm_gnn_tpu_torch/csrc/stream.cu",
+                 replaces="spgemm_gnn_tpu/kernels/stream_pallas.py:90 "
+                          "(bf16 output, :192)")
+    for norm in ("mean", "gcn"):
+        pre, post = node_factors(g, norm)
+        xin = _scale(xs, pre)
+        vals, ch = cbsr_compact(xin, k)
+        rec = cbsr_records(vals, ch, dim)
+        del vals, ch
+
+        def run():
+            return stream_cbsr_spmm(plan, rec, k, dim, None, post, bf16, bf16)
+
+        got, again = run(), run()
+        want = rounded16(torch, stream_cbsr_spmm(plan, rec, k, dim, None,
+                                                 None, bf16), post)
+        by_b3 = stream_spmm(plan, xin, None, post, out_dtype=bf16)
+        torch.cuda.synchronize()
+        if not bits_equal(torch, got, want):
+            raise AssertionError(f"stream_cbsr_spmm_bf16_out ({norm}) "
+                                 f"differs from the rounding of its "
+                                 f"f32-output run")
+        if not torch.equal(got, by_b3):
+            raise AssertionError(f"stream_cbsr_spmm_bf16_out ({norm}) "
+                                 f"differs from stream_spmm_bf16_out")
+        if not bits_equal(torch, got, again):
+            raise AssertionError(f"stream_cbsr_spmm_bf16_out ({norm}): two "
+                                 f"runs differ")
+
+        def run_hot0():
+            return stream_cbsr_spmm_at(plan, rec, k, dim, None, post,
+                                       hot_budget=0, value_dtype=bf16,
+                                       out_dtype=bf16)
+        if not bits_equal(torch, got, run_hot0()):
+            raise AssertionError(f"stream_cbsr_spmm_bf16_out ({norm}): hot "
+                                 f"budget 0 differs from the default")
+        del want, again, by_b3
+        plain = stream_cbsr_spmm_plain(plan, rec, k, dim, None, post, bf16,
+                                       bf16)
+        err = float((got.float() - plain.float()).abs().max())
+        near = near16(torch, got, plain,
+                      f"stream_cbsr_spmm_bf16_out ({norm})")
+        del plain
+        row = rec.shape[1] * 4
+        lib_ms, lib_err = library16(torch, g.indptr, g.indices,
+                                    post[g.edge_dst.long()], n, xin)
+        gathered = torch.bincount(g.indices, minlength=n).double()
+        ops = 2.0 * float(((xin != 0).sum(1).double() * gathered).sum())
+        n_bytes = (n * row + e * 4 + (n + 1) * 4 + n * dim * 2
+                   + (plan.num_chunks + plan.carry_rows.numel()) * 4 + 4 * n)
+        b_ms, b_by = bound_ms(n_bytes, ops)
+        r = dict(max_abs_err=err, **near, ms=time_ms(torch, run, 10),
+                 f32_ms=time_ms(torch, lambda: stream_cbsr_spmm(
+                     plan, rec, k, dim, None, post, bf16), 10),
+                 plain_ms=time_ms(torch, lambda: stream_cbsr_spmm_plain(
+                     plan, rec, k, dim, None, post, bf16, bf16), 2),
+                 library_ms=lib_ms, library_error=lib_err,
+                 hot0_ms=time_ms(torch, run_hot0, 10),
+                 **hot_keys(plan.hot_set(row)), record_bytes=row,
+                 bound_ms=b_ms, bound_by=b_by,
+                 no_reuse_gather_ms=e * (row + 4) / PEAK_BYTES_S * 1e3)
+        del rec, xin
+        lib = (f"{lib_ms:.3f}" if lib_ms is not None else f"none ({lib_err})")
+        log(f"kernel stream_cbsr_spmm_bf16_out (products, A, {norm} factors, "
+            f"dim {dim}, k {k}, {row}-B records): bitwise equal to the "
+            f"rounding of its f32-output run, across two runs and with no "
+            f"hot set; equal by value to stream_spmm_bf16_out; {err:.3e} max "
+            f"abs from the plain version, {near_text(near)}; "
+            f"{r['ms']:.3f} ms (f32-output form "
+            f"{r['f32_ms']:.3f}, plain {r['plain_ms']:.3f}, torch.sparse.mm "
+            f"bf16 {lib}, bound {b_ms:.3f} by {b_by}, no-reuse gather "
+            f"{r['no_reuse_gather_ms']:.3f})")
+        log_hot(f"stream_cbsr_spmm_bf16_out, {norm} factors", r)
+        if norm == "mean":
+            entry.update({key: r[key] for key in (
+                "max_abs_err", "ms", "f32_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "library_error", "record_bytes",
+                "no_reuse_gather_ms", *HOT_KEYS)})
+            entry.update({NEAR_KEYS[key]: r[key] for key in NEAR_KEYS})
+        else:
+            entry.update({f"gcn_{key}": r[key] for key in (
+                "max_abs_err", "ms", "f32_ms", "bound_ms", "hot0_ms")})
+            entry.update({f"gcn_{NEAR_KEYS[key]}": r[key]
+                          for key in NEAR_KEYS})
+    return entry
 
 
 def accuracy_check(torch) -> dict:
     """The 80-epoch accuracy check of the reference's trajectory gate
     (TRAJ_r03.json's config): the Reddit stand-in at scale 0.02, SAGE MaxK
     k 32, 3 x 256, LayerNorm, dropout 0, lr 0.01, seed 97, through the
-    port's Trainer with the f32 and the bf16x2 stream. Each best test
-    accuracy (best-val-selects-test) within 0.03 of the JAX oracle's from
-    the same initial weights (ACC_ORACLE), and bf16x2 within 0.03 of f32;
-    the distance to TRAJ_r03.json's 0.849 (the oracle from the JAX
-    package's own draw) is printed beside it."""
+    port's Trainer with the f32 and the bf16x2 stream, and with the 16-bit
+    model (`--dtype bfloat16`). Each best test accuracy
+    (best-val-selects-test) within 0.03 of the JAX oracle's from the same
+    initial weights in the same dtype (ACC_ORACLE, ACC_ORACLE16), and each
+    16-bit run within 0.03 of f32; the distance to TRAJ_r03.json's 0.849
+    (the f32 oracle from the JAX package's own draw) is printed beside
+    it."""
     from spgemm_gnn_tpu_torch.train.config import TrainConfig
     from spgemm_gnn_tpu_torch.train.loop import Trainer
     best = {}
-    for stream in ("f32", "bf16x2"):
+    oracle = {"f32": ACC_ORACLE, "bf16x2": ACC_ORACLE,
+              "bfloat16": ACC_ORACLE16}
+    for run in oracle:
         cfg = TrainConfig(dataset="reddit", model="sage", nonlinear="maxk",
                           maxk=K, hidden_dim=HIDDEN, hidden_layers=3,
                           norm=True, dropout=0.0, w_lr=0.01,
                           epochs=ACC_EPOCHS, eval_every=1, log_every=0,
                           seed=SEED, device="cuda", impl="auto",
                           synthetic=True, synthetic_scale=ACC_SCALE,
-                          stream=stream)
+                          stream="bf16x2" if run == "bf16x2" else "f32",
+                          dtype="bfloat16" if run == "bfloat16"
+                          else "float32")
         res = Trainer(cfg).run()
-        best[stream] = res["best_test_accuracy"]
-        log(f"accuracy ({stream}): best test {best[stream]:.4f} at epoch "
+        best[run] = res["best_test_accuracy"]
+        log(f"accuracy ({run}): best test {best[run]:.4f} at epoch "
             f"{res['best_epoch']} (val {res['best_val_accuracy']:.4f}), last "
             f"loss {res['history'][-1].loss:.6f}, steady epoch "
             f"{res['steady_epoch_s']}")
-    for stream, acc in best.items():
-        if not abs(acc - ACC_ORACLE) <= ACC_TOL:
-            raise AssertionError(f"accuracy ({stream}): best test {acc:.4f} "
-                                 f"is not within {ACC_TOL} of the oracle's "
-                                 f"{ACC_ORACLE} from the same initial "
+    for run, acc in best.items():
+        if not abs(acc - oracle[run]) <= ACC_TOL:
+            raise AssertionError(f"accuracy ({run}): best test {acc:.4f} is "
+                                 f"not within {ACC_TOL} of the oracle's "
+                                 f"{oracle[run]} from the same initial "
                                  f"weights")
-    if not abs(best["bf16x2"] - best["f32"]) <= ACC_TOL:
-        raise AssertionError(f"accuracy: bf16x2 {best['bf16x2']:.4f} is not "
-                             f"within {ACC_TOL} of f32 {best['f32']:.4f}")
+        if not abs(acc - best["f32"]) <= ACC_TOL:
+            raise AssertionError(f"accuracy: {run} {acc:.4f} is not within "
+                                 f"{ACC_TOL} of f32 {best['f32']:.4f}")
     log(f"accuracy check ({ACC_EPOCHS} epochs, reddit stand-in scale "
         f"{ACC_SCALE}): best test f32 {best['f32']:.4f}, bf16x2 "
-        f"{best['bf16x2']:.4f}; each within {ACC_TOL} of the JAX oracle's "
-        f"{ACC_ORACLE} from the same initial weights, and of each other; "
+        f"{best['bf16x2']:.4f}, bfloat16 {best['bfloat16']:.4f}; each "
+        f"within {ACC_TOL} of the JAX oracle's from the same initial "
+        f"weights ({ACC_ORACLE} f32, {ACC_ORACLE16} bf16), and of f32; "
         f"from TRAJ_r03.json's {ACC_TRAJ_R03} (other initial weights): "
         f"{best['f32'] - ACC_TRAJ_R03:+.4f} f32, "
-        f"{best['bf16x2'] - ACC_TRAJ_R03:+.4f} bf16x2")
+        f"{best['bf16x2'] - ACC_TRAJ_R03:+.4f} bf16x2, "
+        f"{best['bfloat16'] - ACC_TRAJ_R03:+.4f} bfloat16")
     return best
 
 
@@ -983,6 +1467,12 @@ def run_training(torch, trainer, expected: dict, what: str) -> dict:
                              f"{expected}")
     log(f"{what}: launches {counts}")
     return dict(res=res, losses=losses, counts=counts)
+
+
+def require_fall(run: dict, what: str) -> None:
+    """The last of a run's losses below its first."""
+    if not run["losses"][-1] < run["losses"][0]:
+        raise AssertionError(f"{what}: loss did not fall: {run['losses']}")
 
 
 def first_steps(torch, cfg, ds, what: str) -> None:
@@ -1175,6 +1665,7 @@ def main() -> int:
 
     layers = 4
     kernels = maxk_phase(torch, g, HIDDEN, K, SEED)
+    kernels16 = maxk16_phase(torch, g, HIDDEN, K, SEED, kernels)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     xs = sparse_input(torch, g.num_nodes, HIDDEN, K, gen)
     gy = torch.randn((g.num_nodes, HIDDEN), generator=gen, device=dev)
@@ -1198,6 +1689,12 @@ def main() -> int:
     if not csr16_a["nb"] < csr_a["nb"]:
         raise AssertionError("csr_spmm_bf16 on reddit: bf16 rows did not "
                              "take fewer source blocks than f32 ones")
+    # the 16-bit model's form: bf16 rows in, bf16 out
+    csr16o_a = product16out_check(torch, "csr_spmm", g, xs, None, post)
+    log_product16out("csr_spmm", "reddit, A, k-sparse x", csr16o_a)
+    csr16o_t = product16out_check(torch, "csr_spmm", g, gy, post, None,
+                                  transpose=True)
+    log_product16out("csr_spmm", "reddit, A^T, dense g", csr16o_t)
     del xs, gy
     torch.cuda.empty_cache()
 
@@ -1232,7 +1729,23 @@ def main() -> int:
     log(f"train reddit: steady epoch {reddit16['res']['steady_epoch_s']} s "
         f"with bf16x2, {reddit['res']['steady_epoch_s']} s with f32")
     reddit16_counts = reddit16["counts"]
-    del ds, g, reddit, reddit16
+
+    # the 16-bit model (--dtype bfloat16): MaxK and csr_spmm in their bf16
+    # forms only, no f32 aggregation launch and no round_rows
+    cfg_b = cfg.replace(dtype="bfloat16")
+    first_steps16(torch, cfg_b, ds, "train reddit, bfloat16", STEP_TOL16)
+    reddit_b = run_training(torch, Trainer(cfg_b, dataset=ds), {
+        "maxk_fwd_bf16": EPOCHS * 2 * layers,
+        "maxk_bwd_bf16": EPOCHS * layers,
+        "layer_norm16_fwd": EPOCHS * 2 * layers,
+        "layer_norm16_bwd": EPOCHS * layers,
+        "csr_spmm_bf16_out": EPOCHS * 3 * layers}, "train reddit, bfloat16")
+    require_fall(reddit_b, "train reddit, bfloat16")
+    log(f"train reddit: steady epoch {reddit_b['res']['steady_epoch_s']} s "
+        f"with bfloat16 ({reddit['res']['steady_epoch_s']} s f32, "
+        f"{reddit16['res']['steady_epoch_s']} s bf16x2)")
+    reddit_b_counts = reddit_b["counts"]
+    del ds, g, reddit, reddit16, reddit_b
     torch.cuda.empty_cache()
 
     for kind in ("windowed", "stream"):
@@ -1279,6 +1792,12 @@ def main() -> int:
     stream16_t = product16_check(torch, "stream_spmm", g2, gy, post, None,
                                  stream_t, transpose=True)
     log_product16("stream_spmm", "products, A^T, dense g", stream16_t)
+    stream16o_a = product16out_check(torch, "stream_spmm", g2, xs, None,
+                                     post)
+    log_product16out("stream_spmm", "products, A, k-sparse x", stream16o_a)
+    stream16o_t = product16out_check(torch, "stream_spmm", g2, gy, post,
+                                     None, transpose=True)
+    log_product16out("stream_spmm", "products, A^T, dense g", stream16o_t)
     del xs, gy
     torch.cuda.empty_cache()
     round_entry = round_rows_check(torch, g2.num_nodes, HIDDEN, post, SEED)
@@ -1287,12 +1806,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     cbsr16_entry = stream_cbsr16_check(torch, g2, HIDDEN, K, SEED, cbsr_entry)
     torch.cuda.empty_cache()
+    cbsr16o_entry = stream_cbsr16out_check(torch, g2, HIDDEN, K, SEED)
+    torch.cuda.empty_cache()
 
     kernels.append(product_entry("csr_spmm", csr_a, csr_t,
                                  products_=csr_products))
     kernels[-1].update(launches=reddit_counts["csr_spmm"],
                        launches_path="train reddit")
     kernels += cbsr_phase(torch, pg2, HIDDEN, K, SEED)
+    torch.cuda.empty_cache()
+    compact16_entry = compact16_check(
+        torch, g2.num_nodes, HIDDEN, K, SEED,
+        next(e["ms"] for e in kernels if e["name"] == "cbsr_compact"))
+    torch.cuda.empty_cache()
+    norm16_entries = layer_norm16_check(torch, g2.num_nodes, HIDDEN, SEED)
     torch.cuda.empty_cache()
 
     layers2 = 3
@@ -1373,6 +1900,45 @@ def main() -> int:
     del products16, products16_on
     torch.cuda.empty_cache()
 
+    # the products recipe as the 16-bit model, flag off then on
+    cfg2_b = cfg2.replace(dtype="bfloat16")
+    first_steps16(torch, cfg2_b, ds2, "train products, bfloat16", STEP_TOL16)
+    norm16 = {"layer_norm16_fwd": EPOCHS * 2 * layers2,
+              "layer_norm16_bwd": EPOCHS * layers2}
+    products_b = run_training(torch, Trainer(cfg2_b, dataset=ds2), {
+        "maxk_fwd_bf16": EPOCHS * 2 * layers2,
+        "maxk_bwd_bf16": EPOCHS * layers2, **norm16,
+        "stream_spmm_bf16_out": EPOCHS * 3 * layers2},
+        "train products, bfloat16")
+    require_fall(products_b, "train products, bfloat16")
+    flag_on16 = {"maxk_fwd_bf16": EPOCHS * 2 * layers2,
+                 "maxk_bwd_bf16": EPOCHS * layers2, **norm16,
+                 "cbsr_compact_bf16": EPOCHS * 2 * layers2,
+                 "stream_cbsr_spmm_bf16_out": EPOCHS * 2 * layers2,
+                 "stream_spmm_bf16_out": EPOCHS * layers2}
+    planned.STREAM_CBSR_FORWARD = True
+    first_steps16(torch, cfg2_b, ds2,
+                  "train products, bfloat16, STREAM_CBSR_FORWARD", STEP_TOL16)
+    products_b_on = run_training(
+        torch, Trainer(cfg2_b, dataset=ds2), flag_on16,
+        "train products, bfloat16, STREAM_CBSR_FORWARD")
+    planned.STREAM_CBSR_FORWARD = False
+    require_fall(products_b_on, "train products, bfloat16, flag on")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(products_b_on["losses"],
+                                                   products_b["losses"]))
+    if not rel <= 1e-6:
+        raise AssertionError(f"train products, bfloat16: flag-on losses "
+                             f"{products_b_on['losses']} vs flag-off "
+                             f"{products_b['losses']} ({rel:.3e})")
+    log(f"train products, bfloat16: STREAM_CBSR_FORWARD on against off: "
+        f"losses within {rel:.3e} relative; steady epoch "
+        f"{products_b_on['res']['steady_epoch_s']} s on, "
+        f"{products_b['res']['steady_epoch_s']} s off")
+    products_b_counts = products_b["counts"]
+    products_b_on_counts = products_b_on["counts"]
+    del products_b, products_b_on
+    torch.cuda.empty_cache()
+
     # ---- train 3: the products recipe with GCN and self-loops, flag set --
     t0 = time.perf_counter()
     ds3 = dataclasses.replace(ds2, graph=add_self_loops(g2))
@@ -1391,7 +1957,19 @@ def main() -> int:
     cbsr_entry.update(launches=gcn["counts"]["stream_cbsr_spmm"],
                       launches_path="train 3 (GCN)")
     kernels.insert(4, cbsr_entry)
-    del gcn, ds3
+    del gcn
+    torch.cuda.empty_cache()
+    # the same as the 16-bit model: GCN has both node factors, so its bf16
+    # pre-scale and post epilogue run here
+    cfg3_b = cfg3.replace(dtype="bfloat16")
+    planned.STREAM_CBSR_FORWARD = True
+    first_steps16(torch, cfg3_b, ds3, "train 3 (GCN), bfloat16", STEP_TOL16)
+    gcn_b = run_training(torch, Trainer(cfg3_b, dataset=ds3), flag_on16,
+                         "train 3 (GCN, products, self-loops, "
+                         "STREAM_CBSR_FORWARD), bfloat16")
+    planned.STREAM_CBSR_FORWARD = False
+    require_fall(gcn_b, "train 3 (GCN), bfloat16")
+    del gcn_b, ds3
     torch.cuda.empty_cache()
 
     # the 16-bit stream's kernels
@@ -1414,6 +1992,36 @@ def main() -> int:
     round_entry.update(launches=products16_counts["round_rows"],
                        launches_path="train products, bf16x2")
     kernels.append(round_entry)
+
+    # the 16-bit model's kernels
+    for entry in kernels16:
+        entry.update(launches=reddit_b_counts[entry["name"]],
+                     launches_path="train reddit, bfloat16")
+    kernels += kernels16
+    kernels.append(entry16(
+        "csr_spmm_bf16_out", "spgemm_gnn_tpu_torch/csrc/spmm.cu",
+        "spgemm_gnn_tpu/kernels/spgemm_pallas.py:97 (bf16 output: "
+        "planned.py:271-274, :300)", csr16o_a, csr16o_t))
+    kernels[-1].update(launches=reddit_b_counts["csr_spmm_bf16_out"],
+                       launches_path="train reddit, bfloat16")
+    kernels.append(entry16(
+        "stream_spmm_bf16_out", "spgemm_gnn_tpu_torch/csrc/stream.cu",
+        "spgemm_gnn_tpu/kernels/stream_pallas.py:37 (out_dtype, :217-242)",
+        stream16o_a, stream16o_t))
+    kernels[-1].update(launches=products_b_counts["stream_spmm_bf16_out"],
+                       launches_path="train products, bfloat16")
+    path_on = "train products, bfloat16, STREAM_CBSR_FORWARD"
+    cbsr16o_entry.update(
+        launches=products_b_on_counts["stream_cbsr_spmm_bf16_out"],
+        launches_path=path_on)
+    compact16_entry.update(
+        launches=products_b_on_counts["cbsr_compact_bf16"],
+        launches_path=path_on)
+    kernels += [cbsr16o_entry, compact16_entry]
+    for entry in norm16_entries:
+        entry.update(launches=products_b_counts[entry["name"]],
+                     launches_path="train products, bfloat16")
+    kernels += norm16_entries
 
     # ---- the 80-epoch accuracy check, f32 and bf16x2 ----------------------
     accuracy_check(torch)

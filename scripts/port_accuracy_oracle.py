@@ -6,17 +6,23 @@ TRAJ_r03.json's trajectory gate holds a run's best test accuracy to the CPU
 XLA oracle's from the same initial weights, which the JAX package draws from
 `jax.random`. The port's Trainer draws its own from a `torch.Generator`, so
 the same seed gives it other weights, and the accuracy after 80 epochs moves
-with the draw. This script runs the JAX Trainer (impl "xla", f32, on the
-CPU) on TRAJ_r03's config (the Reddit stand-in at scale 0.02, SAGE MaxK
-k=32, 3 x 256, LayerNorm, dropout 0, lr 0.01, seed 97, 80 epochs) twice:
-from its own initial weights, and from the weights the port's Trainer draws
-(`Trainer.init_state()`, carried into the flax tree by name), and prints
-both best test accuracies (best-val-selects-test).
+with the draw. This script runs the JAX Trainer (on the CPU) on TRAJ_r03's
+config (the Reddit stand-in at scale 0.02, SAGE MaxK k=32, 3 x 256,
+LayerNorm, dropout 0, lr 0.01, seed 97, 80 epochs) from its own initial
+weights and from the weights the port's Trainer draws
+(`Trainer.init_state()`, carried into the flax tree by name; params are f32
+in either dtype), and prints each best test accuracy
+(best-val-selects-test).
 
     env JAX_PLATFORMS=cpu python scripts/port_accuracy_oracle.py \
-        [--epochs 80] [--seed 97]
+        [--epochs 80] [--seed 97] [--dtype float32|bfloat16] \
+        [--starts jax,port]
 
-About 6 minutes a run on 8 CPU cores.
+`--dtype float32` (the default) runs impl "xla", exact f32 (about 6 minutes
+a run on 8 CPU cores). `--dtype bfloat16` is the reference's 16-bit model
+(flax `dtype=bfloat16`): it runs impl "pallas", the planned kernels in
+interpret mode, which sum bf16 activations in f32 and round the aggregation
+once to bf16, as the TPU path does (impl "xla" would add in bf16).
 """
 import argparse
 import json
@@ -63,7 +69,16 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--epochs", type=int, default=80)
     ap.add_argument("--seed", type=int, default=97)
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"])
+    ap.add_argument("--starts", default="jax,port",
+                    help="comma-separated initial weights to run from: jax "
+                         "(the JAX package's draw), port (the port's)")
     args = ap.parse_args(argv)
+    starts = args.starts.split(",")
+    if not set(starts) <= {"jax", "port"}:
+        raise SystemExit(f"--starts takes jax and port; got {args.starts}")
+    impl = "xla" if args.dtype == "float32" else "pallas"
 
     import jax
 
@@ -79,8 +94,8 @@ def main(argv=None) -> None:
     port = Trainer(TrainConfig(impl="torch", device="cpu", **cfg))
     weights = port.init_state()["model"].state_dict()
     out = {}
-    for start in ("jax", "port"):
-        jt = JTrainer(JConfig(impl="xla", **cfg), dataset=ds)
+    for start in starts:
+        jt = JTrainer(JConfig(impl=impl, dtype=args.dtype, **cfg), dataset=ds)
         if start == "port":
             state = jt.init_state()
             params = flax_params_from_port(jax.device_get(state["params"]),
@@ -91,7 +106,8 @@ def main(argv=None) -> None:
         res = jt.run()
         out[start] = dict(best_test_accuracy=res["best_test_accuracy"],
                           best_epoch=res["best_epoch"])
-        print(json.dumps({"initial_weights": start, **out[start]}),
+        print(json.dumps({"initial_weights": start, "dtype": args.dtype,
+                          "impl": impl, **out[start]}),
               flush=True)
 
 

@@ -39,6 +39,18 @@
 // writing the row once, took 4.65 ms at these shapes on an H100 at 700 W:
 // slower than torch.zeros and scatter_.) Sample, one thread per output
 // element.
+//
+// cbsr_compact_bf16 is the compaction on bf16 rows (the 16-bit model,
+// --dtype bfloat16; the TPU kernel writes the values in x's dtype,
+// maxk_pallas.py:177-186, :212): bf16 values, int32 channels, the same slots.
+// One warp per row; a lane holds a contiguous range of PER channels, loaded
+// as 32-bit or wider words (16 B at dim 256), so channel order is (lane,
+// position) order: a warp exclusive scan of the lanes' nonzero counts gives
+// each lane its first slot, and of their zero counts, after the row's
+// nonzeros, the slots of the zero channels. Values are copied as bits (a
+// -0.0 stays -0.0, as the plain version's gather keeps it). At ogbn-products
+// (N = 2,449,029, dim 256, k 32) it reads 1.25 GB and writes 0.47 GB, about
+// 0.51 ms at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -98,6 +110,87 @@ cbsr_compact_kernel(const float* __restrict__ x, float* __restrict__ vals,
   }
 }
 
+// PER: channels per lane, ceil(dim / 32) rounded up to a power of two;
+// FULL: dim == 32 * PER with PER even, so a lane's range is whole words
+template <int PER, bool FULL>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+cbsr_compact16_kernel(const uint16_t* __restrict__ x,
+                      uint16_t* __restrict__ vals, int* __restrict__ ch,
+                      int64_t n, int dim, int k) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row =
+      (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= n) return;  // row is uniform across the warp
+  const int c0 = lane * PER;
+  const uint16_t* xr = x + row * dim + c0;
+  uint16_t* vr = vals + row * k;
+  int* cr = ch + row * k;
+
+  uint16_t v[PER];
+  if constexpr (FULL) {
+    constexpr int NW = PER / 2;   // 32-bit words, 16, 8 or 4 B at a time
+    unsigned w[NW];
+    if constexpr (NW % 4 == 0) {
+#pragma unroll
+      for (int j = 0; j < NW; j += 4) {
+        const uint4 q = *reinterpret_cast<const uint4*>(xr + 2 * j);
+        w[j] = q.x; w[j + 1] = q.y; w[j + 2] = q.z; w[j + 3] = q.w;
+      }
+    } else if constexpr (NW % 2 == 0) {
+#pragma unroll
+      for (int j = 0; j < NW; j += 2) {
+        const uint2 q = *reinterpret_cast<const uint2*>(xr + 2 * j);
+        w[j] = q.x; w[j + 1] = q.y;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NW; ++j)
+        w[j] = *reinterpret_cast<const unsigned*>(xr + 2 * j);
+    }
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      v[2 * j] = (uint16_t)(w[j] & 0xffffu);
+      v[2 * j + 1] = (uint16_t)(w[j] >> 16);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) v[i] = c0 + i < dim ? xr[i] : 0;
+  }
+  // a bf16 value is nonzero unless its bits are +0 or -0 (NaN counts as
+  // nonzero, as x != 0 in the plain version)
+  int nz = 0, zero = 0;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const bool in = c0 + i < dim;
+    nz += in && (v[i] & 0x7fffu) != 0;
+    zero += in && (v[i] & 0x7fffu) == 0;
+  }
+  int nz_incl = nz, zero_incl = zero;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int a = __shfl_up_sync(kFull, nz_incl, off);
+    const int b = __shfl_up_sync(kFull, zero_incl, off);
+    if (lane >= off) {
+      nz_incl += a;
+      zero_incl += b;
+    }
+  }
+  const int nz_total = __shfl_sync(kFull, nz_incl, 31);
+  int s_nz = nz_incl - nz;                 // this lane's first nonzero slot
+  int s_zero = nz_total + zero_incl - zero;  // and first zero slot
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    if (c0 + i < dim) {
+      const bool is_nz = (v[i] & 0x7fffu) != 0;
+      const int slot = is_nz ? s_nz++ : s_zero++;
+      if (slot < k) {
+        vr[slot] = v[i];
+        cr[slot] = c0 + i;
+      }
+    }
+  }
+}
+
 // NV: float4 slices per lane, ceil(dim / 128) rounded up to a power of two
 template <int NV>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -135,6 +228,19 @@ unsigned warp_blocks(int64_t rows) {
   return (unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
+template <int PER>
+void launch_compact16(const uint16_t* x, uint16_t* vals, int* ch, int64_t n,
+                      int dim, int k, cudaStream_t s) {
+  const unsigned blocks = warp_blocks(n);
+  const int threads = kWarpsPerBlock * 32;
+  if (PER % 2 == 0 && dim == 32 * PER)
+    cbsr_compact16_kernel<PER, PER % 2 == 0>
+        <<<blocks, threads, 0, s>>>(x, vals, ch, n, dim, k);
+  else
+    cbsr_compact16_kernel<PER, false>
+        <<<blocks, threads, 0, s>>>(x, vals, ch, n, dim, k);
+}
+
 }  // namespace
 
 // vals f32 [n, k], ch int32 [n, k] <- the CBSR of x f32 [n, dim].
@@ -162,6 +268,27 @@ extern "C" int cbsr_compact(const void* x, void* vals, void* ch, int64_t n,
     cbsr_compact_kernel<16><<<blocks, threads, 0, s>>>(xp, vp, cp, n, dim, k);
   else
     cbsr_compact_kernel<32><<<blocks, threads, 0, s>>>(xp, vp, cp, n, dim, k);
+  return (int)cudaGetLastError();
+}
+
+// vals bf16 [n, k], ch int32 [n, k] <- the CBSR of x bf16 [n, dim]: the
+// slots of cbsr_compact. Needs 1 <= k <= dim <= 1024 and a 16-byte aligned
+// x.
+extern "C" int cbsr_compact_bf16(const void* x, void* vals, void* ch,
+                                 int64_t n, int dim, int k, void* stream) {
+  if (dim < 1 || dim > 1024 || k < 1 || k > dim)
+    return (int)cudaErrorInvalidValue;
+  const uint16_t* xp = static_cast<const uint16_t*>(x);
+  uint16_t* vp = static_cast<uint16_t*>(vals);
+  int* cp = static_cast<int*>(ch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int per = (dim + 31) / 32;
+  if (per <= 1) launch_compact16<1>(xp, vp, cp, n, dim, k, s);
+  else if (per <= 2) launch_compact16<2>(xp, vp, cp, n, dim, k, s);
+  else if (per <= 4) launch_compact16<4>(xp, vp, cp, n, dim, k, s);
+  else if (per <= 8) launch_compact16<8>(xp, vp, cp, n, dim, k, s);
+  else if (per <= 16) launch_compact16<16>(xp, vp, cp, n, dim, k, s);
+  else launch_compact16<32>(xp, vp, cp, n, dim, k, s);
   return (int)cudaGetLastError();
 }
 

@@ -92,7 +92,23 @@
 // from it with shuffles. A first version loaded each value with a 16-bit
 // load and read 16.1 ms on ogbn-products, slower than the f32 records
 // (utils/stream_sweep.py; PERF.md has both designs' times).
+//
+// stream_spmm_bf16_out and stream_cbsr_spmm_bf16_out are the bf16 forms with
+// a bf16 output: the 16-bit model (--dtype bfloat16), whose aggregation keeps
+// 16 bits (stream_pallas.py:217-242 `out_dtype`, then the post factor in bf16
+// at spgemm_gnn_tpu/kernels/planned.py:323). The rows or record values are
+// already bf16(pre * x) in the caller's bf16 arithmetic, so they take no pre.
+// The sums are the f32-output kernels', in the same order, and y rounds once,
+// where the row's final value is known, as bf16(bf16(sum) * bf16(post)) (two
+// roundings, the reference's; the product of two bf16 values is exact in
+// f32). Partial sums never pass through the bf16 y: a row that goes on past
+// its warp's span leaves its first span's sum in an f32 slot of that span
+// (`heads`, one row of dim floats per span; at most one row per span goes on
+// past it), and the carry pass reads it from there. The TPU kernel instead
+// rounds its bf16 carry at each group boundary (stream_pallas.py:242, :192);
+// rounding once is the more exact of the two.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -114,6 +130,21 @@ __device__ __forceinline__ float4 scale4(const float4& a, float p) {
 
 __device__ __forceinline__ float4 add4(const float4& a, const float4& b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ unsigned pack2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// four f32 sums as bf16(bf16(v) * p), p a bf16 value: the bf16 outputs
+__device__ __forceinline__ uint2 round_out(const float4& v, float p) {
+  return make_uint2(pack2(bf16_round(v.x) * p, bf16_round(v.y) * p),
+                    pack2(bf16_round(v.z) * p, bf16_round(v.w) * p));
 }
 
 // An L2 eviction policy for the loads of one row: evict_last for a hot row,
@@ -170,6 +201,8 @@ struct Walk {
   const unsigned* hot;    // hot-set bitmask over source ids, or null
   float4* y;
   float4* carry;
+  uint2* y16;     // the bf16 output (the _out forms), or null
+  float4* heads;  // per span, the sum of the row that goes on past it (_out)
   int n_chunks, n_edges, n_rows, chunk, warp_chunks, dim4;
 };
 
@@ -306,6 +339,20 @@ struct Bf16Rows {
       }
     }
   }
+
+  // the row's bf16 output: 8 channels (16 B) a slice
+  __device__ __forceinline__ void write16(uint2* out, float p) const {
+#pragma unroll
+    for (int t = 0; t < NV; ++t) {
+      const int col = lane + 32 * t;
+      if (col < dim8) {
+        const uint2 a = round_out(head[2 * t], p);
+        const uint2 b = round_out(head[2 * t + 1], p);
+        __stcs(reinterpret_cast<uint4*>(out) + col,
+               make_uint4(a.x, a.y, b.x, b.y));
+      }
+    }
+  }
 };
 
 // stream_cbsr_spmm's rows: a record of k values and kp packed id words per
@@ -415,6 +462,14 @@ struct CbsrRecords {
       if (q < dim4) __stcs(out + q, scale4(head[t], p));
     }
   }
+
+  __device__ __forceinline__ void write16(uint2* out, float p) const {
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int q = lane + 32 * t;
+      if (q < dim4) __stcs(out + q, round_out(head[t], p));
+    }
+  }
 };
 
 // stream_cbsr_spmm_bf16's rows: CbsrRecords' accumulator, sums and writes
@@ -487,8 +542,10 @@ struct Cbsr16Records : CbsrRecords<KV, true> {
 };
 
 // One warp per `warp_chunks` consecutive chunks; Op gathers, sums and writes
-// the rows. D: source rows fetched ahead into registers (divides 32).
-template <class Op, int D>
+// the rows. D: source rows fetched ahead into registers (divides 32). OUT16:
+// finished rows go to the bf16 w.y16, a row that goes on past the span to
+// the span's f32 slot of w.heads.
+template <class Op, int D, bool OUT16>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 stream_walk_kernel(const Walk w, const typename Op::Src src) {
   extern __shared__ float4 walk_smem[];
@@ -573,17 +630,27 @@ stream_walk_kernel(const Walk w, const typename Op::Src src) {
           if (e + 1 == seg_end) {  // the segment ends
             const bool before = rs < lo;  // the row began before the span
             op.take(before || rs >= qlo);
-            float4* out = nullptr;
-            float p = 1.f;
-            if (before) {
-              out = w.carry + (int64_t)q * w.dim4;
-            } else if (re <= qhi) {  // the row ends: whole, times post
-              out = w.y + (int64_t)r * w.dim4;
-              p = pr;
-            } else if (qhi == hi) {  // goes on past the span: unscaled
-              out = w.y + (int64_t)r * w.dim4;
+            if constexpr (OUT16) {
+              if (before)
+                op.write(w.carry + (int64_t)q * w.dim4, 1.f);
+              else if (re <= qhi)  // the row ends: whole, rounded
+                op.write16(w.y16 + (int64_t)r * w.dim4, bf16_round(pr));
+              else if (qhi == hi)  // goes on past the span: its span's slot
+                op.write(w.heads + (int64_t)(c0 / w.warp_chunks) * w.dim4,
+                         1.f);
+            } else {
+              float4* out = nullptr;
+              float p = 1.f;
+              if (before) {
+                out = w.carry + (int64_t)q * w.dim4;
+              } else if (re <= qhi) {  // the row ends: whole, times post
+                out = w.y + (int64_t)r * w.dim4;
+                p = pr;
+              } else if (qhi == hi) {  // goes on past the span: unscaled
+                out = w.y + (int64_t)r * w.dim4;
+              }
+              if (out != nullptr) op.write(out, p);
             }
-            if (out != nullptr) op.write(out, p);
             if (e + 1 < hi) {
               if (e + 1 == re) {  // the next row with edges
                 rs = re;
@@ -612,13 +679,17 @@ stream_walk_kernel(const Walk w, const typename Op::Src src) {
   }
 }
 
-template <int NV>
+// OUT16: a row's first-span sum is in heads (not y), and the row goes to
+// the bf16 y16.
+template <int NV, bool OUT16>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 stream_carry_kernel(const int* __restrict__ indptr,
                     const int* __restrict__ carry_rows,
                     const float* __restrict__ post,
                     const float4* __restrict__ carry, float4* __restrict__ y,
-                    int64_t n_carry, int chunk, int warp_chunks, int dim4) {
+                    const float4* __restrict__ heads,
+                    uint2* __restrict__ y16, int64_t n_carry, int chunk,
+                    int warp_chunks, int dim4) {
   const int lane = threadIdx.x & 31;
   const int64_t i =
       (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -627,11 +698,14 @@ stream_carry_kernel(const int* __restrict__ indptr,
   const int64_t a = indptr[r];
   const int64_t b = indptr[r + 1];
   float4* yr = y + r * dim4;
+  // the sum of the row's first span
+  const float4* hr =
+      OUT16 ? heads + (a / chunk / warp_chunks) * dim4 : yr;
   float4 acc[NV];
 #pragma unroll
   for (int t = 0; t < NV; ++t) {
     const int col = lane + 32 * t;
-    acc[t] = (a < b && col < dim4) ? yr[col] : make_float4(0.f, 0.f, 0.f, 0.f);
+    acc[t] = (a < b && col < dim4) ? hr[col] : make_float4(0.f, 0.f, 0.f, 0.f);
   }
   if (a < b) {
     // the chunks past the row's first span, whose sum y holds
@@ -653,6 +727,15 @@ stream_carry_kernel(const int* __restrict__ indptr,
       }
     }
   }
+  if constexpr (OUT16) {
+    const float p = (a < b && post != nullptr) ? bf16_round(post[r]) : 1.f;
+#pragma unroll
+    for (int t = 0; t < NV; ++t) {
+      const int col = lane + 32 * t;
+      if (col < dim4) y16[r * dim4 + col] = round_out(acc[t], p);
+    }
+    return;
+  }
   const float p = (a < b && post != nullptr) ? post[r] : 1.f;
 #pragma unroll
   for (int t = 0; t < NV; ++t) {
@@ -665,39 +748,36 @@ unsigned blocks_for(int64_t warps) {
   return (unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
-template <class Op, int D>
+template <class Op, int D, bool OUT16 = false>
 void launch_walk(const Walk& w, const typename Op::Src& src, cudaStream_t s) {
   if (w.n_chunks == 0) return;
   const int64_t warps = (w.n_chunks + w.warp_chunks - 1) / w.warp_chunks;
   const size_t smem =
       (size_t)kWarpsPerBlock * Op::kSmemFloats * w.dim4 * sizeof(float4);
-  stream_walk_kernel<Op, D>
+  stream_walk_kernel<Op, D, OUT16>
       <<<blocks_for(warps), kWarpsPerBlock * 32, smem, s>>>(w, src);
 }
 
-void launch_carry(int nv, const int* indptr, const int* carry_rows,
-                  const float* post, const float4* carry, float4* y,
-                  int64_t n_carry, int chunk, int warp_chunks, int dim4,
-                  cudaStream_t s) {
+// the carry pass over the walk's w.carry (and, OUT16, w.heads and w.y16)
+template <bool OUT16 = false>
+void launch_carry(int nv, const Walk& w, const int* carry_rows,
+                  int64_t n_carry, cudaStream_t s) {
   if (n_carry == 0) return;
   const unsigned blocks = blocks_for(n_carry);
   const int threads = kWarpsPerBlock * 32;
+#define CARRY(NV_)                                                          \
+  stream_carry_kernel<NV_, OUT16><<<blocks, threads, 0, s>>>(               \
+      w.indptr, carry_rows, w.post, w.carry, w.y, w.heads, w.y16, n_carry, \
+      w.chunk, w.warp_chunks, w.dim4)
   if (nv <= 1)
-    stream_carry_kernel<1><<<blocks, threads, 0, s>>>(
-        indptr, carry_rows, post, carry, y, n_carry, chunk, warp_chunks,
-        dim4);
+    CARRY(1);
   else if (nv <= 2)
-    stream_carry_kernel<2><<<blocks, threads, 0, s>>>(
-        indptr, carry_rows, post, carry, y, n_carry, chunk, warp_chunks,
-        dim4);
+    CARRY(2);
   else if (nv <= 4)
-    stream_carry_kernel<4><<<blocks, threads, 0, s>>>(
-        indptr, carry_rows, post, carry, y, n_carry, chunk, warp_chunks,
-        dim4);
+    CARRY(4);
   else
-    stream_carry_kernel<8><<<blocks, threads, 0, s>>>(
-        indptr, carry_rows, post, carry, y, n_carry, chunk, warp_chunks,
-        dim4);
+    CARRY(8);
+#undef CARRY
 }
 
 // float4 slices per lane for dim4 float4s: ceil(dim4 / 32) rounded up to a
@@ -717,6 +797,8 @@ Walk make_walk(const void* indptr, const void* indices, const void* pre,
   w.hot = static_cast<const unsigned*>(hot);
   w.y = static_cast<float4*>(y);
   w.carry = static_cast<float4*>(carry);
+  w.y16 = nullptr;
+  w.heads = nullptr;
   w.n_chunks = (int)n_chunks;
   w.n_edges = (int)n_edges;
   w.n_rows = (int)n_rows;
@@ -783,8 +865,7 @@ extern "C" int stream_spmm(const void* indptr, const void* indices,
 #undef DENSE
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  launch_carry(nv, w.indptr, static_cast<const int*>(carry_rows), w.post,
-               w.carry, w.y, n_carry, chunk, warp_chunks, dim4, s);
+  launch_carry(nv, w, static_cast<const int*>(carry_rows), n_carry, s);
   return (int)cudaGetLastError();
 }
 
@@ -842,34 +923,38 @@ extern "C" int stream_cbsr_spmm(const void* indptr, const void* indices,
 #undef CBSR
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  launch_carry(dim4 <= 32 ? 1 : 2, w.indptr,
-               static_cast<const int*>(carry_rows), w.post, w.carry, w.y,
-               n_carry, chunk, warp_chunks, dim4, s);
+  launch_carry(dim4 <= 32 ? 1 : 2, w, static_cast<const int*>(carry_rows),
+               n_carry, s);
   return (int)cudaGetLastError();
 }
 
-// stream_spmm on x bf16 [n_src, dim] (the rows of round_rows), as
-// stream_spmm otherwise: depth 4, 8 or 16 at dim <= 512, 4 at dim <= 1024.
-// Needs dim % 8 == 0, dim <= 1024 and 16-byte aligned x, y and carry.
-extern "C" int stream_spmm_bf16(const void* indptr, const void* indices,
-                                const void* x, const void* pre,
-                                const void* post, const void* chunk_row0,
-                                const void* carry_rows, const void* hot,
-                                void* y, void* carry, int64_t n_rows,
-                                int64_t n_chunks, int64_t n_carry,
-                                int64_t n_edges, int chunk, int dim,
-                                int depth, int warp_chunks, void* stream) {
+namespace {
+
+// The bf16-row product; OUT16: y is y16 bf16 [n_rows, dim], heads f32
+// [ceil(n_chunks / warp_chunks), dim].
+template <bool OUT16>
+int spmm16(const void* indptr, const void* indices, const void* x,
+           const void* pre, const void* post, const void* chunk_row0,
+           const void* carry_rows, const void* hot, void* y, void* carry,
+           void* heads, int64_t n_rows, int64_t n_chunks, int64_t n_carry,
+           int64_t n_edges, int chunk, int dim, int depth, int warp_chunks,
+           void* stream) {
   if (dim < 8 || dim % 8 != 0 || dim > 1024 || chunk < 1 || chunk > 512 ||
-      warp_chunks < 1 || !fits_int(n_rows, n_edges))
+      warp_chunks < 1 || !fits_int(n_rows, n_edges) ||
+      (OUT16 && heads == nullptr && n_chunks > 0))
     return (int)cudaErrorInvalidValue;
   const int dim4 = dim / 4;
   const int nv = slices(dim / 8);
-  const Walk w = make_walk(indptr, indices, pre, post, chunk_row0, hot, y,
-                           carry, n_rows, n_chunks, n_edges, chunk,
-                           warp_chunks, dim4);
+  Walk w = make_walk(indptr, indices, pre, post, chunk_row0, hot,
+                     OUT16 ? nullptr : y, carry, n_rows, n_chunks, n_edges,
+                     chunk, warp_chunks, dim4);
+  if (OUT16) {
+    w.y16 = static_cast<uint2*>(y);
+    w.heads = static_cast<float4*>(heads);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint4* xp = static_cast<const uint4*>(x);
-#define DENSE16(NV_, D_) launch_walk<Bf16Rows<NV_>, D_>(w, {xp}, s)
+#define DENSE16(NV_, D_) launch_walk<Bf16Rows<NV_>, D_, OUT16>(w, {xp}, s)
   if (nv == 1 && depth == 4)
     DENSE16(1, 4);
   else if (nv == 1 && depth == 8)
@@ -889,37 +974,37 @@ extern "C" int stream_spmm_bf16(const void* indptr, const void* indices,
 #undef DENSE16
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  launch_carry(slices(dim4), w.indptr, static_cast<const int*>(carry_rows),
-               w.post, w.carry, w.y, n_carry, chunk, warp_chunks, dim4, s);
+  launch_carry<OUT16>(slices(dim4), w, static_cast<const int*>(carry_rows),
+                      n_carry, s);
   return (int)cudaGetLastError();
 }
 
-// stream_cbsr_spmm on records with bf16 values: int32 [n_src, vw + kp],
-// vw = ceil(k / 2) words of bf16 values, two to a word (value 2i in the low
-// half of word i), then kp = ceil(k / 4) words of uint8 channel ids
-// (ops/maxk.py::cbsr_records on bf16 values; 96 B at k 32). batch: 4, 8 or
-// 16 at k <= 32, 8 at k <= 64, 4 above. Otherwise as stream_cbsr_spmm.
-extern "C" int stream_cbsr_spmm_bf16(const void* indptr, const void* indices,
-                                     const void* records, const void* pre,
-                                     const void* post, const void* chunk_row0,
-                                     const void* carry_rows, const void* hot,
-                                     void* y, void* carry, int64_t n_rows,
-                                     int64_t n_chunks, int64_t n_carry,
-                                     int64_t n_edges, int chunk, int k,
-                                     int kp, int dim, int batch,
-                                     int warp_chunks, void* stream) {
+// The bf16-record product; OUT16 as in spmm16.
+template <bool OUT16>
+int cbsr16(const void* indptr, const void* indices, const void* records,
+           const void* pre, const void* post, const void* chunk_row0,
+           const void* carry_rows, const void* hot, void* y, void* carry,
+           void* heads, int64_t n_rows, int64_t n_chunks, int64_t n_carry,
+           int64_t n_edges, int chunk, int k, int kp, int dim, int batch,
+           int warp_chunks, void* stream) {
   if (dim < 4 || dim % 4 != 0 || dim > 256 || k < 1 || k >= dim ||
       kp != (k + 3) / 4 || chunk < 1 || chunk > 512 || warp_chunks < 1 ||
-      !fits_int(n_rows, n_edges))
+      !fits_int(n_rows, n_edges) ||
+      (OUT16 && heads == nullptr && n_chunks > 0))
     return (int)cudaErrorInvalidValue;
   const int dim4 = dim / 4;
-  const Walk w = make_walk(indptr, indices, pre, post, chunk_row0, hot, y,
-                           carry, n_rows, n_chunks, n_edges, chunk,
-                           warp_chunks, dim4);
+  Walk w = make_walk(indptr, indices, pre, post, chunk_row0, hot,
+                     OUT16 ? nullptr : y, carry, n_rows, n_chunks, n_edges,
+                     chunk, warp_chunks, dim4);
+  if (OUT16) {
+    w.y16 = static_cast<uint2*>(y);
+    w.heads = static_cast<float4*>(heads);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned* rp = static_cast<const unsigned*>(records);
   const int kv = slices(k);
-#define CBSR16(KV_, B_) launch_walk<Cbsr16Records<KV_>, B_>(w, {rp, k, kp}, s)
+#define CBSR16(KV_, B_) \
+  launch_walk<Cbsr16Records<KV_>, B_, OUT16>(w, {rp, k, kp}, s)
   if (kv == 1 && batch == 4)
     CBSR16(1, 4);
   else if (kv == 1 && batch == 8)
@@ -937,8 +1022,78 @@ extern "C" int stream_cbsr_spmm_bf16(const void* indptr, const void* indices,
 #undef CBSR16
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  launch_carry(dim4 <= 32 ? 1 : 2, w.indptr,
-               static_cast<const int*>(carry_rows), w.post, w.carry, w.y,
-               n_carry, chunk, warp_chunks, dim4, s);
+  launch_carry<OUT16>(dim4 <= 32 ? 1 : 2, w,
+                      static_cast<const int*>(carry_rows), n_carry, s);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// stream_spmm on x bf16 [n_src, dim] (the rows of round_rows), as
+// stream_spmm otherwise: depth 4, 8 or 16 at dim <= 512, 4 at dim <= 1024.
+// Needs dim % 8 == 0, dim <= 1024 and 16-byte aligned x, y and carry.
+extern "C" int stream_spmm_bf16(const void* indptr, const void* indices,
+                                const void* x, const void* pre,
+                                const void* post, const void* chunk_row0,
+                                const void* carry_rows, const void* hot,
+                                void* y, void* carry, int64_t n_rows,
+                                int64_t n_chunks, int64_t n_carry,
+                                int64_t n_edges, int chunk, int dim,
+                                int depth, int warp_chunks, void* stream) {
+  return spmm16<false>(indptr, indices, x, pre, post, chunk_row0, carry_rows,
+                       hot, y, carry, nullptr, n_rows, n_chunks, n_carry,
+                       n_edges, chunk, dim, depth, warp_chunks, stream);
+}
+
+// stream_spmm_bf16 with y16 bf16 [n_rows, dim] <- bf16(bf16(A (pre * x)) *
+// bf16(post)); heads f32 [ceil(n_chunks / warp_chunks), dim] scratch, the
+// first-span sums of the rows across spans. Needs 16-byte aligned x, y16,
+// carry and heads; otherwise as stream_spmm_bf16.
+extern "C" int stream_spmm_bf16_out(const void* indptr, const void* indices,
+                                    const void* x, const void* pre,
+                                    const void* post, const void* chunk_row0,
+                                    const void* carry_rows, const void* hot,
+                                    void* y16, void* carry, void* heads,
+                                    int64_t n_rows, int64_t n_chunks,
+                                    int64_t n_carry, int64_t n_edges,
+                                    int chunk, int dim, int depth,
+                                    int warp_chunks, void* stream) {
+  return spmm16<true>(indptr, indices, x, pre, post, chunk_row0, carry_rows,
+                      hot, y16, carry, heads, n_rows, n_chunks, n_carry,
+                      n_edges, chunk, dim, depth, warp_chunks, stream);
+}
+
+// stream_cbsr_spmm on records with bf16 values: int32 [n_src, vw + kp],
+// vw = ceil(k / 2) words of bf16 values, two to a word (value 2i in the low
+// half of word i), then kp = ceil(k / 4) words of uint8 channel ids
+// (ops/maxk.py::cbsr_records on bf16 values; 96 B at k 32). batch: 4, 8 or
+// 16 at k <= 32, 8 at k <= 64, 4 above. Otherwise as stream_cbsr_spmm.
+extern "C" int stream_cbsr_spmm_bf16(const void* indptr, const void* indices,
+                                     const void* records, const void* pre,
+                                     const void* post, const void* chunk_row0,
+                                     const void* carry_rows, const void* hot,
+                                     void* y, void* carry, int64_t n_rows,
+                                     int64_t n_chunks, int64_t n_carry,
+                                     int64_t n_edges, int chunk, int k,
+                                     int kp, int dim, int batch,
+                                     int warp_chunks, void* stream) {
+  return cbsr16<false>(indptr, indices, records, pre, post, chunk_row0,
+                       carry_rows, hot, y, carry, nullptr, n_rows, n_chunks,
+                       n_carry, n_edges, chunk, k, kp, dim, batch,
+                       warp_chunks, stream);
+}
+
+// stream_cbsr_spmm_bf16 with a bf16 y16 and the heads scratch, as
+// stream_spmm_bf16_out.
+extern "C" int stream_cbsr_spmm_bf16_out(
+    const void* indptr, const void* indices, const void* records,
+    const void* pre, const void* post, const void* chunk_row0,
+    const void* carry_rows, const void* hot, void* y16, void* carry,
+    void* heads, int64_t n_rows, int64_t n_chunks, int64_t n_carry,
+    int64_t n_edges, int chunk, int k, int kp, int dim, int batch,
+    int warp_chunks, void* stream) {
+  return cbsr16<true>(indptr, indices, records, pre, post, chunk_row0,
+                      carry_rows, hot, y16, carry, heads, n_rows, n_chunks,
+                      n_carry, n_edges, chunk, k, kp, dim, batch,
+                      warp_chunks, stream);
 }

@@ -33,21 +33,32 @@ launches: collections.Counter = collections.Counter()
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # source stem -> {C entry point: argtypes}
 SIGNATURES = {
-    "maxk": {"maxk_fwd": [_P, _P, _P, _I64, _INT, _INT, _P],
-             "maxk_bwd": [_P, _P, _P, _P, _I64, _INT, _P]},
+    "maxk": {**{name: [_P, _P, _P, _I64, _INT, _INT, _P]
+                for name in ("maxk_fwd", "maxk_fwd_bf16")},
+             **{name: [_P, _P, _P, _P, _I64, _INT, _P]
+                for name in ("maxk_bwd", "maxk_bwd_bf16")}},
     "spmm": {name: [_P, _P, _P, _P, _INT, _P, _P, _P, _P, _P, _P, _INT, _P]
              for name in ("csr_spmm", "csr_spmm_bf16")},
     "stream": {"stream_spmm": [*[_P] * 10, *[_I64] * 4, *[_INT] * 4, _P],
                "stream_spmm_bf16": [*[_P] * 10, *[_I64] * 4, *[_INT] * 4,
                                     _P],
+               "stream_spmm_bf16_out": [*[_P] * 11, *[_I64] * 4,
+                                        *[_INT] * 4, _P],
                "stream_cbsr_spmm": [*[_P] * 10, *[_I64] * 4, *[_INT] * 7,
                                     _P],
                "stream_cbsr_spmm_bf16": [*[_P] * 10, *[_I64] * 4,
-                                         *[_INT] * 6, _P]},
-    "round": {"round_rows": [_P, _P, _P, _I64, _INT, _P]},
-    "cbsr": {"cbsr_compact": [_P, _P, _P, _I64, _INT, _INT, _P],
-             "cbsr_densify": [_P, _P, _P, _I64, _INT, _INT, _P],
-             "cbsr_sample": [_P, _P, _P, _I64, _INT, _INT, _P]},
+                                         *[_INT] * 6, _P],
+               "stream_cbsr_spmm_bf16_out": [*[_P] * 11, *[_I64] * 4,
+                                             *[_INT] * 6, _P]},
+    "round": {name: [_P, _P, _P, _I64, _INT, _P]
+              for name in ("round_rows", "round_out")},
+    "norm": {"layer_norm16_fwd": [*[_P] * 6, _I64, _INT, ctypes.c_float,
+                                  _P],
+             "layer_norm16_bwd": [*[_P] * 8, _I64, _INT, _P],
+             "layer_norm16_bwd_blocks": []},
+    "cbsr": {name: [_P, _P, _P, _I64, _INT, _INT, _P]
+             for name in ("cbsr_compact", "cbsr_compact_bf16", "cbsr_densify",
+                          "cbsr_sample")},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -122,13 +133,14 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require(t: torch.Tensor, what: str, dtype: torch.dtype,
+def require(t: torch.Tensor, what: str, dtype: torch.dtype | tuple,
             device: torch.device, shape: tuple | None = None) -> None:
-    """Raise unless t is a contiguous `dtype` tensor on `device` of `shape`
-    (None entries in `shape` match any size)."""
+    """Raise unless t is a contiguous `dtype` tensor (or one of a tuple of
+    dtypes) on `device` of `shape` (None entries in `shape` match any
+    size)."""
     if t.device != device:
         raise ValueError(f"{what} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise ValueError(f"{what} has dtype {t.dtype}, expected {dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")

@@ -1,5 +1,5 @@
-"""Dispatch of the nonlinearity and the aggregation (counterpart of
-`spgemm_gnn_tpu/kernels/api.py`).
+"""Dispatch of the nonlinearity, the aggregation and the 16-bit layer norm
+(counterpart of `spgemm_gnn_tpu/kernels/api.py`).
 
 impl:
   "auto"  — the kernels for CUDA tensors, their plain versions for CPU ones;
@@ -14,11 +14,13 @@ import torch
 
 from spgemm_gnn_tpu_torch.kernels import maxk as _maxk_kernel
 from spgemm_gnn_tpu_torch.kernels.cbsr import CBSRCompact
+from spgemm_gnn_tpu_torch.kernels.layernorm import LayerNorm16
 from spgemm_gnn_tpu_torch.kernels.planned import (graph_plans,
                                                   planned_aggregate,
                                                   spgemm_forward,
                                                   sspmm_backward)
 from spgemm_gnn_tpu_torch.ops import maxk as _maxk_plain
+from spgemm_gnn_tpu_torch.ops.layernorm import layer_norm16_forward
 from spgemm_gnn_tpu_torch.ops import spmm as _spmm_plain
 from spgemm_gnn_tpu_torch.ops.norms import node_factors
 
@@ -50,15 +52,28 @@ def maxk_op(x: torch.Tensor, k: int | None,
 
 def cbsr_compact(x: torch.Tensor, k: int, impl: str = "auto"
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """CBSR of an already MaxK-masked x f32 [N, dim]: (values [N, k],
-    channels int32 [N, k]), `ops.maxk.cbsr_from_masked`'s channel set in the
-    compaction kernel's slot order (the nonzero channels ascending, then the
-    lowest zero channels). Differentiable in the values: dx is the densify
-    of dvalues."""
+    """CBSR of an already MaxK-masked x f32 or bf16 [N, dim]: (values
+    [N, k] in x's dtype, channels int32 [N, k]), `ops.maxk.cbsr_from_masked`'s
+    channel set in the compaction kernel's slot order (the nonzero channels
+    ascending, then the lowest zero channels). Differentiable in the values:
+    dx is the densify of dvalues (for a bf16 CUDA x the densify kernel's
+    bf16 form is not ported: Queue B)."""
     _check_impl(impl, x)
     if impl == "torch":
         return _maxk_plain.cbsr_compact_plain(x, k)
     return CBSRCompact.apply(x.contiguous(), k)
+
+
+def layer_norm16(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                 eps: float, impl: str = "auto") -> torch.Tensor:
+    """Differentiable layer norm of bf16 rows x [N, dim] with f32 weight and
+    bias [dim] (flax LayerNorm(dtype=bfloat16): f32 arithmetic, one rounding
+    to bf16): the `layer_norm16` kernels, or with impl "torch" the plain ops
+    differentiated by autograd."""
+    _check_impl(impl, x)
+    if impl == "torch":
+        return layer_norm16_forward(x, weight, bias, eps)[0]
+    return LayerNorm16.apply(x.contiguous(), weight, bias, eps)
 
 
 def aggregate(g, x: torch.Tensor, norm: str = "sum", k: int | None = None,

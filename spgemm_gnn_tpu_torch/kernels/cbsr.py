@@ -21,24 +21,30 @@ from spgemm_gnn_tpu_torch.ops.maxk import (cbsr_compact_plain, cbsr_to_dense,
 
 def cbsr_compact(x: torch.Tensor, k: int
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(values f32 [N, k], channels int32 [N, k]) of x f32 [N, dim]: the
-    nonzero channels in ascending order, then the lowest zero channels."""
+    """(values [N, k] in x's dtype, channels int32 [N, k]) of x f32 or bf16
+    [N, dim]: the nonzero channels in ascending order, then the lowest zero
+    channels. bf16 rows (the 16-bit model) launch `cbsr_compact_bf16`."""
     if _build.on_cpu(x):
         return cbsr_compact_plain(x, k)
-    _build.require(x, "x", torch.float32, x.device, (None, None))
+    _build.require(x, "x", (torch.float32, torch.bfloat16), x.device,
+                   (None, None))
     n, dim = x.shape
     if not 1 <= k <= dim <= MAX_DIM:
         raise ValueError(f"cbsr_compact needs 1 <= k <= dim <= {MAX_DIM}; "
                          f"got k={k}, dim={dim}")
-    vals = torch.empty((n, k), dtype=torch.float32, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        _build.require_aligned(x, "x")
+    vals = torch.empty((n, k), dtype=x.dtype, device=x.device)
     ch = torch.empty((n, k), dtype=torch.int32, device=x.device)
     if n:
+        name = "cbsr_compact_bf16" if bf16 else "cbsr_compact"
         with torch.cuda.device(x.device):
-            status = _build.library("cbsr").cbsr_compact(
+            status = getattr(_build.library("cbsr"), name)(
                 x.data_ptr(), vals.data_ptr(), ch.data_ptr(), n, dim, k,
                 _build.stream_of(x))
-        _build.check(status, "cbsr_compact")
-        _build.launches["cbsr_compact"] += 1
+        _build.check(status, name)
+        _build.launches[name] += 1
     return vals, ch
 
 
@@ -105,6 +111,11 @@ class CBSRCompact(torch.autograd.Function):
     def forward(ctx, x: torch.Tensor, k: int):
         if ctx.needs_input_grad[0] and not _build.on_cpu(x):
             check_densify_shape(k, x.shape[1])
+            if x.dtype == torch.bfloat16:
+                raise NotImplementedError(
+                    "the gradient of cbsr_compact on bf16 rows needs the "
+                    "bf16 densify kernel, not ported yet (ROADMAP Queue B: "
+                    "B4-B6 in bf16)")
         vals, ch = cbsr_compact(x, k)
         ctx.mark_non_differentiable(ch)
         ctx.save_for_backward(ch)

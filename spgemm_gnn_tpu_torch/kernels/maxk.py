@@ -4,6 +4,11 @@ maxk_pallas.py`; sources in `csrc/maxk.cu`).
 `maxk_fwd` and `maxk_bwd` launch the kernels on CUDA tensors and take the
 plain versions (ops/maxk.py) on CPU tensors. `MaxK` is the autograd Function:
 its forward keeps (x, meta), and its backward rebuilds the mask from them.
+
+On bf16 rows (the 16-bit model, `--dtype bfloat16`) they launch the bf16
+forms, `maxk_fwd_bf16` and `maxk_bwd_bf16` (counted under those names):
+keys from the exact f32 widening, y and dx in bf16. A bf16 tensor never
+reaches an f32 kernel.
 """
 from __future__ import annotations
 
@@ -15,11 +20,19 @@ from spgemm_gnn_tpu_torch.ops.maxk import maxk_backward, maxk_forward
 MAX_DIM = 1024   # a row lives in one warp's registers
 
 
+ROW_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _name(base: str, x: torch.Tensor) -> str:
+    return base + "_bf16" if x.dtype == torch.bfloat16 else base
+
+
 def maxk_fwd(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(y, meta) = MaxK of the rows of x (f32 [N, dim]); meta int32 [N, 2]."""
+    """(y, meta) = MaxK of the rows of x (f32 or bf16 [N, dim]), y in x's
+    dtype; meta int32 [N, 2]."""
     if _build.on_cpu(x):
         return maxk_forward(x, k)
-    _build.require(x, "x", torch.float32, x.device, (None, None))
+    _build.require(x, "x", ROW_DTYPES, x.device, (None, None))
     n, dim = x.shape
     if dim > MAX_DIM:
         raise ValueError(f"maxk_fwd supports dim <= {MAX_DIM}; got {dim}")
@@ -29,34 +42,37 @@ def maxk_fwd(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     y = torch.empty_like(x)
     meta = torch.empty((n, 2), dtype=torch.int32, device=x.device)
     if n:
+        name = _name("maxk_fwd", x)
         with torch.cuda.device(x.device):
-            status = _build.library("maxk").maxk_fwd(
+            status = getattr(_build.library("maxk"), name)(
                 x.data_ptr(), y.data_ptr(), meta.data_ptr(), n, dim, k,
                 _build.stream_of(x))
-        _build.check(status, "maxk_fwd")
-        _build.launches["maxk_fwd"] += 1
+        _build.check(status, name)
+        _build.launches[name] += 1
     return y, meta
 
 
 def maxk_bwd(x: torch.Tensor, meta: torch.Tensor,
              g: torch.Tensor) -> torch.Tensor:
-    """dx = g · mask(x, meta) (all f32 [N, dim], meta int32 [N, 2])."""
+    """dx = g · mask(x, meta) (x, g and dx f32 [N, dim], or all bf16; meta
+    int32 [N, 2])."""
     if _build.on_cpu(x):
         return maxk_backward(x, meta, g)
-    _build.require(x, "x", torch.float32, x.device, (None, None))
+    _build.require(x, "x", ROW_DTYPES, x.device, (None, None))
     n, dim = x.shape
     _build.require(meta, "meta", torch.int32, x.device, (n, 2))
-    _build.require(g, "g", torch.float32, x.device, (n, dim))
+    _build.require(g, "g", x.dtype, x.device, (n, dim))
     for t, what in ((x, "x"), (g, "g")):
         _build.require_aligned(t, what)
     dx = torch.empty_like(g)
     if n:
+        name = _name("maxk_bwd", x)
         with torch.cuda.device(x.device):
-            status = _build.library("maxk").maxk_bwd(
+            status = getattr(_build.library("maxk"), name)(
                 x.data_ptr(), meta.data_ptr(), g.data_ptr(), dx.data_ptr(),
                 n, dim, _build.stream_of(x))
-        _build.check(status, "maxk_bwd")
-        _build.launches["maxk_bwd"] += 1
+        _build.check(status, name)
+        _build.launches[name] += 1
     return dx
 
 

@@ -28,6 +28,14 @@ stream. Its messages are bf16(pre ⊙ x) (the node factor in f32, then one
 rounding, `kernels/round.py::round_rows`), gathered by the bf16 form of the
 plan's kernel with no pre factor, summed in f32, with the post factor on the
 f32 sum; the output stays f32.
+
+bf16 activations (the 16-bit model, `--dtype bfloat16`) take the
+reference's arithmetic under either stream: pre ⊙ x in bf16 (the factor
+rounded to bf16, the product rounded once), the bf16-input kernel with no
+pre factor and a bf16 output, bf16(bf16(Σ) · bf16(post)); the backward the
+same on Aᵀ with the factors swapped, its cotangent in bf16
+(`spgemm_gnn_tpu/kernels/planned.py:189-190, :271-332`). Their messages are
+already bf16, so `round_rows` does not run, and no f32 kernel does.
 """
 from __future__ import annotations
 
@@ -128,20 +136,22 @@ def plan_kind(num_nodes: int, num_edges: int) -> str:
 
 
 def plan_graph(g: Graph, *, kind: str = "auto", chunk: int = CHUNK,
-               dim: int | None = None) -> PlannedGraph:
+               dim: int | None = None,
+               dtype: torch.dtype = torch.float32) -> PlannedGraph:
     """Both plans of a graph, on its device. kind: "auto" (the reference's
     rule, `plan_kind`), "windowed" or "stream"; chunk: edges per chunk of a
     stream plan. A windowed plan's `csr_spmm` schedule, or a stream plan's
-    hot set, is built here for rows of width `dim` in DEFAULT_STREAM's
-    feature stream (4 B a channel in "f32", 2 in "bf16x2") when `dim` is
-    given (else at the first product of each row size). A symmetric graph's
-    backward plan is its forward plan."""
+    hot set, is built here for the rows the kernels gather when `dim` is
+    given (else at the first product of each row size): rows of width `dim`
+    of activations of `dtype` in DEFAULT_STREAM's feature stream, 2 B a
+    channel for bf16 activations or the "bf16x2" stream, else 4. A
+    symmetric graph's backward plan is its forward plan."""
     if kind not in KINDS:
         raise ValueError(f"unknown plan kind {kind!r}; expected one of "
                          f"{KINDS}")
     if kind == "auto":
         kind = plan_kind(g.num_nodes, g.num_edges)
-    elem = 2 if _stream16() else 4
+    elem = 2 if _stream16() or dtype == torch.bfloat16 else 4
 
     def one(transpose: bool):
         if kind == "stream":
@@ -181,9 +191,14 @@ def plan_spmm(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
     value). Under the 16-bit stream (DEFAULT_STREAM "bf16x2") the kernel
     gathers bf16(pre ⊙ x), or the CBSR values so rounded, with no pre
     factor; a windowed plan then needs dim % 16 == 0, as the reference's
-    packed stream does."""
+    packed stream does. bf16 x takes `_plan_spmm16`, and y is bf16."""
     stream16 = _stream16()
     dim = x.shape[1]
+    if stream16 and dim % 16 and not isinstance(plan, StreamPlan):
+        raise ValueError(f"the bf16x2 stream needs dim % 16 == 0 on a "
+                         f"windowed plan; got {dim}")
+    if x.dtype == torch.bfloat16:
+        return _plan_spmm16(plan, _scale(x, pre), post, k)
     if isinstance(plan, StreamPlan):
         if STREAM_CBSR_FORWARD and k is not None and k < dim:
             vals, ch = cbsr_compact(x, k)
@@ -197,17 +212,33 @@ def plan_spmm(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
             return stream_spmm(plan, round_rows(x, pre), None, post)
         return stream_spmm(plan, x, pre, post)
     if stream16:
-        if dim % 16:
-            raise ValueError(f"the bf16x2 stream needs dim % 16 == 0 on a "
-                             f"windowed plan; got {dim}")
         return csr_spmm(plan, round_rows(x, pre), None, post)
     return csr_spmm(plan, x, pre, post)
+
+
+def _plan_spmm16(plan, x: torch.Tensor, post: torch.Tensor | None,
+                 k: int | None) -> torch.Tensor:
+    """bf16(bf16(A x) · bf16(post)) for bf16 rows x that already carry the
+    pre factor: the bf16-input kernels with their bf16 output, under either
+    stream (f32 sums of the same bf16 values). With STREAM_CBSR_FORWARD set
+    and `k`, a stream plan compacts x first (`cbsr_compact` on bf16 rows)
+    and gathers the bf16 records, as the reference scales, then compacts."""
+    bf16 = torch.bfloat16
+    dim = x.shape[1]
+    if isinstance(plan, StreamPlan):
+        if STREAM_CBSR_FORWARD and k is not None and k < dim:
+            vals, ch = cbsr_compact(x, k)
+            return stream_cbsr_spmm(plan, cbsr_records(vals, ch, dim), k, dim,
+                                    None, post, bf16, out_dtype=bf16)
+        return stream_spmm(plan, x, None, post, out_dtype=bf16)
+    return csr_spmm(plan, x, None, post, out_dtype=bf16)
 
 
 class Aggregate(torch.autograd.Function):
     """y = post ⊙ A (pre ⊙ x); dx = pre ⊙ Aᵀ (post ⊙ g), each through its
     plan's kernel (the forward reads `k` as `plan_spmm` does; the cotangent
-    is dense). The cotangent keeps the primal's dtype."""
+    is dense). The cotangent keeps the primal's dtype (for bf16 x, g is
+    bf16 and so is dx)."""
 
     @staticmethod
     def forward(ctx, x, fwd_plan, bwd_plan, pre, post, k):

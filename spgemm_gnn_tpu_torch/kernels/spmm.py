@@ -8,7 +8,10 @@ version in `ops/spmm.py`). The autograd pair around it is
 On bf16 rows (the 16-bit feature stream) it launches the bf16 form of the
 kernel, `csr_spmm_bf16` (counted under that name): 16-byte loads of 8
 channels widened to f32, f32 sums and y, and a schedule sized for 2-byte
-channels.
+channels. With `out_dtype=torch.bfloat16` (the 16-bit model, `--dtype
+bfloat16`) it runs `csr_spmm_bf16_out` (counted under that name): the same
+kernel's f32 sums with no post, then `round_out` (`csrc/round.cu`), one
+pass that rounds each sum to bf16 and multiplies it by bf16(post) in bf16.
 """
 from __future__ import annotations
 
@@ -21,23 +24,39 @@ from spgemm_gnn_tpu_torch.ops.spmm import csr_blocked_plain
 MAX_DIM = 1024   # a row's accumulators live in one warp's registers
 
 
+def check_out_dtype(in_dtype: torch.dtype, out_dtype: torch.dtype | None,
+                    what: str = "rows") -> bool:
+    """True for a bf16 output, which needs bf16 input `what` (rows, or a
+    CBSR stream's record values); None or f32 is f32."""
+    if out_dtype in (None, torch.float32):
+        return False
+    if out_dtype != torch.bfloat16:
+        raise ValueError(f"out_dtype is f32 or bf16; got {out_dtype}")
+    if in_dtype != torch.bfloat16:
+        raise ValueError(f"a bf16 output needs bf16 {what}; got {in_dtype}")
+    return True
+
+
 def csr_spmm(plan: CSRPlan, x: torch.Tensor, pre: torch.Tensor | None = None,
-             post: torch.Tensor | None = None) -> torch.Tensor:
+             post: torch.Tensor | None = None,
+             out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """y[v] = post[v] · Σ_{u ∈ in(v)} pre[u] · x[u] (a None factor is 1)
     over the plan's CSR (R rows), through its schedule for x's shape and row
     bytes (built at the first call with them, then kept on the plan).
 
-    x f32 or bf16 [S, dim] → y f32 [R, dim]. Indices are trusted to lie in
-    [0, S): graphs come from `from_edges`.
+    x f32 or bf16 [S, dim] → y f32 [R, dim]; with out_dtype bf16 (bf16 x
+    only), y bf16 = bf16(bf16(Σ) · bf16(post)). Indices are trusted to lie
+    in [0, S): graphs come from `from_edges`.
     """
     bf16 = x.dtype == torch.bfloat16
+    out16 = check_out_dtype(x.dtype, out_dtype)
     if bf16 and x.shape[-1] % 8:
         raise ValueError(f"csr_spmm on bf16 rows needs dim % 8 == 0; got "
                          f"{x.shape[-1]}")
     sched = plan.schedule(x.shape[0], x.shape[1], x.element_size())
     if _build.on_cpu(x):
         return csr_blocked_plain(sched.block_indptr, sched.indices, x, pre,
-                                 post)
+                                 post, out_dtype)
     dev = x.device
     _build.require(x, "x", torch.bfloat16 if bf16 else torch.float32, dev,
                    (None, None))
@@ -58,16 +77,28 @@ def csr_spmm(plan: CSRPlan, x: torch.Tensor, pre: torch.Tensor | None = None,
     scratch = torch.empty((sched.n_slots, dim), dtype=torch.float32,
                           device=dev) if sched.n_slots else None
     if n_rows:
-        name = "csr_spmm_bf16" if bf16 else "csr_spmm"
+        kernel = "csr_spmm_bf16" if bf16 else "csr_spmm"
         with torch.cuda.device(dev):
-            status = getattr(_build.library("spmm"), name)(
+            status = getattr(_build.library("spmm"), kernel)(
                 sched.seg.data_ptr(), sched.fix.data_ptr(),
                 sched.pass_seg.data_ptr(), sched.pass_fix.data_ptr(),
                 sched.nb, sched.indices.data_ptr(), x.data_ptr(),
                 None if pre is None else pre.data_ptr(),
-                None if post is None else post.data_ptr(), y.data_ptr(),
+                None if post is None or out16 else post.data_ptr(),
+                y.data_ptr(),
                 None if scratch is None else scratch.data_ptr(), dim,
                 _build.stream_of(x))
-        _build.check(status, name)
+            _build.check(status, kernel)
+            if out16:
+                y16 = torch.empty((n_rows, dim), dtype=torch.bfloat16,
+                                  device=dev)
+                status = _build.library("round").round_out(
+                    y.data_ptr(), None if post is None else post.data_ptr(),
+                    y16.data_ptr(), n_rows, dim, _build.stream_of(x))
+                _build.check(status, "round_out")
+                y = y16
+        name = "csr_spmm_bf16_out" if out16 else kernel
         _build.launches[name] += 1
+    elif out16:
+        y = y.to(torch.bfloat16)
     return y

@@ -15,13 +15,17 @@ Each also takes the 16-bit feature stream's input: bf16 rows for
 `stream_spmm`, records with bf16 values (`value_dtype`) for
 `stream_cbsr_spmm`, launching the bf16 form of its kernel (`stream_spmm_bf16`,
 `stream_cbsr_spmm_bf16`, counted under those names); the sums and y stay f32.
+With `out_dtype=torch.bfloat16` (the 16-bit model, `--dtype bfloat16`; bf16
+input only) they launch the bf16-output forms (`stream_spmm_bf16_out`,
+`stream_cbsr_spmm_bf16_out`): the same sums, y rounded once to bf16 where a
+row's sum is whole, then times bf16(post) in bf16.
 """
 from __future__ import annotations
 
 import torch
 
 from spgemm_gnn_tpu_torch.kernels import _build
-from spgemm_gnn_tpu_torch.kernels.spmm import MAX_DIM
+from spgemm_gnn_tpu_torch.kernels.spmm import MAX_DIM, check_out_dtype
 from spgemm_gnn_tpu_torch.ops.maxk import (packed_channel_words,
                                            record_value_words)
 from spgemm_gnn_tpu_torch.ops.stream import (stream_cbsr_spmm_plain,
@@ -68,13 +72,20 @@ def _require_plan(plan, dev: torch.device, n_src: int,
         _build.require(post, "post", torch.float32, dev, (n_rows,))
 
 
-def _outputs(plan, dim: int, dev: torch.device
-             ) -> tuple[torch.Tensor, torch.Tensor]:
-    y = torch.empty((plan.num_rows, dim), dtype=torch.float32, device=dev)
+def _outputs(plan, dim: int, dev: torch.device, out16: bool
+             ) -> tuple[torch.Tensor, ...]:
+    """y and its scratch, in the C call's order (held until the call)."""
     # per chunk, the partial sum of a row that began in an earlier chunk
     carry = torch.empty((plan.num_chunks, dim), dtype=torch.float32,
                         device=dev)
-    return y, carry
+    if not out16:
+        y = torch.empty((plan.num_rows, dim), dtype=torch.float32, device=dev)
+        return y, carry
+    y = torch.empty((plan.num_rows, dim), dtype=torch.bfloat16, device=dev)
+    # per warp span, the f32 sum of the row that goes on past it
+    spans = -(-plan.num_chunks // plan.warp_chunks)
+    heads = torch.empty((spans, dim), dtype=torch.float32, device=dev)
+    return y, carry, heads
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -98,27 +109,32 @@ def _check_rows(x: torch.Tensor) -> None:
 
 
 def stream_spmm(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
-                post: torch.Tensor | None = None) -> torch.Tensor:
+                post: torch.Tensor | None = None,
+                out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """y[v] = post[v] · Σ_{u ∈ in(v)} pre[u] · x[u] over the StreamPlan's
     CSR (a None factor is 1); x f32 or bf16 [S, dim] → y f32
-    [plan.num_rows, dim]. Indices are trusted to lie in [0, S): graphs come
-    from `from_edges`."""
+    [plan.num_rows, dim], or, with out_dtype bf16 (bf16 x only), y bf16 =
+    bf16(bf16(Σ) · bf16(post)). Indices are trusted to lie in [0, S): graphs
+    come from `from_edges`."""
     _check_rows(x)
+    check_out_dtype(x.dtype, out_dtype)
     if _build.on_cpu(x):
-        return stream_spmm_plain(plan, x, pre, post)
-    return stream_spmm_at(plan, x, pre, post)
+        return stream_spmm_plain(plan, x, pre, post, out_dtype)
+    return stream_spmm_at(plan, x, pre, post, out_dtype=out_dtype)
 
 
 def stream_spmm_at(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
                    post: torch.Tensor | None = None, *,
                    hot_budget: int | None = None,
-                   depth: int | None = None) -> torch.Tensor:
+                   depth: int | None = None,
+                   out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """`stream_spmm`'s kernel on a CUDA x with the hot set of `hot_budget`
     bytes (None: `stream_tiles.HOT_BUDGET`; 0: none) and `depth` rows
     fetched ahead into registers (None: the default of DEPTHS). Every
     choice gives the same bits."""
     dev = x.device
     bf16 = x.dtype == torch.bfloat16
+    out16 = check_out_dtype(x.dtype, out_dtype)
     _build.require(x, "x", torch.bfloat16 if bf16 else torch.float32, dev,
                    (None, None))
     _check_rows(x)
@@ -130,28 +146,33 @@ def stream_spmm_at(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
     depth = _choose(depth, DEPTHS[_slices(row_bytes // 16)], "depth")
     _require_plan(plan, dev, n_src, pre, post)
     _build.require_aligned(x, "x")
-    y, carry = _outputs(plan, dim, dev)
+    outs = _outputs(plan, dim, dev, out16)
     if plan.num_rows:
         hot = plan.hot_set(row_bytes, hot_budget)
-        name = "stream_spmm_bf16" if bf16 else "stream_spmm"
+        name = ("stream_spmm_bf16_out" if out16 else
+                "stream_spmm_bf16" if bf16 else "stream_spmm")
         with torch.cuda.device(dev):
             status = getattr(_build.library("stream"), name)(
                 plan.indptr.data_ptr(), plan.indices.data_ptr(),
                 x.data_ptr(), _ptr(pre), _ptr(post),
                 plan.chunk_row0.data_ptr(), plan.carry_rows.data_ptr(),
-                _ptr(hot.mask), y.data_ptr(), carry.data_ptr(),
+                _ptr(hot.mask), *(t.data_ptr() for t in outs),
                 plan.num_rows, plan.num_chunks, plan.carry_rows.numel(),
                 plan.num_edges, plan.chunk, dim, depth, plan.warp_chunks,
                 _build.stream_of(x))
         _build.check(status, name)
         _build.launches[name] += 1
-    return y
+    return outs[0]
 
 
 def _check_cbsr(records: torch.Tensor, k: int, dim: int,
-                value_dtype: torch.dtype) -> None:
+                value_dtype: torch.dtype,
+                out_dtype: torch.dtype | None = None) -> bool:
+    """Raise unless the records fit (k, dim, value_dtype); True for a bf16
+    output, which needs bf16 values."""
     if value_dtype not in STREAM_DTYPES:
         raise ValueError(f"record values are f32 or bf16; got {value_dtype}")
+    out16 = check_out_dtype(value_dtype, out_dtype, "record values")
     if dim > MAX_CBSR_DIM:
         raise ValueError(f"stream_cbsr_spmm supports dim <= {MAX_CBSR_DIM} "
                          f"(uint8 channel ids); got dim={dim}")
@@ -163,26 +184,29 @@ def _check_cbsr(records: torch.Tensor, k: int, dim: int,
         raise ValueError(f"records has shape {tuple(records.shape)}, expected "
                          f"[S, {width}] (k {value_dtype} values and the "
                          f"packed ids)")
+    return out16
 
 
 def stream_cbsr_spmm(plan, records: torch.Tensor, k: int, dim: int,
                      pre: torch.Tensor | None = None,
                      post: torch.Tensor | None = None,
-                     value_dtype: torch.dtype = torch.float32
+                     value_dtype: torch.dtype = torch.float32,
+                     out_dtype: torch.dtype | None = None
                      ) -> torch.Tensor:
     """y = post ⊙ A (pre ⊙ cbsr(values, channels)) over the StreamPlan:
     records int32 [S, record_value_words(k, value_dtype) + ceil(k/4)] from
     `ops.maxk.cbsr_records(values, channels, dim)` with values of
     `value_dtype` (f32, or bf16 for the 16-bit stream; channels distinct
     within a row) → y f32 [plan.num_rows, dim], equal by value to
-    `stream_spmm` on the densified input. Needs 1 <= k < dim <= 256, on the
-    CPU too: the ids are packed as uint8, as in the JAX kernel."""
-    _check_cbsr(records, k, dim, value_dtype)
+    `stream_spmm` on the densified input; out_dtype bf16 (bf16 values
+    only) as in `stream_spmm`. Needs 1 <= k < dim <= 256, on the CPU too:
+    the ids are packed as uint8, as in the JAX kernel."""
+    _check_cbsr(records, k, dim, value_dtype, out_dtype)
     if _build.on_cpu(records):
         return stream_cbsr_spmm_plain(plan, records, k, dim, pre, post,
-                                      value_dtype)
+                                      value_dtype, out_dtype)
     return stream_cbsr_spmm_at(plan, records, k, dim, pre, post,
-                               value_dtype=value_dtype)
+                               value_dtype=value_dtype, out_dtype=out_dtype)
 
 
 def stream_cbsr_spmm_at(plan, records: torch.Tensor, k: int, dim: int,
@@ -191,7 +215,8 @@ def stream_cbsr_spmm_at(plan, records: torch.Tensor, k: int, dim: int,
                         hot_budget: int | None = None,
                         batch: int | None = None,
                         scatter: bool = True,
-                        value_dtype: torch.dtype = torch.float32
+                        value_dtype: torch.dtype = torch.float32,
+                        out_dtype: torch.dtype | None = None
                         ) -> torch.Tensor:
     """`stream_cbsr_spmm`'s kernel on CUDA records with the hot set of
     `hot_budget` bytes (None: `stream_tiles.HOT_BUDGET`; 0: none), `batch`
@@ -199,7 +224,7 @@ def stream_cbsr_spmm_at(plan, records: torch.Tensor, k: int, dim: int,
     choice gives the same bits. `scatter=False` is utils/stream_sweep.py's
     timing variant (values summed in registers, no shared-memory scatter):
     its y is wrong by design, and built for f32 values only."""
-    _check_cbsr(records, k, dim, value_dtype)
+    out16 = _check_cbsr(records, k, dim, value_dtype, out_dtype)
     dev = records.device
     bf16 = value_dtype == torch.bfloat16
     if dim % 4 or dim < 4:
@@ -214,14 +239,15 @@ def stream_cbsr_spmm_at(plan, records: torch.Tensor, k: int, dim: int,
     width = record_value_words(k, value_dtype) + kp
     _build.require(records, "records", torch.int32, dev, (n_src, width))
     _require_plan(plan, dev, n_src, pre, post)
-    y, carry = _outputs(plan, dim, dev)
+    outs = _outputs(plan, dim, dev, out16)
     if plan.num_rows:
         hot = plan.hot_set(4 * width, hot_budget)
-        name = "stream_cbsr_spmm_bf16" if bf16 else "stream_cbsr_spmm"
+        name = ("stream_cbsr_spmm_bf16_out" if out16 else
+                "stream_cbsr_spmm_bf16" if bf16 else "stream_cbsr_spmm")
         args = (plan.indptr.data_ptr(), plan.indices.data_ptr(),
                 records.data_ptr(), _ptr(pre), _ptr(post),
                 plan.chunk_row0.data_ptr(), plan.carry_rows.data_ptr(),
-                _ptr(hot.mask), y.data_ptr(), carry.data_ptr(),
+                _ptr(hot.mask), *(t.data_ptr() for t in outs),
                 plan.num_rows, plan.num_chunks, plan.carry_rows.numel(),
                 plan.num_edges, plan.chunk, k, kp, dim, batch,
                 plan.warp_chunks)
@@ -231,4 +257,4 @@ def stream_cbsr_spmm_at(plan, records: torch.Tensor, k: int, dim: int,
                       else fn(*args, int(scatter), _build.stream_of(records)))
         _build.check(status, name)
         _build.launches[name] += 1
-    return y
+    return outs[0]

@@ -6,15 +6,78 @@ from an explicit `torch.Generator`.
 
 Layers: `SAGEConv` (mean), `GraphConvAgg` (gcn norm plus bias), `GINAgg`
 (sum plus (1 + eps)·x), and `BatchNorm` with flax's statistics for GNNRes.
+
+The 16-bit model (`--dtype bfloat16`) is flax's mixed precision, which
+`torch.autocast` is not (autocast keeps LayerNorm's output in f32 and runs
+every Linear in bf16): parameters stay f32 and are cast at use. `Dense` with
+dtype bf16 computes as `nn.Dense(dtype=bfloat16)` (flax `promote_dtype`):
+input, weight and bias cast to bf16, the product rounded to bf16, then the
+bias added in bf16 (a second rounding); with dtype f32 it computes in f32
+whatever its input (the models' `lin_out`, which flax leaves in f32).
+`LayerNorm` and `BatchNorm` take their statistics and normalise in f32 with
+f32 parameters, in flax's association, and round once to the compute dtype
+(flax `_normalize` with `force_float32_reductions`).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from spgemm_gnn_tpu_torch.kernels.api import aggregate
+from spgemm_gnn_tpu_torch.kernels.api import aggregate, layer_norm16
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(dtype: str | torch.dtype | None) -> torch.dtype:
+    """The hidden stack's compute dtype: f32 for None or "float32", bf16
+    for "bfloat16" (or the torch dtypes themselves); anything else raises."""
+    if dtype is None:
+        return torch.float32
+    if dtype in COMPUTE_DTYPES.values():
+        return dtype
+    if dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"dtype {dtype!r} is not supported; expected one "
+                         f"of {sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[dtype]
+
+
+class Dense(nn.Linear):
+    """nn.Linear with flax Dense's dtype rule (module docstring). The f32
+    `weight` and `bias` are the parameters; `compute_dtype` is not."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x.float())
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm at a compute dtype (flax LayerNorm(dtype=...)): in f32,
+    `F.layer_norm`; on bf16 rows, `kernels/api.py::layer_norm16` under the
+    model's `impl` (f32 arithmetic in flax's association with f32
+    parameters, one rounding to bf16)."""
+
+    def __init__(self, features: int, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32, impl: str = "auto"):
+        super().__init__(features, eps=eps)
+        self.compute_dtype = dtype
+        self.impl = impl
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype == torch.float32:
+            return super().forward(x.float())
+        return layer_norm16(x.to(self.compute_dtype), self.weight,
+                            self.bias, self.eps, self.impl)
 
 
 def xavier_uniform_(w: torch.Tensor, gain: float,
@@ -43,14 +106,15 @@ class SAGEConv(nn.Module):
 
     def __init__(self, features: int, feat_drop: float = 0.0,
                  use_norm: bool = False, k_sparse: int | None = None,
-                 impl: str = "auto"):
+                 impl: str = "auto", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.feat_drop = feat_drop
         self.k_sparse = k_sparse
         self.impl = impl
-        self.fc_neigh = nn.Linear(features, features, bias=False)
-        self.fc_self = nn.Linear(features, features, bias=True)
-        self.norm = nn.LayerNorm(features, eps=1e-5) if use_norm else None
+        self.fc_neigh = Dense(features, features, bias=False, dtype=dtype)
+        self.fc_self = Dense(features, features, bias=True, dtype=dtype)
+        self.norm = (LayerNorm(features, eps=1e-5, dtype=dtype, impl=impl)
+                     if use_norm else None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         xavier_uniform_(self.fc_neigh.weight, math.sqrt(2.0), generator)
@@ -116,7 +180,9 @@ class BatchNorm(nn.Module):
     clipped at 0, as flax computes it. Training normalises by the batch's
     statistics and updates the running ones; eval normalises by the running
     ones. Parameters `weight` (flax `scale`) and `bias`; buffers
-    `running_mean` and `running_var` (flax `batch_stats` mean and var)."""
+    `running_mean` and `running_var` (flax `batch_stats` mean and var).
+    Statistics and normalisation run in f32 and the output takes x's dtype
+    (flax BatchNorm(dtype=bfloat16) on bf16 activations)."""
 
     def __init__(self, features: int, momentum: float = 0.9,
                  eps: float = 1e-5):
@@ -135,6 +201,8 @@ class BatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out_dtype = x.dtype
+        x = x.float()
         if self.training:
             mean = x.mean(0)
             var = torch.clamp((x * x).mean(0) - mean * mean, min=0.0)
@@ -144,5 +212,5 @@ class BatchNorm(nn.Module):
                 self.running_var.mul_(m).add_((1.0 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
-            + self.bias
+        return ((x - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+                + self.bias).to(out_dtype)

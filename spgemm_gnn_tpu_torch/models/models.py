@@ -11,6 +11,11 @@ Submodule and parameter names are the flax ones (`lin_in`, `layer{i}`,
 `lin{i}`, `conv{i}`, `norm{i}`, `res{i}`, `bn{i}`, `lin1_{i}`, `lin2_{i}`,
 `fc_self{i}`, `fc_neigh{i}`, `conv_w{i}`, `conv_b{i}`, `eps{i}`, `lin_out`),
 so that `convert.params_from_flax` maps weights across by name.
+
+`dtype` is the hidden stack's compute dtype, as flax's `dtype` (None or
+"float32": exact f32; "bfloat16": the 16-bit model): every hidden `Dense`
+and `LayerNorm`/`BatchNorm` computes in it, the parameters stay f32, and
+`lin_out` computes in f32, so the logits are f32 (models/layers.py).
 """
 from __future__ import annotations
 
@@ -20,8 +25,9 @@ import torch
 from torch import nn
 
 from spgemm_gnn_tpu_torch.kernels.api import aggregate, maxk_op
-from spgemm_gnn_tpu_torch.models.layers import (BatchNorm, GINAgg,
-                                                GraphConvAgg, SAGEConv,
+from spgemm_gnn_tpu_torch.models.layers import (BatchNorm, Dense, GINAgg,
+                                                GraphConvAgg, LayerNorm,
+                                                SAGEConv, compute_dtype,
                                                 dropout, xavier_uniform_)
 
 # Linear layers initialised with DGL's relu gain (√2), as in the JAX package
@@ -36,7 +42,7 @@ class _Base(nn.Module):
 
     def __init__(self, in_dim: int, hidden_dim: int, num_layers: int,
                  out_dim: int, maxk: int, feat_drop: float, use_norm: bool,
-                 nonlinear: str, impl: str):
+                 nonlinear: str, impl: str, dtype: str | torch.dtype | None):
         super().__init__()
         if nonlinear not in ("maxk", "relu"):
             raise ValueError(f"unknown nonlinear {nonlinear!r}")
@@ -46,11 +52,21 @@ class _Base(nn.Module):
         self.feat_drop = feat_drop
         self.use_norm = use_norm
         self.impl = impl
-        self.lin_in = nn.Linear(in_dim, hidden_dim)
+        self.compute_dtype = compute_dtype(dtype)
+        self.lin_in = self._dense(in_dim, hidden_dim)
         self._out_dim = out_dim
 
+    def _dense(self, n_in: int, n_out: int, bias: bool = True) -> Dense:
+        """A hidden Dense at the compute dtype."""
+        return Dense(n_in, n_out, bias=bias, dtype=self.compute_dtype)
+
+    def _layer_norm(self) -> LayerNorm:
+        return LayerNorm(self.hidden_dim, eps=1e-5, dtype=self.compute_dtype,
+                         impl=self.impl)
+
     def _add_lin_out(self) -> None:
-        self.lin_out = nn.Linear(self.hidden_dim, self._out_dim)
+        # f32 whatever the compute dtype: flax leaves lin_out's dtype unset
+        self.lin_out = Dense(self.hidden_dim, self._out_dim)
 
     def _add_zeros(self, name: str, shape: tuple[int, ...]) -> None:
         self.register_parameter(name, nn.Parameter(torch.zeros(shape)))
@@ -88,7 +104,8 @@ class SAGE(_Base):
         for i in range(self.num_layers):
             self.add_module(f"layer{i}", SAGEConv(
                 self.hidden_dim, feat_drop=self.feat_drop,
-                use_norm=self.use_norm, k_sparse=self.k, impl=self.impl))
+                use_norm=self.use_norm, k_sparse=self.k, impl=self.impl,
+                dtype=self.compute_dtype))
         self._add_lin_out()
 
     def forward(self, g, x: torch.Tensor,
@@ -107,10 +124,10 @@ class _ConvStack(_Base):
         super().__init__(in_dim, **kw)
         h = self.hidden_dim
         for i in range(self.num_layers):
-            self.add_module(f"lin{i}", nn.Linear(h, h))
+            self.add_module(f"lin{i}", self._dense(h, h))
             self.add_module(f"conv{i}", conv(self))
             if self.use_norm:
-                self.add_module(f"norm{i}", nn.LayerNorm(h, eps=1e-5))
+                self.add_module(f"norm{i}", self._layer_norm())
         self._add_lin_out()
 
     def forward(self, g, x: torch.Tensor,
@@ -149,12 +166,12 @@ class GNNRes(_Base):
         super().__init__(in_dim, **kw)
         h = self.hidden_dim
         for i in range(self.num_layers):
-            self.add_module(f"res{i}", nn.Linear(h, h))
+            self.add_module(f"res{i}", self._dense(h, h))
             self.add_module(f"conv{i}", GraphConvAgg(h, impl=self.impl))
             if self.use_norm:
                 self.add_module(f"bn{i}", BatchNorm(h, momentum=0.9, eps=1e-5))
-            self.add_module(f"lin1_{i}", nn.Linear(h, h))
-            self.add_module(f"lin2_{i}", nn.Linear(h, h))
+            self.add_module(f"lin1_{i}", self._dense(h, h))
+            self.add_module(f"lin2_{i}", self._dense(h, h))
         self._add_lin_out()
 
     def forward(self, g, x: torch.Tensor,
@@ -181,10 +198,10 @@ class MaxKSAGE(_Base):
         super().__init__(in_dim, **kw)
         h = self.hidden_dim
         for i in range(self.num_layers):
-            self.add_module(f"fc_self{i}", nn.Linear(h, h, bias=False))
-            self.add_module(f"fc_neigh{i}", nn.Linear(h, h, bias=False))
+            self.add_module(f"fc_self{i}", self._dense(h, h, bias=False))
+            self.add_module(f"fc_neigh{i}", self._dense(h, h, bias=False))
             if self.use_norm:
-                self.add_module(f"norm{i}", nn.LayerNorm(h, eps=1e-5))
+                self.add_module(f"norm{i}", self._layer_norm())
         self._add_lin_out()
 
     def forward(self, g, x: torch.Tensor,
@@ -209,11 +226,11 @@ class MaxKGCN(_Base):
         super().__init__(in_dim, **kw)
         h = self.hidden_dim
         for i in range(self.num_layers):
-            self.add_module(f"lin{i}", nn.Linear(h, h))
-            self.add_module(f"conv_w{i}", nn.Linear(h, h, bias=False))
+            self.add_module(f"lin{i}", self._dense(h, h))
+            self.add_module(f"conv_w{i}", self._dense(h, h, bias=False))
             self._add_zeros(f"conv_b{i}", (h,))
             if self.use_norm:
-                self.add_module(f"norm{i}", nn.LayerNorm(h, eps=1e-5))
+                self.add_module(f"norm{i}", self._layer_norm())
         self._add_lin_out()
 
     def forward(self, g, x: torch.Tensor,
@@ -237,10 +254,10 @@ class MaxKGIN(_Base):
         super().__init__(in_dim, **kw)
         h = self.hidden_dim
         for i in range(self.num_layers):
-            self.add_module(f"lin{i}", nn.Linear(h, h))
+            self.add_module(f"lin{i}", self._dense(h, h))
             self._add_zeros(f"eps{i}", ())
             if self.use_norm:
-                self.add_module(f"norm{i}", nn.LayerNorm(h, eps=1e-5))
+                self.add_module(f"norm{i}", self._layer_norm())
         self._add_lin_out()
 
     def forward(self, g, x: torch.Tensor,
@@ -265,9 +282,11 @@ def build_model(model: str, *, in_dim: int, hidden_dim: int, num_layers: int,
                 out_dim: int, maxk: int = 32, feat_drop: float = 0.5,
                 use_norm: bool = False, nonlinear: str = "maxk",
                 impl: str = "auto", remat: bool = False,
-                dtype: str | None = None) -> nn.Module:
+                dtype: str | torch.dtype | None = None) -> nn.Module:
     """Model factory with the JAX package's arguments (plus `in_dim`, which
-    flax infers). Parameters are left as PyTorch makes them: call
+    flax infers). dtype: the compute dtype of the hidden stack (None or
+    "float32": f32; "bfloat16": the 16-bit model; anything else raises).
+    Parameters are left as PyTorch makes them: call
     `reset_parameters(generator)` for the JAX package's init."""
     if model not in MODELS:
         raise ValueError(f"unknown model {model!r}; expected one of "
@@ -275,9 +294,7 @@ def build_model(model: str, *, in_dim: int, hidden_dim: int, num_layers: int,
     if remat:
         raise NotImplementedError("--remat is not ported yet (ROADMAP "
                                   "Queue A9)")
-    if dtype not in (None, "float32"):
-        raise NotImplementedError(f"dtype {dtype!r} is not ported yet "
-                                  f"(ROADMAP Queue A9); f32 only")
     return MODELS[model](in_dim, hidden_dim=hidden_dim, num_layers=num_layers,
                          out_dim=out_dim, maxk=maxk, feat_drop=feat_drop,
-                         use_norm=use_norm, nonlinear=nonlinear, impl=impl)
+                         use_norm=use_norm, nonlinear=nonlinear, impl=impl,
+                         dtype=dtype)

@@ -16,6 +16,12 @@ The 16-bit feature stream: `round_rows_plain` makes its messages, bf16(pre ⊙
 x) (the plain version of the `round_rows` kernel, kernels/round.py); the
 plain sums take bf16 rows by widening them exactly to f32 first, so that
 they sum what the bf16 kernels gather.
+
+The 16-bit model (`--dtype bfloat16`): with `out_dtype=torch.bfloat16` the
+f32 sum is rounded once to bf16 and then scaled by the post factor in bf16
+arithmetic, `_scale(bf16(Σ), post)` = bf16(bf16(Σ) · bf16(post)): the
+reference's two roundings (`spgemm_gnn_tpu/kernels/planned.py:300, :323`)
+and the epilogue of the kernels' bf16-output forms.
 """
 from __future__ import annotations
 
@@ -35,6 +41,15 @@ def _scale(x: torch.Tensor, f: torch.Tensor | None) -> torch.Tensor:
 def _widen(x: torch.Tensor) -> torch.Tensor:
     """bf16 rows as f32 (exact); any other dtype as it is."""
     return x.float() if x.dtype == torch.bfloat16 else x
+
+
+def finish(y: torch.Tensor, post: torch.Tensor | None,
+           out_dtype: torch.dtype | None) -> torch.Tensor:
+    """The post factor on a whole sum y: in y's dtype, or (out_dtype bf16)
+    bf16(bf16(y) · bf16(post))."""
+    if out_dtype == torch.bfloat16:
+        y = y.to(torch.bfloat16)
+    return _scale(y, post)
 
 
 def round_rows_plain(x: torch.Tensor, pre: torch.Tensor | None = None
@@ -57,34 +72,36 @@ def _gather_add(indices: torch.Tensor, rows: torch.Tensor,
 
 def csr_spmm_plain(indptr: torch.Tensor, indices: torch.Tensor,
                    x: torch.Tensor, pre: torch.Tensor | None = None,
-                   post: torch.Tensor | None = None) -> torch.Tensor:
+                   post: torch.Tensor | None = None,
+                   out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """y[v] = post[v] · Σ_{u ∈ in(v)} pre[u] · x[u] over the CSR
     (indptr, indices); a None factor is 1. Output rows = len(indptr) - 1.
-    bf16 x is summed in f32."""
+    bf16 x is summed in f32; out_dtype bf16 rounds as `finish` does."""
     x = _widen(x)
     n_out = indptr.numel() - 1
     rows = torch.repeat_interleave(
         torch.arange(n_out, dtype=torch.int32, device=indptr.device),
         indptr.diff(), output_size=indices.numel())
-    return _scale(_gather_add(indices, rows, _scale(x, pre), n_out),
-                  post)
+    return finish(_gather_add(indices, rows, _scale(x, pre), n_out), post,
+                  out_dtype)
 
 
 def csr_blocked_plain(block_indptr: torch.Tensor, indices: torch.Tensor,
                       x: torch.Tensor, pre: torch.Tensor | None = None,
-                      post: torch.Tensor | None = None) -> torch.Tensor:
+                      post: torch.Tensor | None = None,
+                      out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """`csr_spmm_plain` block by block over a CSR re-bucketed by source
     block (graphs/tiles.py::CSRSchedule: block b's edges of row r are
     indices[block_indptr[b, r]:block_indptr[b, r + 1]]), the blocks' sums
-    added in block order, then the post factor: the order of the `csr_spmm`
-    kernel's passes. One block is `csr_spmm_plain` itself."""
+    added in block order, then the post factor (`finish`): the order of the
+    `csr_spmm` kernel's passes. One block is `csr_spmm_plain` itself."""
     x = _widen(x)
     y = None
     for bptr in block_indptr:
         lo, hi = int(bptr[0]), int(bptr[-1])
         part = csr_spmm_plain(bptr - lo, indices[lo:hi], x, pre)
         y = part if y is None else y + part
-    return _scale(y, post)
+    return finish(y, post, out_dtype)
 
 
 def spmm(g, x: torch.Tensor, norm: str = "sum") -> torch.Tensor:

@@ -22,21 +22,27 @@ product with the input given as one CBSR record per node (values and packed
 channel ids, `ops/maxk.py::cbsr_records`).
 
 Both take the 16-bit stream's input as the bf16 kernels do: bf16 rows, or
-records with bf16 values, widened exactly to f32 before the f32 sums.
+records with bf16 values, widened exactly to f32 before the f32 sums. With
+`out_dtype=torch.bfloat16` (the 16-bit model) each row's whole f32 sum is
+rounded once and scaled by the post factor in bf16 (`ops/spmm.py::finish`),
+as the kernels' bf16-output forms do.
 """
 from __future__ import annotations
 
 import torch
 
 from spgemm_gnn_tpu_torch.ops.maxk import cbsr_to_dense, split_records
-from spgemm_gnn_tpu_torch.ops.spmm import _gather_add, _scale, _widen
+from spgemm_gnn_tpu_torch.ops.spmm import _gather_add, _scale, _widen, finish
 
 
 def stream_spmm_plain(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
-                      post: torch.Tensor | None = None) -> torch.Tensor:
+                      post: torch.Tensor | None = None,
+                      out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """y[v] = post[v] · Σ_{u ∈ in(v)} pre[u] · x[u] over the plan's CSR (a
     None factor is 1); y has plan.num_rows rows and x's dtype (f32 for bf16
-    x)."""
+    x), or bf16 with out_dtype bf16."""
+    if out_dtype == torch.bfloat16:
+        return finish(stream_spmm_plain(plan, x, pre), post, out_dtype)
     x = _widen(x)
     ip = plan.indptr.long()
     n, n_edges, c = plan.num_rows, plan.num_edges, plan.chunk
@@ -90,7 +96,8 @@ def stream_spmm_plain(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
 def stream_cbsr_spmm_plain(plan, records: torch.Tensor, k: int, dim: int,
                            pre: torch.Tensor | None = None,
                            post: torch.Tensor | None = None,
-                           value_dtype: torch.dtype = torch.float32
+                           value_dtype: torch.dtype = torch.float32,
+                           out_dtype: torch.dtype | None = None
                            ) -> torch.Tensor:
     """Plain version of the `stream_cbsr_spmm` kernel (kernels/stream.py):
     y = post ⊙ A (pre ⊙ cbsr(values, channels)) with (values, channels)
@@ -99,4 +106,4 @@ def stream_cbsr_spmm_plain(plan, records: torch.Tensor, k: int, dim: int,
     `stream_spmm_plain` does."""
     values, ch = split_records(records, k, dim, value_dtype)
     return stream_spmm_plain(plan, cbsr_to_dense(_widen(values), ch, dim),
-                             pre, post)
+                             pre, post, out_dtype)

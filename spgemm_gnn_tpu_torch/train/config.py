@@ -2,7 +2,8 @@
 the JAX package's flag names, plus `--device`.
 
 Flags whose path this slice of the port does not have yet raise
-NotImplementedError naming their ROADMAP item (`check_supported`).
+NotImplementedError naming their ROADMAP item (`check_supported`), which
+also rejects a `dtype` other than float32 and bfloat16 (ValueError).
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import dataclasses
 from typing import Any
 
 from spgemm_gnn_tpu_torch.graphs.datasets import DATASETS
+from spgemm_gnn_tpu_torch.models.layers import COMPUTE_DTYPES
 from spgemm_gnn_tpu_torch.models.models import MODELS
 
 
@@ -43,7 +45,7 @@ class TrainConfig:
     steps_per_call: int = 1
     checkpoint_every: int = 0
     resume: bool = False
-    dtype: str = "float32"
+    dtype: str = "float32"               # compute dtype: float32 | bfloat16
     synthetic: bool = False              # allow synthetic stand-in datasets
     synthetic_scale: float = 1.0
     device_inputs: bool = False
@@ -73,7 +75,6 @@ class TrainConfig:
 
 # (flag, test of a value this slice cannot run, ROADMAP item)
 _NOT_YET = (
-    ("dtype", lambda v: v != "float32", "Queue A9 (--dtype bfloat16)"),
     ("remat", bool, "Queue A9 (--remat)"),
     ("mesh_shape", lambda v: v > 1, "Queue A13 (multi-GPU)"),
     ("multihost", bool, "Queue A13 (multi-GPU)"),
@@ -91,8 +92,15 @@ _NOT_YET = (
 )
 
 
+DTYPES = tuple(COMPUTE_DTYPES)
+
+
 def check_supported(config: TrainConfig) -> None:
-    """Raise NotImplementedError for a flag whose path is not ported yet."""
+    """Raise NotImplementedError for a flag whose path is not ported yet,
+    and ValueError for a dtype the model does not compute in."""
+    if config.dtype not in DTYPES:
+        raise ValueError(f"--dtype {config.dtype!r}: expected one of "
+                         f"{DTYPES}")
     for flag, not_yet, item in _NOT_YET:
         value = getattr(config, flag)
         if not_yet(value):
@@ -134,7 +142,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps_per_call", type=int, default=d.steps_per_call)
     p.add_argument("--checkpoint_every", type=int, default=d.checkpoint_every)
     p.add_argument("--resume", action="store_true")
-    p.add_argument("--dtype", default=d.dtype)
+    p.add_argument("--dtype", default=d.dtype, choices=list(DTYPES),
+                   help="compute dtype of the hidden stack: float32, or "
+                        "bfloat16 (flax mixed precision: params and lin_out "
+                        "f32, bf16 activations and aggregation outputs)")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--synthetic_scale", type=float, default=d.synthetic_scale)
     p.add_argument("--device_inputs", action="store_true")

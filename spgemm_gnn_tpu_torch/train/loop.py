@@ -9,6 +9,10 @@ reach the host in batches of `eval_fetch_every`.
 Randomness comes from two explicit generators: one seeded with `seed` for the
 initial weights (on the CPU, so the weights do not depend on the device) and
 one seeded with `seed + 1` on the device for dropout.
+
+With `dtype="bfloat16"` the features are cast to bf16 on the host, before
+they move to the device (as the JAX Trainer does), the model computes its
+hidden stack in bf16, and the loss and metrics read its f32 logits.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 
 from spgemm_gnn_tpu_torch.graphs.datasets import Dataset, load_dataset
 from spgemm_gnn_tpu_torch.kernels import planned
+from spgemm_gnn_tpu_torch.models.layers import compute_dtype
 from spgemm_gnn_tpu_torch.models.models import build_model
 from spgemm_gnn_tpu_torch.train.config import TrainConfig, check_supported
 from spgemm_gnn_tpu_torch.train.losses import loss_fn
@@ -60,13 +65,16 @@ class Trainer:
         # set unconditionally, as the reference does: the stream is
         # process-global, and an earlier Trainer may have changed it
         planned.DEFAULT_STREAM = config.stream
+        dtype = compute_dtype(config.dtype)
         # the kernels' impls plan the graph, so that each graph takes the
         # reference's kernel (csr_spmm, or stream_spmm at low degree), for
-        # the stream's row size; the plain ops read the raw graph
+        # the gathered rows' size; the plain ops read the raw graph
         self.g = (g if config.impl == "torch"
-                  else planned.plan_graph(g, dim=config.hidden_dim))
+                  else planned.plan_graph(g, dim=config.hidden_dim,
+                                          dtype=dtype))
+        # cast on the host: the transfer moves the narrow dtype
         self.features = torch.from_numpy(
-            np.asarray(dataset.features, np.float32)).to(dev)
+            np.asarray(dataset.features, np.float32)).to(dtype).to(dev)
         self.labels = torch.from_numpy(np.asarray(dataset.labels)).to(dev)
         self.masks = tuple(torch.from_numpy(np.asarray(m, bool)).to(dev)
                            for m in (dataset.train_mask, dataset.val_mask,

@@ -14,7 +14,9 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
     Also pins float32 matrix products and convolutions to exact f32 (TF32
     off): the f32 path is exact, as in the JAX package's HIGHEST-precision
-    contract, and TF32 would make it bf16-class without notice.
+    contract, and TF32 would make it bf16-class without notice. And bf16
+    products (the 16-bit model) to an f32 accumulate with one rounding:
+    cuBLAS may otherwise reduce split-K partial sums in bf16.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -23,4 +25,5 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "cpu) to run the plain PyTorch path on the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev

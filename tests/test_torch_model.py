@@ -79,13 +79,27 @@ def test_init_follows_jax_scheme():
 
 
 def test_unported_models_raise():
-    """Every family is ported; the 16-bit model and --remat wait (ROADMAP
-    Queue A9), and an unknown model is a ValueError, as in the JAX
-    package."""
+    """Every family is ported; --remat waits (ROADMAP Queue A9), and an
+    unknown model is a ValueError, as in the JAX package."""
     kw = dict(in_dim=4, hidden_dim=8, num_layers=1, out_dim=2)
-    with pytest.raises(NotImplementedError, match="Queue A9"):
-        tbuild("gcn", dtype="bfloat16", **kw)
     with pytest.raises(NotImplementedError, match="Queue A9"):
         tbuild("sage", remat=True, **kw)
     with pytest.raises(ValueError, match="unknown model"):
         tbuild("gat", **kw)
+
+
+def test_bfloat16_model_is_built_and_unknown_dtype_raises():
+    """The 16-bit model is ported: dtype "bfloat16" builds every hidden
+    layer at bf16 with f32 parameters and an f32 lin_out; float16 or any
+    other dtype raises."""
+    kw = dict(in_dim=4, hidden_dim=8, num_layers=1, out_dim=2,
+              use_norm=True)
+    m = tbuild("gcn", dtype="bfloat16", **kw)
+    assert m.compute_dtype == torch.bfloat16
+    assert m.lin0.compute_dtype == m.norm0.compute_dtype == torch.bfloat16
+    assert m.lin_out.compute_dtype == torch.float32
+    assert all(p.dtype == torch.float32 for p in m.parameters())
+    assert tbuild("gcn", dtype="float32", **kw).compute_dtype == torch.float32
+    for bad in ("float16", "int8", torch.float16):
+        with pytest.raises(ValueError, match="dtype"):
+            tbuild("gcn", dtype=bad, **kw)

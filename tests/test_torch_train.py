@@ -118,13 +118,26 @@ def test_default_device_without_gpu_raises():
 
 
 @pytest.mark.parametrize("flag", [
-    dict(timing=True), dict(dtype="bfloat16"), dict(remat=True),
+    dict(timing=True), dict(remat=True),
     dict(mesh_shape=2), dict(checkpoint_every=5),
     dict(resume=True), dict(evaluate="ckpt"), dict(cache_strategy="lru"),
     dict(steps_per_call=4), dict(dataset="ogbn-proteins")])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_supported(TrainConfig(**{**COMMON, **flag}))
+
+
+def test_dtype_flag_is_supported():
+    """`--dtype bfloat16` is ported: check_supported accepts float32 and
+    bfloat16 and rejects any other dtype, and so does the CLI's parser."""
+    from spgemm_gnn_tpu_torch.train.config import from_args
+    for dtype in ("float32", "bfloat16"):
+        check_supported(TrainConfig(**{**COMMON, "dtype": dtype}))
+        assert from_args(["--dtype", dtype]).dtype == dtype
+    with pytest.raises(ValueError, match="dtype"):
+        check_supported(TrainConfig(**{**COMMON, "dtype": "float16"}))
+    with pytest.raises(SystemExit):
+        from_args(["--dtype", "float16"])
 
 
 def test_stream_flag_is_supported_and_sets_default_stream(monkeypatch):
