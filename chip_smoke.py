@@ -11,7 +11,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      41 classes, N = 232,965, E about 113.3M); the plan rule must pick the
      "windowed" kind (csr_spmm);
   4. kernels: each kernel of the Reddit path at its shapes against its plain
-     PyTorch version (MaxK forward/backward bitwise; the CSR product within
+     PyTorch version (MaxK forward/backward bitwise, on random rows with
+     integer, zero and utils/rows.py's family rows seeded in; the CSR
+     product within
      1e-5 of the largest output magnitude of a float64 run of the plain
      version, and bitwise equal across two runs), timed with CUDA events
      beside its plain version, a PyTorch library call computing the same
@@ -59,7 +61,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      2,449,029, E about 123.7M, 100 features, 47 classes); the plan rule must
      pick the "stream" kind (stream_spmm);
   8. kernels on products: stream_spmm on A and Aᵀ, and csr_spmm on A, checked
-     as in phase 4 (the rule must give csr_spmm one source block here); then
+     as in phase 4 (the rule must give csr_spmm one source block here); MaxK
+     forward and backward, f32 and bf16, as in phase 4 at the products
+     shape (their products_ keys on the kernels line); then
      stream_cbsr_spmm (the CBSR edge-gather forward, on one record per node)
      on A at dim 256, k 32, under the mean and the gcn factors: within 1e-5
      of the plain version in float64, equal by value to stream_spmm on the
@@ -86,7 +90,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      `aggregate_cbsr` forward and backward through the kernels, with its
      launches counted, against the dense path, with STREAM_CBSR_FORWARD
      unset and then set (no densify in the forward); cbsr_compact_bf16
-     bitwise against its plain version, and the bf16 LayerNorm kernels
+     bitwise against its plain version (also on the bf16 MaxK of the family
+     rows), and the bf16 LayerNorm kernels
      (layer_norm16_fwd / _bwd) within 1 bf16 ulp of theirs, timed;
  10. train 2: the products recipe (SAGE, MaxK k=32, hidden 256, 3 layers,
      LayerNorm, dropout 0.5, lr 0.003): its first two train steps through the
@@ -373,18 +378,35 @@ def log_product(kernel: str, what: str, r: dict) -> None:
             f"{r['nb1_ms']:.3f} ms ({r['nb1_rel']:.3e} of max |y|)")
 
 
-def maxk_phase(torch, g, dim: int, k: int, seed: int) -> list[dict]:
+def seeded_rows(torch, n: int, dim: int, k: int, seed: int, dev):
+    """utils/rows.py's seeded rows (random normal rows [n, dim] from `seed`
+    with integer, zero and family rows: more than 32 keys sharing the
+    pivot's high bits, repeated values, signed zeros, subnormals,
+    infinities, exactly k and fewer nonzeros), and a random cotangent."""
+    from spgemm_gnn_tpu_torch.utils import rows
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = rows.seeded_rows(n, dim, k, gen)
+    return x, torch.randn((n, dim), generator=gen, device=dev)
+
+
+def equal_nan(torch, a, b) -> bool:
+    """f32 or bf16 a and b bitwise equal but where both are NaN (a dropped
+    infinity's x * 0)."""
+    both = a.isnan() & b.isnan()
+    a, b = torch.where(both, 0, a), torch.where(both, 0, b)
+    ints = torch.int16 if a.element_size() == 2 else torch.int32
+    return bool(torch.equal(a.view(ints), b.view(ints)))
+
+
+def maxk_phase(torch, n: int, dim: int, k: int, seed: int,
+               dev) -> list[dict]:
+    """K1, K2 at [n, dim]: maxk_fwd (y and meta) and maxk_bwd bitwise
+    against their plain versions on `seeded_rows`, timed beside the plain
+    versions, torch.topk and the bound."""
     from spgemm_gnn_tpu_torch.kernels.maxk import maxk_bwd, maxk_fwd
     from spgemm_gnn_tpu_torch.ops.maxk import maxk_backward, maxk_forward
 
-    dev = g.device
-    n = g.num_nodes
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn((n, dim), generator=gen, device=dev)
-    # rows of repeated values and all-zero rows exercise the tie rule
-    x[::97] = x[::97].round()
-    x[::1009] = 0.0
-    gy = torch.randn((n, dim), generator=gen, device=dev)
+    x, gy = seeded_rows(torch, n, dim, k, seed, dev)
     f32 = 4
     out = []
 
@@ -392,35 +414,52 @@ def maxk_phase(torch, g, dim: int, k: int, seed: int) -> list[dict]:
     y, meta = maxk_fwd(x, k)
     y_p, meta_p = maxk_forward(x, k)
     torch.cuda.synchronize()
-    if not (bits_equal(torch, y, y_p) and bits_equal(torch, meta, meta_p)):
+    if not (equal_nan(torch, y, y_p) and bits_equal(torch, meta, meta_p)):
         raise AssertionError("maxk_fwd differs from its plain version")
     b, by = bound_ms(2 * n * dim * f32 + n * 2 * 4, n * dim)
     out.append(dict(
         name="maxk_fwd", route="cuda", source="spgemm_gnn_tpu_torch/csrc/maxk.cu",
         replaces="spgemm_gnn_tpu/kernels/maxk_pallas.py:76",
-        max_abs_err=float((y - y_p).abs().max()),
+        max_abs_err=float((y - y_p).nan_to_num().abs().max()),
         ms=time_ms(torch, lambda: maxk_fwd(x, k), 20),
         plain_ms=time_ms(torch, lambda: maxk_forward(x, k), 3),
         bound_ms=b, bound_by=by,
         library_ms=time_ms(torch, lambda: torch.topk(x, k, dim=1), 20)))
-    log(f"kernel maxk_fwd: bitwise equal to plain (y and meta), N={n} dim={dim} k={k}")
+    log(f"kernel maxk_fwd: bitwise equal to plain (y and meta), N={n} "
+        f"dim={dim} k={k}; {out[-1]['ms']:.3f} ms (plain "
+        f"{out[-1]['plain_ms']:.3f}, torch.topk {out[-1]['library_ms']:.3f}, "
+        f"bound {b:.3f} by {by})")
+    del y_p, meta_p
 
     # K2 maxk_bwd
     dx = maxk_bwd(x, meta, gy)
     dx_p = maxk_backward(x, meta, gy)
     torch.cuda.synchronize()
-    if not bits_equal(torch, dx, dx_p):
+    if not equal_nan(torch, dx, dx_p):
         raise AssertionError("maxk_bwd differs from its plain version")
     b, by = bound_ms(3 * n * dim * f32 + n * 2 * 4, n * dim)
     out.append(dict(
         name="maxk_bwd", route="cuda", source="spgemm_gnn_tpu_torch/csrc/maxk.cu",
         replaces="spgemm_gnn_tpu/kernels/maxk_pallas.py:133",
-        max_abs_err=float((dx - dx_p).abs().max()),
+        max_abs_err=float((dx - dx_p).nan_to_num().abs().max()),
         ms=time_ms(torch, lambda: maxk_bwd(x, meta, gy), 20),
         plain_ms=time_ms(torch, lambda: maxk_backward(x, meta, gy), 3),
         bound_ms=b, bound_by=by, library_ms=None))
-    log("kernel maxk_bwd: bitwise equal to plain")
+    log(f"kernel maxk_bwd: bitwise equal to plain, N={n}; "
+        f"{out[-1]['ms']:.3f} ms (bound {b:.3f} by {by})")
     return out
+
+
+MAXK_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")
+
+
+def add_products(entries: list[dict], products: list[dict]) -> None:
+    """The products-shape numbers of the MaxK kernels under products_
+    keys of their (Reddit) entries."""
+    for entry, p in zip(entries, products):
+        entry.update({"products_" + key: p[key]
+                      for key in (*MAXK_KEYS, "f32_ms") if key in p})
 
 
 def product_entry(name: str, a: dict, t: dict | None = None, **other) -> dict:
@@ -959,36 +998,30 @@ def first_steps16(torch, cfg, ds, what: str, tol: float = 1e-4) -> None:
         f"relative {rel} (tolerance {tol})")
 
 
-def maxk16_phase(torch, g, dim: int, k: int, seed: int,
+def maxk16_phase(torch, n: int, dim: int, k: int, seed: int, dev,
                  f32: list[dict]) -> list[dict]:
     """B1 on bf16 rows (the 16-bit model): maxk_fwd_bf16 (y and meta) and
-    maxk_bwd_bf16 bitwise against their plain versions at the graph's node
-    count, on rows rounded to bf16 (tie-heavy: every 97th row of integers,
-    every 1009th of zeros), timed beside their f32 forms (`f32`,
-    maxk_phase's entries), the plain versions, torch.topk on the bf16 rows
-    and the bound."""
+    maxk_bwd_bf16 bitwise against their plain versions at [n, dim], on
+    `seeded_rows` rounded to bf16, timed beside their f32 forms (`f32`,
+    maxk_phase's entries at the same shape), the plain versions, torch.topk
+    on the bf16 rows and the bound."""
     from spgemm_gnn_tpu_torch.kernels.maxk import maxk_bwd, maxk_fwd
     from spgemm_gnn_tpu_torch.ops.maxk import maxk_backward, maxk_forward
 
-    dev = g.device
-    n = g.num_nodes
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn((n, dim), generator=gen, device=dev)
-    x[::97] = x[::97].round()
-    x[::1009] = 0.0
-    x = x.to(torch.bfloat16)
-    gy = torch.randn((n, dim), generator=gen, device=dev).to(torch.bfloat16)
+    x, gy = seeded_rows(torch, n, dim, k, seed, dev)
+    x, gy = x.to(torch.bfloat16), gy.to(torch.bfloat16)
     y, meta = maxk_fwd(x, k)
     y_p, meta_p = maxk_forward(x, k)
     dx = maxk_bwd(x, meta, gy)
     dx_p = maxk_backward(x, meta, gy)
     torch.cuda.synchronize()
-    if not (bits_equal(torch, y, y_p) and bits_equal(torch, meta, meta_p)):
+    if not (equal_nan(torch, y, y_p) and bits_equal(torch, meta, meta_p)):
         raise AssertionError("maxk_fwd_bf16 differs from its plain version")
-    if not bits_equal(torch, dx, dx_p):
+    if not equal_nan(torch, dx, dx_p):
         raise AssertionError("maxk_bwd_bf16 differs from its plain version")
     kth = torch.sort(x.float(), dim=1, descending=True).values[:, k - 1:k]
     ties = int(((x.float() == kth).sum(1) > 1).sum())
+    del kth
     out = []
     for name, f32_entry, fn, fn_plain, n_bytes, lib, got, want in (
             ("maxk_fwd_bf16", f32[0], lambda: maxk_fwd(x, k),
@@ -1002,7 +1035,8 @@ def maxk16_phase(torch, g, dim: int, k: int, seed: int,
             name=name, route="cuda",
             source="spgemm_gnn_tpu_torch/csrc/maxk.cu",
             replaces=f32_entry["replaces"] + " (bf16 rows, :38, :80, :119)",
-            max_abs_err=float((got.float() - want.float()).abs().max()),
+            max_abs_err=float((got.float() - want.float()).nan_to_num()
+                              .abs().max()),
             ms=time_ms(torch, fn, 20), f32_ms=f32_entry["ms"],
             plain_ms=time_ms(torch, fn_plain, 3), bound_ms=b, bound_by=by,
             library_ms=None if lib is None else time_ms(torch, lib, 20)))
@@ -1019,9 +1053,21 @@ def compact16_check(torch, n: int, dim: int, k: int, seed: int,
     """B7 on bf16 rows: cbsr_compact_bf16 at [n, dim] on the training
     path's input (MaxK, then dropout 0.5) in bf16, values and channels
     bitwise against the plain version, timed beside its f32 form (`f32_ms`),
-    the plain version and the bound."""
+    the plain version and the bound; then bitwise on the bf16 MaxK of
+    `seeded_rows` (the row families: signed zeros, subnormals, NaN from a
+    dropped infinity, exactly k and fewer nonzeros)."""
     from spgemm_gnn_tpu_torch.kernels.cbsr import cbsr_compact
+    from spgemm_gnn_tpu_torch.kernels.maxk import maxk_fwd
     from spgemm_gnn_tpu_torch.ops.maxk import cbsr_compact_plain
+    x16 = seeded_rows(torch, n, dim, k, seed + 1, "cuda")[0].to(
+        torch.bfloat16)
+    x16 = maxk_fwd(x16, k)[0]
+    (v, c), (v_p, c_p) = cbsr_compact(x16, k), cbsr_compact_plain(x16, k)
+    torch.cuda.synchronize()
+    if not (equal_nan(torch, v, v_p) and torch.equal(c, c_p)):
+        raise AssertionError("cbsr_compact_bf16 differs from its plain "
+                             "version on the row families")
+    del x16, v, c, v_p, c_p
     gen = torch.Generator(device="cuda").manual_seed(seed)
     xs = sparse_input(torch, n, dim, k, gen).to(torch.bfloat16)
     (v, c), (v_p, c_p) = cbsr_compact(xs, k), cbsr_compact_plain(xs, k)
@@ -1040,9 +1086,9 @@ def compact16_check(torch, n: int, dim: int, k: int, seed: int,
              f32_ms=f32_ms,
              plain_ms=time_ms(torch, lambda: cbsr_compact_plain(xs, k), 3),
              bound_ms=b, bound_by=by, library_ms=None)
-    log(f"kernel cbsr_compact_bf16: bitwise equal to plain, N={n} dim={dim} "
-        f"k={k}; {r['ms']:.3f} ms (f32 form {f32_ms:.3f}, plain "
-        f"{r['plain_ms']:.3f}, bound {b:.3f} by {by})")
+    log(f"kernel cbsr_compact_bf16: bitwise equal to plain (also on the "
+        f"row families), N={n} dim={dim} k={k}; {r['ms']:.3f} ms (f32 form "
+        f"{f32_ms:.3f}, plain {r['plain_ms']:.3f}, bound {b:.3f} by {by})")
     return r
 
 
@@ -1664,8 +1710,11 @@ def main() -> int:
     log("plan: reddit takes the windowed kind (csr_spmm)")
 
     layers = 4
-    kernels = maxk_phase(torch, g, HIDDEN, K, SEED)
-    kernels16 = maxk16_phase(torch, g, HIDDEN, K, SEED, kernels)
+    kernels = maxk_phase(torch, g.num_nodes, HIDDEN, K, SEED, dev)
+    torch.cuda.empty_cache()
+    kernels16 = maxk16_phase(torch, g.num_nodes, HIDDEN, K, SEED, dev,
+                             kernels)
+    torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     xs = sparse_input(torch, g.num_nodes, HIDDEN, K, gen)
     gy = torch.randn((g.num_nodes, HIDDEN), generator=gen, device=dev)
@@ -1800,6 +1849,13 @@ def main() -> int:
     log_product16out("stream_spmm", "products, A^T, dense g", stream16o_t)
     del xs, gy
     torch.cuda.empty_cache()
+    # MaxK at the products recipe's shape, f32 and bf16 rows
+    maxk_products = maxk_phase(torch, g2.num_nodes, HIDDEN, K, SEED, dev)
+    torch.cuda.empty_cache()
+    add_products(kernels[:2], maxk_products)
+    add_products(kernels16, maxk16_phase(torch, g2.num_nodes, HIDDEN, K,
+                                         SEED, dev, maxk_products))
+    torch.cuda.empty_cache()
     round_entry = round_rows_check(torch, g2.num_nodes, HIDDEN, post, SEED)
     torch.cuda.empty_cache()
     cbsr_entry = stream_cbsr_check(torch, g2, HIDDEN, K, SEED)
@@ -1836,6 +1892,8 @@ def main() -> int:
     fell = products["losses"][-1] < products["losses"][0]
     log(f"train products: the loss {'fell' if fell else 'did not fall'} "
         f"over {EPOCHS} epochs at lr {cfg2.w_lr}")
+    for entry in kernels[:2]:
+        entry["products_launches"] = products["counts"][entry["name"]]
     stream_entry = product_entry("stream_spmm", stream_a, stream_t,
                                  reddit_=stream_reddit)
     stream_entry.update(launches=products["counts"]["stream_spmm"],
@@ -1996,7 +2054,8 @@ def main() -> int:
     # the 16-bit model's kernels
     for entry in kernels16:
         entry.update(launches=reddit_b_counts[entry["name"]],
-                     launches_path="train reddit, bfloat16")
+                     launches_path="train reddit, bfloat16",
+                     products_launches=products_b_counts[entry["name"]])
     kernels += kernels16
     kernels.append(entry16(
         "csr_spmm_bf16_out", "spgemm_gnn_tpu_torch/csrc/spmm.cu",

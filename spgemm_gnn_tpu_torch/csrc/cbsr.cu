@@ -43,14 +43,21 @@
 // cbsr_compact_bf16 is the compaction on bf16 rows (the 16-bit model,
 // --dtype bfloat16; the TPU kernel writes the values in x's dtype,
 // maxk_pallas.py:177-186, :212): bf16 values, int32 channels, the same slots.
-// One warp per row; a lane holds a contiguous range of PER channels, loaded
-// as 32-bit or wider words (16 B at dim 256), so channel order is (lane,
-// position) order: a warp exclusive scan of the lanes' nonzero counts gives
-// each lane its first slot, and of their zero counts, after the row's
-// nonzeros, the slots of the zero channels. Values are copied as bits (a
-// -0.0 stays -0.0, as the plain version's gather keeps it). At ogbn-products
-// (N = 2,449,029, dim 256, k 32) it reads 1.25 GB and writes 0.47 GB, about
-// 0.51 ms at 3.35 TB/s.
+// At ogbn-products (N = 2,449,029, dim 256, k 32) it reads 1.25 GB and
+// writes 0.47 GB, about 0.51 ms at 3.35 TB/s. Its design is MaxK's forward
+// walk (csrc/maxk.cu): a persistent grid of one wave of resident blocks, a
+// warp per row, the loads of the warp's next two rows in flight while it
+// compacts the current one. A lane holds a contiguous range of PER channels,
+// loaded as 32-bit or wider words (16 B at dim 256), so channel order is
+// (lane, position) order: one warp scan of the lanes' nonzero and zero
+// counts, packed in one word, gives each lane its first nonzero slot and,
+// after the row's nonzeros, its first zero slot. The lanes put their slots'
+// (channel, value) pairs in a per-warp stage of k entries in shared memory;
+// the warp then writes the row's values and channels out of the stage in
+// slot order, as 16-byte stores where k % 8 == 0 (k = 32: 4 lanes store the
+// 64 B of values, 8 lanes the 128 B of channels), else one slot a lane.
+// Values are copied as bits (a -0.0 stays -0.0, as the plain version's
+// gather keeps it).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,6 +66,9 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpsPerBlock = 8;
+constexpr int kMaxDim = 1024;  // a row lives in one warp's registers
+// bf16 rows a compaction warp keeps in flight beyond the one it compacts
+constexpr int kDepthBf16 = 2;
 
 // NB: 32-channel blocks per row, ceil(dim / 32) rounded up to a power of two
 template <int NB>
@@ -110,83 +120,136 @@ cbsr_compact_kernel(const float* __restrict__ x, float* __restrict__ vals,
   }
 }
 
+// A lane's PER bf16 channels of one row as loaded, so that the loads can be
+// issued rows before the values are used. FULL: dim == 32 * PER with PER
+// even, so the lane's range is whole words, loaded 16, 8 or 4 B at once;
+// else one value a word.
+template <int PER, bool FULL>
+struct Row16 {
+  static constexpr int NW = FULL ? PER / 2 : PER;
+  unsigned r[NW];
+
+  __device__ __forceinline__ void load(const uint16_t* p, int valid) {
+    if constexpr (FULL) {
+      if constexpr (NW % 4 == 0) {
+#pragma unroll
+        for (int j = 0; j < NW; j += 4) {
+          const uint4 q = *reinterpret_cast<const uint4*>(p + 2 * j);
+          r[j] = q.x; r[j + 1] = q.y; r[j + 2] = q.z; r[j + 3] = q.w;
+        }
+      } else if constexpr (NW % 2 == 0) {
+#pragma unroll
+        for (int j = 0; j < NW; j += 2) {
+          const uint2 q = *reinterpret_cast<const uint2*>(p + 2 * j);
+          r[j] = q.x; r[j + 1] = q.y;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NW; ++j)
+          r[j] = *reinterpret_cast<const unsigned*>(p + 2 * j);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < PER; ++i) r[i] = i < valid ? p[i] : 0u;
+    }
+  }
+
+  __device__ __forceinline__ void bits(uint16_t (&v)[PER]) const {
+    if constexpr (FULL) {
+#pragma unroll
+      for (int j = 0; j < NW; ++j) {
+        v[2 * j] = (uint16_t)(r[j] & 0xffffu);
+        v[2 * j + 1] = (uint16_t)(r[j] >> 16);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < PER; ++i) v[i] = (uint16_t)r[i];
+    }
+  }
+};
+
+// a warp's stage: k channels, then k values (k rounded up to 8 entries)
+__host__ __device__ constexpr int stage16_bytes(int k) {
+  return ((k + 7) / 8 * 8) * (int)(sizeof(int) + sizeof(uint16_t));
+}
+
 // PER: channels per lane, ceil(dim / 32) rounded up to a power of two;
 // FULL: dim == 32 * PER with PER even, so a lane's range is whole words
-template <int PER, bool FULL>
+template <int PER, bool FULL, int DEPTH>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 cbsr_compact16_kernel(const uint16_t* __restrict__ x,
                       uint16_t* __restrict__ vals, int* __restrict__ ch,
                       int64_t n, int dim, int k) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
-  const int64_t row =
-      (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n) return;  // row is uniform across the warp
+  const int warp = threadIdx.x >> 5;
+  const int kp = (k + 7) / 8 * 8;
+  int* s_ch = reinterpret_cast<int*>(smem + warp * stage16_bytes(k));
+  uint16_t* s_val = reinterpret_cast<uint16_t*>(s_ch + kp);
+  const int64_t stride = (int64_t)gridDim.x * kWarpsPerBlock;
   const int c0 = lane * PER;
-  const uint16_t* xr = x + row * dim + c0;
-  uint16_t* vr = vals + row * k;
-  int* cr = ch + row * k;
+  const int n_valid = dim - c0;
+  const bool vec = k % 8 == 0;  // 16-byte rows of values and of channels
+  int64_t row = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
 
-  uint16_t v[PER];
-  if constexpr (FULL) {
-    constexpr int NW = PER / 2;   // 32-bit words, 16, 8 or 4 B at a time
-    unsigned w[NW];
-    if constexpr (NW % 4 == 0) {
+  Row16<PER, FULL> ring[DEPTH];
 #pragma unroll
-      for (int j = 0; j < NW; j += 4) {
-        const uint4 q = *reinterpret_cast<const uint4*>(xr + 2 * j);
-        w[j] = q.x; w[j + 1] = q.y; w[j + 2] = q.z; w[j + 3] = q.w;
+  for (int d = 0; d < DEPTH; ++d)
+    if (row + d * stride < n)
+      ring[d].load(x + (row + d * stride) * dim + c0, n_valid);
+
+  for (; row < n; row += DEPTH * stride) {
+#pragma unroll
+    for (int d = 0; d < DEPTH; ++d) {  // unrolled: ring[d] stays registers
+      const int64_t r = row + d * stride;
+      if (r >= n) break;  // uniform across the warp
+      uint16_t v[PER];
+      ring[d].bits(v);
+      const int64_t ahead = r + DEPTH * stride;
+      if (ahead < n) ring[d].load(x + ahead * dim + c0, n_valid);
+
+      // a bf16 value is nonzero unless its bits are +0 or -0 (NaN counts as
+      // nonzero, as x != 0 in the plain version); nonzero counts in the low
+      // half of a word, zero counts in the high half (each <= 1024)
+      int counts = 0;
+#pragma unroll
+      for (int i = 0; i < PER; ++i)
+        if (FULL || c0 + i < dim) counts += (v[i] & 0x7fffu) ? 1 : 0x10000;
+      int incl = counts;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int o = __shfl_up_sync(kFull, incl, off);
+        if (lane >= off) incl += o;
       }
-    } else if constexpr (NW % 2 == 0) {
+      const int nz_total = __shfl_sync(kFull, incl, 31) & 0xffff;
+      const int before = incl - counts;
+      int s_nz = before & 0xffff;                   // first nonzero slot
+      int s_zero = nz_total + (before >> 16);       // and first zero slot
 #pragma unroll
-      for (int j = 0; j < NW; j += 2) {
-        const uint2 q = *reinterpret_cast<const uint2*>(xr + 2 * j);
-        w[j] = q.x; w[j + 1] = q.y;
+      for (int i = 0; i < PER; ++i) {
+        if (FULL || c0 + i < dim) {
+          const int slot = (v[i] & 0x7fffu) ? s_nz++ : s_zero++;
+          if (slot < k) {
+            s_ch[slot] = c0 + i;
+            s_val[slot] = v[i];
+          }
+        }
       }
-    } else {
-#pragma unroll
-      for (int j = 0; j < NW; ++j)
-        w[j] = *reinterpret_cast<const unsigned*>(xr + 2 * j);
-    }
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      v[2 * j] = (uint16_t)(w[j] & 0xffffu);
-      v[2 * j + 1] = (uint16_t)(w[j] >> 16);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) v[i] = c0 + i < dim ? xr[i] : 0;
-  }
-  // a bf16 value is nonzero unless its bits are +0 or -0 (NaN counts as
-  // nonzero, as x != 0 in the plain version)
-  int nz = 0, zero = 0;
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const bool in = c0 + i < dim;
-    nz += in && (v[i] & 0x7fffu) != 0;
-    zero += in && (v[i] & 0x7fffu) == 0;
-  }
-  int nz_incl = nz, zero_incl = zero;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int a = __shfl_up_sync(kFull, nz_incl, off);
-    const int b = __shfl_up_sync(kFull, zero_incl, off);
-    if (lane >= off) {
-      nz_incl += a;
-      zero_incl += b;
-    }
-  }
-  const int nz_total = __shfl_sync(kFull, nz_incl, 31);
-  int s_nz = nz_incl - nz;                 // this lane's first nonzero slot
-  int s_zero = nz_total + zero_incl - zero;  // and first zero slot
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    if (c0 + i < dim) {
-      const bool is_nz = (v[i] & 0x7fffu) != 0;
-      const int slot = is_nz ? s_nz++ : s_zero++;
-      if (slot < k) {
-        vr[slot] = v[i];
-        cr[slot] = c0 + i;
+      __syncwarp();
+      if (vec) {
+        uint4* vr = reinterpret_cast<uint4*>(vals + r * k);
+        int4* cr = reinterpret_cast<int4*>(ch + r * k);
+        for (int j = lane; j < k / 8; j += 32)
+          vr[j] = reinterpret_cast<const uint4*>(s_val)[j];
+        for (int j = lane; j < k / 4; j += 32)
+          cr[j] = reinterpret_cast<const int4*>(s_ch)[j];
+      } else {
+        for (int j = lane; j < k; j += 32) {
+          vals[r * k + j] = s_val[j];
+          ch[r * k + j] = s_ch[j];
+        }
       }
+      __syncwarp();  // the stage is free for the warp's next row
     }
   }
 }
@@ -228,17 +291,33 @@ unsigned warp_blocks(int64_t rows) {
   return (unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
+template <int PER, bool FULL>
+void launch_compact16_at(const uint16_t* x, uint16_t* vals, int* ch,
+                         int64_t n, int dim, int k, cudaStream_t s) {
+  auto kernel = cbsr_compact16_kernel<PER, FULL, kDepthBf16>;
+  const int smem = kWarpsPerBlock * stage16_bytes(k);
+  static int last_smem = -1, per_sm = 0, sms = 0;  // per instantiation
+  if (smem != last_smem) {  // one wave of resident blocks
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                  kWarpsPerBlock * 32, smem);
+    last_smem = smem;
+  }
+  const int64_t wave = (int64_t)(per_sm > 0 ? per_sm : 1) * sms;
+  const int64_t need = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  kernel<<<(unsigned)(need < wave ? need : wave), kWarpsPerBlock * 32, smem,
+           s>>>(x, vals, ch, n, dim, k);
+}
+
 template <int PER>
 void launch_compact16(const uint16_t* x, uint16_t* vals, int* ch, int64_t n,
                       int dim, int k, cudaStream_t s) {
-  const unsigned blocks = warp_blocks(n);
-  const int threads = kWarpsPerBlock * 32;
   if (PER % 2 == 0 && dim == 32 * PER)
-    cbsr_compact16_kernel<PER, PER % 2 == 0>
-        <<<blocks, threads, 0, s>>>(x, vals, ch, n, dim, k);
+    launch_compact16_at<PER, PER % 2 == 0>(x, vals, ch, n, dim, k, s);
   else
-    cbsr_compact16_kernel<PER, false>
-        <<<blocks, threads, 0, s>>>(x, vals, ch, n, dim, k);
+    launch_compact16_at<PER, false>(x, vals, ch, n, dim, k, s);
 }
 
 }  // namespace
@@ -247,7 +326,7 @@ void launch_compact16(const uint16_t* x, uint16_t* vals, int* ch, int64_t n,
 // Needs 1 <= k <= dim <= 1024.
 extern "C" int cbsr_compact(const void* x, void* vals, void* ch, int64_t n,
                             int dim, int k, void* stream) {
-  if (dim < 1 || dim > 1024 || k < 1 || k > dim)
+  if (dim < 1 || dim > kMaxDim || k < 1 || k > dim)
     return (int)cudaErrorInvalidValue;
   const float* xp = static_cast<const float*>(x);
   float* vp = static_cast<float*>(vals);
@@ -272,11 +351,11 @@ extern "C" int cbsr_compact(const void* x, void* vals, void* ch, int64_t n,
 }
 
 // vals bf16 [n, k], ch int32 [n, k] <- the CBSR of x bf16 [n, dim]: the
-// slots of cbsr_compact. Needs 1 <= k <= dim <= 1024 and a 16-byte aligned
-// x.
+// slots of cbsr_compact. Needs 1 <= k <= dim <= 1024 and 16-byte aligned x,
+// vals and ch.
 extern "C" int cbsr_compact_bf16(const void* x, void* vals, void* ch,
                                  int64_t n, int dim, int k, void* stream) {
-  if (dim < 1 || dim > 1024 || k < 1 || k > dim)
+  if (dim < 1 || dim > kMaxDim || k < 1 || k > dim)
     return (int)cudaErrorInvalidValue;
   const uint16_t* xp = static_cast<const uint16_t*>(x);
   uint16_t* vp = static_cast<uint16_t*>(vals);
@@ -296,7 +375,7 @@ extern "C" int cbsr_compact_bf16(const void* x, void* vals, void* ch,
 // Needs k >= 1, dim % 4 == 0, 4 <= dim <= 1024 and a 16-byte aligned out.
 extern "C" int cbsr_densify(const void* vals, const void* ch, void* out,
                             int64_t n, int k, int dim, void* stream) {
-  if (k < 1 || dim < 4 || dim % 4 != 0 || dim > 1024)
+  if (k < 1 || dim < 4 || dim % 4 != 0 || dim > kMaxDim)
     return (int)cudaErrorInvalidValue;
   const float* vp = static_cast<const float*>(vals);
   const int* cp = static_cast<const int*>(ch);

@@ -10,30 +10,42 @@
 // backward rebuilds the mask from (x, meta), so no [N, dim] mask is stored.
 //
 // Bound on this card: memory. The forward reads x and writes y once (at
-// Reddit, N = 232,965 x 256 f32: 477 MB, about 0.14 ms at 3.35 TB/s); the
-// backward reads x and g and writes dx (about 0.21 ms). The 32 count passes
-// are register work.
+// Reddit, N = 232,965 x 256 f32: 477 MB, about 0.14 ms at 3.35 TB/s; at
+// ogbn-products, N = 2,449,029: 5.04 GB, about 1.50 ms); the backward reads x
+// and g and writes dx (about 0.21 ms at Reddit).
 //
-// Design: forward, one warp per row and 8 rows per block. A lane holds a
-// contiguous range of PER channels in registers (dim <= 1024), so x is read
-// once. The pivot comes from 32 warp-wide count passes (__reduce_add_sync),
-// one per key bit, with no shared memory and no sort. Ties are settled by a
-// warp exclusive scan of per-lane tie counts: because ranges are contiguous
-// and in lane order, the scan gives each tie its rank in channel order, and
-// the first tie past the budget is the bound. Backward, one thread per four
-// elements: it needs only the row's (pivot, bound), so it is a flat
-// elementwise pass with 16-byte loads.
+// Forward design. A row is one warp's: lane l holds the contiguous channels
+// [l * PER, (l + 1) * PER) in registers (dim <= 1024), so x is read once and
+// lane order is channel order.
+//  - A persistent row walk: the grid is one wave of resident blocks; warp w
+//    of W walks rows w, w + W, ... and keeps the loads of its next kDepth
+//    rows in flight (a register ring, indexed statically by unrolling the
+//    walk) while it selects the current one; y and meta stores are not
+//    waited on. (A ring of cp.async copies in shared memory, which costs no
+//    registers, measured slower.)
+//  - A select that starts near the pivot and stops at it. Count passes fix
+//    the pivot's key bits from the top, one __reduce_add_sync a bit; the
+//    state after a bit is a bucket of keys that holds the pivot. A warp
+//    first tests the bucket of its previous row's pivot, one pass with two
+//    thresholds (rows of one layer have k-th values alike), then its
+//    neighbour; on a hit the passes start below it. They stop as soon as one
+//    key is left in the bracket, which is then the pivot with no tie
+//    dropped. Only rows with several keys equal to the pivot run to the last
+//    bit and settle ties by a warp scan of the lanes' tie counts. bf16 keys
+//    (16 bits) count with two instructions a key.
+// Backward, one thread per four elements: it needs only the row's (pivot,
+// bound), so it is a flat elementwise pass with 16-byte loads.
 //
 // maxk_fwd_bf16 and maxk_bwd_bf16 are the same kernels on bf16 rows (the
 // 16-bit model, --dtype bfloat16; the TPU kernel takes x in its own dtype and
 // writes y in it, maxk_pallas.py:38, :80, :119). Keys come from the exact f32
 // widening of each bf16 value, so meta holds the f32 key's bits, as the
-// reference's does; those keys differ only in their high 16 bits, so 16 count
-// passes find the pivot. y = x * mask and dx = g * mask are exact in bf16. A
-// lane loads its contiguous range as 32-bit or wider words (16 B at dim 256)
-// and stores y the same way; the backward takes 8 elements (16 B) per
-// thread. At Reddit (N = 232,965, dim 256) the forward moves 239 MB, about
-// 0.07 ms at 3.35 TB/s, the backward 358 MB, about 0.11 ms.
+// reference's does; those keys differ only in their high 16 bits, so the
+// select runs on the 16-bit high halves. y = x * mask and dx = g * mask are
+// exact in bf16. A lane loads its contiguous range as 32-bit or wider words
+// (16 B at dim 256) and stores y the same way; the backward takes 8 elements
+// (16 B) per thread. At Reddit (N = 232,965, dim 256) the forward moves 239
+// MB, about 0.07 ms at 3.35 TB/s, the backward 358 MB, about 0.11 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,29 +55,13 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpsPerBlock = 8;
+// rows a warp keeps in flight beyond the one it selects (measured best of
+// 1 to 4 at the recipes' shapes, f32 and bf16: utils/maxk_sweep.py)
+constexpr int kDepth = 3;
 
 __device__ __forceinline__ uint32_t ordered_key(float v) {
   const uint32_t b = __float_as_uint(v);
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-}
-
-// A lane's PER channels of a row, as f32 (T float: f32 rows; T uint16_t:
-// bf16 rows, their bits). FULL: the lane's range lies inside the row and is
-// aligned for its vector width (dim == 32 * PER, and PER % 4 == 0 for f32,
-// PER even for bf16).
-template <int PER, bool FULL>
-__device__ __forceinline__ void load_range(const float* p, int valid,
-                                           float (&v)[PER]) {
-  if constexpr (FULL) {
-#pragma unroll
-    for (int i = 0; i < PER; i += 4) {
-      const float4 q = *reinterpret_cast<const float4*>(p + i);
-      v[i] = q.x; v[i + 1] = q.y; v[i + 2] = q.z; v[i + 3] = q.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) v[i] = i < valid ? p[i] : 0.f;
-  }
 }
 
 // bf16 value 2j in the low half of word j, widened exactly
@@ -74,37 +70,98 @@ __device__ __forceinline__ void widen2(unsigned w, float& lo, float& hi) {
   hi = __uint_as_float(w & 0xffff0000u);
 }
 
+// A lane's PER channels of one row as loaded: f32 values (T float) or bf16
+// bits (T uint16_t), so that the loads can be issued rows before the values
+// are used. FULL: the lane's range lies inside the row and is aligned for
+// its vector width (dim == 32 * PER, and PER % 4 == 0 for f32, PER even for
+// bf16).
+template <class T, int PER, bool FULL>
+struct RowBuf;
+
 template <int PER, bool FULL>
-__device__ __forceinline__ void load_range(const uint16_t* p, int valid,
-                                           float (&v)[PER]) {
-  if constexpr (FULL) {
-    constexpr int NW = PER / 2;  // 32-bit words, loaded 16, 8 or 4 B at once
-    unsigned w[NW];
-    if constexpr (NW % 4 == 0) {
+struct RowBuf<float, PER, FULL> {
+  float r[PER];
+
+  __device__ __forceinline__ void load(const float* p, int valid) {
+    if constexpr (FULL) {
 #pragma unroll
-      for (int j = 0; j < NW; j += 4) {
-        const uint4 q = *reinterpret_cast<const uint4*>(p + 2 * j);
-        w[j] = q.x; w[j + 1] = q.y; w[j + 2] = q.z; w[j + 3] = q.w;
-      }
-    } else if constexpr (NW % 2 == 0) {
-#pragma unroll
-      for (int j = 0; j < NW; j += 2) {
-        const uint2 q = *reinterpret_cast<const uint2*>(p + 2 * j);
-        w[j] = q.x; w[j + 1] = q.y;
+      for (int i = 0; i < PER; i += 4) {
+        const float4 q = *reinterpret_cast<const float4*>(p + i);
+        r[i] = q.x; r[i + 1] = q.y; r[i + 2] = q.z; r[i + 3] = q.w;
       }
     } else {
 #pragma unroll
-      for (int j = 0; j < NW; ++j)
-        w[j] = *reinterpret_cast<const unsigned*>(p + 2 * j);
+      for (int i = 0; i < PER; ++i) r[i] = i < valid ? p[i] : 0.f;
     }
+  }
+
+  __device__ __forceinline__ void widen(float (&v)[PER]) const {
 #pragma unroll
-    for (int j = 0; j < NW; ++j) widen2(w[j], v[2 * j], v[2 * j + 1]);
-  } else {
+    for (int i = 0; i < PER; ++i) v[i] = r[i];
+  }
+
+  // order-preserving keys (channels past dim: 0)
+  __device__ __forceinline__ void keys(uint32_t (&key)[PER],
+                                       int valid) const {
 #pragma unroll
     for (int i = 0; i < PER; ++i)
-      v[i] = i < valid ? __uint_as_float((unsigned)p[i] << 16) : 0.f;
+      key[i] = (FULL || i < valid) ? ordered_key(r[i]) : 0u;
   }
-}
+};
+
+template <int PER, bool FULL>
+struct RowBuf<uint16_t, PER, FULL> {
+  // FULL: 32-bit words, loaded 16, 8 or 4 B at once; else one value a word
+  static constexpr int NW = FULL ? PER / 2 : PER;
+  unsigned r[NW];
+
+  __device__ __forceinline__ void load(const uint16_t* p, int valid) {
+    if constexpr (FULL) {
+      if constexpr (NW % 4 == 0) {
+#pragma unroll
+        for (int j = 0; j < NW; j += 4) {
+          const uint4 q = *reinterpret_cast<const uint4*>(p + 2 * j);
+          r[j] = q.x; r[j + 1] = q.y; r[j + 2] = q.z; r[j + 3] = q.w;
+        }
+      } else if constexpr (NW % 2 == 0) {
+#pragma unroll
+        for (int j = 0; j < NW; j += 2) {
+          const uint2 q = *reinterpret_cast<const uint2*>(p + 2 * j);
+          r[j] = q.x; r[j + 1] = q.y;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NW; ++j)
+          r[j] = *reinterpret_cast<const unsigned*>(p + 2 * j);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < PER; ++i) r[i] = i < valid ? p[i] : 0u;
+    }
+  }
+
+  __device__ __forceinline__ void widen(float (&v)[PER]) const {
+    if constexpr (FULL) {
+#pragma unroll
+      for (int j = 0; j < NW; ++j) widen2(r[j], v[2 * j], v[2 * j + 1]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < PER; ++i) v[i] = __uint_as_float(r[i] << 16);
+    }
+  }
+
+  // 16-bit order-preserving keys straight from the bits: h ^ 0x8000 for
+  // h >= +0, ~h for h <= -0 (channels past dim: 0)
+  __device__ __forceinline__ void keys(uint32_t (&key)[PER],
+                                       int valid) const {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const uint32_t h = FULL ? r[i / 2] >> (16 * (i % 2)) & 0xffffu : r[i];
+      key[i] = (FULL || i < valid) ? h ^ (0x8000u | (h >> 15) * 0x7fffu)
+                                   : 0u;
+    }
+  }
+};
 
 template <int PER, bool FULL>
 __device__ __forceinline__ void store_range(float* p, int valid,
@@ -157,79 +214,196 @@ __device__ __forceinline__ void store_range(uint16_t* p, int valid,
   }
 }
 
+// count(key >= c) over a lane's keys. KB: key bits, 32 (f32) or 16 (bf16:
+// the high half of the f32 key). 16-bit keys take two instructions a key:
+// key - c wraps past 2^31 exactly when key < c. Keys past dim are 0, below
+// every c >= 1.
+template <int KB, int PER>
+__device__ __forceinline__ int count_ge(const uint32_t (&key)[PER],
+                                        uint32_t c) {
+  if constexpr (KB == 16) {
+    int lt = 0;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) lt += (key[i] - c) >> 31;
+    return PER - lt;
+  } else {
+    int ge = 0;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) ge += key[i] >= c;
+    return ge;
+  }
+}
+
+// count(key >= a) and count(key >= b) over the warp in one reduction (each
+// <= 1024, so both fit a word). a == 0 counts every channel of the row; a
+// threshold of 2^KB or more counts none.
+template <int KB, int PER>
+__device__ __forceinline__ void count2(const uint32_t (&key)[PER], uint64_t a,
+                                       uint64_t b, int dim, int& ca,
+                                       int& cb) {
+  constexpr uint64_t kTop = 1ull << KB;
+  const int na = a < kTop ? count_ge<KB>(key, (uint32_t)a) : 0;
+  const int nb = b < kTop ? count_ge<KB>(key, (uint32_t)b) : 0;
+  const int both = __reduce_add_sync(kFull, na | nb << 16);
+  ca = a == 0 ? dim : both & 0xffff;
+  cb = both >> 16;
+}
+
+// Where the warp's next pivot may lie: the bucket of the previous pivot's
+// bits at and above `level` (KB or more: no guess).
+struct Guess {
+  uint32_t pivot = 0;
+  int level = 32;
+};
+
+// The row's pivot t (the k-th largest key) and tie bound (the first channel
+// of a tie that is dropped, dim if none is), from KB-bit keys held PER to a
+// lane in channel order (lane l: channels c0 = l * PER onwards; channels
+// past dim have key 0).
+//
+// Count passes fix t's bits from the top: after bit b, t's bits at and
+// above b are the pivot's, lo keys are >= t and hi keys >= t + 2^b, with
+// lo >= k > hi. The state after bit L is the bucket [t, t + 2^L) that
+// holds the pivot, so a warp first tests the bucket of its previous row's
+// pivot at a level five bits above where that row's passes left one key
+// (one pass with two thresholds), then its neighbour on the side the counts
+// point to, and on a hit starts the passes below L. The passes stop when
+// one key is left in the bracket: it is the pivot, k - 1 keys lie above it
+// and no tie is dropped. Otherwise every bit is fixed, lo - hi keys equal
+// t, hi lie above it, and a warp scan of the lanes' tie counts finds the
+// first tie past the k - hi kept.
+template <int KB, int PER, bool FULL>
+__device__ __forceinline__ void select_row(const uint32_t (&key)[PER],
+                                           int c0, int dim, int k, int lane,
+                                           Guess& guess, uint32_t& t_out,
+                                           int& bound_out) {
+  uint32_t t = 0;
+  int lo = dim, hi = 0, bit = KB - 1;
+  bool hit = false;
+  if (guess.level < KB) {
+    const int L = guess.level;
+    const uint64_t w = 1ull << L;
+    const uint64_t g = guess.pivot & ~(uint32_t)(w - 1);
+    int c_g, c_up;
+    count2<KB>(key, g, g + w, dim, c_g, c_up);
+    if (c_g >= k && c_up < k) {
+      t = (uint32_t)g, lo = c_g, hi = c_up, hit = true;
+    } else if (c_g < k && g != 0) {  // the pivot lies below the bucket
+      int c, unused;
+      count2<KB>(key, g - w, 1ull << KB, dim, c, unused);
+      if (c >= k) t = (uint32_t)(g - w), lo = c, hi = c_g, hit = true;
+    } else if (c_up >= k) {  // above it
+      int c, unused;
+      count2<KB>(key, g + 2 * w, 1ull << KB, dim, c, unused);
+      if (c < k) t = (uint32_t)(g + w), lo = c_up, hi = c, hit = true;
+    }
+    if (hit) bit = L - 1;
+  }
+  for (; bit >= 0 && lo - hi > 1; --bit) {
+    const uint32_t cand = t | (1u << bit);
+    const int c = __reduce_add_sync(kFull, count_ge<KB>(key, cand));
+    if (c >= k) {
+      t = cand;
+      lo = c;
+    } else {
+      hi = c;
+    }
+  }
+  // the next row's guess: five bits above where one key was left, about
+  // where 32 keys were; a tie-heavy row leaves the guess as it is
+  if (lo - hi == 1) guess.level = bit + 6 < KB ? bit + 6 : KB - 1;
+
+  int bound = dim;
+  if (lo - hi == 1) {  // one key in [t, t + 2^(bit + 1)): the pivot
+    const uint32_t high = bit + 1 >= 32 ? 0u : ~0u << (bit + 1);
+    uint32_t m = 0;
+#pragma unroll
+    for (int i = 0; i < PER; ++i)
+      if (((key[i] ^ t) & high) == 0 && key[i] > m) m = key[i];
+    t = __reduce_max_sync(kFull, m);
+  } else if (lo > k) {  // ties past the k - hi kept: find the first dropped
+    const int budget = k - hi;
+    int ties = 0;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) ties += (FULL || c0 + i < dim) && key[i] == t;
+    int incl = ties;  // inclusive scan of tie counts over lanes
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int o = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += o;
+    }
+    int rank = incl - ties;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const bool tie = (FULL || c0 + i < dim) && key[i] == t;
+      if (tie && rank == budget) bound = c0 + i;
+      rank += tie;
+    }
+    bound = (int)__reduce_min_sync(kFull, (unsigned)bound);
+  }
+  guess.pivot = t;
+  t_out = t;
+  bound_out = bound;
+}
+
+// registers a thread may take: PER <= 8 keeps 4 blocks (32 warps) an SM
+template <int PER>
+constexpr int min_blocks() {
+  return PER <= 8 ? 4 : (PER <= 16 ? 2 : 1);
+}
+
 // T: float (f32 rows) or uint16_t (bf16 rows, their bits).
-template <class T, int PER, bool FULL>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+template <class T, int PER, bool FULL, int DEPTH>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, min_blocks<PER>())
 maxk_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
                 int* __restrict__ meta, int64_t n, int dim, int k) {
-  // bf16 keys are ordered by their high 16 bits: search those only
-  constexpr int kLowBit = sizeof(T) == 2 ? 16 : 0;
+  constexpr int KB = sizeof(T) == 2 ? 16 : 32;  // key bits
   const int lane = threadIdx.x & 31;
-  const int64_t row =
-      (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n) return;  // row is uniform across the warp
+  const int64_t stride = (int64_t)gridDim.x * kWarpsPerBlock;
   const int c0 = lane * PER;
   const int n_valid = dim - c0;  // channels of the lane's range in the row
+  int64_t row = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
 
-  float v[PER];
-  uint32_t key[PER];
-  bool valid[PER];
-  load_range<PER, FULL>(x + row * dim + c0, n_valid, v);
+  Guess guess;
+  RowBuf<T, PER, FULL> ring[DEPTH];
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    valid[i] = c0 + i < dim;
-    key[i] = ordered_key(v[i]);
-  }
+  for (int d = 0; d < DEPTH; ++d)
+    if (row + d * stride < n)
+      ring[d].load(x + (row + d * stride) * dim + c0, n_valid);
 
-  // pivot: the largest t with count(key >= t) >= k, one bit at a time
-  uint32_t t = 0;
-  for (int bit = 31; bit >= kLowBit; --bit) {
-    const uint32_t cand = t | (1u << bit);
-    int cnt = 0;
+  for (; row < n; row += DEPTH * stride) {
 #pragma unroll
-    for (int i = 0; i < PER; ++i) cnt += (valid[i] && key[i] >= cand);
-    if (__reduce_add_sync(kFull, cnt) >= k) t = cand;
-  }
-  // bf16: the key of a bf16 value has low half 0 (x >= +0) or 0xffff (x <=
-  // -0); t is the pivot's high half, so give it the pivot's low half
-  if (kLowBit) t |= (t & 0x80000000u) ? 0u : 0xffffu;
+    for (int d = 0; d < DEPTH; ++d) {  // unrolled: ring[d] stays registers
+      const int64_t r = row + d * stride;
+      if (r >= n) break;  // uniform across the warp
+      const RowBuf<T, PER, FULL> cur = ring[d];
+      const int64_t ahead = r + DEPTH * stride;
+      if (ahead < n) ring[d].load(x + ahead * dim + c0, n_valid);
 
-  int greater = 0, ties = 0;
+      // bf16: the key of the exact f32 widening has low half 0 (x >= +0)
+      // or 0xffff (x <= -0); its high half orders the values
+      uint32_t key[PER];
+      cur.keys(key, n_valid);
+      uint32_t t;
+      int bound;
+      select_row<KB, PER, FULL>(key, c0, dim, k, lane, guess, t, bound);
+      float v[PER];
+      cur.widen(v);
+      float out[PER];
+      const int nb = bound - c0;  // the lane's channels before the bound
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    greater += (valid[i] && key[i] > t);
-    ties += (valid[i] && key[i] == t);
-  }
-  const int budget = k - __reduce_add_sync(kFull, greater);  // ties to keep
-
-  // inclusive scan of tie counts over lanes (= channel order)
-  int incl = ties;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int o = __shfl_up_sync(kFull, incl, off);
-    if (lane >= off) incl += o;
-  }
-  // the tie of rank `budget` (0-based) is the first one dropped
-  int bound = dim;
-  int rank = incl - ties;
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const bool tie = valid[i] && key[i] == t;
-    if (tie && rank == budget) bound = c0 + i;
-    rank += tie;
-  }
-  bound = (int)__reduce_min_sync(kFull, (unsigned)bound);
-
-  float out[PER];
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const bool keep = valid[i] && (key[i] > t || (key[i] == t && c0 + i < bound));
-    out[i] = v[i] * (keep ? 1.f : 0.f);  // x * mask, as the plain version
-  }
-  store_range<PER, FULL>(y + row * dim + c0, n_valid, out);
-  if (lane == 0) {
-    meta[2 * row] = (int)t;
-    meta[2 * row + 1] = bound;
+      for (int i = 0; i < PER; ++i) {
+        // 16-bit keys: key + 1 > t is key >= t, without overflow
+        const bool keep =
+            KB == 16 ? key[i] + (i < nb ? 1u : 0u) > t
+                     : key[i] > t || (key[i] == t && i < nb);
+        out[i] = v[i] * (keep ? 1.f : 0.f);  // x * mask, as the plain version
+      }
+      store_range<PER, FULL>(y + r * dim + c0, n_valid, out);
+      if (KB == 16) t = t << 16 | ((t & 0x8000u) ? 0u : 0xffffu);
+      if (lane == 0)
+        *reinterpret_cast<int2*>(meta + 2 * r) = make_int2((int)t, bound);
+    }
   }
 }
 
@@ -309,18 +483,36 @@ __global__ void maxk_bwd16_kernel(const uint16_t* __restrict__ x,
   }
 }
 
+// Blocks of one wave: as many as can be resident on every SM at once.
+template <class Kernel>
+int64_t wave_blocks(Kernel kernel) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                kWarpsPerBlock * 32, 0);
+  return (int64_t)(per_sm > 0 ? per_sm : 1) * sms;
+}
+
 // FULL ranges: f32 needs PER % 4 == 0 (float4), bf16 an even PER (words)
+template <class T, int PER, bool FULL>
+void launch_fwd_at(const T* x, T* y, int* meta, int64_t n, int dim, int k,
+                   cudaStream_t s) {
+  auto kernel = maxk_fwd_kernel<T, PER, FULL, kDepth>;
+  static const int64_t wave = wave_blocks(kernel);  // per instantiation
+  const int64_t need = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  kernel<<<(unsigned)(need < wave ? need : wave), kWarpsPerBlock * 32, 0,
+           s>>>(x, y, meta, n, dim, k);
+}
+
 template <class T, int PER>
 void launch_fwd(const T* x, T* y, int* meta, int64_t n, int dim, int k,
                 cudaStream_t s) {
   constexpr bool kVec = sizeof(T) == 2 ? PER % 2 == 0 : PER % 4 == 0;
-  const unsigned blocks = (unsigned)((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
   if (kVec && dim == 32 * PER)
-    maxk_fwd_kernel<T, PER, kVec>
-        <<<blocks, kWarpsPerBlock * 32, 0, s>>>(x, y, meta, n, dim, k);
+    launch_fwd_at<T, PER, kVec>(x, y, meta, n, dim, k, s);
   else
-    maxk_fwd_kernel<T, PER, false>
-        <<<blocks, kWarpsPerBlock * 32, 0, s>>>(x, y, meta, n, dim, k);
+    launch_fwd_at<T, PER, false>(x, y, meta, n, dim, k, s);
 }
 
 template <class T>
@@ -344,15 +536,18 @@ int fwd(const void* x, void* y, void* meta, int64_t n, int dim, int k,
 
 }  // namespace
 
+
 // y, meta <- MaxK(x); x, y f32 [n, dim] row-major, meta int32 [n, 2].
-// Needs 1 <= k < dim <= 1024 and 16-byte aligned x and y.
+// Needs 1 <= k < dim <= 1024, 16-byte aligned x and y and an 8-byte aligned
+// meta.
 extern "C" int maxk_fwd(const void* x, void* y, void* meta, int64_t n,
                         int dim, int k, void* stream) {
   return fwd<float>(x, y, meta, n, dim, k, stream);
 }
 
 // maxk_fwd on x, y bf16 [n, dim] (meta as in maxk_fwd, the f32 keys' bits).
-// Needs 1 <= k < dim <= 1024 and 16-byte aligned x and y.
+// Needs 1 <= k < dim <= 1024, 16-byte aligned x and y and an 8-byte aligned
+// meta.
 extern "C" int maxk_fwd_bf16(const void* x, void* y, void* meta, int64_t n,
                              int dim, int k, void* stream) {
   return fwd<uint16_t>(x, y, meta, n, dim, k, stream);

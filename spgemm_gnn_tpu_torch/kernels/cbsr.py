@@ -14,9 +14,10 @@ from __future__ import annotations
 import torch
 
 from spgemm_gnn_tpu_torch.kernels import _build
-from spgemm_gnn_tpu_torch.kernels.spmm import MAX_DIM
 from spgemm_gnn_tpu_torch.ops.maxk import (cbsr_compact_plain, cbsr_to_dense,
                                            sample_channels)
+
+MAX_DIM = 1024   # cbsr.cu's kMaxDim: a row lives in one warp's registers
 
 
 def cbsr_compact(x: torch.Tensor, k: int

@@ -40,6 +40,7 @@ from spgemm_gnn_tpu_torch.ops.norms import node_factors
 from spgemm_gnn_tpu_torch.ops.spmm import csr_spmm_plain
 from spgemm_gnn_tpu_torch.ops.stream import (stream_cbsr_spmm_plain,
                                              stream_spmm_plain)
+from spgemm_gnn_tpu_torch.utils.rows import with_families
 
 BF16 = torch.bfloat16
 # the aggregation's tolerance: ulps anywhere, and the share of values off
@@ -566,24 +567,37 @@ def rounded(y32: torch.Tensor, post: torch.Tensor | None) -> torch.Tensor:
     return y if post is None else y * post.to(BF16)[:, None]
 
 
+def family_tie_rows(rng, n: int, dim: int, k: int) -> torch.Tensor:
+    """tie_rows, then the families of `utils/rows.py` on every other row
+    past the eighth, in bf16."""
+    x = tie_rows(rng, max(n, 8), dim)[:n].float()
+    if n > 8:
+        with_families(x[8:], k, torch.Generator().manual_seed(n), 2)
+    return x.to(BF16)
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 7, 333, 3000, 100_003])
 @pytest.mark.parametrize("dim,k", [(8, 3), (64, 8), (100, 32), (256, 32),
                                    (512, 64), (1000, 100)])
-def test_maxk_bf16_bitwise_plain_on_gpu(cuda, dim, k):
+def test_maxk_bf16_bitwise_plain_on_gpu(cuda, dim, k, n):
     """maxk_fwd_bf16 (y and meta) and maxk_bwd_bf16 bit-equal to the plain
-    versions on tie-heavy bf16 rows, counted under the bf16 names."""
+    versions on tie-heavy bf16 rows and the row families (NaN equal to NaN:
+    a dropped infinity), counted under the bf16 names; N of 1, 7, 333, 3000
+    and 100,003 (a ragged tail past many sweeps of the persistent grid)."""
     rng = np.random.default_rng(dim)
-    x = tie_rows(rng, 3000, dim).to(cuda)
-    g = torch.randn((3000, dim), device=cuda).to(BF16)
+    x = family_tie_rows(rng, n, dim, k).to(cuda)
+    g = torch.randn((n, dim), device=cuda).to(BF16)
     _build.launches.clear()
     y, meta = tmaxk_kernel.maxk_fwd(x, k)
     dx = tmaxk_kernel.maxk_bwd(x, meta, g)
     assert dict(_build.launches) == {"maxk_fwd_bf16": 1, "maxk_bwd_bf16": 1}
     y_p, meta_p = tmaxk.maxk_forward(x, k)
-    np.testing.assert_array_equal(_bits(y), _bits(y_p))
     np.testing.assert_array_equal(_bits(meta), _bits(meta_p))
-    np.testing.assert_array_equal(_bits(dx),
-                                  _bits(tmaxk.maxk_backward(x, meta, g)))
+    for got, want in ((y, y_p), (dx, tmaxk.maxk_backward(x, meta, g))):
+        nan = (got.isnan() & want.isnan()).cpu().numpy()
+        np.testing.assert_array_equal(np.where(nan, 0, _bits(got)),
+                                      np.where(nan, 0, _bits(want)))
 
 
 @pytest.mark.gpu
@@ -642,14 +656,16 @@ def test_layer_norm16_impl_on_gpu(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 7, 333, 3000, 100_003])
 @pytest.mark.parametrize("dim,k", [(8, 3), (64, 8), (100, 32), (256, 32),
                                    (384, 32), (1000, 100)])
-def test_cbsr_compact_bf16_bitwise_plain_on_gpu(cuda, dim, k):
-    """cbsr_compact_bf16: values (signed zeros included) and channels
-    bit-equal to the plain version on masked bf16 rows, short rows
-    included."""
+def test_cbsr_compact_bf16_bitwise_plain_on_gpu(cuda, dim, k, n):
+    """cbsr_compact_bf16: values (signed zeros and subnormals included) and
+    channels bit-equal to the plain version on masked bf16 rows of ties and
+    of the row families, short rows included; N of 1, 7, 333, 3000 and
+    100,003 (a ragged tail past many sweeps of the persistent grid)."""
     rng = np.random.default_rng(dim + 1)
-    x = tmaxk.maxk(tie_rows(rng, 3000, dim), k).to(cuda)
+    x = tmaxk.maxk(family_tie_rows(rng, n, dim, k), k).to(cuda)
     x[::7, : dim // 2] = 0.0
     _build.launches.clear()
     v, c = tcbsr.cbsr_compact(x, k)
