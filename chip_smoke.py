@@ -92,7 +92,16 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      unset and then set (no densify in the forward); cbsr_compact_bf16
      bitwise against its plain version (also on the bf16 MaxK of the family
      rows), and the bf16 LayerNorm kernels
-     (layer_norm16_fwd / _bwd) within 1 bf16 ulp of theirs, timed;
+     (layer_norm16_fwd / _bwd) within 1 bf16 ulp of theirs, timed; then
+     B4-B6 on bf16: cbsr_densify_bf16, cbsr_densify_bf16_f32,
+     cbsr_densify_f32_bf16 (also against torch's cast of the f32 densify:
+     round to nearest even) and cbsr_sample_bf16, bitwise against their
+     plain versions, timed beside their f32 form, plain version, bound and
+     `scatter_` into zeros of the output dtype / `torch.gather`; and the
+     bf16 CBSR path (compact on bf16 rows -> aggregate_cbsr forward and
+     backward, exact launch counts, y within 1e-5 of max |y| of the dense
+     plain path, dvalues within 1 bf16 ulp, dx bitwise the densify of
+     dvalues);
  10. train 2: the products recipe (SAGE, MaxK k=32, hidden 256, 3 layers,
      LayerNorm, dropout 0.5, lr 0.003): its first two train steps through the
      kernels within 1e-4 relative of the plain path's (same weights and
@@ -111,14 +120,29 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      losses and exact launch counts (stream_cbsr_spmm forward, stream_spmm
      backward); then the same with `--dtype bfloat16` (both node factors in
      bf16, the bf16-output forms);
- 12. accuracy: the reference's 80-epoch trajectory gate (TRAJ_r03.json's
+ 12. serve: the products recipe (f32) checkpointed every 2 epochs of a
+     4-epoch run, then a fresh Trainer resumed to 6 epochs: it must start
+     at epoch 4 and give the losses of an uninterrupted 6-epoch run bitwise
+     (the checkpoint carries the dropout generator); `evaluate_checkpoint`
+     of `best` (what `--evaluate` runs) must equal that epoch's record;
+     then predict requests of 1, 64 and 1024 test nodes (a seeded draw)
+     through the device feature store and host stores of each policy at
+     cache ratio 0.05: the logits within 1e-4 of max |logit| of the
+     full-graph eval forward at the restored weights (B3 on the stream
+     plan) but on rows MaxK near-ties flip (at most 0.5 % of the seeds,
+     argmax agreement on 99.5 %), every store's logits equal, exact launch
+     counts (maxk_fwd and csr_spmm once per layer, no stream_spmm); each
+     request's closure per hop, host k-hop, schedule build, fetch (hit rate,
+     host-to-device bytes), device forward and wall time are printed;
+ 13. accuracy: the reference's 80-epoch trajectory gate (TRAJ_r03.json's
      config: the Reddit stand-in at scale 0.02, SAGE MaxK k=32, 3 x 256,
      LayerNorm, dropout 0, seed 97) through the port's Trainer with the f32
      and the bf16x2 stream and with `--dtype bfloat16`: each best test
      accuracy within 0.03 of the JAX oracle's from the same initial weights
      in its dtype (scripts/port_accuracy_oracle.py: ACC_ORACLE f32,
      ACC_ORACLE16 bf16), and each 16-bit run within 0.03 of f32.
-The line before the last is {"kernels": [...]}; the last line is
+The script's wall time is printed before the {"kernels": [...]} line, and
+the card's name and power limit after it; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -128,6 +152,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 PEAK_BYTES_S = 3.35e12    # H100 SXM HBM3
@@ -1669,7 +1694,338 @@ def cbsr_phase(torch, pg, dim: int, k: int, seed: int) -> list[dict]:
     return out
 
 
+def bf16_near(torch, got, want) -> tuple[int, float, float]:
+    """(values off by more than one bf16 ulp of `want`, the largest
+    |got - want| among them, the largest over all values) of bf16 tensors;
+    where an f32 sum cancels, an ulp lies below its summation-order error,
+    so the caller holds the values beyond one ulp to 1e-5 of max |want|."""
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=2.0 ** -126)))
+                     - 7)
+    off = (g - w).abs()
+    far = off > ulp
+    return (int(far.sum()), float(off[far].max()) if far.any() else 0.0,
+            float(off.max()))
+
+
+def cbsr16_phase(torch, pg, dim: int, k: int, seed: int,
+                 f32: dict) -> list[dict]:
+    """B4-B6 on bf16 at the graph's node count: cbsr_densify in its three
+    new forms (bf16 -> bf16, bf16 -> f32, f32 -> bf16) and cbsr_sample_bf16,
+    bitwise against their plain versions (the f32 -> bf16 form also against
+    torch's own cast of the f32 densify) and timed beside their f32 form
+    (`f32`: the cbsr_phase entries by name), the plain version, the bound
+    and one library call. Then the bf16 CBSR path through the entry points,
+    its launches counted exactly: compact on bf16 rows -> aggregate_cbsr
+    forward and backward (dx bitwise the densify of dvalues; y within 1e-5
+    of max |y| of the dense plain path on the widened values, dvalues
+    within one bf16 ulp of its sampled gradient, 1e-5 of max where a sum
+    cancels, on at most AGG_SHARE of the values), the bf16 dx sampled back
+    at the channels (bitwise dvalues), and an f32 CBSR densified into bf16
+    rows for a bf16 aggregation."""
+    from spgemm_gnn_tpu_torch.kernels import _build
+    from spgemm_gnn_tpu_torch.kernels import api
+    from spgemm_gnn_tpu_torch.kernels.cbsr import (cbsr_compact, cbsr_densify,
+                                                   cbsr_sample, densify_name)
+    from spgemm_gnn_tpu_torch.ops import maxk as plain
+
+    bf16, f32t = torch.bfloat16, torch.float32
+    n = pg.num_nodes
+    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+    xs = sparse_input(torch, n, dim, k, gen)
+    vals, ch = cbsr_compact(xs, k)           # f32 values, off the bf16 grid
+    vals16, ch16 = cbsr_compact(xs.to(bf16), k)
+    z16 = torch.randn((n, dim), generator=gen, device="cuda").to(bf16)
+    torch.cuda.synchronize()
+    forms = (  # (name, values, channels, out dtype)
+        (densify_name(bf16, bf16), vals16, ch16, bf16),
+        (densify_name(bf16, f32t), vals16, ch16, f32t),
+        (densify_name(f32t, bf16), vals, ch, bf16))
+    errs = {}
+    for name, v, c, out_dt in forms:
+        got = cbsr_densify(v, c, dim, out_dt)
+        want = plain.cbsr_to_dense(v, c, dim, out_dt)
+        torch.cuda.synchronize()
+        if not (got.dtype == out_dt and torch.equal(
+                got.view(torch.int16 if out_dt == bf16 else torch.int32),
+                want.view(torch.int16 if out_dt == bf16 else torch.int32))):
+            raise AssertionError(f"{name} differs from its plain version")
+        if out_dt == bf16 and v.dtype == f32t:
+            cast = cbsr_densify(v, c, dim).to(bf16)
+            if not torch.equal(got.view(torch.int16), cast.view(torch.int16)):
+                raise AssertionError(f"{name}: not round-to-nearest-even "
+                                     f"(torch's cast of the f32 densify)")
+        errs[name] = float((got.float() - want.float()).abs().max())
+        log(f"kernel {name}: bitwise equal to plain, N={n} dim={dim} k={k}, "
+            f"max abs err {errs[name]}"
+            + (", and to torch's cast of the f32 densify"
+               if v.dtype == f32t else ""))
+        del got, want
+    sampled = cbsr_sample(z16, ch16)
+    torch.cuda.synchronize()
+    if not (sampled.dtype == bf16 and torch.equal(
+            sampled.view(torch.int16),
+            plain.sample_channels(z16, ch16).view(torch.int16))):
+        raise AssertionError("cbsr_sample_bf16 differs from its plain "
+                             "version")
+    errs["cbsr_sample_bf16"] = float(
+        (sampled.float() - plain.sample_channels(z16, ch16).float())
+        .abs().max())
+    log(f"kernel cbsr_sample_bf16: bitwise equal to plain, N={n} dim={dim} "
+        f"k={k}, max abs err {errs['cbsr_sample_bf16']}")
+    del sampled
+
+    out = []
+    nk = n * k
+    ch_long, ch16_long = ch.long(), ch16.long()
+    src = "spgemm_gnn_tpu_torch/csrc/cbsr.cu"
+    dens = "spgemm_gnn_tpu/kernels/spgemm_pallas.py:340"
+    timings = (  # name, replaces, f32 form, fn, plain, library, bytes
+        (forms[0][0], dens, "cbsr_densify",
+         lambda: cbsr_densify(vals16, ch16, dim, bf16),
+         lambda: plain.cbsr_to_dense(vals16, ch16, dim, bf16),
+         lambda: torch.zeros((n, dim), dtype=bf16, device="cuda").scatter_(
+             1, ch16_long, vals16),
+         nk * 2 + nk * 4 + n * dim * 2),
+        (forms[1][0], dens, "cbsr_densify",
+         lambda: cbsr_densify(vals16, ch16, dim, f32t),
+         lambda: plain.cbsr_to_dense(vals16, ch16, dim, f32t),
+         lambda: torch.zeros((n, dim), device="cuda").scatter_(
+             1, ch16_long, vals16.float()),
+         nk * 2 + nk * 4 + n * dim * 4),
+        (forms[2][0], dens, "cbsr_densify",
+         lambda: cbsr_densify(vals, ch, dim, bf16),
+         lambda: plain.cbsr_to_dense(vals, ch, dim, bf16),
+         lambda: torch.zeros((n, dim), dtype=bf16, device="cuda").scatter_(
+             1, ch_long, vals.to(bf16)),
+         nk * 4 + nk * 4 + n * dim * 2),
+        ("cbsr_sample_bf16", "spgemm_gnn_tpu/kernels/spgemm_pallas.py:385",
+         "cbsr_sample", lambda: cbsr_sample(z16, ch16),
+         lambda: plain.sample_channels(z16, ch16),
+         lambda: torch.gather(z16, 1, ch16_long), nk * 4 + 2 * nk * 2))
+    for name, replaces, f32_name, fn, fn_plain, fn_lib, n_bytes in timings:
+        b, by = bound_ms(n_bytes, 0.0)
+        out.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            max_abs_err=errs[name], ms=time_ms(torch, fn, 10),
+            plain_ms=time_ms(torch, fn_plain, 3), bound_ms=b, bound_by=by,
+            library_ms=time_ms(torch, fn_lib, 10),
+            f32_form_ms=f32[f32_name]["ms"]))
+        log(f"kernel {name}: {out[-1]['ms']:.3f} ms (f32 form {f32_name} "
+            f"{out[-1]['f32_form_ms']:.3f}, plain {out[-1]['plain_ms']:.3f}, "
+            f"library {out[-1]['library_ms']:.3f}, bound {b:.3f} by {by})")
+    for entry in out[:3]:
+        entry["also_replaces"] = "spgemm_gnn_tpu/kernels/spgemm_pallas.py:285"
+    del ch_long, ch16_long, z16
+
+    # the bf16 CBSR path, through the entry points a user calls
+    ct = torch.randn((n, dim), generator=gen, device="cuda")
+    x_in = xs.to(bf16).requires_grad_(True)
+    _build.launches.clear()
+    v, c = api.cbsr_compact(x_in, k, impl="cuda")
+    v.retain_grad()
+    y = api.aggregate_cbsr(pg, v, c, dim, "mean", impl="cuda")
+    (y * ct).sum().backward()
+    dv_back = cbsr_sample(x_in.grad, c)
+    x16 = cbsr_densify(vals, ch, dim, bf16)
+    y16 = api.aggregate(pg, x16, "mean", impl="cuda")
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    expected = {"cbsr_compact_bf16": 1, forms[1][0]: 1, "stream_spmm": 2,
+                "cbsr_sample": 1, forms[0][0]: 1, "cbsr_sample_bf16": 1,
+                forms[2][0]: 1, "stream_spmm_bf16_out": 1}
+    if pg.kind != "stream" or counts != expected:
+        raise AssertionError(f"CBSR bf16 path: launch counts {counts} != "
+                             f"{expected}")
+    log(f"CBSR bf16 path (cbsr_compact on bf16 rows -> aggregate_cbsr -> "
+        f"backward; dx sampled back; an f32 CBSR densified into bf16 rows "
+        f"-> aggregate): launches {counts}")
+    for entry in out:
+        entry["launches"] = counts[entry["name"]]
+        entry["launches_path"] = "cbsr bf16"
+    if not (y.dtype == f32t and v.grad.dtype == bf16
+            and x_in.grad.dtype == bf16 and y16.dtype == bf16):
+        raise AssertionError("CBSR bf16 path: dtypes")
+    if not torch.equal(x_in.grad.view(torch.int16),
+                       plain.cbsr_to_dense(v.grad, c, dim).view(torch.int16)):
+        raise AssertionError("CBSR bf16 path: dx is not the densify of "
+                             "dvalues")
+    if not torch.equal(dv_back.view(torch.int16), v.grad.view(torch.int16)):
+        raise AssertionError("CBSR bf16 path: dx sampled at the channels is "
+                             "not dvalues")
+    xd = plain.cbsr_to_dense(v.detach(), c, dim, f32t).requires_grad_(True)
+    y_ref = api.aggregate(pg, xd, "mean", impl="torch")
+    (y_ref * ct).sum().backward()
+    _, rel_y = rel_err(y.detach(), y_ref.detach())
+    dv_ref = plain.sample_channels(xd.grad, c).to(bf16)
+    n_off, far_err, dv_err = bf16_near(torch, v.grad, dv_ref)
+    dv_max = float(dv_ref.float().abs().max())
+    if not (rel_y <= 1e-5 and far_err <= AGG_ABS * dv_max
+            and n_off <= AGG_SHARE * dv_ref.numel()):
+        raise AssertionError(f"CBSR bf16 path against the dense plain path: "
+                             f"y {rel_y:.3e} of max, dvalues {n_off} off by "
+                             f"more than one bf16 ulp, by up to "
+                             f"{far_err / dv_max:.3e} of max")
+    log(f"CBSR bf16 path against the dense plain path: y {rel_y:.3e} of max "
+        f"|y|; dvalues max abs err "
+        f"{dv_err:.3e} ({dv_err / dv_max:.3e} of max), off by more than one "
+        f"bf16 ulp on {n_off} of {dv_ref.numel()}, by up to "
+        f"{far_err / dv_max:.3e} of max (sums that cancel)")
+    del xd, y_ref, x16, y16
+    return out
+
+
+def request_seeds(torch, test_ids, size: int, seed: int):
+    """`size` distinct test nodes drawn with a seeded generator."""
+    gen = torch.Generator().manual_seed(seed)
+    return test_ids[torch.randperm(test_ids.numel(), generator=gen)[:size]]
+
+
+def serve_phase(torch, cfg, ds, workdir: str) -> None:
+    """The serving and persistence path on the products recipe (f32):
+    checkpoints every 2 epochs of a 4-epoch run; a fresh Trainer resumed to
+    6 epochs starts at epoch 4 and gives the losses of an uninterrupted
+    6-epoch run bitwise (the checkpoint carries the dropout generator);
+    `evaluate_checkpoint` of `best` (what --evaluate runs) equals that
+    epoch's record; then predict requests of 1, 64 and 1024 test nodes
+    through the device store and host stores of every policy at cache ratio
+    0.05, each held to the full-graph eval forward at the restored weights
+    (B3 on the stream plan) within 1e-4 of max |logit| but on rows that
+    MaxK near-ties flip (at most 0.5 % of the seeds, argmax agreement on at
+    least 99.5 %), with exact launch counts (maxk_fwd and csr_spmm once per
+    layer, no stream_spmm), and the request's time split printed."""
+    import os
+    import numpy as np
+    from spgemm_gnn_tpu_torch.graphs.features import (DeviceFeatureStore,
+                                                      HostFeatureStore)
+    from spgemm_gnn_tpu_torch.kernels import _build
+    from spgemm_gnn_tpu_torch.kernels.planned import graph_plans
+    from spgemm_gnn_tpu_torch.train import checkpoint as ckpt
+    from spgemm_gnn_tpu_torch.train.infer import (khop_in_subgraph,
+                                                  predict_nodes)
+    from spgemm_gnn_tpu_torch.train.loop import Trainer
+
+    layers = cfg.hidden_layers
+    whole_dir = os.path.join(workdir, "whole")
+    cut_dir = os.path.join(workdir, "cut")
+    whole = Trainer(cfg.replace(epochs=6, checkpoint_every=2,
+                                path=whole_dir), dataset=ds).run()
+    Trainer(cfg.replace(epochs=4, checkpoint_every=2, path=cut_dir),
+            dataset=ds).run()
+    if ckpt.latest_step(cut_dir) != 4:
+        raise AssertionError("serve: the 4-epoch run left no step-4 "
+                             "checkpoint")
+    tr = Trainer(cfg.replace(epochs=6, checkpoint_every=2, resume=True,
+                             path=cut_dir), dataset=ds)
+    resumed = tr.run()
+    epochs = [r.epoch for r in resumed["history"]]
+    if epochs != [4, 5] or resumed["history"] != whole["history"][4:]:
+        raise AssertionError(f"serve: resumed records "
+                             f"{resumed['history']} != uninterrupted "
+                             f"{whole['history'][4:]}")
+    log(f"serve: resumed at epoch 4 (epochs {epochs}); losses "
+        f"{[r.loss for r in resumed['history']]} bit-equal to the "
+        f"uninterrupted 6-epoch run's, val and test accuracies equal")
+    best = {r.epoch: r for r in whole["history"]}[whole["best_epoch"]]
+    best_dir = os.path.join(whole_dir, "checkpoints", "best")
+    got = tr.evaluate_checkpoint(best_dir)
+    if got != (best.train_acc, best.val_acc, best.test_acc):
+        raise AssertionError(f"serve: --evaluate of best {got} != epoch "
+                             f"{best.epoch}'s record {best}")
+    log(f"serve: --evaluate (Trainer.evaluate_checkpoint) of best, epoch "
+        f"{best.epoch}: {got}, equal to its record")
+
+    # the restored best state serves the requests
+    state = ckpt.restore_checkpoint(best_dir, tr.init_state())
+    model = state["model"].eval()
+    g = tr.graph
+    with torch.no_grad():
+        full = model(tr.g, tr.features)
+    torch.cuda.synchronize()
+    feats = ds.features
+    stores = {"device": DeviceFeatureStore(tr.features, device="cuda")}
+    for policy in ("direct", "static-outd", "fifo", "lru"):
+        stores[policy] = HostFeatureStore(
+            feats, policy=policy, cache_ratio=0.05,
+            out_degrees=g.out_degrees, device="cuda")
+    test_ids = torch.from_numpy(np.flatnonzero(ds.test_mask))
+    for size in (1, 64, 1024):
+        seeds = request_seeds(torch, test_ids, size, SEED + size).numpy()
+        rows = np.unique(seeds)
+        # the request's split, step by step as predict_nodes takes it
+        hop_line = []
+        for h in range(1, layers + 1):
+            t0 = time.perf_counter()
+            sub, nodes, _ = khop_in_subgraph(g, seeds, h)
+            torch.cuda.synchronize()
+            khop_ms = (time.perf_counter() - t0) * 1e3
+            hop_line.append(f"hop {h}: {sub.num_nodes} nodes, "
+                            f"{sub.num_edges} edges"
+                            + (" (the whole graph)" if sub is g else ""))
+        t0 = time.perf_counter()
+        fwd, _ = graph_plans(sub)
+        fwd.schedule(sub.num_nodes, cfg.hidden_dim, 4)
+        torch.cuda.synchronize()
+        sched_ms = (time.perf_counter() - t0) * 1e3
+        x = stores["device"].fetch(nodes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            model(sub, x)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        log(f"serve request of {size}: {'; '.join(hop_line)}; host k-hop "
+            f"{khop_ms:.1f} ms ({layers} hops), subgraph schedule build "
+            f"{sched_ms:.1f} ms, device forward {fwd_ms:.1f} ms")
+        logits = {}
+        for name, store in stores.items():
+            store.reset_stats()
+            t0 = time.perf_counter()
+            store.fetch(nodes)
+            torch.cuda.synchronize()
+            fetch_ms = (time.perf_counter() - t0) * 1e3
+            st = store.stats
+            store.reset_stats()
+            _build.launches.clear()
+            t0 = time.perf_counter()
+            out = predict_nodes(model, None, g, store, seeds, hops=layers)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            counts = dict(_build.launches)
+            if counts != {"maxk_fwd": layers, "csr_spmm": layers}:
+                raise AssertionError(f"serve request of {size}, {name}: "
+                                     f"launch counts {counts}")
+            logits[name] = out
+            log(f"serve request of {size}, {name} store: fetch "
+                f"{fetch_ms:.2f} ms, hit rate {st['hit_rate']:.4f}, "
+                f"host-to-device bytes {st.get('bytes_from_host', 0)}; "
+                f"request wall {wall_ms:.1f} ms; launches {counts}")
+        want = full[torch.from_numpy(rows).cuda()]
+        scale = float(want.abs().max())
+        for name, out in logits.items():
+            if not torch.equal(out, logits["device"]):
+                raise AssertionError(f"serve request of {size}: the {name} "
+                                     f"store's logits differ from the "
+                                     f"device store's")
+        out = logits["device"]
+        row_err = (out - want).abs().amax(1)
+        off = int((row_err > 1e-4 * scale).sum())
+        agree = float((out.argmax(1) == want.argmax(1)).float().mean())
+        ok_rows = row_err <= 1e-4 * scale
+        in_tol = float(row_err[ok_rows].max()) / scale if ok_rows.any() \
+            else 0.0
+        if off > 0.005 * len(rows) or agree < 0.995:
+            raise AssertionError(f"serve request of {size}: {off} rows off "
+                                 f"by more than 1e-4 of max |logit|, argmax "
+                                 f"agreement {agree}")
+        log(f"serve request of {size}: logits against the full-graph eval "
+            f"forward (stream_spmm): {len(rows) - off} rows within "
+            f"{in_tol:.3e} of max |logit|, {off} rows off (MaxK near-ties), "
+            f"argmax agreement {agree:.4f}; every store's logits equal")
+
+
 def main() -> int:
+    t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card",
@@ -1870,6 +2226,9 @@ def main() -> int:
     kernels[-1].update(launches=reddit_counts["csr_spmm"],
                        launches_path="train reddit")
     kernels += cbsr_phase(torch, pg2, HIDDEN, K, SEED)
+    torch.cuda.empty_cache()
+    cbsr16_entries = cbsr16_phase(torch, pg2, HIDDEN, K, SEED,
+                                  {e["name"]: e for e in kernels})
     torch.cuda.empty_cache()
     compact16_entry = compact16_check(
         torch, g2.num_nodes, HIDDEN, K, SEED,
@@ -2082,9 +2441,18 @@ def main() -> int:
                      launches_path="train products, bfloat16")
     kernels += norm16_entries
 
+    kernels += cbsr16_entries
+
+    # ---- serve: checkpoints, resume, --evaluate, predict requests ---------
+    with tempfile.TemporaryDirectory() as workdir:
+        serve_phase(torch, cfg2, ds2, workdir)
+    del ds2, g2, pg2
+    torch.cuda.empty_cache()
+
     # ---- the 80-epoch accuracy check, f32 and bf16x2 ----------------------
     accuracy_check(torch)
 
+    log(f"chip_smoke wall time: {time.perf_counter() - t_main:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -19,6 +19,12 @@
 //     cbsr_compact_pallas);
 //   cbsr_densify: out[n, ch[n, j]] = vals[n, j], 0 elsewhere;
 //   cbsr_sample:  out[n, j] = z[n, ch[n, j]].
+// Each also takes bf16 (the TPU kernels take the values' dtype and an
+// out_dtype, spgemm_pallas.py:285-373, and sample z in its own dtype,
+// :385-430): cbsr_densify_bf16 (bf16 -> bf16, the gradient of
+// cbsr_compact on bf16 rows), cbsr_densify_bf16_f32 (bf16 -> f32, the
+// aggregate_cbsr forward on bf16 values), cbsr_densify_f32_bf16 (f32 ->
+// bf16, rounded to nearest even) and cbsr_sample_bf16 (bf16 z and out).
 // Channels are int32 in [0, dim) and distinct within a row (the contract of
 // the CBSR producers), so no id wraps at dim > 256.
 //
@@ -37,8 +43,9 @@
 // second pass, so device memory sees each row written about once. (Setting
 // each value in its owning lane's registers after k shuffle rounds, and
 // writing the row once, took 4.65 ms at these shapes on an H100 at 700 W:
-// slower than torch.zeros and scatter_.) Sample, one thread per output
-// element.
+// slower than torch.zeros and scatter_.) The bf16 forms keep that shape: a
+// 16-byte zero store covers 8 bf16 channels, so a bf16 output needs dim % 8
+// == 0. Sample, one thread per output element.
 //
 // cbsr_compact_bf16 is the compaction on bf16 rows (the 16-bit model,
 // --dtype bfloat16; the TPU kernel writes the values in x's dtype,
@@ -59,6 +66,7 @@
 // Values are copied as bits (a -0.0 stays -0.0, as the plain version's
 // gather keeps it).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -254,33 +262,57 @@ cbsr_compact16_kernel(const uint16_t* __restrict__ x,
   }
 }
 
-// NV: float4 slices per lane, ceil(dim / 128) rounded up to a power of two
-template <int NV>
+// Element types of the densify and sample forms: f32, or bf16 as its bits.
+// Widening bf16 -> f32 is exact; narrowing f32 -> bf16 rounds to nearest
+// even (cvt.rn, the bits of torch's .to(torch.bfloat16) on the card).
+template <typename TO, typename TV>
+__device__ __forceinline__ TO convert(TV v);
+template <>
+__device__ __forceinline__ float convert<float, float>(float v) { return v; }
+template <>
+__device__ __forceinline__ uint16_t convert<uint16_t, uint16_t>(uint16_t v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float convert<float, uint16_t>(uint16_t v) {
+  return __uint_as_float((unsigned)v << 16);
+}
+template <>
+__device__ __forceinline__ uint16_t convert<uint16_t, float>(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// TV: the values' type, TO: the output's (float or uint16_t bf16 bits);
+// NV: 16-byte slices per lane, ceil(dim * sizeof(TO) / 512) rounded up to a
+// power of two
+template <typename TV, typename TO, int NV>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-cbsr_densify_kernel(const float* __restrict__ vals, const int* __restrict__ ch,
-                    float* __restrict__ out, int64_t n, int k, int dim) {
+cbsr_densify_kernel(const TV* __restrict__ vals, const int* __restrict__ ch,
+                    TO* __restrict__ out, int64_t n, int k, int dim) {
   const int lane = threadIdx.x & 31;
   const int64_t row =
       (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= n) return;  // row is uniform across the warp
-  float* orow = out + row * dim;
-  float4* orow4 = reinterpret_cast<float4*>(orow);
-  const int dim4 = dim / 4;
+  TO* orow = out + row * dim;
+  uint4* orow16 = reinterpret_cast<uint4*>(orow);
+  const int n16 = dim * (int)sizeof(TO) / 16;
 #pragma unroll
   for (int t = 0; t < NV; ++t) {
     const int col = lane + 32 * t;
-    if (col < dim4) orow4[col] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (col < n16) orow16[col] = make_uint4(0u, 0u, 0u, 0u);
   }
   __syncwarp();  // the zeros land before the values, lane to lane
   for (int j = lane; j < k; j += 32) {
     const int c = ch[row * k + j];
-    if (c >= 0 && c < dim) orow[c] = vals[row * k + j];
+    if (c >= 0 && c < dim) orow[c] = convert<TO, TV>(vals[row * k + j]);
   }
 }
 
-__global__ void cbsr_sample_kernel(const float* __restrict__ z,
+// T: float or uint16_t (bf16 bits); the sampled entries are copied as bits
+template <typename T>
+__global__ void cbsr_sample_kernel(const T* __restrict__ z,
                                    const int* __restrict__ ch,
-                                   float* __restrict__ out, int64_t n, int k,
+                                   T* __restrict__ out, int64_t n, int k,
                                    int dim) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n * k) return;
@@ -318,6 +350,48 @@ void launch_compact16(const uint16_t* x, uint16_t* vals, int* ch, int64_t n,
     launch_compact16_at<PER, PER % 2 == 0>(x, vals, ch, n, dim, k, s);
   else
     launch_compact16_at<PER, false>(x, vals, ch, n, dim, k, s);
+}
+
+template <typename TV, typename TO>
+int launch_densify(const void* vals, const void* ch, void* out, int64_t n,
+                   int k, int dim, void* stream) {
+  // whole 16-byte stores of a row: dim % 4 == 0 (f32 out), % 8 (bf16 out)
+  constexpr int per16 = 16 / (int)sizeof(TO);
+  if (k < 1 || dim < per16 || dim % per16 != 0 || dim > kMaxDim)
+    return (int)cudaErrorInvalidValue;
+  const TV* vp = static_cast<const TV*>(vals);
+  const int* cp = static_cast<const int*>(ch);
+  TO* op = static_cast<TO*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = warp_blocks(n);
+  const int threads = kWarpsPerBlock * 32;
+  const int nv = (dim / per16 + 31) / 32;
+  if (nv <= 1)
+    cbsr_densify_kernel<TV, TO, 1><<<blocks, threads, 0, s>>>(vp, cp, op, n,
+                                                              k, dim);
+  else if (nv <= 2)
+    cbsr_densify_kernel<TV, TO, 2><<<blocks, threads, 0, s>>>(vp, cp, op, n,
+                                                              k, dim);
+  else if (nv <= 4)
+    cbsr_densify_kernel<TV, TO, 4><<<blocks, threads, 0, s>>>(vp, cp, op, n,
+                                                              k, dim);
+  else
+    cbsr_densify_kernel<TV, TO, 8><<<blocks, threads, 0, s>>>(vp, cp, op, n,
+                                                              k, dim);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_sample(const void* z, const void* ch, void* out, int64_t n, int k,
+                  int dim, void* stream) {
+  if (k < 1 || dim < 1) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((n * k + threads - 1) / threads);
+  cbsr_sample_kernel<T><<<blocks, threads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(z), static_cast<const int*>(ch),
+      static_cast<T*>(out), n, k, dim);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -371,38 +445,40 @@ extern "C" int cbsr_compact_bf16(const void* x, void* vals, void* ch,
   return (int)cudaGetLastError();
 }
 
-// out f32 [n, dim] <- CBSR (vals f32 [n, k], ch int32 [n, k]) made dense.
-// Needs k >= 1, dim % 4 == 0, 4 <= dim <= 1024 and a 16-byte aligned out.
+// out [n, dim] <- CBSR (vals [n, k], ch int32 [n, k]) made dense, in four
+// forms: f32 -> f32, bf16 -> bf16, bf16 -> f32 and f32 -> bf16 (values ->
+// output). Needs k >= 1, dim <= 1024, a 16-byte aligned out, and dim % 4 ==
+// 0 for an f32 out, dim % 8 == 0 for a bf16 one.
 extern "C" int cbsr_densify(const void* vals, const void* ch, void* out,
                             int64_t n, int k, int dim, void* stream) {
-  if (k < 1 || dim < 4 || dim % 4 != 0 || dim > kMaxDim)
-    return (int)cudaErrorInvalidValue;
-  const float* vp = static_cast<const float*>(vals);
-  const int* cp = static_cast<const int*>(ch);
-  float* op = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = warp_blocks(n);
-  const int threads = kWarpsPerBlock * 32;
-  const int nv = (dim / 4 + 31) / 32;
-  if (nv <= 1)
-    cbsr_densify_kernel<1><<<blocks, threads, 0, s>>>(vp, cp, op, n, k, dim);
-  else if (nv <= 2)
-    cbsr_densify_kernel<2><<<blocks, threads, 0, s>>>(vp, cp, op, n, k, dim);
-  else if (nv <= 4)
-    cbsr_densify_kernel<4><<<blocks, threads, 0, s>>>(vp, cp, op, n, k, dim);
-  else
-    cbsr_densify_kernel<8><<<blocks, threads, 0, s>>>(vp, cp, op, n, k, dim);
-  return (int)cudaGetLastError();
+  return launch_densify<float, float>(vals, ch, out, n, k, dim, stream);
 }
 
-// out f32 [n, k] <- z f32 [n, dim] sampled at ch int32 [n, k].
+extern "C" int cbsr_densify_bf16(const void* vals, const void* ch, void* out,
+                                 int64_t n, int k, int dim, void* stream) {
+  return launch_densify<uint16_t, uint16_t>(vals, ch, out, n, k, dim, stream);
+}
+
+extern "C" int cbsr_densify_bf16_f32(const void* vals, const void* ch,
+                                     void* out, int64_t n, int k, int dim,
+                                     void* stream) {
+  return launch_densify<uint16_t, float>(vals, ch, out, n, k, dim, stream);
+}
+
+extern "C" int cbsr_densify_f32_bf16(const void* vals, const void* ch,
+                                     void* out, int64_t n, int k, int dim,
+                                     void* stream) {
+  return launch_densify<float, uint16_t>(vals, ch, out, n, k, dim, stream);
+}
+
+// out [n, k] <- z [n, dim] sampled at ch int32 [n, k], in z's type: f32, or
+// bf16 (cbsr_sample_bf16).
 extern "C" int cbsr_sample(const void* z, const void* ch, void* out,
                            int64_t n, int k, int dim, void* stream) {
-  if (k < 1 || dim < 1) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((n * k + threads - 1) / threads);
-  cbsr_sample_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(z), static_cast<const int*>(ch),
-      static_cast<float*>(out), n, k, dim);
-  return (int)cudaGetLastError();
+  return launch_sample<float>(z, ch, out, n, k, dim, stream);
+}
+
+extern "C" int cbsr_sample_bf16(const void* z, const void* ch, void* out,
+                                int64_t n, int k, int dim, void* stream) {
+  return launch_sample<uint16_t>(z, ch, out, n, k, dim, stream);
 }

@@ -35,6 +35,10 @@ class Graph:
       plans:    the windowed plans of this plain graph, made at its first
                 planned aggregation (kernels/planned.py::graph_plans) and
                 kept; None until then, and on a moved copy.
+      host:     numpy copies of the CSR pair and the degrees, made at the
+                first `host_arrays()` call and kept (the k-hop extraction of
+                train/infer.py reads them per request); None until then,
+                and on a moved copy.
     """
 
     indptr: torch.Tensor
@@ -50,6 +54,26 @@ class Graph:
     symmetric: bool = False
     plans: PlannedGraph | None = dataclasses.field(default=None, init=False,
                                                    compare=False, repr=False)
+    host: dict[str, np.ndarray] | None = dataclasses.field(
+        default=None, init=False, compare=False, repr=False)
+
+    def host_arrays(self) -> dict[str, np.ndarray]:
+        """{indptr, indices, t_indptr, t_indices, in_degrees, out_degrees}
+        as numpy arrays on the host, copied from the device once and kept
+        (`host`)."""
+        if self.host is None:
+            fields = ("indptr", "indices", "t_indptr", "t_indices",
+                      "in_degrees", "out_degrees")
+            if self.symmetric:     # the transpose aliases the forward CSR
+                arrays = {f: getattr(self, f).cpu().numpy()
+                          for f in fields if not f.startswith("t_")}
+                arrays.update(t_indptr=arrays["indptr"],
+                              t_indices=arrays["indices"])
+            else:
+                arrays = {f: getattr(self, f).cpu().numpy() for f in fields}
+            # Graph is frozen; `host` is set once, after construction
+            object.__setattr__(self, "host", arrays)
+        return self.host
 
     @property
     def device(self) -> torch.device:

@@ -58,7 +58,9 @@ SIGNATURES = {
              "layer_norm16_bwd_blocks": []},
     "cbsr": {name: [_P, _P, _P, _I64, _INT, _INT, _P]
              for name in ("cbsr_compact", "cbsr_compact_bf16", "cbsr_densify",
-                          "cbsr_sample")},
+                          "cbsr_densify_bf16", "cbsr_densify_bf16_f32",
+                          "cbsr_densify_f32_bf16", "cbsr_sample",
+                          "cbsr_sample_bf16")},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

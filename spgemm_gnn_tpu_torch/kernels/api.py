@@ -56,8 +56,8 @@ def cbsr_compact(x: torch.Tensor, k: int, impl: str = "auto"
     [N, k] in x's dtype, channels int32 [N, k]), `ops.maxk.cbsr_from_masked`'s
     channel set in the compaction kernel's slot order (the nonzero channels
     ascending, then the lowest zero channels). Differentiable in the values:
-    dx is the densify of dvalues (for a bf16 CUDA x the densify kernel's
-    bf16 form is not ported: Queue B)."""
+    dx is the densify of dvalues in x's dtype (`cbsr_densify_bf16` for a
+    bf16 CUDA x, `maxk_pallas.py:244-253`)."""
     _check_impl(impl, x)
     if impl == "torch":
         return _maxk_plain.cbsr_compact_plain(x, k)
@@ -120,8 +120,10 @@ def aggregate_cbsr(g, values: torch.Tensor, channels: torch.Tensor, dim: int,
     Args:
       g: Graph or PlannedGraph; the kernels take its plans (a plain Graph's
          are `csr_spmm` over its CSR).
-      values/channels: CBSR features (f32 [N, k], int32 [N, k]) from
-         `ops.maxk.maxk_cbsr` or `cbsr_compact` (above).
+      values/channels: CBSR features (f32 or bf16 [N, k], int32 [N, k])
+         from `ops.maxk.maxk_cbsr` or `cbsr_compact` (above). bf16 values
+         are scaled in bf16 and densified into f32 (kernels/planned.py::
+         spgemm_forward); y is f32 and dvalues take the values' dtype.
       dim: dense feature width.
       norm: "sum" | "mean" | "gcn" (ops/norms.py).
       impl: "auto" | "cuda" (the kernels: densify, the plan's product,

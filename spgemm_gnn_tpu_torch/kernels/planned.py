@@ -266,27 +266,34 @@ def planned_aggregate(g, x: torch.Tensor, norm: str = "sum",
 
 def spgemm_forward(dim: int, values: torch.Tensor, channels: torch.Tensor,
                    src_f, dst_f, plans) -> torch.Tensor:
-    """CBSR forward: y = dst_f ⊙ A densify(src_f ⊙ values) through the
-    forward plan's kernel; on a stream plan with STREAM_CBSR_FORWARD set,
-    (src_f ⊙ values, channels) go to `stream_cbsr_spmm` with no densify
-    (under the 16-bit stream, the values rounded to bf16 after the
-    factor)."""
+    """CBSR forward: y f32 = dst_f ⊙ A densify(src_f ⊙ values) through the
+    forward plan's kernel. bf16 values are scaled in bf16 (the factor
+    rounded to bf16, the product rounded once) and densified into f32, the
+    reference's `stream_dtype` (`spgemm_gnn_tpu/kernels/planned.py:198-
+    243`). On a stream plan with STREAM_CBSR_FORWARD set, (src_f ⊙ values,
+    channels) go to `stream_cbsr_spmm` with no densify (f32 values under the
+    16-bit stream rounded to bf16 after the factor; bf16 values as they
+    are, through its bf16 form)."""
+    bf16 = values.dtype == torch.bfloat16
     if STREAM_CBSR_FORWARD and isinstance(plans[0], StreamPlan):
         k = values.shape[1]
-        if _stream16():
+        if _stream16() and not bf16:
             rec = cbsr_records(round_rows(values, src_f), channels, dim)
             return stream_cbsr_spmm(plans[0], rec, k, dim, None, dst_f,
                                     torch.bfloat16)
         v = _scale(values, src_f).contiguous()
         return stream_cbsr_spmm(plans[0], cbsr_records(v, channels, dim), k,
-                                dim, None, dst_f)
+                                dim, None, dst_f, v.dtype)
     v = _scale(values, src_f).contiguous()
-    return plan_spmm(plans[0], cbsr_densify(v, channels, dim), None, dst_f)
+    dense = cbsr_densify(v, channels, dim,
+                         torch.float32 if bf16 else values.dtype)
+    return plan_spmm(plans[0], dense, None, dst_f)
 
 
 def sspmm_backward(g_ct: torch.Tensor, channels: torch.Tensor, src_f, dst_f,
                    plans) -> torch.Tensor:
-    """Sampled backward: dvalues = src_f ⊙ (Aᵀ (dst_f ⊙ g)) at the channels,
-    the transpose product through the backward plan's kernel."""
+    """Sampled backward: dvalues f32 = src_f ⊙ (Aᵀ (dst_f ⊙ g)) at the
+    channels, the transpose product through the backward plan's kernel (the
+    caller casts them to the values' dtype)."""
     z = plan_spmm(plans[1], g_ct.contiguous(), dst_f, None)
     return _scale(cbsr_sample(z, channels), src_f)

@@ -130,16 +130,18 @@ def cbsr_compact_plain(x: torch.Tensor, k: int
     return torch.gather(x, 1, ch.long()), ch
 
 
-def cbsr_to_dense(values: torch.Tensor, channels: torch.Tensor,
-                  dim: int) -> torch.Tensor:
-    """Scatter CBSR back to a dense [N, dim] array (zeros elsewhere): the
+def cbsr_to_dense(values: torch.Tensor, channels: torch.Tensor, dim: int,
+                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Scatter CBSR back to a dense [N, dim] array of `out_dtype` (default
+    the values' dtype; zeros elsewhere), the values cast to it first: the
     plain version of the `cbsr_densify` kernel."""
-    out = values.new_zeros((values.shape[0], dim))
-    return out.scatter(1, channels.long(), values)
+    dtype = values.dtype if out_dtype is None else out_dtype
+    out = values.new_zeros((values.shape[0], dim), dtype=dtype)
+    return out.scatter(1, channels.long(), values.to(dtype))
 
 
 def sample_channels(z: torch.Tensor, channels: torch.Tensor) -> torch.Tensor:
-    """dv[n, j] = z[n, channels[n, j]]: the plain version of the
+    """dv[n, j] = z[n, channels[n, j]] in z's dtype: the plain version of the
     `cbsr_sample` kernel."""
     return torch.gather(z, 1, channels.long())
 

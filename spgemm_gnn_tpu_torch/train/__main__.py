@@ -9,6 +9,14 @@ Examples:
   # the 16-bit feature stream (bf16 messages, f32 sums)
   python -m spgemm_gnn_tpu_torch.train --dataset ogbn-products --synthetic \
       --hidden_layers 3 --norm --w_lr 0.003 --stream bf16x2
+  # checkpoints every 10 epochs under --path, then on to 200 epochs from the
+  # latest, then the accuracies of the best-val snapshot
+  python -m spgemm_gnn_tpu_torch.train --dataset flickr --synthetic \
+      --epochs 100 --checkpoint_every 10 --path /tmp/run
+  python -m spgemm_gnn_tpu_torch.train --dataset flickr --synthetic \
+      --epochs 200 --checkpoint_every 10 --resume --path /tmp/run
+  python -m spgemm_gnn_tpu_torch.train --dataset flickr --synthetic \
+      --evaluate /tmp/run/checkpoints/best --path /tmp/run
 """
 from __future__ import annotations
 
@@ -27,6 +35,15 @@ def main(argv=None) -> dict:
     logger = get_logger(os.path.join(config.path, f"{config.dataset}.log"))
     config.print_params(logger.info)
     trainer = Trainer(config, logger=logger)
+    if config.evaluate:
+        # eval-only: restore the checkpoint and report its accuracies
+        tr, va, te = trainer.evaluate_checkpoint(config.evaluate)
+        logger.info("Eval-only: train %.4f | val %.4f | test %.4f",
+                    tr, va, te)
+        out = {"train_acc": tr, "val_acc": va, "test_acc": te}
+        with open(os.path.join(config.path, "results.json"), "w") as f:
+            json.dump(out, f)
+        return out
     logger.info("Training...")
     results = trainer.run()
     logger.info("Best val accuracy: %.4f (epoch %d)",

@@ -79,10 +79,6 @@ _NOT_YET = (
     ("mesh_shape", lambda v: v > 1, "Queue A13 (multi-GPU)"),
     ("multihost", bool, "Queue A13 (multi-GPU)"),
     ("coordinator", bool, "Queue A13 (multi-GPU)"),
-    ("cache_strategy", lambda v: v != "none", "Queue A11 (feature stores)"),
-    ("evaluate", bool, "Queue A11 (checkpoints)"),
-    ("checkpoint_every", bool, "Queue A11 (checkpoints)"),
-    ("resume", bool, "Queue A11 (checkpoints)"),
     ("device_inputs", bool, "Queue A11 (device-side synthetic inputs)"),
     ("steps_per_call", lambda v: v > 1, "Queue A12 (batched steps)"),
     ("timing", bool, "Queue A12 (timing)"),

@@ -10,6 +10,21 @@ Randomness comes from two explicit generators: one seeded with `seed` for the
 initial weights (on the CPU, so the weights do not depend on the device) and
 one seeded with `seed + 1` on the device for dropout.
 
+Checkpoints (train/checkpoint.py): with `checkpoint_every`, the state is saved
+every that many epochs and at the end, and a copy taken at the best-val
+epoch is saved as `best`; eval metrics then reach the host at every
+evaluation, so that the copy is taken at its epoch. With `resume`, `run`
+restores the run directory's latest checkpoint and trains on from its step.
+The RNG rule on resume: the checkpoint carries the dropout generator's
+state, so a resumed run draws the masks the uninterrupted run draws; a
+checkpoint without one (`convert.checkpoint_from_flax`) restarts the stream
+at `seed + 1`, as the JAX Trainer does on every resume.
+
+Serving: `predict` answers a batch of node ids by minibatch inference
+(train/infer.py) through the feature store of `cache_strategy`
+(graphs/features.py; every row on the device when "none"), and
+`evaluate_checkpoint` scores a saved state.
+
 With `dtype="bfloat16"` the features are cast to bf16 on the host, before
 they move to the device (as the JAX Trainer does), the model computes its
 hidden stack in bf16, and the loss and metrics read its f32 logits.
@@ -24,10 +39,15 @@ import numpy as np
 import torch
 
 from spgemm_gnn_tpu_torch.graphs.datasets import Dataset, load_dataset
+from spgemm_gnn_tpu_torch.graphs.features import (DeviceFeatureStore,
+                                                  FeatureStore,
+                                                  make_feature_store)
 from spgemm_gnn_tpu_torch.kernels import planned
 from spgemm_gnn_tpu_torch.models.layers import compute_dtype
 from spgemm_gnn_tpu_torch.models.models import build_model
+from spgemm_gnn_tpu_torch.train import checkpoint as ckpt
 from spgemm_gnn_tpu_torch.train.config import TrainConfig, check_supported
+from spgemm_gnn_tpu_torch.train.infer import predict_nodes
 from spgemm_gnn_tpu_torch.train.losses import loss_fn
 from spgemm_gnn_tpu_torch.train.metrics import micro_f1
 from spgemm_gnn_tpu_torch.train.optim import build_optimizer
@@ -72,14 +92,32 @@ class Trainer:
         self.g = (g if config.impl == "torch"
                   else planned.plan_graph(g, dim=config.hidden_dim,
                                           dtype=dtype))
-        # cast on the host: the transfer moves the narrow dtype
-        self.features = torch.from_numpy(
-            np.asarray(dataset.features, np.float32)).to(dtype).to(dev)
+        self.feature_store: FeatureStore | None = None
+        self.features = self._load_features(dataset, dtype)
         self.labels = torch.from_numpy(np.asarray(dataset.labels)).to(dev)
         self.masks = tuple(torch.from_numpy(np.asarray(m, bool)).to(dev)
                            for m in (dataset.train_mask, dataset.val_mask,
                                      dataset.test_mask))
         self._loss = loss_fn(dataset.multilabel)
+
+    def _load_features(self, dataset: Dataset, dtype: torch.dtype
+                       ) -> torch.Tensor:
+        """The features on the device, through the store of
+        `cache_strategy` when it is not "none" (kept as `feature_store`;
+        full-graph training reads every row, so it serves `full()`)."""
+        cfg = self.config
+        if cfg.cache_strategy == "none":
+            # cast on the host: the transfer moves the narrow dtype
+            return torch.from_numpy(np.asarray(
+                dataset.features, np.float32)).to(dtype).to(self.device)
+        self.feature_store = make_feature_store(
+            dataset.features, policy=cfg.cache_strategy,
+            cache_ratio=cfg.cache_size_ratio,
+            out_degrees=dataset.graph.out_degrees.cpu().numpy(),
+            dtype=dtype, device=self.device)
+        self.logger.info("Feature store: %s (capacity ratio %.2f)",
+                         cfg.cache_strategy, cfg.cache_size_ratio)
+        return self.feature_store.full()
 
     # -- state ---------------------------------------------------------------
 
@@ -130,6 +168,33 @@ class Trainer:
         logits = model(self.g, self.features)
         return tuple(micro_f1(logits, self.labels, m) for m in self.masks)
 
+    # -- serving ---------------------------------------------------------------
+
+    @property
+    def graph(self):
+        """The plain device Graph (a PlannedGraph's own)."""
+        return (self.g.graph if isinstance(self.g, planned.PlannedGraph)
+                else self.g)
+
+    def predict(self, state: dict[str, Any], node_ids) -> torch.Tensor:
+        """Logits of `node_ids` (sorted unique order) by minibatch inference
+        (train/infer.py): the hidden_layers-hop closure, its rows through
+        `feature_store` (a DeviceFeatureStore of the features when there is
+        none), the model on the induced subgraph."""
+        store = self.feature_store
+        if store is None:
+            store = DeviceFeatureStore(self.features, self.features.dtype,
+                                       self.device)
+        return predict_nodes(state["model"], None, self.graph, store,
+                             node_ids, hops=self.config.hidden_layers)
+
+    def evaluate_checkpoint(self, path: str) -> tuple[float, float, float]:
+        """(train, val, test) accuracy of the state saved at `path` (a
+        checkpoint directory, or a run directory: its latest step)."""
+        state = ckpt.restore_checkpoint(path, self.init_state())
+        tr, va, te = self.eval_step(state)
+        return float(tr), float(va), float(te)
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -140,10 +205,19 @@ class Trainer:
             on_epoch: Callable[[EpochRecord], None] | None = None,
             state: dict[str, Any] | None = None) -> dict[str, Any]:
         """Train for `epochs` (default config.epochs) from `state` (default
-        `init_state()`)."""
+        `init_state()`), or with `resume` from the latest checkpoint under
+        config.path, to epoch `epochs`."""
         cfg = self.config
         epochs = cfg.epochs if epochs is None else epochs
         state = self.init_state() if state is None else state
+        dropout_gen = torch.Generator(device=self.device)
+        dropout_gen.manual_seed(cfg.seed + 1)
+        state["dropout_rng"] = dropout_gen
+        start_epoch = 0
+        if cfg.resume and ckpt.latest_step(cfg.path) is not None:
+            state = ckpt.restore_checkpoint(cfg.path, state)
+            start_epoch = state["step"]
+            self.logger.info("Resumed from step %d", start_epoch)
         self.logger.info("Input features shape: %s",
                          tuple(self.features.shape))
         self.logger.info("Hidden: %d x %d layers -> %d classes",
@@ -151,21 +225,25 @@ class Trainer:
                          self.dataset.num_classes)
         self.logger.info("Model parameters: %.2f MB",
                          param_size(state["model"]))
-        dropout_gen = torch.Generator(device=self.device)
-        dropout_gen.manual_seed(cfg.seed + 1)
         best_val, best_test, best_epoch = 0.0, 0.0, -1
+        best_state = None   # a snapshot at the best-val epoch
         history: list[EpochRecord] = []
         pending: list[tuple[int, torch.Tensor]] = []
-        fetch_every = max(cfg.eval_fetch_every, 1)
+        # checkpointing snapshots the best state at its epoch, so every
+        # evaluation reaches the host before the parameters move on
+        fetch_every = (1 if cfg.checkpoint_every
+                       else max(cfg.eval_fetch_every, 1))
 
         def flush():
-            nonlocal best_val, best_test, best_epoch
+            nonlocal best_val, best_test, best_epoch, best_state
             if not pending:
                 return
             rows = torch.stack([p[1] for p in pending]).cpu().tolist()
             for (epoch, _), (loss, tr, va, te) in zip(pending, rows):
                 if va > best_val:
                     best_val, best_test, best_epoch = va, te, epoch
+                    if cfg.checkpoint_every:
+                        best_state = ckpt.snapshot(state)
                 rec = EpochRecord(epoch, loss, tr, va, te)
                 history.append(rec)
                 if on_epoch is not None:
@@ -181,7 +259,7 @@ class Trainer:
         t_start = time.perf_counter()
         t_steady = None   # clock after the first full iteration
         steady_from = None
-        for epoch in range(epochs):
+        for epoch in range(start_epoch, epochs):
             loss = self.train_step(state, dropout_gen)
             if cfg.eval_every and (epoch % cfg.eval_every == 0
                                    or epoch == epochs - 1):
@@ -190,6 +268,10 @@ class Trainer:
                     [loss.float(), *(m.float() for m in metrics)])))
                 if len(pending) >= fetch_every:
                     flush()
+            if cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0:
+                flush()   # best_epoch must be current for is_best
+                ckpt.save_checkpoint(cfg.path, state, epoch + 1,
+                                     is_best=best_epoch == epoch)
             if t_steady is None:
                 self._sync()
                 t_steady = time.perf_counter()
@@ -202,6 +284,11 @@ class Trainer:
                   if t_steady is not None and epochs > steady_from else None)
         if steady is not None:
             self.logger.info("Steady-state epoch time: %.3f s", steady)
+        if cfg.checkpoint_every:
+            ckpt.save_checkpoint(cfg.path, state, epochs)
+            if best_state is not None:
+                ckpt.save_checkpoint(cfg.path, best_state, best_epoch + 1,
+                                     is_best=True)
         return {
             "best_val_accuracy": best_val,
             "best_test_accuracy": best_test,

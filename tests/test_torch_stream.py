@@ -10,6 +10,8 @@ installed:
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_stream.py
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -296,6 +298,21 @@ TRAIN = dict(dataset="flickr", model="sage", epochs=5, hidden_dim=32,
              synthetic_scale=0.3, eval_every=1, log_every=0, seed=3)
 
 
+@contextlib.contextmanager
+def one_torch_thread():
+    """The port's runs on one intra-op thread: MKL splits a matmul's sums
+    by thread count, and at the flickr 0.3 size that moves the ReLU run's
+    epoch-4 val count by one node (3597 at 2, 4 and 6 threads, 3596 at 1,
+    3, 5, 7 and 8, where the JAX Trainer reads 3596), so the result would
+    depend on the machine's cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
 def _jax_and_port_histories(cfg: dict, stream_chunk: int | None = None):
     """The JAX Trainer (impl "xla") and the port's Trainer (impl "auto", the
     CPU, the JAX initial weights) on one dataset's numpy arrays: (JAX
@@ -332,19 +349,23 @@ def _jax_and_port_histories(cfg: dict, stream_chunk: int | None = None):
                                    chunk=stream_chunk)
     assert tt.g.kind == "stream"
     weights = params_from_flax(jax.device_get(jt.init_state()["params"]))
-    tres = tt.run(state=tt.init_state(weights=weights))
+    with one_torch_thread():
+        tres = tt.run(state=tt.init_state(weights=weights))
     return jres["history"], tres["history"], int(jd.val_mask.sum())
 
 
 def _assert_follows(jh, th, epochs: int, val_nodes: int, n_val: int):
     """Per-epoch loss within 1e-4 (as tests/test_torch_train.py) and val
-    accuracy within `val_nodes` nodes."""
+    accuracy within `val_nodes` nodes, compared as node counts: the f32
+    accuracies times n_val carry f32 rounding (a one-node difference reads
+    up to 1.00016 at 5355 val nodes)."""
     jl = np.array([r.loss for r in jh])
     tl = np.array([r.loss for r in th])
     assert len(tl) == len(jl) == epochs
     np.testing.assert_allclose(tl, jl, rtol=0, atol=1e-4)
     for rj, rt in zip(jh, th):
-        assert abs(rj.val_acc - rt.val_acc) * n_val <= val_nodes + 1e-6
+        assert abs(round(rj.val_acc * n_val)
+                   - round(rt.val_acc * n_val)) <= val_nodes
 
 
 @pytest.mark.parametrize("nonlinear,epochs,val_nodes",
@@ -397,8 +418,9 @@ def test_stream_trainer_follows_plain_trainer_maxk():
     plain = Trainer(cfg.replace(impl="torch"), dataset=ds)
     assert stream.g.kind == "stream"
     assert not isinstance(plain.g, tplanned.PlannedGraph)
-    _assert_follows(plain.run()["history"], stream.run()["history"],
-                    TRAIN["epochs"], 1, int(ds.val_mask.sum()))
+    with one_torch_thread():
+        histories = plain.run()["history"], stream.run()["history"]
+    _assert_follows(*histories, TRAIN["epochs"], 1, int(ds.val_mask.sum()))
 
 
 def test_trainer_plans_for_kernel_impls_only():

@@ -119,8 +119,8 @@ def test_default_device_without_gpu_raises():
 
 @pytest.mark.parametrize("flag", [
     dict(timing=True), dict(remat=True),
-    dict(mesh_shape=2), dict(checkpoint_every=5),
-    dict(resume=True), dict(evaluate="ckpt"), dict(cache_strategy="lru"),
+    dict(mesh_shape=2), dict(device_inputs=True),
+    dict(tensorboard=True), dict(profile="trace"), dict(multihost=True),
     dict(steps_per_call=4), dict(dataset="ogbn-proteins")])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
