@@ -55,8 +55,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      three integrated MaxK models) through the kernels against the same
      model through the plain versions on the same card, on a windowed plan
      and on a stream plan; then each family with MaxK on the stream plan,
-     STREAM_CBSR_FORWARD set against unset, logits and input gradient equal
-     by value;
+     STREAM_CBSR_FORWARD at its default (None: the rule takes
+     stream_cbsr_spmm at hidden 256) against off, logits and input gradient
+     equal by value;
   7. graph 2: the synthetic ogbn-products stand-in at full size (N =
      2,449,029, E about 123.7M, 100 features, 47 classes); the plan rule must
      pick the "stream" kind (stream_spmm);
@@ -75,21 +76,25 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      the time is on record. The 16-bit forms: stream_spmm_bf16 on A and Aᵀ
      as csr_spmm_bf16 in phase 4 (also with no hot set, bitwise equal);
      round_rows at [N, 256] with a node factor, bitwise equal to its plain
-     version and timed; stream_cbsr_spmm_bf16 on 96-B records (the values
+     version and timed; stream_cbsr_spmm_bf16 on 128-B records (the values
      rounded after the pre factor) under the mean and gcn factors, within
      1e-5 of float64, equal by value to stream_spmm_bf16 on the same masked
      input, bitwise equal across runs and with no hot set, timed; the
      bf16-output forms stream_spmm_bf16_out (A, Aᵀ) and
      stream_cbsr_spmm_bf16_out (mean and gcn factors), each bitwise equal
      to the rounding of its f32-output run, across two runs and with no hot
-     set (B8 also equal by value to B3), within 1 bf16 ulp of its plain
+     set (B8 also bitwise equal to B3), within 1 bf16 ulp of its plain
      version (1e-5 of max |y| where a sum cancels) with at most 0.5 % of
-     the values off, timed;
+     the values off, timed; for both B8 bf16 forms the diagnosis of their
+     kernel (SASS instructions and loops, registers, resident warps, and
+     two timing variants: the walk and the scatter, the walk and the
+     gather);
   9. CBSR: cbsr_compact, cbsr_densify and cbsr_sample at the products shapes
      (dim 256, k 32), bitwise against their plain versions and timed; then
      `aggregate_cbsr` forward and backward through the kernels, with its
      launches counted, against the dense path, with STREAM_CBSR_FORWARD
-     unset and then set (no densify in the forward); cbsr_compact_bf16
+     off and then at its default (no densify in the forward);
+     cbsr_compact_bf16
      bitwise against its plain version (also on the bf16 MaxK of the family
      rows), and the bf16 LayerNorm kernels
      (layer_norm16_fwd / _bwd) within 1 bf16 ulp of theirs, timed; then
@@ -105,17 +110,18 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
  10. train 2: the products recipe (SAGE, MaxK k=32, hidden 256, 3 layers,
      LayerNorm, dropout 0.5, lr 0.003): its first two train steps through the
      kernels within 1e-4 relative of the plain path's (same weights and
-     dropout seed), then 5 epochs with finite losses and exact launch counts;
-     then 5 epochs more with STREAM_CBSR_FORWARD set, their losses within
-     1e-6 relative of the flag-off run's; then both runs again with
-     `--stream bf16x2` (first steps against the plain versions with the
-     same stream, exact launch counts of round_rows and the bf16 kernels,
-     flag-on losses within 1e-6 relative of flag-off); then both runs with
-     `--dtype bfloat16` (first steps within 1e-3 of the plain versions,
-     exact counts of the 16-bit forms, falling losses, flag-on within 1e-6
-     of flag-off);
+     dropout seed), then 5 epochs with finite losses and exact launch counts
+     at the default (STREAM_CBSR_FORWARD None: the MaxK forward takes
+     stream_cbsr_spmm); then 5 epochs more with the flag off (the dense
+     forward), the default's losses within 1e-6 relative of theirs; then
+     both runs again with `--stream bf16x2` (first steps against the plain
+     versions with the same stream, exact launch counts of round_rows and
+     the bf16 kernels, the default within 1e-6 relative of flag-off); then
+     both runs with `--dtype bfloat16` (first steps within 1e-3 of the
+     plain versions, exact counts of the 16-bit forms, falling losses, the
+     default within 1e-6 of flag-off);
  11. train 3: the products recipe with GCN and self-loops (`--model gcn
-     --selfloop`) and STREAM_CBSR_FORWARD set: its first two train steps
+     --selfloop`) at the default rule: its first two train steps
      within 1e-4 relative of the plain path's, then 5 epochs with finite
      losses and exact launch counts (stream_cbsr_spmm forward, stream_spmm
      backward); then the same with `--dtype bfloat16` (both node factors in
@@ -128,9 +134,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      then predict requests of 1, 64 and 1024 test nodes (a seeded draw)
      through the device feature store and host stores of each policy at
      cache ratio 0.05: the logits within 1e-4 of max |logit| of the
-     full-graph eval forward at the restored weights (B3 on the stream
-     plan) but on rows MaxK near-ties flip (at most 0.5 % of the seeds,
-     argmax agreement on 99.5 %), every store's logits equal, exact launch
+     full-graph eval forward at the restored weights (the stream plan's
+     kernels, B8 forward at the default) but on rows MaxK near-ties flip
+     (at most 0.5 % of the seeds, argmax agreement on 99.5 %), every
+     store's logits equal, exact launch
      counts (maxk_fwd and csr_spmm once per layer, no stream_spmm); each
      request's closure per hop, host k-hop, schedule build, fetch (hit rate,
      host-to-device bytes), device forward and wall time are printed;
@@ -201,6 +208,15 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
     t_ops = n_ops / PEAK_F32_FLOP_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bf16_record_bytes(k: int) -> int:
+    """The bytes one node's record of k bf16 values must carry at dim <= 256:
+    the values and one byte of channel each, the ids in 32-bit words (96 B at
+    k 32, the reference's record). The kernel's record (one 32-bit word a
+    slot, padded to 128-B lines: ops/maxk.py::cbsr_records) moves more; that
+    layout's traffic is reported beside the bound, not in it."""
+    return 2 * k + 4 * -(-k // 4)
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 1) -> float:
@@ -562,9 +578,11 @@ def model_check(torch, seed: int, kind: str) -> None:
     logits and input gradient within 1e-4 of their largest magnitude, the
     plain run taking the kernel run's ReLU pattern (`ReluPattern`).
     On the stream plan, each family with MaxK also runs with
-    STREAM_CBSR_FORWARD set and unset: the logits and input gradients must
-    be equal by value, and the flag-on run must launch stream_cbsr_spmm once
-    per layer of a family that aggregates a k-sparse input."""
+    STREAM_CBSR_FORWARD at its default (None: the rule, which takes
+    stream_cbsr_spmm at hidden 256) and off: the logits and input gradients
+    must be equal by value, and the default run must launch
+    stream_cbsr_spmm once per layer of a family that aggregates a k-sparse
+    input."""
     from spgemm_gnn_tpu_torch.graphs.synthetic import powerlaw_graph
     from spgemm_gnn_tpu_torch.kernels import _build, planned
     from spgemm_gnn_tpu_torch.models.models import MODELS
@@ -600,15 +618,15 @@ def model_check(torch, seed: int, kind: str) -> None:
         return
     for name in MODELS:
         runs = {}
-        for flag in (True, False):
+        for flag in (None, False):     # the default rule, then forced off
             planned.STREAM_CBSR_FORWARD = flag
             _build.launches.clear()
             runs[flag] = (_model_run(torch, name, g, feats, seed, "maxk",
                                      "cuda"), dict(_build.launches))
-        planned.STREAM_CBSR_FORWARD = False
-        (on, counts), (off, _) = runs[True], runs[False]
+        planned.STREAM_CBSR_FORWARD = None
+        (on, counts), (off, _) = runs[None], runs[False]
         if not all(torch.equal(a, b) for a, b in zip(on, off)):
-            raise AssertionError(f"model check ({name}, MaxK): the flag-on "
+            raise AssertionError(f"model check ({name}, MaxK): the default "
                                  f"model differs from the flag-off one")
         want = 0 if name == "gnn_res" else 2      # gnn_res is ReLU-only
         if counts.get("stream_cbsr_spmm", 0) != want:
@@ -616,8 +634,9 @@ def model_check(torch, seed: int, kind: str) -> None:
                                  f"{counts}, expected stream_cbsr_spmm "
                                  f"{want}")
     log(f"model check (stream plan, {len(MODELS)} families, MaxK k={K}): "
-        f"STREAM_CBSR_FORWARD on and off give equal logits and input "
-        f"gradients; stream_cbsr_spmm launched once per layer")
+        f"STREAM_CBSR_FORWARD at its default (the rule) and off give equal "
+        f"logits and input gradients; the default launched "
+        f"stream_cbsr_spmm once per layer")
 
 
 def stream_cbsr_check(torch, g, dim: int, k: int, seed: int) -> dict:
@@ -628,7 +647,7 @@ def stream_cbsr_check(torch, g, dim: int, k: int, seed: int) -> dict:
     two runs and to a run with no hot set. Timed beside stream_spmm on that
     input, the plain version, torch.sparse.mm on the dense input, the run
     with no hot set, and cbsr_compact + cbsr_records + stream_cbsr_spmm (the
-    forward of the flag-on path). Returns the kernels-line entry (mean
+    default forward on a stream plan). Returns the kernels-line entry (mean
     factors; gcn under prefixed keys)."""
     from spgemm_gnn_tpu_torch.graphs.stream_tiles import build_stream_plan
     from spgemm_gnn_tpu_torch.kernels.cbsr import cbsr_compact
@@ -889,16 +908,77 @@ def round_rows_check(torch, n: int, dim: int, pre, seed: int) -> dict:
     return r
 
 
+def cbsr16_diagnosis(torch, plan, rec, k: int, dim: int, post,
+                     out16: bool) -> dict:
+    """What holds the bf16-record kernel (stream_cbsr16_kernel) at the
+    call's shape, at its default batch: its SASS instruction count, its
+    loops (each backward branch with the instructions from its target) and
+    the instructions of one steady stage (`cuobjdump -sass` of the built
+    library, utils/stream_sweep.py::sass_loops), its registers, local
+    (spill) bytes and resident warps an SM (stream_cbsr16_attrs), and the
+    ms of its two timing variants, never on the path, whose y is wrong by
+    design: no_load (the records of the first stages only: the walk and the
+    scatter) and no_scatter (every record loaded, nothing scattered: the
+    walk and the gather)."""
+    from spgemm_gnn_tpu_torch.kernels import _build
+    from spgemm_gnn_tpu_torch.kernels.stream import (BATCHES16, _slices,
+                                                     stream_cbsr16_attrs,
+                                                     stream_cbsr_spmm_at)
+    from spgemm_gnn_tpu_torch.utils.stream_sweep import sass_loops
+    kv = _slices(k)
+    batch = BATCHES16[kv][0]
+    eps = 1 if kv >= 4 else 4 // kv
+    pattern = (f"stream_cbsr16_kernelILi{kv}ELi{batch // eps}ELb"
+               f"{int(out16)}ELi0E")
+    sass = [r for name, r in sass_loops(_build._target("stream"), pattern,
+                                        None, 128 * kv * (eps - 1)).items()]
+    if len(sass) != 1:
+        raise AssertionError(f"SASS of {pattern}: {len(sass)} kernels found")
+    od = torch.bfloat16 if out16 else None
+    variants = {}
+    for variant in ("no_load", "no_scatter"):
+        def run(variant=variant):
+            return stream_cbsr_spmm_at(plan, rec, k, dim, None, post,
+                                       variant=variant,
+                                       value_dtype=torch.bfloat16,
+                                       out_dtype=od)
+        variants[f"{variant}_ms"] = time_ms(torch, run, 10)
+    loops = [(lp["start"], lp["instructions"]) for lp in sass[0]["loops"]
+             if lp["instructions"] > 1]
+    return dict(sass_instructions=sass[0]["instructions"], sass_loops=loops,
+                stage_instructions=sass[0]["stage"], stage_edges=eps,
+                **stream_cbsr16_attrs(k, dim, batch, None, out16),
+                **variants)
+
+
+def log_diagnosis(name: str, d: dict) -> None:
+    log(f"  diagnosis {name}: {d['sass_instructions']} SASS instructions, "
+        f"loops (start, instructions) "
+        f"{[(hex(a), n) for a, n in d['sass_loops']]}; a steady stage of "
+        f"{d['stage_edges']} edges {d['stage_instructions']} instructions; "
+        f"{d['regs']} "
+        f"registers, {d['local_bytes']} local bytes a thread, "
+        f"{d['warps_per_sm']} resident warps an SM; timing variants (wrong "
+        f"y): no_load {d['no_load_ms']:.3f} ms (the walk and the scatter), "
+        f"no_scatter {d['no_scatter_ms']:.3f} ms (the walk and the gather)")
+
+
+DIAG_KEYS = ("sass_instructions", "stage_instructions", "regs",
+             "local_bytes", "warps_per_sm", "no_load_ms", "no_scatter_ms")
+
+
 def stream_cbsr16_check(torch, g, dim: int, k: int, seed: int,
                         f32: dict) -> dict:
     """stream_cbsr_spmm_bf16 on A of the graph at (dim, k), under the mean
     and gcn factors, on the 16-bit stream's records (the CBSR values
-    rounded after the pre factor, 96 B at k 32): within 1e-5 of max |y| of
+    rounded after the pre factor, 128 B at k 32): within 1e-5 of max |y| of
     the plain version in float64 on the same values, equal by value to
     stream_spmm_bf16 on the same masked input, bitwise equal across two runs
     and to a run with no hot set. Timed beside its f32 form (`f32`,
-    stream_cbsr_check's entry), the plain version, the bound, the no-reuse
-    gather of its records and torch.sparse.mm on a bf16 CSR tensor."""
+    stream_cbsr_check's entry), the plain version, the bound and the
+    no-reuse gather of the bytes a record needs (`bf16_record_bytes`), the
+    no-reuse gather of its 128-B records and torch.sparse.mm on a bf16 CSR
+    tensor, with `cbsr16_diagnosis`."""
     from spgemm_gnn_tpu_torch.graphs.stream_tiles import build_stream_plan
     from spgemm_gnn_tpu_torch.kernels.cbsr import cbsr_compact
     from spgemm_gnn_tpu_torch.kernels.round import round_rows
@@ -953,12 +1033,12 @@ def stream_cbsr16_check(torch, g, dim: int, k: int, seed: int,
             raise AssertionError(f"stream_cbsr_spmm_bf16 ({norm}): hot budget "
                                  f"0 differs from the default")
         del ref, again, by_b3
-        row = rec.shape[1] * 4
+        row, need = rec.shape[1] * 4, bf16_record_bytes(k)
         lib_ms, lib_err = library16(torch, g.indptr, g.indices,
                                     post[g.edge_dst.long()], n, dense)
         gathered = torch.bincount(g.indices, minlength=n).double()
         ops = 2.0 * float(((dense != 0).sum(1).double() * gathered).sum())
-        n_bytes = (n * row + e * 4 + (n + 1) * 4 + n * dim * 4
+        n_bytes = (n * need + e * 4 + (n + 1) * 4 + n * dim * 4
                    + (plan.num_chunks + plan.carry_rows.numel()) * 4 + 4 * n)
         b_ms, b_by = bound_ms(n_bytes, ops)
         r = dict(max_abs_err=err, rel=rel, ms=time_ms(torch, run, 10),
@@ -968,8 +1048,11 @@ def stream_cbsr16_check(torch, g, dim: int, k: int, seed: int,
                  library_ms=lib_ms, library_error=lib_err,
                  hot0_ms=time_ms(torch, run_hot0, 10),
                  **hot_keys(plan.hot_set(row)), record_bytes=row,
-                 bound_ms=b_ms, bound_by=b_by,
-                 no_reuse_gather_ms=e * (row + 4) / PEAK_BYTES_S * 1e3)
+                 need_bytes=need, bound_ms=b_ms, bound_by=b_by,
+                 no_reuse_gather_ms=e * (need + 4) / PEAK_BYTES_S * 1e3,
+                 layout_gather_ms=e * (row + 4) / PEAK_BYTES_S * 1e3)
+        if norm == "mean":
+            r.update(cbsr16_diagnosis(torch, plan, rec, k, dim, post, False))
         del dense, rec
         lib = (f"{lib_ms:.3f}" if lib_ms is not None else f"none ({lib_err})")
         log(f"kernel stream_cbsr_spmm_bf16 (products, A, {norm} factors, dim "
@@ -977,14 +1060,18 @@ def stream_cbsr16_check(torch, g, dim: int, k: int, seed: int,
             f"{rel:.3e} of max |y|; equal by value to stream_spmm_bf16; "
             f"bitwise equal across two runs; {r['ms']:.3f} ms (f32 form "
             f"{r['f32_ms']:.3f}, plain {r['plain_ms']:.3f}, torch.sparse.mm "
-            f"bf16 {lib}, bound {b_ms:.3f} by {b_by}, no-reuse gather "
-            f"{r['no_reuse_gather_ms']:.3f})")
+            f"bf16 {lib}, bound {b_ms:.3f} by {b_by} and no-reuse gather "
+            f"{r['no_reuse_gather_ms']:.3f} on the {need} B a record needs; "
+            f"the {row}-B layout's no-reuse gather "
+            f"{r['layout_gather_ms']:.3f})")
         log_hot(f"stream_cbsr_spmm_bf16, {norm} factors", r)
         if norm == "mean":
+            log_diagnosis("stream_cbsr_spmm_bf16", r)
             entry.update({key: r[key] for key in (
                 "max_abs_err", "ms", "f32_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "library_error", "record_bytes",
-                "no_reuse_gather_ms", *HOT_KEYS)})
+                "need_bytes", "no_reuse_gather_ms", "layout_gather_ms",
+                *HOT_KEYS, *DIAG_KEYS)})
         else:
             entry.update({f"gcn_{key}": r[key] for key in (
                 "max_abs_err", "ms", "f32_ms", "bound_ms", "hot0_ms")})
@@ -1352,13 +1439,14 @@ def log_product16out(kernel: str, what: str, r: dict) -> None:
 def stream_cbsr16out_check(torch, g, dim: int, k: int, seed: int) -> dict:
     """stream_cbsr_spmm_bf16_out on A of the graph at (dim, k) under the
     mean and gcn factors, as the planner runs it on bf16 activations: the
-    bf16 rows pre ⊙ x compacted by cbsr_compact_bf16 into 96-B records.
+    bf16 rows pre ⊙ x compacted by cbsr_compact_bf16 into 128-B records.
     Bitwise equal to `rounded16` of the f32-output run with no post, across
-    two runs and with no hot set; equal by value to stream_spmm_bf16_out on
-    the same rows; timed beside the f32-output form, the plain version, the
-    bound and torch.sparse.mm on a bf16 CSR tensor; held to the plain
-    version by `near16`. Returns the kernels-line entry (mean factors; gcn
-    under prefixed keys)."""
+    two runs, with no hot set and to stream_spmm_bf16_out on the same rows;
+    timed beside the f32-output form, the plain version, the bound and the
+    no-reuse gathers as in stream_cbsr16_check, and torch.sparse.mm on a
+    bf16 CSR tensor, with `cbsr16_diagnosis`; held to
+    the plain version by `near16`. Returns the kernels-line entry (mean
+    factors; gcn under prefixed keys)."""
     from spgemm_gnn_tpu_torch.graphs.stream_tiles import build_stream_plan
     from spgemm_gnn_tpu_torch.kernels.cbsr import cbsr_compact
     from spgemm_gnn_tpu_torch.kernels.stream import (stream_cbsr_spmm,
@@ -1397,9 +1485,10 @@ def stream_cbsr16out_check(torch, g, dim: int, k: int, seed: int) -> dict:
             raise AssertionError(f"stream_cbsr_spmm_bf16_out ({norm}) "
                                  f"differs from the rounding of its "
                                  f"f32-output run")
-        if not torch.equal(got, by_b3):
+        if not torch.equal(got.view(torch.int16), by_b3.view(torch.int16)):
             raise AssertionError(f"stream_cbsr_spmm_bf16_out ({norm}) "
-                                 f"differs from stream_spmm_bf16_out")
+                                 f"differs from stream_spmm_bf16_out in "
+                                 f"its bits")
         if not bits_equal(torch, got, again):
             raise AssertionError(f"stream_cbsr_spmm_bf16_out ({norm}): two "
                                  f"runs differ")
@@ -1418,12 +1507,12 @@ def stream_cbsr16out_check(torch, g, dim: int, k: int, seed: int) -> dict:
         near = near16(torch, got, plain,
                       f"stream_cbsr_spmm_bf16_out ({norm})")
         del plain
-        row = rec.shape[1] * 4
+        row, need = rec.shape[1] * 4, bf16_record_bytes(k)
         lib_ms, lib_err = library16(torch, g.indptr, g.indices,
                                     post[g.edge_dst.long()], n, xin)
         gathered = torch.bincount(g.indices, minlength=n).double()
         ops = 2.0 * float(((xin != 0).sum(1).double() * gathered).sum())
-        n_bytes = (n * row + e * 4 + (n + 1) * 4 + n * dim * 2
+        n_bytes = (n * need + e * 4 + (n + 1) * 4 + n * dim * 2
                    + (plan.num_chunks + plan.carry_rows.numel()) * 4 + 4 * n)
         b_ms, b_by = bound_ms(n_bytes, ops)
         r = dict(max_abs_err=err, **near, ms=time_ms(torch, run, 10),
@@ -1434,25 +1523,32 @@ def stream_cbsr16out_check(torch, g, dim: int, k: int, seed: int) -> dict:
                  library_ms=lib_ms, library_error=lib_err,
                  hot0_ms=time_ms(torch, run_hot0, 10),
                  **hot_keys(plan.hot_set(row)), record_bytes=row,
-                 bound_ms=b_ms, bound_by=b_by,
-                 no_reuse_gather_ms=e * (row + 4) / PEAK_BYTES_S * 1e3)
+                 need_bytes=need, bound_ms=b_ms, bound_by=b_by,
+                 no_reuse_gather_ms=e * (need + 4) / PEAK_BYTES_S * 1e3,
+                 layout_gather_ms=e * (row + 4) / PEAK_BYTES_S * 1e3)
+        if norm == "mean":
+            r.update(cbsr16_diagnosis(torch, plan, rec, k, dim, post, True))
         del rec, xin
         lib = (f"{lib_ms:.3f}" if lib_ms is not None else f"none ({lib_err})")
         log(f"kernel stream_cbsr_spmm_bf16_out (products, A, {norm} factors, "
             f"dim {dim}, k {k}, {row}-B records): bitwise equal to the "
             f"rounding of its f32-output run, across two runs and with no "
-            f"hot set; equal by value to stream_spmm_bf16_out; {err:.3e} max "
+            f"hot set; bitwise equal to stream_spmm_bf16_out; {err:.3e} max "
             f"abs from the plain version, {near_text(near)}; "
             f"{r['ms']:.3f} ms (f32-output form "
             f"{r['f32_ms']:.3f}, plain {r['plain_ms']:.3f}, torch.sparse.mm "
-            f"bf16 {lib}, bound {b_ms:.3f} by {b_by}, no-reuse gather "
-            f"{r['no_reuse_gather_ms']:.3f})")
+            f"bf16 {lib}, bound {b_ms:.3f} by {b_by} and no-reuse gather "
+            f"{r['no_reuse_gather_ms']:.3f} on the {need} B a record needs; "
+            f"the {row}-B layout's no-reuse gather "
+            f"{r['layout_gather_ms']:.3f})")
         log_hot(f"stream_cbsr_spmm_bf16_out, {norm} factors", r)
         if norm == "mean":
+            log_diagnosis("stream_cbsr_spmm_bf16_out", r)
             entry.update({key: r[key] for key in (
                 "max_abs_err", "ms", "f32_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "library_error", "record_bytes",
-                "no_reuse_gather_ms", *HOT_KEYS)})
+                "need_bytes", "no_reuse_gather_ms", "layout_gather_ms",
+                *HOT_KEYS, *DIAG_KEYS)})
             entry.update({NEAR_KEYS[key]: r[key] for key in NEAR_KEYS})
         else:
             entry.update({f"gcn_{key}": r[key] for key in (
@@ -1631,7 +1727,10 @@ def cbsr_phase(torch, pg, dim: int, k: int, seed: int) -> list[dict]:
     out[1]["also_replaces"] = "spgemm_gnn_tpu/kernels/spgemm_pallas.py:285"
     del dense, sampled, z, ch_long
 
-    # the explicit CBSR path, through the entry points a user calls
+    # the explicit CBSR path, through the entry points a user calls, with
+    # the dense forward (the flag off), then at the default rule
+    from spgemm_gnn_tpu_torch.kernels import planned
+    planned.STREAM_CBSR_FORWARD = False
     ct = torch.randn((n, dim), generator=gen, device="cuda")
     x_in = xs.clone().requires_grad_(True)
     _build.launches.clear()
@@ -1665,10 +1764,9 @@ def cbsr_phase(torch, pg, dim: int, k: int, seed: int) -> list[dict]:
         f"{rel_dv:.3e} of max")
     del xd, y_ref
 
-    # the same path with STREAM_CBSR_FORWARD set: the forward takes
-    # stream_cbsr_spmm on (values, channels) and densifies nothing
-    from spgemm_gnn_tpu_torch.kernels import planned
-    planned.STREAM_CBSR_FORWARD = True
+    # the same path at the default rule: the forward takes stream_cbsr_spmm
+    # on (values, channels) and densifies nothing
+    planned.STREAM_CBSR_FORWARD = None
     x_on = xs.clone().requires_grad_(True)
     _build.launches.clear()
     v_on, c_on = api.cbsr_compact(x_on, k, impl="cuda")
@@ -1676,18 +1774,17 @@ def cbsr_phase(torch, pg, dim: int, k: int, seed: int) -> list[dict]:
     y_on = api.aggregate_cbsr(pg, v_on, c_on, dim, "mean", impl="cuda")
     (y_on * ct).sum().backward()
     torch.cuda.synchronize()
-    planned.STREAM_CBSR_FORWARD = False
     counts = dict(_build.launches)
     expected = {"cbsr_compact": 1, "stream_cbsr_spmm": 1, "stream_spmm": 1,
                 "cbsr_sample": 1, "cbsr_densify": 1}
     if counts != expected:
-        raise AssertionError(f"CBSR path, STREAM_CBSR_FORWARD: launch counts "
+        raise AssertionError(f"CBSR path, default rule: launch counts "
                              f"{counts} != {expected}")
     if not (torch.equal(y_on, y) and bits_equal(torch, v_on.grad, v.grad)
             and bits_equal(torch, x_on.grad, x_in.grad)):
-        raise AssertionError("CBSR path, STREAM_CBSR_FORWARD: y or the "
-                             "gradients differ from the flag-off path's")
-    log(f"CBSR path with STREAM_CBSR_FORWARD: launches {counts} (the "
+        raise AssertionError("CBSR path, default rule: y or the gradients "
+                             "differ from the flag-off path's")
+    log(f"CBSR path at the default rule: launches {counts} (the "
         f"forward densifies nothing); y equal by value, dvalues and dx "
         f"bitwise equal to the flag-off path's, so within {rel_y:.3e} and "
         f"{rel_dv:.3e} of the dense plain path")
@@ -1818,7 +1915,10 @@ def cbsr16_phase(torch, pg, dim: int, k: int, seed: int,
         entry["also_replaces"] = "spgemm_gnn_tpu/kernels/spgemm_pallas.py:285"
     del ch_long, ch16_long, z16
 
-    # the bf16 CBSR path, through the entry points a user calls
+    # the bf16 CBSR path, through the entry points a user calls, with the
+    # dense forward (the flag off: its densify forms are held here)
+    from spgemm_gnn_tpu_torch.kernels import planned
+    planned.STREAM_CBSR_FORWARD = False
     ct = torch.randn((n, dim), generator=gen, device="cuda")
     x_in = xs.to(bf16).requires_grad_(True)
     _build.launches.clear()
@@ -1830,6 +1930,7 @@ def cbsr16_phase(torch, pg, dim: int, k: int, seed: int,
     x16 = cbsr_densify(vals, ch, dim, bf16)
     y16 = api.aggregate(pg, x16, "mean", impl="cuda")
     torch.cuda.synchronize()
+    planned.STREAM_CBSR_FORWARD = None
     counts = dict(_build.launches)
     expected = {"cbsr_compact_bf16": 1, forms[1][0]: 1, "stream_spmm": 2,
                 "cbsr_sample": 1, forms[0][0]: 1, "cbsr_sample_bf16": 1,
@@ -1890,7 +1991,7 @@ def serve_phase(torch, cfg, ds, workdir: str) -> None:
     epoch's record; then predict requests of 1, 64 and 1024 test nodes
     through the device store and host stores of every policy at cache ratio
     0.05, each held to the full-graph eval forward at the restored weights
-    (B3 on the stream plan) within 1e-4 of max |logit| but on rows that
+    (the stream plan's kernels) within 1e-4 of max |logit| but on rows that
     MaxK near-ties flip (at most 0.5 % of the seeds, argmax agreement on at
     least 99.5 %), with exact launch counts (maxk_fwd and csr_spmm once per
     layer, no stream_spmm), and the request's time split printed."""
@@ -2019,7 +2120,7 @@ def serve_phase(torch, cfg, ds, workdir: str) -> None:
                                  f"by more than 1e-4 of max |logit|, argmax "
                                  f"agreement {agree}")
         log(f"serve request of {size}: logits against the full-graph eval "
-            f"forward (stream_spmm): {len(rows) - off} rows within "
+            f"forward (the stream plan): {len(rows) - off} rows within "
             f"{in_tol:.3e} of max |logit|, {off} rows off (MaxK near-ties), "
             f"argmax agreement {agree:.4f}; every store's logits equal")
 
@@ -2244,119 +2345,126 @@ def main() -> int:
                        w_lr=0.003, epochs=EPOCHS, eval_every=1, seed=SEED,
                        device="cuda", impl="auto", synthetic=True,
                        synthetic_scale=SCALE)
+    # the default (STREAM_CBSR_FORWARD None: the rule gives the MaxK
+    # forward stream_cbsr_spmm at hidden 256), then the dense forward (the
+    # flag off): the same losses
     first_steps(torch, cfg2, ds2, "train products")
-    products = run_training(torch, Trainer(cfg2, dataset=ds2), {
-        "maxk_fwd": EPOCHS * 2 * layers2, "maxk_bwd": EPOCHS * layers2,
-        "stream_spmm": EPOCHS * 3 * layers2}, "train products")
-    fell = products["losses"][-1] < products["losses"][0]
-    log(f"train products: the loss {'fell' if fell else 'did not fall'} "
-        f"over {EPOCHS} epochs at lr {cfg2.w_lr}")
-    for entry in kernels[:2]:
-        entry["products_launches"] = products["counts"][entry["name"]]
-    stream_entry = product_entry("stream_spmm", stream_a, stream_t,
-                                 reddit_=stream_reddit)
-    stream_entry.update(launches=products["counts"]["stream_spmm"],
-                        launches_path="train products")
-    kernels.insert(3, stream_entry)
-    torch.cuda.empty_cache()
-
-    # the same recipe with the CBSR stream forward: the same losses
     flag_on = {"maxk_fwd": EPOCHS * 2 * layers2, "maxk_bwd": EPOCHS * layers2,
                "cbsr_compact": EPOCHS * 2 * layers2,
                "stream_cbsr_spmm": EPOCHS * 2 * layers2,
                "stream_spmm": EPOCHS * layers2}
-    planned.STREAM_CBSR_FORWARD = True
-    products_on = run_training(torch, Trainer(cfg2, dataset=ds2), flag_on,
-                               "train products, STREAM_CBSR_FORWARD")
+    products = run_training(torch, Trainer(cfg2, dataset=ds2), flag_on,
+                            "train products")
+    fell = products["losses"][-1] < products["losses"][0]
+    log(f"train products: the loss {'fell' if fell else 'did not fall'} "
+        f"over {EPOCHS} epochs at lr {cfg2.w_lr}")
     planned.STREAM_CBSR_FORWARD = False
-    rel = max(abs(a - b) / abs(b) for a, b in zip(products_on["losses"],
-                                                   products["losses"]))
+    products_off = run_training(torch, Trainer(cfg2, dataset=ds2), {
+        "maxk_fwd": EPOCHS * 2 * layers2, "maxk_bwd": EPOCHS * layers2,
+        "stream_spmm": EPOCHS * 3 * layers2},
+        "train products, STREAM_CBSR_FORWARD off")
+    planned.STREAM_CBSR_FORWARD = None
+    rel = max(abs(a - b) / abs(b) for a, b in zip(products["losses"],
+                                                   products_off["losses"]))
     if not rel <= 1e-6:
-        raise AssertionError(f"train products: flag-on losses "
-                             f"{products_on['losses']} vs flag-off "
-                             f"{products['losses']} ({rel:.3e})")
-    same = products_on["losses"] == products["losses"]
-    log(f"train products: STREAM_CBSR_FORWARD on against off: losses "
+        raise AssertionError(f"train products: default losses "
+                             f"{products['losses']} vs flag-off "
+                             f"{products_off['losses']} ({rel:.3e})")
+    same = products["losses"] == products_off["losses"]
+    log(f"train products: the default (stream_cbsr_spmm forward) against "
+        f"the flag off: losses "
         f"{'bit-equal' if same else f'within {rel:.3e} relative'}; steady "
-        f"epoch {products_on['res']['steady_epoch_s']} s on, "
-        f"{products['res']['steady_epoch_s']} s off")
-    del products, products_on
+        f"epoch {products['res']['steady_epoch_s']} s default, "
+        f"{products_off['res']['steady_epoch_s']} s off")
+    for entry in kernels[:2]:
+        entry["products_launches"] = products["counts"][entry["name"]]
+    stream_entry = product_entry("stream_spmm", stream_a, stream_t,
+                                 reddit_=stream_reddit)
+    stream_entry.update(
+        launches=products["counts"]["stream_spmm"],
+        launches_path="train products",
+        flag_off_launches=products_off["counts"]["stream_spmm"])
+    kernels.insert(3, stream_entry)
+    cbsr_entry.update(launches=products["counts"]["stream_cbsr_spmm"],
+                      launches_path="train products")
+    kernels.insert(4, cbsr_entry)
+    del products, products_off
     torch.cuda.empty_cache()
 
-    # the products recipe with the 16-bit stream, flag off then on
+    # the products recipe with the 16-bit stream, default then flag off
     cfg2_16 = cfg2.replace(stream="bf16x2")
     first_steps16(torch, cfg2_16, ds2, "train products, bf16x2")
     products16 = run_training(torch, Trainer(cfg2_16, dataset=ds2), {
         "maxk_fwd": EPOCHS * 2 * layers2, "maxk_bwd": EPOCHS * layers2,
-        "round_rows": EPOCHS * 3 * layers2,
-        "stream_spmm_bf16": EPOCHS * 3 * layers2}, "train products, bf16x2")
-    planned.STREAM_CBSR_FORWARD = True
-    first_steps16(torch, cfg2_16, ds2,
-                  "train products, bf16x2, STREAM_CBSR_FORWARD")
-    products16_on = run_training(torch, Trainer(cfg2_16, dataset=ds2), {
-        "maxk_fwd": EPOCHS * 2 * layers2, "maxk_bwd": EPOCHS * layers2,
         "cbsr_compact": EPOCHS * 2 * layers2,
         "round_rows": EPOCHS * 3 * layers2,
         "stream_cbsr_spmm_bf16": EPOCHS * 2 * layers2,
-        "stream_spmm_bf16": EPOCHS * layers2},
-        "train products, bf16x2, STREAM_CBSR_FORWARD")
+        "stream_spmm_bf16": EPOCHS * layers2}, "train products, bf16x2")
     planned.STREAM_CBSR_FORWARD = False
+    first_steps16(torch, cfg2_16, ds2,
+                  "train products, bf16x2, STREAM_CBSR_FORWARD off")
+    products16_off = run_training(torch, Trainer(cfg2_16, dataset=ds2), {
+        "maxk_fwd": EPOCHS * 2 * layers2, "maxk_bwd": EPOCHS * layers2,
+        "round_rows": EPOCHS * 3 * layers2,
+        "stream_spmm_bf16": EPOCHS * 3 * layers2},
+        "train products, bf16x2, STREAM_CBSR_FORWARD off")
+    planned.STREAM_CBSR_FORWARD = None
     planned.DEFAULT_STREAM = "f32"
-    rel = max(abs(a - b) / abs(b) for a, b in zip(products16_on["losses"],
-                                                   products16["losses"]))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(products16["losses"],
+                                                   products16_off["losses"]))
     if not rel <= 1e-6:
-        raise AssertionError(f"train products, bf16x2: flag-on losses "
-                             f"{products16_on['losses']} vs flag-off "
-                             f"{products16['losses']} ({rel:.3e})")
-    log(f"train products, bf16x2: STREAM_CBSR_FORWARD on against off: "
+        raise AssertionError(f"train products, bf16x2: default losses "
+                             f"{products16['losses']} vs flag-off "
+                             f"{products16_off['losses']} ({rel:.3e})")
+    log(f"train products, bf16x2: the default against the flag off: "
         f"losses within {rel:.3e} relative; steady epoch "
-        f"{products16_on['res']['steady_epoch_s']} s on, "
-        f"{products16['res']['steady_epoch_s']} s off")
+        f"{products16['res']['steady_epoch_s']} s default, "
+        f"{products16_off['res']['steady_epoch_s']} s off")
     products16_counts = products16["counts"]
-    products16_on_counts = products16_on["counts"]
-    del products16, products16_on
+    products16_off_counts = products16_off["counts"]
+    del products16, products16_off
     torch.cuda.empty_cache()
 
-    # the products recipe as the 16-bit model, flag off then on
+    # the products recipe as the 16-bit model, default then flag off
     cfg2_b = cfg2.replace(dtype="bfloat16")
     first_steps16(torch, cfg2_b, ds2, "train products, bfloat16", STEP_TOL16)
     norm16 = {"layer_norm16_fwd": EPOCHS * 2 * layers2,
               "layer_norm16_bwd": EPOCHS * layers2}
-    products_b = run_training(torch, Trainer(cfg2_b, dataset=ds2), {
-        "maxk_fwd_bf16": EPOCHS * 2 * layers2,
-        "maxk_bwd_bf16": EPOCHS * layers2, **norm16,
-        "stream_spmm_bf16_out": EPOCHS * 3 * layers2},
-        "train products, bfloat16")
-    require_fall(products_b, "train products, bfloat16")
     flag_on16 = {"maxk_fwd_bf16": EPOCHS * 2 * layers2,
                  "maxk_bwd_bf16": EPOCHS * layers2, **norm16,
                  "cbsr_compact_bf16": EPOCHS * 2 * layers2,
                  "stream_cbsr_spmm_bf16_out": EPOCHS * 2 * layers2,
                  "stream_spmm_bf16_out": EPOCHS * layers2}
-    planned.STREAM_CBSR_FORWARD = True
-    first_steps16(torch, cfg2_b, ds2,
-                  "train products, bfloat16, STREAM_CBSR_FORWARD", STEP_TOL16)
-    products_b_on = run_training(
-        torch, Trainer(cfg2_b, dataset=ds2), flag_on16,
-        "train products, bfloat16, STREAM_CBSR_FORWARD")
+    products_b = run_training(torch, Trainer(cfg2_b, dataset=ds2), flag_on16,
+                              "train products, bfloat16")
+    require_fall(products_b, "train products, bfloat16")
     planned.STREAM_CBSR_FORWARD = False
-    require_fall(products_b_on, "train products, bfloat16, flag on")
-    rel = max(abs(a - b) / abs(b) for a, b in zip(products_b_on["losses"],
-                                                   products_b["losses"]))
+    first_steps16(torch, cfg2_b, ds2,
+                  "train products, bfloat16, STREAM_CBSR_FORWARD off",
+                  STEP_TOL16)
+    products_b_off = run_training(torch, Trainer(cfg2_b, dataset=ds2), {
+        "maxk_fwd_bf16": EPOCHS * 2 * layers2,
+        "maxk_bwd_bf16": EPOCHS * layers2, **norm16,
+        "stream_spmm_bf16_out": EPOCHS * 3 * layers2},
+        "train products, bfloat16, STREAM_CBSR_FORWARD off")
+    planned.STREAM_CBSR_FORWARD = None
+    require_fall(products_b_off, "train products, bfloat16, flag off")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(products_b["losses"],
+                                                   products_b_off["losses"]))
     if not rel <= 1e-6:
-        raise AssertionError(f"train products, bfloat16: flag-on losses "
-                             f"{products_b_on['losses']} vs flag-off "
-                             f"{products_b['losses']} ({rel:.3e})")
-    log(f"train products, bfloat16: STREAM_CBSR_FORWARD on against off: "
+        raise AssertionError(f"train products, bfloat16: default losses "
+                             f"{products_b['losses']} vs flag-off "
+                             f"{products_b_off['losses']} ({rel:.3e})")
+    log(f"train products, bfloat16: the default against the flag off: "
         f"losses within {rel:.3e} relative; steady epoch "
-        f"{products_b_on['res']['steady_epoch_s']} s on, "
-        f"{products_b['res']['steady_epoch_s']} s off")
+        f"{products_b['res']['steady_epoch_s']} s default, "
+        f"{products_b_off['res']['steady_epoch_s']} s off")
     products_b_counts = products_b["counts"]
-    products_b_on_counts = products_b_on["counts"]
-    del products_b, products_b_on
+    products_b_off_counts = products_b_off["counts"]
+    del products_b, products_b_off
     torch.cuda.empty_cache()
 
-    # ---- train 3: the products recipe with GCN and self-loops, flag set --
+    # ---- train 3: the products recipe with GCN and self-loops (default) ---
     t0 = time.perf_counter()
     ds3 = dataclasses.replace(ds2, graph=add_self_loops(g2))
     log(f"graph 3: ogbn-products stand-in with self-loops: "
@@ -2365,26 +2473,18 @@ def main() -> int:
         raise AssertionError("plan rule: ogbn-products with self-loops must "
                              "take the stream kind")
     cfg3 = cfg2.replace(model="gcn", selfloop=True)
-    planned.STREAM_CBSR_FORWARD = True
     first_steps(torch, cfg3, ds3, "train 3 (GCN)")
     gcn = run_training(torch, Trainer(cfg3, dataset=ds3), flag_on,
-                       "train 3 (GCN, products, self-loops, "
-                       "STREAM_CBSR_FORWARD)")
-    planned.STREAM_CBSR_FORWARD = False
-    cbsr_entry.update(launches=gcn["counts"]["stream_cbsr_spmm"],
-                      launches_path="train 3 (GCN)")
-    kernels.insert(4, cbsr_entry)
+                       "train 3 (GCN, products, self-loops)")
+    cbsr_entry.update(gcn_launches=gcn["counts"]["stream_cbsr_spmm"])
     del gcn
     torch.cuda.empty_cache()
     # the same as the 16-bit model: GCN has both node factors, so its bf16
     # pre-scale and post epilogue run here
     cfg3_b = cfg3.replace(dtype="bfloat16")
-    planned.STREAM_CBSR_FORWARD = True
     first_steps16(torch, cfg3_b, ds3, "train 3 (GCN), bfloat16", STEP_TOL16)
     gcn_b = run_training(torch, Trainer(cfg3_b, dataset=ds3), flag_on16,
-                         "train 3 (GCN, products, self-loops, "
-                         "STREAM_CBSR_FORWARD), bfloat16")
-    planned.STREAM_CBSR_FORWARD = False
+                         "train 3 (GCN, products, self-loops), bfloat16")
     require_fall(gcn_b, "train 3 (GCN), bfloat16")
     del gcn_b, ds3
     torch.cuda.empty_cache()
@@ -2400,11 +2500,13 @@ def main() -> int:
         "stream_spmm_bf16", "spgemm_gnn_tpu_torch/csrc/stream.cu",
         "spgemm_gnn_tpu/kernels/stream_pallas.py:37 (bf16 stream, "
         ":227-228)", stream16_a, stream16_t))
-    kernels[-1].update(launches=products16_counts["stream_spmm_bf16"],
-                       launches_path="train products, bf16x2")
+    kernels[-1].update(
+        launches=products16_counts["stream_spmm_bf16"],
+        launches_path="train products, bf16x2",
+        flag_off_launches=products16_off_counts["stream_spmm_bf16"])
     cbsr16_entry.update(
-        launches=products16_on_counts["stream_cbsr_spmm_bf16"],
-        launches_path="train products, bf16x2, STREAM_CBSR_FORWARD")
+        launches=products16_counts["stream_cbsr_spmm_bf16"],
+        launches_path="train products, bf16x2")
     kernels.append(cbsr16_entry)
     round_entry.update(launches=products16_counts["round_rows"],
                        launches_path="train products, bf16x2")
@@ -2426,15 +2528,16 @@ def main() -> int:
         "stream_spmm_bf16_out", "spgemm_gnn_tpu_torch/csrc/stream.cu",
         "spgemm_gnn_tpu/kernels/stream_pallas.py:37 (out_dtype, :217-242)",
         stream16o_a, stream16o_t))
-    kernels[-1].update(launches=products_b_counts["stream_spmm_bf16_out"],
-                       launches_path="train products, bfloat16")
-    path_on = "train products, bfloat16, STREAM_CBSR_FORWARD"
+    kernels[-1].update(
+        launches=products_b_counts["stream_spmm_bf16_out"],
+        launches_path="train products, bfloat16",
+        flag_off_launches=products_b_off_counts["stream_spmm_bf16_out"])
     cbsr16o_entry.update(
-        launches=products_b_on_counts["stream_cbsr_spmm_bf16_out"],
-        launches_path=path_on)
+        launches=products_b_counts["stream_cbsr_spmm_bf16_out"],
+        launches_path="train products, bfloat16")
     compact16_entry.update(
-        launches=products_b_on_counts["cbsr_compact_bf16"],
-        launches_path=path_on)
+        launches=products_b_counts["cbsr_compact_bf16"],
+        launches_path="train products, bfloat16")
     kernels += [cbsr16o_entry, compact16_entry]
     for entry in norm16_entries:
         entry.update(launches=products_b_counts[entry["name"]],

@@ -81,17 +81,19 @@
 // (stream_spmm_cbsr, :158-159). The rows or the record values are bf16,
 // already rounded from pre * x by round_rows (csrc/round.cu), so the planner
 // passes no pre; each is widened exactly to f32 in registers, and the sums,
-// carry slots, y and post stay f32. The walk, the carry pass, the hot set
-// (at the 16-bit row or record size) and the L2 hints are the f32 kernels'.
-// A dense row is 512 B at dim 256 (a lane loads 16 B, 8 channels), so the
-// no-reuse gather falls to E * 512 B, about 63 GB or 19 ms at ogbn-products,
-// and the same L2 budget holds twice the hot rows. A record holds ceil(k / 2)
-// words of bf16 values (two to a word) and the packed ids: 96 B at k 32,
-// three 32-byte sectors instead of five. Its lanes load the record as
-// 32-bit words, one load per lane at k <= 32, and take their value and id
-// from it with shuffles. A first version loaded each value with a 16-bit
-// load and read 16.1 ms on ogbn-products, slower than the f32 records
-// (utils/stream_sweep.py; PERF.md has both designs' times).
+// carry slots, y and post stay f32. The walk's rules, the carry pass, the
+// hot set (at the 16-bit row or record size) and the L2 hints are the f32
+// kernels'. A dense row is 512 B at dim 256 (a lane loads 16 B, 8
+// channels), so the no-reuse gather falls to E * 512 B, about 63 GB or 19 ms
+// at ogbn-products, and the same L2 budget holds twice the hot rows.
+// stream_cbsr_spmm_bf16 runs its own kernel, stream_cbsr16_kernel, on a
+// record of one 32-bit word a slot (bf16 value high, channel low; 128 B at
+// k <= 32): the f32 walk's one warp step an edge, with two shuffles to
+// unpack a packed record and a per-edge fetch, issued about 60 instructions
+// an edge and was held by that, not by memory (ogbn-products, k 32: 10.8
+// ms, 7.7 of it with no record loaded; utils/stream_sweep.py, PERF.md).
+// Its records come by cp.async, four to a warp copy, into a ring in shared
+// memory, and an edge is a shared-memory load and the scatter.
 //
 // stream_spmm_bf16_out and stream_cbsr_spmm_bf16_out are the bf16 forms with
 // a bf16 output: the 16-bit model (--dtype bfloat16), whose aggregation keeps
@@ -472,72 +474,85 @@ struct CbsrRecords {
   }
 };
 
-// stream_cbsr_spmm_bf16's rows: CbsrRecords' accumulator, sums and writes
-// over a record of vw = ceil(k / 2) words of bf16 values (value 2i in the
-// low half of word i) and kp packed id words (rw16 = vw + kp words). Lane l
-// loads record words l, l + 32, ... (kW of them: one at k <= 32), and slot
-// j = lane + 32 t takes its value, the half j & 1 of word j / 2, and its id,
-// byte j & 3 of word vw + j / 4, from those words with shuffles; a value
-// widens exactly to f32 and is scattered as CbsrRecords' is.
-template <int KV>
-struct Cbsr16Records : CbsrRecords<KV, true> {
-  using Base = CbsrRecords<KV, true>;
-  static constexpr int kW = (3 * KV + 3) / 4;  // ceil(24 KV / 32) words
-  struct Src {
-    const unsigned* rec;
-    int k, kp;
-  };
-  struct Slot {
-    unsigned w[kW];
-  };
+// A warp's rows over its span of chunks, edges [lo, hi): the rows' bounds
+// from a window of 32 indptr entries across the lanes, the current row r
+// (edges [rs, re), post factor pr), the current chunk q (edges [qlo,
+// qhi)) and the next segment end. `end_segment` applies the row rules
+// where a segment ends (module comment): both walks below share them.
+struct SpanRows {
+  const Walk& w;
+  int c0, lo, hi, lane;
+  int wb, ipw;  // indptr[wb + lane]
+  int r, rs, re, q, qlo, qhi, seg_end;
+  float pr;
 
-  int vw, rw16;
-
-  __device__ __forceinline__ Cbsr16Records(const Src& s, float4* smem,
-                                           int dim4_, int lane_)
-      : Base(typename Base::Src{s.rec, s.k, s.kp}, smem, dim4_, lane_),
-        vw((s.k + 1) / 2), rw16((s.k + 1) / 2 + s.kp) {}
-
-  __device__ __forceinline__ void load(Slot& sl, int u, uint64_t pol) const {
-    const unsigned* rr = this->rec + (int64_t)u * rw16;
-#pragma unroll
-    for (int i = 0; i < kW; ++i) {
-      const int j = this->lane + 32 * i;
-      sl.w[i] = j < rw16 ? ld_hint(rr + j, pol) : 0u;
-    }
+  __device__ __forceinline__ SpanRows(const Walk& w_, int c0_, int lo_,
+                                      int hi_, int lane_)
+      : w(w_), c0(c0_), lo(lo_), hi(hi_), lane(lane_) {
+    r = w.chunk_row0[c0];
+    wb = r;
+    ipw = __ldg(w.indptr + min(wb + lane, w.n_rows));
+    rs = ip(r);
+    re = ip(r + 1);
+    pr = w.post != nullptr ? __ldg(w.post + r) : 1.f;
+    q = c0;
+    qlo = lo;
+    qhi = min(lo + w.chunk, w.n_edges);
+    seg_end = min(re, qhi);
   }
 
-  __device__ __forceinline__ void consume(const Slot& sl, float s) {
-    const int lane = this->lane;
-#pragma unroll
-    for (int t = 0; t < KV; ++t) {
-      // the value: word 16 t + lane / 2, of the words loaded in round t / 2
-      const unsigned vwd =
-          __shfl_sync(kFull, sl.w[t >> 1], 16 * (t & 1) + (lane >> 1));
-      // the id: word q, in round i0 or i0 + 1 (round 0 at k <= 32)
-      const int q = vw + 8 * t + (lane >> 2);
-      unsigned iw;
-      if constexpr (kW == 1) {
-        iw = __shfl_sync(kFull, sl.w[0], q);
-      } else {
-        const int i0 = (vw + 8 * t) >> 5;
-        unsigned lo = 0u, hi = 0u;
-#pragma unroll
-        for (int i = 0; i < kW; ++i) {
-          if (i == i0) lo = sl.w[i];
-          if (i == i0 + 1) hi = sl.w[i];
-        }
-        const unsigned a = __shfl_sync(kFull, lo, q & 31);
-        const unsigned b = __shfl_sync(kFull, hi, q & 31);
-        iw = (q >> 5) == i0 ? a : b;
-      }
-      const float v = __uint_as_float((lane & 1) ? (vwd & 0xffff0000u)
-                                                 : (vwd << 16));
-      const unsigned c = (iw >> (8 * (lane & 3))) & 0xffu;
-      if (lane + 32 * t < this->k && v != 0.f)
-        this->acc[c] = fmaf(s, v, this->acc[c]);
+  __device__ __forceinline__ int ip(int i) {  // indptr[i], i >= wb, uniform
+    if (i - wb >= 32) {
+      wb = i;
+      ipw = __ldg(w.indptr + min(wb + lane, w.n_rows));
     }
-    __syncwarp();
+    return __shfl_sync(kFull, ipw, i - wb);
+  }
+
+  // edge e ends the segment: op's segment sum joins the row's, and the
+  // row or its part goes where the rules send it; then the next segment.
+  // OUT16: finished rows go to the bf16 w.y16, a row that goes on past the
+  // span to the span's f32 slot of w.heads.
+  template <bool OUT16, class Op>
+  __device__ __forceinline__ void end_segment(Op& op, int e) {
+    const bool before = rs < lo;  // the row began before the span
+    op.take(before || rs >= qlo);
+    if constexpr (OUT16) {
+      if (before)
+        op.write(w.carry + (int64_t)q * w.dim4, 1.f);
+      else if (re <= qhi)  // the row ends: whole, rounded
+        op.write16(w.y16 + (int64_t)r * w.dim4, bf16_round(pr));
+      else if (qhi == hi)  // goes on past the span: its span's slot
+        op.write(w.heads + (int64_t)(c0 / w.warp_chunks) * w.dim4, 1.f);
+    } else {
+      float4* out = nullptr;
+      float p = 1.f;
+      if (before) {
+        out = w.carry + (int64_t)q * w.dim4;
+      } else if (re <= qhi) {  // the row ends: whole, times post
+        out = w.y + (int64_t)r * w.dim4;
+        p = pr;
+      } else if (qhi == hi) {  // goes on past the span: unscaled
+        out = w.y + (int64_t)r * w.dim4;
+      }
+      if (out != nullptr) op.write(out, p);
+    }
+    if (e + 1 < hi) {
+      if (e + 1 == re) {  // the next row with edges
+        rs = re;
+        do {
+          ++r;
+          re = ip(r + 1);
+        } while (re == rs);
+        pr = w.post != nullptr ? __ldg(w.post + r) : 1.f;
+      }
+      if (e + 1 == qhi) {
+        ++q;
+        qlo = qhi;
+        qhi = min(qlo + w.chunk, w.n_edges);
+      }
+      seg_end = min(re, qhi);
+    }
   }
 };
 
@@ -588,24 +603,7 @@ stream_walk_kernel(const Walk w, const typename Op::Src src) {
     op.load(sl, uh & 0x7fffffff, uh < 0 ? keep : drop);
   };
 
-  // indptr[wb + lane], a window of 32 row bounds across the lanes
-  int r = w.chunk_row0[c0];
-  int wb = r;
-  int ipw = __ldg(w.indptr + min(wb + lane, w.n_rows));
-  auto ip = [&](int i) -> int {  // indptr[i], i >= wb, uniform
-    if (i - wb >= 32) {
-      wb = i;
-      ipw = __ldg(w.indptr + min(wb + lane, w.n_rows));
-    }
-    return __shfl_sync(kFull, ipw, i - wb);
-  };
-  int rs = ip(r);
-  int re = ip(r + 1);
-  float pr = w.post != nullptr ? __ldg(w.post + r) : 1.f;
-  int q = c0;  // the current chunk, its edges [qlo, qhi)
-  int qlo = lo;
-  int qhi = min(lo + w.chunk, w.n_edges);
-  int seg_end = min(re, qhi);
+  SpanRows rows(w, c0, lo, hi, lane);
 
   typename Op::Slot slot[D];
 #pragma unroll
@@ -627,47 +625,7 @@ stream_walk_kernel(const Walk w, const typename Op::Src src) {
           const int j = i + D;  // fetch edge base + j into the freed slot
           const int uh = __shfl_sync(kFull, j < 32 ? cu : nu, j & 31);
           if (e + D < hi) fetch(slot[d], uh);
-          if (e + 1 == seg_end) {  // the segment ends
-            const bool before = rs < lo;  // the row began before the span
-            op.take(before || rs >= qlo);
-            if constexpr (OUT16) {
-              if (before)
-                op.write(w.carry + (int64_t)q * w.dim4, 1.f);
-              else if (re <= qhi)  // the row ends: whole, rounded
-                op.write16(w.y16 + (int64_t)r * w.dim4, bf16_round(pr));
-              else if (qhi == hi)  // goes on past the span: its span's slot
-                op.write(w.heads + (int64_t)(c0 / w.warp_chunks) * w.dim4,
-                         1.f);
-            } else {
-              float4* out = nullptr;
-              float p = 1.f;
-              if (before) {
-                out = w.carry + (int64_t)q * w.dim4;
-              } else if (re <= qhi) {  // the row ends: whole, times post
-                out = w.y + (int64_t)r * w.dim4;
-                p = pr;
-              } else if (qhi == hi) {  // goes on past the span: unscaled
-                out = w.y + (int64_t)r * w.dim4;
-              }
-              if (out != nullptr) op.write(out, p);
-            }
-            if (e + 1 < hi) {
-              if (e + 1 == re) {  // the next row with edges
-                rs = re;
-                do {
-                  ++r;
-                  re = ip(r + 1);
-                } while (re == rs);
-                pr = w.post != nullptr ? __ldg(w.post + r) : 1.f;
-              }
-              if (e + 1 == qhi) {
-                ++q;
-                qlo = qhi;
-                qhi = min(qlo + w.chunk, w.n_edges);
-              }
-              seg_end = min(re, qhi);
-            }
-          }
+          if (e + 1 == rows.seg_end) rows.end_segment<OUT16>(op, e);
         }
       }
     }
@@ -741,6 +699,179 @@ stream_carry_kernel(const int* __restrict__ indptr,
   for (int t = 0; t < NV; ++t) {
     const int col = lane + 32 * t;
     if (col < dim4) yr[col] = scale4(acc[t], p);
+  }
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from global to shared memory, asynchronously, with the L2
+// policy keep (hot != 0) or drop (cp.async.cg: not kept in L1).
+__device__ __forceinline__ void cp16(unsigned dst, const void* src,
+                                     unsigned hot, uint64_t keep,
+                                     uint64_t drop) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
+      " @p cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %3;\n"
+      " @!p cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %4;\n}"
+      :
+      : "r"(dst), "l"(src), "r"(hot), "l"(keep), "l"(drop)
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// stream_cbsr_spmm_bf16 and _out: the walk of stream_walk_kernel (the same
+// spans, row rules, summation order, carry slots and heads) over records of
+// one 32-bit word a slot, the value's bf16 bits in the high half and its
+// channel in the low (ops/maxk.py::cbsr_records on bf16 values), 32 KV
+// words a node (KV 128-byte lines; slots past k hold 0).
+//
+// A warp's records come in stages of EPS edges (4 at k <= 32, one 512-byte
+// warp copy: 8 lanes a record, 16 bytes a lane; one record of KV lines from
+// KV 4 on), copied by cp.async into a ring of S stages of the warp's shared
+// memory, S stages ahead (S EPS <= 32 edges in flight): no registers hold
+// the records in flight, and the record's address and L2 policy cost a lane
+// one shuffle and one copy a stage, not a warp step an edge. An edge then
+// takes a warp step of a shared-memory load and the scatter (lane j takes
+// slot j: its value widens to f32 by a mask, its channel is the low half),
+// and a stage with no segment end runs its EPS edges with no test between
+// them. Segment ends (the row rules, the writes and the next row's bounds)
+// run at one place, outside the stage's fast path. The scatter, the sums
+// and what is written are CbsrRecords<1, true>'s (rows of dim <= 256): y
+// equals stream_spmm_bf16's, and the bf16 output stream_spmm_bf16_out's,
+// bit for bit on the densified rows.
+//
+// MODE 0 is the product. MODE 1 and 2 are utils/stream_sweep.py's timing
+// variants, never on the path, each with a wrong y by design (as
+// CbsrRecords<..., false>): 1 copies the first S stages and no more (the
+// warp goes on scattering those records: the walk and the scatter without
+// the gather); 2 copies every stage and scatters nothing (a lane folds its
+// slot words into a register, stored at the segment's end: the walk and the
+// gather).
+template <int KV, int S, bool OUT16, int MODE>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+stream_cbsr16_kernel(const Walk w, const unsigned* __restrict__ rec) {
+  constexpr int EPS = KV >= 4 ? 1 : 4 / KV;  // edges a stage
+  constexpr int NL = KV > 4 ? KV / 4 : 1;    // 16-byte copies a lane a stage
+  constexpr int RW = 32 * KV;                // words a record
+  constexpr int SW = RW * EPS;               // words a stage
+  static_assert(S * EPS <= 32 && (S & (S - 1)) == 0, "S stages ahead");
+  extern __shared__ float4 walk_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t c0l =
+      ((int64_t)blockIdx.x * kWarpsPerBlock + warp) * w.warp_chunks;
+  if (c0l >= w.n_chunks) return;  // c0 is uniform across the warp
+  const int c0 = (int)c0l;
+  const int lo = c0 * w.chunk;
+  const int hi = min(min(c0 + w.warp_chunks, w.n_chunks) * w.chunk,
+                     w.n_edges);
+  const uint64_t keep = l2_policy(true);
+  const uint64_t drop = l2_policy(false);
+  float4* acc4 = walk_smem + warp * (w.dim4 + S * SW / 4);
+  unsigned* ring = reinterpret_cast<unsigned*>(acc4 + w.dim4);
+  CbsrRecords<1, true> op(typename CbsrRecords<1, true>::Src{nullptr, 1, 1},
+                          acc4, w.dim4, lane);
+  unsigned fold = 0u;  // MODE 2's words
+
+  // edge base + lane of the current batch: its id with the hot bit in bit
+  // 31; the same for base + 32 + lane; the bare id of base + 64 + lane
+  auto id_at = [&](int e) -> int {
+    return e < hi ? __ldcs(w.indices + e) : 0;
+  };
+  auto with_hot = [&](int u, int e) -> int {
+    const bool hot = w.hot != nullptr && e < hi &&
+                     ((__ldg(w.hot + (u >> 5)) >> (u & 31)) & 1u);
+    return hot ? (int)((unsigned)u | 0x80000000u) : u;
+  };
+  int cu = with_hot(id_at(lo + lane), lo + lane);
+  int nu = with_hot(id_at(lo + 32 + lane), lo + 32 + lane);
+  int nnu = id_at(lo + 64 + lane);
+
+  // stage s (edges lo + EPS s ...) into ring slot s % S; `ids` holds the
+  // batch of its edges, its first edge at index i0 there
+  auto fetch = [&](int s, int ids, int i0) {
+    unsigned* slot = ring + (s % S) * SW;
+#pragma unroll
+    for (int c = 0; c < NL; ++c) {
+      const int wq = lane + 32 * c;  // the stage's 16-byte word
+      const int ri = wq / (8 * KV);  // of its record ri
+      const int uh = __shfl_sync(kFull, ids, (i0 + ri) & 31);
+      if (lo + EPS * s + ri < hi)
+        cp16(smem_addr(slot + 4 * wq),
+             rec + (int64_t)(uh & 0x7fffffff) * RW + 4 * (wq % (8 * KV)),
+             (unsigned)uh >> 31, keep, drop);
+    }
+    cp_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < S; ++s) fetch(s, cu, EPS * s);
+
+  SpanRows rows(w, c0, lo, hi, lane);
+
+  // one edge's record: lane j scatters slot j (then j + 32, ...)
+  auto consume = [&](const unsigned* sr) {
+#pragma unroll
+    for (int t = 0; t < KV; ++t) {
+      const unsigned wd = sr[lane + 32 * t];
+      if constexpr (MODE == 2) {
+        fold ^= wd;
+      } else {
+        const float v = __uint_as_float(wd & 0xffff0000u);
+        if (v != 0.f) op.acc[wd & 0xffffu] += v;
+      }
+    }
+    if constexpr (MODE != 2) __syncwarp();
+  };
+  // edge e ends a segment (MODE 2: its folded words stand in for the sum)
+  auto segment_end = [&](int e) {
+    if constexpr (MODE == 2) {
+      if (lane < 4 * w.dim4)
+        op.acc[lane] = __uint_as_float(fold & 0x3fffffffu);
+      fold = 0u;
+      __syncwarp();
+    }
+    rows.end_segment<OUT16>(op, e);
+  };
+
+  int s = 0;  // the stage at hand: edges lo + EPS s ...
+  for (int base = lo; base < hi; base += 32) {
+    for (int i0 = 0; i0 < 32 && base + i0 < hi; i0 += EPS, ++s) {
+      const int e0 = base + i0;
+      if constexpr (MODE == 1)
+        cp_wait<0>();
+      else
+        cp_wait<S - 1>();  // stage s has landed (one group a stage)
+      __syncwarp();
+      const unsigned* sr = ring + (s % S) * SW;
+      if (rows.seg_end > e0 + EPS && e0 + EPS <= hi) {  // no segment end
+#pragma unroll
+        for (int i = 0; i < EPS; ++i) consume(sr + i * RW);
+      } else {
+        const int n = min(EPS, hi - e0);
+        for (int i = 0; i < n; ++i) {
+          consume(sr + i * RW);
+          if (e0 + i + 1 == rows.seg_end) segment_end(e0 + i);
+        }
+      }
+      __syncwarp();  // every lane is done with the slot
+      if constexpr (MODE != 1) {
+        const int ahead = i0 + EPS * S;
+        fetch(s + S, ahead < 32 ? cu : nu, ahead & 31);
+      }
+    }
+    cu = nu;
+    nu = with_hot(nnu, base + 64 + lane);
+    nnu = id_at(base + 96 + lane);
   }
 }
 
@@ -979,21 +1110,51 @@ int spmm16(const void* indptr, const void* indices, const void* x,
   return (int)cudaGetLastError();
 }
 
-// The bf16-record product; OUT16 as in spmm16.
+// The instance of stream_cbsr16_kernel for (k, batch, mode) and its
+// dynamic shared memory at dim4: batch edges in flight (S EPS: 32 at
+// k <= 32, 16 at k <= 64, 8 at k <= 128, 4 above); mode 0 the product, 1
+// or 2 a timing variant (k <= 32). kernel is null for any other batch.
+using Cbsr16Fn = void (*)(const Walk, const unsigned*);
+struct Cbsr16Kernel {
+  Cbsr16Fn kernel;
+  size_t smem;
+};
+
+template <bool OUT16>
+Cbsr16Kernel cbsr16_kernel(int k, int dim4, int batch, int mode) {
+  const int kv = slices(k);
+#define CBSR16(KV_, S_, M_)                                            \
+  return {stream_cbsr16_kernel<KV_, S_, OUT16, M_>,                    \
+          (size_t)kWarpsPerBlock *                                     \
+              (dim4 * 16 + S_ * (KV_ >= 4 ? 1 : 4 / KV_) * 128 * KV_)}
+  if (kv == 1 && batch == 32 && mode == 0) CBSR16(1, 8, 0);
+  if (kv == 1 && batch == 32 && mode == 1) CBSR16(1, 8, 1);
+  if (kv == 1 && batch == 32 && mode == 2) CBSR16(1, 8, 2);
+  if (kv == 2 && batch == 16 && mode == 0) CBSR16(2, 8, 0);
+  if (kv == 4 && batch == 8 && mode == 0) CBSR16(4, 8, 0);
+  if (kv == 8 && batch == 4 && mode == 0) CBSR16(8, 4, 0);
+#undef CBSR16
+  return {nullptr, 0};
+}
+
+// The bf16-record product; OUT16 as in spmm16, batch and mode as in
+// cbsr16_kernel.
 template <bool OUT16>
 int cbsr16(const void* indptr, const void* indices, const void* records,
            const void* pre, const void* post, const void* chunk_row0,
            const void* carry_rows, const void* hot, void* y, void* carry,
            void* heads, int64_t n_rows, int64_t n_chunks, int64_t n_carry,
-           int64_t n_edges, int chunk, int k, int kp, int dim, int batch,
-           int warp_chunks, void* stream) {
+           int64_t n_edges, int chunk, int k, int dim, int batch,
+           int warp_chunks, int mode, void* stream) {
   if (dim < 4 || dim % 4 != 0 || dim > 256 || k < 1 || k >= dim ||
-      kp != (k + 3) / 4 || chunk < 1 || chunk > 512 || warp_chunks < 1 ||
+      pre != nullptr || chunk < 1 || chunk > 512 || warp_chunks < 1 ||
       !fits_int(n_rows, n_edges) ||
       (OUT16 && heads == nullptr && n_chunks > 0))
     return (int)cudaErrorInvalidValue;
   const int dim4 = dim / 4;
-  Walk w = make_walk(indptr, indices, pre, post, chunk_row0, hot,
+  const Cbsr16Kernel kn = cbsr16_kernel<OUT16>(k, dim4, batch, mode);
+  if (kn.kernel == nullptr) return (int)cudaErrorInvalidValue;
+  Walk w = make_walk(indptr, indices, nullptr, post, chunk_row0, hot,
                      OUT16 ? nullptr : y, carry, n_rows, n_chunks, n_edges,
                      chunk, warp_chunks, dim4);
   if (OUT16) {
@@ -1001,25 +1162,10 @@ int cbsr16(const void* indptr, const void* indices, const void* records,
     w.heads = static_cast<float4*>(heads);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned* rp = static_cast<const unsigned*>(records);
-  const int kv = slices(k);
-#define CBSR16(KV_, B_) \
-  launch_walk<Cbsr16Records<KV_>, B_, OUT16>(w, {rp, k, kp}, s)
-  if (kv == 1 && batch == 4)
-    CBSR16(1, 4);
-  else if (kv == 1 && batch == 8)
-    CBSR16(1, 8);
-  else if (kv == 1 && batch == 16)
-    CBSR16(1, 16);
-  else if (kv == 2 && batch == 8)
-    CBSR16(2, 8);
-  else if (kv == 4 && batch == 4)
-    CBSR16(4, 4);
-  else if (kv == 8 && batch == 4)
-    CBSR16(8, 4);
-  else
-    return (int)cudaErrorInvalidValue;
-#undef CBSR16
+  const int64_t warps = (n_chunks + warp_chunks - 1) / warp_chunks;
+  if (n_chunks > 0)
+    kn.kernel<<<blocks_for(warps), kWarpsPerBlock * 32, kn.smem, s>>>(
+        w, static_cast<const unsigned*>(records));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   launch_carry<OUT16>(dim4 <= 32 ? 1 : 2, w,
@@ -1063,11 +1209,13 @@ extern "C" int stream_spmm_bf16_out(const void* indptr, const void* indices,
                       n_edges, chunk, dim, depth, warp_chunks, stream);
 }
 
-// stream_cbsr_spmm on records with bf16 values: int32 [n_src, vw + kp],
-// vw = ceil(k / 2) words of bf16 values, two to a word (value 2i in the low
-// half of word i), then kp = ceil(k / 4) words of uint8 channel ids
-// (ops/maxk.py::cbsr_records on bf16 values; 96 B at k 32). batch: 4, 8 or
-// 16 at k <= 32, 8 at k <= 64, 4 above. Otherwise as stream_cbsr_spmm.
+// stream_cbsr_spmm on records with bf16 values: int32 [n_src, 32 ceil(k /
+// 32)], word j the bf16 bits of value j in its high half and channel j in
+// its low, zero past k (ops/maxk.py::cbsr_records on bf16 values; 128 B at
+// k <= 32); pre must be null (round_rows folds it into the values), and the
+// records 16-byte aligned. batch: edges in flight, 32 at k <= 32, 16 at
+// k <= 64, 8 at k <= 128, 4 above; mode 0 (1 and 2: the timing variants of
+// stream_cbsr16_kernel, k <= 32). Otherwise as stream_cbsr_spmm.
 extern "C" int stream_cbsr_spmm_bf16(const void* indptr, const void* indices,
                                      const void* records, const void* pre,
                                      const void* post, const void* chunk_row0,
@@ -1075,12 +1223,12 @@ extern "C" int stream_cbsr_spmm_bf16(const void* indptr, const void* indices,
                                      void* y, void* carry, int64_t n_rows,
                                      int64_t n_chunks, int64_t n_carry,
                                      int64_t n_edges, int chunk, int k,
-                                     int kp, int dim, int batch,
-                                     int warp_chunks, void* stream) {
+                                     int dim, int batch, int warp_chunks,
+                                     int mode, void* stream) {
   return cbsr16<false>(indptr, indices, records, pre, post, chunk_row0,
                        carry_rows, hot, y, carry, nullptr, n_rows, n_chunks,
-                       n_carry, n_edges, chunk, k, kp, dim, batch,
-                       warp_chunks, stream);
+                       n_carry, n_edges, chunk, k, dim, batch, warp_chunks,
+                       mode, stream);
 }
 
 // stream_cbsr_spmm_bf16 with a bf16 y16 and the heads scratch, as
@@ -1090,10 +1238,31 @@ extern "C" int stream_cbsr_spmm_bf16_out(
     const void* pre, const void* post, const void* chunk_row0,
     const void* carry_rows, const void* hot, void* y16, void* carry,
     void* heads, int64_t n_rows, int64_t n_chunks, int64_t n_carry,
-    int64_t n_edges, int chunk, int k, int kp, int dim, int batch,
-    int warp_chunks, void* stream) {
+    int64_t n_edges, int chunk, int k, int dim, int batch, int warp_chunks,
+    int mode, void* stream) {
   return cbsr16<true>(indptr, indices, records, pre, post, chunk_row0,
                       carry_rows, hot, y16, carry, heads, n_rows, n_chunks,
-                      n_carry, n_edges, chunk, k, kp, dim, batch,
-                      warp_chunks, stream);
+                      n_carry, n_edges, chunk, k, dim, batch, warp_chunks,
+                      mode, stream);
+}
+
+// The kernel that stream_cbsr_spmm_bf16 (out16 0) or _out (1) runs at (k,
+// dim, batch, mode): int32 out[3] = its registers a thread, local (spill)
+// bytes a thread, resident blocks an SM. Launches nothing.
+extern "C" int stream_cbsr16_attrs(int k, int dim, int batch, int mode,
+                                   int out16, void* out) {
+  if (dim < 4 || dim % 4 != 0 || dim > 256 || k < 1 || k >= dim)
+    return (int)cudaErrorInvalidValue;
+  const Cbsr16Kernel kn =
+      out16 ? cbsr16_kernel<true>(k, dim / 4, batch, mode)
+            : cbsr16_kernel<false>(k, dim / 4, batch, mode);
+  if (kn.kernel == nullptr) return (int)cudaErrorInvalidValue;
+  int* o = static_cast<int*>(out);
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kn.kernel);
+  if (err != cudaSuccess) return (int)err;
+  o[0] = a.numRegs;
+  o[1] = (int)a.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &o[2], kn.kernel, kWarpsPerBlock * 32, kn.smem);
 }

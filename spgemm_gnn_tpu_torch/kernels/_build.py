@@ -49,7 +49,8 @@ SIGNATURES = {
                "stream_cbsr_spmm_bf16": [*[_P] * 10, *[_I64] * 4,
                                          *[_INT] * 6, _P],
                "stream_cbsr_spmm_bf16_out": [*[_P] * 11, *[_I64] * 4,
-                                             *[_INT] * 6, _P]},
+                                             *[_INT] * 6, _P],
+               "stream_cbsr16_attrs": [*[_INT] * 5, _P]},
     "round": {name: [_P, _P, _P, _I64, _INT, _P]
               for name in ("round_rows", "round_out")},
     "norm": {"layer_norm16_fwd": [*[_P] * 6, _I64, _INT, ctypes.c_float,

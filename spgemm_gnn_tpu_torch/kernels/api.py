@@ -82,9 +82,10 @@ def aggregate(g, x: torch.Tensor, norm: str = "sum", k: int | None = None,
 
     A PlannedGraph aggregates through its plan's kernel pair (`csr_spmm` for
     the "windowed" kind, `stream_spmm` for "stream"); a plain Graph through
-    `csr_spmm`. `k` states that x is MaxK top-k sparse per row: with
-    `kernels.planned.STREAM_CBSR_FORWARD` set, a stream plan's forward then
-    takes `stream_cbsr_spmm` on x's CBSR. The backward is the dense kernel
+    `csr_spmm`. `k` states that x is MaxK top-k sparse per row: by
+    `kernels.planned.STREAM_CBSR_FORWARD`'s rule (by default where k < dim
+    <= 256), a stream plan's forward then takes `stream_cbsr_spmm` on x's
+    CBSR. The backward is the dense kernel
     on Aᵀ either way (the aggregation is linear and MaxK's own backward
     applies the mask). impl "torch" takes the plain dense product.
     """

@@ -18,7 +18,8 @@ Entry points:
 - `spgemm_forward` / `sspmm_backward` (the explicit CBSR API,
   kernels/api.py::aggregate_cbsr): CBSR → densify → the plan's kernel; the
   backward is the transpose product sampled at the k channels.
-With `STREAM_CBSR_FORWARD` set, the forward of either entry point on a
+Where `STREAM_CBSR_FORWARD` takes it (`cbsr_forward`: by default a
+k-sparse input of k < dim <= 256), the forward of either entry point on a
 stream plan takes `stream_cbsr_spmm` on CBSR instead (the models' path
 compacts its k-sparse input first).
 
@@ -52,7 +53,9 @@ from spgemm_gnn_tpu_torch.kernels.cbsr import (cbsr_compact, cbsr_densify,
                                                cbsr_sample)
 from spgemm_gnn_tpu_torch.kernels.round import round_rows
 from spgemm_gnn_tpu_torch.kernels.spmm import csr_spmm
-from spgemm_gnn_tpu_torch.kernels.stream import stream_cbsr_spmm, stream_spmm
+from spgemm_gnn_tpu_torch.kernels.stream import (MAX_CBSR_DIM,
+                                                 STREAM_DTYPES,
+                                                 stream_cbsr_spmm, stream_spmm)
 from spgemm_gnn_tpu_torch.ops.maxk import cbsr_records
 from spgemm_gnn_tpu_torch.ops.norms import node_factors
 from spgemm_gnn_tpu_torch.ops.spmm import _scale
@@ -65,10 +68,24 @@ KIND_SRC_BLOCK = 256
 # The CBSR edge-gather stream forward (`stream_cbsr_spmm`): a k-sparse input
 # over a stream plan is compacted to k values and packed channel ids per
 # node, and the forward gathers those per edge instead of a dense row. The
-# name and the default are the reference's (`spgemm_gnn_tpu/kernels/
-# planned.py`); read at each call, so a caller may set it on the module.
-# Windowed plans ignore it, and every backward takes the dense kernel.
-STREAM_CBSR_FORWARD = False
+# name is the reference's (`spgemm_gnn_tpu/kernels/planned.py`); read at
+# each call (`cbsr_forward`), so a caller may set it on the module:
+# - None (the default): the rule. Take it where it applies: k < dim <= 256
+#   (the ids are packed as uint8, so yelp's hidden 384 stays dense), on f32
+#   or bf16 values (what a record holds);
+# - True: force it (dim > 256 then raises, as the reference does);
+# - False: the dense-row forward (`stream_spmm`).
+# Windowed plans ignore it, and every backward takes the dense kernel. The
+# reference defaults to False from a TPU v5e measurement, where its row
+# gathers are tile-granular (0.29x at k = 32, `spgemm_gnn_tpu/kernels/
+# planned.py:180-186`). On the card the CBSR forward is the faster one: one
+# ogbn-products stand-in epoch (SAGE recipe, k 32, dim 256) with it against
+# without takes about 0.50 against 0.66 s in f32, 0.43 against 0.49 under
+# bf16x2 and 0.24 against 0.30 with bf16 activations, with the same losses,
+# since the two forwards are equal by value (chip_smoke.py's products
+# phases on an NVIDIA H100 80GB HBM3 at a 700 W power limit; PERF.md §5
+# holds the measured epochs and the call that measured them).
+STREAM_CBSR_FORWARD: bool | None = None
 
 # The feature stream of the planned products: "f32" or "bf16x2" (the name,
 # values and default of the reference's `DEFAULT_STREAM`, which its Trainer
@@ -78,6 +95,19 @@ DEFAULT_STREAM = "f32"
 STREAMS = ("f32", "bf16x2")
 
 KINDS = ("auto", "windowed", "stream")
+
+
+def cbsr_forward(plan, k: int | None, dim: int, dtype: torch.dtype) -> bool:
+    """Whether the forward on `plan` of a k-sparse input of width `dim` and
+    `dtype` takes `stream_cbsr_spmm` (STREAM_CBSR_FORWARD's rule): on stream
+    plans only, with k stated and k < dim; under the default (None) also
+    dim <= 256 and f32 or bf16 values, while True takes it regardless (and
+    the kernel's wrapper raises above dim 256)."""
+    if (STREAM_CBSR_FORWARD is False or not isinstance(plan, StreamPlan)
+            or k is None or k >= dim):
+        return False
+    return STREAM_CBSR_FORWARD is True or (dim <= MAX_CBSR_DIM
+                                           and dtype in STREAM_DTYPES)
 
 
 def _stream16() -> bool:
@@ -186,7 +216,7 @@ def plan_spmm(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
               post: torch.Tensor | None = None,
               k: int | None = None) -> torch.Tensor:
     """y = post ⊙ A (pre ⊙ x) through the plan's kernel. `k` states that x
-    has at most k nonzeros per row: with STREAM_CBSR_FORWARD set, a stream
+    has at most k nonzeros per row: where `cbsr_forward` says so, a stream
     plan then compacts x to CBSR and takes `stream_cbsr_spmm` (the same y by
     value). Under the 16-bit stream (DEFAULT_STREAM "bf16x2") the kernel
     gathers bf16(pre ⊙ x), or the CBSR values so rounded, with no pre
@@ -200,7 +230,7 @@ def plan_spmm(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
     if x.dtype == torch.bfloat16:
         return _plan_spmm16(plan, _scale(x, pre), post, k)
     if isinstance(plan, StreamPlan):
-        if STREAM_CBSR_FORWARD and k is not None and k < dim:
+        if cbsr_forward(plan, k, dim, x.dtype):
             vals, ch = cbsr_compact(x, k)
             if stream16:
                 return stream_cbsr_spmm(
@@ -220,13 +250,13 @@ def _plan_spmm16(plan, x: torch.Tensor, post: torch.Tensor | None,
                  k: int | None) -> torch.Tensor:
     """bf16(bf16(A x) · bf16(post)) for bf16 rows x that already carry the
     pre factor: the bf16-input kernels with their bf16 output, under either
-    stream (f32 sums of the same bf16 values). With STREAM_CBSR_FORWARD set
-    and `k`, a stream plan compacts x first (`cbsr_compact` on bf16 rows)
-    and gathers the bf16 records, as the reference scales, then compacts."""
+    stream (f32 sums of the same bf16 values). Where `cbsr_forward` says
+    so, a stream plan compacts x first (`cbsr_compact` on bf16 rows) and
+    gathers the bf16 records, as the reference scales, then compacts."""
     bf16 = torch.bfloat16
     dim = x.shape[1]
     if isinstance(plan, StreamPlan):
-        if STREAM_CBSR_FORWARD and k is not None and k < dim:
+        if cbsr_forward(plan, k, dim, x.dtype):
             vals, ch = cbsr_compact(x, k)
             return stream_cbsr_spmm(plan, cbsr_records(vals, ch, dim), k, dim,
                                     None, post, bf16, out_dtype=bf16)
@@ -270,13 +300,13 @@ def spgemm_forward(dim: int, values: torch.Tensor, channels: torch.Tensor,
     forward plan's kernel. bf16 values are scaled in bf16 (the factor
     rounded to bf16, the product rounded once) and densified into f32, the
     reference's `stream_dtype` (`spgemm_gnn_tpu/kernels/planned.py:198-
-    243`). On a stream plan with STREAM_CBSR_FORWARD set, (src_f ⊙ values,
-    channels) go to `stream_cbsr_spmm` with no densify (f32 values under the
-    16-bit stream rounded to bf16 after the factor; bf16 values as they
-    are, through its bf16 form)."""
+    243`). Where `cbsr_forward` takes it (k = values.shape[1]), (src_f ⊙
+    values, channels) go to `stream_cbsr_spmm` with no densify (f32 values
+    under the 16-bit stream rounded to bf16 after the factor; bf16 values
+    as they are, through its bf16 form)."""
     bf16 = values.dtype == torch.bfloat16
-    if STREAM_CBSR_FORWARD and isinstance(plans[0], StreamPlan):
-        k = values.shape[1]
+    k = values.shape[1]
+    if cbsr_forward(plans[0], k, dim, values.dtype):
         if _stream16() and not bf16:
             rec = cbsr_records(round_rows(values, src_f), channels, dim)
             return stream_cbsr_spmm(plans[0], rec, k, dim, None, dst_f,

@@ -26,8 +26,7 @@ import torch
 
 from spgemm_gnn_tpu_torch.kernels import _build
 from spgemm_gnn_tpu_torch.kernels.spmm import MAX_DIM, check_out_dtype
-from spgemm_gnn_tpu_torch.ops.maxk import (packed_channel_words,
-                                           record_value_words)
+from spgemm_gnn_tpu_torch.ops.maxk import packed_channel_words, record_words
 from spgemm_gnn_tpu_torch.ops.stream import (stream_cbsr_spmm_plain,
                                              stream_spmm_plain)
 
@@ -38,18 +37,22 @@ MAX_CBSR_DIM = 256
 # slices per lane (row bytes <= 512, 1024, 2048, 4096: f32 dim 256 and bf16
 # dim 512 share a key) for stream_spmm's rows fetched ahead, and by value
 # slots per lane (k <= 32, 64, 128, 256) for stream_cbsr_spmm's edges loaded
-# ahead, BATCHES for records of f32 values and BATCHES16 for records of
-# bf16 ones (a lane holds one 32-bit word of such a record per edge at
-# k <= 32, against two of an f32 one, so more edges fit ahead). The first
-# entry is the default: at dim 256 and k 32, the best of
-# utils/stream_sweep.py on the ogbn-products stand-in (PERF.md); wider rows
-# keep about 8 KB of registers in flight per warp.
+# ahead: BATCHES for records of f32 values (into registers), BATCHES16 for
+# records of bf16 ones (into a ring of 4 KB of shared memory a warp: 32
+# records of 128 B at k <= 32). The first entry is the default: at dim 256
+# and k 32, the best of utils/stream_sweep.py on the ogbn-products stand-in
+# (PERF.md); wider rows keep about 8 KB of registers in flight per warp.
 DEPTHS = {1: (8, 4, 16), 2: (8, 4, 16), 4: (4,), 8: (2,)}
 BATCHES = {1: (8, 4, 16), 2: (8,), 4: (4,), 8: (4,)}
-BATCHES16 = {1: (16, 4, 8), 2: (8,), 4: (4,), 8: (4,)}
+BATCHES16 = {1: (32,), 2: (16,), 4: (8,), 8: (4,)}
 
 
 STREAM_DTYPES = (torch.float32, torch.bfloat16)
+
+# stream_cbsr_spmm_at's timing variants -> the C entry point's argument
+# (f32 records: `scatter`; bf16 records: `mode`)
+VARIANTS = {None: 1, "scatter_free": 0}
+VARIANTS16 = {None: 0, "no_load": 1, "no_scatter": 2}
 
 
 def _slices(n: int) -> int:
@@ -165,11 +168,13 @@ def stream_spmm_at(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
     return outs[0]
 
 
+
 def _check_cbsr(records: torch.Tensor, k: int, dim: int,
-                value_dtype: torch.dtype,
-                out_dtype: torch.dtype | None = None) -> bool:
-    """Raise unless the records fit (k, dim, value_dtype); True for a bf16
-    output, which needs bf16 values."""
+                value_dtype: torch.dtype, out_dtype: torch.dtype | None,
+                pre: torch.Tensor | None) -> bool:
+    """Raise unless the records fit (k, dim, value_dtype) and, for bf16
+    values, no pre factor is given; True for a bf16 output, which needs
+    bf16 values."""
     if value_dtype not in STREAM_DTYPES:
         raise ValueError(f"record values are f32 or bf16; got {value_dtype}")
     out16 = check_out_dtype(value_dtype, out_dtype, "record values")
@@ -179,11 +184,14 @@ def _check_cbsr(records: torch.Tensor, k: int, dim: int,
     if not 1 <= k < dim:
         raise ValueError(f"stream_cbsr_spmm needs 1 <= k < dim; got k={k}, "
                          f"dim={dim}")
-    width = record_value_words(k, value_dtype) + packed_channel_words(k, dim)
+    width = record_words(k, dim, value_dtype)
     if records.dim() != 2 or records.shape[1] != width:
         raise ValueError(f"records has shape {tuple(records.shape)}, expected "
-                         f"[S, {width}] (k {value_dtype} values and the "
-                         f"packed ids)")
+                         f"[S, {width}] (cbsr_records of k {value_dtype} "
+                         f"values)")
+    if pre is not None and value_dtype == torch.bfloat16:
+        raise ValueError("stream_cbsr_spmm on bf16 values takes no pre "
+                         "factor: fold it into the values (round_rows)")
     return out16
 
 
@@ -194,14 +202,15 @@ def stream_cbsr_spmm(plan, records: torch.Tensor, k: int, dim: int,
                      out_dtype: torch.dtype | None = None
                      ) -> torch.Tensor:
     """y = post ⊙ A (pre ⊙ cbsr(values, channels)) over the StreamPlan:
-    records int32 [S, record_value_words(k, value_dtype) + ceil(k/4)] from
+    records int32 [S, record_words(k, dim, value_dtype)] from
     `ops.maxk.cbsr_records(values, channels, dim)` with values of
-    `value_dtype` (f32, or bf16 for the 16-bit stream; channels distinct
-    within a row) → y f32 [plan.num_rows, dim], equal by value to
+    `value_dtype` (f32, or bf16 for the 16-bit stream and model; channels
+    distinct within a row) → y f32 [plan.num_rows, dim], equal by value to
     `stream_spmm` on the densified input; out_dtype bf16 (bf16 values
-    only) as in `stream_spmm`. Needs 1 <= k < dim <= 256, on the CPU too:
-    the ids are packed as uint8, as in the JAX kernel."""
-    _check_cbsr(records, k, dim, value_dtype, out_dtype)
+    only) as in `stream_spmm`. bf16 values take no pre factor (the planner
+    rounds it into them). Needs 1 <= k < dim <= 256, on the CPU too: the
+    ids are packed as uint8, as in the JAX kernel."""
+    _check_cbsr(records, k, dim, value_dtype, out_dtype, pre)
     if _build.on_cpu(records):
         return stream_cbsr_spmm_plain(plan, records, k, dim, pre, post,
                                       value_dtype, out_dtype)
@@ -214,30 +223,36 @@ def stream_cbsr_spmm_at(plan, records: torch.Tensor, k: int, dim: int,
                         post: torch.Tensor | None = None, *,
                         hot_budget: int | None = None,
                         batch: int | None = None,
-                        scatter: bool = True,
+                        variant: str | None = None,
                         value_dtype: torch.dtype = torch.float32,
                         out_dtype: torch.dtype | None = None
                         ) -> torch.Tensor:
     """`stream_cbsr_spmm`'s kernel on CUDA records with the hot set of
     `hot_budget` bytes (None: `stream_tiles.HOT_BUDGET`; 0: none), `batch`
-    edges loaded ahead into registers (None: the default of BATCHES); every
-    choice gives the same bits. `scatter=False` is utils/stream_sweep.py's
-    timing variant (values summed in registers, no shared-memory scatter):
-    its y is wrong by design, and built for f32 values only."""
-    out16 = _check_cbsr(records, k, dim, value_dtype, out_dtype)
+    edges loaded ahead (None: the default of BATCHES, or BATCHES16 for
+    bf16 values); every choice gives the same bits. `variant` names one of
+    utils/stream_sweep.py's timing variants, whose y is wrong by design (k
+    <= 32): "scatter_free" for f32 values (values summed in registers, no
+    shared-memory scatter); for bf16 values "no_load" (the records of the
+    first stages only: the walk and the scatter) and "no_scatter" (records
+    loaded, nothing scattered: the walk and the gather)."""
+    out16 = _check_cbsr(records, k, dim, value_dtype, out_dtype, pre)
     dev = records.device
     bf16 = value_dtype == torch.bfloat16
     if dim % 4 or dim < 4:
         raise ValueError(f"stream_cbsr_spmm needs dim % 4 == 0; got {dim}")
-    kp = packed_channel_words(k, dim)
     batch = _choose(batch, (BATCHES16 if bf16 else BATCHES)[_slices(k)],
                     "batch")
-    if not scatter and (_slices(k) != 1 or bf16):
-        raise ValueError("the scatter-free variant is built for k <= 32 and "
-                         "f32 values")
+    codes = VARIANTS16 if bf16 else VARIANTS
+    if variant not in codes:
+        raise ValueError(f"variant must be one of {tuple(codes)} for "
+                         f"{value_dtype} values; got {variant!r}")
+    if variant is not None and _slices(k) != 1:
+        raise ValueError("the timing variants are built for k <= 32")
     n_src = records.shape[0]
-    width = record_value_words(k, value_dtype) + kp
+    width = record_words(k, dim, value_dtype)
     _build.require(records, "records", torch.int32, dev, (n_src, width))
+    _build.require_aligned(records, "records")
     _require_plan(plan, dev, n_src, pre, post)
     outs = _outputs(plan, dim, dev, out16)
     if plan.num_rows:
@@ -249,12 +264,29 @@ def stream_cbsr_spmm_at(plan, records: torch.Tensor, k: int, dim: int,
                 plan.chunk_row0.data_ptr(), plan.carry_rows.data_ptr(),
                 _ptr(hot.mask), *(t.data_ptr() for t in outs),
                 plan.num_rows, plan.num_chunks, plan.carry_rows.numel(),
-                plan.num_edges, plan.chunk, k, kp, dim, batch,
-                plan.warp_chunks)
+                plan.num_edges, plan.chunk, k,
+                *(() if bf16 else (packed_channel_words(k, dim),)), dim,
+                batch, plan.warp_chunks)
         with torch.cuda.device(dev):
             fn = getattr(_build.library("stream"), name)
-            status = (fn(*args, _build.stream_of(records)) if bf16
-                      else fn(*args, int(scatter), _build.stream_of(records)))
+            status = fn(*args, codes[variant], _build.stream_of(records))
         _build.check(status, name)
         _build.launches[name] += 1
     return outs[0]
+
+
+def stream_cbsr16_attrs(k: int, dim: int, batch: int | None = None,
+                        variant: str | None = None,
+                        out16: bool = False) -> dict:
+    """Registers and local (spill) bytes a thread, and resident blocks of
+    256 threads (and warps) an SM, of the kernel that `stream_cbsr_spmm`
+    runs on bf16 records at (k, dim, batch, variant), with a bf16 output if
+    `out16`: for utils/stream_sweep.py and chip_smoke.py. Needs the card."""
+    batch = _choose(batch, BATCHES16[_slices(k)], "batch")
+    out = torch.zeros(3, dtype=torch.int32)
+    status = _build.library("stream").stream_cbsr16_attrs(
+        k, dim, batch, VARIANTS16[variant], int(out16), out.data_ptr())
+    _build.check(status, "stream_cbsr16_attrs")
+    regs, local, blocks = out.tolist()
+    return dict(regs=regs, local_bytes=local, blocks_per_sm=blocks,
+                warps_per_sm=blocks * 8)

@@ -20,8 +20,9 @@ of the `cbsr_compact`, `cbsr_densify` and `cbsr_sample` kernels
 `sample_channels`. The differentiable compaction that chooses between the
 kernel and its plain version is `kernels/api.py::cbsr_compact`.
 `pack_channels` / `unpack_channels` pack the channel ids into int32 words, and
-`cbsr_records` / `split_records` put a node's values and packed ids in one
-record, the layout the `stream_cbsr_spmm` kernel gathers.
+`cbsr_records` / `split_records` put a node's values and ids in one
+record, the layout the `stream_cbsr_spmm` kernel gathers (f32 values and
+packed ids; or bf16 values and ids a word each, in whole 128-byte lines).
 """
 from __future__ import annotations
 
@@ -192,25 +193,40 @@ def unpack_channels(packed: torch.Tensor, k: int, dim: int = 256
     return parts.reshape(packed.shape[0], -1)[:, :k].to(torch.int32)
 
 
-def record_value_words(k: int, dtype: torch.dtype = torch.float32) -> int:
-    """int32 words of a record's k values: k f32, or ceil(k / 2) bf16."""
-    return -(-k // 2) if dtype == torch.bfloat16 else k
+def record_words(k: int, dim: int, dtype: torch.dtype = torch.float32
+                 ) -> int:
+    """int32 words of a node's record (`cbsr_records`): k f32 values and
+    the packed ids, or, for bf16 values, k slot words padded to 1, 2, 4 or
+    8 whole 128-byte lines (32 words each; a power of two, the kernel's
+    lines a record)."""
+    if dtype == torch.bfloat16:
+        return 32 * (1 if k <= 32 else 2 if k <= 64 else 4 if k <= 128
+                     else 8)
+    return k + packed_channel_words(k, dim)
 
 
 def cbsr_records(values: torch.Tensor, channels: torch.Tensor,
                  dim: int) -> torch.Tensor:
     """One record per node, what `stream_cbsr_spmm` gathers per edge: int32
-    [N, record_value_words(k, dtype) + packed_channel_words(k, dim)], the
-    values' bits, then the packed channel ids (`pack_channels`). bf16 values
-    (the 16-bit stream) go two to a word, value 2i in the low half of word
-    i, k padded to even with a zero; any other dtype as f32. At k 32 and
-    dim 256 a record is 160 B with f32 values (five 32-B sectors) and 96 B
-    with bf16 ones (three)."""
+    [N, record_words(k, dim, dtype)]. f32 values (any dtype but bf16, as
+    f32): the k values' bits, then the packed channel ids
+    (`pack_channels`), 160 B at k 32 and dim 256 (five 32-B sectors). bf16
+    values (the 16-bit stream and model): word j holds value j's bits in
+    its high half and channel j in its low (dim <= 65536), zero words pad
+    the record to `record_words`, 128 B at k <= 32: one aligned line, so
+    that a warp copies four records with one 16-B load a lane and a lane
+    reads a slot with one word."""
     if values.dtype == torch.bfloat16:
-        bits = torch.nn.functional.pad(values, (0, values.shape[1] % 2))
-    else:
-        bits = values.to(torch.float32)
-    bits = bits.contiguous().view(torch.int32)
+        if dim > 65536:
+            raise ValueError(f"bf16 records hold channel ids < 65536; got "
+                             f"dim={dim}")
+        k = values.shape[1]
+        bits = values.contiguous().view(torch.int16).to(torch.int64) & 0xffff
+        words = (bits << 16) | channels.to(torch.int64)
+        words = torch.where(words >= _SIGN, words - _U32, words)
+        return torch.nn.functional.pad(
+            words.to(torch.int32), (0, record_words(k, dim, values.dtype) - k))
+    bits = values.to(torch.float32).contiguous().view(torch.int32)
     return torch.cat([bits, pack_channels(channels, dim)], dim=1)
 
 
@@ -219,6 +235,11 @@ def split_records(records: torch.Tensor, k: int, dim: int,
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Inverse of `cbsr_records` for values of `dtype` (f32 or bf16):
     (values [N, k], channels int32 [N, k])."""
-    vw = record_value_words(k, dtype)
-    values = records[:, :vw].contiguous().view(dtype)[:, :k].contiguous()
-    return values, unpack_channels(records[:, vw:], k, dim)
+    if dtype == torch.bfloat16:
+        words = records[:, :k].to(torch.int64) & (_U32 - 1)
+        bits = words >> 16
+        bits = torch.where(bits >= 1 << 15, bits - (1 << 16), bits)
+        return (bits.to(torch.int16).view(torch.bfloat16),
+                (words & 0xffff).to(torch.int32))
+    values = records[:, :k].contiguous().view(torch.float32)
+    return values, unpack_channels(records[:, k:], k, dim)

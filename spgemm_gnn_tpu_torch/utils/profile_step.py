@@ -4,7 +4,7 @@ with device time summed by kernel name.
 
     python -m spgemm_gnn_tpu_torch.utils.profile_step \
         [--dataset reddit|ogbn-products] [--model sage|gcn|...] \
-        [--stream_cbsr_forward] [--stream f32|bf16x2] \
+        [--stream_cbsr_forward [auto|on|off]] [--stream f32|bf16x2] \
         [--dtype float32|bfloat16] [--synthetic_scale S]
 
 Recipes (scripts_train/*_maxk.sh): reddit (the default) MaxK k=32, hidden
@@ -14,9 +14,11 @@ family (the JAX CLI's flag); every other family takes self-loops, as the
 recipes give them. The Trainer plans the graph, so the step runs the kernel
 the reference's rule picks (csr_spmm on reddit, stream_spmm on
 ogbn-products); `--stream_cbsr_forward` sets
-`kernels.planned.STREAM_CBSR_FORWARD`, so a stream plan's forward takes
-stream_cbsr_spmm; `--stream bf16x2` runs the 16-bit feature stream (the
-Trainer's `--stream`: round_rows and the bf16 forms of the kernels);
+`kernels.planned.STREAM_CBSR_FORWARD`: "auto" (the default, None: its rule,
+which gives a MaxK forward on a stream plan stream_cbsr_spmm at hidden <=
+256), "on" (True; the flag alone) or "off" (False: the dense forward);
+`--stream bf16x2` runs the 16-bit feature stream (the Trainer's
+`--stream`: round_rows and the bf16 forms of the kernels);
 `--dtype bfloat16` the 16-bit model (bf16 matmuls and activations, the
 kernels' bf16-output forms); under it the script also times steps with
 cuBLAS allowed to reduce bf16 split-K partial sums in bf16
@@ -44,7 +46,10 @@ RECIPES = {
 }
 
 
-def profile_step(dataset: str, model: str, stream_cbsr_forward: bool,
+FLAG = {"auto": None, "on": True, "off": False}
+
+
+def profile_step(dataset: str, model: str, stream_cbsr_forward: bool | None,
                  stream: str, dtype: str, synthetic_scale: float, seed: int,
                  top: int) -> None:
     from torch.profiler import ProfilerActivity, profile
@@ -118,7 +123,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dataset", default="reddit", choices=sorted(RECIPES))
     ap.add_argument("--model", default="sage", choices=list(MODELS))
-    ap.add_argument("--stream_cbsr_forward", action="store_true")
+    ap.add_argument("--stream_cbsr_forward", nargs="?", const="on",
+                    default="auto", choices=sorted(FLAG))
     ap.add_argument("--stream", default="f32", choices=["f32", "bf16x2"])
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
@@ -126,7 +132,7 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=97)
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
-    profile_step(args.dataset, args.model, args.stream_cbsr_forward,
+    profile_step(args.dataset, args.model, FLAG[args.stream_cbsr_forward],
                  args.stream, args.dtype, args.synthetic_scale, args.seed,
                  args.top)
 

@@ -260,10 +260,12 @@ def test_cbsr_kernels_bitwise_plain_on_gpu(cuda, dim, k):
 
 
 @pytest.mark.gpu
-def test_aggregate_cbsr_kernels_match_dense_on_gpu(cuda):
+def test_aggregate_cbsr_kernels_match_dense_on_gpu(cuda, monkeypatch):
     """aggregate_cbsr through the kernels (compact, densify, stream product,
-    sample) against aggregate on cbsr_to_dense: y within 1e-5 of max |y|,
-    dvalues against the dense dx at the channels."""
+    sample; the dense forward, STREAM_CBSR_FORWARD off) against aggregate on
+    cbsr_to_dense: y within 1e-5 of max |y|, dvalues against the dense dx
+    at the channels."""
+    monkeypatch.setattr(tplanned, "STREAM_CBSR_FORWARD", False)
     g = tsyn.powerlaw_graph(900, 9000, seed=3).to(cuda)
     pg = tplanned.plan_graph(g, kind="stream")
     x = torch.randn((900, 128), device=cuda)

@@ -286,11 +286,13 @@ def test_cbsr_bf16_kernels_bitwise_plain_on_gpu(cuda, dim, k):
 
 
 @pytest.mark.gpu
-def test_cbsr_bf16_path_on_gpu(cuda):
+def test_cbsr_bf16_path_on_gpu(cuda, monkeypatch):
     """compact -> aggregate_cbsr -> backward on bf16 rows through the
-    kernels: dx bitwise the densify of dvalues into bf16, y within 1e-5 of
-    max |y| of the plain path (impl "torch" on the widened values) and the
-    launches of each form."""
+    kernels (the dense forward, STREAM_CBSR_FORWARD off): dx bitwise the
+    densify of dvalues into bf16, y within 1e-5 of max |y| of the plain
+    path (impl "torch" on the widened values) and the launches of each
+    form."""
+    monkeypatch.setattr(tplanned, "STREAM_CBSR_FORWARD", False)
     g = tsyn.powerlaw_graph(900, 9000, seed=3).to(cuda)
     pg = tplanned.plan_graph(g, kind="stream")
     x = tmaxk_plain.maxk(torch.randn((900, 128), device=cuda), 16).to(BF16)

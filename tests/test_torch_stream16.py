@@ -105,22 +105,31 @@ def test_round_rows_is_one_rounding_of_the_scaled_rows(width, with_pre, rng):
 @pytest.mark.parametrize("k", [8, 31, 32])
 @pytest.mark.parametrize("dim", [32, 256])
 def test_bf16_records_round_trip(dim, k, rng):
-    """cbsr_records on bf16 values: int32 [N, ceil(k/2) + ceil(k/4)] (96 B
-    at k 32, dim 256); split_records gives the values' bits and the
+    """cbsr_records on bf16 values: int32 [N, 32 lines], lines the power of
+    two from ceil(k/32), word j the bf16 bits of value j in its high half
+    and channel j in its low, zero words past k (128 B at k 32, dim 256:
+    one aligned line); split_records gives the values' bits and the
     channels back."""
     if k >= dim:
         pytest.skip("k < dim")
     vals = torch.tensor(rng.standard_normal((30, k)).astype(np.float32)).to(
         BF16)
+    vals[3] = 0.0
+    vals[4, ::2] = -0.0
     ch = torch.tensor(np.argsort(rng.random((30, dim)), axis=1)[:, :k]
                       .astype(np.int32))
     rec = tmaxk.cbsr_records(vals, ch, dim)
-    vw = tmaxk.record_value_words(k, BF16)
-    assert vw == -(-k // 2)
-    assert rec.dtype == torch.int32
-    assert rec.shape == (30, vw + tmaxk.packed_channel_words(k, dim))
+    width = tmaxk.record_words(k, dim, BF16)
+    assert width == 32 * 2 ** int(np.ceil(np.log2(-(-k // 32))))
+    assert rec.dtype == torch.int32 and rec.shape == (30, width)
     if (k, dim) == (32, 256):
-        assert rec.shape[1] * 4 == 96
+        assert rec.shape[1] * 4 == 128
+    words = rec.numpy().view(np.uint32)
+    np.testing.assert_array_equal(words[:, :k] >> 16,
+                                  vals.view(torch.int16).numpy()
+                                  .view(np.uint16))
+    np.testing.assert_array_equal(words[:, :k] & 0xffff, ch.numpy())
+    assert not words[:, k:].any()
     v2, c2 = tmaxk.split_records(rec, k, dim, BF16)
     assert v2.dtype == BF16
     np.testing.assert_array_equal(v2.view(torch.int16).numpy(),
@@ -129,6 +138,26 @@ def test_bf16_records_round_trip(dim, k, rng):
     # the f32 layout is as before
     rec32 = tmaxk.cbsr_records(vals.float(), ch, dim)
     assert rec32.shape[1] == k + tmaxk.packed_channel_words(k, dim)
+    assert rec32.shape[1] == tmaxk.record_words(k, dim)
+
+
+@pytest.mark.parametrize("k", [33, 64, 65, 100, 129, 200, 255])
+def test_bf16_records_of_several_lines(k, rng):
+    """Past k 32 a bf16 record takes 2, 4 or 8 whole lines (the kernel's
+    lines a record, `kernels/stream.py::_slices`), and round-trips."""
+    from spgemm_gnn_tpu_torch.kernels.stream import _slices
+    dim = 256
+    vals = torch.tensor(rng.standard_normal((20, k)).astype(np.float32)).to(
+        BF16)
+    ch = torch.tensor(np.argsort(rng.random((20, dim)), axis=1)[:, :k]
+                      .astype(np.int32))
+    rec = tmaxk.cbsr_records(vals, ch, dim)
+    assert rec.shape == (20, 32 * _slices(k))
+    assert not rec[:, k:].any()
+    v2, c2 = tmaxk.split_records(rec, k, dim, BF16)
+    np.testing.assert_array_equal(v2.view(torch.int16).numpy(),
+                                  vals.view(torch.int16).numpy())
+    np.testing.assert_array_equal(c2.numpy(), ch.numpy())
 
 
 def test_source_blocks_sized_by_row_bytes():
@@ -566,6 +595,48 @@ def test_stream_cbsr_spmm_bf16_matches_plain_on_gpu(cuda, k):
                                             hot_budget=budget, batch=batch,
                                             value_dtype=BF16)
         np.testing.assert_array_equal(_bits(y), _bits(other))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out", ["f32", "bf16"])
+@pytest.mark.parametrize("k", [8, 32, 64, 100, 200])
+def test_stream_cbsr16_across_spans_on_gpu(cuda, k, out):
+    """The bf16-record kernel (stream_cbsr16_kernel, both outputs) across
+    warp spans of 1, 3 and 8 chunks of 7 edges, every batch of edges in
+    flight and hot budgets of 0, a few records and every record: the f32
+    output equal by value to stream_spmm_bf16 on the densified rows, the
+    bf16 output bitwise equal to stream_spmm_bf16_out's, each run bitwise
+    equal to the default and to a second run."""
+    from spgemm_gnn_tpu_torch.kernels import stream as tstream
+    dim = 256
+    g = hub_graph(seed=4).to(cuda)
+    rng = np.random.default_rng(k + 1)
+    x = tmaxk.maxk(torch.tensor(rng.standard_normal((700, dim)).astype(
+        np.float32), device=cuda), k).to(BF16)
+    post = torch.tensor(rng.random(700).astype(np.float32) + 0.5,
+                        device=cuda)
+    vals, ch = tmaxk.cbsr_compact_plain(x, k)
+    rec = tmaxk.cbsr_records(vals, ch, dim)
+    od = BF16 if out == "bf16" else None
+    row = 4 * rec.shape[1]
+    for wc in (1, 3, 8):
+        plan = build_stream_plan(g.indptr, g.indices, chunk=7,
+                                 warp_chunks=wc)
+        y = stream_cbsr_spmm(plan, rec, k, dim, None, post, BF16, od)
+        dense = stream_spmm(plan, x, None, post, out_dtype=od)
+        if od is None:
+            assert torch.equal(y, dense)
+        else:
+            np.testing.assert_array_equal(_bits(y), _bits(dense))
+        np.testing.assert_array_equal(_bits(y), _bits(stream_cbsr_spmm(
+            plan, rec, k, dim, None, post, BF16, od)))
+        for budget, batch in ((0, None), (5 * row, None), (700 * row, None),
+                              *((None, b) for b in
+                                tstream.BATCHES16[tstream._slices(k)])):
+            other = tstream.stream_cbsr_spmm_at(
+                plan, rec, k, dim, None, post, hot_budget=budget,
+                batch=batch, value_dtype=BF16, out_dtype=od)
+            np.testing.assert_array_equal(_bits(y), _bits(other))
 
 
 @pytest.mark.gpu

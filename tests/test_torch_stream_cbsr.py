@@ -184,9 +184,51 @@ def _spy(monkeypatch, name: str) -> list:
 
 
 def test_flag_defaults_to_the_reference():
+    """The JAX package keeps its flag off (the reference); the port's default
+    is None, the rule of `test_cbsr_forward_rule`."""
     from spgemm_gnn_tpu.kernels import planned as jplanned
-    assert tplanned.STREAM_CBSR_FORWARD is jplanned.STREAM_CBSR_FORWARD \
-        is False
+    assert jplanned.STREAM_CBSR_FORWARD is False
+    assert tplanned.STREAM_CBSR_FORWARD is None
+
+
+@pytest.mark.parametrize("acts", ["f32", "bf16x2", "bf16"])
+@pytest.mark.parametrize("flag", [None, True, False])
+@pytest.mark.parametrize("kind", ["stream", "windowed"])
+@pytest.mark.parametrize("k", [32, "dim"])
+@pytest.mark.parametrize("dim", [256, 384])
+def test_cbsr_forward_rule(dim, k, kind, flag, acts, monkeypatch):
+    """STREAM_CBSR_FORWARD's three states on plan_spmm: None (the default)
+    takes stream_cbsr_spmm on a stream plan where k < dim <= 256, True
+    wherever k < dim (raising above dim 256, as the reference does), False
+    never; a windowed plan ignores the flag. f32 activations, the bf16x2
+    stream and bf16 activations alike; y equals the dense forward's by
+    value."""
+    k = dim if k == "dim" else k
+    g = tplanned.plan_graph(tsyn.random_graph(40, 200, seed=3), kind=kind,
+                            chunk=16)
+    rng = np.random.default_rng(dim + k)
+    x = torch.tensor(sparse_rows(rng, 40, dim, k))
+    if acts == "bf16":
+        x = x.to(torch.bfloat16)
+    monkeypatch.setattr(tplanned, "DEFAULT_STREAM",
+                        "bf16x2" if acts == "bf16x2" else "f32")
+    monkeypatch.setattr(tplanned, "STREAM_CBSR_FORWARD", flag)
+    names = ("stream_cbsr_spmm", "stream_spmm", "csr_spmm")
+    calls = {name: _spy(monkeypatch, name) for name in names}
+    _, post = node_factors(g, "mean")
+    cbsr = kind == "stream" and k < dim and (
+        flag is True or flag is None and dim <= 256)
+    if cbsr and dim > 256:
+        with pytest.raises(ValueError, match="dim <= 256"):
+            tplanned.plan_spmm(g.fwd_plan, x, None, post, k)
+        return
+    y = tplanned.plan_spmm(g.fwd_plan, x, None, post, k)
+    want = ("stream_cbsr_spmm" if cbsr else
+            "stream_spmm" if kind == "stream" else "csr_spmm")
+    assert {name: len(c) for name, c in calls.items()} == {
+        name: int(name == want) for name in names}
+    monkeypatch.setattr(tplanned, "STREAM_CBSR_FORWARD", False)
+    assert torch.equal(y, tplanned.plan_spmm(g.fwd_plan, x, None, post, k))
 
 
 @pytest.mark.parametrize("norm", ["sum", "mean", "gcn"])

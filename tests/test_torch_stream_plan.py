@@ -247,7 +247,8 @@ def test_stream_cbsr_plain_on_records(k, chunk):
 # the kernels' warp walk, emulated (csrc/stream.cu::stream_walk_kernel)
 # ---------------------------------------------------------------------------
 
-def emulate_walk(plan, x: np.ndarray, pre, post) -> np.ndarray:
+def emulate_walk(plan, x: np.ndarray, pre, post,
+                 eps: int | None = None) -> np.ndarray:
     """y of the stream kernels' walk in float64, step for step: a warp per
     span of `warp_chunks` chunks, the row bounds read from a window of 32
     indptr entries, a segment summed from 0 where a row or a chunk ends and
@@ -255,7 +256,11 @@ def emulate_walk(plan, x: np.ndarray, pre, post) -> np.ndarray:
     each later chunk's added); a row written whole times post where it ends,
     unscaled where it goes on past the span, and a segment of a row that
     began before the span written to its chunk's carry slot; then the carry
-    pass over the chunks past each carry row's first span."""
+    pass over the chunks past each carry row's first span. `eps` walks as
+    the bf16-record kernel does (csrc/stream.cu::stream_cbsr16_kernel):
+    stages of `eps` edges from the span's start, a stage in which no
+    segment ends summed with no test between its edges, the others edge by
+    edge with the segment ends."""
     ip = plan.indptr.numpy().astype(np.int64)
     idx = plan.indices.numpy()
     row0 = plan.chunk_row0.numpy()
@@ -285,32 +290,47 @@ def emulate_walk(plan, x: np.ndarray, pre, post) -> np.ndarray:
         seg_end = min(re, qhi)
         acc = np.zeros(x.shape[1])
         head = None
-        for e in range(lo, hi):
+
+        def consume(e):
+            nonlocal acc
             u = idx[e]
             acc = acc + (1.0 if pre is None else pre[u]) * x[u]
-            if e + 1 == seg_end:
-                before = rs < lo
-                head = acc if before or rs >= qlo else head + acc
-                acc = np.zeros(x.shape[1])
-                if before:
-                    carry[q] = head
-                elif re <= qhi:
-                    y[r] = head * pr
-                elif qhi == hi:
-                    y[r] = head
-                if e + 1 < hi:
-                    if e + 1 == re:
-                        rs = re
-                        while True:
-                            r += 1
-                            re = bound(r + 1)
-                            if re != rs:
-                                break
-                        pr = 1.0 if post is None else post[r]
-                    if e + 1 == qhi:
-                        q, qlo = q + 1, qhi
-                        qhi = min(qlo + c, n_edges)
-                    seg_end = min(re, qhi)
+
+        def segment_end(e):
+            nonlocal acc, head, r, rs, re, pr, q, qlo, qhi, seg_end
+            before = rs < lo
+            head = acc if before or rs >= qlo else head + acc
+            acc = np.zeros(x.shape[1])
+            if before:
+                carry[q] = head
+            elif re <= qhi:
+                y[r] = head * pr
+            elif qhi == hi:
+                y[r] = head
+            if e + 1 < hi:
+                if e + 1 == re:
+                    rs = re
+                    while True:
+                        r += 1
+                        re = bound(r + 1)
+                        if re != rs:
+                            break
+                    pr = 1.0 if post is None else post[r]
+                if e + 1 == qhi:
+                    q, qlo = q + 1, qhi
+                    qhi = min(qlo + c, n_edges)
+                seg_end = min(re, qhi)
+
+        step = eps or 1
+        for e0 in range(lo, hi, step):
+            if eps is not None and seg_end > e0 + eps and e0 + eps <= hi:
+                for e in range(e0, e0 + eps):
+                    consume(e)
+                continue
+            for e in range(e0, min(e0 + step, hi)):
+                consume(e)
+                if e + 1 == seg_end:
+                    segment_end(e)
     for r in plan.carry_rows.numpy():
         a, b = ip[r], ip[r + 1]
         if a == b:
@@ -325,7 +345,7 @@ def emulate_walk(plan, x: np.ndarray, pre, post) -> np.ndarray:
 
 @pytest.mark.parametrize("warp_chunks", [1, 2, 5, 8])
 @pytest.mark.parametrize("chunk", [1, 3, 7, 128])
-def test_walk_follows_the_plan(chunk, warp_chunks):
+def test_walk_follows_the_plan(chunk, warp_chunks, eps=None):
     """The emulated walk writes every row, and equals the plain version in
     float64, on a graph with runs of empty rows (more than a window of 32),
     a hub row and rows across many chunks and spans."""
@@ -344,9 +364,21 @@ def test_walk_follows_the_plan(chunk, warp_chunks):
     pre = rng.random(300) + 0.5
     post = rng.random(300) + 0.5
     for a, b in ((None, None), (pre, post)):
-        got = emulate_walk(plan, x, a, b)
+        got = emulate_walk(plan, x, a, b, eps)
         want = stream_spmm_plain(
             plan, torch.tensor(x), None if a is None else torch.tensor(a),
             None if b is None else torch.tensor(b)).numpy()
         assert not np.isnan(got).any()
         np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("eps", [1, 2, 4])
+@pytest.mark.parametrize("warp_chunks", [1, 2, 5, 8])
+@pytest.mark.parametrize("chunk", [1, 3, 7, 128])
+def test_staged_walk_follows_the_plan(chunk, warp_chunks, eps):
+    """The walk in stages of eps edges (stream_cbsr16_kernel at 4, 2 or 1
+    edges a stage: records of 1, 2, 4 or 8 128-B lines), with its fast
+    path for a stage in which no segment ends, on the graph of
+    `test_walk_follows_the_plan`: every row written, equal to the plain
+    version in float64."""
+    test_walk_follows_the_plan(chunk, warp_chunks, eps)
