@@ -37,7 +37,17 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      f32-output run and across two runs, and within 1 bf16 ulp of its
      plain version (1e-5 of max |y| where a sum cancels) with at most
      0.5 % of the values off, each timed beside
-     its f32 form, its plain version and its bound;
+     its f32 form, its plain version and its bound; then B2's CBSR forms,
+     csr_cbsr_spmm_bf16 and csr_cbsr_spmm_bf16_out, on the records of the
+     same k-sparse x (cbsr_compact, the values in bf16) at the dense bf16
+     form's schedule: bitwise equal to csr_spmm_bf16 / _bf16_out on the
+     densified rows, across two runs and to their plain version on
+     integer values (exact sums), the f32 output within 1e-5 of max |y|
+     of float64, the bf16 output the rounding of the f32 one and within 1
+     bf16 ulp of its plain version; timed
+     beside the dense form, the plain version, torch.sparse.mm bf16, the
+     bound on the 96 B a record needs and its no-reuse gather (the 128-B
+     layout's on a line of its own);
   5. train: the Reddit recipe (SAGE, MaxK k=32, hidden 256, 4 layers,
      LayerNorm, dropout 0.5, lr 0.01): its first two train steps through the
      kernels within 1e-4 relative of the plain path's (same weights and
@@ -46,10 +56,15 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      structure exactly; then the same with `--stream bf16x2`: its first two
      steps within 1e-4 relative of the same planned path through the plain
      versions (both round the same messages), 5 epochs with finite losses
-     and exact launch counts (round_rows and csr_spmm_bf16, no f32
-     aggregation launch); then with `--dtype bfloat16` (first steps within
-     1e-3 relative of the plain versions, exact counts of the 16-bit forms
-     only, no round_rows, falling losses);
+     and exact launch counts (round_rows, cbsr_compact and
+     csr_cbsr_spmm_bf16 on the MaxK forwards at the default rule,
+     csr_spmm_bf16 on Aᵀ, no f32 aggregation launch), then 5 epochs with
+     STREAM_CBSR_FORWARD off (csr_spmm_bf16 on both), the default's losses
+     within 1e-6 relative of theirs (bit-equal at the same schedule); then
+     with `--dtype bfloat16` (first steps within 1e-3 relative of the
+     plain versions, exact counts of the 16-bit forms only: cbsr_compact_
+     bf16 and csr_cbsr_spmm_bf16_out forward at the default, no
+     round_rows, falling losses), default then flag off as for bf16x2;
   6. model check: on a small graph (3000 nodes, 2 layers, ReLU, so only the
      aggregation kernel), every model family (SAGE, GCN, GIN, GNNRes and the
      three integrated MaxK models) through the kernels against the same
@@ -1436,6 +1451,124 @@ def log_product16out(kernel: str, what: str, r: dict) -> None:
         log_hot(f"{what}, bf16 output", r)
 
 
+def csr_cbsr16_check(torch, g, xs, post, out16: bool) -> dict:
+    """csr_cbsr_spmm's form (`csr_cbsr_spmm_bf16`, or with `out16`
+    `csr_cbsr_spmm_bf16_out`) on A of the windowed graph, on the records of
+    the k-sparse input `xs` as the planner makes them (cbsr_compact, the
+    values rounded to bf16; the mean factors have no pre), at the schedule
+    of the dense bf16 form: bitwise equal to csr_spmm_bf16 (or _bf16_out)
+    on the densified rows and across two runs; the f32 output within 1e-5
+    of max |y| of the plain version in float64, the bf16 output the
+    rounding of the f32 one and within 1 bf16 ulp of its plain version
+    (`near16`); on integer values at the same
+    channels, whose f32 sums are exact in any order, bit for bit its plain
+    version (`ops/spmm.py::csr_cbsr_plain`). Timed beside the dense form on
+    the same plan, the plain version and torch.sparse.mm bf16 on the
+    densified rows; the bound counts the function's bytes (a record of the
+    96 B it needs at k 32, `bf16_record_bytes`), and the 128-B layout's
+    bound and no-reuse gather stand on their own keys."""
+    from spgemm_gnn_tpu_torch.graphs.tiles import CSRPlan
+    from spgemm_gnn_tpu_torch.kernels.cbsr import cbsr_compact
+    from spgemm_gnn_tpu_torch.kernels.round import round_rows
+    from spgemm_gnn_tpu_torch.kernels.spmm import csr_cbsr_spmm, csr_spmm
+    from spgemm_gnn_tpu_torch.ops.maxk import cbsr_records, cbsr_to_dense
+    from spgemm_gnn_tpu_torch.ops.spmm import csr_cbsr_plain, csr_spmm_plain
+
+    bf16 = torch.bfloat16
+    od = bf16 if out16 else None
+    name = "csr_cbsr_spmm_bf16_out" if out16 else "csr_cbsr_spmm_bf16"
+    n, e, dim = g.num_nodes, g.num_edges, xs.shape[1]
+    vals, ch = cbsr_compact(xs, K)
+    v16 = round_rows(vals)
+    rec = cbsr_records(v16, ch, dim)
+    dense = cbsr_to_dense(v16.float(), ch, dim).to(bf16)
+    plan = CSRPlan(g.indptr, g.indices)
+    sched = plan.schedule(n, dim, 2)
+
+    def run(r=rec):
+        return csr_cbsr_spmm(plan, r, K, dim, post, od)
+
+    def run_dense():
+        return csr_spmm(plan, dense, None, post, out_dtype=od)
+
+    def run_plain(r=rec):
+        return csr_cbsr_plain(sched.block_indptr, sched.indices, r, K, dim,
+                              post, od)
+
+    ints = (torch.randint(-4, 5, vals.shape, generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 5), device="cuda")).to(bf16)
+    rec_int = cbsr_records(ints, ch, dim)
+    got, again, by_dense = run(), run(), run_dense()
+    got_int, plain_int = run(rec_int), run_plain(rec_int)
+    torch.cuda.synchronize()
+    ints16 = torch.int16 if out16 else torch.int32
+    if not torch.equal(got.view(ints16), by_dense.view(ints16)):
+        raise AssertionError(f"{name} differs from the dense form on the "
+                             f"densified rows")
+    if not torch.equal(got.view(ints16), again.view(ints16)):
+        raise AssertionError(f"{name}: two runs differ")
+    if not torch.equal(got_int.view(ints16), plain_int.view(ints16)):
+        raise AssertionError(f"{name} differs from its plain version on "
+                             f"integer values (exact sums)")
+    del again, by_dense, got_int, plain_int, rec_int, ints
+    plain = run_plain()
+    if out16:
+        f32 = csr_cbsr_spmm(plan, rec, K, dim)
+        if not bits_equal(torch, got, rounded16(torch, f32, post)):
+            raise AssertionError(f"{name} differs from the rounding of its "
+                                 f"f32-output run")
+        del f32
+        err = float((got.float() - plain.float()).abs().max())
+        extra = {NEAR_KEYS[key]: v for key, v in
+                 near16(torch, got, plain, name).items()}
+    else:
+        ref = csr_spmm_plain(g.indptr, g.indices, dense.double(), None, post)
+        err, rel = rel_err(got, ref)
+        if not rel <= 1e-5:
+            raise AssertionError(f"{name} error {rel:.3e} of max |y| > 1e-5")
+        extra = dict(rel=rel)
+        del ref
+    del plain, got
+    need, row = bf16_record_bytes(K), rec.shape[1] * 4
+    gathered = torch.bincount(g.indices, minlength=n).double()
+    ops = 2.0 * float(((dense != 0).sum(1).double() * gathered).sum())
+    rest = e * 4 + (n + 1) * 4 + n * dim * (2 if out16 else 4) + 4 * n
+    b_ms, b_by = bound_ms(n * need + rest, ops)
+    layout_ms, _ = bound_ms(n * row + rest, ops)
+    lib_ms, lib_err = library16(torch, g.indptr, g.indices,
+                                post[g.edge_dst.long()], n, dense)
+    r = dict(name=name, route="cuda",
+             source="spgemm_gnn_tpu_torch/csrc/spmm.cu",
+             replaces="spgemm_gnn_tpu/kernels/spgemm_pallas.py:97 on bf16 "
+                      "rows (:124-129, :183-186" +
+                      ("; bf16 output planned.py:271-274, :300" if out16
+                       else "") +
+                      ") composed with :285 _densify_t_kernel (call :329)",
+             max_abs_err=err, ms=time_ms(torch, run, 10),
+             dense_ms=time_ms(torch, run_dense, 10),
+             plain_ms=time_ms(torch, run_plain, 2), bound_ms=b_ms,
+             bound_by=b_by, library_ms=lib_ms, library_error=lib_err,
+             layout_bound_ms=layout_ms, record_bytes=row, need_bytes=need,
+             no_reuse_gather_ms=e * need / PEAK_BYTES_S * 1e3,
+             layout_gather_ms=e * row / PEAK_BYTES_S * 1e3, nb=sched.nb,
+             **extra)
+    lib = (f"{lib_ms:.3f}" if lib_ms is not None else f"none ({lib_err})")
+    near = (near_text(r | {key: r[NEAR_KEYS[key]] for key in NEAR_KEYS})
+            if out16 else f"{r['rel']:.3e} of max |y| from float64")
+    log(f"kernel {name} (reddit, A, k-sparse x, dim {dim}, k {K}, "
+        f"{row}-B records, {sched.nb} source blocks, the dense form's "
+        f"schedule): bitwise equal to the dense form on the densified rows, "
+        f"across two runs and to its plain version on integer "
+        f"values; {err:.3e} max abs from the plain version, {near}; "
+        f"{r['ms']:.3f} ms (the dense form {r['dense_ms']:.3f}, plain "
+        f"{r['plain_ms']:.3f}, torch.sparse.mm bf16 {lib}; bound {b_ms:.3f} "
+        f"by {b_by} and no-reuse gather {r['no_reuse_gather_ms']:.3f} on the "
+        f"{need} B a record needs)")
+    log(f"  {name}: the {row}-B layout's bound {layout_ms:.3f} ms and "
+        f"no-reuse gather {r['layout_gather_ms']:.3f} ms")
+    return r
+
+
 def stream_cbsr16out_check(torch, g, dim: int, k: int, seed: int) -> dict:
     """stream_cbsr_spmm_bf16_out on A of the graph at (dim, k) under the
     mean and gcn factors, as the planner runs it on bf16 activations: the
@@ -1634,6 +1767,19 @@ def run_training(torch, trainer, expected: dict, what: str) -> dict:
                              f"{expected}")
     log(f"{what}: launches {counts}")
     return dict(res=res, losses=losses, counts=counts)
+
+
+def same_losses(run: dict, off: dict, what: str) -> None:
+    """The default rule's losses within 1e-6 relative of the flag-off
+    run's; logs whether they are bit-equal."""
+    rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                   off["losses"]))
+    if not rel <= 1e-6:
+        raise AssertionError(f"{what}: default losses {run['losses']} vs "
+                             f"flag-off {off['losses']} ({rel:.3e})")
+    same = run["losses"] == off["losses"]
+    log(f"{what}: the default against the flag off: losses "
+        f"{'bit-equal' if same else f'within {rel:.3e} relative'}")
 
 
 def require_fall(run: dict, what: str) -> None:
@@ -2201,6 +2347,10 @@ def main() -> int:
     csr16o_t = product16out_check(torch, "csr_spmm", g, gy, post, None,
                                   transpose=True)
     log_product16out("csr_spmm", "reddit, A^T, dense g", csr16o_t)
+    # B2's CBSR forms on the same k-sparse x: the MaxK forward's records,
+    # at the dense bf16 form's schedule
+    csr_cbsr16 = csr_cbsr16_check(torch, g, xs, post, False)
+    csr_cbsr16o = csr_cbsr16_check(torch, g, xs, post, True)
     del xs, gy
     torch.cuda.empty_cache()
 
@@ -2223,35 +2373,59 @@ def main() -> int:
         entry["launches"] = reddit_counts[entry["name"]]
         entry["launches_path"] = "train reddit"
 
-    # the same recipe with the 16-bit stream: round_rows and csr_spmm_bf16,
-    # no f32 aggregation launch
+    # the same recipe with the 16-bit stream: round_rows and the bf16
+    # forms, no f32 aggregation launch; at the default rule the MaxK
+    # forwards take csr_cbsr_spmm_bf16 on the compacted input's records
+    # (csr_spmm_bf16 only on Aᵀ), then the flag off (csr_spmm_bf16 on
+    # both): the same schedule, so the same losses
     cfg16 = cfg.replace(stream="bf16x2")
     first_steps16(torch, cfg16, ds, "train reddit, bf16x2")
+    dense16 = {"maxk_fwd": EPOCHS * 2 * layers, "maxk_bwd": EPOCHS * layers,
+               "round_rows": EPOCHS * 3 * layers}
     reddit16 = run_training(torch, Trainer(cfg16, dataset=ds), {
-        "maxk_fwd": EPOCHS * 2 * layers, "maxk_bwd": EPOCHS * layers,
-        "round_rows": EPOCHS * 3 * layers,
-        "csr_spmm_bf16": EPOCHS * 3 * layers}, "train reddit, bf16x2")
+        **dense16, "cbsr_compact": EPOCHS * 2 * layers,
+        "csr_cbsr_spmm_bf16": EPOCHS * 2 * layers,
+        "csr_spmm_bf16": EPOCHS * layers}, "train reddit, bf16x2")
+    planned.STREAM_CBSR_FORWARD = False
+    reddit16_off = run_training(torch, Trainer(cfg16, dataset=ds), {
+        **dense16, "csr_spmm_bf16": EPOCHS * 3 * layers},
+        "train reddit, bf16x2, STREAM_CBSR_FORWARD off")
+    planned.STREAM_CBSR_FORWARD = None
     planned.DEFAULT_STREAM = "f32"
+    same_losses(reddit16, reddit16_off, "train reddit, bf16x2")
     log(f"train reddit: steady epoch {reddit16['res']['steady_epoch_s']} s "
-        f"with bf16x2, {reddit['res']['steady_epoch_s']} s with f32")
+        f"with bf16x2 ({reddit16_off['res']['steady_epoch_s']} s with the "
+        f"flag off), {reddit['res']['steady_epoch_s']} s with f32")
     reddit16_counts = reddit16["counts"]
+    reddit16_off_counts = reddit16_off["counts"]
 
-    # the 16-bit model (--dtype bfloat16): MaxK and csr_spmm in their bf16
-    # forms only, no f32 aggregation launch and no round_rows
+    # the 16-bit model (--dtype bfloat16): MaxK and the aggregation in their
+    # bf16 forms only, no f32 aggregation launch and no round_rows; the
+    # default rule, then the flag off
     cfg_b = cfg.replace(dtype="bfloat16")
     first_steps16(torch, cfg_b, ds, "train reddit, bfloat16", STEP_TOL16)
+    dense_b = {"maxk_fwd_bf16": EPOCHS * 2 * layers,
+               "maxk_bwd_bf16": EPOCHS * layers,
+               "layer_norm16_fwd": EPOCHS * 2 * layers,
+               "layer_norm16_bwd": EPOCHS * layers}
     reddit_b = run_training(torch, Trainer(cfg_b, dataset=ds), {
-        "maxk_fwd_bf16": EPOCHS * 2 * layers,
-        "maxk_bwd_bf16": EPOCHS * layers,
-        "layer_norm16_fwd": EPOCHS * 2 * layers,
-        "layer_norm16_bwd": EPOCHS * layers,
-        "csr_spmm_bf16_out": EPOCHS * 3 * layers}, "train reddit, bfloat16")
+        **dense_b, "cbsr_compact_bf16": EPOCHS * 2 * layers,
+        "csr_cbsr_spmm_bf16_out": EPOCHS * 2 * layers,
+        "csr_spmm_bf16_out": EPOCHS * layers}, "train reddit, bfloat16")
     require_fall(reddit_b, "train reddit, bfloat16")
+    planned.STREAM_CBSR_FORWARD = False
+    reddit_b_off = run_training(torch, Trainer(cfg_b, dataset=ds), {
+        **dense_b, "csr_spmm_bf16_out": EPOCHS * 3 * layers},
+        "train reddit, bfloat16, STREAM_CBSR_FORWARD off")
+    planned.STREAM_CBSR_FORWARD = None
+    same_losses(reddit_b, reddit_b_off, "train reddit, bfloat16")
     log(f"train reddit: steady epoch {reddit_b['res']['steady_epoch_s']} s "
-        f"with bfloat16 ({reddit['res']['steady_epoch_s']} s f32, "
+        f"with bfloat16 ({reddit_b_off['res']['steady_epoch_s']} s with the "
+        f"flag off; {reddit['res']['steady_epoch_s']} s f32, "
         f"{reddit16['res']['steady_epoch_s']} s bf16x2)")
     reddit_b_counts = reddit_b["counts"]
-    del ds, g, reddit, reddit16, reddit_b
+    reddit_b_off_counts = reddit_b_off["counts"]
+    del ds, g, reddit, reddit16, reddit16_off, reddit_b, reddit_b_off
     torch.cuda.empty_cache()
 
     for kind in ("windowed", "stream"):
@@ -2364,17 +2538,9 @@ def main() -> int:
         "stream_spmm": EPOCHS * 3 * layers2},
         "train products, STREAM_CBSR_FORWARD off")
     planned.STREAM_CBSR_FORWARD = None
-    rel = max(abs(a - b) / abs(b) for a, b in zip(products["losses"],
-                                                   products_off["losses"]))
-    if not rel <= 1e-6:
-        raise AssertionError(f"train products: default losses "
-                             f"{products['losses']} vs flag-off "
-                             f"{products_off['losses']} ({rel:.3e})")
-    same = products["losses"] == products_off["losses"]
-    log(f"train products: the default (stream_cbsr_spmm forward) against "
-        f"the flag off: losses "
-        f"{'bit-equal' if same else f'within {rel:.3e} relative'}; steady "
-        f"epoch {products['res']['steady_epoch_s']} s default, "
+    same_losses(products, products_off, "train products")
+    log(f"train products: steady epoch {products['res']['steady_epoch_s']} "
+        f"s default (stream_cbsr_spmm forward), "
         f"{products_off['res']['steady_epoch_s']} s off")
     for entry in kernels[:2]:
         entry["products_launches"] = products["counts"][entry["name"]]
@@ -2410,14 +2576,8 @@ def main() -> int:
         "train products, bf16x2, STREAM_CBSR_FORWARD off")
     planned.STREAM_CBSR_FORWARD = None
     planned.DEFAULT_STREAM = "f32"
-    rel = max(abs(a - b) / abs(b) for a, b in zip(products16["losses"],
-                                                   products16_off["losses"]))
-    if not rel <= 1e-6:
-        raise AssertionError(f"train products, bf16x2: default losses "
-                             f"{products16['losses']} vs flag-off "
-                             f"{products16_off['losses']} ({rel:.3e})")
-    log(f"train products, bf16x2: the default against the flag off: "
-        f"losses within {rel:.3e} relative; steady epoch "
+    same_losses(products16, products16_off, "train products, bf16x2")
+    log(f"train products, bf16x2: steady epoch "
         f"{products16['res']['steady_epoch_s']} s default, "
         f"{products16_off['res']['steady_epoch_s']} s off")
     products16_counts = products16["counts"]
@@ -2449,14 +2609,8 @@ def main() -> int:
         "train products, bfloat16, STREAM_CBSR_FORWARD off")
     planned.STREAM_CBSR_FORWARD = None
     require_fall(products_b_off, "train products, bfloat16, flag off")
-    rel = max(abs(a - b) / abs(b) for a, b in zip(products_b["losses"],
-                                                   products_b_off["losses"]))
-    if not rel <= 1e-6:
-        raise AssertionError(f"train products, bfloat16: default losses "
-                             f"{products_b['losses']} vs flag-off "
-                             f"{products_b_off['losses']} ({rel:.3e})")
-    log(f"train products, bfloat16: the default against the flag off: "
-        f"losses within {rel:.3e} relative; steady epoch "
+    same_losses(products_b, products_b_off, "train products, bfloat16")
+    log(f"train products, bfloat16: steady epoch "
         f"{products_b['res']['steady_epoch_s']} s default, "
         f"{products_b_off['res']['steady_epoch_s']} s off")
     products_b_counts = products_b["counts"]
@@ -2495,7 +2649,11 @@ def main() -> int:
         "spgemm_gnn_tpu/kernels/spgemm_pallas.py:97 (packed branch "
         ":124-129, :183-186)", csr16_a, csr16_t))
     kernels[-1].update(launches=reddit16_counts["csr_spmm_bf16"],
-                       launches_path="train reddit, bf16x2")
+                       launches_path="train reddit, bf16x2",
+                       flag_off_launches=reddit16_off_counts["csr_spmm_bf16"])
+    csr_cbsr16.update(launches=reddit16_counts["csr_cbsr_spmm_bf16"],
+                      launches_path="train reddit, bf16x2")
+    kernels.append(csr_cbsr16)
     kernels.append(entry16(
         "stream_spmm_bf16", "spgemm_gnn_tpu_torch/csrc/stream.cu",
         "spgemm_gnn_tpu/kernels/stream_pallas.py:37 (bf16 stream, "
@@ -2522,8 +2680,13 @@ def main() -> int:
         "csr_spmm_bf16_out", "spgemm_gnn_tpu_torch/csrc/spmm.cu",
         "spgemm_gnn_tpu/kernels/spgemm_pallas.py:97 (bf16 output: "
         "planned.py:271-274, :300)", csr16o_a, csr16o_t))
-    kernels[-1].update(launches=reddit_b_counts["csr_spmm_bf16_out"],
+    kernels[-1].update(
+        launches=reddit_b_counts["csr_spmm_bf16_out"],
+        launches_path="train reddit, bfloat16",
+        flag_off_launches=reddit_b_off_counts["csr_spmm_bf16_out"])
+    csr_cbsr16o.update(launches=reddit_b_counts["csr_cbsr_spmm_bf16_out"],
                        launches_path="train reddit, bfloat16")
+    kernels.append(csr_cbsr16o)
     kernels.append(entry16(
         "stream_spmm_bf16_out", "spgemm_gnn_tpu_torch/csrc/stream.cu",
         "spgemm_gnn_tpu/kernels/stream_pallas.py:37 (out_dtype, :217-242)",

@@ -55,6 +55,36 @@
 // kernel's. The gather's bytes halve (E dim 2 B, about 58 GB at Reddit), and
 // a source block of half of L2 holds twice the rows (graphs/tiles.py sizes
 // blocks by row bytes: 5 at Reddit instead of 10).
+//
+// csr_cbsr_spmm_bf16, the third export, computes the same product on a MaxK
+// (k-sparse) input given as one CBSR record per source node: the TPU
+// kernel's function composed with densify (spgemm_pallas.py:285
+// _densify_t_kernel, call :329, then :97 on bf16 rows), behind the port's
+// STREAM_CBSR_FORWARD rule on windowed plans. A record is k bf16 values and
+// their channels, one 32-bit word a slot (value bits high, channel low),
+// padded to 1, 2, 4 or 8 128-byte lines (ops/maxk.py::cbsr_records; 128 B
+// at k <= 32). Bound on this card: memory. Each byte once at Reddit (a
+// record of the 96 B the function needs at k 32: k values, k one-byte ids;
+// 4-byte indices; f32 y) is about 0.21 ms at 3.35 TB/s, and the edges'
+// record gather with no reuse, E * 96 B, about 3.2 ms. csr_spmm_bf16 runs
+// below its own no-reuse gather (its source blocks keep the rows it
+// gathers in L2) at the rate L2 serves 512-byte rows, 58 GB a call: the
+// bytes an edge reads are what this kernel cuts, to one 128-byte record
+// (4.18 against 8.49 ms on the H100, PERF.md). Design: csr_spmm_bf16's
+// schedule, passes, fix-up and layers of the sum, unchanged; B8-bf16's stage
+// (csrc/stream.cu::stream_cbsr16_kernel) for the records: a warp's edges'
+// records are copied
+// by cp.async, 16 bytes a lane (four 128-byte records a warp copy), with
+// an L2 evict_last policy into a ring of stages in the warp's shared
+// memory, 32 edges ahead; an edge is then a shared-memory load a lane
+// (slot j to lane j) and the scatter of its nonzero value into a per-warp
+// f32 partial row of dim floats in shared memory. The partial holds one
+// batch of 32 edges in edge order, and at the batch's end each lane adds
+// its channels of it into the segment's sum in registers (BF16's layout)
+// and zeroes them: csr_spmm_bf16's batch sum, which adds every channel of
+// every edge, only without the additions of an exact zero, which leave an
+// f32 sum unchanged (a batch sum starts at +0 and never becomes -0). So at
+// the same schedule y is csr_spmm_bf16's on the densified rows bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -346,6 +376,172 @@ int dispatch(const void* seg, const void* fix, const void* pass_seg,
 #undef RUN
 }
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from global to shared memory, asynchronously, with the L2 policy
+// pol (cp.async.cg: not kept in L1); the helpers of csrc/stream.cu.
+__device__ __forceinline__ void cp16(unsigned dst, const void* src,
+                                     uint64_t pol) {
+  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;"
+               :
+               : "r"(dst), "l"(src), "l"(pol)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// One warp per segment (row, lo, hi, out) of csr_spmm's schedule, over bf16
+// records of 32 KV words a node (KV 128-byte lines). A stage is EPS records
+// (4 at KV 1: one 512-byte warp copy, 8 lanes a record; one record from KV
+// 4 on), S stages in flight (S EPS <= 32 edges). The ids of a batch of 32
+// edges are loaded a batch ahead; stage s + S is fetched once stage s has
+// been scattered. dim4 <= 64 (dim <= 256): BF16<1>'s two float4 sums a
+// lane hold channels 8 lane ... 8 lane + 7.
+template <int KV, int S>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+csr_cbsr16_kernel(const int4* __restrict__ seg, int64_t n_seg,
+                  const int* __restrict__ indices,
+                  const unsigned* __restrict__ rec,
+                  const float* __restrict__ post, float4* __restrict__ y,
+                  float4* __restrict__ scratch, int dim4) {
+  using R = BF16<1>;
+  constexpr int EPS = KV >= 4 ? 1 : 4 / KV;  // edges a stage
+  constexpr int NL = KV > 4 ? KV / 4 : 1;    // 16-byte copies a lane a stage
+  constexpr int RW = 32 * KV;                // words a record
+  constexpr int SW = RW * EPS;               // words a stage
+  static_assert(S * EPS <= 32 && (S & (S - 1)) == 0, "S stages ahead");
+  extern __shared__ float4 cbsr_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t i = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
+  if (i >= n_seg) return;  // i is uniform across the warp
+  const int4 s = seg[i];
+  const int lo = s.y, hi = s.z;
+  float4* part4 = cbsr_smem + warp * (dim4 + S * SW / 4);
+  float* part = reinterpret_cast<float*>(part4);
+  unsigned* ring = reinterpret_cast<unsigned*>(part4 + dim4);
+  uint64_t keep;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(keep));
+
+  // the current batch's ids (edge base + lane) and the next batch's
+  int cu = lo + lane < hi ? __ldcs(indices + lo + lane) : 0;
+  int nu = lo + 32 + lane < hi ? __ldcs(indices + lo + 32 + lane) : 0;
+  // stage st (edges lo + EPS st ...) into ring slot st % S; `ids` holds the
+  // batch of its edges, its first edge at index i0 there
+  auto fetch = [&](int st, int ids, int i0) {
+    unsigned* slot = ring + (st % S) * SW;
+#pragma unroll
+    for (int c = 0; c < NL; ++c) {
+      const int wq = lane + 32 * c;  // the stage's 16-byte word
+      const int ri = wq / (8 * KV);  // of its record ri
+      const int u = __shfl_sync(kFull, ids, (i0 + ri) & 31);
+      if (lo + EPS * st + ri < hi)
+        cp16(smem_addr(slot + 4 * wq),
+             rec + (int64_t)u * RW + 4 * (wq % (8 * KV)), keep);
+    }
+    cp_commit();
+  };
+#pragma unroll
+  for (int st = 0; st < S; ++st) fetch(st, cu, EPS * st);
+
+  for (int q = lane; q < dim4; q += 32)
+    part4[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 acc[R::kAcc];
+#pragma unroll
+  for (int a = 0; a < R::kAcc; ++a) acc[a] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncwarp();
+
+  // one edge's record: lane j adds slot j (then j + 32, ...) at its channel;
+  // the channels of a record are distinct, and slots past k hold 0
+  auto consume = [&](const unsigned* sr) {
+#pragma unroll
+    for (int t = 0; t < KV; ++t) {
+      const unsigned wd = sr[lane + 32 * t];
+      const float v = __uint_as_float(wd & 0xffff0000u);
+      if (v != 0.f) part[wd & 0xffffu] += v;
+    }
+    __syncwarp();
+  };
+
+  int st = 0;  // the stage at hand: edges lo + EPS st ...
+  for (int base = lo; base < hi; base += 32) {
+    const int cnt = min(32, hi - base);
+    for (int i0 = 0; i0 < cnt; i0 += EPS, ++st) {
+      cp_wait<S - 1>();  // stage st has landed (one group a stage)
+      __syncwarp();
+      const unsigned* sr = ring + (st % S) * SW;
+      if (i0 + EPS <= cnt) {
+#pragma unroll
+        for (int e = 0; e < EPS; ++e) consume(sr + e * RW);
+      } else {
+        for (int e = 0; e < cnt - i0; ++e) consume(sr + e * RW);
+      }
+      const int ahead = i0 + EPS * S;
+      fetch(st + S, ahead < 32 ? cu : nu, ahead & 31);
+    }
+    // the batch's sum joins the segment's (csr_segment_kernel's layers)
+#pragma unroll
+    for (int a = 0; a < R::kAcc; ++a) {
+      const int c = R::pos(a, lane);
+      if (c < dim4) {
+        add4(acc[a], part4[c]);
+        part4[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    __syncwarp();
+    cu = nu;
+    nu = base + 64 + lane < hi ? __ldcs(indices + base + 64 + lane) : 0;
+  }
+  if (s.w < 0) {
+    store_row<R>(acc, s.x, -1 - s.w, post, y, dim4, lane);
+    return;
+  }
+  float4* out = scratch + (int64_t)s.w * dim4;
+#pragma unroll
+  for (int a = 0; a < R::kAcc; ++a) {
+    const int c = R::pos(a, lane);
+    if (c < dim4) out[c] = acc[a];
+  }
+}
+
+// csr_cbsr16_kernel's passes, as run's: each source block's segments, then
+// its split runs' fix-ups.
+template <int KV, int S>
+int run_cbsr16(const int4* seg, const int4* fix, const int64_t* pass_seg,
+               const int64_t* pass_fix, int nb, const int* indices,
+               const unsigned* rec, const float* post, float4* y,
+               float4* scratch, int dim4, cudaStream_t s) {
+  constexpr int EPS = KV >= 4 ? 1 : 4 / KV;
+  const size_t smem =
+      (size_t)kWarpsPerBlock * (dim4 * 16 + S * EPS * 128 * KV);
+  for (int b = 0; b < nb; ++b) {
+    const int64_t n_seg = pass_seg[b + 1] - pass_seg[b];
+    if (n_seg > 0) {
+      csr_cbsr16_kernel<KV, S>
+          <<<blocks_for(n_seg), kWarpsPerBlock * 32, smem, s>>>(
+              seg + pass_seg[b], n_seg, indices, rec, post, y, scratch, dim4);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    const int64_t n_fix = pass_fix[b + 1] - pass_fix[b];
+    if (n_fix > 0) {
+      launch_fixup(fix + pass_fix[b], n_fix, post, scratch, y, dim4, s);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // y <- post * (A (pre * x)) over a schedule (graphs/tiles.py::CSRSchedule):
@@ -377,4 +573,41 @@ extern "C" int csr_spmm_bf16(const void* seg, const void* fix,
     return (int)cudaErrorInvalidValue;
   return dispatch<BF16>(seg, fix, pass_seg, pass_fix, nb, indices, x, pre,
                         post, y, scratch, dim / 8, dim / 4, stream);
+}
+
+// y <- post * (A cbsr(records)) over a schedule, as csr_spmm_bf16 on the
+// densified rows: records int32 [n_src, 32 ceil(k / 32) rounded up to 1, 2,
+// 4 or 8 lines], word j the bf16 bits of value j (pre already folded in) in
+// its high half and channel j in its low, zero past k (ops/maxk.py::
+// cbsr_records on bf16 values), channels distinct within a record; the
+// schedule, y, scratch and post as in csr_spmm. Needs dim % 8 == 0, 8 <=
+// dim <= 256, 1 <= k < dim and 16-byte aligned records, y and scratch.
+extern "C" int csr_cbsr_spmm_bf16(const void* seg, const void* fix,
+                                  const void* pass_seg, const void* pass_fix,
+                                  int nb, const void* indices,
+                                  const void* records, const void* post,
+                                  void* y, void* scratch, int k, int dim,
+                                  void* stream) {
+  if (dim < 8 || dim % 8 != 0 || dim > 256 || k < 1 || k >= dim || nb < 1)
+    return (int)cudaErrorInvalidValue;
+#define CBSR16(KV_, S_)                                                   \
+  run_cbsr16<KV_, S_>(                                                     \
+      static_cast<const int4*>(seg), static_cast<const int4*>(fix),        \
+      static_cast<const int64_t*>(pass_seg),                               \
+      static_cast<const int64_t*>(pass_fix), nb,                           \
+      static_cast<const int*>(indices),                                    \
+      static_cast<const unsigned*>(records), static_cast<const float*>(post), \
+      static_cast<float4*>(y), static_cast<float4*>(scratch), dim / 4,     \
+      static_cast<cudaStream_t>(stream))
+  switch (slices(k)) {
+    case 1:
+      return CBSR16(1, 8);
+    case 2:
+      return CBSR16(2, 8);
+    case 4:
+      return CBSR16(4, 8);
+    default:
+      return CBSR16(8, 4);
+  }
+#undef CBSR16
 }

@@ -37,8 +37,10 @@ SIGNATURES = {
                 for name in ("maxk_fwd", "maxk_fwd_bf16")},
              **{name: [_P, _P, _P, _P, _I64, _INT, _P]
                 for name in ("maxk_bwd", "maxk_bwd_bf16")}},
-    "spmm": {name: [_P, _P, _P, _P, _INT, _P, _P, _P, _P, _P, _P, _INT, _P]
-             for name in ("csr_spmm", "csr_spmm_bf16")},
+    "spmm": {**{name: [_P, _P, _P, _P, _INT, _P, _P, _P, _P, _P, _P, _INT,
+                       _P] for name in ("csr_spmm", "csr_spmm_bf16")},
+             "csr_cbsr_spmm_bf16": [_P, _P, _P, _P, _INT, _P, _P, _P, _P, _P,
+                                    _INT, _INT, _P]},
     "stream": {"stream_spmm": [*[_P] * 10, *[_I64] * 4, *[_INT] * 4, _P],
                "stream_spmm_bf16": [*[_P] * 10, *[_I64] * 4, *[_INT] * 4,
                                     _P],

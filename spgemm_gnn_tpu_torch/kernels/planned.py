@@ -19,9 +19,10 @@ Entry points:
   kernels/api.py::aggregate_cbsr): CBSR → densify → the plan's kernel; the
   backward is the transpose product sampled at the k channels.
 Where `STREAM_CBSR_FORWARD` takes it (`cbsr_forward`: by default a
-k-sparse input of k < dim <= 256), the forward of either entry point on a
-stream plan takes `stream_cbsr_spmm` on CBSR instead (the models' path
-compacts its k-sparse input first).
+k-sparse input of k < dim <= 256), the forward of either entry point takes
+the CBSR form of the plan's kernel instead: `stream_cbsr_spmm` on a stream
+plan, and on a windowed plan, for bf16 records only, `csr_cbsr_spmm` (the
+models' path compacts its k-sparse input first).
 
 `DEFAULT_STREAM` selects the feature stream of every product, forward on A
 and backward on Aᵀ: "f32" (exact), or "bf16x2", the reference's 16-bit
@@ -52,7 +53,7 @@ from spgemm_gnn_tpu_torch.graphs.tiles import (CHUNK, CSRPlan, auto_window,
 from spgemm_gnn_tpu_torch.kernels.cbsr import (cbsr_compact, cbsr_densify,
                                                cbsr_sample)
 from spgemm_gnn_tpu_torch.kernels.round import round_rows
-from spgemm_gnn_tpu_torch.kernels.spmm import csr_spmm
+from spgemm_gnn_tpu_torch.kernels.spmm import csr_cbsr_spmm, csr_spmm
 from spgemm_gnn_tpu_torch.kernels.stream import (MAX_CBSR_DIM,
                                                  STREAM_DTYPES,
                                                  stream_cbsr_spmm, stream_spmm)
@@ -65,26 +66,34 @@ from spgemm_gnn_tpu_torch.ops.spmm import _scale
 WINDOWED_FILL_CUTOVER = 0.25
 KIND_SRC_BLOCK = 256
 
-# The CBSR edge-gather stream forward (`stream_cbsr_spmm`): a k-sparse input
-# over a stream plan is compacted to k values and packed channel ids per
-# node, and the forward gathers those per edge instead of a dense row. The
-# name is the reference's (`spgemm_gnn_tpu/kernels/planned.py`); read at
-# each call (`cbsr_forward`), so a caller may set it on the module:
+# The CBSR forward: a k-sparse input is compacted to k values and channel
+# ids per node, and the forward gathers those per edge instead of a dense
+# row: `stream_cbsr_spmm` on a stream plan, `csr_cbsr_spmm` on a windowed
+# one. The name is the reference's (`spgemm_gnn_tpu/kernels/planned.py`);
+# read at each call (`cbsr_forward`), so a caller may set it on the module:
 # - None (the default): the rule. Take it where it applies: k < dim <= 256
 #   (the ids are packed as uint8, so yelp's hidden 384 stays dense), on f32
-#   or bf16 values (what a record holds);
-# - True: force it (dim > 256 then raises, as the reference does);
-# - False: the dense-row forward (`stream_spmm`).
-# Windowed plans ignore it, and every backward takes the dense kernel. The
-# reference defaults to False from a TPU v5e measurement, where its row
-# gathers are tile-granular (0.29x at k = 32, `spgemm_gnn_tpu/kernels/
-# planned.py:180-186`). On the card the CBSR forward is the faster one: one
-# ogbn-products stand-in epoch (SAGE recipe, k 32, dim 256) with it against
-# without takes about 0.50 against 0.66 s in f32, 0.43 against 0.49 under
-# bf16x2 and 0.24 against 0.30 with bf16 activations, with the same losses,
-# since the two forwards are equal by value (chip_smoke.py's products
-# phases on an NVIDIA H100 80GB HBM3 at a 700 W power limit; PERF.md §5
-# holds the measured epochs and the call that measured them).
+#   or bf16 values (what a record holds) on a stream plan, and on bf16
+#   records only (bf16 activations or the bf16x2 stream) on a windowed one;
+# - True: force it (dim > 256 then raises, as the reference does) where a
+#   record can go: a windowed plan with f32 records keeps `csr_spmm`;
+# - False: the dense-row forward (`stream_spmm`, `csr_spmm`) on both.
+# Every backward takes the dense kernel. The reference defaults to False
+# from a TPU v5e measurement, where its row gathers are tile-granular
+# (0.29x at k = 32, `spgemm_gnn_tpu/kernels/planned.py:180-186`). On the
+# card the CBSR forward is the faster one: one ogbn-products stand-in epoch
+# (SAGE recipe, k 32, dim 256) with it against without takes about 0.50
+# against 0.66 s in f32, 0.43 against 0.49 under bf16x2 and 0.24 against
+# 0.30 with bf16 activations, with the same losses, since the two forwards
+# are equal by value (chip_smoke.py's products phases on an NVIDIA H100
+# 80GB HBM3 at a 700 W power limit; PERF.md §5 holds the measured epochs
+# and the call that measured them). On a windowed plan too: on the Reddit
+# stand-in (k 32, dim 256, A, 5 source blocks) `csr_cbsr_spmm` on bf16
+# records takes 4.18 ms against `csr_spmm`'s 8.49 on the same rows, with
+# the same bits (utils/csr_sweep.py --stream bf16x2 --probes on an NVIDIA
+# H100 80GB HBM3 at a 700 W power limit; PERF.md §6). f32 records have no
+# windowed kernel yet: an f32 forward on a windowed plan keeps `csr_spmm`
+# (about 15.5 ms a call there) under every flag value.
 STREAM_CBSR_FORWARD: bool | None = None
 
 # The feature stream of the planned products: "f32" or "bf16x2" (the name,
@@ -99,12 +108,16 @@ KINDS = ("auto", "windowed", "stream")
 
 def cbsr_forward(plan, k: int | None, dim: int, dtype: torch.dtype) -> bool:
     """Whether the forward on `plan` of a k-sparse input of width `dim` and
-    `dtype` takes `stream_cbsr_spmm` (STREAM_CBSR_FORWARD's rule): on stream
-    plans only, with k stated and k < dim; under the default (None) also
-    dim <= 256 and f32 or bf16 values, while True takes it regardless (and
-    the kernel's wrapper raises above dim 256)."""
-    if (STREAM_CBSR_FORWARD is False or not isinstance(plan, StreamPlan)
-            or k is None or k >= dim):
+    `dtype` takes the CBSR form of the plan's kernel (STREAM_CBSR_FORWARD's
+    rule): with k stated and k < dim; on a windowed plan only for bf16
+    records (bf16 values, or any values under the bf16x2 stream), since
+    f32 records have no windowed kernel; under the default (None) also dim
+    <= 256 and f32 or bf16 values, while True takes it regardless (and the
+    kernel's wrapper raises above dim 256)."""
+    if STREAM_CBSR_FORWARD is False or k is None or k >= dim:
+        return False
+    if not isinstance(plan, StreamPlan) and not (
+            dtype == torch.bfloat16 or _stream16()):
         return False
     return STREAM_CBSR_FORWARD is True or (dim <= MAX_CBSR_DIM
                                            and dtype in STREAM_DTYPES)
@@ -229,21 +242,29 @@ def plan_spmm(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
                          f"windowed plan; got {dim}")
     if x.dtype == torch.bfloat16:
         return _plan_spmm16(plan, _scale(x, pre), post, k)
-    if isinstance(plan, StreamPlan):
-        if cbsr_forward(plan, k, dim, x.dtype):
-            vals, ch = cbsr_compact(x, k)
-            if stream16:
-                return stream_cbsr_spmm(
-                    plan, cbsr_records(round_rows(vals, pre), ch, dim), k,
-                    dim, None, post, torch.bfloat16)
-            return stream_cbsr_spmm(plan, cbsr_records(vals, ch, dim), k,
-                                    dim, pre, post)
+    if cbsr_forward(plan, k, dim, x.dtype):
+        vals, ch = cbsr_compact(x, k)
         if stream16:
-            return stream_spmm(plan, round_rows(x, pre), None, post)
-        return stream_spmm(plan, x, pre, post)
+            return _cbsr16(plan, cbsr_records(round_rows(vals, pre), ch, dim),
+                           k, dim, post)
+        return stream_cbsr_spmm(plan, cbsr_records(vals, ch, dim), k, dim,
+                                pre, post)
+    kernel = stream_spmm if isinstance(plan, StreamPlan) else csr_spmm
     if stream16:
-        return csr_spmm(plan, round_rows(x, pre), None, post)
-    return csr_spmm(plan, x, pre, post)
+        return kernel(plan, round_rows(x, pre), None, post)
+    return kernel(plan, x, pre, post)
+
+
+def _cbsr16(plan, records: torch.Tensor, k: int, dim: int,
+            post: torch.Tensor | None,
+            out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The CBSR form of the plan's kernel on bf16 records (the pre factor
+    in their values): `stream_cbsr_spmm` on a stream plan, `csr_cbsr_spmm`
+    on a windowed one."""
+    if isinstance(plan, StreamPlan):
+        return stream_cbsr_spmm(plan, records, k, dim, None, post,
+                                torch.bfloat16, out_dtype)
+    return csr_cbsr_spmm(plan, records, k, dim, post, out_dtype)
 
 
 def _plan_spmm16(plan, x: torch.Tensor, post: torch.Tensor | None,
@@ -251,17 +272,16 @@ def _plan_spmm16(plan, x: torch.Tensor, post: torch.Tensor | None,
     """bf16(bf16(A x) · bf16(post)) for bf16 rows x that already carry the
     pre factor: the bf16-input kernels with their bf16 output, under either
     stream (f32 sums of the same bf16 values). Where `cbsr_forward` says
-    so, a stream plan compacts x first (`cbsr_compact` on bf16 rows) and
-    gathers the bf16 records, as the reference scales, then compacts."""
+    so, x is compacted first (`cbsr_compact` on bf16 rows) and the plan's
+    kernel gathers the bf16 records, as the reference scales, then
+    compacts."""
     bf16 = torch.bfloat16
     dim = x.shape[1]
-    if isinstance(plan, StreamPlan):
-        if cbsr_forward(plan, k, dim, x.dtype):
-            vals, ch = cbsr_compact(x, k)
-            return stream_cbsr_spmm(plan, cbsr_records(vals, ch, dim), k, dim,
-                                    None, post, bf16, out_dtype=bf16)
-        return stream_spmm(plan, x, None, post, out_dtype=bf16)
-    return csr_spmm(plan, x, None, post, out_dtype=bf16)
+    if cbsr_forward(plan, k, dim, x.dtype):
+        vals, ch = cbsr_compact(x, k)
+        return _cbsr16(plan, cbsr_records(vals, ch, dim), k, dim, post, bf16)
+    kernel = stream_spmm if isinstance(plan, StreamPlan) else csr_spmm
+    return kernel(plan, x, None, post, out_dtype=bf16)
 
 
 class Aggregate(torch.autograd.Function):
@@ -301,19 +321,20 @@ def spgemm_forward(dim: int, values: torch.Tensor, channels: torch.Tensor,
     rounded to bf16, the product rounded once) and densified into f32, the
     reference's `stream_dtype` (`spgemm_gnn_tpu/kernels/planned.py:198-
     243`). Where `cbsr_forward` takes it (k = values.shape[1]), (src_f ⊙
-    values, channels) go to `stream_cbsr_spmm` with no densify (f32 values
-    under the 16-bit stream rounded to bf16 after the factor; bf16 values
-    as they are, through its bf16 form)."""
+    values, channels) go to the CBSR form of the plan's kernel with no
+    densify (f32 values under the 16-bit stream rounded to bf16 after the
+    factor; bf16 values as they are, through its bf16 form)."""
     bf16 = values.dtype == torch.bfloat16
     k = values.shape[1]
     if cbsr_forward(plans[0], k, dim, values.dtype):
         if _stream16() and not bf16:
             rec = cbsr_records(round_rows(values, src_f), channels, dim)
-            return stream_cbsr_spmm(plans[0], rec, k, dim, None, dst_f,
-                                    torch.bfloat16)
+            return _cbsr16(plans[0], rec, k, dim, dst_f)
         v = _scale(values, src_f).contiguous()
-        return stream_cbsr_spmm(plans[0], cbsr_records(v, channels, dim), k,
-                                dim, None, dst_f, v.dtype)
+        rec = cbsr_records(v, channels, dim)
+        if bf16:
+            return _cbsr16(plans[0], rec, k, dim, dst_f)
+        return stream_cbsr_spmm(plans[0], rec, k, dim, None, dst_f)
     v = _scale(values, src_f).contiguous()
     dense = cbsr_densify(v, channels, dim,
                          torch.float32 if bf16 else values.dtype)

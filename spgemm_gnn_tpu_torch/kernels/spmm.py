@@ -12,6 +12,15 @@ channels. With `out_dtype=torch.bfloat16` (the 16-bit model, `--dtype
 bfloat16`) it runs `csr_spmm_bf16_out` (counted under that name): the same
 kernel's f32 sums with no post, then `round_out` (`csrc/round.cu`), one
 pass that rounds each sum to bf16 and multiplies it by bf16(post) in bf16.
+
+`csr_cbsr_spmm` is the same product on a MaxK (k-sparse) input given as one
+bf16 CBSR record per source node (`ops/maxk.py::cbsr_records`), through the
+schedule of the dense form (bf16 rows of the same width): the kernel
+`csr_cbsr_spmm_bf16` copies each edge's record instead of its dense row and
+gives `csr_spmm_bf16`'s y on the densified rows bit for bit. With `out_dtype=torch.bfloat16` it runs
+`csr_cbsr_spmm_bf16_out` (counted under that name): the same sums, then
+`round_out`, as `csr_spmm_bf16_out`. Plain version: `ops/spmm.py::
+csr_cbsr_plain`.
 """
 from __future__ import annotations
 
@@ -19,9 +28,14 @@ import torch
 
 from spgemm_gnn_tpu_torch.graphs.tiles import CSRPlan
 from spgemm_gnn_tpu_torch.kernels import _build
-from spgemm_gnn_tpu_torch.ops.spmm import csr_blocked_plain
+from spgemm_gnn_tpu_torch.ops.maxk import record_words
+from spgemm_gnn_tpu_torch.ops.spmm import csr_blocked_plain, csr_cbsr_plain
 
 MAX_DIM = 1024   # a row's accumulators live in one warp's registers
+# the CBSR kernels take dim <= 256: f32 records pack their ids as uint8 (the
+# JAX kernel's limit), and the bf16-record kernels hold a row's sum in two
+# float4s a lane
+MAX_CBSR_DIM = 256
 
 
 def check_out_dtype(in_dtype: torch.dtype, out_dtype: torch.dtype | None,
@@ -73,32 +87,79 @@ def csr_spmm(plan: CSRPlan, x: torch.Tensor, pre: torch.Tensor | None = None,
     if post is not None:
         _build.require(post, "post", torch.float32, dev, (n_rows,))
     _build.require_aligned(x, "x")
+    return _launch(plan, sched, "csr_spmm_bf16" if bf16 else "csr_spmm", x,
+                   (x.data_ptr(), None if pre is None else pre.data_ptr()),
+                   post, out16, (dim,))
+
+
+def _launch(plan: CSRPlan, sched, kernel: str, src: torch.Tensor,
+            inputs: tuple, post: torch.Tensor | None, out16: bool,
+            tail: tuple) -> torch.Tensor:
+    """Launch `kernel` of the spmm library over the schedule on the source
+    tensor `src` (`inputs`: the C call's pointers between the indices and
+    post; `tail`: its ints, the last one dim), then, for a bf16 output,
+    `round_out` on its f32 sums; counts the launch under `kernel` or its
+    `_out` name."""
+    dev, n_rows, dim = src.device, plan.num_rows, tail[-1]
     y = torch.empty((n_rows, dim), dtype=torch.float32, device=dev)
     scratch = torch.empty((sched.n_slots, dim), dtype=torch.float32,
                           device=dev) if sched.n_slots else None
-    if n_rows:
-        kernel = "csr_spmm_bf16" if bf16 else "csr_spmm"
-        with torch.cuda.device(dev):
-            status = getattr(_build.library("spmm"), kernel)(
-                sched.seg.data_ptr(), sched.fix.data_ptr(),
-                sched.pass_seg.data_ptr(), sched.pass_fix.data_ptr(),
-                sched.nb, sched.indices.data_ptr(), x.data_ptr(),
-                None if pre is None else pre.data_ptr(),
-                None if post is None or out16 else post.data_ptr(),
-                y.data_ptr(),
-                None if scratch is None else scratch.data_ptr(), dim,
-                _build.stream_of(x))
-            _build.check(status, kernel)
-            if out16:
-                y16 = torch.empty((n_rows, dim), dtype=torch.bfloat16,
-                                  device=dev)
-                status = _build.library("round").round_out(
-                    y.data_ptr(), None if post is None else post.data_ptr(),
-                    y16.data_ptr(), n_rows, dim, _build.stream_of(x))
-                _build.check(status, "round_out")
-                y = y16
-        name = "csr_spmm_bf16_out" if out16 else kernel
-        _build.launches[name] += 1
-    elif out16:
-        y = y.to(torch.bfloat16)
+    if not n_rows:
+        return y.to(torch.bfloat16) if out16 else y
+    with torch.cuda.device(dev):
+        status = getattr(_build.library("spmm"), kernel)(
+            sched.seg.data_ptr(), sched.fix.data_ptr(),
+            sched.pass_seg.data_ptr(), sched.pass_fix.data_ptr(), sched.nb,
+            sched.indices.data_ptr(), *inputs,
+            None if post is None or out16 else post.data_ptr(), y.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), *tail,
+            _build.stream_of(src))
+        _build.check(status, kernel)
+        if out16:
+            y16 = torch.empty((n_rows, dim), dtype=torch.bfloat16, device=dev)
+            status = _build.library("round").round_out(
+                y.data_ptr(), None if post is None else post.data_ptr(),
+                y16.data_ptr(), n_rows, dim, _build.stream_of(src))
+            _build.check(status, "round_out")
+            y = y16
+    _build.launches[f"{kernel}_out" if out16 else kernel] += 1
     return y
+
+
+def _check_records(records: torch.Tensor, k: int, dim: int) -> None:
+    if not 1 <= k < dim or dim > MAX_CBSR_DIM or dim % 8:
+        raise ValueError(f"csr_cbsr_spmm needs 1 <= k < dim <= "
+                         f"{MAX_CBSR_DIM} and dim % 8 == 0; got k={k}, "
+                         f"dim={dim}")
+    width = record_words(k, dim, torch.bfloat16)
+    if records.dim() != 2 or records.shape[1] != width:
+        raise ValueError(f"records has shape {tuple(records.shape)}, expected "
+                         f"[S, {width}] (cbsr_records of k bf16 values)")
+
+
+def csr_cbsr_spmm(plan: CSRPlan, records: torch.Tensor, k: int, dim: int,
+                  post: torch.Tensor | None = None,
+                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """y = post ⊙ A · densify(records) over the plan's CSR (R rows):
+    records int32 [S, record_words(k, dim, bf16)] from `ops.maxk.
+    cbsr_records` of k bf16 values (the pre factor already in them) and
+    their channels (distinct within a row) → y f32 [R, dim], through the
+    schedule of bf16 rows of width dim: `csr_spmm`'s y on the densified bf16
+    rows, bit for bit. out_dtype bf16: y bf16 = bf16(bf16(Σ) · bf16(post)).
+    Needs 1 <= k < dim <= 256 and dim % 8 == 0, on the CPU too."""
+    out16 = check_out_dtype(torch.bfloat16, out_dtype)
+    _check_records(records, k, dim)
+    sched = plan.schedule(records.shape[0], dim, 2)
+    if _build.on_cpu(records):
+        return csr_cbsr_plain(sched.block_indptr, sched.indices, records, k,
+                              dim, post, out_dtype)
+    dev = records.device
+    _build.require(records, "records", torch.int32, dev, (None, None))
+    _build.require_aligned(records, "records")
+    for t, what in ((sched.indices, "indices"), (sched.seg, "seg"),
+                    (sched.fix, "fix")):
+        _build.require(t, what, torch.int32, dev)
+    if post is not None:
+        _build.require(post, "post", torch.float32, dev, (plan.num_rows,))
+    return _launch(plan, sched, "csr_cbsr_spmm_bf16", records,
+                   (records.data_ptr(),), post, out16, (k, dim))

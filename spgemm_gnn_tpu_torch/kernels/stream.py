@@ -25,13 +25,11 @@ from __future__ import annotations
 import torch
 
 from spgemm_gnn_tpu_torch.kernels import _build
-from spgemm_gnn_tpu_torch.kernels.spmm import MAX_DIM, check_out_dtype
+from spgemm_gnn_tpu_torch.kernels.spmm import (MAX_CBSR_DIM, MAX_DIM,
+                                               check_out_dtype)
 from spgemm_gnn_tpu_torch.ops.maxk import packed_channel_words, record_words
 from spgemm_gnn_tpu_torch.ops.stream import (stream_cbsr_spmm_plain,
                                              stream_spmm_plain)
-
-# stream_cbsr_spmm's channel ids are packed as uint8 (the JAX kernel's limit)
-MAX_CBSR_DIM = 256
 
 # The launch shapes the kernels are built for, keyed by a row's 16-byte
 # slices per lane (row bytes <= 512, 1024, 2048, 4096: f32 dim 256 and bf16

@@ -220,12 +220,15 @@ def cbsr_records(values: torch.Tensor, channels: torch.Tensor,
         if dim > 65536:
             raise ValueError(f"bf16 records hold channel ids < 65536; got "
                              f"dim={dim}")
-        k = values.shape[1]
-        bits = values.contiguous().view(torch.int16).to(torch.int64) & 0xffff
-        words = (bits << 16) | channels.to(torch.int64)
-        words = torch.where(words >= _SIGN, words - _U32, words)
-        return torch.nn.functional.pad(
-            words.to(torch.int32), (0, record_words(k, dim, values.dtype) - k))
+        n, k = values.shape
+        # a word's two 16-bit halves, low first (little-endian, as on the
+        # card and the host): the channel (an id >= 2^15 keeps its bits),
+        # then the value's bits
+        halves = torch.zeros((n, record_words(k, dim, values.dtype), 2),
+                             dtype=torch.int16, device=values.device)
+        halves[:, :k, 0] = channels
+        halves[:, :k, 1] = values.view(torch.int16)
+        return halves.view(torch.int32).view(n, -1)
     bits = values.to(torch.float32).contiguous().view(torch.int32)
     return torch.cat([bits, pack_channels(channels, dim)], dim=1)
 

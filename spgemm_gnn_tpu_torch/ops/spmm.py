@@ -17,6 +17,10 @@ x) (the plain version of the `round_rows` kernel, kernels/round.py); the
 plain sums take bf16 rows by widening them exactly to f32 first, so that
 they sum what the bf16 kernels gather.
 
+`csr_cbsr_plain` is the plain version of the `csr_cbsr_spmm` CUDA kernel
+(kernels/spmm.py): the same blocked sum on a k-sparse input given as one
+bf16 CBSR record per node (`ops/maxk.py::cbsr_records`), densified first.
+
 The 16-bit model (`--dtype bfloat16`): with `out_dtype=torch.bfloat16` the
 f32 sum is rounded once to bf16 and then scaled by the post factor in bf16
 arithmetic, `_scale(bf16(Σ), post)` = bf16(bf16(Σ) · bf16(post)): the
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from spgemm_gnn_tpu_torch.ops.maxk import cbsr_to_dense, split_records
 from spgemm_gnn_tpu_torch.ops.norms import node_factors
 
 # cap on one chunk of gathered [edges, dim] messages: at Reddit scale the
@@ -102,6 +107,19 @@ def csr_blocked_plain(block_indptr: torch.Tensor, indices: torch.Tensor,
         part = csr_spmm_plain(bptr - lo, indices[lo:hi], x, pre)
         y = part if y is None else y + part
     return finish(y, post, out_dtype)
+
+
+def csr_cbsr_plain(block_indptr: torch.Tensor, indices: torch.Tensor,
+                   records: torch.Tensor, k: int, dim: int,
+                   post: torch.Tensor | None = None,
+                   out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """`csr_blocked_plain` on the rows the bf16 records (`cbsr_records` of
+    k bf16 values, the pre factor folded in) densify to, f32 [S, dim]:
+    split, densified, then summed block by block with no pre factor."""
+    values, ch = split_records(records, k, dim, torch.bfloat16)
+    return csr_blocked_plain(block_indptr, indices,
+                             cbsr_to_dense(_widen(values), ch, dim), None,
+                             post, out_dtype)
 
 
 def spmm(g, x: torch.Tensor, norm: str = "sum") -> torch.Tensor:

@@ -4,7 +4,7 @@ source blocks and segment sizes (the measurements behind
 
     python -m spgemm_gnn_tpu_torch.utils.csr_sweep [--dataset reddit] \
         [--blocks auto,1,10] [--segments 512,1024] [--dim 256] [--iters 5] \
-        [--stream f32|bf16x2]
+        [--stream f32|bf16x2] [--probes]
 
 On the synthetic stand-in at full size (seed 97), for A (the input MaxK at
 k 32 then dropout 0.5, under the mean factors, as on the training path) and
@@ -16,15 +16,108 @@ same product. "auto" is the rule (`graphs/tiles.py::auto_src_blocks`);
 16-bit form (csr_spmm_bf16 on the rows of round_rows, the pre factor folded
 into them, as the planner does; "auto" then sizes blocks for 2-byte
 channels), held to the plain version on the same bf16 rows.
+
+`--probes` (A only, with `--stream bf16x2`) also times a record-gather
+probe of this script at each schedule: the bf16 CBSR records of the same
+input (`ops/maxk.py::cbsr_records` of bf16(x) at k 32: 128 B a node)
+gathered over the schedule's segments as `csr_cbsr_spmm_bf16`
+gathers them, and nothing scattered, so that the records' share of the
+product's time is on record; and beside it the CBSR forms themselves
+(`csr_cbsr_spmm`, f32 and bf16 out) on those records at that schedule,
+each first checked bit for bit against csr_spmm's bf16 form on the rows.
 Prints the card's name and power limit first.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import subprocess
 import time
 
 import torch
+
+PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3
+
+PROBE_SRC = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+// Record-gather probe over csr_spmm's schedule: one warp per segment (row,
+// lo, hi, out) of a pass, its source ids loaded 32 at a time, coalesced and
+// one batch ahead, and each edge's 128-byte record copied by cp.async, 16
+// bytes a lane (four records a warp copy), into a ring of S stages in the
+// warp's shared memory, with an L2 evict_last policy: as csr_cbsr_spmm_bf16
+// copies them (csrc/spmm.cu). Nothing is scattered: each lane XORs the word
+// of its slot of every edge and stores it at the segment's end.
+namespace {
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+constexpr int S = 8, EPS = 4, RW = 32, SW = RW * EPS;
+
+__global__ void __launch_bounds__(256)
+record_probe(const int4* __restrict__ seg, int64_t n_seg,
+             const int* __restrict__ indices, const unsigned* __restrict__ rec,
+             unsigned* __restrict__ out) {
+  __shared__ __align__(16) unsigned ring_all[8][S * SW];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t i = (int64_t)blockIdx.x * 8 + warp;
+  if (i >= n_seg) return;
+  const int4 s = seg[i];
+  const int lo = s.y, hi = s.z;
+  unsigned* ring = ring_all[warp];
+  uint64_t keep;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(keep));
+  int cu = lo + lane < hi ? __ldcs(indices + lo + lane) : 0;
+  int nu = lo + 32 + lane < hi ? __ldcs(indices + lo + 32 + lane) : 0;
+  auto fetch = [&](int st, int ids, int i0) {
+    const int ri = lane / 8;  // the lane's record of the stage
+    const int u = __shfl_sync(kFull, ids, (i0 + ri) & 31);
+    if (lo + EPS * st + ri < hi)
+      asm volatile(
+          "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;"
+          :
+          : "r"(smem_addr(ring + (st % S) * SW + 4 * lane)),
+            "l"(rec + (int64_t)u * RW + 4 * (lane % 8)), "l"(keep)
+          : "memory");
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+#pragma unroll
+  for (int st = 0; st < S; ++st) fetch(st, cu, EPS * st);
+  unsigned fold = 0u;
+  int st = 0;
+  for (int base = lo; base < hi; base += 32) {
+    for (int i0 = 0; i0 < 32 && base + i0 < hi; i0 += EPS, ++st) {
+      asm volatile("cp.async.wait_group %0;" ::"n"(S - 1) : "memory");
+      __syncwarp();
+      const unsigned* sr = ring + (st % S) * SW;
+      const int n = min(EPS, hi - base - i0);
+      for (int e = 0; e < n; ++e) fold ^= sr[e * RW + lane];
+      __syncwarp();
+      fetch(st + S, nu, i0);  // S EPS = 32: a batch ahead
+    }
+    cu = nu;
+    nu = base + 64 + lane < hi ? __ldcs(indices + base + 64 + lane) : 0;
+  }
+  out[i * 32 + lane] = fold;
+}
+}  // namespace
+
+// seg int32 [n_seg, 4] (one pass's segments), indices int32 [E], rec int32
+// [n_src, 32] (k <= 32), out int32 [n_seg, 32].
+extern "C" int gather_records_csr(const void* seg, int64_t n_seg,
+                                  const void* indices, const void* rec,
+                                  void* out, void* stream) {
+  if (n_seg == 0) return 0;
+  record_probe<<<(unsigned)((n_seg + 7) / 8), 256, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int4*>(seg), n_seg, static_cast<const int*>(indices),
+      static_cast<const unsigned*>(rec), static_cast<unsigned*>(out));
+  return (int)cudaGetLastError();
+}
+"""
 
 
 def time_ms(fn, iters: int) -> float:
@@ -40,13 +133,42 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def probe(sched, rec: torch.Tensor, iters: int) -> float:
+    """ms of the record-gather probe (PROBE_SRC) over the schedule's passes,
+    in block order, on the records `rec` (int32 [S, 32])."""
+    from spgemm_gnn_tpu_torch.kernels import _build
+    from spgemm_gnn_tpu_torch.utils.maxk_sweep import build
+    fn = build({"csr_record_probe": PROBE_SRC})["csr_record_probe"] \
+        .gather_records_csr
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty((sched.num_segments, 32), dtype=torch.int32,
+                      device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ps = sched.pass_seg.tolist()
+
+    def run():
+        for b in range(sched.nb):
+            if ps[b + 1] == ps[b]:
+                continue
+            _build.check(fn(sched.seg[ps[b]].data_ptr(), ps[b + 1] - ps[b],
+                            sched.indices.data_ptr(), rec.data_ptr(),
+                            out[ps[b]].data_ptr(), stream),
+                         "gather_records_csr")
+    return time_ms(run, iters)
+
+
 def sweep(dataset: str, blocks: list, segments: list[int], dim: int,
-          iters: int, seed: int, stream: str) -> None:
+          iters: int, seed: int, stream: str,
+          with_probes: bool = False) -> None:
     from spgemm_gnn_tpu_torch.graphs.datasets import load_dataset
     from spgemm_gnn_tpu_torch.graphs.tiles import CSRPlan
+    from spgemm_gnn_tpu_torch.kernels.cbsr import cbsr_compact
     from spgemm_gnn_tpu_torch.kernels.maxk import maxk_fwd
     from spgemm_gnn_tpu_torch.kernels.round import round_rows
-    from spgemm_gnn_tpu_torch.kernels.spmm import csr_spmm
+    from spgemm_gnn_tpu_torch.kernels.spmm import csr_cbsr_spmm, csr_spmm
+    from spgemm_gnn_tpu_torch.ops.maxk import cbsr_records
     from spgemm_gnn_tpu_torch.ops.norms import node_factors
     from spgemm_gnn_tpu_torch.ops.spmm import csr_spmm_plain
 
@@ -59,11 +181,20 @@ def sweep(dataset: str, blocks: list, segments: list[int], dim: int,
     n, e = g.num_nodes, g.num_edges
     print(f"{dataset}: N={n} E={e} dim={dim} stream {stream}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    y, _ = maxk_fwd(torch.randn((n, dim), generator=gen, device="cuda"), 32)
+    k = 32
+    y, _ = maxk_fwd(torch.randn((n, dim), generator=gen, device="cuda"), k)
     keep = torch.rand((n, dim), generator=gen, device="cuda") >= 0.5
     xs = torch.where(keep, y / 0.5, torch.zeros_like(y))
     gy = torch.randn((n, dim), generator=gen, device="cuda")
     _, post = node_factors(g, "mean")
+    rec = None
+    if with_probes:
+        if stream != "bf16x2":
+            raise ValueError("--probes gathers bf16 records: give --stream "
+                             "bf16x2")
+        vals, ch = cbsr_compact(xs, k)
+        rec = cbsr_records(round_rows(vals), ch, dim)
+        del vals, ch
     for what, indptr, indices, rows, x, pre, pst in (
             ("A", g.indptr, g.indices, g.edge_dst, xs, None, post),
             ("A^T", g.t_indptr, g.t_indices, g.t_edge_dst, gy, post, None)):
@@ -99,6 +230,28 @@ def sweep(dataset: str, blocks: list, segments: list[int], dim: int,
                       f"slots {s.n_slots}, extra "
                       f"{s.extra_bytes(indices) / 2**20:.1f} MiB, build "
                       f"{build_s:.2f} s", flush=True)
+                if rec is not None and what == "A":
+                    p_ms = probe(s, rec, iters)
+                    rb = 4 * rec.shape[1]
+                    print(f"{what} blocks {s.nb} segment {seg}: record "
+                          f"probe ({rb}-B records, no scatter) {p_ms:.3f} "
+                          f"ms, {e / p_ms / 1e6:.3f} G edges/s (no-reuse "
+                          f"gather {e * rb / PEAK_BYTES_S * 1e3:.3f} ms)",
+                          flush=True)
+                    for od in (None, torch.bfloat16):
+                        def run(od=od):
+                            return csr_cbsr_spmm(plan, rec, k, dim, pst, od)
+                        if not torch.equal(run().view(torch.int16), csr_spmm(
+                                plan, x, None, pst, out_dtype=od)
+                                .view(torch.int16)):
+                            raise AssertionError(
+                                f"csr_cbsr_spmm at nb {s.nb} ({od}): bits "
+                                f"differ from csr_spmm's bf16 form")
+                        print(f"{what} blocks {s.nb} segment {seg}: "
+                              f"csr_cbsr_spmm_bf16"
+                              f"{'_out' if od is not None else ''} "
+                              f"{time_ms(run, iters):.3f} ms (bitwise equal "
+                              f"to the dense form)", flush=True)
                 del plan, s
                 torch.cuda.empty_cache()
         del ref
@@ -114,10 +267,12 @@ def main(argv=None) -> None:
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--seed", type=int, default=97)
     ap.add_argument("--stream", default="f32", choices=["f32", "bf16x2"])
+    ap.add_argument("--probes", action="store_true",
+                    help="time the record-gather probe on A at each schedule")
     args = ap.parse_args(argv)
     sweep(args.dataset, args.blocks.split(","),
           [int(s) for s in args.segments.split(",")], args.dim, args.iters,
-          args.seed, args.stream)
+          args.seed, args.stream, args.probes)
 
 
 if __name__ == "__main__":

@@ -15,8 +15,10 @@ recipes give them. The Trainer plans the graph, so the step runs the kernel
 the reference's rule picks (csr_spmm on reddit, stream_spmm on
 ogbn-products); `--stream_cbsr_forward` sets
 `kernels.planned.STREAM_CBSR_FORWARD`: "auto" (the default, None: its rule,
-which gives a MaxK forward on a stream plan stream_cbsr_spmm at hidden <=
-256), "on" (True; the flag alone) or "off" (False: the dense forward);
+which gives a MaxK forward at hidden <= 256 the CBSR form of the plan's
+kernel: stream_cbsr_spmm on a stream plan, csr_cbsr_spmm on a windowed one
+for bf16 records, under `--stream bf16x2` or `--dtype bfloat16`), "on"
+(True; the flag alone) or "off" (False: the dense forward);
 `--stream bf16x2` runs the 16-bit feature stream (the Trainer's
 `--stream`: round_rows and the bf16 forms of the kernels);
 `--dtype bfloat16` the 16-bit model (bf16 matmuls and activations, the

@@ -268,19 +268,19 @@ def test_stream_cbsr_bf16_matches_jax(dim, k):
 def test_planned_aggregate_bf16_matches_jax(plan_kind, cbsr_forward,
                                             monkeypatch):
     """planned_aggregate forward and input gradient under gcn factors (pre
-    and post), with both packages' DEFAULT_STREAM "bf16x2" (and, on the
-    stream plan, both STREAM_CBSR_FORWARD flags set, k 8), within 1e-5 of
-    max. Rounding x alone and then applying pre differs from the reference
-    far beyond that, so this holds the rounding point at pre ⊙ x, in the
-    backward at post ⊙ g."""
+    and post), with both packages' DEFAULT_STREAM "bf16x2" (and both
+    STREAM_CBSR_FORWARD flags set, k 8: the port's forward then takes
+    stream_cbsr_spmm on the stream plan and csr_cbsr_spmm on the windowed
+    one, where the JAX package's flag reads stream plans only), within 1e-5
+    of max. Rounding x alone and then applying pre differs from the
+    reference far beyond that, so this holds the rounding point at pre ⊙ x,
+    in the backward at post ⊙ g."""
     import importlib
 
     import jax
     import jax.numpy as jnp
     jplanned = importlib.import_module("spgemm_gnn_tpu.kernels.planned")
 
-    if cbsr_forward and plan_kind == "windowed":
-        pytest.skip("the flag reads stream plans only")
     jg, tg = _graphs("directed")
     n, dim, k = tg.num_nodes, 32, 8
     rng = np.random.default_rng(7)

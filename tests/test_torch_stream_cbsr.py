@@ -198,11 +198,13 @@ def test_flag_defaults_to_the_reference():
 @pytest.mark.parametrize("dim", [256, 384])
 def test_cbsr_forward_rule(dim, k, kind, flag, acts, monkeypatch):
     """STREAM_CBSR_FORWARD's three states on plan_spmm: None (the default)
-    takes stream_cbsr_spmm on a stream plan where k < dim <= 256, True
+    takes the CBSR form of the plan's kernel where k < dim <= 256, True
     wherever k < dim (raising above dim 256, as the reference does), False
-    never; a windowed plan ignores the flag. f32 activations, the bf16x2
-    stream and bf16 activations alike; y equals the dense forward's by
-    value."""
+    never: stream_cbsr_spmm on a stream plan (f32 activations, the bf16x2
+    stream and bf16 activations alike), csr_cbsr_spmm on a windowed plan
+    for bf16 records only (the bf16x2 stream and bf16 activations; f32
+    activations keep csr_spmm under every flag). y equals the dense
+    forward's by value."""
     k = dim if k == "dim" else k
     g = tplanned.plan_graph(tsyn.random_graph(40, 200, seed=3), kind=kind,
                             chunk=16)
@@ -213,18 +215,20 @@ def test_cbsr_forward_rule(dim, k, kind, flag, acts, monkeypatch):
     monkeypatch.setattr(tplanned, "DEFAULT_STREAM",
                         "bf16x2" if acts == "bf16x2" else "f32")
     monkeypatch.setattr(tplanned, "STREAM_CBSR_FORWARD", flag)
-    names = ("stream_cbsr_spmm", "stream_spmm", "csr_spmm")
+    names = ("stream_cbsr_spmm", "stream_spmm", "csr_cbsr_spmm", "csr_spmm")
     calls = {name: _spy(monkeypatch, name) for name in names}
     _, post = node_factors(g, "mean")
-    cbsr = kind == "stream" and k < dim and (
+    cbsr = (kind == "stream" or acts != "f32") and k < dim and (
         flag is True or flag is None and dim <= 256)
     if cbsr and dim > 256:
         with pytest.raises(ValueError, match="dim <= 256"):
             tplanned.plan_spmm(g.fwd_plan, x, None, post, k)
         return
     y = tplanned.plan_spmm(g.fwd_plan, x, None, post, k)
-    want = ("stream_cbsr_spmm" if cbsr else
-            "stream_spmm" if kind == "stream" else "csr_spmm")
+    want = {("stream", True): "stream_cbsr_spmm",
+            ("stream", False): "stream_spmm",
+            ("windowed", True): "csr_cbsr_spmm",
+            ("windowed", False): "csr_spmm"}[kind, cbsr]
     assert {name: len(c) for name, c in calls.items()} == {
         name: int(name == want) for name in names}
     monkeypatch.setattr(tplanned, "STREAM_CBSR_FORWARD", False)
@@ -316,8 +320,9 @@ def test_aggregate_cbsr_with_flag_matches_jax(norm, monkeypatch):
 
 def test_flag_at_dim_above_256_raises_on_stream_plans_only(monkeypatch):
     """yelp's hidden 384: with the flag set a stream plan raises as the
-    reference does (no quiet route to stream_spmm); a windowed plan ignores
-    the flag."""
+    reference does (no quiet route to stream_spmm); a windowed plan on f32
+    activations (f32 records, which have no windowed kernel) keeps
+    csr_spmm whatever the flag."""
     g = tsyn.random_graph(40, 200, seed=3)
     x = tmaxk_plain.maxk(torch.randn(40, 384), 8)
     monkeypatch.setattr(tplanned, "STREAM_CBSR_FORWARD", True)
