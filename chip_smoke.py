@@ -103,7 +103,20 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      the values off, timed; for both B8 bf16 forms the diagnosis of their
      kernel (SASS instructions and loops, registers, resident warps, and
      two timing variants: the walk and the scatter, the walk and the
-     gather);
+     gather); then the sampled backward (B3's 16-bit forms on MaxK's
+     backward): maxk_fwd and maxk_fwd_bf16 with their kept channels' ids
+     (y and meta those of the form without, ids those of the plain
+     version, on seeded rows that keep zeros; timed with and without),
+     then stream_sspmm_bf16 and stream_sspmm_bf16_out on Aᵀ at those
+     channels under the mean and gcn factors: bitwise equal to
+     stream_spmm_bf16 / _bf16_out at the kept channels and 0 elsewhere,
+     across two runs and to the k-channel gather probe, within 1e-5 of
+     max |y| (f32 out) or 1 bf16 ulp of the plain version (under the gcn
+     factors the bf16 output bitwise the rounding of the f32 form's sums
+     times bf16(post), and those sums' rounding within 1 ulp); timed with each
+     pass alone, beside the dense form and maxk_bwd after it, the gather
+     probe, the plain version, the bound, the no-reuse gathers and
+     torch.sparse.mm then torch.gather;
   9. CBSR: cbsr_compact, cbsr_densify and cbsr_sample at the products shapes
      (dim 256, k 32), bitwise against their plain versions and timed; then
      `aggregate_cbsr` forward and backward through the kernels, with its
@@ -131,16 +144,22 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      forward), the default's losses within 1e-6 relative of theirs; then
      both runs again with `--stream bf16x2` (first steps against the plain
      versions with the same stream, exact launch counts of round_rows and
-     the bf16 kernels, the default within 1e-6 relative of flag-off); then
-     both runs with `--dtype bfloat16` (first steps within 1e-3 of the
-     plain versions, exact counts of the 16-bit forms, falling losses, the
-     default within 1e-6 of flag-off);
+     the bf16 kernels: at the default the MaxK backwards on
+     stream_sspmm_bf16 and stream_spmm_bf16 not at all; the default
+     within 1e-6 relative of flag-off), and a third with SAMPLED_BACKWARD
+     off (stream_spmm_bf16 on Aᵀ), the default's losses bit-equal to it;
+     then the three runs with `--dtype bfloat16` (first steps within 1e-3
+     of the plain versions, exact counts of the 16-bit forms, falling
+     losses, the default within 1e-6 of flag-off and bit-equal to
+     SAMPLED_BACKWARD off); each line of steady epochs beside the peak
+     memory of the three runs;
  11. train 3: the products recipe with GCN and self-loops (`--model gcn
      --selfloop`) at the default rule: its first two train steps
      within 1e-4 relative of the plain path's, then 5 epochs with finite
      losses and exact launch counts (stream_cbsr_spmm forward, stream_spmm
      backward); then the same with `--dtype bfloat16` (both node factors in
-     bf16, the bf16-output forms);
+     bf16, the bf16-output forms, stream_sspmm_bf16_out on the backwards),
+     and again with SAMPLED_BACKWARD off, the losses bit-equal;
  12. serve: the products recipe (f32) checkpointed every 2 epochs of a
      4-epoch run, then a fresh Trainer resumed to 6 epochs: it must start
      at epoch 4 and give the losses of an uninterrupted 6-epoch run bitwise
@@ -1691,6 +1710,235 @@ def stream_cbsr16out_check(torch, g, dim: int, k: int, seed: int) -> dict:
     return entry
 
 
+def sspmm16_check(torch, g, dim: int, k: int, seed: int) -> list[dict]:
+    """B3's 16-bit forms on MaxK's backward (the sampled backward):
+    stream_sspmm_bf16 and stream_sspmm_bf16_out on Aᵀ of the graph at (dim,
+    k), as the planner runs them on the messages of the bf16x2 stream
+    (round_rows(g, dst_f), f32 out) and of the 16-bit model (dst_f ⊙ g in
+    bf16, bf16 out), with the channels that maxk_fwd keeps on seeded rows
+    (rows with kept zeros among them), under the mean and gcn factors.
+    First maxk_fwd with ids: y and meta those of the form without, the ids
+    those of the plain version, f32 and bf16 rows, timed beside the form
+    without (the way this port takes MaxK's channels). Then each form
+    bitwise equal to the dense form (stream_spmm_bf16 / _out) at the kept
+    channels and 0 elsewhere, across two runs and to the k-channel gather
+    probe; within 1e-5 of max |y| (f32 out) or 1 bf16 ulp (bf16 out,
+    `near16`) of the plain version (with a post factor, the bf16 output
+    bitwise bf16(bf16(Σ) · bf16(post)) of the f32-output form's sums Σ,
+    and bf16(Σ) within 1 ulp of the plain version's: two roundings can
+    move a last-bit difference of Σ by two ulps); timed with each pass
+    alone, beside the
+    dense form and maxk_bwd after it, the gather probe, the plain version,
+    the bound and no-reuse gather on the 2k bytes an edge needs, and the
+    nearest library pair, torch.sparse.mm then torch.gather (no one call
+    computes the function). Returns the two kernels-line entries (mean
+    factors; gcn under prefixed keys)."""
+    from spgemm_gnn_tpu_torch.graphs.stream_tiles import build_stream_plan
+    from spgemm_gnn_tpu_torch.kernels.maxk import maxk_bwd, maxk_fwd
+    from spgemm_gnn_tpu_torch.kernels.round import round_rows
+    from spgemm_gnn_tpu_torch.kernels.stream import (stream_ksample_at,
+                                                     stream_spmm,
+                                                     stream_sspmm,
+                                                     stream_sspmm_at)
+    from spgemm_gnn_tpu_torch.ops.maxk import maxk_channel_ids
+    from spgemm_gnn_tpu_torch.ops.norms import node_factors
+    from spgemm_gnn_tpu_torch.ops.spmm import _scale
+    from spgemm_gnn_tpu_torch.ops.stream import stream_sspmm_plain
+
+    bf16 = torch.bfloat16
+    dev = g.indptr.device
+    n, e = g.num_nodes, g.num_edges
+    fwd = build_stream_plan(g.indptr, g.indices)
+    plan = build_stream_plan(g.t_indptr, g.t_indices)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    perm = plan.transpose_positions(fwd)
+    torch.cuda.synchronize()
+    perm_s = time.perf_counter() - t0
+    log(f"sampled backward: transpose positions of products' {e} edges "
+        f"built in {perm_s:.2f} s ({perm.numel() * 4 / 2**30:.2f} GiB)")
+
+    # MaxK's kept channels, from the forward itself
+    x, gy = seeded_rows(torch, n, dim, k, seed + 5, dev)
+    ids_ms = {}
+    for xd in (x, x.to(bf16)):
+        y0, meta0 = maxk_fwd(xd, k)
+        y, meta, ids = maxk_fwd(xd, k, with_ids=True)
+        torch.cuda.synchronize()
+        what = "maxk_fwd_bf16" if xd.dtype == bf16 else "maxk_fwd"
+        if not (equal_nan(torch, y, y0) and bits_equal(torch, meta, meta0)):
+            raise AssertionError(f"{what} with ids: y or meta differ from "
+                                 f"the form without")
+        if not torch.equal(ids, maxk_channel_ids(xd, meta, k)):
+            raise AssertionError(f"{what} with ids: ids differ from the "
+                                 f"plain version")
+        kept_zero = int((torch.gather(xd, 1, ids.long()) == 0).any(1).sum())
+        ids_ms[what] = (time_ms(torch, lambda: maxk_fwd(xd, k, True), 20),
+                        time_ms(torch, lambda: maxk_fwd(xd, k), 20))
+        log(f"kernel {what} with ids (products, N={n} dim={dim} k={k}): y "
+            f"and meta bitwise the form without, ids bitwise the plain "
+            f"version ({kept_zero} rows keep a zero); "
+            f"{ids_ms[what][0]:.3f} ms with ids, {ids_ms[what][1]:.3f} "
+            f"without")
+        del y0, meta0, y
+    ch = ids   # the bf16 rows' kept channels
+    h16 = x.to(bf16)
+    del x
+    keep = torch.zeros((n, dim), dtype=torch.bool, device=dev)
+    keep.scatter_(1, ch.long(), True)
+    kept_zero = int((torch.gather(h16, 1, ch.long()) == 0).any(1).sum())
+    if not kept_zero:
+        raise AssertionError("sampled backward: no seeded row keeps a zero")
+
+    entries = []
+    for out16 in (False, True):
+        od = bf16 if out16 else None
+        name = "stream_sspmm_bf16_out" if out16 else "stream_sspmm_bf16"
+        entry = dict(
+            name=name, route="cuda",
+            source="spgemm_gnn_tpu_torch/csrc/stream.cu",
+            replaces="spgemm_gnn_tpu/kernels/planned.py:233 sspmm_backward "
+                     "= stream_pallas.py:37 (bf16 stream :227-228"
+                     + (", out_dtype :217-242" if out16 else "")
+                     + ") then spgemm_pallas.py:385 sample_channels",
+            perm_build_s=perm_s,
+            maxk_fwd_ids_ms=ids_ms["maxk_fwd_bf16" if out16
+                                   else "maxk_fwd"][0],
+            maxk_fwd_no_ids_ms=ids_ms["maxk_fwd_bf16" if out16
+                                      else "maxk_fwd"][1])
+        for norm in ("mean", "gcn"):
+            src_f, dst_f = node_factors(g, norm)
+            m = (_scale(gy.to(bf16), dst_f).contiguous() if out16
+                 else round_rows(gy, dst_f))
+
+            def run():
+                return stream_sspmm(plan, fwd, m, ch, src_f, od)
+
+            got, again = run(), run()
+            dense = stream_spmm(plan, m, None, src_f, out_dtype=od)
+            want = torch.where(keep, dense, torch.zeros(
+                (), dtype=dense.dtype, device=dev))
+            probe = stream_ksample_at(plan, m, ch, g.t_edge_dst, src_f,
+                                      out_dtype=od)
+            torch.cuda.synchronize()
+            ints = torch.int16 if out16 else torch.int32
+            for other, against in ((want, "the dense form masked to the "
+                                    "kept channels"),
+                                   (again, "a second run"),
+                                   (probe, "the k-channel gather probe")):
+                if not torch.equal(got.view(ints), other.view(ints)):
+                    raise AssertionError(f"{name} ({norm}) differs from "
+                                         f"{against} in its bits")
+            del want, again, probe
+            if out16 and src_f is not None:
+                # bf16(bf16(Σ) · bf16(post)) rounds twice: a last-bit
+                # difference of the plain version's f32 sums (summed in
+                # another order) can move the second rounding by one more
+                # ulp. So the bf16 output is held bitwise to the rounding
+                # of the f32-output form's sums, and the rounding of the
+                # sums alone (no post) to the plain version's
+                sums = stream_sspmm(plan, fwd, m, ch, None)
+                if not torch.equal(got.view(ints), rounded16(
+                        torch, sums, src_f).view(ints)):
+                    raise AssertionError(f"{name} ({norm}) differs from "
+                                         f"bf16(bf16(Σ) · bf16(post)) of "
+                                         f"its f32-output form's sums")
+                del sums
+                got = stream_sspmm(plan, fwd, m, ch, None, od)
+                plain = stream_sspmm_plain(plan, m, ch, None, od)
+            else:
+                plain = stream_sspmm_plain(plan, m, ch, src_f, od)
+            err = float((got.float() - plain.float()).abs().max())
+            if out16:
+                near = near16(torch, got, plain, f"{name} ({norm})")
+            else:
+                top = float(plain.abs().max())
+                if not err <= 1e-5 * top:
+                    raise AssertionError(f"{name} ({norm}): {err:.3e} from "
+                                         f"the plain version, above 1e-5 "
+                                         f"of max |y| {top:.3e}")
+                near = {}
+            del plain, got
+            slots = stream_sspmm_at(plan, fwd, m, ch, passes=(1,))
+            mk_x = h16 if out16 else h16.float()
+            w = torch.ones(e, device=dev) if src_f is None else src_f[
+                g.t_edge_dst.long()]
+            a = torch.sparse_csr_tensor(g.t_indptr, g.t_indices, w.to(bf16),
+                                        size=(n, n))
+            chl = ch.long()
+
+            def library():
+                return torch.gather(torch.sparse.mm(a, m), 1, chl)
+            try:
+                library()
+                torch.cuda.synchronize()
+                lib_ms, lib_err = time_ms(torch, library, 5), None
+            except (RuntimeError, NotImplementedError) as exc:
+                lib_ms = None
+                lib_err = (f"{type(exc).__name__}: "
+                           f"{str(exc).splitlines()[0][:160]}")
+            del a
+            out_bytes = n * dim * (2 if out16 else 4)
+            n_bytes = (n * dim * 2 + n * k + e * 4 + (n + 1) * 4 + out_bytes
+                       + (0 if src_f is None else n * 4))
+            b_ms, b_by = bound_ms(n_bytes, float(e) * k)
+            r = dict(
+                max_abs_err=err, **near, ms=time_ms(torch, run, 10),
+                pass1_ms=time_ms(torch, lambda: stream_sspmm_at(
+                    plan, fwd, m, ch, passes=(1,), slots=slots), 10),
+                pass2_ms=time_ms(torch, lambda: stream_sspmm_at(
+                    plan, fwd, m, ch, src_f, out_dtype=od, passes=(2,),
+                    slots=slots), 10),
+                gather_form_ms=time_ms(torch, lambda: stream_ksample_at(
+                    plan, m, ch, g.t_edge_dst, src_f, out_dtype=od), 10),
+                dense_ms=time_ms(torch, lambda: stream_spmm(
+                    plan, m, None, src_f, out_dtype=od), 10),
+                maxk_bwd_ms=time_ms(torch, lambda: maxk_bwd(
+                    mk_x, meta, dense), 10),
+                plain_ms=time_ms(torch, lambda: stream_sspmm_plain(
+                    plan, m, ch, src_f, od), 2),
+                library_ms=lib_ms, library_error=lib_err, bound_ms=b_ms,
+                bound_by=b_by,
+                no_reuse_gather_ms=e * 2 * k / PEAK_BYTES_S * 1e3,
+                dense_gather_ms=e * 2 * dim / PEAK_BYTES_S * 1e3)
+            r["dense_maxk_bwd_ms"] = r["dense_ms"] + r["maxk_bwd_ms"]
+            del slots, dense, m, mk_x
+            torch.cuda.empty_cache()
+            lib = (f"{lib_ms:.3f}" if lib_ms is not None
+                   else f"none ({lib_err})")
+            log(f"kernel {name} (products, A^T, {norm} factors, dim {dim}, "
+                f"k {k}, MaxK's channels, {kept_zero} rows keep a zero): "
+                f"bitwise equal to the dense form at the kept channels and "
+                f"0 elsewhere, across two runs and to the gather probe; "
+                f"{err:.3e} max abs from the plain version"
+                + (f", {near_text(near)}" if out16 else "") + "; "
+                f"{r['ms']:.3f} ms (pass 1 {r['pass1_ms']:.3f}, pass 2 "
+                f"{r['pass2_ms']:.3f}; dense form {r['dense_ms']:.3f} and "
+                f"maxk_bwd{'_bf16' if out16 else ''} after it "
+                f"{r['maxk_bwd_ms']:.3f}; gather form "
+                f"{r['gather_form_ms']:.3f}; plain {r['plain_ms']:.3f}; "
+                f"torch.sparse.mm then torch.gather {lib}; bound "
+                f"{b_ms:.3f} by {b_by}; no-reuse gather {2 * k} B an edge "
+                f"{r['no_reuse_gather_ms']:.3f}, {2 * dim} B "
+                f"{r['dense_gather_ms']:.3f})")
+            keys = ("max_abs_err", "ms", "pass1_ms", "pass2_ms",
+                    "gather_form_ms", "dense_ms", "maxk_bwd_ms",
+                    "dense_maxk_bwd_ms", "plain_ms", "library_ms",
+                    "library_error", "bound_ms", "bound_by",
+                    "no_reuse_gather_ms", "dense_gather_ms")
+            if norm == "mean":
+                entry.update({key: r[key] for key in keys})
+                entry.update({NEAR_KEYS[key]: r[key] for key in NEAR_KEYS
+                              if key in r})
+            else:
+                entry.update({f"gcn_{key}": r[key] for key in (
+                    "max_abs_err", "ms", "dense_ms", "bound_ms")})
+        entries.append(entry)
+    del perm, keep, ch, h16, gy, meta
+    plan._hot.clear()
+    return entries
+
+
 def accuracy_check(torch) -> dict:
     """The 80-epoch accuracy check of the reference's trajectory gate
     (TRAJ_r03.json's config): the Reddit stand-in at scale 0.02, SAGE MaxK
@@ -1754,11 +2002,11 @@ def run_training(torch, trainer, expected: dict, what: str) -> dict:
     torch.cuda.synchronize()
     counts = dict(_build.launches)
     losses = [r.loss for r in res["history"]]
+    peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"{what}: losses {losses}")
     log(f"{what}: val acc {[r.val_acc for r in res['history']]}")
     log(f"{what}: steady_epoch_s {res['steady_epoch_s']}, wall "
-        f"{res['wall_time_s']:.2f} s, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, allocator "
+        f"{res['wall_time_s']:.2f} s, peak memory {peak:.2f} GiB, allocator "
         f"retries {torch.cuda.memory_stats()['num_alloc_retries']}")
     if len(losses) != EPOCHS or not all(map(math.isfinite, losses)):
         raise AssertionError(f"{what}: losses not finite: {losses}")
@@ -1766,7 +2014,7 @@ def run_training(torch, trainer, expected: dict, what: str) -> dict:
         raise AssertionError(f"{what}: launch counts {counts} != expected "
                              f"{expected}")
     log(f"{what}: launches {counts}")
-    return dict(res=res, losses=losses, counts=counts)
+    return dict(res=res, losses=losses, counts=counts, peak_gib=peak)
 
 
 def same_losses(run: dict, off: dict, what: str) -> None:
@@ -1780,6 +2028,34 @@ def same_losses(run: dict, off: dict, what: str) -> None:
     same = run["losses"] == off["losses"]
     log(f"{what}: the default against the flag off: losses "
         f"{'bit-equal' if same else f'within {rel:.3e} relative'}")
+
+
+def bit_equal_losses(run: dict, dense: dict, what: str) -> None:
+    """The default's losses bit-equal to those of the run with
+    SAMPLED_BACKWARD off: the sampled backward gives the dense backward's
+    bits wherever MaxK's backward keeps them."""
+    if run["losses"] != dense["losses"]:
+        raise AssertionError(f"{what}: default losses {run['losses']} vs "
+                             f"SAMPLED_BACKWARD off {dense['losses']}")
+    log(f"{what}: the default against SAMPLED_BACKWARD off: losses "
+        f"bit-equal")
+
+
+def log_against_dense(what: str, run: dict, dense: dict,
+                      off: dict | None = None) -> None:
+    """Steady epochs and peak memory of the default beside the runs with
+    SAMPLED_BACKWARD off (and STREAM_CBSR_FORWARD off) in this call."""
+    line = (f"{what}: steady epoch {run['res']['steady_epoch_s']} s "
+            f"default, {dense['res']['steady_epoch_s']} s SAMPLED_BACKWARD "
+            f"off")
+    if off is not None:
+        line += (f", {off['res']['steady_epoch_s']} s STREAM_CBSR_FORWARD "
+                 f"off")
+    line += (f"; peak memory {run['peak_gib']:.2f} GiB default, "
+             f"{dense['peak_gib']:.2f} SAMPLED_BACKWARD off")
+    if off is not None:
+        line += f", {off['peak_gib']:.2f} STREAM_CBSR_FORWARD off"
+    log(line)
 
 
 def require_fall(run: dict, what: str) -> None:
@@ -2495,6 +2771,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     cbsr16o_entry = stream_cbsr16out_check(torch, g2, HIDDEN, K, SEED)
     torch.cuda.empty_cache()
+    sspmm16_entries = sspmm16_check(torch, g2, HIDDEN, K, SEED)
+    torch.cuda.empty_cache()
 
     kernels.append(product_entry("csr_spmm", csr_a, csr_t,
                                  products_=csr_products))
@@ -2557,32 +2835,42 @@ def main() -> int:
     del products, products_off
     torch.cuda.empty_cache()
 
-    # the products recipe with the 16-bit stream, default then flag off
+    # the products recipe with the 16-bit stream: the default (the MaxK
+    # forwards on B8, the MaxK backwards on stream_sspmm_bf16), then
+    # STREAM_CBSR_FORWARD off (stream_spmm_bf16 forward; the backwards keep
+    # their own rule), then SAMPLED_BACKWARD off (stream_spmm_bf16 on Aᵀ):
+    # the same losses, the last bit for bit
     cfg2_16 = cfg2.replace(stream="bf16x2")
     first_steps16(torch, cfg2_16, ds2, "train products, bf16x2")
+    msgs16 = {"maxk_fwd": EPOCHS * 2 * layers2, "maxk_bwd": EPOCHS * layers2,
+              "round_rows": EPOCHS * 3 * layers2}
+    cbsr16 = {"cbsr_compact": EPOCHS * 2 * layers2,
+              "stream_cbsr_spmm_bf16": EPOCHS * 2 * layers2}
     products16 = run_training(torch, Trainer(cfg2_16, dataset=ds2), {
-        "maxk_fwd": EPOCHS * 2 * layers2, "maxk_bwd": EPOCHS * layers2,
-        "cbsr_compact": EPOCHS * 2 * layers2,
-        "round_rows": EPOCHS * 3 * layers2,
-        "stream_cbsr_spmm_bf16": EPOCHS * 2 * layers2,
-        "stream_spmm_bf16": EPOCHS * layers2}, "train products, bf16x2")
+        **msgs16, **cbsr16, "stream_sspmm_bf16": EPOCHS * layers2},
+        "train products, bf16x2")
     planned.STREAM_CBSR_FORWARD = False
     first_steps16(torch, cfg2_16, ds2,
                   "train products, bf16x2, STREAM_CBSR_FORWARD off")
     products16_off = run_training(torch, Trainer(cfg2_16, dataset=ds2), {
-        "maxk_fwd": EPOCHS * 2 * layers2, "maxk_bwd": EPOCHS * layers2,
-        "round_rows": EPOCHS * 3 * layers2,
-        "stream_spmm_bf16": EPOCHS * 3 * layers2},
+        **msgs16, "stream_spmm_bf16": EPOCHS * 2 * layers2,
+        "stream_sspmm_bf16": EPOCHS * layers2},
         "train products, bf16x2, STREAM_CBSR_FORWARD off")
     planned.STREAM_CBSR_FORWARD = None
+    planned.SAMPLED_BACKWARD = False
+    products16_dense = run_training(torch, Trainer(cfg2_16, dataset=ds2), {
+        **msgs16, **cbsr16, "stream_spmm_bf16": EPOCHS * layers2},
+        "train products, bf16x2, SAMPLED_BACKWARD off")
+    planned.SAMPLED_BACKWARD = None
     planned.DEFAULT_STREAM = "f32"
     same_losses(products16, products16_off, "train products, bf16x2")
-    log(f"train products, bf16x2: steady epoch "
-        f"{products16['res']['steady_epoch_s']} s default, "
-        f"{products16_off['res']['steady_epoch_s']} s off")
+    bit_equal_losses(products16, products16_dense, "train products, bf16x2")
+    log_against_dense("train products, bf16x2", products16,
+                      products16_dense, products16_off)
     products16_counts = products16["counts"]
     products16_off_counts = products16_off["counts"]
-    del products16, products16_off
+    products16_dense_counts = products16_dense["counts"]
+    del products16, products16_off, products16_dense
     torch.cuda.empty_cache()
 
     # the products recipe as the 16-bit model, default then flag off
@@ -2590,11 +2878,14 @@ def main() -> int:
     first_steps16(torch, cfg2_b, ds2, "train products, bfloat16", STEP_TOL16)
     norm16 = {"layer_norm16_fwd": EPOCHS * 2 * layers2,
               "layer_norm16_bwd": EPOCHS * layers2}
-    flag_on16 = {"maxk_fwd_bf16": EPOCHS * 2 * layers2,
-                 "maxk_bwd_bf16": EPOCHS * layers2, **norm16,
-                 "cbsr_compact_bf16": EPOCHS * 2 * layers2,
-                 "stream_cbsr_spmm_bf16_out": EPOCHS * 2 * layers2,
-                 "stream_spmm_bf16_out": EPOCHS * layers2}
+    maxk16 = {"maxk_fwd_bf16": EPOCHS * 2 * layers2,
+              "maxk_bwd_bf16": EPOCHS * layers2, **norm16}
+    fwd16 = {"cbsr_compact_bf16": EPOCHS * 2 * layers2,
+             "stream_cbsr_spmm_bf16_out": EPOCHS * 2 * layers2}
+    flag_on16 = {**maxk16, **fwd16,
+                 "stream_sspmm_bf16_out": EPOCHS * layers2}
+    dense_bwd16 = {**maxk16, **fwd16,
+                   "stream_spmm_bf16_out": EPOCHS * layers2}
     products_b = run_training(torch, Trainer(cfg2_b, dataset=ds2), flag_on16,
                               "train products, bfloat16")
     require_fall(products_b, "train products, bfloat16")
@@ -2603,19 +2894,24 @@ def main() -> int:
                   "train products, bfloat16, STREAM_CBSR_FORWARD off",
                   STEP_TOL16)
     products_b_off = run_training(torch, Trainer(cfg2_b, dataset=ds2), {
-        "maxk_fwd_bf16": EPOCHS * 2 * layers2,
-        "maxk_bwd_bf16": EPOCHS * layers2, **norm16,
-        "stream_spmm_bf16_out": EPOCHS * 3 * layers2},
+        **maxk16, "stream_spmm_bf16_out": EPOCHS * 2 * layers2,
+        "stream_sspmm_bf16_out": EPOCHS * layers2},
         "train products, bfloat16, STREAM_CBSR_FORWARD off")
     planned.STREAM_CBSR_FORWARD = None
     require_fall(products_b_off, "train products, bfloat16, flag off")
+    planned.SAMPLED_BACKWARD = False
+    products_b_dense = run_training(
+        torch, Trainer(cfg2_b, dataset=ds2), dense_bwd16,
+        "train products, bfloat16, SAMPLED_BACKWARD off")
+    planned.SAMPLED_BACKWARD = None
     same_losses(products_b, products_b_off, "train products, bfloat16")
-    log(f"train products, bfloat16: steady epoch "
-        f"{products_b['res']['steady_epoch_s']} s default, "
-        f"{products_b_off['res']['steady_epoch_s']} s off")
+    bit_equal_losses(products_b, products_b_dense, "train products, bfloat16")
+    log_against_dense("train products, bfloat16", products_b,
+                      products_b_dense, products_b_off)
     products_b_counts = products_b["counts"]
     products_b_off_counts = products_b_off["counts"]
-    del products_b, products_b_off
+    products_b_dense_counts = products_b_dense["counts"]
+    del products_b, products_b_off, products_b_dense
     torch.cuda.empty_cache()
 
     # ---- train 3: the products recipe with GCN and self-loops (default) ---
@@ -2640,7 +2936,15 @@ def main() -> int:
     gcn_b = run_training(torch, Trainer(cfg3_b, dataset=ds3), flag_on16,
                          "train 3 (GCN, products, self-loops), bfloat16")
     require_fall(gcn_b, "train 3 (GCN), bfloat16")
-    del gcn_b, ds3
+    planned.SAMPLED_BACKWARD = False
+    gcn_b_dense = run_training(
+        torch, Trainer(cfg3_b, dataset=ds3), dense_bwd16,
+        "train 3 (GCN, products, self-loops), bfloat16, SAMPLED_BACKWARD off")
+    planned.SAMPLED_BACKWARD = None
+    bit_equal_losses(gcn_b, gcn_b_dense, "train 3 (GCN), bfloat16")
+    log_against_dense("train 3 (GCN), bfloat16", gcn_b, gcn_b_dense)
+    gcn_b_counts = gcn_b["counts"]
+    del gcn_b, gcn_b_dense, ds3
     torch.cuda.empty_cache()
 
     # the 16-bit stream's kernels
@@ -2658,10 +2962,18 @@ def main() -> int:
         "stream_spmm_bf16", "spgemm_gnn_tpu_torch/csrc/stream.cu",
         "spgemm_gnn_tpu/kernels/stream_pallas.py:37 (bf16 stream, "
         ":227-228)", stream16_a, stream16_t))
+    # at the default the MaxK backwards take stream_sspmm_bf16: this form
+    # runs on the paths with either flag off
     kernels[-1].update(
-        launches=products16_counts["stream_spmm_bf16"],
-        launches_path="train products, bf16x2",
+        launches=products16_dense_counts["stream_spmm_bf16"],
+        launches_path="train products, bf16x2, SAMPLED_BACKWARD off",
+        default_launches=products16_counts.get("stream_spmm_bf16", 0),
         flag_off_launches=products16_off_counts["stream_spmm_bf16"])
+    sspmm16_entries[0].update(
+        launches=products16_counts["stream_sspmm_bf16"],
+        launches_path="train products, bf16x2",
+        flag_off_launches=products16_off_counts["stream_sspmm_bf16"])
+    kernels.append(sspmm16_entries[0])
     cbsr16_entry.update(
         launches=products16_counts["stream_cbsr_spmm_bf16"],
         launches_path="train products, bf16x2")
@@ -2692,9 +3004,16 @@ def main() -> int:
         "spgemm_gnn_tpu/kernels/stream_pallas.py:37 (out_dtype, :217-242)",
         stream16o_a, stream16o_t))
     kernels[-1].update(
-        launches=products_b_counts["stream_spmm_bf16_out"],
-        launches_path="train products, bfloat16",
+        launches=products_b_dense_counts["stream_spmm_bf16_out"],
+        launches_path="train products, bfloat16, SAMPLED_BACKWARD off",
+        default_launches=products_b_counts.get("stream_spmm_bf16_out", 0),
         flag_off_launches=products_b_off_counts["stream_spmm_bf16_out"])
+    sspmm16_entries[1].update(
+        launches=products_b_counts["stream_sspmm_bf16_out"],
+        launches_path="train products, bfloat16",
+        flag_off_launches=products_b_off_counts["stream_sspmm_bf16_out"],
+        gcn_launches=gcn_b_counts["stream_sspmm_bf16_out"])
+    kernels.append(sspmm16_entries[1])
     cbsr16o_entry.update(
         launches=products_b_counts["stream_cbsr_spmm_bf16_out"],
         launches_path="train products, bfloat16")

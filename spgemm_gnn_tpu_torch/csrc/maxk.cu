@@ -36,6 +36,14 @@
 // Backward, one thread per four elements: it needs only the row's (pivot,
 // bound), so it is a flat elementwise pass with 16-byte loads.
 //
+// maxk_fwd_ids and maxk_fwd_bf16_ids are the forward kernels that also
+// write the channels each row keeps, ascending, as uint8 ids [N, k] (dim
+// <= 256): the channel set of the row's mask exactly, kept zeros included,
+// for the sampled backward of the aggregation that reads this MaxK's output
+// (csrc/stream.cu stream_sspmm_bf16). A lane counts its kept channels, a
+// warp scan of the counts gives its first slot, and it stores its ids
+// there: k bytes a row beside the y and meta writes.
+//
 // maxk_fwd_bf16 and maxk_bwd_bf16 are the same kernels on bf16 rows (the
 // 16-bit model, --dtype bfloat16; the TPU kernel takes x in its own dtype and
 // writes y in it, maxk_pallas.py:38, :80, :119). Keys come from the exact f32
@@ -353,10 +361,12 @@ constexpr int min_blocks() {
 }
 
 // T: float (f32 rows) or uint16_t (bf16 rows, their bits).
-template <class T, int PER, bool FULL, int DEPTH>
+// IDS: also the kept channels, ascending, into ids uint8 [n, k].
+template <class T, int PER, bool FULL, int DEPTH, bool IDS>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, min_blocks<PER>())
 maxk_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
-                int* __restrict__ meta, int64_t n, int dim, int k) {
+                int* __restrict__ meta, uint8_t* __restrict__ ids, int64_t n,
+                int dim, int k) {
   constexpr int KB = sizeof(T) == 2 ? 16 : 32;  // key bits
   const int lane = threadIdx.x & 31;
   const int64_t stride = (int64_t)gridDim.x * kWarpsPerBlock;
@@ -390,6 +400,7 @@ maxk_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
       float v[PER];
       cur.widen(v);
       float out[PER];
+      bool kept[PER];
       const int nb = bound - c0;  // the lane's channels before the bound
 #pragma unroll
       for (int i = 0; i < PER; ++i) {
@@ -397,9 +408,26 @@ maxk_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
         const bool keep =
             KB == 16 ? key[i] + (i < nb ? 1u : 0u) > t
                      : key[i] > t || (key[i] == t && i < nb);
+        kept[i] = keep && (FULL || i < n_valid);
         out[i] = v[i] * (keep ? 1.f : 0.f);  // x * mask, as the plain version
       }
       store_range<PER, FULL>(y + r * dim + c0, n_valid, out);
+      if constexpr (IDS) {
+        int cnt = 0;
+#pragma unroll
+        for (int i = 0; i < PER; ++i) cnt += kept[i];
+        int incl = cnt;  // inclusive scan of the kept counts over lanes
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const int o = __shfl_up_sync(kFull, incl, off);
+          if (lane >= off) incl += o;
+        }
+        uint8_t* out_ids = ids + r * k + (incl - cnt);
+        int slot = 0;
+#pragma unroll
+        for (int i = 0; i < PER; ++i)
+          if (kept[i]) out_ids[slot++] = (uint8_t)(c0 + i);
+      }
       if (KB == 16) t = t << 16 | ((t & 0x8000u) ? 0u : 0xffffu);
       if (lane == 0)
         *reinterpret_cast<int2*>(meta + 2 * r) = make_int2((int)t, bound);
@@ -495,42 +523,47 @@ int64_t wave_blocks(Kernel kernel) {
 }
 
 // FULL ranges: f32 needs PER % 4 == 0 (float4), bf16 an even PER (words)
-template <class T, int PER, bool FULL>
-void launch_fwd_at(const T* x, T* y, int* meta, int64_t n, int dim, int k,
-                   cudaStream_t s) {
-  auto kernel = maxk_fwd_kernel<T, PER, FULL, kDepth>;
+template <class T, int PER, bool FULL, bool IDS>
+void launch_fwd_at(const T* x, T* y, int* meta, uint8_t* ids, int64_t n,
+                   int dim, int k, cudaStream_t s) {
+  auto kernel = maxk_fwd_kernel<T, PER, FULL, kDepth, IDS>;
   static const int64_t wave = wave_blocks(kernel);  // per instantiation
   const int64_t need = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   kernel<<<(unsigned)(need < wave ? need : wave), kWarpsPerBlock * 32, 0,
-           s>>>(x, y, meta, n, dim, k);
+           s>>>(x, y, meta, ids, n, dim, k);
 }
 
-template <class T, int PER>
-void launch_fwd(const T* x, T* y, int* meta, int64_t n, int dim, int k,
-                cudaStream_t s) {
+template <class T, int PER, bool IDS>
+void launch_fwd(const T* x, T* y, int* meta, uint8_t* ids, int64_t n,
+                int dim, int k, cudaStream_t s) {
   constexpr bool kVec = sizeof(T) == 2 ? PER % 2 == 0 : PER % 4 == 0;
   if (kVec && dim == 32 * PER)
-    launch_fwd_at<T, PER, kVec>(x, y, meta, n, dim, k, s);
+    launch_fwd_at<T, PER, kVec, IDS>(x, y, meta, ids, n, dim, k, s);
   else
-    launch_fwd_at<T, PER, false>(x, y, meta, n, dim, k, s);
+    launch_fwd_at<T, PER, false, IDS>(x, y, meta, ids, n, dim, k, s);
 }
 
-template <class T>
-int fwd(const void* x, void* y, void* meta, int64_t n, int dim, int k,
-        void* stream) {
-  if (dim < 1 || dim > 1024 || k < 1 || k >= dim)
+// IDS needs dim <= 256 (uint8 ids): PER <= 8
+template <class T, bool IDS>
+int fwd(const void* x, void* y, void* meta, void* ids, int64_t n, int dim,
+        int k, void* stream) {
+  if (dim < 1 || dim > (IDS ? 256 : 1024) || k < 1 || k >= dim ||
+      (IDS && ids == nullptr))
     return (int)cudaErrorInvalidValue;
   const T* xp = static_cast<const T*>(x);
   T* yp = static_cast<T*>(y);
   int* mp = static_cast<int*>(meta);
+  uint8_t* ip = static_cast<uint8_t*>(ids);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int per = (dim + 31) / 32;
-  if (per <= 1) launch_fwd<T, 1>(xp, yp, mp, n, dim, k, s);
-  else if (per <= 2) launch_fwd<T, 2>(xp, yp, mp, n, dim, k, s);
-  else if (per <= 4) launch_fwd<T, 4>(xp, yp, mp, n, dim, k, s);
-  else if (per <= 8) launch_fwd<T, 8>(xp, yp, mp, n, dim, k, s);
-  else if (per <= 16) launch_fwd<T, 16>(xp, yp, mp, n, dim, k, s);
-  else launch_fwd<T, 32>(xp, yp, mp, n, dim, k, s);
+  if (per <= 1) launch_fwd<T, 1, IDS>(xp, yp, mp, ip, n, dim, k, s);
+  else if (per <= 2) launch_fwd<T, 2, IDS>(xp, yp, mp, ip, n, dim, k, s);
+  else if (per <= 4) launch_fwd<T, 4, IDS>(xp, yp, mp, ip, n, dim, k, s);
+  else if (per <= 8) launch_fwd<T, 8, IDS>(xp, yp, mp, ip, n, dim, k, s);
+  else if constexpr (!IDS) {
+    if (per <= 16) launch_fwd<T, 16, false>(xp, yp, mp, ip, n, dim, k, s);
+    else launch_fwd<T, 32, false>(xp, yp, mp, ip, n, dim, k, s);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -542,7 +575,14 @@ int fwd(const void* x, void* y, void* meta, int64_t n, int dim, int k,
 // meta.
 extern "C" int maxk_fwd(const void* x, void* y, void* meta, int64_t n,
                         int dim, int k, void* stream) {
-  return fwd<float>(x, y, meta, n, dim, k, stream);
+  return fwd<float, false>(x, y, meta, nullptr, n, dim, k, stream);
+}
+
+// maxk_fwd, and ids uint8 [n, k] <- the channels each row keeps, ascending.
+// Needs dim <= 256; otherwise as maxk_fwd.
+extern "C" int maxk_fwd_ids(const void* x, void* y, void* meta, void* ids,
+                            int64_t n, int dim, int k, void* stream) {
+  return fwd<float, true>(x, y, meta, ids, n, dim, k, stream);
 }
 
 // maxk_fwd on x, y bf16 [n, dim] (meta as in maxk_fwd, the f32 keys' bits).
@@ -550,7 +590,14 @@ extern "C" int maxk_fwd(const void* x, void* y, void* meta, int64_t n,
 // meta.
 extern "C" int maxk_fwd_bf16(const void* x, void* y, void* meta, int64_t n,
                              int dim, int k, void* stream) {
-  return fwd<uint16_t>(x, y, meta, n, dim, k, stream);
+  return fwd<uint16_t, false>(x, y, meta, nullptr, n, dim, k, stream);
+}
+
+// maxk_fwd_bf16 with the kept channels' ids, as maxk_fwd_ids.
+extern "C" int maxk_fwd_bf16_ids(const void* x, void* y, void* meta,
+                                 void* ids, int64_t n, int dim, int k,
+                                 void* stream) {
+  return fwd<uint16_t, true>(x, y, meta, ids, n, dim, k, stream);
 }
 
 // dx <- g * mask(x, meta); x, g, dx f32 [n, dim], meta int32 [n, 2].

@@ -109,6 +109,31 @@
 // past it), and the carry pass reads it from there. The TPU kernel instead
 // rounds its bf16 carry at each group boundary (stream_pallas.py:242, :192);
 // rounding once is the more exact of the two.
+//
+// stream_sspmm_bf16 (and its bf16 output, out16) replaces the TPU kernels'
+// composition in spgemm_gnn_tpu/kernels/planned.py:233 sspmm_backward: B3
+// on Aᵀ (stream_pallas.py:37, bf16 stream :227-228, out_dtype :217-242),
+// then B4's channel sampling (spgemm_pallas.py:385). It is MaxK's backward
+// on a stream plan: the cotangent of an aggregation whose input is MaxK's
+// output is needed only at the k channels ch[v, .] each row kept, so it
+// computes dx[v, ch[v, j]] = post[v] * sum_u m[u, ch[v, j]] and writes 0 at
+// the row's other channels (the dense row, which MaxK's backward reads).
+// The dense bf16 form gathers a 512-B row an edge for the 64 B that survive
+// (dim 256, k 32): at 94 % of that no-reuse gather it had nothing left to
+// win, and gathering only the k channels of each row touches about 14 of a
+// row's 16 sectors. So it runs in two passes, the source paper's SSpMM
+// turned into an outer product (ch and the edge order decide where each
+// term goes): pass 1 (sspmm_slots_kernel) walks A's CSR once, reads each
+// message row m[u] once and writes edge u <- v's k terms m[u, ch[v, .]] to
+// a 2k-byte slot at that edge's position in Aᵀ's edge order (the plan's
+// transpose positions); pass 2 (sspmm_walk_kernel) walks Aᵀ's spans as B3
+// does and reads each edge's slot in order. The sum of each kept channel
+// takes B3's order (a running sum a chunk segment, the segments added in
+// chunk order, the carry pass), so it is stream_spmm_bf16's bit for bit.
+// Bound on this card at ogbn-products: bytes, about 4.3 GB (m, the ids,
+// Aᵀ's indices and the f32 output once), 1.3 ms; the slots add E 2k bytes
+// written at random and read in order (7.9 GB each way at k 32), and pass
+// 1's random writes and id reads are what hold it (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -184,6 +209,14 @@ __device__ __forceinline__ unsigned ld_hint(const unsigned* a, uint64_t pol) {
   return v;
 }
 
+__device__ __forceinline__ unsigned ld_hint(const uint16_t* a, uint64_t pol) {
+  unsigned v;
+  asm("ld.global.nc.L2::cache_hint.u16 %0, [%1], %2;"
+      : "=r"(v)
+      : "l"(a), "l"(pol));
+  return v;
+}
+
 __device__ __forceinline__ unsigned ld_hint(const uint8_t* a, uint64_t pol) {
   unsigned v;
   asm("ld.global.nc.L2::cache_hint.u8 %0, [%1], %2;"
@@ -219,6 +252,11 @@ struct DenseRows {
     float4 v[NV];
   };
   static constexpr int kSmemFloats = 0;  // per warp, in units of dim
+  static constexpr bool kSampled = false;  // writes whole rows of dim
+  static constexpr bool kIds = true;       // reads the edges' source ids
+  static __host__ __device__ int smem4(const Src&, int dim4) {
+    return kSmemFloats * dim4;
+  }
 
   const float4* x;
   int dim4, lane;
@@ -232,7 +270,8 @@ struct DenseRows {
     for (int t = 0; t < NV; ++t) acc[t] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  __device__ __forceinline__ void load(Slot& sl, int u, uint64_t pol) const {
+  __device__ __forceinline__ void load(Slot& sl, int u, int,
+                                      uint64_t pol) const {
     const float4* xr = x + (int64_t)u * dim4;
 #pragma unroll
     for (int t = 0; t < NV; ++t) {
@@ -280,6 +319,11 @@ struct Bf16Rows {
     uint4 v[NV];
   };
   static constexpr int kSmemFloats = 0;
+  static constexpr bool kSampled = false;
+  static constexpr bool kIds = true;
+  static __host__ __device__ int smem4(const Src&, int dim4) {
+    return kSmemFloats * dim4;
+  }
 
   const uint4* x;
   int dim8, lane;
@@ -293,7 +337,8 @@ struct Bf16Rows {
     for (int t = 0; t < 2 * NV; ++t) acc[t] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  __device__ __forceinline__ void load(Slot& sl, int u, uint64_t pol) const {
+  __device__ __forceinline__ void load(Slot& sl, int u, int,
+                                      uint64_t pol) const {
     const uint4* xr = x + (int64_t)u * dim8;
 #pragma unroll
     for (int t = 0; t < NV; ++t) {
@@ -384,6 +429,11 @@ struct CbsrRecords {
     unsigned c[KV];
   };
   static constexpr int kSmemFloats = 1;  // a row accumulator of dim floats
+  static constexpr bool kSampled = false;
+  static constexpr bool kIds = true;
+  static __host__ __device__ int smem4(const Src&, int dim4) {
+    return kSmemFloats * dim4;
+  }
 
   const unsigned* rec;
   float4* acc4;   // the current chunk's segment, dim floats in shared memory
@@ -403,7 +453,8 @@ struct CbsrRecords {
     __syncwarp();
   }
 
-  __device__ __forceinline__ void load(Slot& sl, int u, uint64_t pol) const {
+  __device__ __forceinline__ void load(Slot& sl, int u, int,
+                                      uint64_t pol) const {
     const unsigned* rr = rec + (int64_t)u * rw;
     const uint8_t* ids = reinterpret_cast<const uint8_t*>(rr + k);
 #pragma unroll
@@ -474,6 +525,113 @@ struct CbsrRecords {
   }
 };
 
+// stream_sspmm_bf16's rows: a row v of Aᵀ sums only its k channels ch[v,
+// .], lane j channel ch[v, j] (then j + 32, ...), each term a bf16 value
+// widened exactly and added as Bf16Rows adds it (an fma by the edge's
+// factor, 1, in edge order; a segment's sum joins the row's by one add),
+// so each sum is bit for bit the one B3 forms at that channel. Pass 2
+// (sspmm_walk_kernel) adds edge e's k terms from its slot at e k of
+// `slots`, which pass 1 filled. On stream_walk_kernel (the k-channel gather
+// probe) `load` gathers them, m[u, ch[row(e), j]] for the edge's source u
+// and row (edge_row), from the messages. Partial sums (carry slots, span
+// heads) are compact rows of k floats padded to a float4 (w.dim4 =
+// ceil(k / 4)); a finished row goes to the dense output (w.y f32 or w.y16
+// bf16, dim channels) through the warp's staging row in shared memory:
+// zeros, then the k sums at their channels.
+template <int KV>
+struct SampledRows {
+  struct Src {
+    const uint16_t* slots;  // pass 2: [n_edges, k], edge e's terms at e k
+    const uint16_t* m;      // the probe: the messages, bf16 [n_src, dim]
+    const int* edge_row;    // the probe: each edge's row [n_edges]
+    const uint8_t* ch;      // the rows' channels [n_rows, k]
+    int k, dim;
+  };
+  struct Slot {
+    unsigned v[KV];
+  };
+  static constexpr bool kSampled = true;
+  static constexpr bool kIds = true;
+  static __host__ __device__ int smem4(const Src& s, int) { return s.dim / 4; }
+
+  Src s;
+  float4* row4;  // the warp's staging row of dim floats
+  int lane;
+  float acc[KV];   // the current chunk's segment
+  float head[KV];  // the row's sum over the span's chunks so far
+
+  __device__ __forceinline__ SampledRows(const Src& s_, float4* smem, int,
+                                         int lane_)
+      : s(s_), row4(smem), lane(lane_) {
+#pragma unroll
+    for (int t = 0; t < KV; ++t) acc[t] = 0.f;
+  }
+
+  __device__ __forceinline__ void load(Slot& sl, int u, int e,
+                                      uint64_t pol) const {
+    const int64_t row = __ldg(s.edge_row + e);
+    const uint16_t* mr = s.m + (int64_t)u * s.dim;
+#pragma unroll
+    for (int t = 0; t < KV; ++t) {
+      const int j = lane + 32 * t;
+      if (j < s.k) sl.v[t] = ld_hint(mr + __ldg(s.ch + row * s.k + j), pol);
+    }
+  }
+
+  __device__ __forceinline__ void consume(const Slot& sl, float f) {
+#pragma unroll
+    for (int t = 0; t < KV; ++t)
+      if (lane + 32 * t < s.k)
+        acc[t] = fmaf(f, __uint_as_float(sl.v[t] << 16), acc[t]);
+  }
+
+  // a segment ends: head = its sum (the row's first) or head + its sum
+  __device__ __forceinline__ void take(bool first) {
+#pragma unroll
+    for (int t = 0; t < KV; ++t) {
+      head[t] = first ? acc[t] : head[t] + acc[t];
+      acc[t] = 0.f;
+    }
+  }
+
+  // a partial row: the k sums times p, compact (zeros to the float4 width)
+  __device__ __forceinline__ void write(float4* out, float p) const {
+    float* o = reinterpret_cast<float*>(out);
+    const int kw = (s.k + 3) & ~3;
+#pragma unroll
+    for (int t = 0; t < KV; ++t) {
+      const int j = lane + 32 * t;
+      if (j < kw) __stcs(o + j, head[t] * p);
+    }
+  }
+
+  // a whole row r: f32 head * p, or (OUT16) bf16(bf16(head) * p), at the
+  // row's channels of the dense output, zeros elsewhere
+  template <bool OUT16>
+  __device__ __forceinline__ void finish(const Walk& w, int r, float p) {
+    const int dim4 = s.dim / 4;
+    for (int q = lane; q < dim4; q += 32)
+      row4[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncwarp();
+    float* row = reinterpret_cast<float*>(row4);
+#pragma unroll
+    for (int t = 0; t < KV; ++t) {
+      const int j = lane + 32 * t;
+      if (j < s.k)
+        row[__ldg(s.ch + (int64_t)r * s.k + j)] =
+            OUT16 ? head[t] : head[t] * p;
+    }
+    __syncwarp();
+    for (int q = lane; q < dim4; q += 32) {
+      if constexpr (OUT16)
+        __stcs(w.y16 + (int64_t)r * dim4 + q, round_out(row4[q], p));
+      else
+        __stcs(w.y + (int64_t)r * dim4 + q, row4[q]);
+    }
+    __syncwarp();
+  }
+};
+
 // A warp's rows over its span of chunks, edges [lo, hi): the rows' bounds
 // from a window of 32 indptr entries across the lanes, the current row r
 // (edges [rs, re), post factor pr), the current chunk q (edges [qlo,
@@ -517,7 +675,14 @@ struct SpanRows {
   __device__ __forceinline__ void end_segment(Op& op, int e) {
     const bool before = rs < lo;  // the row began before the span
     op.take(before || rs >= qlo);
-    if constexpr (OUT16) {
+    if constexpr (Op::kSampled) {  // partial rows compact, whole rows dense
+      if (before)
+        op.write(w.carry + (int64_t)q * w.dim4, 1.f);
+      else if (re <= qhi)
+        op.template finish<OUT16>(w, r, OUT16 ? bf16_round(pr) : pr);
+      else if (qhi == hi)
+        op.write(w.heads + (int64_t)(c0 / w.warp_chunks) * w.dim4, 1.f);
+    } else if constexpr (OUT16) {
       if (before)
         op.write(w.carry + (int64_t)q * w.dim4, 1.f);
       else if (re <= qhi)  // the row ends: whole, rounded
@@ -575,13 +740,14 @@ stream_walk_kernel(const Walk w, const typename Op::Src src) {
                      w.n_edges);
   const uint64_t keep = l2_policy(true);
   const uint64_t drop = l2_policy(false);
-  Op op(src, walk_smem + warp * Op::kSmemFloats * w.dim4, w.dim4, lane);
+  Op op(src, walk_smem + warp * Op::smem4(src, w.dim4), w.dim4, lane);
 
   // edge base + lane of the current batch: its id with the hot bit in bit
   // 31 (ids are below 2^31) and its pre factor; the same for base + 32 +
-  // lane; the bare id of base + 64 + lane
+  // lane; the bare id of base + 64 + lane (an Op that reads no source id
+  // loads none)
   auto id_at = [&](int e) -> int {
-    return e < hi ? __ldcs(w.indices + e) : 0;
+    return (Op::kIds && e < hi) ? __ldcs(w.indices + e) : 0;
   };
   auto pre_at = [&](int u, int e) -> float {
     return (w.pre != nullptr && e < hi) ? __ldg(w.pre + u) : 1.f;
@@ -598,9 +764,9 @@ stream_walk_kernel(const Walk w, const typename Op::Src src) {
   int cu = with_hot(u0, lo + lane);
   float ns = pre_at(u1, lo + 32 + lane);
   int nu = with_hot(u1, lo + 32 + lane);
-  // a row's id and policy from its packed id
-  auto fetch = [&](typename Op::Slot& sl, int uh) {
-    op.load(sl, uh & 0x7fffffff, uh < 0 ? keep : drop);
+  // edge e's row from its packed id: the id and the policy
+  auto fetch = [&](typename Op::Slot& sl, int uh, int e) {
+    op.load(sl, uh & 0x7fffffff, e, uh < 0 ? keep : drop);
   };
 
   SpanRows rows(w, c0, lo, hi, lane);
@@ -609,7 +775,7 @@ stream_walk_kernel(const Walk w, const typename Op::Src src) {
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     const int uh = __shfl_sync(kFull, cu, d);
-    if (lo + d < hi) fetch(slot[d], uh);
+    if (lo + d < hi) fetch(slot[d], uh, lo + d);
   }
 
   for (int base = lo; base < hi; base += 32) {
@@ -624,7 +790,7 @@ stream_walk_kernel(const Walk w, const typename Op::Src src) {
                                   ? __shfl_sync(kFull, cs, i) : 1.f);
           const int j = i + D;  // fetch edge base + j into the freed slot
           const int uh = __shfl_sync(kFull, j < 32 ? cu : nu, j & 31);
-          if (e + D < hi) fetch(slot[d], uh);
+          if (e + D < hi) fetch(slot[d], uh, e + D);
           if (e + 1 == rows.seg_end) rows.end_segment<OUT16>(op, e);
         }
       }
@@ -638,8 +804,11 @@ stream_walk_kernel(const Walk w, const typename Op::Src src) {
 }
 
 // OUT16: a row's first-span sum is in heads (not y), and the row goes to
-// the bf16 y16.
-template <int NV, bool OUT16>
+// the bf16 y16. SAMPLED (stream_sspmm_bf16): the sums are compact rows of
+// the row's k channels ch[r, .] (dim4 float4s), the first-span sum is in
+// heads, and the row goes to the dense y or y16 (dim4d float4s a row):
+// zeros, then each sum at its channel.
+template <int NV, bool OUT16, bool SAMPLED = false>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 stream_carry_kernel(const int* __restrict__ indptr,
                     const int* __restrict__ carry_rows,
@@ -647,7 +816,8 @@ stream_carry_kernel(const int* __restrict__ indptr,
                     const float4* __restrict__ carry, float4* __restrict__ y,
                     const float4* __restrict__ heads,
                     uint2* __restrict__ y16, int64_t n_carry, int chunk,
-                    int warp_chunks, int dim4) {
+                    int warp_chunks, int dim4, const uint8_t* __restrict__ ch,
+                    int k, int dim4d) {
   const int lane = threadIdx.x & 31;
   const int64_t i =
       (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -658,7 +828,7 @@ stream_carry_kernel(const int* __restrict__ indptr,
   float4* yr = y + r * dim4;
   // the sum of the row's first span
   const float4* hr =
-      OUT16 ? heads + (a / chunk / warp_chunks) * dim4 : yr;
+      (OUT16 || SAMPLED) ? heads + (a / chunk / warp_chunks) * dim4 : yr;
   float4 acc[NV];
 #pragma unroll
   for (int t = 0; t < NV; ++t) {
@@ -684,6 +854,37 @@ stream_carry_kernel(const int* __restrict__ indptr,
         }
       }
     }
+  }
+  if constexpr (SAMPLED) {
+    const float p = (a < b && post != nullptr)
+                        ? (OUT16 ? bf16_round(post[r]) : post[r]) : 1.f;
+    float* yf = reinterpret_cast<float*>(y + r * dim4d);
+    uint16_t* yh = reinterpret_cast<uint16_t*>(y16 + r * dim4d);
+    for (int q = lane; q < dim4d; q += 32) {
+      if constexpr (OUT16)
+        y16[r * dim4d + q] = make_uint2(0u, 0u);
+      else
+        y[r * dim4d + q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    __syncwarp();  // orders the zeros before the sums in the same row
+#pragma unroll
+    for (int t = 0; t < NV; ++t) {
+      const int col = lane + 32 * t;
+      const float v[4] = {acc[t].x, acc[t].y, acc[t].z, acc[t].w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = 4 * col + i;
+        if (col < dim4 && j < k) {
+          const int c = ch[r * k + j];
+          if constexpr (OUT16)
+            yh[c] = __bfloat16_as_ushort(
+                __float2bfloat16_rn(bf16_round(v[i]) * p));
+          else
+            yf[c] = v[i] * p;
+        }
+      }
+    }
+    return;
   }
   if constexpr (OUT16) {
     const float p = (a < b && post != nullptr) ? bf16_round(post[r]) : 1.f;
@@ -875,6 +1076,272 @@ stream_cbsr16_kernel(const Walk w, const unsigned* __restrict__ rec) {
   }
 }
 
+// stream_sspmm_bf16's pass 1: for each edge u <- v of A (row u of A's CSR,
+// source v), the k terms m[u, ch[v, j]] into the 2k-byte slot of the same
+// edge's position in Aᵀ's edge order, perm[e]. A warp walks a span of
+// warp_chunks chunks of A's plan (so a long row is split across warps, as
+// the walk splits it), with the rows' bounds from a window of 32 indptr
+// entries across its lanes. It keeps the bf16 row m[u] in its shared memory
+// and the next row's in registers, loaded a row ahead. Lane j takes slot j
+// (then j + 32, ...): a slot is one contiguous warp store of 2k bytes,
+// evict-first. No sum is formed here.
+//
+// The id rows ch[v, .] are this pass's random reads, and the first version
+// (a byte a lane, a warp load an edge) waited on them: with no id loaded
+// it took half its time (utils/stream_sweep.py's variants, PERF.md). So
+// where k % 4 == 0 and k <= 128 (WORDS), a lane loads an id row's 4-byte
+// word, L lanes a row (L = k / 4 rounded up to a power of two), 32 / L rows
+// a warp load: a batch of 32 edges' ids is L registers a lane, and the next
+// batch's are loaded while this batch's slots are written (ping-pong); an
+// edge's id for lane j is then a shuffle of the word and a byte select.
+// Other k take the ids a byte a lane, EB = 32 / KV edges a group (BYTES).
+// Both load the ids with an L2 evict-last hint.
+//
+// MODE 0 is the product; 1-3 are timing variants of utils/stream_sweep.py
+// with wrong slots by design: 1 stores nothing (the ids and rows folded
+// into one word a lane), 2 stores each slot at its own edge e (in order,
+// not at perm[e]), 3 loads no id (lane j reads channel j).
+template <int KV, int L, int MODE>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, 4)
+sspmm_slots_kernel(const int* __restrict__ indptr,
+                   const int* __restrict__ indices,
+                   const int* __restrict__ chunk_row0,
+                   const int* __restrict__ perm, const uint4* __restrict__ m,
+                   const uint8_t* __restrict__ ch,
+                   uint16_t* __restrict__ slots, int n_rows, int n_chunks,
+                   int n_edges, int chunk, int warp_chunks, int dim, int k) {
+  constexpr bool WORDS = L > 0;
+  constexpr int R = WORDS ? 32 / L : 1;  // id rows a warp load (WORDS)
+  constexpr int NW = WORDS ? L : 1;      // id words of a batch, a lane
+  constexpr int EB = 32 / KV;            // edges a group (BYTES)
+  extern __shared__ uint4 slots_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t c0l =
+      ((int64_t)blockIdx.x * kWarpsPerBlock + warp) * warp_chunks;
+  if (c0l >= n_chunks) return;  // c0 is uniform across the warp
+  const int c0 = (int)c0l;
+  const int lo = c0 * chunk;
+  const int hi = min(min(c0 + warp_chunks, n_chunks) * chunk, n_edges);
+  const int dim8 = dim / 8;  // <= 32: a row is one 16-byte word a lane
+  uint4* row = slots_smem + warp * dim8;
+  const uint16_t* row16 = reinterpret_cast<const uint16_t*>(row);
+  const uint64_t keep = l2_policy(true);
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  auto m_row = [&](int rr) -> uint4 {
+    return (lane < dim8 && rr < n_rows) ? __ldcs(m + (int64_t)rr * dim8 + lane)
+                                        : zero;
+  };
+  int r = chunk_row0[c0];  // the row of edge lo
+  int wb = r;              // indptr[wb + lane] across the lanes
+  int ipw = __ldg(indptr + min(wb + lane, n_rows));
+  auto ip = [&](int i) -> int {  // indptr[i], i >= wb, uniform
+    if (i - wb >= 32) {
+      wb = i;
+      ipw = __ldg(indptr + min(wb + lane, n_rows));
+    }
+    return __shfl_sync(kFull, ipw, i - wb);
+  };
+  int re = ip(r + 1);
+  if (lane < dim8) row[lane] = m_row(r);
+  int ahead = r + 1;  // the row in `next`
+  uint4 next = m_row(ahead);
+  __syncwarp();
+  unsigned fold = 0u;  // MODE 1's word
+
+  // edge e reaches the next row with edges: m[r] into the warp's row
+  auto advance = [&](int e) {
+    do {
+      ++r;
+      re = ip(r + 1);
+    } while (re <= e);
+    __syncwarp();
+    if (lane < dim8) row[lane] = r == ahead ? next : m_row(r);
+    __syncwarp();
+    ahead = r + 1;
+    next = m_row(ahead);
+  };
+  // edge e's slot at position p from its ids c[0..KV) for this lane
+  auto store = [&](int64_t p, const unsigned* c) {
+#pragma unroll
+    for (int t = 0; t < KV; ++t) {
+      const int j = lane + 32 * t;
+      if (j < k) {
+        if constexpr (MODE == 1)
+          fold ^= row16[c[t]] + (unsigned)p;
+        else
+          __stcs(slots + p * k + j, row16[c[t]]);
+      }
+    }
+  };
+  auto src_at = [&](int e) -> int { return e < hi ? __ldcs(indices + e) : 0; };
+  auto pos_at = [&](int e) -> int { return e < hi ? __ldcs(perm + e) : 0; };
+
+  if constexpr (WORDS) {
+    // the batch at edges [b, b + 32): lane l of load q holds word l % L of
+    // the id row of edge b + q R + l / L (sources vb, lane (e - b) % 32)
+    auto ids = [&](unsigned (&w)[NW], int vb, int b) {
+      const int sub = lane / L, wd = lane % L;
+#pragma unroll
+      for (int q = 0; q < NW; ++q) {
+        const int64_t v = __shfl_sync(kFull, vb, q * R + sub);
+        w[q] = (MODE != 3 && 4 * wd < k && b + q * R + sub < hi)
+                   ? ld_hint(reinterpret_cast<const unsigned*>(ch + v * k) +
+                                 wd, keep)
+                   : 0u;
+      }
+    };
+    auto put = [&](const unsigned (&w)[NW], int pb, int b) {
+      const int n = min(32, hi - b);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if (i < n) {  // uniform across the warp
+          const int e = b + i;
+          const int64_t p = MODE == 2 ? (int64_t)e
+                                      : (int64_t)__shfl_sync(kFull, pb, i);
+          if (e >= re) advance(e);
+          unsigned c[KV];  // channel j = lane + 32 t: word j / 4, byte j % 4
+#pragma unroll
+          for (int t = 0; t < KV; ++t) {
+            const unsigned wd = __shfl_sync(kFull, w[i / R],
+                                            (i % R) * L + (lane >> 2) + 8 * t);
+            c[t] = MODE == 3 ? (unsigned)(lane + 32 * t)
+                             : (wd >> (8 * (lane & 3))) & 0xffu;
+          }
+          store(p, c);
+        }
+      }
+    };
+    int vl = src_at(lo + lane), pl = pos_at(lo + lane);
+    int vn = src_at(lo + 32 + lane), pn = pos_at(lo + 32 + lane);
+    unsigned wa[NW], wb2[NW];
+    ids(wa, vl, lo);
+    // two batches an iteration, ping-pong: the next batch's ids are loaded
+    // before this batch's slots are written
+    for (int b = lo; b < hi; b += 64) {
+      if (b + 32 < hi) ids(wb2, vn, b + 32);
+      put(wa, pl, b);
+      vl = vn, pl = pn;
+      vn = src_at(b + 64 + lane), pn = pos_at(b + 64 + lane);
+      if (b + 32 >= hi) break;
+      if (b + 64 < hi) ids(wa, vn, b + 64);
+      put(wb2, pl, b + 32);
+      vl = vn, pl = pn;
+      vn = src_at(b + 96 + lane), pn = pos_at(b + 96 + lane);
+    }
+  } else {
+    for (int b = lo; b < hi; b += 32) {
+      const int vl = src_at(b + lane), pl = pos_at(b + lane);
+      for (int g0 = 0; g0 < 32 && b + g0 < hi; g0 += EB) {
+        unsigned c[EB][KV];
+#pragma unroll
+        for (int i = 0; i < EB; ++i) {
+          const int64_t v = __shfl_sync(kFull, vl, g0 + i);
+#pragma unroll
+          for (int t = 0; t < KV; ++t) {
+            const int j = lane + 32 * t;
+            c[i][t] = MODE == 3 ? (unsigned)j
+                      : (j < k && b + g0 + i < hi)
+                          ? ld_hint(ch + v * k + j, keep) : 0u;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < EB; ++i) {
+          const int e = b + g0 + i;
+          const int64_t p = MODE == 2 ? (int64_t)e
+                                      : (int64_t)__shfl_sync(kFull, pl,
+                                                             g0 + i);
+          if (e < hi) {  // uniform across the warp
+            if (e >= re) advance(e);
+            store(p, c[i]);
+          }
+        }
+      }
+    }
+  }
+  if constexpr (MODE == 1)
+    if (fold == 0x9e3779b9u) slots[lane] = 0;  // keeps the loads
+}
+
+// stream_sspmm_bf16's pass 2: B3's walk over Aᵀ's spans (SpanRows: the same
+// row rules, carry slots and span heads) reading each edge's k terms from
+// its slot in order. The slots of TE edges (one tile of at most 2 KB: 32
+// edges at k <= 32) come by cp.async into a ring of S tiles in the warp's
+// shared memory, S tiles ahead; an edge is then a shared-memory load and an
+// add a lane (lane j, term j), with the segment test, and no shuffle,
+// global load or hot bit. (The first version ran stream_walk_kernel's
+// one-edge step over the slots: 10.1 ms against this loop's 4.0 at
+// ogbn-products, k 32, held by the step's instructions; S = 4 measured
+// slower than 2, utils/stream_sweep.py, PERF.md.) The sums, their order and
+// what is written are those of SampledRows (so B3's, bit for bit).
+template <int KV, int S, bool OUT16>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+sspmm_walk_kernel(const Walk w, const typename SampledRows<KV>::Src src) {
+  constexpr int TE = 32 / KV;  // edges a tile
+  extern __shared__ float4 walk_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t c0l =
+      ((int64_t)blockIdx.x * kWarpsPerBlock + warp) * w.warp_chunks;
+  if (c0l >= w.n_chunks) return;  // c0 is uniform across the warp
+  const int c0 = (int)c0l;
+  const int lo = c0 * w.chunk;
+  const int hi = min(min(c0 + w.warp_chunks, w.n_chunks) * w.chunk,
+                     w.n_edges);
+  const int k = src.k;
+  const int dim4 = src.dim / 4;
+  // a tile's bytes, and a stage's: one 16-byte word more, for a tile that
+  // does not start on a 16-byte boundary
+  const int stage16 = (TE * k * 2 + 15) / 16 + 1;
+  float4* staging = walk_smem + warp * (dim4 + S * stage16);
+  float4* ring = staging + dim4;
+  const uint64_t drop = l2_policy(false);
+  const char* bytes = reinterpret_cast<const char*>(src.slots);
+  SampledRows<KV> op(src, staging, w.dim4, lane);
+
+  // the tile of edges [b, b + TE) into stage s % S (16-byte words from the
+  // one that holds its first byte; past the last edge the slots buffer is
+  // padded by 16 bytes); one commit group a tile
+  auto fetch = [&](int s, int b) {
+    if (b < hi) {
+      const int64_t start = (int64_t)b * k * 2;
+      const int64_t end = (int64_t)min(b + TE, hi) * k * 2;
+      const int64_t a0 = start & ~(int64_t)15;
+      const int words = (int)((end - a0 + 15) / 16);
+      const unsigned dst = smem_addr(ring + (s % S) * stage16);
+      for (int q = lane; q < words; q += 32)
+        cp16(dst + 16 * q, bytes + a0 + 16 * q, 0u, drop, drop);
+    }
+    cp_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < S; ++s) fetch(s, lo + s * TE);
+
+  SpanRows rows(w, c0, lo, hi, lane);
+  int s = 0;
+  for (int base = lo; base < hi; base += TE, ++s) {
+    cp_wait<S - 1>();  // tile s has landed (one group a tile)
+    __syncwarp();
+    const uint16_t* tile = reinterpret_cast<const uint16_t*>(
+        reinterpret_cast<const char*>(ring + (s % S) * stage16) +
+        (((int64_t)base * k * 2) & 15));
+    const int n = min(TE, hi - base);
+    for (int i = 0; i < n; ++i) {
+#pragma unroll
+      for (int t = 0; t < KV; ++t) {
+        const int j = lane + 32 * t;
+        if (j < k)
+          op.acc[t] = fmaf(1.f, __uint_as_float((unsigned)tile[i * k + j]
+                                                << 16),
+                           op.acc[t]);
+      }
+      if (base + i + 1 == rows.seg_end) rows.end_segment<OUT16>(op, base + i);
+    }
+    __syncwarp();  // every lane is done with the stage
+    fetch(s + S, base + S * TE);
+  }
+}
+
 unsigned blocks_for(int64_t warps) {
   return (unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
@@ -884,24 +1351,29 @@ void launch_walk(const Walk& w, const typename Op::Src& src, cudaStream_t s) {
   if (w.n_chunks == 0) return;
   const int64_t warps = (w.n_chunks + w.warp_chunks - 1) / w.warp_chunks;
   const size_t smem =
-      (size_t)kWarpsPerBlock * Op::kSmemFloats * w.dim4 * sizeof(float4);
+      (size_t)kWarpsPerBlock * Op::smem4(src, w.dim4) * sizeof(float4);
   stream_walk_kernel<Op, D, OUT16>
       <<<blocks_for(warps), kWarpsPerBlock * 32, smem, s>>>(w, src);
 }
 
-// the carry pass over the walk's w.carry (and, OUT16, w.heads and w.y16)
-template <bool OUT16 = false>
+// the carry pass over the walk's w.carry (and, OUT16, w.heads and w.y16;
+// SAMPLED, w.heads, the rows' channels ch [n_rows, k] and dense rows of
+// dim4d float4s)
+template <bool OUT16 = false, bool SAMPLED = false>
 void launch_carry(int nv, const Walk& w, const int* carry_rows,
-                  int64_t n_carry, cudaStream_t s) {
+                  int64_t n_carry, cudaStream_t s,
+                  const uint8_t* ch = nullptr, int k = 0, int dim4d = 0) {
   if (n_carry == 0) return;
   const unsigned blocks = blocks_for(n_carry);
   const int threads = kWarpsPerBlock * 32;
 #define CARRY(NV_)                                                          \
-  stream_carry_kernel<NV_, OUT16><<<blocks, threads, 0, s>>>(               \
+  stream_carry_kernel<NV_, OUT16, SAMPLED><<<blocks, threads, 0, s>>>(      \
       w.indptr, carry_rows, w.post, w.carry, w.y, w.heads, w.y16, n_carry, \
-      w.chunk, w.warp_chunks, w.dim4)
+      w.chunk, w.warp_chunks, w.dim4, ch, k, dim4d)
   if (nv <= 1)
     CARRY(1);
+  else if constexpr (SAMPLED)  // a sampled row: k < 256 sums, nv <= 2
+    CARRY(2);
   else if (nv <= 2)
     CARRY(2);
   else if (nv <= 4)
@@ -1244,6 +1716,163 @@ extern "C" int stream_cbsr_spmm_bf16_out(
                       carry_rows, hot, y16, carry, heads, n_rows, n_chunks,
                       n_carry, n_edges, chunk, k, dim, batch, warp_chunks,
                       mode, stream);
+}
+
+namespace {
+
+// pass 2's tiles in flight a warp (2 measured faster than 4)
+constexpr int kSampledStages = 2;
+
+template <int KV, bool OUT16>
+void launch_tiles(const Walk& w, const SampledRows<1>::Src& src,
+                  cudaStream_t s) {
+  constexpr int S = kSampledStages;
+  if (w.n_chunks == 0) return;
+  const int64_t warps = (w.n_chunks + w.warp_chunks - 1) / w.warp_chunks;
+  const int stage16 = (32 / KV * src.k * 2 + 15) / 16 + 1;
+  const size_t smem = (size_t)kWarpsPerBlock * (src.dim / 4 + S * stage16) *
+                      sizeof(float4);
+  sspmm_walk_kernel<KV, S, OUT16>
+      <<<blocks_for(warps), kWarpsPerBlock * 32, smem, s>>>(
+          w, {src.slots, src.m, src.edge_row, src.ch, src.k, src.dim});
+}
+
+// pass 2 of stream_sspmm_bf16 at k (mode 0) or the gather probe (mode 1, k
+// <= 32), OUT16 as in spmm16: false when (k, mode) has no instance
+template <bool OUT16>
+bool launch_sampled(const Walk& w, const SampledRows<1>::Src& src, int mode,
+                    cudaStream_t s) {
+  const int kv = slices(src.k);
+  if (mode == 0 && kv == 1) launch_tiles<1, OUT16>(w, src, s);
+  else if (mode == 0 && kv == 2) launch_tiles<2, OUT16>(w, src, s);
+  else if (mode == 0 && kv == 4) launch_tiles<4, OUT16>(w, src, s);
+  else if (mode == 0 && kv == 8) launch_tiles<8, OUT16>(w, src, s);
+  else if (mode == 1 && kv == 1)
+    launch_walk<SampledRows<1>, 16, OUT16>(w, src, s);
+  else return false;
+  return true;
+}
+
+}  // namespace
+
+// stream_sspmm_bf16's pass 1 (sspmm_slots_kernel): slots bf16 [n_edges, k]
+// <- for each edge e of A's StreamPlan (indptr int32 [n_rows + 1], indices
+// int32 [n_edges], chunk_row0 int32 [n_chunks], warp spans of warp_chunks
+// chunks), m[row(e), ch[indices[e], j]] at slot perm[e] (int32 [n_edges],
+// e's position in Aᵀ's edge order); m bf16 [n_rows, dim], ch uint8
+// [n_src, k]. mode 0; 1-3 the timing variants of sspmm_slots_kernel (k
+// 32).
+// Needs dim % 8 == 0, 8 <= dim <= 256, 1 <= k < dim, 1 <= chunk <= 512
+// and a 16-byte aligned m.
+extern "C" int sspmm_slots_bf16(const void* indptr, const void* indices,
+                                const void* chunk_row0, const void* perm,
+                                const void* m, const void* ch, void* slots,
+                                int64_t n_rows, int64_t n_chunks,
+                                int64_t n_edges, int chunk, int warp_chunks,
+                                int dim, int k, int mode, void* stream) {
+  if (dim < 8 || dim % 8 != 0 || dim > 256 || k < 1 || k >= dim ||
+      chunk < 1 || chunk > 512 || warp_chunks < 1 ||
+      !fits_int(n_rows, n_edges) || mode < 0 || mode > 3)
+    return (int)cudaErrorInvalidValue;
+  if (n_chunks == 0) return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t warps = (n_chunks + warp_chunks - 1) / warp_chunks;
+  const size_t smem = (size_t)kWarpsPerBlock * dim * 2;
+  // WORDS: L lanes an id row, k / 4 rounded up to a power of two
+  const int lanes = k % 4 || k > 128 ? 0
+                    : k <= 4 ? 1 : k <= 8 ? 2 : k <= 16 ? 4 : k <= 32 ? 8
+                    : k <= 64 ? 16 : 32;
+  const int kv = slices(k);
+#define SLOTS(KV_, L_, M_)                                                  \
+  sspmm_slots_kernel<KV_, L_, M_><<<blocks_for(warps),                     \
+                                    kWarpsPerBlock * 32, smem, s>>>(       \
+      static_cast<const int*>(indptr), static_cast<const int*>(indices),  \
+      static_cast<const int*>(chunk_row0), static_cast<const int*>(perm), \
+      static_cast<const uint4*>(m), static_cast<const uint8_t*>(ch),      \
+      static_cast<uint16_t*>(slots), (int)n_rows, (int)n_chunks,          \
+      (int)n_edges, chunk, warp_chunks, dim, k)
+  if (lanes == 8 && mode == 0)
+    SLOTS(1, 8, 0);
+  else if (lanes == 8 && mode == 1)
+    SLOTS(1, 8, 1);
+  else if (lanes == 8 && mode == 2)
+    SLOTS(1, 8, 2);
+  else if (lanes == 8 && mode == 3)
+    SLOTS(1, 8, 3);
+  else if (mode != 0)
+    return (int)cudaErrorInvalidValue;
+  else if (lanes == 1)
+    SLOTS(1, 1, 0);
+  else if (lanes == 2)
+    SLOTS(1, 2, 0);
+  else if (lanes == 4)
+    SLOTS(1, 4, 0);
+  else if (lanes == 16)
+    SLOTS(2, 16, 0);
+  else if (lanes == 32)
+    SLOTS(4, 32, 0);
+  else if (kv == 1)
+    SLOTS(1, 0, 0);
+  else if (kv == 2)
+    SLOTS(2, 0, 0);
+  else if (kv == 4)
+    SLOTS(4, 0, 0);
+  else
+    SLOTS(8, 0, 0);
+#undef SLOTS
+  return (int)cudaGetLastError();
+}
+
+// stream_sspmm_bf16's pass 2 and carry pass over Aᵀ's StreamPlan (indptr,
+// chunk_row0, carry_rows as in stream_spmm; indices read by mode 1 only):
+// y[v, ch[v, j]] <- post[v] * sum over v's edges e of slots[e k + j], in
+// B3's order (the sums of stream_spmm_bf16 on the messages at those
+// channels), and 0 at the row's other channels; y f32 [n_rows, dim], or
+// with out16 bf16 = bf16(bf16(sum) * bf16(post)) (stream_spmm_bf16_out's).
+// slots bf16 [n_edges, k] and 16 bytes more; carry f32 [n_chunks, 4
+// ceil(k / 4)] and heads f32 [ceil(n_chunks / warp_chunks), 4 ceil(k / 4)]
+// scratch. mode 0 reads slots (pass 1's); mode 1, the k-channel gather
+// probe (k <= 32), gathers each term from the messages m bf16 [n_src, dim]
+// at the edge's source (indices) and row (edge_row int32 [n_edges]) on
+// stream_walk_kernel, with hot as in stream_spmm at the row size of m: the
+// same sums. Needs dim % 8 == 0, 8 <= dim <= 256, 1 <= k < dim, 1 <= chunk
+// <= 512 and 16-byte aligned y, carry and heads.
+extern "C" int stream_sspmm_bf16(
+    const void* indptr, const void* indices, const void* chunk_row0,
+    const void* carry_rows, const void* slots, const void* m,
+    const void* edge_row, const void* ch, const void* post, const void* hot,
+    void* y, void* carry, void* heads, int64_t n_rows, int64_t n_chunks,
+    int64_t n_carry, int64_t n_edges, int chunk, int warp_chunks, int dim,
+    int k, int out16, int mode, void* stream) {
+  if (dim < 8 || dim % 8 != 0 || dim > 256 || k < 1 || k >= dim ||
+      chunk < 1 || chunk > 512 || warp_chunks < 1 ||
+      !fits_int(n_rows, n_edges) || (heads == nullptr && n_chunks > 0) ||
+      (mode != 0 && mode != 1))
+    return (int)cudaErrorInvalidValue;
+  const int kw4 = (k + 3) / 4;
+  Walk w = make_walk(indptr, indices, nullptr, post, chunk_row0,
+                     mode == 1 ? hot : nullptr, out16 ? nullptr : y, carry,
+                     n_rows, n_chunks, n_edges, chunk, warp_chunks, kw4);
+  if (out16) w.y16 = static_cast<uint2*>(y);
+  w.heads = static_cast<float4*>(heads);
+  const SampledRows<1>::Src src{
+      static_cast<const uint16_t*>(slots), static_cast<const uint16_t*>(m),
+      static_cast<const int*>(edge_row), static_cast<const uint8_t*>(ch), k,
+      dim};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool ok = out16 ? launch_sampled<true>(w, src, mode, s)
+                        : launch_sampled<false>(w, src, mode, s);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int* cr = static_cast<const int*>(carry_rows);
+  if (out16)
+    launch_carry<true, true>(slices(kw4), w, cr, n_carry, s, src.ch, k,
+                             dim / 4);
+  else
+    launch_carry<false, true>(slices(kw4), w, cr, n_carry, s, src.ch, k,
+                              dim / 4);
+  return (int)cudaGetLastError();
 }
 
 // The kernel that stream_cbsr_spmm_bf16 (out16 0) or _out (1) runs at (k,

@@ -20,6 +20,12 @@ in chunk order).
 Built on the graph's device with tensor ops (no Python loop over chunks:
 ogbn-products has about 10⁶ of them).
 
+The transpose positions (`StreamPlan.transpose_positions`): for a plan on
+the transpose CSR, where each edge of the forward CSR lies in this plan's
+edge order, int32 [E]. The sampled backward (kernels/stream.py::
+stream_sspmm) walks the forward CSR once and writes each edge's terms
+there, so that the walk of this plan reads them in its own order.
+
 The hot set (`HotSet`, `StreamPlan.hot_set`): the source rows the kernels
 load with an L2 evict-last hint, so that the cold stream of gathered rows
 does not push them out of the card's L2. They are the rows gathered most,
@@ -98,7 +104,8 @@ class StreamPlan:
     chunk: int
     warp_chunks: int = WARP_CHUNKS
     # (row bytes, budget) -> HotSet; "order" -> (source ids by gather count
-    # descending, ties by id; their counts)
+    # descending, ties by id; their counts); "positions" -> the transpose
+    # positions
     _hot: dict = dataclasses.field(default_factory=dict, init=False,
                                    compare=False, repr=False)
 
@@ -144,6 +151,49 @@ class StreamPlan:
                                     budget=budget, edge_share=share,
                                     mask=mask)
         return self._hot[key]
+
+    def transpose_positions(self, fwd: "StreamPlan") -> torch.Tensor:
+        """int32 [E]: for each edge of `fwd`'s CSR, in its order, the
+        position of the same edge in this plan's CSR, which must hold fwd's
+        edges transposed (a symmetric graph's plan is its own transpose).
+        Repeated edges of one pair of nodes are matched in order. Built
+        once, on the plan's device, and kept."""
+        if "positions" not in self._hot:
+            self._hot["positions"] = transpose_positions(
+                fwd.indptr, fwd.indices, self.indptr, self.indices)
+        return self._hot["positions"]
+
+
+def _edge_rows(indptr: torch.Tensor, n_edges: int) -> torch.Tensor:
+    """int64 [E]: the row of each edge of a CSR."""
+    rows = torch.arange(indptr.numel() - 1, device=indptr.device)
+    return torch.repeat_interleave(rows, indptr.diff().long(),
+                                   output_size=n_edges)
+
+
+def transpose_positions(indptr: torch.Tensor, indices: torch.Tensor,
+                        t_indptr: torch.Tensor,
+                        t_indices: torch.Tensor) -> torch.Tensor:
+    """int32 [E]: for edge e of the CSR (indptr, indices), row u and column
+    v, the position in the CSR (t_indptr, t_indices) of its edge of row v
+    and column u; raises unless the second CSR is the first's transpose.
+    Both edge lists are sorted stably by (v, u): the i-th edge of one is
+    the i-th of the other."""
+    n, n_edges = indptr.numel() - 1, indices.numel()
+    if t_indices.numel() != n_edges:
+        raise ValueError(f"transpose_positions: {n_edges} edges against "
+                         f"{t_indices.numel()} in the transpose")
+    key = indices.long() * n + _edge_rows(indptr, n_edges)
+    order = torch.sort(key, stable=True).indices
+    t_key = _edge_rows(t_indptr, n_edges) * n + t_indices.long()
+    t_order = torch.sort(t_key, stable=True).indices
+    if not torch.equal(key[order], t_key[t_order]):
+        raise ValueError("transpose_positions: the second CSR is not the "
+                         "transpose of the first")
+    del key, t_key
+    pos = torch.empty(n_edges, dtype=torch.int32, device=indices.device)
+    pos[order] = t_order.int()
+    return pos
 
 
 def build_stream_plan(indptr: torch.Tensor, indices: torch.Tensor, *,

@@ -35,6 +35,8 @@ _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 SIGNATURES = {
     "maxk": {**{name: [_P, _P, _P, _I64, _INT, _INT, _P]
                 for name in ("maxk_fwd", "maxk_fwd_bf16")},
+             **{name: [_P, _P, _P, _P, _I64, _INT, _INT, _P]
+                for name in ("maxk_fwd_ids", "maxk_fwd_bf16_ids")},
              **{name: [_P, _P, _P, _P, _I64, _INT, _P]
                 for name in ("maxk_bwd", "maxk_bwd_bf16")}},
     "spmm": {**{name: [_P, _P, _P, _P, _INT, _P, _P, _P, _P, _P, _P, _INT,
@@ -52,7 +54,11 @@ SIGNATURES = {
                                          *[_INT] * 6, _P],
                "stream_cbsr_spmm_bf16_out": [*[_P] * 11, *[_I64] * 4,
                                              *[_INT] * 6, _P],
-               "stream_cbsr16_attrs": [*[_INT] * 5, _P]},
+               "stream_cbsr16_attrs": [*[_INT] * 5, _P],
+               "sspmm_slots_bf16": [*[_P] * 7, *[_I64] * 3, *[_INT] * 5,
+                                    _P],
+               "stream_sspmm_bf16": [*[_P] * 13, *[_I64] * 4, *[_INT] * 6,
+                                     _P]},
     "round": {name: [_P, _P, _P, _I64, _INT, _P]
               for name in ("round_rows", "round_out")},
     "norm": {"layer_norm16_fwd": [*[_P] * 6, _I64, _INT, ctypes.c_float,

@@ -40,14 +40,18 @@ def _check_impl(impl: str, x: torch.Tensor) -> None:
 
 
 def maxk_op(x: torch.Tensor, k: int | None,
-            impl: str = "auto") -> torch.Tensor:
-    """Top-k nonlinearity: x unchanged when k is None or k >= dim."""
+            impl: str = "auto", with_ids: bool = False):
+    """Top-k nonlinearity: x unchanged when k is None or k >= dim. With
+    `with_ids` (the kernels' impls, k < dim <= 256): (y, ids), ids uint8
+    [N, k] the channels each row kept (`kernels/maxk.py::maxk_fwd`)."""
     if k is None or k >= x.shape[-1]:
         return x
     _check_impl(impl, x)
     if impl == "torch":
+        if with_ids:
+            raise ValueError("impl='torch' gives no MaxK channel ids")
         return _maxk_plain.maxk(x, k)
-    return _maxk_kernel.maxk(x, k)
+    return _maxk_kernel.maxk(x, k, with_ids)
 
 
 def cbsr_compact(x: torch.Tensor, k: int, impl: str = "auto"
@@ -77,7 +81,8 @@ def layer_norm16(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 def aggregate(g, x: torch.Tensor, norm: str = "sum", k: int | None = None,
-              impl: str = "auto") -> torch.Tensor:
+              impl: str = "auto",
+              ids: torch.Tensor | None = None) -> torch.Tensor:
     """Aggregate node features over the graph: y = A_w x (norm sum/mean/gcn).
 
     A PlannedGraph aggregates through its plan's kernel pair (`csr_spmm` for
@@ -86,13 +91,16 @@ def aggregate(g, x: torch.Tensor, norm: str = "sum", k: int | None = None,
     `kernels.planned.STREAM_CBSR_FORWARD`'s rule (by default where k < dim
     <= 256), a stream plan's forward then takes `stream_cbsr_spmm` on x's
     CBSR. The backward is the dense kernel
-    on Aᵀ either way (the aggregation is linear and MaxK's own backward
-    applies the mask). impl "torch" takes the plain dense product.
+    on Aᵀ (the aggregation is linear and MaxK's own backward applies the
+    mask), or, given `ids` (the channels x's MaxK kept, `maxk_op(...,
+    with_ids=True)`), by `kernels.planned.SAMPLED_BACKWARD`'s rule
+    `stream_sspmm` at those channels only. impl "torch" takes the plain
+    dense product.
     """
     _check_impl(impl, x)
     if impl == "torch":
         return _spmm_plain.spmm(g, x, norm)
-    return planned_aggregate(g, x, norm, k)
+    return planned_aggregate(g, x, norm, k, ids)
 
 
 class SpGEMM(torch.autograd.Function):

@@ -22,7 +22,11 @@ Where `STREAM_CBSR_FORWARD` takes it (`cbsr_forward`: by default a
 k-sparse input of k < dim <= 256), the forward of either entry point takes
 the CBSR form of the plan's kernel instead: `stream_cbsr_spmm` on a stream
 plan, and on a windowed plan, for bf16 records only, `csr_cbsr_spmm` (the
-models' path compacts its k-sparse input first).
+models' path compacts its k-sparse input first). Where `SAMPLED_BACKWARD`
+takes it (`sampled_backward`: by default a stream plan, bf16 messages and
+the channel ids of the MaxK whose output x is, k < dim <= 256), the
+models' backward computes only the channels that MaxK kept
+(`stream_sspmm`), the dense backward's bits there.
 
 `DEFAULT_STREAM` selects the feature stream of every product, forward on A
 and backward on Aᵀ: "f32" (exact), or "bf16x2", the reference's 16-bit
@@ -56,7 +60,8 @@ from spgemm_gnn_tpu_torch.kernels.round import round_rows
 from spgemm_gnn_tpu_torch.kernels.spmm import csr_cbsr_spmm, csr_spmm
 from spgemm_gnn_tpu_torch.kernels.stream import (MAX_CBSR_DIM,
                                                  STREAM_DTYPES,
-                                                 stream_cbsr_spmm, stream_spmm)
+                                                 stream_cbsr_spmm, stream_spmm,
+                                                 stream_sspmm)
 from spgemm_gnn_tpu_torch.ops.maxk import cbsr_records
 from spgemm_gnn_tpu_torch.ops.norms import node_factors
 from spgemm_gnn_tpu_torch.ops.spmm import _scale
@@ -96,6 +101,30 @@ KIND_SRC_BLOCK = 256
 # (about 15.5 ms a call there) under every flag value.
 STREAM_CBSR_FORWARD: bool | None = None
 
+# The sampled backward: an aggregation whose input x is the output of MaxK
+# (possibly after dropout) needs its input gradient only at the k channels
+# MaxK kept, since MaxK's backward zeroes the rest. Given MaxK's kept
+# channels (`kernels/maxk.py::maxk_fwd(..., with_ids=True)`, which the
+# models pass as `ids`), the backward on a stream plan then takes
+# `stream_sspmm`: each edge moves k values instead of a row of dim, and at
+# the kept channels dx is the dense backward's bit for bit (zeros
+# elsewhere), so the losses are the dense run's. A port-only selection:
+# the reference's backward is dense (`spgemm_gnn_tpu/kernels/planned.py:
+# 326`), and its `sspmm_backward` (dense, then `sample_channels`) is this
+# function at the CBSR API. Read at each call (`sampled_backward`):
+# - None (the default): the rule. Take it on a stream plan, with bf16
+#   messages (the bf16x2 stream, or bf16 activations), MaxK's ids given,
+#   and k < dim <= 256 (uint8 ids);
+# - True: the same, raising above dim 256;
+# - False: the dense backward (`stream_spmm` on Aᵀ).
+# A windowed plan and the f32 stream keep the dense backward under every
+# value: they have no sampled kernel yet. On the ogbn-products stand-in
+# (SAGE recipe, k 32, dim 256, NVIDIA H100 80GB HBM3, 700 W power limit)
+# the dense bf16 backward takes 20.1 ms a layer (PERF.md §6); the sampled
+# one's time and the epochs with and without it are in PERF.md §5-§6
+# (chip_smoke.py's products phases).
+SAMPLED_BACKWARD: bool | None = None
+
 # The feature stream of the planned products: "f32" or "bf16x2" (the name,
 # values and default of the reference's `DEFAULT_STREAM`, which its Trainer
 # sets from `--stream`; read at each call). The name is the TPU kernel's,
@@ -121,6 +150,35 @@ def cbsr_forward(plan, k: int | None, dim: int, dtype: torch.dtype) -> bool:
         return False
     return STREAM_CBSR_FORWARD is True or (dim <= MAX_CBSR_DIM
                                            and dtype in STREAM_DTYPES)
+
+
+def sampled_backward(plan, k: int | None, dim: int,
+                     dtype: torch.dtype) -> bool:
+    """Whether the backward on `plan` (Aᵀ) of an aggregation whose input
+    of width `dim` and `dtype` is the output of a MaxK whose k kept
+    channels are given (k None: none are) takes `stream_sspmm`
+    (SAMPLED_BACKWARD's rule): a stream plan, bf16 messages (bf16
+    activations or the bf16x2 stream), k < dim; under the default (None)
+    also dim <= 256, while True takes it regardless (and the kernel's
+    wrapper raises above dim 256)."""
+    if SAMPLED_BACKWARD is False or k is None:
+        return False
+    if not isinstance(plan, StreamPlan) or k >= dim:
+        return False
+    if not (dtype == torch.bfloat16 or _stream16()):
+        return False
+    return SAMPLED_BACKWARD is True or dim <= MAX_CBSR_DIM
+
+
+def wants_channel_ids(g, k: int | None, x: torch.Tensor) -> bool:
+    """Whether MaxK of width-k on x should return its kept channels for the
+    aggregation over `g` that follows it: where the backward will read
+    them (`sampled_backward` on g's backward plan) and a backward will
+    run."""
+    if (not isinstance(g, PlannedGraph)
+            or not (torch.is_grad_enabled() and x.requires_grad)):
+        return False
+    return sampled_backward(g.bwd_plan, k, x.shape[-1], x.dtype)
 
 
 def _stream16() -> bool:
@@ -187,8 +245,10 @@ def plan_graph(g: Graph, *, kind: str = "auto", chunk: int = CHUNK,
     hot set, is built here for the rows the kernels gather when `dim` is
     given (else at the first product of each row size): rows of width `dim`
     of activations of `dtype` in DEFAULT_STREAM's feature stream, 2 B a
-    channel for bf16 activations or the "bf16x2" stream, else 4. A
-    symmetric graph's backward plan is its forward plan."""
+    channel for bf16 activations or the "bf16x2" stream, else 4; for 2-B
+    channels on a stream plan also the backward plan's transpose positions
+    (the sampled backward's, else built at its first call). A symmetric
+    graph's backward plan is its forward plan."""
     if kind not in KINDS:
         raise ValueError(f"unknown plan kind {kind!r}; expected one of "
                          f"{KINDS}")
@@ -209,8 +269,10 @@ def plan_graph(g: Graph, *, kind: str = "auto", chunk: int = CHUNK,
         return plan
 
     fwd = one(False)
-    return PlannedGraph(graph=g, fwd_plan=fwd,
-                        bwd_plan=fwd if g.symmetric else one(True))
+    bwd = fwd if g.symmetric else one(True)
+    if kind == "stream" and dim is not None and elem == 2:
+        bwd.transpose_positions(fwd)   # for the sampled backward
+    return PlannedGraph(graph=g, fwd_plan=fwd, bwd_plan=bwd)
 
 
 def graph_plans(g) -> tuple[CSRPlan | StreamPlan, CSRPlan | StreamPlan]:
@@ -284,34 +346,58 @@ def _plan_spmm16(plan, x: torch.Tensor, post: torch.Tensor | None,
     return kernel(plan, x, None, post, out_dtype=bf16)
 
 
+def plan_sspmm(plan, fwd_plan, g: torch.Tensor, ids: torch.Tensor,
+               pre: torch.Tensor | None,
+               post: torch.Tensor | None) -> torch.Tensor:
+    """`plan_spmm(plan, g, pre, post)` on the stream plan `plan` (the
+    transpose of `fwd_plan`) at each row's channels ids[v] only, zeros
+    elsewhere (`stream_sspmm`): the messages are the dense form's, bf16(pre
+    ⊙ g) under the bf16x2 stream (y f32), pre ⊙ g in bf16 for bf16 g (y
+    bf16)."""
+    if g.dtype == torch.bfloat16:
+        return stream_sspmm(plan, fwd_plan, _scale(g, pre).contiguous(), ids,
+                            post, torch.bfloat16)
+    return stream_sspmm(plan, fwd_plan, round_rows(g, pre), ids, post)
+
+
 class Aggregate(torch.autograd.Function):
     """y = post ⊙ A (pre ⊙ x); dx = pre ⊙ Aᵀ (post ⊙ g), each through its
     plan's kernel (the forward reads `k` as `plan_spmm` does; the cotangent
     is dense). The cotangent keeps the primal's dtype (for bf16 x, g is
-    bf16 and so is dx)."""
+    bf16 and so is dx). With MaxK's kept channels `ids`, the backward takes
+    `plan_sspmm` where `sampled_backward` says so."""
 
     @staticmethod
-    def forward(ctx, x, fwd_plan, bwd_plan, pre, post, k):
-        ctx.save_for_backward(pre, post)
-        ctx.bwd_plan = bwd_plan
+    def forward(ctx, x, fwd_plan, bwd_plan, pre, post, k, ids):
+        ctx.save_for_backward(pre, post, ids)
+        ctx.plans = (fwd_plan, bwd_plan)
         ctx.x_dtype = x.dtype
         return plan_spmm(fwd_plan, x, pre, post, k)
 
     @staticmethod
     def backward(ctx, g):
-        pre, post = ctx.saved_tensors
-        dx = plan_spmm(ctx.bwd_plan, g.contiguous(), post, pre)
-        return dx.to(ctx.x_dtype), None, None, None, None, None
+        pre, post, ids = ctx.saved_tensors
+        fwd_plan, bwd_plan = ctx.plans
+        g = g.contiguous()
+        k = None if ids is None else ids.shape[1]
+        if sampled_backward(bwd_plan, k, g.shape[1], g.dtype):
+            dx = plan_sspmm(bwd_plan, fwd_plan, g, ids, post, pre)
+        else:
+            dx = plan_spmm(bwd_plan, g, post, pre)
+        return dx.to(ctx.x_dtype), None, None, None, None, None, None
 
 
 def planned_aggregate(g, x: torch.Tensor, norm: str = "sum",
-                      k: int | None = None) -> torch.Tensor:
+                      k: int | None = None,
+                      ids: torch.Tensor | None = None) -> torch.Tensor:
     """y = A_w x through the kernel pair of `g`'s plans (a PlannedGraph's, or
     windowed plans for a plain Graph). `k` (optional) states that x is MaxK
-    top-k sparse per row (see `plan_spmm`)."""
+    top-k sparse per row (see `plan_spmm`); `ids` (optional, uint8 [N, k])
+    that x is the output of a MaxK that kept those channels, which the
+    sampled backward reads (`sampled_backward`)."""
     src_f, dst_f = node_factors(g, norm)
     fwd, bwd = graph_plans(g)
-    return Aggregate.apply(x.contiguous(), fwd, bwd, src_f, dst_f, k)
+    return Aggregate.apply(x.contiguous(), fwd, bwd, src_f, dst_f, k, ids)
 
 
 def spgemm_forward(dim: int, values: torch.Tensor, channels: torch.Tensor,

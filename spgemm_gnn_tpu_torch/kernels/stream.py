@@ -19,6 +19,19 @@ With `out_dtype=torch.bfloat16` (the 16-bit model, `--dtype bfloat16`; bf16
 input only) they launch the bf16-output forms (`stream_spmm_bf16_out`,
 `stream_cbsr_spmm_bf16_out`): the same sums, y rounded once to bf16 where a
 row's sum is whole, then times bf16(post) in bf16.
+
+`stream_sspmm` is the sampled backward of a MaxK aggregation on bf16
+messages (B3 on Aᵀ, then B4's channel sampling, as one kernel pair): for
+each row v of the plan (Aᵀ) only the k channels ch[v] that v's MaxK kept,
+dx[v, ch[v, j]] = post[v] · Σ_u m[u, ch[v, j]], zeros elsewhere, each sum
+bit for bit `stream_spmm`'s at that channel (`stream_sspmm_bf16`, and with
+a bf16 output `stream_sspmm_bf16_out`, `stream_spmm_bf16_out`'s). Pass 1
+walks A once (the forward plan): each edge's k terms go to a 2k-byte slot
+at the edge's position in Aᵀ's order (`StreamPlan.transpose_positions`);
+pass 2 is B3's walk on Aᵀ over those slots. `stream_sspmm_at` runs either
+pass alone and `stream_ksample_at` the k-channel gather probe (the same
+sums, gathered from the messages), for utils/stream_sweep.py and
+chip_smoke.py.
 """
 from __future__ import annotations
 
@@ -29,7 +42,8 @@ from spgemm_gnn_tpu_torch.kernels.spmm import (MAX_CBSR_DIM, MAX_DIM,
                                                check_out_dtype)
 from spgemm_gnn_tpu_torch.ops.maxk import packed_channel_words, record_words
 from spgemm_gnn_tpu_torch.ops.stream import (stream_cbsr_spmm_plain,
-                                             stream_spmm_plain)
+                                             stream_spmm_plain,
+                                             stream_sspmm_plain)
 
 # The launch shapes the kernels are built for, keyed by a row's 16-byte
 # slices per lane (row bytes <= 512, 1024, 2048, 4096: f32 dim 256 and bf16
@@ -43,6 +57,8 @@ from spgemm_gnn_tpu_torch.ops.stream import (stream_cbsr_spmm_plain,
 DEPTHS = {1: (8, 4, 16), 2: (8, 4, 16), 4: (4,), 8: (2,)}
 BATCHES = {1: (8, 4, 16), 2: (8,), 4: (4,), 8: (4,)}
 BATCHES16 = {1: (32,), 2: (16,), 4: (8,), 8: (4,)}
+# stream_sspmm_at's timing variants of pass 1 -> the C entry point's mode
+VARIANTS_SAMPLED = {None: 0, "no_store": 1, "in_order": 2, "no_ids": 3}
 
 
 STREAM_DTYPES = (torch.float32, torch.bfloat16)
@@ -288,3 +304,170 @@ def stream_cbsr16_attrs(k: int, dim: int, batch: int | None = None,
     regs, local, blocks = out.tolist()
     return dict(regs=regs, local_bytes=local, blocks_per_sm=blocks,
                 warps_per_sm=blocks * 8)
+
+
+def _check_sampled(plan, m: torch.Tensor, ch: torch.Tensor,
+                   out_dtype: torch.dtype | None) -> bool:
+    """Raise unless m is bf16 [S, dim] (dim % 8 == 0, 8 <= dim <= 256) and
+    ch uint8 [plan.num_rows, k] with 1 <= k < dim; True for a bf16
+    output."""
+    if m.dtype != torch.bfloat16 or m.dim() != 2:
+        raise ValueError(f"stream_sspmm takes bf16 messages [S, dim]; got "
+                         f"{m.dtype} {tuple(m.shape)}")
+    out16 = check_out_dtype(m.dtype, out_dtype)
+    dim = m.shape[1]
+    if dim % 8 or not 8 <= dim <= MAX_CBSR_DIM:
+        raise ValueError(f"stream_sspmm needs dim % 8 == 0 and 8 <= dim <= "
+                         f"{MAX_CBSR_DIM} (uint8 channel ids); got {dim}")
+    if (ch.dtype != torch.uint8 or ch.dim() != 2
+            or ch.shape[0] != plan.num_rows or not 1 <= ch.shape[1] < dim):
+        raise ValueError(f"stream_sspmm takes channel ids uint8 "
+                         f"[{plan.num_rows}, k] with 1 <= k < {dim}; got "
+                         f"{ch.dtype} {tuple(ch.shape)}")
+    return out16
+
+
+def stream_sspmm(plan, fwd_plan, m: torch.Tensor, ch: torch.Tensor,
+                 post: torch.Tensor | None = None,
+                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """dx[v, c] = post[v] · Σ_{u ∈ in(v)} m[u, c] for the k channels c =
+    ch[v, :] of each row v of `plan` (the transpose of `fwd_plan`'s CSR),
+    0 at v's other channels: m bf16 [S, dim] (the messages, a pre factor
+    already in them), ch uint8 [plan.num_rows, k] (distinct within a row,
+    from `kernels.maxk.maxk_fwd(..., with_ids=True)`) → dx f32
+    [plan.num_rows, dim], or with out_dtype bf16, bf16(bf16(Σ) ·
+    bf16(post)). At each kept channel the bits of `stream_spmm(plan, m,
+    None, post, out_dtype)`."""
+    _check_sampled(plan, m, ch, out_dtype)
+    if _build.on_cpu(m):
+        return stream_sspmm_plain(plan, m, ch, post, out_dtype)
+    return stream_sspmm_at(plan, fwd_plan, m, ch, post, out_dtype=out_dtype)
+
+
+def _sampled_outputs(plan, dim: int, kw: int, dev: torch.device,
+                     out16: bool) -> tuple[torch.Tensor, ...]:
+    """dx (dense) and its compact scratch: the carry slots and span heads
+    of kw floats (k padded to a multiple of 4)."""
+    y = torch.empty((plan.num_rows, dim),
+                    dtype=torch.bfloat16 if out16 else torch.float32,
+                    device=dev)
+    carry = torch.empty((plan.num_chunks, kw), dtype=torch.float32,
+                        device=dev)
+    spans = -(-plan.num_chunks // plan.warp_chunks)
+    heads = torch.empty((spans, kw), dtype=torch.float32, device=dev)
+    return y, carry, heads
+
+
+def new_slots(n_edges: int, k: int, dev: torch.device) -> torch.Tensor:
+    """stream_sspmm's slot buffer: bf16 [n_edges, k], in a flat buffer 16
+    bytes longer (pass 2 copies whole 16-byte words)."""
+    return torch.empty(n_edges * k + 8, dtype=torch.bfloat16,
+                       device=dev)[:n_edges * k].view(n_edges, k)
+
+
+def stream_sspmm_at(plan, fwd_plan, m: torch.Tensor, ch: torch.Tensor,
+                    post: torch.Tensor | None = None, *,
+                    out_dtype: torch.dtype | None = None,
+                    passes: tuple = (1, 2),
+                    slots: torch.Tensor | None = None,
+                    variant: str | None = None) -> torch.Tensor:
+    """`stream_sspmm`'s kernels on CUDA tensors. `passes` (1,) runs pass 1
+    alone and returns the slots (into `slots`, from `new_slots`, when
+    given); (2,) runs pass 2 alone on `slots` (pass 1's) and returns dx.
+    `variant` names a timing variant of pass 1 for utils/stream_sweep.py
+    (passes (1,) only, k 20 to 32 and a multiple of 4; wrong slots by
+    design): "no_store" (no slot stored), "in_order" (each slot at its own
+    edge) or "no_ids" (no id loaded)."""
+    out16 = _check_sampled(plan, m, ch, out_dtype)
+    dev = m.device
+    n_src, dim = m.shape
+    k = ch.shape[1]
+    if passes not in ((1, 2), (1,), (2,)):
+        raise ValueError(f"passes must be (1, 2), (1,) or (2,); got {passes}")
+    if variant not in VARIANTS_SAMPLED:
+        raise ValueError(f"variant must be one of {tuple(VARIANTS_SAMPLED)}; "
+                         f"got {variant!r}")
+    if variant is not None and (passes != (1,) or k % 4
+                                or not 16 < k <= 32):
+        raise ValueError(f"variant {variant!r} runs pass 1 alone, at k 20, "
+                         f"24, 28 or 32")
+    _build.require(ch, "ch", torch.uint8, dev, (plan.num_rows, k))
+    _build.require(m, "m", torch.bfloat16, dev, (fwd_plan.num_rows, dim))
+    _build.require_aligned(m, "m")
+    _require_plan(plan, dev, n_src, None, post)
+    _require_plan(fwd_plan, dev, plan.num_rows, None, None)
+    if fwd_plan.num_edges != plan.num_edges:
+        raise ValueError("stream_sspmm: plan must be fwd_plan's transpose")
+    n_edges = plan.num_edges
+    if slots is None:
+        slots = new_slots(n_edges, k, dev)
+    _build.require(slots, "slots", torch.bfloat16, dev, (n_edges, k))
+    if slots.untyped_storage().nbytes() - slots.storage_offset() * 2 < (
+            n_edges * k * 2 + 16):
+        raise ValueError("slots needs 16 bytes past its end (new_slots)")
+    lib = _build.library("stream")
+    stream = _build.stream_of(m)
+    name = "stream_sspmm_bf16_out" if out16 else "stream_sspmm_bf16"
+    with torch.cuda.device(dev):
+        if 1 in passes:
+            perm = plan.transpose_positions(fwd_plan)
+            status = lib.sspmm_slots_bf16(
+                fwd_plan.indptr.data_ptr(), fwd_plan.indices.data_ptr(),
+                fwd_plan.chunk_row0.data_ptr(), perm.data_ptr(),
+                m.data_ptr(), ch.data_ptr(), slots.data_ptr(),
+                fwd_plan.num_rows, fwd_plan.num_chunks, n_edges,
+                fwd_plan.chunk, fwd_plan.warp_chunks, dim, k,
+                VARIANTS_SAMPLED[variant], stream)
+            _build.check(status, "sspmm_slots_bf16")
+            if passes == (1,):
+                return slots
+        outs = _sampled_outputs(plan, dim, 4 * -(-k // 4), dev, out16)
+        if plan.num_rows:
+            status = lib.stream_sspmm_bf16(
+                plan.indptr.data_ptr(), plan.indices.data_ptr(),
+                plan.chunk_row0.data_ptr(), plan.carry_rows.data_ptr(),
+                slots.data_ptr(), None, None, ch.data_ptr(), _ptr(post),
+                None, *(t.data_ptr() for t in outs), plan.num_rows,
+                plan.num_chunks, plan.carry_rows.numel(), n_edges,
+                plan.chunk, plan.warp_chunks, dim, k, int(out16), 0,
+                stream)
+            _build.check(status, name)
+            _build.launches[name] += 1
+    return outs[0]
+
+
+def stream_ksample_at(plan, m: torch.Tensor, ch: torch.Tensor,
+                      edge_row: torch.Tensor,
+                      post: torch.Tensor | None = None, *,
+                      out_dtype: torch.dtype | None = None,
+                      hot_budget: int | None = None) -> torch.Tensor:
+    """The k-channel gather probe (k <= 32): `stream_sspmm`'s sums gathered
+    on B3's walk from the messages, lane j loading m[u, ch[v, j]] for each
+    edge u -> v (edge_row int32 [E], each edge's row v of the plan), with
+    the plan's hot set at the messages' row size. The same bits as
+    `stream_sspmm`; for utils/stream_sweep.py's probe, never on the path."""
+    out16 = _check_sampled(plan, m, ch, out_dtype)
+    dev = m.device
+    n_src, dim = m.shape
+    k = ch.shape[1]
+    if _slices(k) != 1:
+        raise ValueError("the gather probe is built for k <= 32")
+    _build.require(edge_row, "edge_row", torch.int32, dev, (plan.num_edges,))
+    _build.require(ch, "ch", torch.uint8, dev, (plan.num_rows, k))
+    _build.require(m, "m", torch.bfloat16, dev, (None, dim))
+    _require_plan(plan, dev, n_src, None, post)
+    outs = _sampled_outputs(plan, dim, 4 * -(-k // 4), dev, out16)
+    if plan.num_rows:
+        hot = plan.hot_set(2 * dim, hot_budget)
+        with torch.cuda.device(dev):
+            status = _build.library("stream").stream_sspmm_bf16(
+                plan.indptr.data_ptr(), plan.indices.data_ptr(),
+                plan.chunk_row0.data_ptr(), plan.carry_rows.data_ptr(), None,
+                m.data_ptr(), edge_row.data_ptr(), ch.data_ptr(), _ptr(post),
+                _ptr(hot.mask), *(t.data_ptr() for t in outs), plan.num_rows,
+                plan.num_chunks, plan.carry_rows.numel(), plan.num_edges,
+                plan.chunk, plan.warp_chunks, dim, k, int(out16), 1,
+                _build.stream_of(m))
+        _build.check(status, "stream_ksample_bf16")
+        _build.launches["stream_ksample_bf16"] += 1
+    return outs[0]

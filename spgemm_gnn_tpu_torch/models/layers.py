@@ -124,9 +124,13 @@ class SAGEConv(nn.Module):
             self.norm.reset_parameters()
 
     def forward(self, g, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                ids: torch.Tensor | None = None) -> torch.Tensor:
+        """ids: the channels the MaxK that made x kept (for the sampled
+        backward), or None."""
         x = dropout(x, self.feat_drop, self.training, generator)
-        agg = aggregate(g, x, norm="mean", k=self.k_sparse, impl=self.impl)
+        agg = aggregate(g, x, norm="mean", k=self.k_sparse, impl=self.impl,
+                        ids=ids)
         out = self.fc_self(x) + self.fc_neigh(agg)
         if self.norm is not None:
             out = self.norm(out)
@@ -148,8 +152,10 @@ class GraphConvAgg(nn.Module):
     def reset_parameters(self) -> None:
         nn.init.zeros_(self.bias)
 
-    def forward(self, g, x: torch.Tensor) -> torch.Tensor:
-        y = aggregate(g, x, norm="gcn", k=self.k_sparse, impl=self.impl)
+    def forward(self, g, x: torch.Tensor,
+                ids: torch.Tensor | None = None) -> torch.Tensor:
+        y = aggregate(g, x, norm="gcn", k=self.k_sparse, impl=self.impl,
+                      ids=ids)
         return y + self.bias.to(y.dtype)
 
 
@@ -166,8 +172,10 @@ class GINAgg(nn.Module):
     def reset_parameters(self) -> None:
         nn.init.zeros_(self.eps)
 
-    def forward(self, g, x: torch.Tensor) -> torch.Tensor:
-        agg = aggregate(g, x, norm="sum", k=self.k_sparse, impl=self.impl)
+    def forward(self, g, x: torch.Tensor,
+                ids: torch.Tensor | None = None) -> torch.Tensor:
+        agg = aggregate(g, x, norm="sum", k=self.k_sparse, impl=self.impl,
+                        ids=ids)
         return (1.0 + self.eps).to(x.dtype) * x + agg
 
 

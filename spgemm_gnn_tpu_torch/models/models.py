@@ -5,7 +5,9 @@ passing) → lin_out. SAGE, GCN, GIN and GNNRes wire DGL's layers as the
 reference's `utils/models.py` does; MaxKSAGE, MaxKGCN and MaxKGIN are its
 integrated kernel-first variants (`utils/integrated_models.py`). Each layer
 passes the MaxK k to `aggregate` where the JAX model does, so a k-sparse
-input can take the CBSR stream forward (kernels/planned.py).
+input can take the CBSR stream forward (kernels/planned.py), and, where the
+sampled backward will read them (`kernels.planned.wants_channel_ids`), the
+channels its MaxK kept, so that the backward computes only those.
 
 Submodule and parameter names are the flax ones (`lin_in`, `layer{i}`,
 `lin{i}`, `conv{i}`, `norm{i}`, `res{i}`, `bn{i}`, `lin1_{i}`, `lin2_{i}`,
@@ -25,6 +27,7 @@ import torch
 from torch import nn
 
 from spgemm_gnn_tpu_torch.kernels.api import aggregate, maxk_op
+from spgemm_gnn_tpu_torch.kernels.planned import wants_channel_ids
 from spgemm_gnn_tpu_torch.models.layers import (BatchNorm, Dense, GINAgg,
                                                 GraphConvAgg, LayerNorm,
                                                 SAGEConv, compute_dtype,
@@ -75,6 +78,14 @@ class _Base(nn.Module):
         return (maxk_op(x, self.k, self.impl) if self.k is not None
                 else torch.relu(x))
 
+    def _nl_ids(self, x: torch.Tensor, g) -> tuple[torch.Tensor,
+                                                   torch.Tensor | None]:
+        """(the nonlinearity of x, the channels its MaxK kept where the
+        aggregation over g that follows will read them, else None)."""
+        if self.impl != "torch" and wants_channel_ids(g, self.k, x):
+            return maxk_op(x, self.k, self.impl, with_ids=True)
+        return self._nl(x), None
+
     def _drop(self, x: torch.Tensor, generator) -> torch.Tensor:
         return dropout(x, self.feat_drop, self.training, generator)
 
@@ -112,7 +123,8 @@ class SAGE(_Base):
                 generator: torch.Generator | None = None) -> torch.Tensor:
         x = self.lin_in(x)
         for i in range(self.num_layers):
-            x = getattr(self, f"layer{i}")(g, self._nl(x), generator)
+            x, ids = self._nl_ids(x, g)
+            x = getattr(self, f"layer{i}")(g, x, generator, ids)
         return self.lin_out(x)
 
 
@@ -134,8 +146,8 @@ class _ConvStack(_Base):
                 generator: torch.Generator | None = None) -> torch.Tensor:
         x = torch.relu(self.lin_in(x))
         for i in range(self.num_layers):
-            x = self._nl(getattr(self, f"lin{i}")(x))
-            x = getattr(self, f"conv{i}")(g, self._drop(x, generator))
+            x, ids = self._nl_ids(getattr(self, f"lin{i}")(x), g)
+            x = getattr(self, f"conv{i}")(g, self._drop(x, generator), ids)
             if self.use_norm:
                 x = getattr(self, f"norm{i}")(x)
         return self.lin_out(x)
@@ -209,9 +221,9 @@ class MaxKSAGE(_Base):
         x = self.lin_in(x)
         for i in range(self.num_layers):
             h_self = getattr(self, f"fc_self{i}")(x)
-            h_neigh = self._nl(getattr(self, f"fc_neigh{i}")(x))
+            h_neigh, ids = self._nl_ids(getattr(self, f"fc_neigh{i}")(x), g)
             x = h_self + aggregate(g, h_neigh, "mean", k=self.k,
-                                   impl=self.impl)
+                                   impl=self.impl, ids=ids)
             if self.use_norm:
                 x = getattr(self, f"norm{i}")(x)
             x = self._drop(x, generator)
@@ -238,8 +250,8 @@ class MaxKGCN(_Base):
         x = torch.relu(self.lin_in(x))
         for i in range(self.num_layers):
             x = self._drop(getattr(self, f"lin{i}")(x), generator)
-            x = self._nl(getattr(self, f"conv_w{i}")(x))
-            x = aggregate(g, x, "gcn", k=self.k, impl=self.impl)
+            x, ids = self._nl_ids(getattr(self, f"conv_w{i}")(x), g)
+            x = aggregate(g, x, "gcn", k=self.k, impl=self.impl, ids=ids)
             x = x + getattr(self, f"conv_b{i}").to(x.dtype)
             if self.use_norm:
                 x = getattr(self, f"norm{i}")(x)
@@ -265,8 +277,8 @@ class MaxKGIN(_Base):
         x = torch.relu(self.lin_in(x))
         for i in range(self.num_layers):
             x = self._drop(getattr(self, f"lin{i}")(x), generator)
-            x = self._nl(x)
-            agg = aggregate(g, x, "sum", k=self.k, impl=self.impl)
+            x, ids = self._nl_ids(x, g)
+            agg = aggregate(g, x, "sum", k=self.k, impl=self.impl, ids=ids)
             x = (1.0 + getattr(self, f"eps{i}")).to(x.dtype) * x + agg
             if self.use_norm:
                 x = getattr(self, f"norm{i}")(x)

@@ -76,6 +76,17 @@ def maxk_backward(x: torch.Tensor, meta: torch.Tensor,
     return g * mask_from_meta(x, meta).to(g.dtype)
 
 
+def maxk_channel_ids(x: torch.Tensor, meta: torch.Tensor,
+                     k: int) -> torch.Tensor:
+    """uint8 [N, k]: the channels each row's mask keeps, ascending, rebuilt
+    from (x, meta) (the plain version of the ids that `maxk_fwd_ids` and
+    `maxk_fwd_bf16_ids` write beside y). Needs dim <= 256."""
+    if x.shape[-1] > 256:
+        raise ValueError(f"MaxK channel ids are uint8: dim <= 256; got "
+                         f"{x.shape[-1]}")
+    return _first_channels(mask_from_meta(x, meta), k).to(torch.uint8)
+
+
 def maxk_mask(x: torch.Tensor, k: int) -> torch.Tensor:
     """Float mask of the top-k entries of each row (ties: lowest index)."""
     if k >= x.shape[-1]:

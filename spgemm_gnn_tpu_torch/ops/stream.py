@@ -21,7 +21,11 @@ kernel (counterpart of `stream_pallas.py::stream_spmm_cbsr`): the same
 product with the input given as one CBSR record per node (values and packed
 channel ids, `ops/maxk.py::cbsr_records`).
 
-Both take the 16-bit stream's input as the bf16 kernels do: bf16 rows, or
+`stream_sspmm_plain` is the plain version of the `stream_sspmm` kernels
+(the sampled backward on Aᵀ): `stream_spmm_plain` on the plan, each row
+masked to its k channels.
+
+All take the 16-bit stream's input as the bf16 kernels do: bf16 rows, or
 records with bf16 values, widened exactly to f32 before the f32 sums. With
 `out_dtype=torch.bfloat16` (the 16-bit model) each row's whole f32 sum is
 rounded once and scaled by the post factor in bf16 (`ops/spmm.py::finish`),
@@ -107,3 +111,17 @@ def stream_cbsr_spmm_plain(plan, records: torch.Tensor, k: int, dim: int,
     values, ch = split_records(records, k, dim, value_dtype)
     return stream_spmm_plain(plan, cbsr_to_dense(_widen(values), ch, dim),
                              pre, post, out_dtype)
+
+
+def stream_sspmm_plain(plan, m: torch.Tensor, ch: torch.Tensor,
+                       post: torch.Tensor | None = None,
+                       out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Plain version of the `stream_sspmm` kernels (kernels/stream.py):
+    `stream_spmm_plain(plan, m, None, post, out_dtype)` with each row v
+    kept at its channels ch[v] (uint8 [plan.num_rows, k]) and 0
+    elsewhere."""
+    y = stream_spmm_plain(plan, m, None, post, out_dtype)
+    keep = torch.zeros(y.shape, dtype=torch.bool, device=y.device)
+    keep.scatter_(1, ch.long(), True)
+    return torch.where(keep, y, torch.zeros((), dtype=y.dtype,
+                                            device=y.device))

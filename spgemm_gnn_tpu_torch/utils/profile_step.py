@@ -4,7 +4,8 @@ with device time summed by kernel name.
 
     python -m spgemm_gnn_tpu_torch.utils.profile_step \
         [--dataset reddit|ogbn-products] [--model sage|gcn|...] \
-        [--stream_cbsr_forward [auto|on|off]] [--stream f32|bf16x2] \
+        [--stream_cbsr_forward [auto|on|off]] \
+        [--sampled_backward [auto|on|off]] [--stream f32|bf16x2] \
         [--dtype float32|bfloat16] [--synthetic_scale S]
 
 Recipes (scripts_train/*_maxk.sh): reddit (the default) MaxK k=32, hidden
@@ -19,6 +20,9 @@ which gives a MaxK forward at hidden <= 256 the CBSR form of the plan's
 kernel: stream_cbsr_spmm on a stream plan, csr_cbsr_spmm on a windowed one
 for bf16 records, under `--stream bf16x2` or `--dtype bfloat16`), "on"
 (True; the flag alone) or "off" (False: the dense forward);
+`--sampled_backward` sets `kernels.planned.SAMPLED_BACKWARD` the same way
+("auto": its rule, which gives MaxK's backward on a stream plan with bf16
+messages `stream_sspmm`; "off": the dense backward, `stream_spmm`);
 `--stream bf16x2` runs the 16-bit feature stream (the Trainer's
 `--stream`: round_rows and the bf16 forms of the kernels);
 `--dtype bfloat16` the 16-bit model (bf16 matmuls and activations, the
@@ -53,7 +57,7 @@ FLAG = {"auto": None, "on": True, "off": False}
 
 def profile_step(dataset: str, model: str, stream_cbsr_forward: bool | None,
                  stream: str, dtype: str, synthetic_scale: float, seed: int,
-                 top: int) -> None:
+                 top: int, sampled_backward: bool | None = None) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from spgemm_gnn_tpu_torch.kernels import planned
@@ -64,6 +68,7 @@ def profile_step(dataset: str, model: str, stream_cbsr_forward: bool | None,
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip(), flush=True)
     planned.STREAM_CBSR_FORWARD = stream_cbsr_forward
+    planned.SAMPLED_BACKWARD = sampled_backward
     cfg = TrainConfig(dataset=dataset, model=model, selfloop=model != "sage",
                       nonlinear="maxk", maxk=32,
                       hidden_dim=256, norm=True, dropout=0.5, seed=seed,
@@ -74,8 +79,8 @@ def profile_step(dataset: str, model: str, stream_cbsr_forward: bool | None,
     trainer = Trainer(cfg)
     print(f"{dataset}, {model}: N={trainer.g.num_nodes} "
           f"E={trainer.g.num_edges}, plan kind {trainer.g.kind}, "
-          f"STREAM_CBSR_FORWARD {stream_cbsr_forward}, stream {stream}, "
-          f"dtype {dtype}", flush=True)
+          f"STREAM_CBSR_FORWARD {stream_cbsr_forward}, SAMPLED_BACKWARD "
+          f"{sampled_backward}, stream {stream}, dtype {dtype}", flush=True)
     state = trainer.init_state()
     gen = torch.Generator(device=trainer.device).manual_seed(seed)
     trainer.train_step(state, gen)
@@ -127,6 +132,8 @@ def main(argv=None) -> None:
     ap.add_argument("--model", default="sage", choices=list(MODELS))
     ap.add_argument("--stream_cbsr_forward", nargs="?", const="on",
                     default="auto", choices=sorted(FLAG))
+    ap.add_argument("--sampled_backward", nargs="?", const="on",
+                    default="auto", choices=sorted(FLAG))
     ap.add_argument("--stream", default="f32", choices=["f32", "bf16x2"])
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
@@ -136,7 +143,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     profile_step(args.dataset, args.model, FLAG[args.stream_cbsr_forward],
                  args.stream, args.dtype, args.synthetic_scale, args.seed,
-                 args.top)
+                 args.top, FLAG[args.sampled_backward])
 
 
 if __name__ == "__main__":

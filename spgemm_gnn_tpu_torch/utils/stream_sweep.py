@@ -7,7 +7,7 @@ BATCHES).
         [--dataset ogbn-products] [--budgets 0,10,20,30,40] \
         [--depths 4,8,16] [--batches B,...] [--iters 5] \
         [--stream f32|bf16x2] [--cbsr_only] [--out f32|bf16] \
-        [--probes] [--sass DIR]
+        [--probes] [--sampled_only] [--sass DIR]
 
 On the synthetic stand-in at full size (seed 97): `stream_spmm` on A (the
 input MaxK at k 32 then dropout 0.5, under the mean factors, as on the
@@ -41,6 +41,16 @@ padded to them. `--sass DIR` writes the bf16-record kernels' SASS
 prints each kernel's SASS instruction count, loops (backward branches,
 with the instructions from their target to them) and, at k <= 32, the
 instructions of one steady stage of four edges (`sass_loops` `last_edge`).
+
+`--probes` also times the forms of MaxK's backward on Aᵀ (`sampled_probes`,
+bf16 messages bf16(post ⊙ g) under the mean factors, the kept channels of
+MaxK at k on random bf16 rows): (i) the dense form, stream_spmm_bf16 (and
+_out), then maxk_bwd_bf16 on its output; (ii) the k-channel gather form,
+one lane a kept channel on B3's walk (`stream_ksample_at`); (iii) the
+two-pass form, `stream_sspmm` (and _out), each pass timed alone, and pass
+1's timing variants (no slot stored, slots in edge order, no id loaded).
+(ii) and (iii) must give the dense form's bits at the kept channels and
+zeros elsewhere. `--sampled_only` runs these and nothing else.
 """
 from __future__ import annotations
 
@@ -308,11 +318,107 @@ def cbsr_forms(plan, rec, k: int, dim: int, post, vd, od, budgets, batches,
               f"{a['warps_per_sm']} resident warps an SM", flush=True)
 
 
+def sampled_probes(g, dim: int, k: int, seed: int, iters: int) -> None:
+    """Time (i) the dense backward form and MaxK's backward after it, (ii)
+    the k-channel gather form and (iii) the two-pass form, each pass alone,
+    on Aᵀ of g (module docstring); (ii) and (iii) checked bitwise against
+    (i) masked to the kept channels first."""
+    from spgemm_gnn_tpu_torch.graphs.stream_tiles import build_stream_plan
+    from spgemm_gnn_tpu_torch.kernels.maxk import maxk_bwd, maxk_fwd
+    from spgemm_gnn_tpu_torch.kernels.round import round_rows
+    from spgemm_gnn_tpu_torch.kernels.stream import (_slices,
+                                                     stream_ksample_at,
+                                                     stream_spmm,
+                                                     stream_sspmm_at)
+    from spgemm_gnn_tpu_torch.ops.norms import node_factors
+
+    bf16 = torch.bfloat16
+    n, e = g.num_nodes, g.num_edges
+    fwd = build_stream_plan(g.indptr, g.indices)
+    plan = build_stream_plan(g.t_indptr, g.t_indices)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    h = torch.randn((n, dim), generator=gen, device="cuda").to(bf16)
+    _, meta, ch = maxk_fwd(h, k, with_ids=True)
+    _, post = node_factors(g, "mean")
+    gy = torch.randn((n, dim), generator=gen, device="cuda")
+    m = round_rows(gy, post)
+    del gy
+    keep = torch.zeros((n, dim), dtype=torch.bool, device="cuda")
+    keep.scatter_(1, ch.long(), True)
+
+    def masked(y):
+        return torch.where(keep, y, torch.zeros((), dtype=y.dtype,
+                                                device=y.device))
+
+    def same(a, b) -> bool:
+        return bool(torch.equal(a.view(torch.int16 if a.dtype == bf16
+                                       else torch.int32),
+                                b.view(torch.int16 if b.dtype == bf16
+                                       else torch.int32)))
+
+    edge_bytes = 2 * dim
+    print(f"sampled backward probes (A^T, dim {dim}, k {k}, bf16 messages; "
+          f"no-reuse gather of {edge_bytes}-B rows "
+          f"{e * edge_bytes / PEAK_BYTES_S * 1e3:.3f} ms, of {2 * k}-B slots "
+          f"{e * 2 * k / PEAK_BYTES_S * 1e3:.3f} ms)", flush=True)
+    for od in (None, bf16):
+        out = "bf16 out" if od is not None else "f32 out"
+        dense = stream_spmm(plan, m, None, None, out_dtype=od)
+        want = masked(dense)
+        ms_dense = time_ms(lambda: stream_spmm(plan, m, None, None,
+                                               out_dtype=od), iters)
+        # MaxK's backward on the dense form's dx: f32 rows for the bf16x2
+        # stream, bf16 rows for the 16-bit model
+        g_mk, x_mk = dense, (h if od is not None else h.float())
+        ms_bwd = time_ms(lambda: maxk_bwd(x_mk, meta, g_mk), iters)
+        print(f"(i) dense stream_spmm_bf16 ({out}): {ms_dense:.3f} ms; "
+              f"maxk_bwd{'_bf16' if od is not None else ''} after it "
+              f"{ms_bwd:.3f} ms; together {ms_dense + ms_bwd:.3f} ms",
+              flush=True)
+        del dense, g_mk, x_mk
+        if _slices(k) == 1:
+            got = stream_ksample_at(plan, m, ch, g.t_edge_dst, None,
+                                    out_dtype=od)
+            if not same(got, want):
+                raise AssertionError(f"gather form ({out}): bits differ "
+                                     f"from the dense form's at the kept "
+                                     f"channels")
+            ms = time_ms(lambda: stream_ksample_at(
+                plan, m, ch, g.t_edge_dst, None, out_dtype=od), iters)
+            print(f"(ii) k-channel gather form ({out}): {ms:.3f} ms "
+                  f"({e / ms / 1e6:.3f} G edges/s); bitwise the dense "
+                  f"form's at the kept channels", flush=True)
+        slots = stream_sspmm_at(plan, fwd, m, ch, passes=(1,))
+        ms1 = time_ms(lambda: stream_sspmm_at(
+            plan, fwd, m, ch, passes=(1,), slots=slots), iters)
+        got = stream_sspmm_at(plan, fwd, m, ch, None, out_dtype=od)
+        if not same(got, want):
+            raise AssertionError(f"two-pass form ({out}): bits differ from "
+                                 f"the dense form's at the kept channels")
+        ms2 = time_ms(lambda: stream_sspmm_at(
+            plan, fwd, m, ch, None, out_dtype=od, passes=(2,),
+            slots=slots), iters)
+        ms = time_ms(lambda: stream_sspmm_at(
+            plan, fwd, m, ch, None, out_dtype=od, slots=slots), iters)
+        print(f"(iii) two-pass form ({out}): {ms:.3f} ms (pass 1 {ms1:.3f}, "
+              f"pass 2 {ms2:.3f}); bitwise the dense form's at the kept "
+              f"channels", flush=True)
+        if od is None and k % 4 == 0 and 16 < k <= 32:
+            for variant in ("no_store", "in_order", "no_ids"):
+                ms = time_ms(lambda: stream_sspmm_at(
+                    plan, fwd, m, ch, passes=(1,), slots=slots,
+                    variant=variant), iters)
+                print(f"(iii) pass 1 variant {variant} (wrong slots): "
+                      f"{ms:.3f} ms", flush=True)
+        del slots, want, got
+        torch.cuda.empty_cache()
+
+
 def sweep(dataset: str, budgets: list[int], depths: list[int],
           batches: list[int], dim: int, k: int, iters: int,
           seed: int, stream: str, cbsr_only: bool = False,
           outs: tuple[str, ...] = ("f32",),
-          with_probes: bool = False) -> None:
+          with_probes: bool = False, sampled_only: bool = False) -> None:
     from spgemm_gnn_tpu_torch.graphs.datasets import load_dataset
     from spgemm_gnn_tpu_torch.graphs.stream_tiles import build_stream_plan
     from spgemm_gnn_tpu_torch.kernels.cbsr import cbsr_compact
@@ -332,6 +438,9 @@ def sweep(dataset: str, budgets: list[int], depths: list[int],
     n, e = g.num_nodes, g.num_edges
     print(f"{dataset}: N={n} E={e} dim={dim} k={k} stream {stream}",
           flush=True)
+    if sampled_only:
+        sampled_probes(g, dim, k, seed, iters)
+        return
     bf16 = stream == "bf16x2"
     gen = torch.Generator(device="cuda").manual_seed(seed)
     y, _ = maxk_fwd(torch.randn((n, dim), generator=gen, device="cuda"), k)
@@ -375,6 +484,8 @@ def sweep(dataset: str, budgets: list[int], depths: list[int],
                    line)
     if with_probes:
         probes(g, rec, iters)
+        del rec
+        sampled_probes(g, dim, k, seed, iters)
 
 
 def main(argv=None) -> None:
@@ -398,7 +509,10 @@ def main(argv=None) -> None:
                     help="stream_cbsr_spmm's outputs, f32 and/or bf16 "
                          "(bf16 records only)")
     ap.add_argument("--probes", action="store_true",
-                    help="time the record gather probes")
+                    help="time the record gather probes and the forms of "
+                         "MaxK's backward on A^T")
+    ap.add_argument("--sampled_only", action="store_true",
+                    help="time only the forms of MaxK's backward on A^T")
     ap.add_argument("--sass", default="",
                     help="write the stream library's SASS here and print "
                          "the bf16-record walks' loops")
@@ -423,7 +537,7 @@ def main(argv=None) -> None:
     sweep(args.dataset, ints(args.budgets), ints(args.depths),
           batches, args.dim, args.k, args.iters, args.seed,
           args.stream, args.cbsr_only, tuple(args.out.split(",")),
-          args.probes)
+          args.probes, args.sampled_only)
 
 
 if __name__ == "__main__":

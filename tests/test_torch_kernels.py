@@ -18,17 +18,22 @@ import torch
 
 from spgemm_gnn_tpu_torch.graphs import synthetic as tsyn
 from spgemm_gnn_tpu_torch.graphs.csr import from_edges
+from spgemm_gnn_tpu_torch.graphs.stream_tiles import build_stream_plan
 from spgemm_gnn_tpu_torch.graphs.tiles import SEGMENT, CSRPlan
 from spgemm_gnn_tpu_torch.kernels import _build
 from spgemm_gnn_tpu_torch.kernels import api as tapi
 from spgemm_gnn_tpu_torch.kernels import maxk as tmaxk
 from spgemm_gnn_tpu_torch.kernels import planned as tplanned
 from spgemm_gnn_tpu_torch.kernels import spmm as tspmm
+from spgemm_gnn_tpu_torch.kernels import stream as tstream
+from spgemm_gnn_tpu_torch.kernels.round import round_rows
 from spgemm_gnn_tpu_torch.ops import maxk as tmaxk_plain
 from spgemm_gnn_tpu_torch.ops import spmm as tspmm_plain
+from spgemm_gnn_tpu_torch.ops.stream import stream_sspmm_plain
 from spgemm_gnn_tpu_torch.utils.rows import with_families
 
 SIGNED_ZERO_ROW = 5
+BF16 = torch.bfloat16
 
 
 def special_rows(rng, n: int, dim: int) -> np.ndarray:
@@ -310,3 +315,115 @@ def test_kernel_wrappers_raise_on_bad_input(cuda):
         tmaxk.maxk_fwd(torch.zeros((16, 50), device=cuda).t(), 4)
     with pytest.raises(ValueError, match="dim <= 1024"):
         tmaxk.maxk_fwd(torch.zeros((4, 2048), device=cuda), 4)
+
+
+def zero_rows(rng, n: int, dim: int, k: int) -> torch.Tensor:
+    """Random rows, and every third row with fewer than k positive values
+    and exact zeros past them (negatives below): its top-k keeps zeros."""
+    x = rng.standard_normal((n, dim)).astype(np.float32)
+    few = np.arange(0, n, 3)
+    x[few] = -np.abs(x[few]) - 1.0
+    x[few, dim - k:] = 0.0
+    x[few, dim - 3:] = np.abs(x[few, dim - 3:]) + 0.5
+    return torch.tensor(x)
+
+
+def near16(got, want) -> None:
+    """Within 1 bf16 ulp of want (2^-7 of its power of two), and off at
+    most 0.5 % of the values: the same bf16 terms summed in f32 in another
+    order, rounded once."""
+    got = got.detach().float().cpu().numpy().astype(np.float64)
+    want = want.detach().float().cpu().numpy().astype(np.float64)
+    mag = np.maximum(np.abs(want), 2.0 ** -120)
+    u = np.abs(got - want) / 2.0 ** (np.floor(np.log2(mag)) - 7)
+    assert u.max(initial=0.0) <= 1, u.max()
+    assert (u > 0).mean() <= 0.005, (u > 0).mean()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out16", [False, True])
+@pytest.mark.parametrize("chunk", [7, 128])
+@pytest.mark.parametrize("dim,k", [(32, 8), (256, 32), (256, 48),
+                                   (128, 100), (256, 255)])
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_stream_sspmm_bitwise_dense_on_gpu(cuda, symmetric, dim, k, chunk,
+                                           out16):
+    """stream_sspmm (_out) bit-equal to stream_spmm_bf16 (_out) on Aᵀ at
+    MaxK's kept channels (rows with kept zeros among them) and 0 elsewhere,
+    across two runs, with its passes run apart and, at k <= 32, the gather
+    probe; within 1e-5 of max |y| of the plain version (f32), or (bf16)
+    bitwise bf16(bf16(Σ) · bf16(post)) of the f32 form's sums Σ, bf16(Σ)
+    within 1 bf16 ulp of the plain version's."""
+    g = hub_graph(700, 9000, 3000, seed=dim + k,
+                  symmetric=symmetric).to(cuda)
+    fwd = build_stream_plan(g.indptr, g.indices, chunk=chunk)
+    plan = fwd if symmetric else build_stream_plan(g.t_indptr, g.t_indices,
+                                                   chunk=chunk)
+    rng = np.random.default_rng(dim * k + chunk)
+    h = zero_rows(rng, 700, dim, min(k, dim - 4)).to(cuda).to(BF16)
+    _, _, ch = tmaxk.maxk_fwd(h, k, with_ids=True)
+    pre = torch.tensor(rng.random(700).astype(np.float32) + 0.5, device=cuda)
+    post = torch.tensor(rng.random(700).astype(np.float32) + 0.5,
+                        device=cuda)
+    m = round_rows(torch.tensor(rng.standard_normal((700, dim)).astype(
+        np.float32), device=cuda), pre)
+    od = BF16 if out16 else None
+    keep = torch.zeros((700, dim), dtype=torch.bool, device=cuda)
+    keep.scatter_(1, ch.long(), True)
+    dense = tstream.stream_spmm(plan, m, None, post, out_dtype=od)
+    want = torch.where(keep, dense, torch.zeros((), dtype=dense.dtype,
+                                                device=cuda))
+    _build.launches.clear()
+    got = tstream.stream_sspmm(plan, fwd, m, ch, post, od)
+    name = "stream_sspmm_bf16_out" if out16 else "stream_sspmm_bf16"
+    assert dict(_build.launches) == {name: 1}
+    np.testing.assert_array_equal(ints(got), ints(want))
+    np.testing.assert_array_equal(ints(got), ints(tstream.stream_sspmm(
+        plan, fwd, m, ch, post, od)))
+    slots = tstream.stream_sspmm_at(plan, fwd, m, ch, passes=(1,))
+    np.testing.assert_array_equal(ints(got), ints(tstream.stream_sspmm_at(
+        plan, fwd, m, ch, post, out_dtype=od, passes=(2,), slots=slots)))
+    if k <= 32:
+        probe = tstream.stream_ksample_at(plan, m, ch, g.t_edge_dst, post,
+                                          out_dtype=od)
+        np.testing.assert_array_equal(ints(got), ints(probe))
+    if out16:
+        # bf16(bf16(Σ) · bf16(post)): bitwise the rounding of the f32
+        # form's sums, and the sums' rounding within 1 ulp of the plain
+        # version's (a second rounding can move a last-bit difference of
+        # the f32 sums by one more ulp)
+        sums = tstream.stream_sspmm(plan, fwd, m, ch)
+        np.testing.assert_array_equal(ints(got), ints(
+            sums.to(BF16) * post.to(BF16)[:, None]))
+        near16(tstream.stream_sspmm(plan, fwd, m, ch, None, od),
+               stream_sspmm_plain(plan, m, ch, None, od))
+    else:
+        plain = stream_sspmm_plain(plan, m, ch, post, od)
+        err = float((got - plain).abs().max())
+        assert err <= 1e-5 * float(plain.abs().max()), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("n", [7, 333, 100_003])
+@pytest.mark.parametrize("dim,k", [(48, 8), (100, 7), (256, 1), (256, 32),
+                                   (256, 255)])
+def test_maxk_ids_bitwise_plain_on_gpu(cuda, dim, k, n, dtype):
+    """maxk_fwd(..., with_ids=True) on the card: y and meta those of the
+    form without ids, the ids those of the plain version (kept zeros
+    included), on rows with kept zeros and the families of
+    utils/rows.py."""
+    rng = np.random.default_rng(dim + k + n)
+    x = zero_rows(rng, n, dim, min(k, dim - 4))
+    if n > 7:
+        with_families(x[n // 2:], k, torch.Generator().manual_seed(n), 2)
+    x = x.to(device=cuda, dtype=dtype)
+    y, meta, ids = tmaxk.maxk_fwd(x, k, with_ids=True)
+    y0, meta0 = tmaxk.maxk_fwd(x, k)
+    assert torch.equal(meta, meta0)
+    np.testing.assert_array_equal(ints(y), ints(y0))
+    np.testing.assert_array_equal(
+        ids.cpu().numpy(),
+        tmaxk_plain.maxk_channel_ids(x, meta, k).cpu().numpy())
+
+
