@@ -47,7 +47,18 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      bf16 ulp of its plain version; timed
      beside the dense form, the plain version, torch.sparse.mm bf16, the
      bound on the 96 B a record needs and its no-reuse gather (the 128-B
-     layout's on a line of its own);
+     layout's on a line of its own); then B2's sampled forms (MaxK's
+     backward on Aᵀ): maxk_fwd and maxk_fwd_bf16 with their kept
+     channels' ids at Reddit's shape (timed with and without), then
+     csr_sspmm_bf16 and csr_sspmm_bf16_out on Aᵀ at those channels under
+     the mean and gcn factors: bitwise equal to csr_spmm_bf16 / _bf16_out
+     at the kept channels and 0 elsewhere, across two runs and to their
+     plain version on integer messages, within 1e-5 of max |y| (f32 out)
+     or 1 bf16 ulp of the plain version (under the gcn factors the bf16
+     output bitwise the rounding of the f32 form's sums times
+     bf16(post)); timed beside the dense form and maxk_bwd after it, the
+     plain version, the bound, the no-reuse gathers and torch.sparse.mm
+     then torch.gather;
   5. train: the Reddit recipe (SAGE, MaxK k=32, hidden 256, 4 layers,
      LayerNorm, dropout 0.5, lr 0.01): its first two train steps through the
      kernels within 1e-4 relative of the plain path's (same weights and
@@ -57,14 +68,18 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      steps within 1e-4 relative of the same planned path through the plain
      versions (both round the same messages), 5 epochs with finite losses
      and exact launch counts (round_rows, cbsr_compact and
-     csr_cbsr_spmm_bf16 on the MaxK forwards at the default rule,
-     csr_spmm_bf16 on Aᵀ, no f32 aggregation launch), then 5 epochs with
-     STREAM_CBSR_FORWARD off (csr_spmm_bf16 on both), the default's losses
-     within 1e-6 relative of theirs (bit-equal at the same schedule); then
-     with `--dtype bfloat16` (first steps within 1e-3 relative of the
-     plain versions, exact counts of the 16-bit forms only: cbsr_compact_
-     bf16 and csr_cbsr_spmm_bf16_out forward at the default, no
-     round_rows, falling losses), default then flag off as for bf16x2;
+     csr_cbsr_spmm_bf16 on the MaxK forwards at the default rules,
+     csr_sspmm_bf16 on the MaxK backwards, no f32 aggregation launch),
+     then 5 epochs with STREAM_CBSR_FORWARD off (csr_spmm_bf16 forward),
+     the default's losses within 1e-6 relative of theirs (bit-equal at the
+     same schedule), and 5 with SAMPLED_BACKWARD off (csr_spmm_bf16 on
+     Aᵀ), the default's losses bit-equal to theirs, the steady epochs and
+     peak memory of the three runs on one line; then with `--dtype
+     bfloat16` (first steps within 1e-3 relative of the plain versions,
+     exact counts of the 16-bit forms only: cbsr_compact_bf16 and
+     csr_cbsr_spmm_bf16_out forward and csr_sspmm_bf16_out backward at the
+     default, no round_rows, falling losses), the three runs as for
+     bf16x2;
   6. model check: on a small graph (3000 nodes, 2 layers, ReLU, so only the
      aggregation kernel), every model family (SAGE, GCN, GIN, GNNRes and the
      three integrated MaxK models) through the kernels against the same
@@ -1939,6 +1954,209 @@ def sspmm16_check(torch, g, dim: int, k: int, seed: int) -> list[dict]:
     return entries
 
 
+def csr_sspmm16_check(torch, g, dim: int, k: int, seed: int) -> list[dict]:
+    """B2's 16-bit forms on MaxK's backward on a windowed plan (the sampled
+    backward on B2's schedule): csr_sspmm_bf16 and csr_sspmm_bf16_out on
+    Aᵀ of the Reddit graph at (dim, k), as the planner runs them on the
+    messages of the bf16x2 stream (round_rows(g, dst_f), f32 out) and of
+    the 16-bit model (dst_f ⊙ g in bf16, bf16 out), at the channels that
+    maxk_fwd keeps on seeded rows (rows with kept zeros among them), under
+    the mean and gcn factors. First maxk_fwd with ids at Reddit's shape,
+    timed beside the form without (what the ids cost the forward). Then
+    each form bitwise equal to the dense form (csr_spmm_bf16 / _out) at the
+    kept channels and 0 elsewhere and across two runs; within 1e-5 of max
+    |y| (f32 out) or 1 bf16 ulp (bf16 out, `near16`) of the plain version
+    (with a post factor the bf16 output bitwise bf16(bf16(Σ) · bf16(post))
+    of the f32-output form's sums Σ, and bf16(Σ) within 1 ulp of the plain
+    version's); on integer messages, whose f32 sums are exact in any order,
+    bitwise its plain version. Timed beside the dense form and maxk_bwd
+    after it, the plain version, the bound, the no-reuse gathers of the 2k
+    bytes an edge needs and of the 512-B row, and the nearest library
+    pair, torch.sparse.mm then torch.gather. Returns the two kernels-line
+    entries (mean factors; gcn under prefixed keys)."""
+    from spgemm_gnn_tpu_torch.graphs.tiles import CSRPlan
+    from spgemm_gnn_tpu_torch.kernels.maxk import maxk_bwd, maxk_fwd
+    from spgemm_gnn_tpu_torch.kernels.round import round_rows
+    from spgemm_gnn_tpu_torch.kernels.spmm import csr_spmm, csr_sspmm
+    from spgemm_gnn_tpu_torch.ops.maxk import maxk_channel_ids
+    from spgemm_gnn_tpu_torch.ops.norms import node_factors
+    from spgemm_gnn_tpu_torch.ops.spmm import _scale, csr_sspmm_plain
+
+    bf16 = torch.bfloat16
+    dev = g.indptr.device
+    n, e = g.num_nodes, g.num_edges
+    plan = CSRPlan(g.t_indptr, g.t_indices)
+    sched = plan.schedule(n, dim, 2)
+    x, gy = seeded_rows(torch, n, dim, k, seed + 7, dev)
+    ids_ms = {}
+    for xd in (x, x.to(bf16)):
+        y0, meta0 = maxk_fwd(xd, k)
+        y, meta, ids = maxk_fwd(xd, k, with_ids=True)
+        what = "maxk_fwd_bf16" if xd.dtype == bf16 else "maxk_fwd"
+        if not (equal_nan(torch, y, y0) and bits_equal(torch, meta, meta0)
+                and torch.equal(ids, maxk_channel_ids(xd, meta, k))):
+            raise AssertionError(f"{what} with ids (reddit): y, meta or ids "
+                                 f"differ")
+        ids_ms[what] = (time_ms(torch, lambda: maxk_fwd(xd, k, True), 20),
+                        time_ms(torch, lambda: maxk_fwd(xd, k), 20))
+        log(f"kernel {what} with ids (reddit, N={n} dim={dim} k={k}): "
+            f"{ids_ms[what][0]:.3f} ms with ids, {ids_ms[what][1]:.3f} "
+            f"without")
+        del y0, meta0, y
+    ch = ids   # the bf16 rows' kept channels
+    h16 = x.to(bf16)
+    del x
+    keep = torch.zeros((n, dim), dtype=torch.bool, device=dev)
+    keep.scatter_(1, ch.long(), True)
+    kept_zero = int((torch.gather(h16, 1, ch.long()) == 0).any(1).sum())
+    if not kept_zero:
+        raise AssertionError("csr_sspmm: no seeded row keeps a zero")
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    m_int = torch.randint(-4, 5, (n, dim), generator=gen,
+                          device=dev).to(bf16)
+
+    entries = []
+    for out16 in (False, True):
+        od = bf16 if out16 else None
+        ints = torch.int16 if out16 else torch.int32
+        name = "csr_sspmm_bf16_out" if out16 else "csr_sspmm_bf16"
+        entry = dict(
+            name=name, route="cuda",
+            source="spgemm_gnn_tpu_torch/csrc/spmm.cu",
+            replaces="spgemm_gnn_tpu/kernels/planned.py:233 sspmm_backward "
+                     "= spgemm_pallas.py:97 on Aᵀ (packed branch :124-129, "
+                     ":183-186" + ("; bf16 output planned.py:271-274, :300"
+                                   if out16 else "")
+                     + ") then spgemm_pallas.py:385 sample_channels",
+            nb=sched.nb,
+            maxk_fwd_ids_ms=ids_ms["maxk_fwd_bf16" if out16
+                                   else "maxk_fwd"][0],
+            maxk_fwd_no_ids_ms=ids_ms["maxk_fwd_bf16" if out16
+                                      else "maxk_fwd"][1])
+        got_int = csr_sspmm(plan, m_int, ch, None, od)
+        if not torch.equal(got_int.view(ints), csr_sspmm_plain(
+                sched.block_indptr, sched.indices, m_int, ch, None,
+                od).view(ints)):
+            raise AssertionError(f"{name} differs from its plain version on "
+                                 f"integer messages (exact sums)")
+        del got_int
+        for norm in ("mean", "gcn"):
+            src_f, dst_f = node_factors(g, norm)
+            m = (_scale(gy.to(bf16), dst_f).contiguous() if out16
+                 else round_rows(gy, dst_f))
+
+            def run():
+                return csr_sspmm(plan, m, ch, src_f, od)
+
+            got, again = run(), run()
+            dense = csr_spmm(plan, m, None, src_f, out_dtype=od)
+            want = torch.where(keep, dense, torch.zeros(
+                (), dtype=dense.dtype, device=dev))
+            torch.cuda.synchronize()
+            for other, against in ((want, "the dense form masked to the "
+                                    "kept channels"), (again, "a second run")):
+                if not torch.equal(got.view(ints), other.view(ints)):
+                    raise AssertionError(f"{name} ({norm}) differs from "
+                                         f"{against} in its bits")
+            del want, again
+            if out16 and src_f is not None:
+                # two roundings: held bitwise to the rounding of the
+                # f32-output form's sums, and those sums' rounding (no
+                # post) within 1 ulp of the plain version's (as
+                # sspmm16_check holds the stream form)
+                sums = csr_sspmm(plan, m, ch, None)
+                if not torch.equal(got.view(ints), rounded16(
+                        torch, sums, src_f).view(ints)):
+                    raise AssertionError(f"{name} ({norm}) differs from "
+                                         f"bf16(bf16(Σ) · bf16(post)) of "
+                                         f"its f32-output form's sums")
+                del sums
+                got = csr_sspmm(plan, m, ch, None, od)
+                plain = csr_sspmm_plain(sched.block_indptr, sched.indices, m,
+                                        ch, None, od)
+            else:
+                plain = csr_sspmm_plain(sched.block_indptr, sched.indices, m,
+                                        ch, src_f, od)
+            err = float((got.float() - plain.float()).abs().max())
+            if out16:
+                near = near16(torch, got, plain, f"{name} ({norm})")
+            else:
+                top = float(plain.abs().max())
+                if not err <= 1e-5 * top:
+                    raise AssertionError(f"{name} ({norm}): {err:.3e} from "
+                                         f"the plain version, above 1e-5 "
+                                         f"of max |y| {top:.3e}")
+                near = {}
+            del plain, got
+            mk_x = h16 if out16 else h16.float()
+            w = torch.ones(e, device=dev) if src_f is None else src_f[
+                g.t_edge_dst.long()]
+            a = torch.sparse_csr_tensor(g.t_indptr, g.t_indices, w.to(bf16),
+                                        size=(n, n))
+            chl = ch.long()
+
+            def library():
+                return torch.gather(torch.sparse.mm(a, m), 1, chl)
+            try:
+                library()
+                torch.cuda.synchronize()
+                lib_ms, lib_err = time_ms(torch, library, 5), None
+            except (RuntimeError, NotImplementedError) as exc:
+                lib_ms = None
+                lib_err = (f"{type(exc).__name__}: "
+                           f"{str(exc).splitlines()[0][:160]}")
+            del a
+            out_bytes = n * dim * (2 if out16 else 4)
+            n_bytes = (n * dim * 2 + n * k + e * 4 + (n + 1) * 4 + out_bytes
+                       + (0 if src_f is None else n * 4))
+            b_ms, b_by = bound_ms(n_bytes, 2.0 * e * k)
+            r = dict(
+                max_abs_err=err, **near, ms=time_ms(torch, run, 10),
+                dense_ms=time_ms(torch, lambda: csr_spmm(
+                    plan, m, None, src_f, out_dtype=od), 10),
+                maxk_bwd_ms=time_ms(torch, lambda: maxk_bwd(
+                    mk_x, meta, dense), 10),
+                plain_ms=time_ms(torch, lambda: csr_sspmm_plain(
+                    sched.block_indptr, sched.indices, m, ch, src_f, od), 2),
+                library_ms=lib_ms, library_error=lib_err, bound_ms=b_ms,
+                bound_by=b_by,
+                no_reuse_gather_ms=e * 2 * k / PEAK_BYTES_S * 1e3,
+                dense_gather_ms=e * 2 * dim / PEAK_BYTES_S * 1e3)
+            r["dense_maxk_bwd_ms"] = r["dense_ms"] + r["maxk_bwd_ms"]
+            del dense, m, mk_x
+            torch.cuda.empty_cache()
+            lib = (f"{lib_ms:.3f}" if lib_ms is not None
+                   else f"none ({lib_err})")
+            log(f"kernel {name} (reddit, A^T, {sched.nb} source blocks, "
+                f"{norm} factors, dim {dim}, k {k}, MaxK's channels, "
+                f"{kept_zero} rows keep a zero): bitwise equal to the dense "
+                f"form at the kept channels and 0 elsewhere, across two "
+                f"runs and to its plain version on integer messages; "
+                f"{err:.3e} max abs from the plain version"
+                + (f", {near_text(near)}" if out16 else "") + "; "
+                f"{r['ms']:.3f} ms (dense form {r['dense_ms']:.3f} and "
+                f"maxk_bwd{'_bf16' if out16 else ''} after it "
+                f"{r['maxk_bwd_ms']:.3f}; plain {r['plain_ms']:.3f}; "
+                f"torch.sparse.mm then torch.gather {lib}; bound "
+                f"{b_ms:.3f} by {b_by}; no-reuse gather {2 * k} B an edge "
+                f"{r['no_reuse_gather_ms']:.3f}, {2 * dim} B "
+                f"{r['dense_gather_ms']:.3f})")
+            keys = ("max_abs_err", "ms", "dense_ms", "maxk_bwd_ms",
+                    "dense_maxk_bwd_ms", "plain_ms", "library_ms",
+                    "library_error", "bound_ms", "bound_by",
+                    "no_reuse_gather_ms", "dense_gather_ms")
+            if norm == "mean":
+                entry.update({key: r[key] for key in keys})
+                entry.update({NEAR_KEYS[key]: r[key] for key in NEAR_KEYS
+                              if key in r})
+            else:
+                entry.update({f"gcn_{key}": r[key] for key in (
+                    "max_abs_err", "ms", "dense_ms", "bound_ms")})
+        entries.append(entry)
+    del keep, ch, h16, gy, meta, m_int
+    return entries
+
+
 def accuracy_check(torch) -> dict:
     """The 80-epoch accuracy check of the reference's trajectory gate
     (TRAJ_r03.json's config): the Reddit stand-in at scale 0.02, SAGE MaxK
@@ -2629,6 +2847,10 @@ def main() -> int:
     csr_cbsr16o = csr_cbsr16_check(torch, g, xs, post, True)
     del xs, gy
     torch.cuda.empty_cache()
+    # B2's 16-bit forms on MaxK's backward: the sampled backward on Aᵀ at
+    # the dense bf16 form's schedule
+    csr_sspmm16_entries = csr_sspmm16_check(torch, g, HIDDEN, K, SEED)
+    torch.cuda.empty_cache()
 
     cfg = TrainConfig(dataset="reddit", model="sage", nonlinear="maxk",
                       maxk=K, hidden_dim=HIDDEN, hidden_layers=layers,
@@ -2650,30 +2872,45 @@ def main() -> int:
         entry["launches_path"] = "train reddit"
 
     # the same recipe with the 16-bit stream: round_rows and the bf16
-    # forms, no f32 aggregation launch; at the default rule the MaxK
+    # forms, no f32 aggregation launch; at the default rules the MaxK
     # forwards take csr_cbsr_spmm_bf16 on the compacted input's records
-    # (csr_spmm_bf16 only on Aᵀ), then the flag off (csr_spmm_bf16 on
-    # both): the same schedule, so the same losses
+    # and the MaxK backwards csr_sspmm_bf16 on Aᵀ; then STREAM_CBSR_FORWARD
+    # off (csr_spmm_bf16 forward, the backwards on their own rule), then
+    # SAMPLED_BACKWARD off (csr_spmm_bf16 on Aᵀ): the same schedule, so the
+    # same losses
     cfg16 = cfg.replace(stream="bf16x2")
     first_steps16(torch, cfg16, ds, "train reddit, bf16x2")
     dense16 = {"maxk_fwd": EPOCHS * 2 * layers, "maxk_bwd": EPOCHS * layers,
                "round_rows": EPOCHS * 3 * layers}
+    cbsr_fwd16 = {"cbsr_compact": EPOCHS * 2 * layers,
+                  "csr_cbsr_spmm_bf16": EPOCHS * 2 * layers}
     reddit16 = run_training(torch, Trainer(cfg16, dataset=ds), {
-        **dense16, "cbsr_compact": EPOCHS * 2 * layers,
-        "csr_cbsr_spmm_bf16": EPOCHS * 2 * layers,
-        "csr_spmm_bf16": EPOCHS * layers}, "train reddit, bf16x2")
+        **dense16, **cbsr_fwd16, "csr_sspmm_bf16": EPOCHS * layers},
+        "train reddit, bf16x2")
     planned.STREAM_CBSR_FORWARD = False
     reddit16_off = run_training(torch, Trainer(cfg16, dataset=ds), {
-        **dense16, "csr_spmm_bf16": EPOCHS * 3 * layers},
+        **dense16, "csr_spmm_bf16": EPOCHS * 2 * layers,
+        "csr_sspmm_bf16": EPOCHS * layers},
         "train reddit, bf16x2, STREAM_CBSR_FORWARD off")
     planned.STREAM_CBSR_FORWARD = None
+    planned.SAMPLED_BACKWARD = False
+    reddit16_dense = run_training(torch, Trainer(cfg16, dataset=ds), {
+        **dense16, **cbsr_fwd16, "csr_spmm_bf16": EPOCHS * layers},
+        "train reddit, bf16x2, SAMPLED_BACKWARD off")
+    planned.SAMPLED_BACKWARD = None
     planned.DEFAULT_STREAM = "f32"
     same_losses(reddit16, reddit16_off, "train reddit, bf16x2")
+    bit_equal_losses(reddit16, reddit16_dense, "train reddit, bf16x2")
+    log_against_dense("train reddit, bf16x2", reddit16, reddit16_dense,
+                      reddit16_off)
     log(f"train reddit: steady epoch {reddit16['res']['steady_epoch_s']} s "
-        f"with bf16x2 ({reddit16_off['res']['steady_epoch_s']} s with the "
-        f"flag off), {reddit['res']['steady_epoch_s']} s with f32")
+        f"with bf16x2 ({reddit16_dense['res']['steady_epoch_s']} s with "
+        f"SAMPLED_BACKWARD off, {reddit16_off['res']['steady_epoch_s']} s "
+        f"with STREAM_CBSR_FORWARD off), {reddit['res']['steady_epoch_s']} s "
+        f"with f32")
     reddit16_counts = reddit16["counts"]
     reddit16_off_counts = reddit16_off["counts"]
+    reddit16_dense_counts = reddit16_dense["counts"]
 
     # the 16-bit model (--dtype bfloat16): MaxK and the aggregation in their
     # bf16 forms only, no f32 aggregation launch and no round_rows; the
@@ -2684,24 +2921,37 @@ def main() -> int:
                "maxk_bwd_bf16": EPOCHS * layers,
                "layer_norm16_fwd": EPOCHS * 2 * layers,
                "layer_norm16_bwd": EPOCHS * layers}
+    cbsr_fwd_b = {"cbsr_compact_bf16": EPOCHS * 2 * layers,
+                  "csr_cbsr_spmm_bf16_out": EPOCHS * 2 * layers}
     reddit_b = run_training(torch, Trainer(cfg_b, dataset=ds), {
-        **dense_b, "cbsr_compact_bf16": EPOCHS * 2 * layers,
-        "csr_cbsr_spmm_bf16_out": EPOCHS * 2 * layers,
-        "csr_spmm_bf16_out": EPOCHS * layers}, "train reddit, bfloat16")
+        **dense_b, **cbsr_fwd_b, "csr_sspmm_bf16_out": EPOCHS * layers},
+        "train reddit, bfloat16")
     require_fall(reddit_b, "train reddit, bfloat16")
     planned.STREAM_CBSR_FORWARD = False
     reddit_b_off = run_training(torch, Trainer(cfg_b, dataset=ds), {
-        **dense_b, "csr_spmm_bf16_out": EPOCHS * 3 * layers},
+        **dense_b, "csr_spmm_bf16_out": EPOCHS * 2 * layers,
+        "csr_sspmm_bf16_out": EPOCHS * layers},
         "train reddit, bfloat16, STREAM_CBSR_FORWARD off")
     planned.STREAM_CBSR_FORWARD = None
+    planned.SAMPLED_BACKWARD = False
+    reddit_b_dense = run_training(torch, Trainer(cfg_b, dataset=ds), {
+        **dense_b, **cbsr_fwd_b, "csr_spmm_bf16_out": EPOCHS * layers},
+        "train reddit, bfloat16, SAMPLED_BACKWARD off")
+    planned.SAMPLED_BACKWARD = None
     same_losses(reddit_b, reddit_b_off, "train reddit, bfloat16")
+    bit_equal_losses(reddit_b, reddit_b_dense, "train reddit, bfloat16")
+    log_against_dense("train reddit, bfloat16", reddit_b, reddit_b_dense,
+                      reddit_b_off)
     log(f"train reddit: steady epoch {reddit_b['res']['steady_epoch_s']} s "
-        f"with bfloat16 ({reddit_b_off['res']['steady_epoch_s']} s with the "
-        f"flag off; {reddit['res']['steady_epoch_s']} s f32, "
-        f"{reddit16['res']['steady_epoch_s']} s bf16x2)")
+        f"with bfloat16 ({reddit_b_dense['res']['steady_epoch_s']} s with "
+        f"SAMPLED_BACKWARD off, {reddit_b_off['res']['steady_epoch_s']} s "
+        f"with STREAM_CBSR_FORWARD off; {reddit['res']['steady_epoch_s']} s "
+        f"f32, {reddit16['res']['steady_epoch_s']} s bf16x2)")
     reddit_b_counts = reddit_b["counts"]
     reddit_b_off_counts = reddit_b_off["counts"]
-    del ds, g, reddit, reddit16, reddit16_off, reddit_b, reddit_b_off
+    reddit_b_dense_counts = reddit_b_dense["counts"]
+    del ds, g, reddit, reddit16, reddit16_off, reddit16_dense, reddit_b
+    del reddit_b_off, reddit_b_dense
     torch.cuda.empty_cache()
 
     for kind in ("windowed", "stream"):
@@ -2952,12 +3202,22 @@ def main() -> int:
         "csr_spmm_bf16", "spgemm_gnn_tpu_torch/csrc/spmm.cu",
         "spgemm_gnn_tpu/kernels/spgemm_pallas.py:97 (packed branch "
         ":124-129, :183-186)", csr16_a, csr16_t))
-    kernels[-1].update(launches=reddit16_counts["csr_spmm_bf16"],
-                       launches_path="train reddit, bf16x2",
-                       flag_off_launches=reddit16_off_counts["csr_spmm_bf16"])
+    # at the default the MaxK forwards take csr_cbsr_spmm_bf16 and the
+    # MaxK backwards csr_sspmm_bf16: this form runs on the paths with
+    # either flag off
+    kernels[-1].update(
+        launches=reddit16_dense_counts["csr_spmm_bf16"],
+        launches_path="train reddit, bf16x2, SAMPLED_BACKWARD off",
+        default_launches=reddit16_counts.get("csr_spmm_bf16", 0),
+        flag_off_launches=reddit16_off_counts["csr_spmm_bf16"])
     csr_cbsr16.update(launches=reddit16_counts["csr_cbsr_spmm_bf16"],
                       launches_path="train reddit, bf16x2")
     kernels.append(csr_cbsr16)
+    csr_sspmm16_entries[0].update(
+        launches=reddit16_counts["csr_sspmm_bf16"],
+        launches_path="train reddit, bf16x2",
+        flag_off_launches=reddit16_off_counts["csr_sspmm_bf16"])
+    kernels.append(csr_sspmm16_entries[0])
     kernels.append(entry16(
         "stream_spmm_bf16", "spgemm_gnn_tpu_torch/csrc/stream.cu",
         "spgemm_gnn_tpu/kernels/stream_pallas.py:37 (bf16 stream, "
@@ -2993,12 +3253,18 @@ def main() -> int:
         "spgemm_gnn_tpu/kernels/spgemm_pallas.py:97 (bf16 output: "
         "planned.py:271-274, :300)", csr16o_a, csr16o_t))
     kernels[-1].update(
-        launches=reddit_b_counts["csr_spmm_bf16_out"],
-        launches_path="train reddit, bfloat16",
+        launches=reddit_b_dense_counts["csr_spmm_bf16_out"],
+        launches_path="train reddit, bfloat16, SAMPLED_BACKWARD off",
+        default_launches=reddit_b_counts.get("csr_spmm_bf16_out", 0),
         flag_off_launches=reddit_b_off_counts["csr_spmm_bf16_out"])
     csr_cbsr16o.update(launches=reddit_b_counts["csr_cbsr_spmm_bf16_out"],
                        launches_path="train reddit, bfloat16")
     kernels.append(csr_cbsr16o)
+    csr_sspmm16_entries[1].update(
+        launches=reddit_b_counts["csr_sspmm_bf16_out"],
+        launches_path="train reddit, bfloat16",
+        flag_off_launches=reddit_b_off_counts["csr_sspmm_bf16_out"])
+    kernels.append(csr_sspmm16_entries[1])
     kernels.append(entry16(
         "stream_spmm_bf16_out", "spgemm_gnn_tpu_torch/csrc/stream.cu",
         "spgemm_gnn_tpu/kernels/stream_pallas.py:37 (out_dtype, :217-242)",

@@ -85,6 +85,39 @@
 // every edge, only without the additions of an exact zero, which leave an
 // f32 sum unchanged (a batch sum starts at +0 and never becomes -0). So at
 // the same schedule y is csr_spmm_bf16's on the densified rows bit for bit.
+//
+// csr_sspmm_bf16, the fourth export (with out16 the bf16 output; counted as
+// csr_sspmm_bf16 and csr_sspmm_bf16_out), is MaxK's backward on a windowed
+// plan: it replaces the TPU kernels' composition in
+// spgemm_gnn_tpu/kernels/planned.py:233 sspmm_backward (B2's packed branch,
+// spgemm_pallas.py:97, :124-129, :183-186, on Aᵀ, out_dtype planned.py:
+// 271-274, :300, then B4's channel sampling, spgemm_pallas.py:385), behind
+// the port's SAMPLED_BACKWARD rule. The cotangent of an aggregation whose
+// input is MaxK's output is needed only at the k channels ch[u, .] each row
+// kept: dx[u, ch[u, j]] = post[u] * sum_v m[v, ch[u, j]], 0 at the row's
+// other channels. Bound on this card at Reddit (k 32, dim 256): bytes, each
+// once (m 119.3 MB, the ids 7.5 MB, Aᵀ's indices 453.2 MB, y 238.6 MB f32
+// or 119.3 MB bf16), 0.244 ms (0.209 bf16 out); the 2 E k operations take
+// 0.108 ms; the 64 B an edge needs, gathered with no reuse, 2.16 ms. The
+// dense bf16 form reads a 512-B row an edge from L2 (its source blocks keep
+// the slab there) at the rate L2 serves such rows (8.49 ms) and keeps 1/8
+// of what it adds. Design: the dense form's schedule, passes, fix-up and
+// layers of the sum, at k channels (csr_sspmm16_kernel): a warp loads its
+// row's ids once a segment, and lane j adds the 2-byte m[v, ch[u, j]] of
+// each edge from the L2-resident slab, so a warp load touches the sectors
+// of the k channels (about 14 of a row's 16 at k 32) and adds only what is
+// kept. A row's sums stay compact across the block passes, in an N x k f32
+// accumulator (30 MB at Reddit, which L2 holds beside the slab) in place of
+// the dense y's 2 GB of pass-to-pass traffic, and the dense output row is
+// written once, at the row's last block, through a shared-memory row. Each
+// kept channel's sum runs in the dense form's order (its FMA by a pre
+// factor of 1 is this add), so it is csr_spmm_bf16's value bit for bit,
+// and the bf16 output takes round_out's rule. Two two-pass forms
+// (stream_sspmm's 2k-byte slots, written in the schedule's order or in
+// A's) lost to it on the H100 (6.70 against 10.6 and 11.7 ms;
+// utils/csr_sweep.py --sampled_only, PERF.md); modes 1 and 2 keep their
+// second passes for that probe.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -542,6 +575,223 @@ int run_cbsr16(const int4* seg, const int4* fix, const int64_t* pass_seg,
   return (int)cudaGetLastError();
 }
 
+// ---- csr_sspmm_bf16: MaxK's backward at the kept channels --------------
+
+// source loads of csr_sspmm16_kernel: MODE 0 gathers lane j's channel of a
+// message row (the product), 1 and 2 read a 2k-byte slot an edge (the
+// two-pass probes of utils/csr_sweep.py): 1 at the edge's position in the
+// schedule, 2 at the row where[position] names
+constexpr int kGather = 0, kSlotsInOrder = 1, kSlotsAt = 2;
+
+// edges a warp has in flight: KT loads each, 16 a lane
+template <int KT>
+constexpr int kAheadS = 16 / KT;
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// A row's compact sums (lane j holds channel ch[row, j + 32 t] in v[t])
+// after a pass, as store_row treats a dense row: written to the compact
+// accumulator acc [n_rows, k] on the row's first block, else added to it;
+// on its last block the dense output row is written through the warp's
+// shared row `buf`: 0 at every channel but the kept ones, which take v *
+// post (f32 y) or bf16(bf16(v) * bf16(post)) (bf16 y, round_out's rule).
+template <int KT, bool OUT16>
+__device__ __forceinline__ void finish_sampled(
+    float (&v)[KT], const int (&c)[KT], int row, int flags,
+    const float* __restrict__ post, float* __restrict__ acc,
+    void* __restrict__ y, float4* __restrict__ buf, int dim, int k,
+    int lane) {
+  float* ar = acc + (int64_t)row * k;
+#pragma unroll
+  for (int t = 0; t < KT; ++t) {
+    const int j = lane + 32 * t;
+    if (j < k && !(flags & kFirst)) v[t] = ar[j] + v[t];
+  }
+  if (!(flags & kLast)) {
+#pragma unroll
+    for (int t = 0; t < KT; ++t) {
+      const int j = lane + 32 * t;
+      if (j < k) ar[j] = v[t];
+    }
+    return;
+  }
+  const int n16 = OUT16 ? dim / 8 : dim / 4;  // 16-byte words of a y row
+  for (int q = lane; q < n16; q += 32)
+    buf[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncwarp();
+  if constexpr (OUT16) {
+    const float p = post != nullptr ? bf16_round(post[row]) : 1.f;
+    __nv_bfloat16* b16 = reinterpret_cast<__nv_bfloat16*>(buf);
+#pragma unroll
+    for (int t = 0; t < KT; ++t)
+      if (lane + 32 * t < k)
+        b16[c[t]] = __float2bfloat16_rn(bf16_round(v[t]) * p);
+  } else {
+    const float p = post != nullptr ? post[row] : 1.f;
+    float* b32 = reinterpret_cast<float*>(buf);
+#pragma unroll
+    for (int t = 0; t < KT; ++t)
+      if (lane + 32 * t < k) b32[c[t]] = v[t] * p;
+  }
+  __syncwarp();
+  float4* yr = static_cast<float4*>(y) + (int64_t)row * n16;
+  for (int q = lane; q < n16; q += 32) __stcs(yr + q, buf[q]);
+}
+
+// One warp per segment (row, lo, hi, out) of csr_spmm's schedule, at the
+// row's k kept channels only: lane j sums channel c = ch[row, j] (then j +
+// 32, ...) of each edge's source, m[u, c] (MODE 0), batches of 32 edges
+// from +0 in edge order, each batch's sum added to the segment's: the
+// dense bf16 kernel's sums at that channel (its FMA by a pre factor of 1
+// is this add). The row's ids are loaded once a segment; the source ids a
+// batch ahead, as the dense kernel loads them; kAheadS edges' loads in
+// flight a lane. A whole segment finishes its row (finish_sampled), a
+// piece of a split run leaves its sums in compact scratch slot `out`.
+template <int KT, int MODE, bool OUT16>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+csr_sspmm16_kernel(const int4* __restrict__ seg, int64_t n_seg,
+                   const int* __restrict__ ids,
+                   const uint16_t* __restrict__ src,
+                   const uint8_t* __restrict__ ch,
+                   const float* __restrict__ post, float* __restrict__ acc,
+                   float* __restrict__ scratch, void* __restrict__ y,
+                   int dim, int k) {
+  constexpr int D = kAheadS<KT>;
+  extern __shared__ float4 sspmm_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t i = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
+  if (i >= n_seg) return;  // i is uniform across the warp
+  const int4 s = seg[i];
+  int c[KT];
+  float v[KT];
+#pragma unroll
+  for (int t = 0; t < KT; ++t) {
+    const int j = lane + 32 * t;
+    c[t] = j < k ? ch[(int64_t)s.x * k + j] : 0;
+    v[t] = 0.f;
+  }
+  // MODE 0: the batch's source ids; MODE 2: its slot rows
+  int un = MODE != kSlotsInOrder && s.y + lane < s.z ? ids[s.y + lane] : 0;
+  for (int base = s.y; base < s.z; base += 32) {
+    const int u = un;
+    un = MODE != kSlotsInOrder && base + 32 + lane < s.z
+             ? ids[base + 32 + lane]
+             : 0;
+    const int cnt = min(32, s.z - base);
+    float part[KT];  // this batch's sums
+#pragma unroll
+    for (int t = 0; t < KT; ++t) part[t] = 0.f;
+    for (int jj = 0; jj < cnt; jj += D) {  // D divides 32: jj + d < 32
+      uint16_t q[D][KT];
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const int64_t r = MODE == kSlotsInOrder
+                              ? (int64_t)(base + jj + d)
+                              : (int64_t)__shfl_sync(kFull, u, jj + d);
+#pragma unroll
+        for (int t = 0; t < KT; ++t) {
+          const int j = lane + 32 * t;
+          q[d][t] = 0;
+          if (jj + d < cnt && j < k)
+            q[d][t] = __ldg(src + (MODE == kGather ? r * dim + c[t]
+                                                   : r * k + j));
+        }
+      }
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        if (jj + d < cnt) {
+#pragma unroll
+          for (int t = 0; t < KT; ++t)
+            part[t] += __uint_as_float((unsigned)q[d][t] << 16);
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < KT; ++t) v[t] += part[t];
+  }
+  if (s.w < 0) {
+    finish_sampled<KT, OUT16>(v, c, s.x, -1 - s.w, post, acc, y,
+                              sspmm_smem + warp * (dim / 4), dim, k, lane);
+    return;
+  }
+  float* out = scratch + (int64_t)s.w * k;
+#pragma unroll
+  for (int t = 0; t < KT; ++t) {
+    const int j = lane + 32 * t;
+    if (j < k) out[j] = v[t];
+  }
+}
+
+// One warp per split run (row, slot_lo, slot_hi, flags): its pieces'
+// compact sums in order, then the row as a whole segment's
+// (csr_fixup_kernel on the kept channels).
+template <int KT, bool OUT16>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+csr_sspmm16_fixup_kernel(const int4* __restrict__ fix, int64_t n_fix,
+                         const uint8_t* __restrict__ ch,
+                         const float* __restrict__ post,
+                         const float* __restrict__ scratch,
+                         float* __restrict__ acc, void* __restrict__ y,
+                         int dim, int k) {
+  extern __shared__ float4 sspmm_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t i = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
+  if (i >= n_fix) return;  // i is uniform across the warp
+  const int4 f = fix[i];
+  int c[KT];
+  float v[KT];
+#pragma unroll
+  for (int t = 0; t < KT; ++t) {
+    const int j = lane + 32 * t;
+    c[t] = j < k ? ch[(int64_t)f.x * k + j] : 0;
+    v[t] = j < k ? scratch[(int64_t)f.y * k + j] : 0.f;
+  }
+  for (int q = f.y + 1; q < f.z; ++q) {
+#pragma unroll
+    for (int t = 0; t < KT; ++t) {
+      const int j = lane + 32 * t;
+      if (j < k) v[t] += scratch[(int64_t)q * k + j];
+    }
+  }
+  finish_sampled<KT, OUT16>(v, c, f.x, f.w, post, acc, y,
+                            sspmm_smem + warp * (dim / 4), dim, k, lane);
+}
+
+// csr_sspmm16_kernel's passes, as run's: each source block's segments,
+// then its split runs' fix-ups.
+template <int KT, int MODE, bool OUT16>
+int run_sspmm16(const int4* seg, const int4* fix, const int64_t* pass_seg,
+                const int64_t* pass_fix, int nb, const int* ids,
+                const uint16_t* src, const uint8_t* ch, const float* post,
+                float* acc, float* scratch, void* y, int dim, int k,
+                cudaStream_t s) {
+  const size_t smem = (size_t)kWarpsPerBlock * dim * 4;
+  for (int b = 0; b < nb; ++b) {
+    const int64_t n_seg = pass_seg[b + 1] - pass_seg[b];
+    if (n_seg > 0) {
+      csr_sspmm16_kernel<KT, MODE, OUT16>
+          <<<blocks_for(n_seg), kWarpsPerBlock * 32, smem, s>>>(
+              seg + pass_seg[b], n_seg, ids, src, ch, post, acc, scratch, y,
+              dim, k);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    const int64_t n_fix = pass_fix[b + 1] - pass_fix[b];
+    if (n_fix > 0) {
+      csr_sspmm16_fixup_kernel<KT, OUT16>
+          <<<blocks_for(n_fix), kWarpsPerBlock * 32, smem, s>>>(
+              fix + pass_fix[b], n_fix, ch, post, scratch, acc, y, dim, k);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // y <- post * (A (pre * x)) over a schedule (graphs/tiles.py::CSRSchedule):
@@ -610,4 +860,55 @@ extern "C" int csr_cbsr_spmm_bf16(const void* seg, const void* fix,
       return CBSR16(8, 4);
   }
 #undef CBSR16
+}
+
+// dx <- MaxK's backward product at its kept channels, over csr_spmm's
+// schedule of Aᵀ (seg, fix, pass_seg, pass_fix, nb, indices as in
+// csr_spmm): y[r, ch[r, j]] = post[r] * sum over r's edges of m[u, ch[r,
+// j]], csr_spmm_bf16's value there bit for bit, and 0 at r's other
+// channels. m bf16 [n_src, dim] (the messages, pre folded in), ch uint8
+// [n_rows, k] (distinct within a row), post f32 [n_rows] or null; acc f32
+// [n_rows, k] and scratch f32 [n_slots, k] (null without split runs) are
+// the compact sums; y f32 [n_rows, dim], or with out16 bf16(bf16(sum) *
+// bf16(post)). mode 0 is the product; 1 and 2 are the two-pass probes of
+// utils/csr_sweep.py (k <= 32): m is then a slot buffer bf16 [E, k],
+// read at each edge's position (1) or at the row where[position] (2,
+// `where` int32 [E], else unused). Needs dim % 8 == 0, 8 <= dim <= 256, 1
+// <= k < dim and a 16-byte aligned y.
+extern "C" int csr_sspmm_bf16(const void* seg, const void* fix,
+                              const void* pass_seg, const void* pass_fix,
+                              int nb, const void* indices, const void* m,
+                              const void* where, const void* ch,
+                              const void* post, void* acc, void* scratch,
+                              void* y, int k, int dim, int out16, int mode,
+                              void* stream) {
+  if (dim < 8 || dim % 8 != 0 || dim > 256 || k < 1 || k >= dim || nb < 1 ||
+      mode < kGather || mode > kSlotsAt || (mode != kGather && k > 32))
+    return (int)cudaErrorInvalidValue;
+#define SSPMM16(KT_, M_, O_)                                                 \
+  run_sspmm16<KT_, M_, O_>(                                                  \
+      static_cast<const int4*>(seg), static_cast<const int4*>(fix),         \
+      static_cast<const int64_t*>(pass_seg),                                \
+      static_cast<const int64_t*>(pass_fix), nb,                            \
+      static_cast<const int*>(M_ == kSlotsAt ? where : indices),            \
+      static_cast<const uint16_t*>(m), static_cast<const uint8_t*>(ch),     \
+      static_cast<const float*>(post), static_cast<float*>(acc),            \
+      static_cast<float*>(scratch), y, dim, k,                              \
+      static_cast<cudaStream_t>(stream))
+#define SSPMM16_OUT(KT_, M_) \
+  (out16 ? SSPMM16(KT_, M_, true) : SSPMM16(KT_, M_, false))
+  if (mode == kSlotsInOrder) return SSPMM16_OUT(1, kSlotsInOrder);
+  if (mode == kSlotsAt) return SSPMM16_OUT(1, kSlotsAt);
+  switch (slices(k)) {
+    case 1:
+      return SSPMM16_OUT(1, kGather);
+    case 2:
+      return SSPMM16_OUT(2, kGather);
+    case 4:
+      return SSPMM16_OUT(4, kGather);
+    default:
+      return SSPMM16_OUT(8, kGather);
+  }
+#undef SSPMM16_OUT
+#undef SSPMM16
 }

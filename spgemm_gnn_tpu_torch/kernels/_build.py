@@ -42,7 +42,9 @@ SIGNATURES = {
     "spmm": {**{name: [_P, _P, _P, _P, _INT, _P, _P, _P, _P, _P, _P, _INT,
                        _P] for name in ("csr_spmm", "csr_spmm_bf16")},
              "csr_cbsr_spmm_bf16": [_P, _P, _P, _P, _INT, _P, _P, _P, _P, _P,
-                                    _INT, _INT, _P]},
+                                    _INT, _INT, _P],
+             "csr_sspmm_bf16": [*[_P] * 4, _INT, *[_P] * 8, *[_INT] * 4,
+                                _P]},
     "stream": {"stream_spmm": [*[_P] * 10, *[_I64] * 4, *[_INT] * 4, _P],
                "stream_spmm_bf16": [*[_P] * 10, *[_I64] * 4, *[_INT] * 4,
                                     _P],

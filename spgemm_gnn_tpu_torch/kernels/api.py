@@ -93,9 +93,10 @@ def aggregate(g, x: torch.Tensor, norm: str = "sum", k: int | None = None,
     CBSR. The backward is the dense kernel
     on Aᵀ (the aggregation is linear and MaxK's own backward applies the
     mask), or, given `ids` (the channels x's MaxK kept, `maxk_op(...,
-    with_ids=True)`), by `kernels.planned.SAMPLED_BACKWARD`'s rule
-    `stream_sspmm` at those channels only. impl "torch" takes the plain
-    dense product.
+    with_ids=True)`), by `kernels.planned.SAMPLED_BACKWARD`'s rule the
+    sampled form at those channels only (`stream_sspmm` on a stream plan,
+    `csr_sspmm` on a windowed one). impl "torch" takes the plain dense
+    product.
     """
     _check_impl(impl, x)
     if impl == "torch":

@@ -23,10 +23,10 @@ k-sparse input of k < dim <= 256), the forward of either entry point takes
 the CBSR form of the plan's kernel instead: `stream_cbsr_spmm` on a stream
 plan, and on a windowed plan, for bf16 records only, `csr_cbsr_spmm` (the
 models' path compacts its k-sparse input first). Where `SAMPLED_BACKWARD`
-takes it (`sampled_backward`: by default a stream plan, bf16 messages and
-the channel ids of the MaxK whose output x is, k < dim <= 256), the
-models' backward computes only the channels that MaxK kept
-(`stream_sspmm`), the dense backward's bits there.
+takes it (`sampled_backward`: by default bf16 messages and the channel ids
+of the MaxK whose output x is, k < dim <= 256), the models' backward
+computes only the channels that MaxK kept (`stream_sspmm` on a stream
+plan, `csr_sspmm` on a windowed one), the dense backward's bits there.
 
 `DEFAULT_STREAM` selects the feature stream of every product, forward on A
 and backward on Aᵀ: "f32" (exact), or "bf16x2", the reference's 16-bit
@@ -57,7 +57,8 @@ from spgemm_gnn_tpu_torch.graphs.tiles import (CHUNK, CSRPlan, auto_window,
 from spgemm_gnn_tpu_torch.kernels.cbsr import (cbsr_compact, cbsr_densify,
                                                cbsr_sample)
 from spgemm_gnn_tpu_torch.kernels.round import round_rows
-from spgemm_gnn_tpu_torch.kernels.spmm import csr_cbsr_spmm, csr_spmm
+from spgemm_gnn_tpu_torch.kernels.spmm import (csr_cbsr_spmm, csr_spmm,
+                                               csr_sspmm)
 from spgemm_gnn_tpu_torch.kernels.stream import (MAX_CBSR_DIM,
                                                  STREAM_DTYPES,
                                                  stream_cbsr_spmm, stream_spmm,
@@ -105,24 +106,29 @@ STREAM_CBSR_FORWARD: bool | None = None
 # (possibly after dropout) needs its input gradient only at the k channels
 # MaxK kept, since MaxK's backward zeroes the rest. Given MaxK's kept
 # channels (`kernels/maxk.py::maxk_fwd(..., with_ids=True)`, which the
-# models pass as `ids`), the backward on a stream plan then takes
-# `stream_sspmm`: each edge moves k values instead of a row of dim, and at
-# the kept channels dx is the dense backward's bit for bit (zeros
-# elsewhere), so the losses are the dense run's. A port-only selection:
-# the reference's backward is dense (`spgemm_gnn_tpu/kernels/planned.py:
-# 326`), and its `sspmm_backward` (dense, then `sample_channels`) is this
-# function at the CBSR API. Read at each call (`sampled_backward`):
-# - None (the default): the rule. Take it on a stream plan, with bf16
+# models pass as `ids`), the backward then takes the sampled form of the
+# plan's kernel: `stream_sspmm` on a stream plan (each edge moves k values
+# instead of a row of dim), `csr_sspmm` on a windowed one (k channels of
+# each gathered row, at the dense form's schedule). At the kept channels
+# dx is the dense backward's bit for bit (zeros elsewhere), so the losses
+# are the dense run's. A port-only selection: the reference's backward is
+# dense (`spgemm_gnn_tpu/kernels/planned.py:326`), and its `sspmm_backward`
+# (dense, then `sample_channels`) is this function at the CBSR API. Read
+# at each call (`sampled_backward`):
+# - None (the default): the rule. Take it on either plan kind, with bf16
 #   messages (the bf16x2 stream, or bf16 activations), MaxK's ids given,
 #   and k < dim <= 256 (uint8 ids);
 # - True: the same, raising above dim 256;
-# - False: the dense backward (`stream_spmm` on Aᵀ).
-# A windowed plan and the f32 stream keep the dense backward under every
-# value: they have no sampled kernel yet. On the ogbn-products stand-in
-# (SAGE recipe, k 32, dim 256, NVIDIA H100 80GB HBM3, 700 W power limit)
-# the dense bf16 backward takes 20.1 ms a layer (PERF.md §6); the sampled
-# one's time and the epochs with and without it are in PERF.md §5-§6
-# (chip_smoke.py's products phases).
+# - False: the dense backward (`stream_spmm` or `csr_spmm` on Aᵀ).
+# The f32 stream on f32 activations keeps the dense backward under every
+# value: it has no sampled kernel. Measured on an NVIDIA H100 80GB HBM3 at
+# a 700 W power limit (k 32, dim 256; PERF.md §5-§6): on the
+# ogbn-products stand-in (SAGE recipe) the dense bf16 backward takes 20.1
+# ms a layer, `stream_sspmm` 15.2 (chip_smoke.py's products phases); on
+# the Reddit stand-in's windowed plan `csr_spmm_bf16` then `maxk_bwd`
+# took 8.79 ms and `csr_sspmm` 6.70 in one call (`_out`: 9.53 against
+# 6.66), ahead of both two-pass forms (10.1-11.7 ms; utils/csr_sweep.py
+# --sampled_only).
 SAMPLED_BACKWARD: bool | None = None
 
 # The feature stream of the planned products: "f32" or "bf16x2" (the name,
@@ -156,14 +162,13 @@ def sampled_backward(plan, k: int | None, dim: int,
                      dtype: torch.dtype) -> bool:
     """Whether the backward on `plan` (Aᵀ) of an aggregation whose input
     of width `dim` and `dtype` is the output of a MaxK whose k kept
-    channels are given (k None: none are) takes `stream_sspmm`
-    (SAMPLED_BACKWARD's rule): a stream plan, bf16 messages (bf16
-    activations or the bf16x2 stream), k < dim; under the default (None)
-    also dim <= 256, while True takes it regardless (and the kernel's
-    wrapper raises above dim 256)."""
-    if SAMPLED_BACKWARD is False or k is None:
-        return False
-    if not isinstance(plan, StreamPlan) or k >= dim:
+    channels are given (k None: none are) takes the sampled form,
+    `stream_sspmm` on a stream plan and `csr_sspmm` on a windowed one
+    (SAMPLED_BACKWARD's rule): bf16 messages (bf16 activations or the
+    bf16x2 stream), k < dim; under the default (None) also dim <= 256,
+    while True takes it regardless (and the kernels' wrappers raise above
+    dim 256)."""
+    if SAMPLED_BACKWARD is False or k is None or k >= dim:
         return False
     if not (dtype == torch.bfloat16 or _stream16()):
         return False
@@ -349,15 +354,18 @@ def _plan_spmm16(plan, x: torch.Tensor, post: torch.Tensor | None,
 def plan_sspmm(plan, fwd_plan, g: torch.Tensor, ids: torch.Tensor,
                pre: torch.Tensor | None,
                post: torch.Tensor | None) -> torch.Tensor:
-    """`plan_spmm(plan, g, pre, post)` on the stream plan `plan` (the
-    transpose of `fwd_plan`) at each row's channels ids[v] only, zeros
-    elsewhere (`stream_sspmm`): the messages are the dense form's, bf16(pre
-    ⊙ g) under the bf16x2 stream (y f32), pre ⊙ g in bf16 for bf16 g (y
-    bf16)."""
+    """`plan_spmm(plan, g, pre, post)` on the transpose `plan` of
+    `fwd_plan` at each row's channels ids[v] only, zeros elsewhere:
+    `stream_sspmm` on a stream plan, `csr_sspmm` on a windowed one. The
+    messages are the dense form's, bf16(pre ⊙ g) under the bf16x2 stream
+    (y f32), pre ⊙ g in bf16 for bf16 g (y bf16)."""
     if g.dtype == torch.bfloat16:
-        return stream_sspmm(plan, fwd_plan, _scale(g, pre).contiguous(), ids,
-                            post, torch.bfloat16)
-    return stream_sspmm(plan, fwd_plan, round_rows(g, pre), ids, post)
+        m, out_dtype = _scale(g, pre).contiguous(), torch.bfloat16
+    else:
+        m, out_dtype = round_rows(g, pre), None
+    if isinstance(plan, StreamPlan):
+        return stream_sspmm(plan, fwd_plan, m, ids, post, out_dtype)
+    return csr_sspmm(plan, m, ids, post, out_dtype)
 
 
 class Aggregate(torch.autograd.Function):

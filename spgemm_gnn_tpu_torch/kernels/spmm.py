@@ -21,6 +21,13 @@ gives `csr_spmm_bf16`'s y on the densified rows bit for bit. With `out_dtype=tor
 `csr_cbsr_spmm_bf16_out` (counted under that name): the same sums, then
 `round_out`, as `csr_spmm_bf16_out`. Plain version: `ops/spmm.py::
 csr_cbsr_plain`.
+
+`csr_sspmm` is MaxK's backward on a windowed plan (the sampled backward):
+the product on Aᵀ of bf16 messages at each row's k kept channels only, 0
+at the others, through the dense bf16 form's schedule: kernel
+`csr_sspmm_bf16` (counted as `csr_sspmm_bf16`, or `csr_sspmm_bf16_out`
+with a bf16 output, which it rounds itself), `csr_spmm`'s bits at the kept
+channels. Plain version: `ops/spmm.py::csr_sspmm_plain`.
 """
 from __future__ import annotations
 
@@ -29,7 +36,8 @@ import torch
 from spgemm_gnn_tpu_torch.graphs.tiles import CSRPlan
 from spgemm_gnn_tpu_torch.kernels import _build
 from spgemm_gnn_tpu_torch.ops.maxk import record_words
-from spgemm_gnn_tpu_torch.ops.spmm import csr_blocked_plain, csr_cbsr_plain
+from spgemm_gnn_tpu_torch.ops.spmm import (csr_blocked_plain, csr_cbsr_plain,
+                                           csr_sspmm_plain)
 
 MAX_DIM = 1024   # a row's accumulators live in one warp's registers
 # the CBSR kernels take dim <= 256: f32 records pack their ids as uint8 (the
@@ -49,6 +57,27 @@ def check_out_dtype(in_dtype: torch.dtype, out_dtype: torch.dtype | None,
     if in_dtype != torch.bfloat16:
         raise ValueError(f"a bf16 output needs bf16 {what}; got {in_dtype}")
     return True
+
+
+def check_sampled(plan, m: torch.Tensor, ch: torch.Tensor,
+                  out_dtype: torch.dtype | None, what: str) -> bool:
+    """Raise unless m is bf16 [S, dim] (dim % 8 == 0, 8 <= dim <= 256) and
+    ch uint8 [plan.num_rows, k] with 1 <= k < dim, naming the sampled
+    backward `what`; True for a bf16 output."""
+    if m.dtype != torch.bfloat16 or m.dim() != 2:
+        raise ValueError(f"{what} takes bf16 messages [S, dim]; got "
+                         f"{m.dtype} {tuple(m.shape)}")
+    out16 = check_out_dtype(m.dtype, out_dtype)
+    dim = m.shape[1]
+    if dim % 8 or not 8 <= dim <= MAX_CBSR_DIM:
+        raise ValueError(f"{what} needs dim % 8 == 0 and 8 <= dim <= "
+                         f"{MAX_CBSR_DIM} (uint8 channel ids); got {dim}")
+    if (ch.dtype != torch.uint8 or ch.dim() != 2
+            or ch.shape[0] != plan.num_rows or not 1 <= ch.shape[1] < dim):
+        raise ValueError(f"{what} takes channel ids uint8 "
+                         f"[{plan.num_rows}, k] with 1 <= k < {dim}; got "
+                         f"{ch.dtype} {tuple(ch.shape)}")
+    return out16
 
 
 def csr_spmm(plan: CSRPlan, x: torch.Tensor, pre: torch.Tensor | None = None,
@@ -78,14 +107,9 @@ def csr_spmm(plan: CSRPlan, x: torch.Tensor, pre: torch.Tensor | None = None,
     if dim % 4 or not 4 <= dim <= MAX_DIM:
         raise ValueError(f"csr_spmm needs dim % 4 == 0 and 4 <= dim <= "
                          f"{MAX_DIM}; got {dim}")
-    n_rows = plan.num_rows
-    for t, what in ((sched.indices, "indices"), (sched.seg, "seg"),
-                    (sched.fix, "fix")):
-        _build.require(t, what, torch.int32, dev)
+    _require_schedule(plan, sched, dev, post)
     if pre is not None:
         _build.require(pre, "pre", torch.float32, dev, (n_src,))
-    if post is not None:
-        _build.require(post, "post", torch.float32, dev, (n_rows,))
     _build.require_aligned(x, "x")
     return _launch(plan, sched, "csr_spmm_bf16" if bf16 else "csr_spmm", x,
                    (x.data_ptr(), None if pre is None else pre.data_ptr()),
@@ -102,8 +126,7 @@ def _launch(plan: CSRPlan, sched, kernel: str, src: torch.Tensor,
     `_out` name."""
     dev, n_rows, dim = src.device, plan.num_rows, tail[-1]
     y = torch.empty((n_rows, dim), dtype=torch.float32, device=dev)
-    scratch = torch.empty((sched.n_slots, dim), dtype=torch.float32,
-                          device=dev) if sched.n_slots else None
+    scratch = _scratch(sched, dim, dev)
     if not n_rows:
         return y.to(torch.bfloat16) if out16 else y
     with torch.cuda.device(dev):
@@ -124,6 +147,21 @@ def _launch(plan: CSRPlan, sched, kernel: str, src: torch.Tensor,
             y = y16
     _build.launches[f"{kernel}_out" if out16 else kernel] += 1
     return y
+
+
+def _scratch(sched, width: int, dev: torch.device) -> torch.Tensor | None:
+    """The split runs' slots of a pass: f32 [n_slots, width], or None."""
+    return torch.empty((sched.n_slots, width), dtype=torch.float32,
+                       device=dev) if sched.n_slots else None
+
+
+def _require_schedule(plan: CSRPlan, sched, dev: torch.device,
+                      post: torch.Tensor | None) -> None:
+    for t, what in ((sched.indices, "indices"), (sched.seg, "seg"),
+                    (sched.fix, "fix")):
+        _build.require(t, what, torch.int32, dev)
+    if post is not None:
+        _build.require(post, "post", torch.float32, dev, (plan.num_rows,))
 
 
 def _check_records(records: torch.Tensor, k: int, dim: int) -> None:
@@ -156,10 +194,82 @@ def csr_cbsr_spmm(plan: CSRPlan, records: torch.Tensor, k: int, dim: int,
     dev = records.device
     _build.require(records, "records", torch.int32, dev, (None, None))
     _build.require_aligned(records, "records")
-    for t, what in ((sched.indices, "indices"), (sched.seg, "seg"),
-                    (sched.fix, "fix")):
-        _build.require(t, what, torch.int32, dev)
-    if post is not None:
-        _build.require(post, "post", torch.float32, dev, (plan.num_rows,))
+    _require_schedule(plan, sched, dev, post)
     return _launch(plan, sched, "csr_cbsr_spmm_bf16", records,
                    (records.data_ptr(),), post, out16, (k, dim))
+
+
+def csr_sspmm(plan: CSRPlan, m: torch.Tensor, ch: torch.Tensor,
+              post: torch.Tensor | None = None,
+              out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """dx[r, c] = post[r] · Σ_{u ∈ in(r)} m[u, c] for the k channels c =
+    ch[r, :] of each row r of the plan's CSR (Aᵀ of the forward), 0 at r's
+    other channels: m bf16 [S, dim] (the messages, a pre factor already in
+    them), ch uint8 [plan.num_rows, k] (distinct within a row, from
+    `kernels.maxk.maxk_fwd(..., with_ids=True)`) → dx f32 [R, dim], or
+    with out_dtype bf16, bf16(bf16(Σ) · bf16(post)). At each kept channel
+    the bits of `csr_spmm(plan, m, None, post, out_dtype)`, through the
+    same schedule."""
+    check_sampled(plan, m, ch, out_dtype, "csr_sspmm")
+    if _build.on_cpu(m):
+        sched = plan.schedule(m.shape[0], m.shape[1], 2)
+        return csr_sspmm_plain(sched.block_indptr, sched.indices, m, ch,
+                               post, out_dtype)
+    return csr_sspmm_at(plan, m, ch, post, out_dtype=out_dtype)
+
+
+def csr_sspmm_at(plan: CSRPlan, m: torch.Tensor, ch: torch.Tensor,
+                 post: torch.Tensor | None = None, *,
+                 out_dtype: torch.dtype | None = None,
+                 slots: torch.Tensor | None = None,
+                 where: torch.Tensor | None = None) -> torch.Tensor:
+    """`csr_sspmm`'s kernel on CUDA tensors. With `slots` (bf16 [E, k], k
+    <= 32), the second pass of the two-pass probes of utils/csr_sweep.py
+    instead: each edge's k terms read from its slot at the edge's position
+    in the schedule's indices, or, with `where` (int32 [E]), from slot
+    where[position]; m then only sizes the schedule. Only the product is
+    counted."""
+    out16 = check_sampled(plan, m, ch, out_dtype, "csr_sspmm")
+    dev = m.device
+    n_src, dim = m.shape
+    k = ch.shape[1]
+    sched = plan.schedule(n_src, dim, 2)
+    _build.require(m, "m", torch.bfloat16, dev, (n_src, dim))
+    _build.require(ch, "ch", torch.uint8, dev, (plan.num_rows, k))
+    _require_schedule(plan, sched, dev, post)
+    mode = 0
+    if slots is not None:
+        if k > 32:
+            raise ValueError(f"the slot probes take k <= 32; got {k}")
+        _build.require(slots, "slots", torch.bfloat16, dev,
+                       (sched.indices.numel(), k))
+        mode = 1
+        if where is not None:
+            _build.require(where, "where", torch.int32, dev,
+                           (sched.indices.numel(),))
+            mode = 2
+    elif where is not None:
+        raise ValueError("where names slot rows: give slots too")
+    n_rows = plan.num_rows
+    y = torch.empty((n_rows, dim),
+                    dtype=torch.bfloat16 if out16 else torch.float32,
+                    device=dev)
+    acc = torch.empty((n_rows, k), dtype=torch.float32, device=dev)
+    scratch = _scratch(sched, k, dev)
+    if not n_rows:
+        return y
+    name = "csr_sspmm_bf16_out" if out16 else "csr_sspmm_bf16"
+    with torch.cuda.device(dev):
+        status = _build.library("spmm").csr_sspmm_bf16(
+            sched.seg.data_ptr(), sched.fix.data_ptr(),
+            sched.pass_seg.data_ptr(), sched.pass_fix.data_ptr(), sched.nb,
+            sched.indices.data_ptr(),
+            (m if slots is None else slots).data_ptr(),
+            None if where is None else where.data_ptr(), ch.data_ptr(),
+            None if post is None else post.data_ptr(), acc.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), y.data_ptr(),
+            k, dim, int(out16), mode, _build.stream_of(m))
+        _build.check(status, name)
+    if not mode:
+        _build.launches[name] += 1
+    return y

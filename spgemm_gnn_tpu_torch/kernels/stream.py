@@ -39,7 +39,7 @@ import torch
 
 from spgemm_gnn_tpu_torch.kernels import _build
 from spgemm_gnn_tpu_torch.kernels.spmm import (MAX_CBSR_DIM, MAX_DIM,
-                                               check_out_dtype)
+                                               check_out_dtype, check_sampled)
 from spgemm_gnn_tpu_torch.ops.maxk import packed_channel_words, record_words
 from spgemm_gnn_tpu_torch.ops.stream import (stream_cbsr_spmm_plain,
                                              stream_spmm_plain,
@@ -306,27 +306,6 @@ def stream_cbsr16_attrs(k: int, dim: int, batch: int | None = None,
                 warps_per_sm=blocks * 8)
 
 
-def _check_sampled(plan, m: torch.Tensor, ch: torch.Tensor,
-                   out_dtype: torch.dtype | None) -> bool:
-    """Raise unless m is bf16 [S, dim] (dim % 8 == 0, 8 <= dim <= 256) and
-    ch uint8 [plan.num_rows, k] with 1 <= k < dim; True for a bf16
-    output."""
-    if m.dtype != torch.bfloat16 or m.dim() != 2:
-        raise ValueError(f"stream_sspmm takes bf16 messages [S, dim]; got "
-                         f"{m.dtype} {tuple(m.shape)}")
-    out16 = check_out_dtype(m.dtype, out_dtype)
-    dim = m.shape[1]
-    if dim % 8 or not 8 <= dim <= MAX_CBSR_DIM:
-        raise ValueError(f"stream_sspmm needs dim % 8 == 0 and 8 <= dim <= "
-                         f"{MAX_CBSR_DIM} (uint8 channel ids); got {dim}")
-    if (ch.dtype != torch.uint8 or ch.dim() != 2
-            or ch.shape[0] != plan.num_rows or not 1 <= ch.shape[1] < dim):
-        raise ValueError(f"stream_sspmm takes channel ids uint8 "
-                         f"[{plan.num_rows}, k] with 1 <= k < {dim}; got "
-                         f"{ch.dtype} {tuple(ch.shape)}")
-    return out16
-
-
 def stream_sspmm(plan, fwd_plan, m: torch.Tensor, ch: torch.Tensor,
                  post: torch.Tensor | None = None,
                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -338,7 +317,7 @@ def stream_sspmm(plan, fwd_plan, m: torch.Tensor, ch: torch.Tensor,
     [plan.num_rows, dim], or with out_dtype bf16, bf16(bf16(Σ) ·
     bf16(post)). At each kept channel the bits of `stream_spmm(plan, m,
     None, post, out_dtype)`."""
-    _check_sampled(plan, m, ch, out_dtype)
+    check_sampled(plan, m, ch, out_dtype, "stream_sspmm")
     if _build.on_cpu(m):
         return stream_sspmm_plain(plan, m, ch, post, out_dtype)
     return stream_sspmm_at(plan, fwd_plan, m, ch, post, out_dtype=out_dtype)
@@ -378,7 +357,7 @@ def stream_sspmm_at(plan, fwd_plan, m: torch.Tensor, ch: torch.Tensor,
     (passes (1,) only, k 20 to 32 and a multiple of 4; wrong slots by
     design): "no_store" (no slot stored), "in_order" (each slot at its own
     edge) or "no_ids" (no id loaded)."""
-    out16 = _check_sampled(plan, m, ch, out_dtype)
+    out16 = check_sampled(plan, m, ch, out_dtype, "stream_sspmm")
     dev = m.device
     n_src, dim = m.shape
     k = ch.shape[1]
@@ -446,7 +425,7 @@ def stream_ksample_at(plan, m: torch.Tensor, ch: torch.Tensor,
     edge u -> v (edge_row int32 [E], each edge's row v of the plan), with
     the plan's hot set at the messages' row size. The same bits as
     `stream_sspmm`; for utils/stream_sweep.py's probe, never on the path."""
-    out16 = _check_sampled(plan, m, ch, out_dtype)
+    out16 = check_sampled(plan, m, ch, out_dtype, "stream_sspmm")
     dev = m.device
     n_src, dim = m.shape
     k = ch.shape[1]

@@ -20,6 +20,9 @@ they sum what the bf16 kernels gather.
 `csr_cbsr_plain` is the plain version of the `csr_cbsr_spmm` CUDA kernel
 (kernels/spmm.py): the same blocked sum on a k-sparse input given as one
 bf16 CBSR record per node (`ops/maxk.py::cbsr_records`), densified first.
+`csr_sspmm_plain` is the plain version of the `csr_sspmm` kernels (MaxK's
+backward on a windowed plan): the blocked sum kept at each row's k
+channels, zeros elsewhere.
 
 The 16-bit model (`--dtype bfloat16`): with `out_dtype=torch.bfloat16` the
 f32 sum is rounded once to bf16 and then scaled by the post factor in bf16
@@ -120,6 +123,20 @@ def csr_cbsr_plain(block_indptr: torch.Tensor, indices: torch.Tensor,
     return csr_blocked_plain(block_indptr, indices,
                              cbsr_to_dense(_widen(values), ch, dim), None,
                              post, out_dtype)
+
+
+def csr_sspmm_plain(block_indptr: torch.Tensor, indices: torch.Tensor,
+                    m: torch.Tensor, ch: torch.Tensor,
+                    post: torch.Tensor | None = None,
+                    out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """`csr_blocked_plain(block_indptr, indices, m, None, post,
+    out_dtype)` with each row r kept at its channels ch[r] (uint8 [R, k])
+    and 0 elsewhere."""
+    y = csr_blocked_plain(block_indptr, indices, m, None, post, out_dtype)
+    keep = torch.zeros(y.shape, dtype=torch.bool, device=y.device)
+    keep.scatter_(1, ch.long(), True)
+    return torch.where(keep, y, torch.zeros((), dtype=y.dtype,
+                                            device=y.device))
 
 
 def spmm(g, x: torch.Tensor, norm: str = "sum") -> torch.Tensor:

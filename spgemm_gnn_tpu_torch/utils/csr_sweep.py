@@ -4,7 +4,7 @@ source blocks and segment sizes (the measurements behind
 
     python -m spgemm_gnn_tpu_torch.utils.csr_sweep [--dataset reddit] \
         [--blocks auto,1,10] [--segments 512,1024] [--dim 256] [--iters 5] \
-        [--stream f32|bf16x2] [--probes]
+        [--stream f32|bf16x2] [--probes] [--sampled_only]
 
 On the synthetic stand-in at full size (seed 97), for A (the input MaxK at
 k 32 then dropout 0.5, under the mean factors, as on the training path) and
@@ -25,6 +25,21 @@ gathers them, and nothing scattered, so that the records' share of the
 product's time is on record; and beside it the CBSR forms themselves
 (`csr_cbsr_spmm`, f32 and bf16 out) on those records at that schedule,
 each first checked bit for bit against csr_spmm's bf16 form on the rows.
+
+`--sampled_only` times the forms of MaxK's backward on Aᵀ instead, on bf16
+messages (the 16-bit stream's bf16(dst_f ⊙ g), f32 out, and the 16-bit
+model's dst_f ⊙ g in bf16, bf16 out; mean factors) at k 32 with the ids of
+`maxk_fwd(..., with_ids=True)` on bf16 rows, the schedule of bf16 rows
+(about 90 s with the Reddit build): (i) the dense form (`csr_spmm_bf16` /
+`_out`) then `maxk_bwd` / `maxk_bwd_bf16`; (ii) `csr_sspmm`, the k-channel
+gather on B2's schedule; (iii) two passes: pass 1 (stream_sspmm's
+`sspmm_slots_bf16` on a StreamPlan of A) writes each edge's 2k-byte slot at
+its position in the Aᵀ schedule's indices, pass 2 (`csr_sspmm_at(...,
+slots=)`) reads them in order over the schedule; (iv) pass 1 writes the
+slots in A's edge order and pass 2 reads slot where[position]. Each pass
+is also timed alone, and pass 1 with no slot stored; (ii)-(iv) are each
+first checked bitwise against the dense form at the kept channels, and
+maxk_fwd is timed with and without ids.
 Prints the card's name and power limit first.
 """
 from __future__ import annotations
@@ -257,6 +272,142 @@ def sweep(dataset: str, blocks: list, segments: list[int], dim: int,
         del ref
 
 
+def schedule_positions(g, sched) -> torch.Tensor:
+    """int32 [E]: for each edge of g's in-CSR (A), in its order, the
+    position of its transposed edge in the indices of `sched`, a schedule
+    of the transpose CSR (Aᵀ re-bucketed by source block, stably)."""
+    from spgemm_gnn_tpu_torch.graphs.stream_tiles import transpose_positions
+    tp = transpose_positions(g.indptr, g.indices, g.t_indptr,
+                             g.t_indices).long()
+    if sched.nb == 1:
+        return tp.int()
+    order = torch.sort(g.t_indices.long() // sched.block_rows,
+                       stable=True).indices
+    at = torch.empty_like(order)
+    at[order] = torch.arange(order.numel(), device=order.device)
+    return at[tp].int()
+
+
+def sampled(dataset: str, dim: int, iters: int, seed: int) -> None:
+    """`--sampled_only`: the forms of MaxK's backward on Aᵀ (module
+    docstring), each checked and timed in this one process."""
+    from spgemm_gnn_tpu_torch.graphs.datasets import load_dataset
+    from spgemm_gnn_tpu_torch.graphs.stream_tiles import build_stream_plan
+    from spgemm_gnn_tpu_torch.graphs.tiles import CSRPlan
+    from spgemm_gnn_tpu_torch.kernels import _build
+    from spgemm_gnn_tpu_torch.kernels.maxk import maxk_bwd, maxk_fwd
+    from spgemm_gnn_tpu_torch.kernels.round import round_rows
+    from spgemm_gnn_tpu_torch.kernels.spmm import (csr_spmm, csr_sspmm,
+                                                   csr_sspmm_at)
+    from spgemm_gnn_tpu_torch.kernels.stream import new_slots
+    from spgemm_gnn_tpu_torch.ops.norms import node_factors
+    from spgemm_gnn_tpu_torch.ops.spmm import _scale
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip(), flush=True)
+    ds = load_dataset(dataset, allow_synthetic=True, data_path="/nonexistent",
+                      synthetic_scale=1.0, seed=seed)
+    g = ds.graph.to("cuda")
+    del ds
+    n, e = g.num_nodes, g.num_edges
+    bf16, k = torch.bfloat16, 32
+    print(f"{dataset}: N={n} E={e} dim={dim} k={k}, MaxK's backward on A^T",
+          flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randn((n, dim), generator=gen, device="cuda").to(bf16)
+    gy = torch.randn((n, dim), generator=gen, device="cuda")
+    _, meta, ch = maxk_fwd(h, k, with_ids=True)
+    for rows in (h, h.float()):
+        with_ids = time_ms(lambda: maxk_fwd(rows, k, True), 20)
+        without = time_ms(lambda: maxk_fwd(rows, k), 20)
+        print(f"maxk_fwd{'_bf16' if rows.dtype == bf16 else ''}: "
+              f"{with_ids:.3f} ms with ids, {without:.3f} without", flush=True)
+    keep = torch.zeros((n, dim), dtype=torch.bool, device="cuda")
+    keep.scatter_(1, ch.long(), True)
+    src_f, dst_f = node_factors(g, "mean")
+    plan = CSRPlan(g.t_indptr, g.t_indices)
+    sched = plan.schedule(n, dim, 2)
+    print(f"A^T schedule: {sched.nb} source blocks, {sched.num_segments} "
+          f"segments, {sched.num_split_runs} split runs", flush=True)
+    fwd = build_stream_plan(g.indptr, g.indices)
+    t0 = time.perf_counter()
+    pos = schedule_positions(g, sched)
+    where = torch.empty_like(pos)
+    where[pos.long()] = torch.arange(e, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    print(f"positions: {time.perf_counter() - t0:.2f} s "
+          f"({2 * e * 4 / 2**30:.2f} GiB with their inverse)", flush=True)
+    slots = new_slots(e, k, torch.device("cuda"))
+    in_order = torch.arange(e, dtype=torch.int32, device="cuda")
+    lib = _build.library("stream")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def pass1(m, perm, mode=0):
+        _build.check(lib.sspmm_slots_bf16(
+            fwd.indptr.data_ptr(), fwd.indices.data_ptr(),
+            fwd.chunk_row0.data_ptr(), perm.data_ptr(), m.data_ptr(),
+            ch.data_ptr(), slots.data_ptr(), fwd.num_rows, fwd.num_chunks,
+            e, fwd.chunk, fwd.warp_chunks, dim, k, mode, stream),
+            "sspmm_slots_bf16")
+
+    out_bytes = {None: 4, bf16: 2}
+    for od in (None, bf16):
+        m = (_scale(gy.to(bf16), dst_f).contiguous() if od is not None
+             else round_rows(gy, dst_f))
+        tag = "_out" if od is not None else ""
+        mk = h if od is not None else h.float()
+        dense = csr_spmm(plan, m, None, src_f, out_dtype=od)
+        want = torch.where(keep, dense, torch.zeros((), dtype=dense.dtype,
+                                                    device="cuda"))
+        ints = torch.int16 if od is not None else torch.int32
+
+        def same(got, what):
+            if not torch.equal(got.view(ints), want.view(ints)):
+                raise AssertionError(f"{what}{tag}: bits differ from the "
+                                     f"dense form at the kept channels")
+
+        same(csr_sspmm(plan, m, ch, src_f, od), "(ii) csr_sspmm")
+        pass1(m, pos)
+        same(csr_sspmm_at(plan, m, ch, src_f, out_dtype=od, slots=slots),
+             "(iii) slots in schedule order")
+        pass1(m, in_order, 2)
+        same(csr_sspmm_at(plan, m, ch, src_f, out_dtype=od, slots=slots,
+                          where=where), "(iv) slots in A's order")
+        t = dict(
+            dense=time_ms(lambda: csr_spmm(plan, m, None, src_f,
+                                           out_dtype=od), iters),
+            maxk_bwd=time_ms(lambda: maxk_bwd(mk, meta, dense), iters),
+            gather=time_ms(lambda: csr_sspmm(plan, m, ch, src_f, od), iters),
+            p1_sched=time_ms(lambda: pass1(m, pos), iters),
+            p2_sched=time_ms(lambda: csr_sspmm_at(
+                plan, m, ch, src_f, out_dtype=od, slots=slots), iters),
+            p1_in_order=time_ms(lambda: pass1(m, in_order, 2), iters),
+            p2_at=time_ms(lambda: csr_sspmm_at(
+                plan, m, ch, src_f, out_dtype=od, slots=slots, where=where),
+                iters),
+            p1_no_store=time_ms(lambda: pass1(m, pos, 1), iters))
+        n_bytes = (n * dim * 2 + n * k + e * 4 + (n + 1) * 4
+                   + n * dim * out_bytes[od])
+        print(f"sampled{tag}: bitwise the dense form at the kept channels "
+              f"((ii), (iii), (iv)); bound {n_bytes / PEAK_BYTES_S * 1e3:.3f}"
+              f" ms by bytes, {2 * e * k / 67e12 * 1e3:.3f} by operations; "
+              f"no-reuse gather {2 * k} B an edge "
+              f"{e * 2 * k / PEAK_BYTES_S * 1e3:.3f} ms, {2 * dim} B "
+              f"{e * 2 * dim / PEAK_BYTES_S * 1e3:.3f}", flush=True)
+        print(f"sampled{tag}: (i) dense {t['dense']:.3f} + maxk_bwd "
+              f"{t['maxk_bwd']:.3f} = {t['dense'] + t['maxk_bwd']:.3f} ms; "
+              f"(ii) gather {t['gather']:.3f}; (iii) pass 1 "
+              f"{t['p1_sched']:.3f} + pass 2 {t['p2_sched']:.3f} = "
+              f"{t['p1_sched'] + t['p2_sched']:.3f}; (iv) pass 1 in order "
+              f"{t['p1_in_order']:.3f} + pass 2 at where "
+              f"{t['p2_at']:.3f} = {t['p1_in_order'] + t['p2_at']:.3f}; "
+              f"pass 1 with no slot stored {t['p1_no_store']:.3f}",
+              flush=True)
+        del m, mk, dense, want
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     from spgemm_gnn_tpu_torch.graphs.tiles import SEGMENT
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -269,7 +420,12 @@ def main(argv=None) -> None:
     ap.add_argument("--stream", default="f32", choices=["f32", "bf16x2"])
     ap.add_argument("--probes", action="store_true",
                     help="time the record-gather probe on A at each schedule")
+    ap.add_argument("--sampled_only", action="store_true",
+                    help="time the forms of MaxK's backward on A^T instead")
     args = ap.parse_args(argv)
+    if args.sampled_only:
+        sampled(args.dataset, args.dim, args.iters, args.seed)
+        return
     sweep(args.dataset, args.blocks.split(","),
           [int(s) for s in args.segments.split(",")], args.dim, args.iters,
           args.seed, args.stream, args.probes)
