@@ -80,6 +80,21 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      csr_cbsr_spmm_bf16_out forward and csr_sspmm_bf16_out backward at the
      default, no round_rows, falling losses), the three runs as for
      bf16x2;
+ 5b. timing and benches, on the Reddit graph: the aggregation share of a
+     train step (utils/timing.py: step_s, aggregation_s, aggregation_pct)
+     at f32 and `--dtype bfloat16`; 5 epochs of the bfloat16 recipe with
+     `--steps_per_call 4` and evaluations every 5 epochs (a CUDA graph of
+     the step, replayed 4 times), its losses and final weights bit-equal to
+     the same run at steps_per_call 1 and its launches, captured once x
+     replays + eager, equal to that run's (this run stays out of the
+     kernels line's counts), both steady epochs printed; the bench harness
+     at `--scale medium` (29,121 nodes, E about 13.7M, dim 256, k 32):
+     validate_numerics passing, the ELL baseline within 1e-5 of max |y| of
+     a float64 plain sum, bench_aggregation with torch, ell and cuda (the
+     baselines on a 6M-edge cut graph); then `python -m
+     spgemm_gnn_tpu_torch.bench --scale medium` in a subprocess, its one
+     JSON line parsed (with the copy and gather rates it measures); each
+     line beside the card's name and power limit;
   6. model check: on a small graph (3000 nodes, 2 layers, ReLU, so only the
      aggregation kernel), every model family (SAGE, GCN, GIN, GNNRes and the
      three integrated MaxK models) through the kernels against the same
@@ -203,6 +218,7 @@ the card's name and power limit after it; the last line is
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -210,6 +226,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 PEAK_BYTES_S = 3.35e12    # H100 SXM HBM3
 PEAK_F32_FLOP_S = 67e12   # H100 SXM f32 outside the tensor cores
@@ -2764,6 +2781,141 @@ def serve_phase(torch, cfg, ds, workdir: str) -> None:
             f"{in_tol:.3e} of max |logit|, {off} rows off (MaxK near-ties), "
             f"argmax agreement {agree:.4f}; every store's logits equal")
 
+# the batched-steps check: steps_per_call groups of 4 between evaluations
+# every 5 epochs (an eval every epoch would leave no group to batch)
+BATCH_STEPS, BATCH_EVAL = 4, 5
+# the harness at `bench.py --scale medium`: an eighth of Reddit's nodes at
+# its average degree
+MEDIUM = (29_121, 14_325_000)
+
+
+def bench_phase(torch, cfg, ds) -> None:
+    """Timing and the benches on the Reddit recipe's graph (phase 5b): the
+    aggregation share of a step (utils/timing.py) at f32 and bfloat16; the
+    bfloat16 recipe for 5 epochs with steps_per_call 4 (a CUDA graph of the
+    step), its losses and final weights bit-equal to steps_per_call 1 and
+    its executed launches equal (captured × replays + eager); the harness
+    at medium scale (bench_aggregation with torch, ell and cuda; ELL within
+    1e-5 of max |y| of a float64 plain sum; validate_numerics passing);
+    then `python -m spgemm_gnn_tpu_torch.bench --scale medium` in a
+    subprocess, its one JSON line parsed. Each number beside the card's
+    name and power limit."""
+    from spgemm_gnn_tpu_torch.bench import harness
+    from spgemm_gnn_tpu_torch.kernels import _build
+    from spgemm_gnn_tpu_torch.kernels.api import aggregate
+    from spgemm_gnn_tpu_torch.ops.ell import ell_graph
+    from spgemm_gnn_tpu_torch.ops.spmm import spmm
+    from spgemm_gnn_tpu_torch.train.loop import Trainer
+    from spgemm_gnn_tpu_torch.utils.timing import measure_aggregation_fraction
+
+    t_phase = time.perf_counter()
+    dev = ds.graph.device
+    card = harness.card(dev)
+    for dtype in ("float32", "bfloat16"):
+        tr = Trainer(cfg.replace(dtype=dtype), dataset=ds)
+        stats = measure_aggregation_fraction(tr)
+        if not (stats["step_s"] > 0 and stats["aggregation_s"] > 0
+                and 0 < stats["aggregation_pct"] <= 100):
+            raise AssertionError(f"timing reddit {dtype}: {stats}")
+        log(f"timing reddit {dtype}: step_s {stats['step_s']}, "
+            f"aggregation_s {stats['aggregation_s']}, aggregation_pct "
+            f"{stats['aggregation_pct']} ({card})")
+        del tr
+        torch.cuda.empty_cache()
+
+    cfg_b = cfg.replace(dtype="bfloat16", eval_every=BATCH_EVAL)
+    runs = {}
+    for spc in (1, BATCH_STEPS):
+        _build.launches.clear()
+        res = Trainer(cfg_b.replace(steps_per_call=spc), dataset=ds).run()
+        torch.cuda.synchronize()
+        runs[spc] = dict(res=res, counts=collections.Counter(_build.launches),
+                         losses=[r.loss for r in res["history"]])
+        log(f"batched steps {spc}: losses {runs[spc]['losses']}, steady "
+            f"epoch {res['steady_epoch_s']} s, graph replays "
+            f"{res['graph_replays']}, captured launches "
+            f"{res['graph_launches']} ({card})")
+    one, four = runs[1], runs[BATCH_STEPS]
+    if not all(map(math.isfinite, one["losses"])):
+        raise AssertionError(f"batched steps: losses {one['losses']}")
+    if four["losses"] != one["losses"]:
+        raise AssertionError(f"batched steps: losses {four['losses']} at "
+                             f"steps_per_call {BATCH_STEPS} vs "
+                             f"{one['losses']} at 1")
+    p1 = one["res"]["final_state"]["model"].state_dict()
+    p4 = four["res"]["final_state"]["model"].state_dict()
+    if any(not torch.equal(p1[n], p4[n]) for n in p1):
+        raise AssertionError("batched steps: final weights differ from "
+                             "steps_per_call 1")
+    captured = collections.Counter(four["res"]["graph_launches"])
+    replays = four["res"]["graph_replays"]
+    if not captured or replays != EPOCHS - 1:
+        raise AssertionError(f"batched steps: {replays} replays of "
+                             f"{dict(captured)}")
+    # the wrappers count a captured launch once, at capture
+    executed = four["counts"] - captured + collections.Counter(
+        {name: n * replays for name, n in captured.items()})
+    if executed != one["counts"]:
+        raise AssertionError(f"batched steps: launches {dict(executed)} "
+                             f"(captured x replays + eager) != "
+                             f"{dict(one['counts'])} at steps_per_call 1")
+    log(f"batched steps: losses and final weights bit-equal to "
+        f"steps_per_call 1; launches captured once x {replays} replays + "
+        f"eager = {dict(executed)}, the unbatched run's; steady epoch "
+        f"{four['res']['steady_epoch_s']} s at {BATCH_STEPS}, "
+        f"{one['res']['steady_epoch_s']} s at 1 ({card})")
+    del runs, one, four, p1, p4
+    torch.cuda.empty_cache()
+
+    n, e = MEDIUM
+    g, pg, xk, ct = harness._bench_inputs(n, e, HIDDEN, K, 0, None, dev)
+    val = harness.validate_numerics(g, pg, xk, ct, HIDDEN, K)
+    log(f"harness validate_numerics (medium, N={g.num_nodes} "
+        f"E={g.num_edges}): {val}")
+    if not val["pass"]:
+        raise AssertionError(f"validate_numerics failed: {val}")
+    with torch.no_grad():
+        y_ell = aggregate(ell_graph(g), xk, "mean", K, "ell")
+        y64 = spmm(g, xk.double(), "mean")
+    err = float((y_ell.double() - y64).abs().max())
+    top = float(y64.abs().max())
+    if not err <= 1e-5 * top:
+        raise AssertionError(f"ELL: max abs err {err:.3e} against float64 "
+                             f"(max |y| {top:.3e})")
+    log(f"harness ELL (medium): max abs err {err:.3e} of max |y| {top:.3e} "
+        f"against float64, within 1e-5 of it")
+    del g, pg, xk, ct, y_ell, y64
+    torch.cuda.empty_cache()
+    r = harness.bench_aggregation(n, e, HIDDEN, K,
+                                  impls=("torch", "ell", "cuda"),
+                                  device=dev)
+    log(f"harness bench_aggregation (medium, f32 stream): {json.dumps(r)} "
+        f"({card})")
+    for impl in ("torch", "ell", "cuda"):
+        if not (r[impl]["fwd_gedges"] > 0 and r[impl]["bwd_gedges"] > 0):
+            raise AssertionError(f"bench_aggregation {impl}: {r[impl]}")
+    torch.cuda.empty_cache()
+
+    root = Path(__file__).resolve().parent
+    out = subprocess.run(
+        [sys.executable, "-m", "spgemm_gnn_tpu_torch.bench", "--scale",
+         "medium"], cwd=root, check=True, capture_output=True, text=True,
+        timeout=300)
+    lines = out.stdout.strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench --scale medium printed {len(lines)} "
+                             f"lines: {out.stdout!r}")
+    line = json.loads(lines[0])
+    for key in ("metric", "value", "unit", "vs_baseline", "vs_ell",
+                "stream", "copy_gbps", "gather_gbps", "device"):
+        if key not in line:
+            raise AssertionError(f"bench line lacks {key!r}: {line}")
+    if not (line["value"] > 0 and line["copy_gbps"] > 0
+            and line["gather_gbps"] > 0):
+        raise AssertionError(f"bench line: {line}")
+    log(f"bench --scale medium: {lines[0]}")
+    log(f"timing and benches: {time.perf_counter() - t_phase:.1f} s")
+
 
 def main() -> int:
     t_main = time.perf_counter()
@@ -2950,8 +3102,13 @@ def main() -> int:
     reddit_b_counts = reddit_b["counts"]
     reddit_b_off_counts = reddit_b_off["counts"]
     reddit_b_dense_counts = reddit_b_dense["counts"]
-    del ds, g, reddit, reddit16, reddit16_off, reddit16_dense, reddit_b
+    del reddit, reddit16, reddit16_off, reddit16_dense, reddit_b
     del reddit_b_off, reddit_b_dense
+    torch.cuda.empty_cache()
+
+    # ---- timing and the benches on the Reddit recipe ------------------------
+    bench_phase(torch, cfg, ds)
+    del ds, g
     torch.cuda.empty_cache()
 
     for kind in ("windowed", "stream"):

@@ -76,6 +76,11 @@ class Graph:
         return self.host
 
     @property
+    def edge_src(self) -> torch.Tensor:
+        """Source node of each in-edge (alias of indices)."""
+        return self.indices
+
+    @property
     def device(self) -> torch.device:
         return self.indptr.device
 

@@ -4,9 +4,12 @@
 impl:
   "auto"  — the kernels for CUDA tensors, their plain versions for CPU ones;
   "cuda"  — the kernels; a CPU tensor raises;
-  "torch" — the plain PyTorch ops (ops/) on any device.
+  "torch" — the plain PyTorch ops (ops/) on any device;
+  "ell"   — the neighbor-group baseline (ops/ell.py, plain PyTorch on any
+            device), for the aggregations only, on an ELLGraph
+            (`ops.ell.ell_graph`); "auto" on an ELLGraph is "ell".
 The JAX package's "xla"/"xla_dense" are "torch" here and its "pallas" is the
-kernels; its "ell" waits for the ELL baseline (ROADMAP Queue A12).
+kernels.
 """
 from __future__ import annotations
 
@@ -15,25 +18,23 @@ import torch
 from spgemm_gnn_tpu_torch.kernels import maxk as _maxk_kernel
 from spgemm_gnn_tpu_torch.kernels.cbsr import CBSRCompact
 from spgemm_gnn_tpu_torch.kernels.layernorm import LayerNorm16
+from spgemm_gnn_tpu_torch.kernels import planned as _planned
 from spgemm_gnn_tpu_torch.kernels.planned import (graph_plans,
-                                                  planned_aggregate,
-                                                  spgemm_forward,
-                                                  sspmm_backward)
+                                                  planned_aggregate)
+from spgemm_gnn_tpu_torch.ops import ell as _ell
 from spgemm_gnn_tpu_torch.ops import maxk as _maxk_plain
 from spgemm_gnn_tpu_torch.ops.layernorm import layer_norm16_forward
 from spgemm_gnn_tpu_torch.ops import spmm as _spmm_plain
 from spgemm_gnn_tpu_torch.ops.norms import node_factors
 
 IMPLS = ("auto", "torch", "cuda")
+AGGREGATE_IMPLS = (*IMPLS, "ell")
 
 
-def _check_impl(impl: str, x: torch.Tensor) -> None:
-    if impl == "ell":
-        raise NotImplementedError("impl='ell' is not ported to "
-                                  "spgemm_gnn_tpu_torch yet (ROADMAP Queue "
-                                  "A12, the ELL baseline)")
-    if impl not in IMPLS:
-        raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
+def _check_impl(impl: str, x: torch.Tensor,
+                impls: tuple[str, ...] = IMPLS) -> None:
+    if impl not in impls:
+        raise ValueError(f"unknown impl {impl!r}; expected one of {impls}")
     if impl == "cuda" and not x.is_cuda:
         raise ValueError(f"impl='cuda' needs CUDA tensors; got one on "
                          f"{x.device}")
@@ -80,6 +81,23 @@ def layer_norm16(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return LayerNorm16.apply(x.contiguous(), weight, bias, eps)
 
 
+def _ell_route(g, impl: str, x: torch.Tensor) -> str:
+    """The impl an aggregation over g takes (the JAX package's rule,
+    `spgemm_gnn_tpu/kernels/api.py:163-172`): "auto" on an ELLGraph is
+    "ell", and "ell" needs an ELLGraph."""
+    _check_impl(impl, x, AGGREGATE_IMPLS)
+    if isinstance(g, _ell.ELLGraph):
+        if impl == "auto":
+            return "ell"
+        if impl != "ell":
+            raise ValueError(f"impl={impl!r} takes a Graph or a "
+                             f"PlannedGraph, not an ELLGraph")
+    elif impl == "ell":
+        raise ValueError("impl='ell' requires an ELLGraph "
+                         "(ops.ell.ell_graph)")
+    return impl
+
+
 def aggregate(g, x: torch.Tensor, norm: str = "sum", k: int | None = None,
               impl: str = "auto",
               ids: torch.Tensor | None = None) -> torch.Tensor:
@@ -96,9 +114,12 @@ def aggregate(g, x: torch.Tensor, norm: str = "sum", k: int | None = None,
     with_ids=True)`), by `kernels.planned.SAMPLED_BACKWARD`'s rule the
     sampled form at those channels only (`stream_sspmm` on a stream plan,
     `csr_sspmm` on a windowed one). impl "torch" takes the plain dense
-    product.
+    product; an ELLGraph (impl "ell" or "auto") the neighbor-group
+    baseline, forward and backward (`ops.ell.ell_aggregate`).
     """
-    _check_impl(impl, x)
+    impl = _ell_route(g, impl, x)
+    if impl == "ell":
+        return _ell.ell_aggregate(g, x, norm)
     if impl == "torch":
         return _spmm_plain.spmm(g, x, norm)
     return planned_aggregate(g, x, norm, k, ids)
@@ -107,20 +128,23 @@ def aggregate(g, x: torch.Tensor, norm: str = "sum", k: int | None = None,
 class SpGEMM(torch.autograd.Function):
     """y = dst_f ⊙ A densify(src_f ⊙ values) (the SpGEMM forward);
     dvalues = src_f ⊙ (Aᵀ (dst_f ⊙ g)) sampled at the channels (the SSpMM
-    backward). Only `values` gets a gradient, in its own dtype."""
+    backward), by `ops`' `spgemm_forward` / `sspmm_backward` over `plans`
+    (kernels/planned.py over the plans, or ops/ell.py over the group
+    tables). Only `values` gets a gradient, in its own dtype."""
 
     @staticmethod
-    def forward(ctx, values, channels, dim, plans, src_f, dst_f):
+    def forward(ctx, values, channels, dim, plans, src_f, dst_f, ops):
         ctx.save_for_backward(channels, src_f, dst_f)
         ctx.plans = plans
+        ctx.ops = ops
         ctx.v_dtype = values.dtype
-        return spgemm_forward(dim, values, channels, src_f, dst_f, plans)
+        return ops.spgemm_forward(dim, values, channels, src_f, dst_f, plans)
 
     @staticmethod
     def backward(ctx, g):
         channels, src_f, dst_f = ctx.saved_tensors
-        dv = sspmm_backward(g, channels, src_f, dst_f, ctx.plans)
-        return dv.to(ctx.v_dtype), None, None, None, None, None
+        dv = ctx.ops.sspmm_backward(g, channels, src_f, dst_f, ctx.plans)
+        return dv.to(ctx.v_dtype), None, None, None, None, None, None
 
 
 def aggregate_cbsr(g, values: torch.Tensor, channels: torch.Tensor, dim: int,
@@ -138,12 +162,15 @@ def aggregate_cbsr(g, values: torch.Tensor, channels: torch.Tensor, dim: int,
       norm: "sum" | "mean" | "gcn" (ops/norms.py).
       impl: "auto" | "cuda" (the kernels: densify, the plan's product,
          sample) | "torch" (densify and the plain product, differentiated by
-         autograd).
+         autograd) | "ell" (an ELLGraph's group tables; "auto" on one).
     """
-    _check_impl(impl, values)
+    impl = _ell_route(g, impl, values)
     if impl == "torch":
         return _spmm_plain.spmm(
             g, _maxk_plain.cbsr_to_dense(values, channels, dim), norm)
     src_f, dst_f = node_factors(g, norm)
+    if impl == "ell":
+        return SpGEMM.apply(values, channels.contiguous(), dim,
+                            (g.fwd, g.bwd), src_f, dst_f, _ell)
     return SpGEMM.apply(values, channels.contiguous(), dim, graph_plans(g),
-                        src_f, dst_f)
+                        src_f, dst_f, _planned)

@@ -30,3 +30,26 @@ def node_factors(g, norm: str
         return (torch.rsqrt(_clamp1(g.out_degrees)),
                 torch.rsqrt(_clamp1(g.in_degrees)))
     raise ValueError(f"unknown norm {norm!r}")
+
+
+def edge_weights(g, norm: str, *, transpose: bool = False
+                 ) -> torch.Tensor | None:
+    """Per-edge weights f32 [E] in forward (in-CSR) or transpose (out-CSR)
+    edge order; None for "sum" (every weight 1).
+
+    In transpose order, edge e' has src = t_edge_dst[e'] (the original
+    source) and dst = t_indices[e'] (the original destination).
+    """
+    src_f, dst_f = node_factors(g, norm)
+    if src_f is None and dst_f is None:
+        return None
+    if transpose:
+        src_ids, dst_ids = g.t_edge_dst, g.t_indices
+    else:
+        src_ids, dst_ids = g.indices, g.edge_dst
+    w = None
+    if src_f is not None:
+        w = src_f[src_ids.long()]
+    if dst_f is not None:
+        w = dst_f[dst_ids.long()] if w is None else w * dst_f[dst_ids.long()]
+    return w

@@ -10,7 +10,8 @@ index, here an expanded view of the edge rows.
 `csr_blocked_plain` takes it block by block over the kernel's schedule (one
 block is the whole CSR), and is the wrapper's CPU path. `spmm` is the
 differentiable oracle the tests compare the autograd pair with; its gradient
-comes from autograd, not from the transpose CSR.
+comes from autograd, not from the transpose CSR. `spmm_transpose` is its
+adjoint over the transpose CSR.
 
 The 16-bit feature stream: `round_rows_plain` makes its messages, bf16(pre ⊙
 x) (the plain version of the `round_rows` kernel, kernels/round.py); the
@@ -146,3 +147,12 @@ def spmm(g, x: torch.Tensor, norm: str = "sum") -> torch.Tensor:
     y = _gather_add(g.indices, g.edge_dst, _scale(x, src_f),
                           g.num_nodes)
     return _scale(y, dst_f)
+
+
+def spmm_transpose(g, y: torch.Tensor, norm: str = "sum") -> torch.Tensor:
+    """z[u] = Σ_{out-edges u→v} w_e · y[v]: the adjoint of `spmm` (the same
+    edge weights), over the transpose CSR."""
+    src_f, dst_f = node_factors(g, norm)
+    z = _gather_add(g.t_indices, g.t_edge_dst, _scale(y, dst_f),
+                    g.num_nodes)
+    return _scale(z, src_f)

@@ -69,6 +69,14 @@ class TrainConfig:
             prtf(f"{f.name.upper()}={getattr(self, f.name)}")
         prtf("")
 
+    def as_markdown(self) -> str:
+        """The config as a two-column markdown table (the TensorBoard
+        text summary of `--tensorboard`)."""
+        text = "|name|value|  \n|-|-|  \n"
+        for f in sorted(dataclasses.fields(self), key=lambda f: f.name):
+            text += f"|{f.name}|{getattr(self, f.name)}|  \n"
+        return text
+
     def replace(self, **kw: Any) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
 
@@ -80,10 +88,6 @@ _NOT_YET = (
     ("multihost", bool, "Queue A13 (multi-GPU)"),
     ("coordinator", bool, "Queue A13 (multi-GPU)"),
     ("device_inputs", bool, "Queue A11 (device-side synthetic inputs)"),
-    ("steps_per_call", lambda v: v > 1, "Queue A12 (batched steps)"),
-    ("timing", bool, "Queue A12 (timing)"),
-    ("profile", bool, "Queue A12 (timing)"),
-    ("tensorboard", bool, "Queue A12 (timing)"),
     ("dataset", lambda v: v == "ogbn-proteins", "Queue A7 (ROC-AUC)"),
 )
 
@@ -135,7 +139,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--remat", action="store_true")
     p.add_argument("--eval_every", type=int, default=d.eval_every)
     p.add_argument("--eval_fetch_every", type=int, default=d.eval_fetch_every)
-    p.add_argument("--steps_per_call", type=int, default=d.steps_per_call)
+    p.add_argument("--steps_per_call", type=int, default=d.steps_per_call,
+                   help="train epochs run as one group between evals; on "
+                        "the GPU every step after the first replays a CUDA "
+                        "graph of the step when a group holds more than one")
     p.add_argument("--checkpoint_every", type=int, default=d.checkpoint_every)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--dtype", default=d.dtype, choices=list(DTYPES),
@@ -151,9 +158,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--log_every", type=int, default=d.log_every)
-    p.add_argument("--tensorboard", action="store_true")
-    p.add_argument("--timing", action="store_true")
-    p.add_argument("--profile", default=None, metavar="DIR")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="scalars per logged epoch under <path>/tb")
+    p.add_argument("--timing", action="store_true",
+                   help="after training, the aggregation share of a step "
+                        "(utils/timing.py) into the log and results.json")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="before training, a torch.profiler Chrome trace of "
+                        "3 steps on a separate state, written into DIR")
     p.add_argument("--cache-strategy", dest="cache_strategy", default="none",
                    choices=["none", "direct", "static-outd", "fifo", "lru"])
     p.add_argument("--cache-size-ratio", dest="cache_size_ratio", type=float,

@@ -28,9 +28,23 @@ Serving: `predict` answers a batch of node ids by minibatch inference
 With `dtype="bfloat16"` the features are cast to bf16 on the host, before
 they move to the device (as the JAX Trainer does), the model computes its
 hidden stack in bf16, and the loss and metrics read its f32 logits.
+
+Batched steps (`steps_per_call` n > 1, the JAX package's epoch batching):
+consecutive train epochs run in groups of up to n that never straddle an
+eval epoch or a checkpoint boundary (`group_size`), with no host sync
+inside a group. On the card, where some group holds more than one step,
+every step after the run's first (eager, so that it builds the kernels and
+plans) replays a CUDA graph of one step's forward, loss and backward
+(`GraphedStep`), captured right after that first step; the optimizer
+steps eagerly after each replay, so Adam's bias correction stays on the
+host as in an eager step, and Lookahead's host counter keeps counting. The
+graph owns the dropout generator's state (`register_generator_state`), so
+a replay draws the eager step's noise: the history is bit-equal to n = 1.
+On the CPU a group runs its steps eagerly.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 from typing import Any, Callable
@@ -42,7 +56,7 @@ from spgemm_gnn_tpu_torch.graphs.datasets import Dataset, load_dataset
 from spgemm_gnn_tpu_torch.graphs.features import (DeviceFeatureStore,
                                                   FeatureStore,
                                                   make_feature_store)
-from spgemm_gnn_tpu_torch.kernels import planned
+from spgemm_gnn_tpu_torch.kernels import _build, planned
 from spgemm_gnn_tpu_torch.models.layers import compute_dtype
 from spgemm_gnn_tpu_torch.models.models import build_model
 from spgemm_gnn_tpu_torch.train import checkpoint as ckpt
@@ -62,6 +76,62 @@ class EpochRecord:
     train_acc: float
     val_acc: float
     test_acc: float
+
+
+class GraphedStep:
+    """One train step's forward, loss and backward captured as a CUDA graph
+    over the state's parameters, with the gradients in static buffers;
+    `step` replays it and then steps the optimizer eagerly.
+
+    Capture needs a step already run eagerly on the state (the kernels and
+    the plans' schedules are built at first use, with host copies that a
+    capture refuses). A path whose step cannot be captured raises
+    NotImplementedError naming the reason. `launches` are the kernel
+    launches recorded at capture, one step's; a replay runs no Python, so
+    the wrappers' counts (kernels/_build.py) do not grow with it:
+    `replays` counts them.
+    """
+
+    def __init__(self, trainer: "Trainer", state: dict[str, Any],
+                 generator: torch.Generator):
+        model, opt = state["model"], state["optimizer"]
+        self.state = state
+        self.graph = torch.cuda.CUDAGraph()
+        if not hasattr(self.graph, "register_generator_state"):
+            raise NotImplementedError(
+                "--steps_per_call > 1 needs CUDAGraph.register_generator_"
+                "state (the dropout generator's state in the graph), which "
+                f"this PyTorch {torch.__version__} lacks")
+        self.graph.register_generator_state(generator)
+        model.train()
+        # backward writes fresh gradients (not accumulates) into buffers
+        # the graph owns, which stay the parameters' .grad
+        opt.zero_grad(set_to_none=True)
+        before = collections.Counter(_build.launches)
+        try:
+            with torch.cuda.graph(self.graph):
+                logits = model(trainer.g, trainer.features, generator)
+                loss = trainer._loss(logits, trainer.labels,
+                                     trainer.masks[0])
+                loss.backward()
+        except RuntimeError as exc:
+            raise NotImplementedError(
+                f"--steps_per_call > 1: this configuration's train step "
+                f"cannot be captured as a CUDA graph ({exc})") from exc
+        self.launches = collections.Counter(_build.launches) - before
+        # drop the captured autograd graph: only its buffers are kept
+        self.loss = loss.detach()
+        del logits, loss
+        self.replays = 0
+
+    def step(self) -> torch.Tensor:
+        """Replay the graph, then step the optimizer; returns the loss
+        before the update (the graph's static buffer)."""
+        self.graph.replay()
+        self.replays += 1
+        self.state["optimizer"].step()
+        self.state["step"] += 1
+        return self.loss
 
 
 class Trainer:
@@ -256,26 +326,59 @@ class Trainer:
                         epoch, epochs, loss, tr, va, te, best_val, best_test)
             pending.clear()
 
+        spc = max(cfg.steps_per_call, 1)
+
+        def group_size(e: int) -> int:
+            """Train epochs from e that run as one group: at most
+            steps_per_call, ending at the next eval epoch or checkpoint
+            boundary (the JAX Trainer's rule)."""
+            n = min(spc, epochs - e)
+            if cfg.eval_every:
+                r = e % cfg.eval_every
+                to_eval = 1 if r == 0 else cfg.eval_every - r + 1
+                n = min(n, to_eval, max(epochs - 1 - e, 0) + 1)
+            if cfg.checkpoint_every:
+                n = min(n, cfg.checkpoint_every - (e % cfg.checkpoint_every))
+            return max(n, 1)
+
+        groups = []
+        epoch = start_epoch
+        while epoch < epochs:
+            groups.append(group_size(epoch))
+            epoch += groups[-1]
+        # the graph is captured after the run's first step, which runs
+        # eagerly, and then takes every step
+        use_graph = self.device.type == "cuda" and any(n > 1 for n in groups)
+        graphed: GraphedStep | None = None
         t_start = time.perf_counter()
         t_steady = None   # clock after the first full iteration
         steady_from = None
-        for epoch in range(start_epoch, epochs):
-            loss = self.train_step(state, dropout_gen)
-            if cfg.eval_every and (epoch % cfg.eval_every == 0
-                                   or epoch == epochs - 1):
+        epoch = start_epoch
+        for n in groups:
+            for _ in range(n):
+                if graphed is not None:
+                    loss = graphed.step()
+                    continue
+                loss = self.train_step(state, dropout_gen)
+                if use_graph:
+                    graphed = GraphedStep(self, state, dropout_gen)
+            epoch += n
+            last = epoch - 1   # the epoch whose state we now hold
+            if cfg.eval_every and (last % cfg.eval_every == 0
+                                   or last == epochs - 1):
                 metrics = self.eval_step(state)
-                pending.append((epoch, torch.stack(
+                pending.append((last, torch.stack(
                     [loss.float(), *(m.float() for m in metrics)])))
                 if len(pending) >= fetch_every:
                     flush()
-            if cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0:
+            if cfg.checkpoint_every and (last + 1) % cfg.checkpoint_every == 0:
                 flush()   # best_epoch must be current for is_best
-                ckpt.save_checkpoint(cfg.path, state, epoch + 1,
-                                     is_best=best_epoch == epoch)
+                ckpt.save_checkpoint(cfg.path, state, last + 1,
+                                     is_best=best_epoch == last)
             if t_steady is None:
                 self._sync()
                 t_steady = time.perf_counter()
-                steady_from = epoch + 1
+                steady_from = epoch
         flush()
         self._sync()
         now = time.perf_counter()
@@ -297,5 +400,15 @@ class Trainer:
             "wall_time_s": wall,
             "steady_epoch_s": steady,
             "final_state": state,
+            # the CUDA graph of steps_per_call > 1: its kernel launches (one
+            # step's) and how often it was replayed
+            "graph_launches": dict(graphed.launches) if graphed else {},
+            "graph_replays": graphed.replays if graphed else 0,
         }
+
+
+def train_and_evaluate(config: TrainConfig, dataset: Dataset | None = None,
+                       logger=None) -> dict[str, Any]:
+    """One-call training run: a Trainer of `config` (and `dataset`), run."""
+    return Trainer(config, dataset, logger).run()
 

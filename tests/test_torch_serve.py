@@ -483,9 +483,7 @@ def test_cli_checkpoint_resume_evaluate(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (dict(device_inputs=True), "A11"), (dict(steps_per_call=2), "A12"),
-    (dict(timing=True), "A12"), (dict(profile="trace"), "A12"),
-    (dict(tensorboard=True), "A12"), (dict(mesh_shape=4), "A13"),
+    (dict(device_inputs=True), "A11"), (dict(mesh_shape=4), "A13"),
     (dict(multihost=True), "A13"), (dict(coordinator="h:1"), "A13"),
     (dict(dataset="ogbn-proteins"), "A7"), (dict(remat=True), "A9")])
 def test_unported_flags_name_their_item(flag, item):

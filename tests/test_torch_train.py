@@ -118,10 +118,8 @@ def test_default_device_without_gpu_raises():
 
 
 @pytest.mark.parametrize("flag", [
-    dict(timing=True), dict(remat=True),
-    dict(mesh_shape=2), dict(device_inputs=True),
-    dict(tensorboard=True), dict(profile="trace"), dict(multihost=True),
-    dict(steps_per_call=4), dict(dataset="ogbn-proteins")])
+    dict(remat=True), dict(mesh_shape=2), dict(device_inputs=True),
+    dict(multihost=True), dict(dataset="ogbn-proteins")])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_supported(TrainConfig(**{**COMMON, **flag}))
