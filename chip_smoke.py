@@ -106,6 +106,11 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
   7. graph 2: the synthetic ogbn-products stand-in at full size (N =
      2,449,029, E about 123.7M, 100 features, 47 classes); the plan rule must
      pick the "stream" kind (stream_spmm);
+ 7a. host graph core: the native library (graphs/native.py, g++) must be
+     built; the products stand-in's edges in a seeded random order (as an
+     npz delivers them) through `from_edges` with the native sort and with
+     numpy's, every array bitwise equal to the other's and the stand-in's,
+     both times printed;
   8. kernels on products: stream_spmm on A and Aᵀ, and csr_spmm on A, checked
      as in phase 4 (the rule must give csr_spmm one source block here); MaxK
      forward and backward, f32 and bf16, as in phase 4 at the products
@@ -205,6 +210,26 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      counts (maxk_fwd and csr_spmm once per layer, no stream_spmm); each
      request's closure per hop, host k-hop, schedule build, fetch (hit rate,
      host-to-device bytes), device forward and wall time are printed;
+ 12a. remat: the products recipe (f32 SAGE) 3 epochs without and with
+     `--remat`: losses and final weights bit-equal, exact launch counts
+     (MaxK's forward rerun once a layer a step, no aggregation rerun), peak
+     memory lower with it, both steady epochs and peaks printed;
+ 12b. plan cache: products' plans (f32 and bf16 rows) built with no
+     cache, built and stored, then loaded from a temporary directory: every
+     plan tensor equal, the aggregation forward and backward on the loaded
+     plans bitwise the built ones', the three times printed;
+ 12c. device inputs: the Reddit stand-in built without its payload (host
+     time beside phase 3's), `--device_inputs` for 3 epochs with finite
+     losses and exact launch counts; its plans through the cache as in 12b;
+     and the Reddit bfloat16 recipe with `--remat --steps_per_call 4`,
+     which must raise the documented NotImplementedError;
+ 12d. proteins: the ogbn-proteins stand-in (N 132,534, E about 79.1M, 8
+     features, 112 classes; the windowed kind) on its recipe (SAGE, MaxK
+     k=32, 3 x 256, LayerNorm, dropout 0.5, lr 0.01), 5 epochs in f32 and
+     with `--dtype bfloat16`, finite losses and exact launch counts (its
+     launches also on the kernels line, `proteins_launches`); the f32
+     run's train / val / test ROC-AUC on the card within 1e-6 of the
+     host `rocauc` on the same logits, the on-card evaluation timed;
  13. accuracy: the reference's 80-epoch trajectory gate (TRAJ_r03.json's
      config: the Reddit stand-in at scale 0.02, SAGE MaxK k=32, 3 x 256,
      LayerNorm, dropout 0, seed 97) through the port's Trainer with the f32
@@ -2227,9 +2252,10 @@ def accuracy_check(torch) -> dict:
     return best
 
 
-def run_training(torch, trainer, expected: dict, what: str) -> dict:
-    """Trainer.run from zeroed launch counts; checks finite losses and the
-    exact counts. Returns the run's result and counts."""
+def run_training(torch, trainer, expected: dict, what: str,
+                 epochs: int = EPOCHS) -> dict:
+    """Trainer.run from zeroed launch counts; checks `epochs` finite losses
+    and the exact counts. Returns the run's result and counts."""
     from spgemm_gnn_tpu_torch.kernels import _build
     torch.cuda.reset_peak_memory_stats()
     _build.launches.clear()
@@ -2243,7 +2269,7 @@ def run_training(torch, trainer, expected: dict, what: str) -> dict:
     log(f"{what}: steady_epoch_s {res['steady_epoch_s']}, wall "
         f"{res['wall_time_s']:.2f} s, peak memory {peak:.2f} GiB, allocator "
         f"retries {torch.cuda.memory_stats()['num_alloc_retries']}")
-    if len(losses) != EPOCHS or not all(map(math.isfinite, losses)):
+    if len(losses) != epochs or not all(map(math.isfinite, losses)):
         raise AssertionError(f"{what}: losses not finite: {losses}")
     if counts != expected:
         raise AssertionError(f"{what}: launch counts {counts} != expected "
@@ -2781,6 +2807,287 @@ def serve_phase(torch, cfg, ds, workdir: str) -> None:
             f"{in_tol:.3e} of max |logit|, {off} rows off (MaxK near-ties), "
             f"argmax agreement {agree:.4f}; every store's logits equal")
 
+def host_core_phase(torch, g) -> None:
+    """The host graph core (phase 7a): the native library must be built
+    (nvcc needs a host g++, so the compiler is there). The products
+    stand-in's edges in a seeded random order, as an npz delivers an edge
+    list, through `from_edges` (told the graph is symmetric, so that only
+    the CSR sort differs) with the native sort and with numpy's: every
+    array bitwise equal, and equal to the stand-in's own; both times
+    printed. (The stand-in's own build sorts nothing in `from_edges`: its
+    `to_undirected` hands over the edges in CSR order.)"""
+    import numpy as np
+    from spgemm_gnn_tpu_torch.graphs import native
+    from spgemm_gnn_tpu_torch.graphs.csr import from_edges
+    if not native.available():
+        raise AssertionError("host graph core: the native library did not "
+                             "build (see the INFO log line)")
+    log(f"host graph core: {native.library_path()}")
+    perm = np.random.default_rng(SEED).permutation(g.num_edges)
+    src = g.indices.numpy()[perm].astype(np.int64)
+    dst = g.edge_dst.numpy()[perm].astype(np.int64)
+    del perm
+    fields = ("indptr", "indices", "edge_dst", "t_indptr", "t_indices",
+              "t_edge_dst", "in_degrees", "out_degrees")
+    times = {}
+    for use_native in (True, False):
+        t0 = time.perf_counter()
+        built = from_edges(src, dst, g.num_nodes, symmetric=True,
+                           use_native=use_native)
+        times[use_native] = time.perf_counter() - t0
+        for f in fields:
+            if not torch.equal(getattr(built, f), getattr(g, f)):
+                raise AssertionError(f"host graph core: {f} of the "
+                                     f"{'native' if use_native else 'numpy'}"
+                                     f" build differs")
+        del built
+    log(f"host graph core: products stand-in edges in random order (E="
+        f"{g.num_edges}) to CSR: native {times[True]:.2f} s, numpy "
+        f"{times[False]:.2f} s; every array bitwise equal")
+
+
+def device_inputs_phase(torch, cfg, with_payload_s: float) -> tuple:
+    """`--device_inputs` on the Reddit recipe (phase 12c): the stand-in
+    built without its payload (host time printed beside the build with
+    it, phase 3), features and labels drawn on the card, 3 epochs, finite
+    losses and the f32 path's exact launch counts. Returns the Reddit
+    dataset (for the plan-cache phase)."""
+    from spgemm_gnn_tpu_torch.graphs.datasets import load_dataset
+    from spgemm_gnn_tpu_torch.train.loop import Trainer
+    t0 = time.perf_counter()
+    ds = load_dataset("reddit", allow_synthetic=True, data_path="/nonexistent",
+                      synthetic_scale=SCALE, seed=SEED,
+                      synthetic_payload=False)
+    t_build = time.perf_counter() - t0
+    log(f"device inputs: reddit stand-in host build {t_build:.1f} s without "
+        f"the payload, {with_payload_s:.1f} s with it (phase 3)")
+    epochs, layers = 3, cfg.hidden_layers
+    tr = Trainer(cfg.replace(device_inputs=True, epochs=epochs), dataset=ds)
+    if tr.features.device.type != tr.device.type or ds.features.any():
+        raise AssertionError("device inputs: the features were not drawn on "
+                             "the card")
+    run_training(torch, tr, {
+        "maxk_fwd": epochs * 2 * layers, "maxk_bwd": epochs * layers,
+        "csr_spmm": epochs * 3 * layers}, "train reddit, device inputs",
+        epochs=epochs)
+    del tr
+    torch.cuda.empty_cache()
+    return ds
+
+
+def plan_tensors(torch, plan) -> dict:
+    """Every tensor and number a plan holds beyond its CSR, by name."""
+    from spgemm_gnn_tpu_torch.graphs.tiles import CSRPlan
+    out = {}
+    if isinstance(plan, CSRPlan):
+        for key, s in plan._schedules.items():
+            for f in ("indices", "block_indptr", "seg", "fix", "pass_seg",
+                      "pass_fix"):
+                out[f"{key}.{f}"] = getattr(s, f)
+            out[f"{key}.meta"] = (s.nb, s.block_rows, s.segment, s.n_slots)
+        return out
+    out.update(chunk_row0=plan.chunk_row0, carry_rows=plan.carry_rows,
+               meta=(plan.chunk, plan.warp_chunks))
+    for key, v in plan._hot.items():
+        if key == "order":
+            out["order_ids"], out["order_counts"] = v
+        elif key == "positions":
+            out["positions"] = v
+        else:
+            out[f"{key}.meta"] = (v.rows, v.row_bytes, v.budget,
+                                  v.edge_share)
+            out[f"{key}.mask"] = v.mask
+    return out
+
+
+def plan_cache_phase(torch, g, what: str, dtype, workdir: str) -> None:
+    """The plan disk cache on one stand-in (phases 12b, 12c): a build with
+    no cache, a cold build into `workdir` (build and store), a warm load;
+    every tensor of the loaded plans equal to the built ones' (on the
+    card), and the aggregation forward and backward on the loaded plans
+    bitwise the built plans'. The three times are printed."""
+    from spgemm_gnn_tpu_torch.kernels.planned import (plan_graph,
+                                                      planned_aggregate)
+    times, plans = {}, {}
+    for run, cache in (("build", None), ("cold", workdir), ("warm", workdir)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plans[run] = plan_graph(g, dim=HIDDEN, dtype=dtype, cache_dir=cache)
+        torch.cuda.synchronize()
+        times[run] = time.perf_counter() - t0
+    for side in ("fwd_plan", "bwd_plan"):
+        a = plan_tensors(torch, getattr(plans["warm"], side))
+        b = plan_tensors(torch, getattr(plans["build"], side))
+        if a.keys() != b.keys():
+            raise AssertionError(f"plan cache, {what}: {side} holds "
+                                 f"{sorted(a)} against {sorted(b)}")
+        for k in a:
+            same = (torch.equal(a[k], b[k]) and a[k].device == b[k].device
+                    if isinstance(a[k], torch.Tensor) else a[k] == b[k])
+            if not same:
+                raise AssertionError(f"plan cache, {what}: {side} {k} "
+                                     f"differs after the load")
+    gen = torch.Generator(device=g.device).manual_seed(SEED)
+    x = torch.randn((g.num_nodes, HIDDEN), generator=gen,
+                    device=g.device).to(dtype)
+    ct = torch.randn((g.num_nodes, HIDDEN), generator=gen,
+                     device=g.device).to(dtype)
+    outs = []
+    for run in ("warm", "build"):
+        xt = x.clone().requires_grad_(True)
+        y = planned_aggregate(plans[run], xt, "mean")
+        y.backward(ct)
+        outs.append((y.detach(), xt.grad))
+    if not all(bits_equal(torch, u, v) for u, v in zip(*outs)):
+        raise AssertionError(f"plan cache, {what}: the aggregation on the "
+                             f"loaded plan is not bitwise the built plan's")
+    size = sum(p.stat().st_size for p in Path(workdir).glob("plan_*.npz"))
+    log(f"plan cache, {what} ({plans['build'].kind}): build "
+        f"{times['build']:.3f} s, cold (build + store) "
+        f"{times['cold']:.3f} s, warm load {times['warm']:.3f} s "
+        f"({size / 2**20:.1f} MiB on disk); every plan "
+        f"tensor equal, the aggregation forward and backward bitwise; "
+        f"{'the load' if times['warm'] < times['build'] else 'the build'} is "
+        f"faster")
+    for p in Path(workdir).glob("plan_*.npz"):
+        p.unlink()
+
+
+def remat_phase(torch, cfg2, ds2) -> None:
+    """`--remat` on the products recipe (phase 12a): SAGE f32, 3 epochs
+    without and with it: the losses and the final weights bit-equal, the
+    aggregation not rerun (exact launch counts: MaxK's forward once more
+    a layer per train step), peak memory and steady epoch of both. Each
+    run starts after a garbage collection, so that an earlier phase's
+    unreachable tensors are not counted in its peak; the memory held when
+    it starts is printed beside the peaks."""
+    import gc
+    from spgemm_gnn_tpu_torch.train.loop import Trainer
+    epochs, layers = 3, cfg2.hidden_layers
+    base = {"maxk_fwd": epochs * 2 * layers, "maxk_bwd": epochs * layers,
+            "cbsr_compact": epochs * 2 * layers,
+            "stream_cbsr_spmm": epochs * 2 * layers,
+            "stream_spmm": epochs * layers}
+    runs, held = {}, {}
+    for remat in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        held[remat] = torch.cuda.memory_allocated() / 2**30
+        want = dict(base)
+        if remat:
+            want["maxk_fwd"] += epochs * layers
+        runs[remat] = run_training(
+            torch, Trainer(cfg2.replace(epochs=epochs, remat=remat),
+                           dataset=ds2), want,
+            f"train products, remat {'on' if remat else 'off'}",
+            epochs=epochs)
+        torch.cuda.empty_cache()
+    off, on = runs[False], runs[True]
+    if on["losses"] != off["losses"]:
+        raise AssertionError(f"remat: losses {on['losses']} against "
+                             f"{off['losses']} without it")
+    a = on["res"]["final_state"]["model"].state_dict()
+    b = off["res"]["final_state"]["model"].state_dict()
+    if not all(torch.equal(a[n], b[n]) for n in a):
+        raise AssertionError("remat: the final weights differ")
+    if not on["peak_gib"] < off["peak_gib"]:
+        raise AssertionError(f"remat: peak memory {on['peak_gib']:.2f} GiB "
+                             f"did not fall below {off['peak_gib']:.2f}")
+    log(f"remat, products f32: losses and final weights bit-equal; peak "
+        f"memory {on['peak_gib']:.2f} GiB with remat, {off['peak_gib']:.2f} "
+        f"without (held at the start {held[True]:.2f}, {held[False]:.2f}); "
+        f"steady epoch {on['res']['steady_epoch_s']} s with, "
+        f"{off['res']['steady_epoch_s']} s without")
+
+
+def remat_graph_check(cfg, ds) -> None:
+    """The Reddit bfloat16 recipe with `--remat` and `--steps_per_call 4`:
+    a rematerialised step is not captured, and the run raises the
+    documented NotImplementedError before its first step."""
+    from spgemm_gnn_tpu_torch.train.loop import Trainer
+    cfg_r = cfg.replace(dtype="bfloat16", remat=True, steps_per_call=4,
+                        eval_every=5)
+    try:
+        Trainer(cfg_r, dataset=ds).run()
+    except NotImplementedError as exc:
+        log(f"remat with --steps_per_call 4 (reddit, bfloat16): raises "
+            f"NotImplementedError, as documented ({exc})")
+        return
+    raise AssertionError("remat with --steps_per_call 4 did not raise")
+
+
+def proteins_phase(torch) -> dict:
+    """The ogbn-proteins recipe (phase 12d): the full stand-in (N 132,534, E
+    about 79M, 8 features, 112 classes), SAGE MaxK k 32, 3 x 256,
+    LayerNorm, dropout 0.5, lr 0.01, 5 epochs, f32 then `--dtype
+    bfloat16`: the windowed kind, finite losses, exact launch counts; then
+    the f32 run's train / val / test ROC-AUC from the card held within
+    1e-6 of the host `rocauc` on the same logits, the on-card evaluation
+    timed. Returns each run's counts."""
+    from spgemm_gnn_tpu_torch.graphs import native
+    from spgemm_gnn_tpu_torch.graphs.datasets import load_dataset
+    from spgemm_gnn_tpu_torch.kernels.planned import plan_graph
+    from spgemm_gnn_tpu_torch.train.config import TrainConfig
+    from spgemm_gnn_tpu_torch.train.loop import Trainer
+    from spgemm_gnn_tpu_torch.train.metrics import rocauc, rocauc_tensor
+    t0 = time.perf_counter()
+    ds = load_dataset("ogbn-proteins", allow_synthetic=True,
+                      data_path="/nonexistent", synthetic_scale=SCALE,
+                      seed=SEED)
+    log(f"graph 4: ogbn-proteins stand-in scale {SCALE}: N={ds.num_nodes} "
+        f"E={ds.graph.num_edges} features={ds.features.shape[1]} "
+        f"classes={ds.num_classes}, host build "
+        f"{time.perf_counter() - t0:.1f} s, native graph core "
+        f"{native.available()}")
+    ds.graph = ds.graph.to("cuda")
+    if plan_graph(ds.graph).kind != "windowed":
+        raise AssertionError("plan rule: ogbn-proteins must take the "
+                             "windowed kind")
+    layers = 3
+    cfg = TrainConfig(dataset="ogbn-proteins", model="sage",
+                      nonlinear="maxk", maxk=K, hidden_dim=HIDDEN,
+                      hidden_layers=layers, norm=True, dropout=0.5,
+                      w_lr=0.01, epochs=EPOCHS, eval_every=1, seed=SEED,
+                      device="cuda", impl="auto", synthetic=True,
+                      synthetic_scale=SCALE)
+    tr = Trainer(cfg, dataset=ds)
+    f32 = run_training(torch, tr, {
+        "maxk_fwd": EPOCHS * 2 * layers, "maxk_bwd": EPOCHS * layers,
+        "csr_spmm": EPOCHS * 3 * layers}, "train proteins")
+    state = f32["res"]["final_state"]
+    model = state["model"].eval()
+    with torch.no_grad():
+        logits = model(tr.g, tr.features)
+        torch.cuda.synchronize()
+        ms = time_ms(torch, lambda: [rocauc_tensor(logits, tr.labels, m)
+                                     for m in tr.masks], 3)
+        got = [float(rocauc_tensor(logits, tr.labels, m)) for m in tr.masks]
+    host = logits.cpu().numpy()
+    labels = tr.labels.cpu().numpy()
+    want = [rocauc(host, labels, m.cpu().numpy()) for m in tr.masks]
+    err = max(abs(a - b) for a, b in zip(got, want))
+    if not err <= 1e-6:
+        raise AssertionError(f"proteins ROC-AUC: card {got} against host "
+                             f"{want}")
+    log(f"proteins ROC-AUC train / val / test: card {got}, host {want}, "
+        f"max difference {err:.3e}; the three on the card "
+        f"{ms:.3f} ms (logits [{logits.shape[0]}, {logits.shape[1]}])")
+    del tr, model, state, logits, f32["res"]
+    torch.cuda.empty_cache()
+    b16 = run_training(torch, Trainer(cfg.replace(dtype="bfloat16"),
+                                      dataset=ds), {
+        "maxk_fwd_bf16": EPOCHS * 2 * layers,
+        "maxk_bwd_bf16": EPOCHS * layers,
+        "layer_norm16_fwd": EPOCHS * 2 * layers,
+        "layer_norm16_bwd": EPOCHS * layers,
+        "cbsr_compact_bf16": EPOCHS * 2 * layers,
+        "csr_cbsr_spmm_bf16_out": EPOCHS * 2 * layers,
+        "csr_sspmm_bf16_out": EPOCHS * layers}, "train proteins, bfloat16")
+    del ds, b16["res"]
+    torch.cuda.empty_cache()
+    return {"f32": f32["counts"], "bfloat16": b16["counts"]}
+
+
 # the batched-steps check: steps_per_call groups of 4 between evaluations
 # every 5 epochs (an eval every epoch would leave no group to batch)
 BATCH_STEPS, BATCH_EVAL = 4, 5
@@ -2924,6 +3231,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script measures the card",
               file=sys.stderr)
         return 1
+    from spgemm_gnn_tpu_torch.graphs import native
     from spgemm_gnn_tpu_torch.graphs.csr import add_self_loops
     from spgemm_gnn_tpu_torch.graphs.datasets import load_dataset
     from spgemm_gnn_tpu_torch.kernels import _build, planned
@@ -2950,9 +3258,11 @@ def main() -> int:
     t0 = time.perf_counter()
     ds = load_dataset("reddit", allow_synthetic=True, data_path="/nonexistent",
                       synthetic_scale=SCALE, seed=SEED)
+    t_reddit_build = time.perf_counter() - t0
     log(f"graph: reddit stand-in scale {SCALE}: N={ds.graph.num_nodes} "
         f"E={ds.graph.num_edges} features={ds.features.shape[1]} "
-        f"classes={ds.num_classes}, host build {time.perf_counter() - t0:.1f} s")
+        f"classes={ds.num_classes}, host build {t_reddit_build:.1f} s, "
+        f"native graph core {native.available()}")
     g = ds.graph = ds.graph.to(dev)
     if plan_graph(g).kind != "windowed":
         raise AssertionError("plan rule: reddit must take the windowed kind")
@@ -3125,7 +3435,12 @@ def main() -> int:
         f"E={g2.num_edges} features={ds2.features.shape[1]} "
         f"classes={ds2.num_classes}, median in-degree "
         f"{int(deg.median())}, max {int(deg.max())}, rows without in-edges "
-        f"{int((deg == 0).sum())}, host build {time.perf_counter() - t0:.1f} s")
+        f"{int((deg == 0).sum())}, host build "
+        f"{time.perf_counter() - t0:.1f} s, native graph core "
+        f"{native.available()}")
+    t0 = time.perf_counter()
+    host_core_phase(torch, g2)
+    log(f"phase host graph core: {time.perf_counter() - t0:.1f} s")
     g2 = ds2.graph = g2.to(dev)
     pg2 = plan_graph(g2)
     if pg2.kind != "stream":
@@ -3454,8 +3769,45 @@ def main() -> int:
     # ---- serve: checkpoints, resume, --evaluate, predict requests ---------
     with tempfile.TemporaryDirectory() as workdir:
         serve_phase(torch, cfg2, ds2, workdir)
-    del ds2, g2, pg2
+    del pg2
     torch.cuda.empty_cache()
+
+    # ---- --remat and the plan cache on products ----------------------------
+    t0 = time.perf_counter()
+    remat_phase(torch, cfg2, ds2)
+    log(f"phase remat: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        plan_cache_phase(torch, g2, "products f32", torch.float32, workdir)
+        plan_cache_phase(torch, g2, "products bf16", torch.bfloat16,
+                         workdir)
+        del ds2, g2
+        torch.cuda.empty_cache()
+        log(f"phase plan cache (products): {time.perf_counter() - t0:.1f} s")
+
+        # ---- --device_inputs, the plan cache and remat on Reddit -----------
+        t0 = time.perf_counter()
+        ds_r = device_inputs_phase(torch, cfg, t_reddit_build)
+        log(f"phase device inputs: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        g_r = ds_r.graph.to(dev)
+        plan_cache_phase(torch, g_r, "reddit f32", torch.float32, workdir)
+        log(f"phase plan cache (reddit): {time.perf_counter() - t0:.1f} s")
+    remat_graph_check(cfg, ds_r)
+    del ds_r, g_r
+    torch.cuda.empty_cache()
+
+    # ---- ogbn-proteins: ROC-AUC ---------------------------------------------
+    t0 = time.perf_counter()
+    proteins_counts = proteins_phase(torch)
+    log(f"phase proteins: {time.perf_counter() - t0:.1f} s")
+    for entry in kernels:
+        for run, counts in proteins_counts.items():
+            if entry["name"] in counts:
+                entry["proteins_launches"] = counts[entry["name"]]
+                entry["proteins_launches_path"] = (
+                    "train proteins" + (", bfloat16" if run == "bfloat16"
+                                        else ""))
 
     # ---- the 80-epoch accuracy check, f32 and bf16x2 ----------------------
     accuracy_check(torch)

@@ -5,7 +5,15 @@ in-neighbours u over edges u→v), so `indptr`/`indices` is the in-CSR: row =
 destination, `indices[e]` = source. The transpose (out-CSR) drives the
 backward pass; for symmetric graphs it aliases the forward tensors.
 
-Built once on the host with numpy, then moved to the device with `.to()`.
+Built once on the host, then moved to the device with `.to()`. The two
+sorts of a build (the CSR, and the transpose of a graph that is not
+symmetric) take the native graph core where it is built (graphs/native.py,
+`gc_build_csr`: a bucket pass by destination, then each row's sources
+sorted), else numpy's stable argsort; both give the same arrays bit for
+bit (`use_native=False` forces numpy). Edges already in CSR order, as the
+stand-ins' `to_undirected` gives them, are not sorted again, and edges in
+a few sorted runs (`add_self_loops`) are merged by numpy's stable sort,
+faster there than the native bucket sort.
 """
 from __future__ import annotations
 
@@ -14,6 +22,8 @@ from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
+
+from spgemm_gnn_tpu_torch.graphs import native
 
 if TYPE_CHECKING:
     from spgemm_gnn_tpu_torch.kernels.planned import PlannedGraph
@@ -112,14 +122,46 @@ def _t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
 
 
+# at most this many sorted runs of edges: numpy's stable sort (a merge of
+# the runs) rather than the native graph core's bucket sort
+FEW_RUNS = 16
+
+
+def _sorted_csr(src: np.ndarray, dst: np.ndarray, num_nodes: int,
+                use_native: bool
+                ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(indptr int32 [N+1], sources int64 [E], destinations int64 [E]) of
+    the edges src[e] → dst[e] sorted by (dst, src): no sort for edges in
+    that order already, numpy's for a few sorted runs of them, else the
+    native graph core's where it is built and `use_native`, else numpy's
+    (the same arrays each way)."""
+    key = dst * num_nodes + src
+    runs = 1 + int(np.count_nonzero(key[1:] < key[:-1]))
+    if runs == 1:                        # already in CSR order: no sort
+        return _indptr(dst, num_nodes), src, dst
+    # a few sorted runs (add_self_loops' two) numpy's stable sort merges
+    # in a pass or two, faster than the native bucket sort
+    built = (native.build_csr(src, dst, num_nodes)
+             if use_native and runs > FEW_RUNS else None)
+    if built is not None:
+        indptr, indices, rows = built
+        return indptr, indices.astype(np.int64), rows.astype(np.int64)
+    order = np.argsort(key, kind="stable")
+    dst_s = dst[order]
+    return _indptr(dst_s, num_nodes), src[order], dst_s
+
+
 def from_edges(src, dst, num_nodes: int, *,
-               symmetric: bool | None = None) -> Graph:
-    """Build a Graph from a directed edge list (host-side, numpy).
+               symmetric: bool | None = None,
+               use_native: bool = True) -> Graph:
+    """Build a Graph from a directed edge list (host-side).
 
     Args:
       src, dst: int arrays [E]; edge e goes src[e] → dst[e].
       num_nodes: number of nodes N.
       symmetric: if None, detected by comparing the sorted edge pairs.
+      use_native: sort with the native graph core where it is built (the
+        same arrays; False: numpy).
     Sources are sorted within each CSR row (the canonical form).
     """
     src = np.asarray(src, dtype=np.int64).ravel()
@@ -128,9 +170,7 @@ def from_edges(src, dst, num_nodes: int, *,
         raise ValueError("src/dst length mismatch")
     n_edges = src.shape[0]
 
-    order = np.argsort(dst * num_nodes + src, kind="stable")
-    dst_s, src_s = dst[order], src[order]
-    indptr = _indptr(dst_s, num_nodes)
+    indptr, src_s, dst_s = _sorted_csr(src, dst, num_nodes, use_native)
     in_deg = np.diff(indptr).astype(np.int32)
     out_deg = np.bincount(src, minlength=num_nodes).astype(np.int32)
 
@@ -144,11 +184,9 @@ def from_edges(src, dst, num_nodes: int, *,
         t_indptr, t_indices, t_edge_dst = indptr_t, indices_t, edge_dst_t
     else:
         # transpose (out-CSR): the same edges sorted by (src, dst)
-        t_order = np.argsort(src_s * num_nodes + dst_s, kind="stable")
-        t_rows = src_s[t_order]
-        t_indptr = _t(_indptr(t_rows, num_nodes))
-        t_indices = _t(dst_s[t_order])
-        t_edge_dst = _t(t_rows)
+        t_ptr, t_idx, t_rows = _sorted_csr(dst_s, src_s, num_nodes,
+                                           use_native)
+        t_indptr, t_indices, t_edge_dst = _t(t_ptr), _t(t_idx), _t(t_rows)
 
     return Graph(
         indptr=indptr_t, indices=indices_t, edge_dst=edge_dst_t,
@@ -179,6 +217,8 @@ def to_undirected(src, dst, num_nodes: int) -> Graph:
     dst = np.asarray(dst, dtype=np.int64)
     # sort, then drop repeats: np.unique's result, but numpy 2.3's np.unique
     # takes minutes at Reddit scale (229M keys) where the sort takes seconds
+    # (numpy's vectorised sort also beats the native graph core's bucket
+    # sort here); from_edges then finds the pairs in CSR order
     key = np.sort(np.concatenate([dst, src]) * num_nodes
                   + np.concatenate([src, dst]))
     key = np.concatenate([key[:1], key[1:][key[1:] != key[:-1]]])

@@ -49,10 +49,13 @@ import dataclasses
 
 import torch
 
+from spgemm_gnn_tpu_torch.graphs import plan_cache
 from spgemm_gnn_tpu_torch.graphs.csr import Graph
-from spgemm_gnn_tpu_torch.graphs.stream_tiles import (StreamPlan,
+from spgemm_gnn_tpu_torch.graphs.stream_tiles import (HOT_BUDGET,
+                                                      WARP_CHUNKS, StreamPlan,
                                                       stream_plan_for_graph)
-from spgemm_gnn_tpu_torch.graphs.tiles import (CHUNK, CSRPlan, auto_window,
+from spgemm_gnn_tpu_torch.graphs.tiles import (CHUNK, SEGMENT, CSRPlan,
+                                               auto_src_blocks, auto_window,
                                                predicted_windowed_fill)
 from spgemm_gnn_tpu_torch.kernels.cbsr import (cbsr_compact, cbsr_densify,
                                                cbsr_sample)
@@ -63,6 +66,7 @@ from spgemm_gnn_tpu_torch.kernels.stream import (MAX_CBSR_DIM,
                                                  STREAM_DTYPES,
                                                  stream_cbsr_spmm, stream_spmm,
                                                  stream_sspmm)
+from spgemm_gnn_tpu_torch.models.remat import saved_output
 from spgemm_gnn_tpu_torch.ops.maxk import cbsr_records
 from spgemm_gnn_tpu_torch.ops.norms import node_factors
 from spgemm_gnn_tpu_torch.ops.spmm import _scale
@@ -138,7 +142,12 @@ SAMPLED_BACKWARD: bool | None = None
 DEFAULT_STREAM = "f32"
 STREAMS = ("f32", "bf16x2")
 
-KINDS = ("auto", "windowed", "stream")
+# "windowed_classes" is the reference's windowed plan split into degree
+# classes, so that hub rows do not set a tile's length
+# (`spgemm_gnn_tpu/kernels/planned.py:97,120-127`); on the card the
+# windowed plan's CSR schedule already cuts every row into segments of at
+# most `tiles.SEGMENT` edges, so the name maps to it
+KINDS = ("auto", "windowed", "stream", "windowed_classes")
 
 
 def cbsr_forward(plan, k: int | None, dim: int, dtype: torch.dtype) -> bool:
@@ -243,29 +252,44 @@ def plan_kind(num_nodes: int, num_edges: int) -> str:
 
 def plan_graph(g: Graph, *, kind: str = "auto", chunk: int = CHUNK,
                dim: int | None = None,
-               dtype: torch.dtype = torch.float32) -> PlannedGraph:
+               dtype: torch.dtype = torch.float32,
+               cache_dir: str | None = None) -> PlannedGraph:
     """Both plans of a graph, on its device. kind: "auto" (the reference's
-    rule, `plan_kind`), "windowed" or "stream"; chunk: edges per chunk of a
-    stream plan. A windowed plan's `csr_spmm` schedule, or a stream plan's
-    hot set, is built here for the rows the kernels gather when `dim` is
-    given (else at the first product of each row size): rows of width `dim`
-    of activations of `dtype` in DEFAULT_STREAM's feature stream, 2 B a
-    channel for bf16 activations or the "bf16x2" stream, else 4; for 2-B
-    channels on a stream plan also the backward plan's transpose positions
-    (the sampled backward's, else built at its first call). A symmetric
-    graph's backward plan is its forward plan."""
+    rule, `plan_kind`), "windowed", "stream", or "windowed_classes" (the
+    windowed plan; KINDS); chunk: edges per chunk of a stream plan. A
+    windowed plan's `csr_spmm` schedule, or a stream plan's hot set, is
+    built here for the rows the kernels gather when `dim` is given (else at
+    the first product of each row size): rows of width `dim` of activations
+    of `dtype` in DEFAULT_STREAM's feature stream, 2 B a channel for bf16
+    activations or the "bf16x2" stream, else 4; for 2-B channels on a
+    stream plan also the backward plan's transpose positions (the sampled
+    backward's, else built at its first call). A symmetric graph's backward
+    plan is its forward plan.
+
+    cache_dir: where given, each plan is loaded from a file there keyed by
+    its CSR's fingerprint and every parameter above that shapes it (the
+    resolved kind, the chunk, dim and the channel bytes, the source blocks
+    and segment size, the hot budget), or built and stored
+    (graphs/plan_cache.py); a loaded plan is the built one tensor for
+    tensor."""
     if kind not in KINDS:
         raise ValueError(f"unknown plan kind {kind!r}; expected one of "
                          f"{KINDS}")
     if kind == "auto":
         kind = plan_kind(g.num_nodes, g.num_edges)
+    elif kind == "windowed_classes":
+        kind = "windowed"
     elem = 2 if _stream16() or dtype == torch.bfloat16 else 4
+    positions = kind == "stream" and dim is not None and elem == 2
 
-    def one(transpose: bool):
+    def build(transpose: bool, fwd=None):
         if kind == "stream":
             plan = stream_plan_for_graph(g, transpose=transpose, chunk=chunk)
             if dim is not None:
                 plan.hot_set(elem * dim)
+            if positions and (transpose or g.symmetric):
+                # the sampled backward's, on the backward plan
+                plan.transpose_positions(plan if fwd is None else fwd)
             return plan
         plan = (CSRPlan(g.t_indptr, g.t_indices) if transpose
                 else CSRPlan(g.indptr, g.indices))
@@ -273,10 +297,30 @@ def plan_graph(g: Graph, *, kind: str = "auto", chunk: int = CHUNK,
             plan.schedule(g.num_nodes, dim, elem)
         return plan
 
+    def one(transpose: bool, fwd=None):
+        if not cache_dir:
+            return build(transpose, fwd)
+        ip, ix = ((g.t_indptr, g.t_indices) if transpose
+                  else (g.indptr, g.indices))
+        params = {"dim": dim, "elem": elem if dim is not None else None}
+        if kind == "stream":
+            params.update(chunk=chunk, warp=WARP_CHUNKS,
+                          budget=HOT_BUDGET if dim is not None else None,
+                          pos=1 if positions and (transpose or g.symmetric)
+                          else None)
+        else:
+            params.update(segment=SEGMENT, nb=None if dim is None else
+                          auto_src_blocks(g.num_nodes, ix.numel(), dim,
+                                          g.num_nodes, elem))
+        key = plan_cache.plan_key(plan_cache.graph_fingerprint(ip, ix),
+                                  "t" if transpose else "f", kind, **params)
+        return plan_cache.cached_plan(cache_dir, key,
+                                      lambda: build(transpose, fwd), ip, ix)
+
+    # a symmetric graph's backward plan is its forward plan, whose
+    # transpose positions then map it onto itself
     fwd = one(False)
-    bwd = fwd if g.symmetric else one(True)
-    if kind == "stream" and dim is not None and elem == 2:
-        bwd.transpose_positions(fwd)   # for the sampled backward
+    bwd = fwd if g.symmetric else one(True, fwd)
     return PlannedGraph(graph=g, fwd_plan=fwd, bwd_plan=bwd)
 
 
@@ -373,14 +417,16 @@ class Aggregate(torch.autograd.Function):
     plan's kernel (the forward reads `k` as `plan_spmm` does; the cotangent
     is dense). The cotangent keeps the primal's dtype (for bf16 x, g is
     bf16 and so is dx). With MaxK's kept channels `ids`, the backward takes
-    `plan_sspmm` where `sampled_backward` says so."""
+    `plan_sspmm` where `sampled_backward` says so. Inside a layer under
+    `--remat` (models/remat.py) the output is kept, and the backward's
+    rerun of the layer takes it back instead of launching the kernel."""
 
     @staticmethod
     def forward(ctx, x, fwd_plan, bwd_plan, pre, post, k, ids):
         ctx.save_for_backward(pre, post, ids)
         ctx.plans = (fwd_plan, bwd_plan)
         ctx.x_dtype = x.dtype
-        return plan_spmm(fwd_plan, x, pre, post, k)
+        return saved_output(lambda: plan_spmm(fwd_plan, x, pre, post, k))
 
     @staticmethod
     def backward(ctx, g):

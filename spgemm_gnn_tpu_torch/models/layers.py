@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from spgemm_gnn_tpu_torch.kernels.api import aggregate, layer_norm16
+from spgemm_gnn_tpu_torch.models.remat import recomputing
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -214,10 +215,13 @@ class BatchNorm(nn.Module):
         if self.training:
             mean = x.mean(0)
             var = torch.clamp((x * x).mean(0) - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(m).add_((1.0 - m) * mean)
-                self.running_var.mul_(m).add_((1.0 - m) * var)
+            # under --remat the backward reruns the layer: the running
+            # averages move in the forward only
+            if not recomputing():
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(m).add_((1.0 - m) * mean)
+                    self.running_var.mul_(m).add_((1.0 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         return ((x - mean) * (torch.rsqrt(var + self.eps) * self.weight)

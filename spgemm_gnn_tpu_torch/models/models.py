@@ -18,6 +18,11 @@ so that `convert.params_from_flax` maps weights across by name.
 "float32": exact f32; "bfloat16": the 16-bit model): every hidden `Dense`
 and `LayerNorm`/`BatchNorm` computes in it, the parameters stay f32, and
 `lin_out` computes in f32, so the logits are f32 (models/layers.py).
+
+`remat` (`--remat`) runs each hidden layer's body (`_layer`) under
+`models/remat.py::remat`: its forward keeps the layer's input and its
+aggregation outputs only, the backward reruns the rest, and the losses and
+gradients are the run's without remat bit for bit.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from spgemm_gnn_tpu_torch.models.layers import (BatchNorm, Dense, GINAgg,
                                                 GraphConvAgg, LayerNorm,
                                                 SAGEConv, compute_dtype,
                                                 dropout, xavier_uniform_)
+from spgemm_gnn_tpu_torch.models.remat import remat
 
 # Linear layers initialised with DGL's relu gain (√2), as in the JAX package
 _RELU_GAIN = ("fc_self", "fc_neigh", "conv_w")
@@ -45,7 +51,8 @@ class _Base(nn.Module):
 
     def __init__(self, in_dim: int, hidden_dim: int, num_layers: int,
                  out_dim: int, maxk: int, feat_drop: float, use_norm: bool,
-                 nonlinear: str, impl: str, dtype: str | torch.dtype | None):
+                 nonlinear: str, impl: str, dtype: str | torch.dtype | None,
+                 remat: bool = False):
         super().__init__()
         if nonlinear not in ("maxk", "relu"):
             raise ValueError(f"unknown nonlinear {nonlinear!r}")
@@ -55,6 +62,7 @@ class _Base(nn.Module):
         self.feat_drop = feat_drop
         self.use_norm = use_norm
         self.impl = impl
+        self.remat = remat
         self.compute_dtype = compute_dtype(dtype)
         self.lin_in = self._dense(in_dim, hidden_dim)
         self._out_dim = out_dim
@@ -89,6 +97,22 @@ class _Base(nn.Module):
     def _drop(self, x: torch.Tensor, generator) -> torch.Tensor:
         return dropout(x, self.feat_drop, self.training, generator)
 
+    def _layer(self, i: int, g, x: torch.Tensor,
+               generator: torch.Generator | None) -> torch.Tensor:
+        """Hidden layer i of the family on x."""
+        raise NotImplementedError
+
+    def _stack(self, g, x: torch.Tensor,
+               generator: torch.Generator | None) -> torch.Tensor:
+        """The hidden layers on x, each under `remat` when it is set."""
+        for i in range(self.num_layers):
+            if self.remat:
+                x = remat(lambda h, i=i: self._layer(i, g, h, generator), x,
+                          generator)
+            else:
+                x = self._layer(i, g, x, generator)
+        return x
+
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Draw every weight from `generator` (one init stream, in the order
         the children were added)."""
@@ -119,13 +143,13 @@ class SAGE(_Base):
                 dtype=self.compute_dtype))
         self._add_lin_out()
 
+    def _layer(self, i, g, x, generator):
+        x, ids = self._nl_ids(x, g)
+        return getattr(self, f"layer{i}")(g, x, generator, ids)
+
     def forward(self, g, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        x = self.lin_in(x)
-        for i in range(self.num_layers):
-            x, ids = self._nl_ids(x, g)
-            x = getattr(self, f"layer{i}")(g, x, generator, ids)
-        return self.lin_out(x)
+        return self.lin_out(self._stack(g, self.lin_in(x), generator))
 
 
 class _ConvStack(_Base):
@@ -142,15 +166,17 @@ class _ConvStack(_Base):
                 self.add_module(f"norm{i}", self._layer_norm())
         self._add_lin_out()
 
+    def _layer(self, i, g, x, generator):
+        x, ids = self._nl_ids(getattr(self, f"lin{i}")(x), g)
+        x = getattr(self, f"conv{i}")(g, self._drop(x, generator), ids)
+        if self.use_norm:
+            x = getattr(self, f"norm{i}")(x)
+        return x
+
     def forward(self, g, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         x = torch.relu(self.lin_in(x))
-        for i in range(self.num_layers):
-            x, ids = self._nl_ids(getattr(self, f"lin{i}")(x), g)
-            x = getattr(self, f"conv{i}")(g, self._drop(x, generator), ids)
-            if self.use_norm:
-                x = getattr(self, f"norm{i}")(x)
-        return self.lin_out(x)
+        return self.lin_out(self._stack(g, x, generator))
 
 
 class GCN(_ConvStack):
@@ -186,19 +212,19 @@ class GNNRes(_Base):
             self.add_module(f"lin2_{i}", self._dense(h, h))
         self._add_lin_out()
 
+    def _layer(self, i, g, x, generator):
+        res = getattr(self, f"res{i}")(x)
+        x = getattr(self, f"conv{i}")(g, x)
+        if self.use_norm:
+            x = getattr(self, f"bn{i}")(x)
+        x = self._drop(torch.relu(getattr(self, f"lin1_{i}")(x)), generator)
+        x = torch.relu(getattr(self, f"lin2_{i}")(x) + res)
+        return self._drop(x, generator)
+
     def forward(self, g, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         x = torch.relu(self.lin_in(x))
-        for i in range(self.num_layers):
-            res = getattr(self, f"res{i}")(x)
-            x = getattr(self, f"conv{i}")(g, x)
-            if self.use_norm:
-                x = getattr(self, f"bn{i}")(x)
-            x = self._drop(torch.relu(getattr(self, f"lin1_{i}")(x)),
-                           generator)
-            x = torch.relu(getattr(self, f"lin2_{i}")(x) + res)
-            x = self._drop(x, generator)
-        return self.lin_out(x)
+        return self.lin_out(self._stack(g, x, generator))
 
 
 class MaxKSAGE(_Base):
@@ -216,18 +242,18 @@ class MaxKSAGE(_Base):
                 self.add_module(f"norm{i}", self._layer_norm())
         self._add_lin_out()
 
+    def _layer(self, i, g, x, generator):
+        h_self = getattr(self, f"fc_self{i}")(x)
+        h_neigh, ids = self._nl_ids(getattr(self, f"fc_neigh{i}")(x), g)
+        x = h_self + aggregate(g, h_neigh, "mean", k=self.k, impl=self.impl,
+                               ids=ids)
+        if self.use_norm:
+            x = getattr(self, f"norm{i}")(x)
+        return self._drop(x, generator)
+
     def forward(self, g, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        x = self.lin_in(x)
-        for i in range(self.num_layers):
-            h_self = getattr(self, f"fc_self{i}")(x)
-            h_neigh, ids = self._nl_ids(getattr(self, f"fc_neigh{i}")(x), g)
-            x = h_self + aggregate(g, h_neigh, "mean", k=self.k,
-                                   impl=self.impl, ids=ids)
-            if self.use_norm:
-                x = getattr(self, f"norm{i}")(x)
-            x = self._drop(x, generator)
-        return self.lin_out(x)
+        return self.lin_out(self._stack(g, self.lin_in(x), generator))
 
 
 class MaxKGCN(_Base):
@@ -245,17 +271,19 @@ class MaxKGCN(_Base):
                 self.add_module(f"norm{i}", self._layer_norm())
         self._add_lin_out()
 
+    def _layer(self, i, g, x, generator):
+        x = self._drop(getattr(self, f"lin{i}")(x), generator)
+        x, ids = self._nl_ids(getattr(self, f"conv_w{i}")(x), g)
+        x = aggregate(g, x, "gcn", k=self.k, impl=self.impl, ids=ids)
+        x = x + getattr(self, f"conv_b{i}").to(x.dtype)
+        if self.use_norm:
+            x = getattr(self, f"norm{i}")(x)
+        return x
+
     def forward(self, g, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         x = torch.relu(self.lin_in(x))
-        for i in range(self.num_layers):
-            x = self._drop(getattr(self, f"lin{i}")(x), generator)
-            x, ids = self._nl_ids(getattr(self, f"conv_w{i}")(x), g)
-            x = aggregate(g, x, "gcn", k=self.k, impl=self.impl, ids=ids)
-            x = x + getattr(self, f"conv_b{i}").to(x.dtype)
-            if self.use_norm:
-                x = getattr(self, f"norm{i}")(x)
-        return self.lin_out(x)
+        return self.lin_out(self._stack(g, x, generator))
 
 
 class MaxKGIN(_Base):
@@ -272,17 +300,19 @@ class MaxKGIN(_Base):
                 self.add_module(f"norm{i}", self._layer_norm())
         self._add_lin_out()
 
+    def _layer(self, i, g, x, generator):
+        x = self._drop(getattr(self, f"lin{i}")(x), generator)
+        x, ids = self._nl_ids(x, g)
+        agg = aggregate(g, x, "sum", k=self.k, impl=self.impl, ids=ids)
+        x = (1.0 + getattr(self, f"eps{i}")).to(x.dtype) * x + agg
+        if self.use_norm:
+            x = getattr(self, f"norm{i}")(x)
+        return x
+
     def forward(self, g, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         x = torch.relu(self.lin_in(x))
-        for i in range(self.num_layers):
-            x = self._drop(getattr(self, f"lin{i}")(x), generator)
-            x, ids = self._nl_ids(x, g)
-            agg = aggregate(g, x, "sum", k=self.k, impl=self.impl, ids=ids)
-            x = (1.0 + getattr(self, f"eps{i}")).to(x.dtype) * x + agg
-            if self.use_norm:
-                x = getattr(self, f"norm{i}")(x)
-        return self.lin_out(x)
+        return self.lin_out(self._stack(g, x, generator))
 
 
 MODELS = {"sage": SAGE, "gcn": GCN, "gin": GIN, "gnn_res": GNNRes,
@@ -298,15 +328,13 @@ def build_model(model: str, *, in_dim: int, hidden_dim: int, num_layers: int,
     """Model factory with the JAX package's arguments (plus `in_dim`, which
     flax infers). dtype: the compute dtype of the hidden stack (None or
     "float32": f32; "bfloat16": the 16-bit model; anything else raises).
-    Parameters are left as PyTorch makes them: call
-    `reset_parameters(generator)` for the JAX package's init."""
+    remat: each hidden layer under `models/remat.py::remat`. Parameters
+    are left as PyTorch makes them: call `reset_parameters(generator)` for
+    the JAX package's init."""
     if model not in MODELS:
         raise ValueError(f"unknown model {model!r}; expected one of "
                          f"{sorted(MODELS)}")
-    if remat:
-        raise NotImplementedError("--remat is not ported yet (ROADMAP "
-                                  "Queue A9)")
     return MODELS[model](in_dim, hidden_dim=hidden_dim, num_layers=num_layers,
                          out_dim=out_dim, maxk=maxk, feat_drop=feat_drop,
                          use_norm=use_norm, nonlinear=nonlinear, impl=impl,
-                         dtype=dtype)
+                         dtype=dtype, remat=remat)

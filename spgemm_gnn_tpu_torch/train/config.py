@@ -1,9 +1,10 @@
 """Training configuration (counterpart of `spgemm_gnn_tpu/train/config.py`):
 the JAX package's flag names, plus `--device`.
 
-Flags whose path this slice of the port does not have yet raise
-NotImplementedError naming their ROADMAP item (`check_supported`), which
-also rejects a `dtype` other than float32 and bfloat16 (ValueError).
+Flags whose path the port does not have yet (multi-GPU: `--mesh_shape`,
+`--multihost`, `--coordinator`) raise NotImplementedError naming their
+ROADMAP item (`check_supported`), which also rejects a `dtype` other than
+float32 and bfloat16 (ValueError).
 """
 from __future__ import annotations
 
@@ -83,12 +84,9 @@ class TrainConfig:
 
 # (flag, test of a value this slice cannot run, ROADMAP item)
 _NOT_YET = (
-    ("remat", bool, "Queue A9 (--remat)"),
     ("mesh_shape", lambda v: v > 1, "Queue A13 (multi-GPU)"),
     ("multihost", bool, "Queue A13 (multi-GPU)"),
     ("coordinator", bool, "Queue A13 (multi-GPU)"),
-    ("device_inputs", bool, "Queue A11 (device-side synthetic inputs)"),
-    ("dataset", lambda v: v == "ogbn-proteins", "Queue A7 (ROC-AUC)"),
 )
 
 
@@ -136,7 +134,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "CPU; cuda: kernels only; torch: plain PyTorch only")
     p.add_argument("--device", default=d.device,
                    help="cuda (default; raises without a GPU) or cpu")
-    p.add_argument("--remat", action="store_true")
+    p.add_argument("--remat", action="store_true",
+                   help="keep only each layer's input and aggregation "
+                        "outputs, rerun the rest in the backward (less "
+                        "memory, the same losses bit for bit)")
     p.add_argument("--eval_every", type=int, default=d.eval_every)
     p.add_argument("--eval_fetch_every", type=int, default=d.eval_fetch_every)
     p.add_argument("--steps_per_call", type=int, default=d.steps_per_call,
@@ -151,7 +152,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "f32, bf16 activations and aggregation outputs)")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--synthetic_scale", type=float, default=d.synthetic_scale)
-    p.add_argument("--device_inputs", action="store_true")
+    p.add_argument("--device_inputs", action="store_true",
+                   help="with --synthetic: draw the stand-in's features and "
+                        "labels on the device (no host payload)")
     p.add_argument("--mesh_shape", type=int, default=d.mesh_shape)
     p.add_argument("--multihost", action="store_true")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT")

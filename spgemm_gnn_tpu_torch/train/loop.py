@@ -29,6 +29,23 @@ With `dtype="bfloat16"` the features are cast to bf16 on the host, before
 they move to the device (as the JAX Trainer does), the model computes its
 hidden stack in bf16, and the loss and metrics read its f32 logits.
 
+Metrics: ogbn-proteins reports ROC-AUC (`train/metrics.py::rocauc_tensor`,
+on the device), every other dataset accuracy or micro-F1, as the JAX
+Trainer does; the log line keeps its "Accuracy" wording either way.
+
+Plans of a real (npz) dataset are cached under `<data_path>/plans`
+(graphs/plan_cache.py), as the JAX Trainer caches its own; a synthetic
+run builds them anew. With `device_inputs` on a synthetic run (the JAX
+Trainer's condition: `synthetic` and one device), the stand-in is built
+without its features and labels, which are drawn on the device instead
+(`graphs/datasets.py::device_synthetic_inputs`); elsewhere the flag is
+ignored with a warning.
+
+With `remat` each hidden layer runs under `models/remat.py::remat`: the
+same losses and weights bit for bit, less memory, a rerun of the layers'
+dense work in each backward. It captures no CUDA graph: `steps_per_call`
+> 1 with `remat` on the card raises NotImplementedError.
+
 Batched steps (`steps_per_call` n > 1, the JAX package's epoch batching):
 consecutive train epochs run in groups of up to n that never straddle an
 eval epoch or a checkpoint boundary (`group_size`), with no host sync
@@ -46,13 +63,16 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
-from spgemm_gnn_tpu_torch.graphs.datasets import Dataset, load_dataset
+from spgemm_gnn_tpu_torch.graphs.datasets import (Dataset,
+                                                  device_synthetic_inputs,
+                                                  load_dataset)
 from spgemm_gnn_tpu_torch.graphs.features import (DeviceFeatureStore,
                                                   FeatureStore,
                                                   make_feature_store)
@@ -63,7 +83,7 @@ from spgemm_gnn_tpu_torch.train import checkpoint as ckpt
 from spgemm_gnn_tpu_torch.train.config import TrainConfig, check_supported
 from spgemm_gnn_tpu_torch.train.infer import predict_nodes
 from spgemm_gnn_tpu_torch.train.losses import loss_fn
-from spgemm_gnn_tpu_torch.train.metrics import micro_f1
+from spgemm_gnn_tpu_torch.train.metrics import micro_f1, rocauc_tensor
 from spgemm_gnn_tpu_torch.train.optim import build_optimizer
 from spgemm_gnn_tpu_torch.utils.device import resolve_device
 from spgemm_gnn_tpu_torch.utils.logging import get_logger, param_size
@@ -144,11 +164,21 @@ class Trainer:
         self.config = config
         self.logger = logger or get_logger(None)
         self.device = resolve_device(config.device)
+        # device_inputs takes effect on a synthetic run on one device only;
+        # elsewhere it is ignored aloud, and the host features transfer
+        self._device_inputs = bool(config.device_inputs and config.synthetic
+                                   and config.mesh_shape <= 1)
+        if config.device_inputs and not self._device_inputs:
+            self.logger.warning(
+                "--device_inputs ignored: it requires --synthetic and a "
+                "single-device run (mesh_shape <= 1); host features will "
+                "transfer as usual")
         if dataset is None:
             dataset = load_dataset(
                 config.dataset, config.data_path, self_loop=config.selfloop,
                 allow_synthetic=config.synthetic,
-                synthetic_scale=config.synthetic_scale, seed=config.seed)
+                synthetic_scale=config.synthetic_scale, seed=config.seed,
+                synthetic_payload=not self._device_inputs)
         self.dataset = dataset
         dev = self.device
         g = dataset.graph.to(dev)
@@ -159,16 +189,28 @@ class Trainer:
         # the kernels' impls plan the graph, so that each graph takes the
         # reference's kernel (csr_spmm, or stream_spmm at low degree), for
         # the gathered rows' size; the plain ops read the raw graph
+        cache = (None if config.synthetic
+                 else os.path.join(config.data_path, "plans"))
         self.g = (g if config.impl == "torch"
                   else planned.plan_graph(g, dim=config.hidden_dim,
-                                          dtype=dtype))
+                                          dtype=dtype, cache_dir=cache))
         self.feature_store: FeatureStore | None = None
-        self.features = self._load_features(dataset, dtype)
-        self.labels = torch.from_numpy(np.asarray(dataset.labels)).to(dev)
+        if self._device_inputs:
+            self.logger.info("device_inputs: features and labels drawn on "
+                             "the device (no host feature transfer)")
+            feat, self.labels = device_synthetic_inputs(
+                dataset.name, config.synthetic_scale, config.seed, dev)
+            self.features = feat.to(dtype)
+        else:
+            self.features = self._load_features(dataset, dtype)
+            self.labels = torch.from_numpy(
+                np.asarray(dataset.labels)).to(dev)
         self.masks = tuple(torch.from_numpy(np.asarray(m, bool)).to(dev)
                            for m in (dataset.train_mask, dataset.val_mask,
                                      dataset.test_mask))
         self._loss = loss_fn(dataset.multilabel)
+        self._metric = (rocauc_tensor if dataset.name == "ogbn-proteins"
+                        else micro_f1)
 
     def _load_features(self, dataset: Dataset, dtype: torch.dtype
                        ) -> torch.Tensor:
@@ -232,11 +274,13 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, state: dict[str, Any]
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(train, val, test) accuracy or micro-F1, as 0-d device tensors."""
+        """(train, val, test) accuracy or micro-F1 (ROC-AUC for
+        ogbn-proteins), as 0-d device tensors."""
         model = state["model"]
         model.eval()
         logits = model(self.g, self.features)
-        return tuple(micro_f1(logits, self.labels, m) for m in self.masks)
+        return tuple(self._metric(logits, self.labels, m)
+                     for m in self.masks)
 
     # -- serving ---------------------------------------------------------------
 
@@ -349,6 +393,11 @@ class Trainer:
         # the graph is captured after the run's first step, which runs
         # eagerly, and then takes every step
         use_graph = self.device.type == "cuda" and any(n > 1 for n in groups)
+        if use_graph and cfg.remat:
+            raise NotImplementedError(
+                "--steps_per_call > 1 with --remat: a rematerialised step "
+                "sets its dropout generator's state in the backward, which "
+                "a CUDA graph capture does not allow; run one of the two")
         graphed: GraphedStep | None = None
         t_start = time.perf_counter()
         t_steady = None   # clock after the first full iteration

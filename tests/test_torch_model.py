@@ -79,11 +79,11 @@ def test_init_follows_jax_scheme():
 
 
 def test_unported_models_raise():
-    """Every family is ported; --remat waits (ROADMAP Queue A9), and an
-    unknown model is a ValueError, as in the JAX package."""
+    """Every family is ported, and so is --remat (it builds, flagged on the
+    model); an unknown model is a ValueError, as in the JAX package."""
     kw = dict(in_dim=4, hidden_dim=8, num_layers=1, out_dim=2)
-    with pytest.raises(NotImplementedError, match="Queue A9"):
-        tbuild("sage", remat=True, **kw)
+    assert tbuild("sage", remat=True, **kw).remat
+    assert not tbuild("sage", **kw).remat
     with pytest.raises(ValueError, match="unknown model"):
         tbuild("gat", **kw)
 

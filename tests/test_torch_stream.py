@@ -104,8 +104,11 @@ def test_plan_graph_kinds_and_aliasing():
         assert pd.bwd_plan is not pd.fwd_plan
         assert torch.equal(pd.bwd_plan.indices, directed.t_indices)
     assert pg.num_nodes == sym.num_nodes and pg.indices is sym.indices
+    # the reference's degree-class windowed plan is the windowed plan here
+    assert tplanned.plan_graph(sym, kind="windowed_classes").kind == \
+        "windowed"
     with pytest.raises(ValueError, match="unknown plan kind"):
-        tplanned.plan_graph(sym, kind="windowed_classes")
+        tplanned.plan_graph(sym, kind="classes")
     with pytest.raises(ValueError, match="chunk"):
         tplanned.plan_graph(sym, kind="stream", chunk=0)
 
