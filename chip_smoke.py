@@ -80,6 +80,32 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      csr_cbsr_spmm_bf16_out forward and csr_sspmm_bf16_out backward at the
      default, no round_rows, falling losses), the three runs as for
      bf16x2;
+ 5a. mesh (`--mesh_shape 4` in one process, all shards on the card): the
+     Reddit graph partitioned into 4 shards (parallel/planned_sharded.py):
+     the host build stored to a temporary plan cache (its seconds, nps,
+     each role's kind, the round sizes, the boundary rows, comm_stats at
+     dim 256 and k 32 in f32 and with the bf16 halo against the full
+     gather); each role's per-shard product through its kernel, f32 and
+     bf16x2 messages, within 1e-5 of max |y| of its plain version in
+     float64, bitwise across two runs, timed; `sharded_planned_aggregate`
+     forward and input gradient with the dense and the CBSR exchange
+     within 1e-5 (the bf16 halo and the bf16x2 stream within 3e-2) of
+     max |y| of the float64 plain product, beside the single-device
+     `planned_aggregate`; `run_sweep(4)` (all eight configs); the Trainer
+     at `--mesh_shape 4` through the cached build: f32 with dropout 0 for
+     3 epochs (the first loss within 1e-4 relative of the single-device
+     run's from the same weights, each later difference printed), the
+     recipe (dropout 0.5, 5 epochs) with exact launch counts, its steady
+     epoch and peak memory beside the single-device run's of phase 5, and
+     `--dtype bfloat16` (5 epochs, exact counts, finite falling
+     losses); the recipe with `--steps_per_call 4` and evaluations every
+     5 epochs (a CUDA graph of the sharded step, replayed 4 times), its
+     losses and final weights bit-equal to the same run at steps_per_call
+     1, both runs' launches (captured once x replays + eager) exactly the
+     mesh's count; `run_trajectory_match(4)` with its checkpoint restore;
+     each recipe run's peak memory beside what was resident at its start,
+     the smoke's own sharded graph freed before the Trainers run; the
+     phase's wall time;
  5b. timing and benches, on the Reddit graph: the aggregation share of a
      train step (utils/timing.py: step_s, aggregation_s, aggregation_pct)
      at f32 and `--dtype bfloat16`; 5 epochs of the bfloat16 recipe with
@@ -2257,6 +2283,7 @@ def run_training(torch, trainer, expected: dict, what: str,
     """Trainer.run from zeroed launch counts; checks `epochs` finite losses
     and the exact counts. Returns the run's result and counts."""
     from spgemm_gnn_tpu_torch.kernels import _build
+    resident = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     _build.launches.clear()
     res = trainer.run()
@@ -2267,7 +2294,8 @@ def run_training(torch, trainer, expected: dict, what: str,
     log(f"{what}: losses {losses}")
     log(f"{what}: val acc {[r.val_acc for r in res['history']]}")
     log(f"{what}: steady_epoch_s {res['steady_epoch_s']}, wall "
-        f"{res['wall_time_s']:.2f} s, peak memory {peak:.2f} GiB, allocator "
+        f"{res['wall_time_s']:.2f} s, peak memory {peak:.2f} GiB ("
+        f"{resident:.2f} resident at its start), allocator "
         f"retries {torch.cuda.memory_stats()['num_alloc_retries']}")
     if len(losses) != epochs or not all(map(math.isfinite, losses)):
         raise AssertionError(f"{what}: losses not finite: {losses}")
@@ -2275,7 +2303,8 @@ def run_training(torch, trainer, expected: dict, what: str,
         raise AssertionError(f"{what}: launch counts {counts} != expected "
                              f"{expected}")
     log(f"{what}: launches {counts}")
-    return dict(res=res, losses=losses, counts=counts, peak_gib=peak)
+    return dict(res=res, losses=losses, counts=counts, peak_gib=peak,
+                resident_gib=resident)
 
 
 def same_losses(run: dict, off: dict, what: str) -> None:
@@ -3224,6 +3253,335 @@ def bench_phase(torch, cfg, ds) -> None:
     log(f"timing and benches: {time.perf_counter() - t_phase:.1f} s")
 
 
+# the dropout-0 comparison with one device runs 3 epochs; the recipe
+# runs EPOCHS, since its loss at lr 0.01 rises after the first epoch and
+# falls below it only from the fourth
+MESH_SHARDS, MESH_EPOCHS = 4, 3
+
+
+def mesh_statics(spg) -> dict:
+    """What `mesh_counts` reads of a sharded graph: the shard count, each
+    role's kind, and whether it has a halo."""
+    return dict(shards=spg.num_shards, kinds=dict(spg.kinds),
+                halo=spg.fwd_halo is not None)
+
+
+def mesh_counts(statics: dict, steps: int, layers: int, bf16: bool,
+                evals: int | None = None) -> dict:
+    """The exact launches of `steps` train steps and `evals` eval forwards
+    (default one a step) of a MaxK model of `layers` aggregations over a
+    sharded graph (`mesh_statics`): per aggregation forward each shard's
+    local and halo kernel and the halo's compaction, per backward each
+    shard's backward pair and the compaction's densify."""
+    d, kinds = statics["shards"], statics["kinds"]
+    fwds = steps + (steps if evals is None else evals)
+    sfx = "_bf16_out" if bf16 else ""
+    b = "_bf16" if bf16 else ""
+    kernel = {"windowed": "csr_spmm" + sfx, "stream": "stream_spmm" + sfx}
+    counts = collections.Counter({f"maxk_fwd{b}": fwds * layers,
+                                  f"maxk_bwd{b}": steps * layers})
+    for role, calls in (("fwd_local", fwds), ("fwd_halo", fwds),
+                        ("bwd_local", steps), ("bwd_halo", steps)):
+        if role in kinds:
+            counts[kernel[kinds[role]]] += calls * layers * d
+    if statics["halo"]:
+        counts[f"cbsr_compact{b}"] += fwds * layers
+        counts[f"cbsr_densify{b}"] += steps * layers
+    if bf16:
+        counts.update(layer_norm16_fwd=fwds * layers,
+                      layer_norm16_bwd=steps * layers)
+    return dict(counts)
+
+
+def mesh_role_check(torch, spg, dim: int, k: int, seed: int,
+                    card: str) -> dict:
+    """Each role's per-shard product (its rectangular plan) through its
+    kernel on k-sparse rows, f32 and bf16x2 messages, against the plain
+    version in float64 on the same rows: within 1e-5 of max |y|, bitwise
+    across two runs, timed. Returns {role: {kind, shards: [per shard and
+    stream]}}."""
+    from spgemm_gnn_tpu_torch.kernels.round import round_rows
+    from spgemm_gnn_tpu_torch.kernels.spmm import csr_spmm
+    from spgemm_gnn_tpu_torch.kernels.stream import stream_spmm
+    from spgemm_gnn_tpu_torch.ops.spmm import csr_spmm_plain
+    gen = torch.Generator(device=spg.mesh.device).manual_seed(seed)
+    roles = ["fwd_local", "fwd_halo", "bwd_halo"]
+    if spg.bwd_local is not spg.fwd_local:
+        roles.insert(1, "bwd_local")
+    out = {}
+    for role in roles:
+        plans = getattr(spg, role)
+        if plans is None:
+            continue
+        kernel = csr_spmm if plans[0].kind == "windowed" else stream_spmm
+        rows = []
+        for c, plan in enumerate(plans):
+            x = sparse_input(torch, plan.num_src, dim, k, gen)
+            for stream, m in (("f32", x), ("bf16x2", round_rows(x))):
+                got, again = kernel(plan, m), kernel(plan, m)
+                ref = csr_spmm_plain(plan.indptr, plan.indices, m.double())
+                rel = rel_err(got, ref)[1]
+                if not rel <= 1e-5:
+                    raise AssertionError(f"mesh {role} shard {c} {stream}: "
+                                         f"error {rel:.3e} of max |y|")
+                if not bits_equal(torch, got, again):
+                    raise AssertionError(f"mesh {role} shard {c} {stream}: "
+                                         f"two runs differ")
+                rows.append(dict(
+                    shard=c, stream=stream, rows=plan.num_rows,
+                    sources=plan.num_src, edges=plan.indices.numel(),
+                    rel=rel, ms=time_ms(torch, lambda: kernel(plan, m), 5)))
+            del x, got, again, ref
+        out[role] = dict(kind=plans[0].kind, shards=rows)
+        log(f"mesh {role} ({plans[0].kind}, {kernel.__name__}): " + "; ".join(
+            f"shard {r['shard']} {r['stream']}: {r['rows']} rows x "
+            f"{r['sources']} sources, {r['edges']} edges, {r['ms']:.3f} ms, "
+            f"{r['rel']:.2e} of max |y|" for r in rows) + f" [{card}]")
+    return out
+
+
+def mesh_aggregate_check(torch, g, spg, dim: int, k: int, seed: int,
+                         card: str) -> dict:
+    """`sharded_planned_aggregate` (mean) on the k-sparse rows of the
+    path, forward and input gradient, against the plain product in
+    float64: the dense and the CBSR exchange within 1e-5 of max |y| (the
+    gradient of the CBSR exchange on the MaxK support), the bf16 halo and
+    the bf16x2 stream within 3e-2; the single-device `planned_aggregate`
+    beside them. Times each forward."""
+    from spgemm_gnn_tpu_torch.kernels import planned
+    from spgemm_gnn_tpu_torch.ops.norms import node_factors
+    from spgemm_gnn_tpu_torch.ops.spmm import csr_spmm_plain
+    from spgemm_gnn_tpu_torch.parallel.planned_sharded import (
+        sharded_planned_aggregate)
+    n, n_pad, dev = g.num_nodes, spg.padded_nodes, spg.mesh.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = sparse_input(torch, n, dim, k, gen)
+    ct = torch.randn((n, dim), generator=gen, device=dev)
+    _, post = node_factors(g, "mean")
+    y64 = csr_spmm_plain(g.indptr, g.indices, x.double(), None,
+                         post.double())
+    dx64 = csr_spmm_plain(g.t_indptr, g.t_indices,
+                          (ct * post[:, None]).double())
+    sup = x != 0
+
+    def padded(t):
+        out = torch.zeros((n_pad, dim), device=dev)
+        out[:n] = t
+        return out
+
+    ctp = padded(ct)
+    results = {}
+    pg = planned.plan_graph(g, dim=dim)
+    for name, kk, halo, stream, tol in (
+            ("dense", None, None, "f32", 1e-5),
+            ("cbsr", k, None, "f32", 1e-5),
+            ("cbsr_halo_bf16", k, torch.bfloat16, "f32", 3e-2),
+            ("bf16x2", k, None, "bf16x2", 3e-2),
+            ("single_device", k, None, "f32", 1e-5)):
+        planned.DEFAULT_STREAM = stream
+        try:
+            if name == "single_device":
+                xin = x.clone().requires_grad_()
+
+                def fwd(v=xin):
+                    return planned.planned_aggregate(pg, v, "mean", k)
+                y = fwd()
+                (y * ct).sum().backward()
+            else:
+                xin = padded(x).requires_grad_()
+
+                def fwd(v=xin, kk=kk, halo=halo):
+                    return sharded_planned_aggregate(spg, v, "mean", kk,
+                                                     halo)
+                y = fwd()
+                (y * ctp).sum().backward()
+            with torch.no_grad():
+                ms = time_ms(torch, fwd, 5)
+        finally:
+            planned.DEFAULT_STREAM = "f32"
+        y, dx = y.detach()[:n], xin.grad[:n]
+        if name != "dense" and name != "single_device":
+            dx = torch.where(sup, dx, torch.zeros_like(dx))
+            want_dx = torch.where(sup, dx64, torch.zeros_like(dx64))
+        else:
+            want_dx = dx64
+        fwd_rel, bwd_rel = rel_err(y, y64)[1], rel_err(dx, want_dx)[1]
+        if not (fwd_rel <= tol and bwd_rel <= tol):
+            raise AssertionError(f"mesh aggregate {name}: forward "
+                                 f"{fwd_rel:.3e}, gradient {bwd_rel:.3e} "
+                                 f"of max |y| > {tol}")
+        results[name] = dict(fwd_rel=fwd_rel, bwd_rel=bwd_rel, ms=ms)
+        log(f"mesh aggregate {name}: forward {fwd_rel:.3e}, input gradient "
+            f"{bwd_rel:.3e} of max |y| of float64 (limit {tol}); forward "
+            f"{ms:.3f} ms [{card}]")
+        del y, dx, xin
+    return results
+
+
+def mesh_phase(torch, ds, cfg, single: dict, card: str) -> dict:
+    """Phase 5a (module docstring): the Reddit recipe over a mesh of
+    MESH_SHARDS shards on the card. `single` is phase 5's f32 recipe run.
+    Returns the counts of the mesh recipe runs and the sweep, and B2's
+    per-role times."""
+    from spgemm_gnn_tpu_torch.kernels import _build
+    from spgemm_gnn_tpu_torch.parallel import dryrun, make_mesh
+    from spgemm_gnn_tpu_torch.parallel.planned_sharded import (
+        shard_planned_graph)
+    from spgemm_gnn_tpu_torch.train.loop import Trainer
+
+    t_phase = time.perf_counter()
+    g = ds.graph
+    layers = cfg.hidden_layers
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        spg = shard_planned_graph(g, make_mesh(MESH_SHARDS),
+                                  cache_dir=f"{workdir}/plans", dim=HIDDEN)
+        torch.cuda.synchronize()
+        log(f"mesh build: {time.perf_counter() - t0:.1f} s (host build, "
+            f"stored, and each shard's plans on the card) for "
+            f"{MESH_SHARDS} shards of {spg.nodes_per_shard} rows "
+            f"({spg.padded_nodes} with padding); kinds {spg.kinds}; round "
+            f"sizes {spg.halo_round_sizes}, boundary rows "
+            f"{spg.boundary_rows} [{card}]")
+        for what, kk, vb in (("dense f32", None, 4), ("CBSR f32", K, 4),
+                             ("CBSR, bf16 halo", K, 2)):
+            st = spg.comm_stats(HIDDEN, kk, vb)
+            log(f"mesh comm_stats ({what}, dim {HIDDEN}): exchange "
+                f"{st['exchange_bytes']} B a layer ({st['halo_rows_padded']}"
+                f" padded rows, padding {st['padding_ratio']:.3f}) against "
+                f"the full gather's {st['full_gather_bytes']} B: "
+                f"{st['ratio_vs_full_gather']:.4f}")
+        roles = mesh_role_check(torch, spg, HIDDEN, K, SEED, card)
+        aggregates = mesh_aggregate_check(torch, g, spg, HIDDEN, K, SEED,
+                                          card)
+        # each Trainer builds its own shard plans (from the stored build):
+        # this copy goes before they run, so that their peaks count theirs
+        statics = mesh_statics(spg)
+        del spg
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        _build.launches.clear()
+        sweep = dryrun.run_sweep(MESH_SHARDS)
+        sweep_counts = dict(_build.launches)
+        for r in sweep:
+            log(f"mesh sweep {r['config']}: kinds {r['plan_kinds']}, forward "
+                f"{r['fwd_relerr']:.3e}, gradient {r['bwd_relerr']:.3e}, "
+                f"exchange {r['exchange_bytes']} B of "
+                f"{r['full_gather_bytes']}")
+        log(f"mesh sweep: all {len(sweep)} configs within tolerance, "
+            f"{time.perf_counter() - t0:.1f} s, launches {sweep_counts}")
+
+        # the Trainer reads the stored build (an npz dataset's rule)
+        cfg_m = cfg.replace(mesh_shape=MESH_SHARDS, synthetic=False,
+                            data_path=workdir, epochs=MESH_EPOCHS)
+        t0 = time.perf_counter()
+        plain = Trainer(cfg.replace(dropout=0.0, epochs=MESH_EPOCHS),
+                        dataset=ds).run()
+        mesh = Trainer(cfg_m.replace(dropout=0.0), dataset=ds).run()
+        l1 = [r.loss for r in plain["history"]]
+        l4 = [r.loss for r in mesh["history"]]
+        rel = [abs(a - b) / abs(b) for a, b in zip(l4, l1)]
+        if not rel[0] <= 1e-4:
+            raise AssertionError(f"mesh Trainer: first loss {l4[0]} vs "
+                                 f"{l1[0]} on one device ({rel[0]:.3e})")
+        log(f"mesh Trainer, dropout 0: losses {l4}, one device {l1}, "
+            f"relative differences {rel} ({time.perf_counter() - t0:.1f} s)")
+        del plain, mesh
+        torch.cuda.empty_cache()
+
+        cfg_m = cfg_m.replace(epochs=EPOCHS)
+        before = torch.cuda.memory_allocated() / 2**30
+        f32 = run_training(torch, Trainer(cfg_m, dataset=ds),
+                           mesh_counts(statics, EPOCHS, layers, False),
+                           "train reddit, mesh 4")
+        require_fall(f32, "train reddit, mesh 4")
+        log(f"train reddit, mesh 4: steady epoch "
+            f"{f32['res']['steady_epoch_s']} s, peak memory "
+            f"{f32['peak_gib']:.2f} GiB ({before:.2f} resident before the "
+            f"Trainer was made, {f32['resident_gib']:.2f} at the run's "
+            f"start); one device (phase 5) "
+            f"{single['res']['steady_epoch_s']} s, {single['peak_gib']:.2f} "
+            f"GiB ({single['resident_gib']:.2f} at the run's start); "
+            f"launches an epoch "
+            f"{ {k: v // EPOCHS for k, v in f32['counts'].items()} } "
+            f"[{card}]")
+        b16 = run_training(torch, Trainer(cfg_m.replace(dtype="bfloat16"),
+                                          dataset=ds),
+                           mesh_counts(statics, EPOCHS, layers, True),
+                           "train reddit, mesh 4, bfloat16")
+        require_fall(b16, "train reddit, mesh 4, bfloat16")
+        counts = {"f32": f32["counts"], "bfloat16": b16["counts"]}
+        del f32, b16
+        torch.cuda.empty_cache()
+        mesh_steps_check(torch, ds, cfg_m, statics, card)
+
+    t0 = time.perf_counter()
+    rec = dryrun.run_trajectory_match(MESH_SHARDS)
+    log(f"mesh trajectory match: {rec} ({time.perf_counter() - t0:.1f} s)")
+    log(f"phase mesh: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return dict(counts=counts, sweep_counts=sweep_counts, roles=roles,
+                aggregates=aggregates)
+
+
+def mesh_steps_check(torch, ds, cfg_m, statics: dict, card: str) -> None:
+    """The Reddit recipe over the mesh (f32, dropout 0.5) for EPOCHS epochs
+    with evaluations every BATCH_EVAL, at `--steps_per_call` 1 and
+    BATCH_STEPS: the batched run captures the sharded step as a CUDA graph
+    and replays it EPOCHS - 1 times; its losses and final weights are
+    bit-equal to the unbatched run's, and both runs' executed launches
+    (captured once x replays + eager) are `mesh_counts`' exactly."""
+    from spgemm_gnn_tpu_torch.kernels import _build
+    from spgemm_gnn_tpu_torch.train.loop import Trainer
+    cfg_b = cfg_m.replace(eval_every=BATCH_EVAL)
+    evals = sum(e % BATCH_EVAL == 0 or e == EPOCHS - 1
+                for e in range(EPOCHS))
+    want = collections.Counter(mesh_counts(statics, EPOCHS,
+                                           cfg_m.hidden_layers, False, evals))
+    runs = {}
+    for spc in (1, BATCH_STEPS):
+        _build.launches.clear()
+        res = Trainer(cfg_b.replace(steps_per_call=spc), dataset=ds).run()
+        torch.cuda.synchronize()
+        counts = collections.Counter(_build.launches)
+        captured = collections.Counter(res["graph_launches"])
+        replays = res["graph_replays"]
+        # the wrappers count a captured launch once, at capture
+        executed = counts - captured + collections.Counter(
+            {name: n * replays for name, n in captured.items()})
+        runs[spc] = dict(res=res, losses=[r.loss for r in res["history"]])
+        log(f"mesh batched steps {spc}: losses {runs[spc]['losses']}, "
+            f"steady epoch {res['steady_epoch_s']} s, graph replays "
+            f"{replays}, captured launches {dict(captured)} [{card}]")
+        if executed != want:
+            raise AssertionError(f"mesh batched steps {spc}: launches "
+                                 f"{dict(executed)} (captured x replays + "
+                                 f"eager) != {dict(want)}")
+        if spc > 1 and (not captured or replays != EPOCHS - 1):
+            raise AssertionError(f"mesh batched steps: {replays} replays "
+                                 f"of {dict(captured)}")
+    one, four = runs[1], runs[BATCH_STEPS]
+    if not all(map(math.isfinite, one["losses"])):
+        raise AssertionError(f"mesh batched steps: losses {one['losses']}")
+    if four["losses"] != one["losses"]:
+        raise AssertionError(f"mesh batched steps: losses {four['losses']} "
+                             f"at steps_per_call {BATCH_STEPS} vs "
+                             f"{one['losses']} at 1")
+    p1 = one["res"]["final_state"]["model"].state_dict()
+    p4 = four["res"]["final_state"]["model"].state_dict()
+    if any(not torch.equal(p1[n], p4[n]) for n in p1):
+        raise AssertionError("mesh batched steps: final weights differ from "
+                             "steps_per_call 1")
+    log(f"mesh batched steps: a CUDA graph of the sharded step, replayed "
+        f"{four['res']['graph_replays']} times; losses and final weights "
+        f"bit-equal to steps_per_call 1, and both runs' launches "
+        f"(captured x replays + eager) {dict(want)} exactly; steady epoch "
+        f"{four['res']['steady_epoch_s']} s at {BATCH_STEPS}, "
+        f"{one['res']['steady_epoch_s']} s at 1 [{card}]")
+    del runs, one, four, p1, p4
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -3412,8 +3770,13 @@ def main() -> int:
     reddit_b_counts = reddit_b["counts"]
     reddit_b_off_counts = reddit_b_off["counts"]
     reddit_b_dense_counts = reddit_b_dense["counts"]
-    del reddit, reddit16, reddit16_off, reddit16_dense, reddit_b
+    del reddit16, reddit16_off, reddit16_dense, reddit_b
     del reddit_b_off, reddit_b_dense
+    torch.cuda.empty_cache()
+
+    # ---- the mesh: --mesh_shape 4 in one process on the Reddit recipe ------
+    mesh = mesh_phase(torch, ds, cfg, reddit, card)
+    del reddit
     torch.cuda.empty_cache()
 
     # ---- timing and the benches on the Reddit recipe ------------------------
@@ -3808,6 +4171,25 @@ def main() -> int:
                 entry["proteins_launches_path"] = (
                     "train proteins" + (", bfloat16" if run == "bfloat16"
                                         else ""))
+
+    # the mesh path's launches (phase 5a) and B2's per-role times there
+    for entry in kernels:
+        for run, key in (("f32", "mesh_launches"),
+                         ("bfloat16", "mesh_bf16_launches")):
+            if entry["name"] in mesh["counts"][run]:
+                entry[key] = mesh["counts"][run][entry["name"]]
+                entry[key + "_path"] = ("train reddit, mesh 4" + (
+                    ", bfloat16" if run == "bfloat16" else ""))
+        if entry["name"] in mesh["sweep_counts"]:
+            entry["mesh_sweep_launches"] = mesh["sweep_counts"][entry["name"]]
+        kind = {"csr_spmm": "windowed", "stream_spmm": "stream"}.get(
+            entry["name"])
+        roles = {role: [r["ms"] for r in r_all["shards"]
+                        if r["stream"] == "f32"]
+                 for role, r_all in mesh["roles"].items()
+                 if r_all["kind"] == kind}
+        if roles:
+            entry["mesh_role_ms"] = roles
 
     # ---- the 80-epoch accuracy check, f32 and bf16x2 ----------------------
     accuracy_check(torch)

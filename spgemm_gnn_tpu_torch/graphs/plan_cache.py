@@ -17,12 +17,20 @@ never sees half a file; a file that does not load (corrupt or partial) is
 deleted and the plan rebuilt, as the reference does. A loaded plan lands on
 the device of the CSR it is given, its passes' offsets on the host as
 built.
+
+A sharded host build (parallel/planned_sharded.py::_shard_host: each
+role's per-shard CSRs, the send schedule and the statics) is a directory of
+`.npy` files and a `meta.json` (`save_shard_host`), loaded as memory maps
+(`load_shard_host`), the reference's layout; `cached_shard_host` loads or
+builds and stores it under the reference's key, and deletes an entry that
+does not load before it rebuilds.
 """
 from __future__ import annotations
 
 import hashlib
 import json
 import os
+import shutil
 from typing import Callable
 
 import numpy as np
@@ -65,7 +73,8 @@ def plan_key(fingerprint: str, direction: str, kind: str, **params) -> str:
 
 def _windowed_parts(plan: CSRPlan) -> tuple[dict, dict]:
     statics = {"kind": "windowed", "src_blocks": plan.src_blocks,
-               "segment": plan.segment, "schedules": []}
+               "segment": plan.segment, "num_src": plan.num_src,
+               "schedules": []}
     arrays = {}
     for i, ((nb, n_src), s) in enumerate(plan._schedules.items()):
         shares = s.indices.data_ptr() == plan.indices.data_ptr()
@@ -82,7 +91,8 @@ def _windowed_parts(plan: CSRPlan) -> tuple[dict, dict]:
 
 def _stream_parts(plan: StreamPlan) -> tuple[dict, dict]:
     statics = {"kind": "stream", "chunk": plan.chunk,
-               "warp_chunks": plan.warp_chunks, "hot": [],
+               "warp_chunks": plan.warp_chunks, "num_src": plan.num_src,
+               "hot": [],
                "order": "order" in plan._hot,
                "positions": "positions" in plan._hot}
     arrays = {"chunk_row0": _host(plan.chunk_row0),
@@ -132,7 +142,8 @@ def load_plan(path: str, indptr: torch.Tensor,
                               chunk_row0=t("chunk_row0"),
                               carry_rows=t("carry_rows"),
                               chunk=statics["chunk"],
-                              warp_chunks=statics["warp_chunks"])
+                              warp_chunks=statics["warp_chunks"],
+                              num_src=statics["num_src"])
             if statics["order"]:
                 plan._hot["order"] = (t("order_ids"), t("order_counts"))
             if statics["positions"]:
@@ -143,7 +154,7 @@ def load_plan(path: str, indptr: torch.Tensor,
                     mask=mask, **h)
             return plan
         plan = CSRPlan(indptr, indices, src_blocks=statics["src_blocks"],
-                       segment=statics["segment"])
+                       segment=statics["segment"], num_src=statics["num_src"])
         for i, s in enumerate(statics["schedules"]):
             if s["shares_csr"]:
                 ix, bptr = indices, indptr[None]
@@ -182,3 +193,71 @@ def cached_plan(cache_dir: str | None, key: str,
     except OSError:
         pass
     return plan
+
+
+def save_shard_host(path: str, host: dict) -> None:
+    """Write a sharded host build to the directory `path` (a temporary
+    directory renamed into place): one `.npy` per array and `meta.json`
+    for the statics, the roles' kinds and the alias marker."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    os.makedirs(tmp, exist_ok=True)
+    meta = {"statics": host["statics"], "roles": {},
+            "n_send": len(host["send_idx"])}
+    for name, role in host["roles"].items():
+        if role is None or isinstance(role, str):   # absent, or the alias
+            meta["roles"][name] = role
+            continue
+        meta["roles"][name] = {"kind": role["kind"],
+                               "statics": role["statics"],
+                               "arrays": sorted(role["arrays"])}
+        for f, a in role["arrays"].items():
+            np.save(os.path.join(tmp, f"{name}__{f}.npy"), a)
+    for i, a in enumerate(host["send_idx"]):
+        np.save(os.path.join(tmp, f"send{i}.npy"), a)
+    with open(os.path.join(tmp, "meta.json"), "w") as fh:
+        json.dump(meta, fh)
+    if os.path.isdir(path):
+        shutil.rmtree(path, ignore_errors=True)
+    os.replace(tmp, path)
+
+
+def load_shard_host(path: str) -> dict:
+    """The sharded host build saved at `path`, its arrays memory-mapped."""
+    with open(os.path.join(path, "meta.json")) as fh:
+        meta = json.load(fh)
+
+    def mm(name):
+        return np.load(os.path.join(path, name + ".npy"), mmap_mode="r")
+
+    roles = {}
+    for name, r in meta["roles"].items():
+        if r is None or isinstance(r, str):
+            roles[name] = r
+            continue
+        roles[name] = {"kind": r["kind"], "statics": r["statics"],
+                       "arrays": {f: mm(f"{name}__{f}")
+                                  for f in r["arrays"]}}
+    return {"roles": roles,
+            "send_idx": [mm(f"send{i}") for i in range(meta["n_send"])],
+            "statics": meta["statics"]}
+
+
+def cached_shard_host(cache_dir: str | None, key: str,
+                      builder: Callable[[], dict]) -> dict:
+    """The sharded host build of `key` loaded from cache_dir, or built by
+    `builder` and stored. An entry that does not load is deleted and
+    rebuilt; a store that fails leaves the built one."""
+    if not cache_dir:
+        return builder()
+    path = os.path.join(cache_dir, f"shard_{key}")
+    if os.path.isdir(path):
+        try:
+            return load_shard_host(path)
+        except Exception:
+            shutil.rmtree(path, ignore_errors=True)
+    host = builder()
+    try:
+        save_shard_host(path, host)
+    except OSError:
+        pass
+    return host

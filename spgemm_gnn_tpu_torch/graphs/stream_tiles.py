@@ -43,7 +43,7 @@ import dataclasses
 
 import torch
 
-from spgemm_gnn_tpu_torch.graphs.tiles import CHUNK
+from spgemm_gnn_tpu_torch.graphs.tiles import CHUNK, max_source
 
 MAX_CHUNK = 512   # the kernels' carry slots and row rules are tested to here
 # chunks a warp of the stream kernels walks (its fetch drains only at the end
@@ -96,6 +96,11 @@ class StreamPlan:
                   warp_chunks chunks.
       chunk: edges per chunk.
       warp_chunks: chunks per warp span.
+      num_src: the source count the plan is built for (None: R, a square
+               plan; a shard's halo pair is rectangular). It sizes the
+               gather order and the hot set's mask.
+      max_src: the largest source id (-1 with no edges), recorded at
+               construction (`tiles.max_source`).
     """
     indptr: torch.Tensor
     indices: torch.Tensor
@@ -103,6 +108,8 @@ class StreamPlan:
     carry_rows: torch.Tensor
     chunk: int
     warp_chunks: int = WARP_CHUNKS
+    num_src: int | None = None
+    max_src: int = dataclasses.field(default=-1, init=False)
     # (row bytes, budget) -> HotSet; "order" -> (source ids by gather count
     # descending, ties by id; their counts); "positions" -> the transpose
     # positions
@@ -110,6 +117,12 @@ class StreamPlan:
                                    compare=False, repr=False)
 
     kind = "stream"
+
+    def __post_init__(self):
+        # frozen: both are set once, here
+        if self.num_src is None:
+            object.__setattr__(self, "num_src", self.num_rows)
+        object.__setattr__(self, "max_src", max_source(self.indices))
 
     @property
     def num_rows(self) -> int:
@@ -127,7 +140,7 @@ class StreamPlan:
         """(ids, counts): every source id, by how many of the plan's edges
         gather it, descending, ties by id ascending (int64 each)."""
         if "order" not in self._hot:
-            counts = torch.bincount(self.indices, minlength=self.num_rows)
+            counts = torch.bincount(self.indices, minlength=self.num_src)
             counts, ids = torch.sort(counts, descending=True, stable=True)
             self._hot["order"] = (ids, counts)
         return self._hot["order"]
@@ -198,9 +211,11 @@ def transpose_positions(indptr: torch.Tensor, indices: torch.Tensor,
 
 def build_stream_plan(indptr: torch.Tensor, indices: torch.Tensor, *,
                       chunk: int = CHUNK,
-                      warp_chunks: int = WARP_CHUNKS) -> StreamPlan:
-    """A StreamPlan over the CSR (indptr, indices), on their device. For the
-    backward pass give it the transpose CSR: the plan is direction-agnostic."""
+                      warp_chunks: int = WARP_CHUNKS,
+                      num_src: int | None = None) -> StreamPlan:
+    """A StreamPlan over the CSR (indptr, indices), on their device, for
+    num_src sources (None: as many as rows). For the backward pass give it
+    the transpose CSR: the plan is direction-agnostic."""
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"chunk must lie in [1, {MAX_CHUNK}]; got {chunk}")
     if warp_chunks < 1:
@@ -216,12 +231,5 @@ def build_stream_plan(indptr: torch.Tensor, indices: torch.Tensor, *,
     return StreamPlan(indptr=indptr, indices=indices,
                       chunk_row0=chunk_row0.int(),
                       carry_rows=torch.nonzero(carry).flatten().int(),
-                      chunk=chunk, warp_chunks=warp_chunks)
+                      chunk=chunk, warp_chunks=warp_chunks, num_src=num_src)
 
-
-def stream_plan_for_graph(g, *, transpose: bool = False,
-                          chunk: int = CHUNK) -> StreamPlan:
-    """StreamPlan for a Graph's forward (in-CSR) or transpose (out-CSR)."""
-    if transpose:
-        return build_stream_plan(g.t_indptr, g.t_indices, chunk=chunk)
-    return build_stream_plan(g.indptr, g.indices, chunk=chunk)

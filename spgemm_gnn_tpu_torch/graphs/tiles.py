@@ -215,6 +215,14 @@ def build_csr_schedule(indptr: torch.Tensor, indices: torch.Tensor,
         pass_fix=offsets(fix_b), n_slots=n_slots)
 
 
+def max_source(indices: torch.Tensor) -> int:
+    """The largest source id of a plan's indices (-1 with no edges), read
+    to the host once, when the plan is built: the wrappers check each
+    call's x against it (`kernels/_build.py::require_sources`) with no
+    device sync."""
+    return int(indices.max()) if indices.numel() else -1
+
+
 @dataclasses.dataclass(frozen=True)
 class CSRPlan:
     """The "windowed" plan kind on the card: the CSR (indptr int32 [R + 1],
@@ -222,15 +230,25 @@ class CSRPlan:
     (blocks, source count) and kept, so the schedules of two row sizes (f32
     and bf16 rows) sit side by side. `src_blocks` forces nb (None: the rule
     `auto_src_blocks` at the call's row bytes); `segment` is the segment
-    size."""
+    size; `num_src` the source count the plan is built for (None: R, a
+    square plan; a shard's halo pair is rectangular). `max_src` is the
+    largest source id, recorded at construction."""
     indptr: torch.Tensor
     indices: torch.Tensor
     src_blocks: int | None = None
     segment: int = SEGMENT
+    num_src: int | None = None
+    max_src: int = dataclasses.field(default=-1, init=False)
     _schedules: dict = dataclasses.field(default_factory=dict, init=False,
                                          compare=False, repr=False)
 
     kind = "windowed"
+
+    def __post_init__(self):
+        # frozen: both are set once, here
+        if self.num_src is None:
+            object.__setattr__(self, "num_src", self.num_rows)
+        object.__setattr__(self, "max_src", max_source(self.indices))
 
     @property
     def num_rows(self) -> int:

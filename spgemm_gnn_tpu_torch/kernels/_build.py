@@ -163,6 +163,16 @@ def require(t: torch.Tensor, what: str, dtype: torch.dtype | tuple,
                          f"{shape}")
 
 
+def require_sources(plan, n_src: int, what: str) -> None:
+    """Raise unless an x of n_src rows holds every source the plan gathers
+    (its `max_src`, a host int recorded when the plan was built, so the
+    check costs no device sync): a rectangular plan given too few source
+    rows would otherwise read past x on the card."""
+    if plan.max_src >= n_src:
+        raise ValueError(f"{what}: the plan gathers source row "
+                         f"{plan.max_src}, but its input has {n_src} rows")
+
+
 def require_aligned(t: torch.Tensor, what: str) -> None:
     if t.data_ptr() % 16:
         raise ValueError(f"{what} must be 16-byte aligned for the kernel's "

@@ -26,6 +26,9 @@ from spgemm_gnn_tpu_torch.ops import maxk as _maxk_plain
 from spgemm_gnn_tpu_torch.ops.layernorm import layer_norm16_forward
 from spgemm_gnn_tpu_torch.ops import spmm as _spmm_plain
 from spgemm_gnn_tpu_torch.ops.norms import node_factors
+from spgemm_gnn_tpu_torch.parallel.planned_sharded import (
+    ShardedPlannedGraph, sharded_planned_aggregate)
+from spgemm_gnn_tpu_torch.parallel.sharded import ShardedGraph, sharded_spmm
 
 IMPLS = ("auto", "torch", "cuda")
 AGGREGATE_IMPLS = (*IMPLS, "ell")
@@ -115,8 +118,27 @@ def aggregate(g, x: torch.Tensor, norm: str = "sum", k: int | None = None,
     sampled form at those channels only (`stream_sspmm` on a stream plan,
     `csr_sspmm` on a windowed one). impl "torch" takes the plain dense
     product; an ELLGraph (impl "ell" or "auto") the neighbor-group
-    baseline, forward and backward (`ops.ell.ell_aggregate`).
+    baseline, forward and backward (`ops.ell.ell_aggregate`). A sharded
+    graph aggregates over its mesh, as the JAX package dispatches it
+    (`spgemm_gnn_tpu/kernels/api.py:214-220`): a ShardedGraph through the
+    plain `sharded_spmm` (impl "torch" or "auto"), a ShardedPlannedGraph
+    through its shards' kernel pairs and the halo exchange
+    (`sharded_planned_aggregate`, impl "cuda" or "auto"; the kernels on
+    CUDA tensors, their plain versions on CPU ones); any other impl raises.
     """
+    if isinstance(g, (ShardedGraph, ShardedPlannedGraph)):
+        _check_impl(impl, x)
+        if isinstance(g, ShardedGraph):
+            if impl == "cuda":
+                raise ValueError("impl='cuda' takes a ShardedPlannedGraph "
+                                 "(shard_planned_graph); a ShardedGraph "
+                                 "aggregates by the plain sharded_spmm")
+            return sharded_spmm(g, x, norm, k)
+        if impl == "torch":
+            raise ValueError("impl='torch' takes a ShardedGraph "
+                             "(shard_graph); a ShardedPlannedGraph "
+                             "aggregates through the kernels")
+        return sharded_planned_aggregate(g, x, norm, k)
     impl = _ell_route(g, impl, x)
     if impl == "ell":
         return _ell.ell_aggregate(g, x, norm)

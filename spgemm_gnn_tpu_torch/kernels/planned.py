@@ -53,7 +53,7 @@ from spgemm_gnn_tpu_torch.graphs import plan_cache
 from spgemm_gnn_tpu_torch.graphs.csr import Graph
 from spgemm_gnn_tpu_torch.graphs.stream_tiles import (HOT_BUDGET,
                                                       WARP_CHUNKS, StreamPlan,
-                                                      stream_plan_for_graph)
+                                                      build_stream_plan)
 from spgemm_gnn_tpu_torch.graphs.tiles import (CHUNK, SEGMENT, CSRPlan,
                                                auto_src_blocks, auto_window,
                                                predicted_windowed_fill)
@@ -250,6 +250,33 @@ def plan_kind(num_nodes: int, num_edges: int) -> str:
     return "windowed" if fill >= WINDOWED_FILL_CUTOVER else "stream"
 
 
+def row_elem(dtype: torch.dtype) -> int:
+    """Bytes a channel of the rows the kernels gather: 2 for bf16
+    activations or under the bf16x2 stream, else 4."""
+    return 2 if _stream16() or dtype == torch.bfloat16 else 4
+
+
+def build_plan(indptr: torch.Tensor, indices: torch.Tensor, kind: str, *,
+               num_src: int | None = None, chunk: int = CHUNK,
+               dim: int | None = None, elem: int = 4
+               ) -> CSRPlan | StreamPlan:
+    """One plan of `kind` ("windowed" or "stream") over the CSR (indptr,
+    indices), on its device, for num_src sources (None: as many as rows;
+    a shard's halo pair is rectangular, parallel/planned_sharded.py):
+    where `dim` is given, with the windowed plan's `csr_spmm` schedule, or
+    the stream plan's hot set, built for rows of dim × elem bytes."""
+    if kind == "stream":
+        plan = build_stream_plan(indptr, indices, chunk=chunk,
+                                 num_src=num_src)
+        if dim is not None:
+            plan.hot_set(elem * dim)
+        return plan
+    plan = CSRPlan(indptr, indices, num_src=num_src)
+    if dim is not None:
+        plan.schedule(plan.num_src, dim, elem)
+    return plan
+
+
 def plan_graph(g: Graph, *, kind: str = "auto", chunk: int = CHUNK,
                dim: int | None = None,
                dtype: torch.dtype = torch.float32,
@@ -279,22 +306,17 @@ def plan_graph(g: Graph, *, kind: str = "auto", chunk: int = CHUNK,
         kind = plan_kind(g.num_nodes, g.num_edges)
     elif kind == "windowed_classes":
         kind = "windowed"
-    elem = 2 if _stream16() or dtype == torch.bfloat16 else 4
+    elem = row_elem(dtype)
     positions = kind == "stream" and dim is not None and elem == 2
 
     def build(transpose: bool, fwd=None):
-        if kind == "stream":
-            plan = stream_plan_for_graph(g, transpose=transpose, chunk=chunk)
-            if dim is not None:
-                plan.hot_set(elem * dim)
-            if positions and (transpose or g.symmetric):
-                # the sampled backward's, on the backward plan
-                plan.transpose_positions(plan if fwd is None else fwd)
-            return plan
-        plan = (CSRPlan(g.t_indptr, g.t_indices) if transpose
-                else CSRPlan(g.indptr, g.indices))
-        if dim is not None:
-            plan.schedule(g.num_nodes, dim, elem)
+        ip, ix = ((g.t_indptr, g.t_indices) if transpose
+                  else (g.indptr, g.indices))
+        plan = build_plan(ip, ix, kind, num_src=g.num_nodes, chunk=chunk,
+                          dim=dim, elem=elem)
+        if positions and (transpose or g.symmetric):
+            # the sampled backward's, on the backward plan
+            plan.transpose_positions(plan if fwd is None else fwd)
         return plan
 
     def one(transpose: bool, fwd=None):

@@ -88,14 +88,15 @@ def csr_spmm(plan: CSRPlan, x: torch.Tensor, pre: torch.Tensor | None = None,
     bytes (built at the first call with them, then kept on the plan).
 
     x f32 or bf16 [S, dim] → y f32 [R, dim]; with out_dtype bf16 (bf16 x
-    only), y bf16 = bf16(bf16(Σ) · bf16(post)). Indices are trusted to lie
-    in [0, S): graphs come from `from_edges`.
+    only), y bf16 = bf16(bf16(Σ) · bf16(post)). Raises unless S exceeds
+    the plan's largest source id (`CSRPlan.max_src`).
     """
     bf16 = x.dtype == torch.bfloat16
     out16 = check_out_dtype(x.dtype, out_dtype)
     if bf16 and x.shape[-1] % 8:
         raise ValueError(f"csr_spmm on bf16 rows needs dim % 8 == 0; got "
                          f"{x.shape[-1]}")
+    _build.require_sources(plan, x.shape[0], "csr_spmm")
     sched = plan.schedule(x.shape[0], x.shape[1], x.element_size())
     if _build.on_cpu(x):
         return csr_blocked_plain(sched.block_indptr, sched.indices, x, pre,
@@ -187,6 +188,7 @@ def csr_cbsr_spmm(plan: CSRPlan, records: torch.Tensor, k: int, dim: int,
     Needs 1 <= k < dim <= 256 and dim % 8 == 0, on the CPU too."""
     out16 = check_out_dtype(torch.bfloat16, out_dtype)
     _check_records(records, k, dim)
+    _build.require_sources(plan, records.shape[0], "csr_cbsr_spmm")
     sched = plan.schedule(records.shape[0], dim, 2)
     if _build.on_cpu(records):
         return csr_cbsr_plain(sched.block_indptr, sched.indices, records, k,
@@ -211,6 +213,7 @@ def csr_sspmm(plan: CSRPlan, m: torch.Tensor, ch: torch.Tensor,
     the bits of `csr_spmm(plan, m, None, post, out_dtype)`, through the
     same schedule."""
     check_sampled(plan, m, ch, out_dtype, "csr_sspmm")
+    _build.require_sources(plan, m.shape[0], "csr_sspmm")
     if _build.on_cpu(m):
         sched = plan.schedule(m.shape[0], m.shape[1], 2)
         return csr_sspmm_plain(sched.block_indptr, sched.indices, m, ch,
@@ -233,6 +236,7 @@ def csr_sspmm_at(plan: CSRPlan, m: torch.Tensor, ch: torch.Tensor,
     dev = m.device
     n_src, dim = m.shape
     k = ch.shape[1]
+    _build.require_sources(plan, n_src, "csr_sspmm")
     sched = plan.schedule(n_src, dim, 2)
     _build.require(m, "m", torch.bfloat16, dev, (n_src, dim))
     _build.require(ch, "ch", torch.uint8, dev, (plan.num_rows, k))

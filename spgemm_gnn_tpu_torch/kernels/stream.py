@@ -78,6 +78,7 @@ def _slices(n: int) -> int:
 def _require_plan(plan, dev: torch.device, n_src: int,
                   pre: torch.Tensor | None, post: torch.Tensor | None) -> None:
     n_rows, n_chunks = plan.num_rows, plan.num_chunks
+    _build.require_sources(plan, n_src, "stream plan")
     _build.require(plan.indptr, "indptr", torch.int32, dev, (n_rows + 1,))
     _build.require(plan.indices, "indices", torch.int32, dev, (None,))
     _build.require(plan.chunk_row0, "chunk_row0", torch.int32, dev,
@@ -131,10 +132,11 @@ def stream_spmm(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
     """y[v] = post[v] · Σ_{u ∈ in(v)} pre[u] · x[u] over the StreamPlan's
     CSR (a None factor is 1); x f32 or bf16 [S, dim] → y f32
     [plan.num_rows, dim], or, with out_dtype bf16 (bf16 x only), y bf16 =
-    bf16(bf16(Σ) · bf16(post)). Indices are trusted to lie in [0, S): graphs
-    come from `from_edges`."""
+    bf16(bf16(Σ) · bf16(post)). Raises unless S exceeds the plan's
+    largest source id (`StreamPlan.max_src`)."""
     _check_rows(x)
     check_out_dtype(x.dtype, out_dtype)
+    _build.require_sources(plan, x.shape[0], "stream_spmm")
     if _build.on_cpu(x):
         return stream_spmm_plain(plan, x, pre, post, out_dtype)
     return stream_spmm_at(plan, x, pre, post, out_dtype=out_dtype)
@@ -225,6 +227,7 @@ def stream_cbsr_spmm(plan, records: torch.Tensor, k: int, dim: int,
     rounds it into them). Needs 1 <= k < dim <= 256, on the CPU too: the
     ids are packed as uint8, as in the JAX kernel."""
     _check_cbsr(records, k, dim, value_dtype, out_dtype, pre)
+    _build.require_sources(plan, records.shape[0], "stream_cbsr_spmm")
     if _build.on_cpu(records):
         return stream_cbsr_spmm_plain(plan, records, k, dim, pre, post,
                                       value_dtype, out_dtype)
@@ -318,6 +321,7 @@ def stream_sspmm(plan, fwd_plan, m: torch.Tensor, ch: torch.Tensor,
     bf16(post)). At each kept channel the bits of `stream_spmm(plan, m,
     None, post, out_dtype)`."""
     check_sampled(plan, m, ch, out_dtype, "stream_sspmm")
+    _build.require_sources(plan, m.shape[0], "stream_sspmm")
     if _build.on_cpu(m):
         return stream_sspmm_plain(plan, m, ch, post, out_dtype)
     return stream_sspmm_at(plan, fwd_plan, m, ch, post, out_dtype=out_dtype)

@@ -1,10 +1,12 @@
 """Training configuration (counterpart of `spgemm_gnn_tpu/train/config.py`):
 the JAX package's flag names, plus `--device`.
 
-Flags whose path the port does not have yet (multi-GPU: `--mesh_shape`,
-`--multihost`, `--coordinator`) raise NotImplementedError naming their
-ROADMAP item (`check_supported`), which also rejects a `dtype` other than
-float32 and bfloat16 (ValueError).
+`--mesh_shape D` (D > 1) trains over a mesh of D graph shards in one
+process, every shard on the one device (parallel/mesh.py). Flags whose
+path the port does not have yet (more than one process: `--multihost`,
+`--coordinator`) raise NotImplementedError naming their ROADMAP item
+(`check_supported`), which also rejects a `dtype` other than float32 and
+bfloat16 (ValueError).
 """
 from __future__ import annotations
 
@@ -84,9 +86,8 @@ class TrainConfig:
 
 # (flag, test of a value this slice cannot run, ROADMAP item)
 _NOT_YET = (
-    ("mesh_shape", lambda v: v > 1, "Queue A13 (multi-GPU)"),
-    ("multihost", bool, "Queue A13 (multi-GPU)"),
-    ("coordinator", bool, "Queue A13 (multi-GPU)"),
+    ("multihost", bool, "Queue A13b (multi-process)"),
+    ("coordinator", bool, "Queue A13b (multi-process)"),
 )
 
 
@@ -155,7 +156,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device_inputs", action="store_true",
                    help="with --synthetic: draw the stand-in's features and "
                         "labels on the device (no host payload)")
-    p.add_argument("--mesh_shape", type=int, default=d.mesh_shape)
+    p.add_argument("--mesh_shape", type=int, default=d.mesh_shape,
+                   help="graph shards (D > 1: the edge-partitioned path, "
+                        "every shard on the one device, one process)")
     p.add_argument("--multihost", action="store_true")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT")
     p.add_argument("--num_processes", type=int, default=None)

@@ -46,6 +46,18 @@ same losses and weights bit for bit, less memory, a rerun of the layers'
 dense work in each backward. It captures no CUDA graph: `steps_per_call`
 > 1 with `remat` on the card raises NotImplementedError.
 
+Over a mesh (`mesh_shape` D > 1, the JAX Trainer's mesh path): D graph
+shards in this one process, all on the one device (parallel/mesh.py).
+impl "torch" partitions the graph for `sharded_spmm`; "auto" and "cuda"
+build each shard's plan pairs and the halo exchange
+(`shard_planned_graph`; the JAX Trainer takes that path for impl "pallas"
+only, its XLA path otherwise). Features, labels and masks are padded to
+the mesh's rows, and evaluation and the best-val protocol run on the
+padded arrays; the model state is one copy (the JAX Trainer replicates
+it), and the node-wise layers run once on the whole padded tensor.
+`predict` serves from the unsharded graph, as the JAX Trainer does,
+moved to the device at its first call (the shards do not hold it).
+
 Batched steps (`steps_per_call` n > 1, the JAX package's epoch batching):
 consecutive train epochs run in groups of up to n that never straddle an
 eval epoch or a checkpoint boundary (`group_size`), with no host sync
@@ -79,6 +91,9 @@ from spgemm_gnn_tpu_torch.graphs.features import (DeviceFeatureStore,
 from spgemm_gnn_tpu_torch.kernels import _build, planned
 from spgemm_gnn_tpu_torch.models.layers import compute_dtype
 from spgemm_gnn_tpu_torch.models.models import build_model
+from spgemm_gnn_tpu_torch.parallel.mesh import make_mesh
+from spgemm_gnn_tpu_torch.parallel.planned_sharded import shard_planned_graph
+from spgemm_gnn_tpu_torch.parallel.sharded import shard_graph
 from spgemm_gnn_tpu_torch.train import checkpoint as ckpt
 from spgemm_gnn_tpu_torch.train.config import TrainConfig, check_supported
 from spgemm_gnn_tpu_torch.train.infer import predict_nodes
@@ -180,26 +195,41 @@ class Trainer:
                 synthetic_scale=config.synthetic_scale, seed=config.seed,
                 synthetic_payload=not self._device_inputs)
         self.dataset = dataset
-        dev = self.device
-        g = dataset.graph.to(dev)
         # set unconditionally, as the reference does: the stream is
         # process-global, and an earlier Trainer may have changed it
         planned.DEFAULT_STREAM = config.stream
         dtype = compute_dtype(config.dtype)
+        cache = (None if config.synthetic
+                 else os.path.join(config.data_path, "plans"))
+        self.feature_store: FeatureStore | None = None
+        self.mesh = None
+        # under a mesh, the unsharded device graph that `predict` serves
+        # from, moved at its first call
+        self._serve_graph = None
+        if config.mesh_shape > 1:
+            self._init_mesh(dataset, dtype, cache)
+        else:
+            self._init_single(dataset, dataset.graph.to(self.device), dtype,
+                              cache)
+        self._loss = loss_fn(dataset.multilabel)
+        self._metric = (rocauc_tensor if dataset.name == "ogbn-proteins"
+                        else micro_f1)
+
+    def _init_single(self, dataset: Dataset, g, dtype: torch.dtype,
+                     cache: str | None) -> None:
+        """The graph, features, labels and masks on the one device."""
+        cfg, dev = self.config, self.device
         # the kernels' impls plan the graph, so that each graph takes the
         # reference's kernel (csr_spmm, or stream_spmm at low degree), for
         # the gathered rows' size; the plain ops read the raw graph
-        cache = (None if config.synthetic
-                 else os.path.join(config.data_path, "plans"))
-        self.g = (g if config.impl == "torch"
-                  else planned.plan_graph(g, dim=config.hidden_dim,
+        self.g = (g if cfg.impl == "torch"
+                  else planned.plan_graph(g, dim=cfg.hidden_dim,
                                           dtype=dtype, cache_dir=cache))
-        self.feature_store: FeatureStore | None = None
         if self._device_inputs:
             self.logger.info("device_inputs: features and labels drawn on "
                              "the device (no host feature transfer)")
             feat, self.labels = device_synthetic_inputs(
-                dataset.name, config.synthetic_scale, config.seed, dev)
+                dataset.name, cfg.synthetic_scale, cfg.seed, dev)
             self.features = feat.to(dtype)
         else:
             self.features = self._load_features(dataset, dtype)
@@ -208,9 +238,45 @@ class Trainer:
         self.masks = tuple(torch.from_numpy(np.asarray(m, bool)).to(dev)
                            for m in (dataset.train_mask, dataset.val_mask,
                                      dataset.test_mask))
-        self._loss = loss_fn(dataset.multilabel)
-        self._metric = (rocauc_tensor if dataset.name == "ogbn-proteins"
-                        else micro_f1)
+
+    def _init_mesh(self, dataset: Dataset, dtype: torch.dtype,
+                   cache: str | None) -> None:
+        """The graph over a mesh of mesh_shape shards on the one device
+        (the JAX Trainer's mesh path): impl "torch" partitions it for the
+        plain `sharded_spmm`; "auto" and "cuda" build each shard's plan
+        pairs and the halo exchange (`shard_planned_graph`, cached under
+        `<data_path>/plans` for npz datasets). Features (cast on the host
+        first), labels and masks are padded to the mesh's padded_nodes
+        rows; the padding rows have no edges and no mask."""
+        cfg = self.config
+        self.mesh = make_mesh(cfg.mesh_shape, self.device)
+        if cfg.impl == "torch":
+            self.g = shard_graph(dataset.graph, self.mesh)
+        else:
+            self.g = shard_planned_graph(dataset.graph, self.mesh,
+                                         cache_dir=cache,
+                                         dim=cfg.hidden_dim, dtype=dtype)
+        n_pad = self.g.padded_nodes
+        self.logger.info("%s: %d nodes in shards of %d rows (%d with "
+                         "padding), impl %s", self.mesh, dataset.num_nodes,
+                         self.g.nodes_per_shard, n_pad, cfg.impl)
+        if cfg.cache_strategy != "none":
+            self.logger.warning("--cache-strategy ignored under a mesh: "
+                                "the padded features go to the device "
+                                "whole")
+
+        def pad(a: np.ndarray, dtype=None) -> torch.Tensor:
+            t = torch.from_numpy(np.asarray(a))
+            t = t if dtype is None else t.to(dtype)
+            out = t.new_zeros((n_pad,) + tuple(t.shape[1:]))
+            out[:t.shape[0]] = t
+            return out.to(self.device)
+
+        # cast on the host: the transfer moves the narrow dtype
+        self.features = pad(np.asarray(dataset.features, np.float32), dtype)
+        self.labels = pad(dataset.labels)
+        self.masks = tuple(pad(np.asarray(m, bool)) for m in (
+            dataset.train_mask, dataset.val_mask, dataset.test_mask))
 
     def _load_features(self, dataset: Dataset, dtype: torch.dtype
                        ) -> torch.Tensor:
@@ -286,7 +352,13 @@ class Trainer:
 
     @property
     def graph(self):
-        """The plain device Graph (a PlannedGraph's own)."""
+        """The plain device Graph: a PlannedGraph's own on one device; under
+        a mesh the dataset's, moved to the device at first use (only
+        `predict` reads it, and the shards do not hold it)."""
+        if self.mesh is not None:
+            if self._serve_graph is None:
+                self._serve_graph = self.dataset.graph.to(self.device)
+            return self._serve_graph
         return (self.g.graph if isinstance(self.g, planned.PlannedGraph)
                 else self.g)
 

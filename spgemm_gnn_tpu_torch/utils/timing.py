@@ -48,7 +48,8 @@ def measure_aggregation_fraction(trainer, iters: int = 4) -> dict[str, Any]:
     dim, layers = cfg.hidden_dim, cfg.hidden_layers
     k = cfg.maxk if cfg.nonlinear == "maxk" else None
     # the probe rides the config's compute dtype, as the layers do
-    x0 = torch.randn((g.num_nodes, dim), device=dev,
+    # the graph's rows, a mesh's padding rows included
+    x0 = torch.randn((trainer.features.shape[0], dim), device=dev,
                      generator=torch.Generator(device=dev).manual_seed(0)
                      ).to(compute_dtype(cfg.dtype))
 

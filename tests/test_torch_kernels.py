@@ -427,3 +427,64 @@ def test_maxk_ids_bitwise_plain_on_gpu(cuda, dim, k, n, dtype):
         tmaxk_plain.maxk_channel_ids(x, meta, k).cpu().numpy())
 
 
+
+
+def _edge_case_shards(device, kind: str):
+    """A mesh of 4 shards of 64 rows over a 150-node graph whose edges lie
+    in shards 0 and 1 (two cross the boundary: halo rounds of MIN_HALO
+    rows), so shards 2 and 3 (the last past N) have no edge, every role
+    forced to `kind`."""
+    from spgemm_gnn_tpu_torch.parallel import make_mesh
+    from spgemm_gnn_tpu_torch.parallel import planned_sharded as tps
+    src = np.array([0, 1, 2, 3, 5, 7, 1, 3])
+    dst = np.array([1, 2, 3, 0, 6, 8, 70, 71])
+    g = from_edges(np.concatenate([src, dst]), np.concatenate([dst, src]),
+                   150)
+    rule = tps._choose_kind
+    tps._choose_kind = lambda *a: kind
+    try:
+        return g, tps.shard_planned_graph(g, make_mesh(4, device),
+                                          tile_slots=128, dst_block=64)
+    finally:
+        tps._choose_kind = rule
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["windowed", "stream"])
+def test_rectangular_shard_plans_on_gpu(cuda, kind):
+    """Each shard's rectangular plan of either kind through its kernel (f32
+    rows, bf16 rows, bf16 output) against the plain version on the same
+    rows: rows with no edge and whole shards with none come out 0 though
+    the output memory held NaN before; the sharded aggregation equals the
+    CPU's; too few source rows raise."""
+    from spgemm_gnn_tpu_torch.parallel import planned_sharded as tps
+    g, spg = _edge_case_shards(cuda, kind)
+    assert spg.halo_round_sizes == (8, 0, 8) and set(spg.kinds.values()) \
+        == {kind}
+    kernel = tspmm.csr_spmm if kind == "windowed" else tstream.stream_spmm
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for plans in (spg.fwd_local, spg.fwd_halo, spg.bwd_halo):
+        for plan in plans:
+            x = torch.randn((plan.num_src, 64), generator=gen, device=cuda)
+            for m, out in ((x, None), (round_rows(x), None),
+                           (x.to(BF16), BF16)):
+                poison = torch.full((plan.num_rows * 64 * 4,), float("nan"),
+                                    device=cuda)
+                del poison
+                y = kernel(plan, m, out_dtype=out)
+                want = tspmm_plain.csr_spmm_plain(plan.indptr, plan.indices,
+                                                  m, out_dtype=out)
+                assert not y.isnan().any()
+                torch.testing.assert_close(y.float(), want.float(),
+                                           rtol=1e-5 if out is None else 1e-2,
+                                           atol=1e-5)
+            if plan.max_src >= 0:
+                with pytest.raises(ValueError, match="source row"):
+                    kernel(plan, x[:plan.max_src])
+    x = torch.randn((spg.padded_nodes, 64), generator=gen, device=cuda)
+    _, cpu = _edge_case_shards("cpu", kind)
+    for k in (None, 8):
+        xk = x if k is None else tmaxk_plain.maxk(x, k)
+        y = tps.sharded_planned_aggregate(spg, xk, "gcn", k=k)
+        want = tps.sharded_planned_aggregate(cpu, xk.cpu(), "gcn", k=k)
+        torch.testing.assert_close(y.cpu(), want, rtol=1e-5, atol=1e-6)

@@ -109,6 +109,10 @@ def test_numpy_path_without_the_library(monkeypatch, caplog):
     monkeypatch.setattr(native.shutil, "which", lambda name: None)
     monkeypatch.setattr(native, "library_path",
                         lambda: native.BUILD_DIR / "libgraphcore_absent.so")
+    # a Trainer made earlier in this process (utils/logging.py::get_logger)
+    # stops the package's records at its logger; caplog reads the root's
+    monkeypatch.setattr(logging.getLogger("spgemm_gnn_tpu_torch"),
+                        "propagate", True)
     with caplog.at_level(logging.INFO, logger=native.__name__):
         assert not native.available()
     assert "no g++" in caplog.text

@@ -483,8 +483,7 @@ def test_cli_checkpoint_resume_evaluate(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (dict(mesh_shape=4), "A13"), (dict(multihost=True), "A13"),
-    (dict(coordinator="h:1"), "A13")])
+    (dict(multihost=True), "A13b"), (dict(coordinator="h:1"), "A13b")])
 def test_unported_flags_name_their_item(flag, item):
     with pytest.raises(NotImplementedError, match=f"Queue {item}"):
         check_supported(TrainConfig(**{**COMMON, **flag}))
@@ -492,10 +491,11 @@ def test_unported_flags_name_their_item(flag, item):
 
 @pytest.mark.parametrize("flag", [
     dict(device_inputs=True), dict(dataset="ogbn-proteins"),
-    dict(remat=True)])
+    dict(remat=True), dict(mesh_shape=4)])
 def test_a7_a9c_a11_flags_pass_the_check(flag):
-    """--device_inputs (A11), ogbn-proteins (A7) and --remat (A9c) are
-    ported: only the multi-GPU flags (A13) still raise."""
+    """--device_inputs (A11), ogbn-proteins (A7), --remat (A9c) and
+    --mesh_shape (A13a) are ported: only the multi-process flags (A13b)
+    still raise."""
     check_supported(TrainConfig(**{**COMMON, **flag}))
 
 

@@ -118,18 +118,20 @@ def test_default_device_without_gpu_raises():
 
 
 @pytest.mark.parametrize("flag", [
-    dict(mesh_shape=2), dict(multihost=True), dict(coordinator="h:1")])
+    dict(multihost=True), dict(coordinator="h:1")])
 def test_unported_flags_raise(flag):
-    """Only the multi-GPU flags (ROADMAP Queue A13) are left unported."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Only the multi-process flags (ROADMAP Queue A13b) are left
+    unported."""
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A13b"):
         check_supported(TrainConfig(**{**COMMON, **flag}))
 
 
 @pytest.mark.parametrize("flag", [
     dict(remat=True), dict(device_inputs=True),
-    dict(dataset="ogbn-proteins")])
+    dict(dataset="ogbn-proteins"), dict(mesh_shape=2)])
 def test_lifted_flags_pass_the_check(flag):
-    """--remat, --device_inputs and ogbn-proteins no longer raise."""
+    """--remat, --device_inputs, ogbn-proteins and --mesh_shape no longer
+    raise."""
     check_supported(TrainConfig(**{**COMMON, **flag}))
 
 
