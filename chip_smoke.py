@@ -106,6 +106,25 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      each recipe run's peak memory beside what was resident at its start,
      the smoke's own sharded graph freed before the Trainers run; the
      phase's wall time;
+ 5c. ranks (after 5a, before 5b): the Reddit recipe over 2 processes on
+     the one card, one graph shard a rank (parallel/multihost.py; gloo,
+     each collective staged through pinned host memory). The stand-in is
+     written once as an npz; then two `chip_smoke.py --rank R` processes
+     each start the process group at a free localhost port, print their
+     process_summary (backend, device), check their block of
+     `sharded_planned_aggregate` (sum; dense, CBSR, CBSR with a bf16 halo;
+     a seeded integer-valued k-sparse input) and dx bit for bit against
+     the in-process mesh of 2 on the same card, each form's forward and
+     exchange timed, its bytes beside comm_stats; then train the recipe
+     through the CLI's main (`--multihost --coordinator 127.0.0.1:PORT
+     --num_processes 2 --process_id R --mesh_shape 2 --data_path DIR`,
+     shard 0 storing the sharded build, shard 1 loading it) 3 epochs in
+     f32 and in bfloat16: finite losses, equal on both ranks, exact
+     launches a rank (on the kernels line), steady epoch, peak memory,
+     the exchange's ms and bytes a layer and the gradient all-reduce's.
+     The script then trains the in-process mesh of 2 on the same npz: the
+     ranks' first f32 loss within 1e-5 relative of its, the steady epochs
+     beside each other and one device's. NCCL is not run (one GPU);
  5b. timing and benches, on the Reddit graph: the aggregation share of a
      train step (utils/timing.py: step_s, aggregation_s, aggregation_pct)
      at f32 and `--dtype bfloat16`; 5 epochs of the bfloat16 recipe with
@@ -3582,6 +3601,303 @@ def mesh_steps_check(torch, ds, cfg_m, statics: dict, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# the ranks phase (5c): the Reddit recipe over RANKS processes, one graph
+# shard a rank, all on the one GPU over gloo; each rank trains RANK_EPOCHS
+# epochs in f32 and in bfloat16 through the CLI's main, within RANK_TIMEOUT
+RANKS, RANK_EPOCHS, RANK_TIMEOUT = 2, 3, 480
+
+
+def rank_argv(coordinator: str, rank: int, workdir: str, dtype: str
+              ) -> list[str]:
+    """The CLI's flags of the Reddit recipe on rank `rank` of RANKS, the
+    stand-in read from workdir's npz."""
+    return ["--dataset", "reddit", "--data_path", workdir, "--model", "sage",
+            "--nonlinear", "maxk", "--maxk", str(K), "--hidden_dim",
+            str(HIDDEN), "--hidden_layers", "4", "--norm", "--dropout", "0.5",
+            "--w_lr", "0.01", "--epochs", str(RANK_EPOCHS), "--seed",
+            str(SEED), "--dtype", dtype, "--device", "cuda", "--mesh_shape",
+            str(RANKS), "--multihost", "--coordinator", coordinator,
+            "--num_processes", str(RANKS), "--process_id", str(rank),
+            "--path", f"{workdir}/run_{dtype}"]
+
+
+def rank_aggregate_check(torch, rank: int, workdir: str,
+                         symmetric: bool) -> dict:
+    """On one rank: `sharded_planned_aggregate` (sum) of this rank's
+    block, through the halo rounds over gloo, against the in-process mesh
+    of RANKS shards on the same card and the same inputs (a seeded
+    integer-valued k-sparse x and integer cotangent, so every sum is
+    exact): the forward and dx bit for bit, dense, CBSR and CBSR with a
+    bf16 halo; each form's forward timed, and its exchange's host
+    milliseconds and bytes a call. Builds (shard 0) or loads the sharded
+    host build in workdir/plans, which the CLI runs then load. The graph
+    comes from the npz's edges with its symmetry given (the CLI's load
+    detects it, two sorts of E keys)."""
+    import numpy as np
+    from spgemm_gnn_tpu_torch.graphs.csr import from_edges
+    from spgemm_gnn_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from spgemm_gnn_tpu_torch.parallel.planned_sharded import (
+        shard_planned_graph, sharded_planned_aggregate)
+    t0 = time.perf_counter()
+    with np.load(f"{workdir}/reddit.npz") as z:
+        g = from_edges(z["edge_src"], z["edge_dst"], len(z["train_mask"]),
+                       symmetric=symmetric)
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = make_mesh(RANKS, "cuda")
+    spg = shard_planned_graph(g, mesh, cache_dir=f"{workdir}/plans",
+                              dim=HIDDEN)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    whole = shard_planned_graph(g, Mesh(RANKS, mesh.device),
+                                cache_dir=f"{workdir}/plans", dim=HIDDEN)
+    dev, n_pad, nps = mesh.device, spg.padded_nodes, spg.nodes_per_shard
+    rows = slice(rank * nps, (rank + 1) * nps)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cols = torch.rand((n_pad, HIDDEN), generator=gen,
+                      device=dev).argsort(dim=1)[:, :K]
+    x = torch.zeros((n_pad, HIDDEN), device=dev).scatter_(
+        1, cols, torch.randint(1, 9, (n_pad, K), generator=gen,
+                               device=dev).float())
+    x[g.num_nodes:] = 0
+    ct = torch.randint(-4, 5, (n_pad, HIDDEN), generator=gen,
+                       device=dev).float()
+    del cols
+    out = dict(load_s=t_load, build_s=t_build, kinds=dict(spg.kinds),
+               halo=spg.fwd_halo is not None,
+               rounds=list(spg.halo_round_sizes), nps=nps, forms={})
+    for name, k, halo in (("dense", None, None), ("cbsr", K, None),
+                          ("cbsr_bf16_halo", K, torch.bfloat16)):
+        xr = x[rows].clone().requires_grad_()
+        y = sharded_planned_aggregate(spg, xr, "sum", k, halo)
+        (y * ct[rows]).sum().backward()
+        xw = x.clone().requires_grad_()
+        yw = sharded_planned_aggregate(whole, xw, "sum", k, halo)
+        (yw * ct).sum().backward()
+        before = collections.Counter(mesh.stats)
+        with torch.no_grad():
+            ms = time_ms(torch, lambda: sharded_planned_aggregate(
+                spg, x[rows], "sum", k, halo), 3)
+        st = collections.Counter(mesh.stats) - before
+        calls = st["exchange_calls"]
+        value_bytes = 2 if halo is not None else 4
+        out["forms"][name] = dict(
+            fwd_bitwise=bits_equal(torch, y, yw[rows]),
+            dx_bitwise=bits_equal(torch, xr.grad, xw.grad[rows]),
+            fwd_ms=ms, exchange_ms=st["exchange_ms"] / calls,
+            exchange_bytes=st["exchange_bytes"] // calls,
+            staged_bytes=st["exchange_staged_bytes"] // calls,
+            comm_stats_bytes=spg.comm_stats(HIDDEN, k, value_bytes)[
+                "exchange_bytes"] // RANKS)
+        del xr, y, xw, yw
+    del whole, spg, x, ct
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_main(argv: list[str]) -> int:
+    """One rank of the ranks phase (`chip_smoke.py --rank R --coordinator
+    HOST:PORT --workdir DIR`, started by `ranks_phase`): the process group,
+    `rank_aggregate_check`, then the Reddit recipe through the CLI's main
+    in f32 and in bfloat16, its launches counted from zero before each
+    run; the results into DIR/rank<R>.json."""
+    import argparse
+    p = argparse.ArgumentParser()
+    p.add_argument("--rank", type=int, required=True)
+    p.add_argument("--coordinator", required=True)
+    p.add_argument("--workdir", required=True)
+    p.add_argument("--symmetric", type=int, required=True)
+    a = p.parse_args(argv)
+    import torch
+    from spgemm_gnn_tpu_torch.kernels import _build
+    from spgemm_gnn_tpu_torch.parallel.multihost import (
+        initialize_multihost, process_summary)
+    from spgemm_gnn_tpu_torch.train.__main__ import main as cli
+    initialize_multihost(a.coordinator, RANKS, a.rank, "cuda")
+    out = {"summary": process_summary("cuda")}
+    log(f"rank {a.rank}: process_summary {out['summary']}")
+    out["aggregate"] = rank_aggregate_check(torch, a.rank, a.workdir,
+                                            bool(a.symmetric))
+    for dtype in ("float32", "bfloat16"):
+        torch.cuda.reset_peak_memory_stats()
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        res = cli(rank_argv(a.coordinator, a.rank, a.workdir, dtype))
+        torch.cuda.synchronize()
+        out[dtype] = dict(
+            losses=[r.loss for r in res["history"]],
+            steady_epoch_s=res["steady_epoch_s"], cli_s=time.perf_counter()
+            - t0, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            launches=dict(_build.launches), collectives=res["collectives"])
+        del res
+        torch.cuda.empty_cache()
+    with open(f"{a.workdir}/rank{a.rank}.json", "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def write_reddit_npz(ds, path: str) -> None:
+    """The stand-in in graphs/datasets.py's npz schema."""
+    import numpy as np
+    host = ds.graph.host_arrays()
+    indptr = np.asarray(host["indptr"])
+    np.savez(path, edge_src=np.asarray(host["indices"], np.int64),
+             edge_dst=np.repeat(np.arange(len(indptr) - 1, dtype=np.int64),
+                                np.diff(indptr)),
+             feat=ds.features, label=ds.labels, train_mask=ds.train_mask,
+             val_mask=ds.val_mask, test_mask=ds.test_mask,
+             num_classes=ds.num_classes)
+
+
+def start_ranks(workdir: str, symmetric: bool) -> list[tuple]:
+    """RANKS processes of `rank_main` at a free localhost port, each one's
+    output into workdir/rank<R>.log. Waits for all (RANK_TIMEOUT, then
+    kills them); returns (rank, exit code, output) a rank."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(RANKS):
+        with open(f"{workdir}/rank{r}.log", "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--rank",
+                 str(r), "--coordinator", f"127.0.0.1:{port}", "--workdir",
+                 workdir, "--symmetric", str(int(symmetric))], stdout=f,
+                stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + RANK_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(r, p.returncode, Path(f"{workdir}/rank{r}.log").read_text())
+            for r, p in enumerate(procs)]
+
+
+def ranks_phase(torch, ds, cfg, single: dict, card: str) -> dict:
+    """Phase 5c (module docstring): the Reddit recipe over RANKS
+    processes on the one GPU. `single` is phase 5's f32 recipe run.
+    Returns each rank's launches of the f32 and bfloat16 runs."""
+    from spgemm_gnn_tpu_torch.train.loop import Trainer
+    t_phase = time.perf_counter()
+    layers = cfg.hidden_layers
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        write_reddit_npz(ds, f"{workdir}/reddit.npz")
+        log(f"ranks: the Reddit stand-in written as {workdir}/reddit.npz "
+            f"in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ran = start_ranks(workdir, ds.graph.symmetric)
+        t_ranks = time.perf_counter() - t0
+        for r, rc, text in ran:
+            for line in text.splitlines():
+                log(f"rank {r} | {line}")
+        bad = [(r, rc) for r, rc, _ in ran if rc != 0]
+        if bad:
+            raise AssertionError(f"ranks: rank (exit code) {bad}")
+        outs = [json.loads(Path(f"{workdir}/rank{r}.json").read_text())
+                for r in range(RANKS)]
+        # (a) the runtime: gloo on the one GPU
+        for r, out in enumerate(outs):
+            s = out["summary"]
+            if (s["backend"], s["process_index"], s["process_count"]) != (
+                    "gloo", r, RANKS) or not s["device"].startswith("cuda"):
+                raise AssertionError(f"ranks: rank {r}'s summary {s}")
+            log(f"ranks: rank {r} backend {s['backend']}, device "
+                f"{s['device']}, process_summary {s}")
+        log("ranks: NCCL not exercised (one GPU on this machine: the ranks "
+            "share it over gloo, staged through pinned host memory)")
+        # (b) each rank's block bit for bit the in-process mesh's
+        for r, out in enumerate(outs):
+            agg = out["aggregate"]
+            for name, f in agg["forms"].items():
+                if not (f["fwd_bitwise"] and f["dx_bitwise"]):
+                    raise AssertionError(f"ranks: rank {r} {name}: forward "
+                                         f"bitwise {f['fwd_bitwise']}, dx "
+                                         f"bitwise {f['dx_bitwise']}")
+                log(f"ranks: rank {r} aggregate {name} (sum, integer "
+                    f"k-sparse x): forward and dx bit for bit the "
+                    f"in-process mesh of {RANKS}; forward {f['fwd_ms']:.3f} "
+                    f"ms, exchange {f['exchange_ms']:.3f} ms and "
+                    f"{f['exchange_bytes']} B a call ({f['staged_bytes']} B "
+                    f"staged), comm_stats {f['comm_stats_bytes']} B a rank "
+                    f"[{card}]")
+            log(f"ranks: rank {r} graph from the npz {agg['load_s']:.1f} s, "
+                f"sharded build {agg['build_s']:.1f} s (shard 0 builds and "
+                f"stores, shard 1 loads), kinds {agg['kinds']}, rounds "
+                f"{agg['rounds']}, nps {agg['nps']}")
+        # (c) the first loss against the in-process mesh of RANKS shards
+        t0 = time.perf_counter()
+        inproc = run_training(
+            torch, Trainer(cfg.replace(mesh_shape=RANKS, synthetic=False,
+                                       data_path=workdir,
+                                       epochs=RANK_EPOCHS), dataset=ds),
+            mesh_counts(dict(shards=RANKS, kinds=outs[0]["aggregate"]["kinds"],
+                             halo=outs[0]["aggregate"]["halo"]),
+                        RANK_EPOCHS, layers, False),
+            f"train reddit, mesh {RANKS} in one process", RANK_EPOCHS)
+        t_inproc = time.perf_counter() - t0
+        statics = dict(shards=1, kinds=outs[0]["aggregate"]["kinds"],
+                       halo=outs[0]["aggregate"]["halo"])
+        counts = {}
+        for dtype, bf16 in (("float32", False), ("bfloat16", True)):
+            want = mesh_counts(statics, RANK_EPOCHS, layers, bf16)
+            runs = [out[dtype] for out in outs]
+            for r, run in enumerate(runs):
+                losses = run["losses"]
+                if (len(losses) != RANK_EPOCHS
+                        or not all(map(math.isfinite, losses))):
+                    raise AssertionError(f"ranks {dtype}: rank {r} losses "
+                                         f"{losses}")
+                # (g) launches a rank, exact
+                if run["launches"] != want:
+                    raise AssertionError(f"ranks {dtype}: rank {r} launches "
+                                         f"{run['launches']} != {want}")
+                c = run["collectives"]
+                # (e) the exchange a layer, host staging included
+                log(f"ranks {dtype}: rank {r} losses {losses}, steady epoch "
+                    f"{run['steady_epoch_s']} s, CLI {run['cli_s']:.1f} s, "
+                    f"peak memory {run['peak_gib']:.2f} GiB, exchange "
+                    f"{c['exchange_ms'] / c['exchange_calls']:.3f} ms and "
+                    f"{c['exchange_bytes'] // c['exchange_calls']} B a "
+                    f"forward layer, {c['exchange_bwd_ms'] / c['exchange_bwd_calls']:.3f}"
+                    f" ms and {c['exchange_bwd_bytes'] // c['exchange_bwd_calls']}"
+                    f" B a backward layer, gradient all-reduce "
+                    f"{c['grad_all_reduce_ms'] / c['grad_all_reduce_calls']:.3f}"
+                    f" ms a step, launches {run['launches']} (exact) "
+                    f"[{card}]")
+            if runs[1]["losses"] != runs[0]["losses"]:
+                raise AssertionError(f"ranks {dtype}: the ranks' losses "
+                                     f"differ: {[r['losses'] for r in runs]}")
+            counts[dtype] = [run["launches"] for run in runs]
+        got, want_l = outs[0]["float32"]["losses"][0], inproc["losses"][0]
+        rel = abs(got - want_l) / abs(want_l)
+        if not rel <= 1e-5:
+            raise AssertionError(f"ranks: first loss {got} vs {want_l} in "
+                                 f"one process ({rel:.3e})")
+        # (d) the steady epochs side by side
+        log(f"ranks: first loss {got}, in-process mesh of {RANKS} {want_l} "
+            f"({rel:.3e} relative); steady epoch f32 "
+            f"{outs[0]['float32']['steady_epoch_s']} s on {RANKS} ranks, "
+            f"{inproc['res']['steady_epoch_s']} s in one process "
+            f"({inproc['peak_gib']:.2f} GiB peak), "
+            f"{single['res']['steady_epoch_s']} s on one device (phase 5); "
+            f"bfloat16 {outs[0]['bfloat16']['steady_epoch_s']} s on "
+            f"{RANKS} ranks [{card}]")
+        del inproc
+        torch.cuda.empty_cache()
+    log(f"phase ranks: {time.perf_counter() - t_phase:.1f} s ({t_ranks:.1f} "
+        f"s the ranks, {t_inproc:.1f} s the in-process run) [{card}]")
+    return counts
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -3776,6 +4092,10 @@ def main() -> int:
 
     # ---- the mesh: --mesh_shape 4 in one process on the Reddit recipe ------
     mesh = mesh_phase(torch, ds, cfg, reddit, card)
+    torch.cuda.empty_cache()
+
+    # ---- one graph shard a rank: the Reddit recipe over 2 processes -------
+    ranks = ranks_phase(torch, ds, cfg, reddit, card)
     del reddit
     torch.cuda.empty_cache()
 
@@ -4190,6 +4510,13 @@ def main() -> int:
                  if r_all["kind"] == kind}
         if roles:
             entry["mesh_role_ms"] = roles
+        # phase 5c: each rank's launches (rank 0, rank 1)
+        for run, key in (("float32", "ranks_launches"),
+                         ("bfloat16", "ranks_bf16_launches")):
+            if entry["name"] in ranks[run][0]:
+                entry[key] = [c[entry["name"]] for c in ranks[run]]
+                entry[key + "_path"] = (f"train reddit, {RANKS} ranks" + (
+                    ", bfloat16" if run == "bfloat16" else ""))
 
     # ---- the 80-epoch accuracy check, f32 and bf16x2 ----------------------
     accuracy_check(torch)
@@ -4204,4 +4531,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[1:]))
     sys.exit(main())

@@ -17,6 +17,16 @@ whatever its input (the models' `lin_out`, which flax leaves in f32).
 `LayerNorm` and `BatchNorm` take their statistics and normalise in f32 with
 f32 parameters, in flax's association, and round once to the compute dtype
 (flax `_normalize` with `force_float32_reductions`).
+
+One shard a rank (parallel/mesh.py::RankMesh), the layers see the rank's
+rows of the padded node arrays, and the graph `g` says which
+(`parallel/mesh.py::rank_rows`). Dropout keeps the rows of the global
+mask: the draw of [padded rows, dim] from the shared generator, sliced to
+the rank's rows (one transient draw of the whole a call), so the mask does
+not depend on how the graph is cut, as in the JAX package. BatchNorm sums
+x and x² over the rank's rows and all-reduces the sums (differentiably:
+`parallel/mesh.py::AllReduce`), the statistics of the same padded rows a
+one-process mesh takes.
 """
 from __future__ import annotations
 
@@ -28,6 +38,7 @@ from torch import nn
 
 from spgemm_gnn_tpu_torch.kernels.api import aggregate, layer_norm16
 from spgemm_gnn_tpu_torch.models.remat import recomputing
+from spgemm_gnn_tpu_torch.parallel.mesh import AllReduce, rank_rows
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -91,13 +102,21 @@ def xavier_uniform_(w: torch.Tensor, gain: float,
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
-            generator: torch.Generator | None) -> torch.Tensor:
+            generator: torch.Generator | None, g=None) -> torch.Tensor:
     """Inverted dropout with noise from `generator` (flax Dropout's rule:
-    keep with probability 1 - p and scale the kept values by 1/(1 - p))."""
+    keep with probability 1 - p and scale the kept values by 1/(1 - p)).
+    Where `g` is a rank's shard, x holds its rows of the padded nodes and
+    the mask is their rows of the whole's (module docstring)."""
     if not training or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
-    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+    rows = rank_rows(g)
+    if rows is None:
+        noise = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        _, first, total = rows
+        noise = torch.rand((total,) + tuple(x.shape[1:]), generator=generator,
+                           device=x.device)[first:first + x.shape[0]]
+    return torch.where(noise >= p, x / (1.0 - p), torch.zeros_like(x))
 
 
 class SAGEConv(nn.Module):
@@ -129,7 +148,7 @@ class SAGEConv(nn.Module):
                 ids: torch.Tensor | None = None) -> torch.Tensor:
         """ids: the channels the MaxK that made x kept (for the sampled
         backward), or None."""
-        x = dropout(x, self.feat_drop, self.training, generator)
+        x = dropout(x, self.feat_drop, self.training, generator, g)
         agg = aggregate(g, x, norm="mean", k=self.k_sparse, impl=self.impl,
                         ids=ids)
         out = self.fc_self(x) + self.fc_neigh(agg)
@@ -191,7 +210,9 @@ class BatchNorm(nn.Module):
     ones. Parameters `weight` (flax `scale`) and `bias`; buffers
     `running_mean` and `running_var` (flax `batch_stats` mean and var).
     Statistics and normalisation run in f32 and the output takes x's dtype
-    (flax BatchNorm(dtype=bfloat16) on bf16 activations)."""
+    (flax BatchNorm(dtype=bfloat16) on bf16 activations). Where the graph
+    `g` is a rank's shard, the batch statistics are all-reduced (module
+    docstring)."""
 
     def __init__(self, features: int, momentum: float = 0.9,
                  eps: float = 1e-5):
@@ -209,12 +230,12 @@ class BatchNorm(nn.Module):
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, g=None) -> torch.Tensor:
         out_dtype = x.dtype
         x = x.float()
         if self.training:
-            mean = x.mean(0)
-            var = torch.clamp((x * x).mean(0) - mean * mean, min=0.0)
+            mean, sq = _batch_means(x, rank_rows(g))
+            var = torch.clamp(sq - mean * mean, min=0.0)
             # under --remat the backward reruns the layer: the running
             # averages move in the forward only
             if not recomputing():
@@ -226,3 +247,14 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         return ((x - mean) * (torch.rsqrt(var + self.eps) * self.weight)
                 + self.bias).to(out_dtype)
+
+
+def _batch_means(x: torch.Tensor, rows) -> tuple[torch.Tensor, torch.Tensor]:
+    """(E[x], E[x²]) over the nodes: x's rows, or where `rows` (a rank's
+    `rank_rows`) is given, every rank's rows, by one all-reduce of the
+    rank's sums."""
+    if rows is None:
+        return x.mean(0), (x * x).mean(0)
+    mesh, _, total = rows
+    sums = AllReduce.apply(torch.cat([x.sum(0), (x * x).sum(0)]), mesh)
+    return sums[:x.shape[1]] / total, sums[x.shape[1]:] / total

@@ -94,8 +94,8 @@ class _Base(nn.Module):
             return maxk_op(x, self.k, self.impl, with_ids=True)
         return self._nl(x), None
 
-    def _drop(self, x: torch.Tensor, generator) -> torch.Tensor:
-        return dropout(x, self.feat_drop, self.training, generator)
+    def _drop(self, x: torch.Tensor, generator, g) -> torch.Tensor:
+        return dropout(x, self.feat_drop, self.training, generator, g)
 
     def _layer(self, i: int, g, x: torch.Tensor,
                generator: torch.Generator | None) -> torch.Tensor:
@@ -168,7 +168,7 @@ class _ConvStack(_Base):
 
     def _layer(self, i, g, x, generator):
         x, ids = self._nl_ids(getattr(self, f"lin{i}")(x), g)
-        x = getattr(self, f"conv{i}")(g, self._drop(x, generator), ids)
+        x = getattr(self, f"conv{i}")(g, self._drop(x, generator, g), ids)
         if self.use_norm:
             x = getattr(self, f"norm{i}")(x)
         return x
@@ -216,10 +216,11 @@ class GNNRes(_Base):
         res = getattr(self, f"res{i}")(x)
         x = getattr(self, f"conv{i}")(g, x)
         if self.use_norm:
-            x = getattr(self, f"bn{i}")(x)
-        x = self._drop(torch.relu(getattr(self, f"lin1_{i}")(x)), generator)
+            x = getattr(self, f"bn{i}")(x, g)
+        x = self._drop(torch.relu(getattr(self, f"lin1_{i}")(x)), generator,
+                       g)
         x = torch.relu(getattr(self, f"lin2_{i}")(x) + res)
-        return self._drop(x, generator)
+        return self._drop(x, generator, g)
 
     def forward(self, g, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -249,7 +250,7 @@ class MaxKSAGE(_Base):
                                ids=ids)
         if self.use_norm:
             x = getattr(self, f"norm{i}")(x)
-        return self._drop(x, generator)
+        return self._drop(x, generator, g)
 
     def forward(self, g, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -272,7 +273,7 @@ class MaxKGCN(_Base):
         self._add_lin_out()
 
     def _layer(self, i, g, x, generator):
-        x = self._drop(getattr(self, f"lin{i}")(x), generator)
+        x = self._drop(getattr(self, f"lin{i}")(x), generator, g)
         x, ids = self._nl_ids(getattr(self, f"conv_w{i}")(x), g)
         x = aggregate(g, x, "gcn", k=self.k, impl=self.impl, ids=ids)
         x = x + getattr(self, f"conv_b{i}").to(x.dtype)
@@ -301,7 +302,7 @@ class MaxKGIN(_Base):
         self._add_lin_out()
 
     def _layer(self, i, g, x, generator):
-        x = self._drop(getattr(self, f"lin{i}")(x), generator)
+        x = self._drop(getattr(self, f"lin{i}")(x), generator, g)
         x, ids = self._nl_ids(x, g)
         agg = aggregate(g, x, "sum", k=self.k, impl=self.impl, ids=ids)
         x = (1.0 + getattr(self, f"eps{i}")).to(x.dtype) * x + agg

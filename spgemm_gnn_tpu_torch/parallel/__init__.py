@@ -5,8 +5,10 @@ in-edges that end in it, and aggregates from its own rows and the rows the
 exchange brings it (CBSR-compressed on the MaxK path: k values and k
 channel ids a node instead of the hidden width).
 
-In one process the D shards share one device (parallel/mesh.py); one GPU a
-shard is ROADMAP Queue A13b.
+In one process the D shards share one device (parallel/mesh.py::Mesh);
+across processes each rank holds one shard (parallel/mesh.py::RankMesh,
+started by parallel/multihost.py), and the exchange and the reductions are
+collectives of torch.distributed.
 """
 
 from spgemm_gnn_tpu_torch.parallel.mesh import make_mesh  # noqa: F401

@@ -23,15 +23,26 @@ as the JAX package's shard pairs take no k: the CBSR forward and the
 sampled backward stay off this path, and the values follow the reference's
 dense pair.
 
-In one process (parallel/mesh.py) the exchange is an index copy: shard c's
-halo is `index_select` of the global rows its rounds deliver, in round
-order (`recv_idx`). With k < dim (a MaxK input) the payload is the CBSR
-pair of the scaled rows, as the JAX package's: `cbsr_compact` (B7) on the
-rows, the k values (optionally in `halo_dtype`, bf16 on the wire) and the
-channel ids packed dim-aware (`ops/maxk.py::pack_channels`: uint8×4 a word
-up to dim 256, uint16×2 above), densified on arrival. The backward is
+In one process (parallel/mesh.py::Mesh) the exchange is an index copy:
+shard c's halo is `index_select` of the global rows its rounds deliver, in
+round order (`recv_idx`). With k < dim (a MaxK input) the payload is the
+CBSR pair of the scaled rows, as the JAX package's: `cbsr_compact` (B7) on
+the rows, the k values (optionally in `halo_dtype`, bf16 on the wire) and
+the channel ids packed dim-aware (`ops/maxk.py::pack_channels`: uint8×4 a
+word up to dim 256, uint16×2 above), densified on arrival. The backward is
 autograd: the halo gather transposes to a boundary-sized `index_add_`, as
 the JAX package's transposed `ppermute` does.
+
+One shard a rank (parallel/mesh.py::RankMesh, the JAX layout with one
+device a process): the rank holds its own rows, its own plan of each role
+and its row of each live round's send schedule (`send_rows`), and the
+exchange is `HaloExchange`, the rounds as point-to-point messages of the
+rank's "graph" group (round s: to shard + s, from shard - s), the payload
+and the rounding points those of the index copy. Its backward is the
+transposed rounds: each rank sends the cotangent of the rows it received
+back to their owner, which `index_add_`s them into the gradient of what it
+sent, consumers in ascending shard order (the order of the index copy's
+backward on the CPU, so that the gradients agree bit for bit there).
 
 The host build (`_shard_host`) is numpy, mesh-free and disk-cacheable
 (graphs/plan_cache.py::cached_shard_host). Of the JAX package's geometry
@@ -63,7 +74,7 @@ from spgemm_gnn_tpu_torch.ops.maxk import (cbsr_to_dense,
                                            pack_channels, unpack_channels)
 from spgemm_gnn_tpu_torch.ops.norms import node_factors
 from spgemm_gnn_tpu_torch.ops.spmm import _scale
-from spgemm_gnn_tpu_torch.parallel.mesh import Mesh
+from spgemm_gnn_tpu_torch.parallel.mesh import Mesh, RankMesh
 from spgemm_gnn_tpu_torch.parallel.sharded import padded_degrees
 
 MIN_HALO = 8    # floor on a round's padded boundary (the JAX package's)
@@ -250,6 +261,11 @@ class ShardedPlannedGraph:
       in_degrees / out_degrees: int32 [n_pad].
       halo_round_sizes: M_s per round s = 1..D-1 (0: the round is skipped).
       boundary_rows: Σ |B(o -> c)|, the real boundary rows.
+
+    On a RankMesh (one shard a rank) each role's tuple holds the rank's
+    plan only, the degrees are the rank's nps rows, `recv_idx` is empty,
+    and `send_rows` holds the rank's local rows of each live round (int64
+    [M_s] each, in round order).
     """
     fwd_local: tuple
     bwd_local: tuple
@@ -264,11 +280,17 @@ class ShardedPlannedGraph:
     nodes_per_shard: int
     halo_round_sizes: tuple
     boundary_rows: int
-    mesh: Mesh
+    mesh: Mesh | RankMesh
+    send_rows: tuple = ()
 
     @property
     def num_shards(self) -> int:
         return self.mesh.num_shards
+
+    @property
+    def live_rounds(self) -> list[tuple[int, int]]:
+        """(s, M_s) of each round that runs, in order."""
+        return [(s, m) for s, m in enumerate(self.halo_round_sizes, 1) if m]
 
     @property
     def padded_nodes(self) -> int:
@@ -300,13 +322,14 @@ def _device_int32(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.int32)).to(device)
 
 
-def _role_plans(role: dict, device, dim: int | None, elem: int) -> tuple:
+def _role_plans(role: dict, device, dim: int | None, elem: int,
+                shards) -> tuple:
     st = role["statics"]
     return tuple(
         build_plan(_device_int32(role["arrays"][f"indptr{i}"], device),
                    _device_int32(role["arrays"][f"indices{i}"], device),
                    role["kind"], num_src=st["num_src"], dim=dim, elem=elem)
-        for i in range(st["shards"]))
+        for i in shards)
 
 
 def _recv_idx(send_idx: list, round_sizes: list, d: int, nps: int
@@ -324,31 +347,45 @@ def _recv_idx(send_idx: list, round_sizes: list, d: int, nps: int
 def _shard_host_to_device(host: dict, g: Graph, mesh: Mesh,
                           dim: int | None, dtype: torch.dtype
                           ) -> ShardedPlannedGraph:
+    """The device graph of the host build: every shard's plans on a Mesh;
+    on a RankMesh the rank's own plan of each role, its degrees and its
+    send rows."""
     dev, d = mesh.device, mesh.num_shards
     st = host["statics"]
     elem = row_elem(dtype)
+    on_rank = isinstance(mesh, RankMesh)
+    shards = [mesh.shard] if on_rank else range(d)
     plans, kinds = {}, {}
     for name in ROLES:
         role = host["roles"][name]
         if isinstance(role, str):       # "=fwd_local": the alias
             plans[name] = plans["fwd_local"]
         elif role is not None:
-            plans[name] = _role_plans(role, dev, dim, elem)
+            plans[name] = _role_plans(role, dev, dim, elem, shards)
         else:
             plans[name] = None
         if plans[name] is not None:
             kinds[name] = plans[name][0].kind
     nps = st["nodes_per_shard"]
     in_deg, out_deg = padded_degrees(g, nps * d, dev)
+    if on_rank:
+        rows = slice(mesh.shard * nps, (mesh.shard + 1) * nps)
+        in_deg, out_deg = in_deg[rows].clone(), out_deg[rows].clone()
+        recv_idx = torch.zeros(0, dtype=torch.int64, device=dev)
+        send_rows = tuple(
+            torch.from_numpy(a[mesh.shard].astype(np.int64)).to(dev)
+            for a in host["send_idx"])
+    else:
+        recv_idx = torch.from_numpy(_recv_idx(
+            host["send_idx"], st["halo_round_sizes"], d, nps)).to(dev)
+        send_rows = ()
     return ShardedPlannedGraph(
-        **plans, kinds=kinds,
-        recv_idx=torch.from_numpy(_recv_idx(
-            host["send_idx"], st["halo_round_sizes"], d, nps)).to(dev),
+        **plans, kinds=kinds, recv_idx=recv_idx,
         in_degrees=in_deg, out_degrees=out_deg,
         num_nodes=st["num_nodes"], num_edges=st["num_edges"],
         nodes_per_shard=nps,
         halo_round_sizes=tuple(st["halo_round_sizes"]),
-        boundary_rows=st["boundary_rows"], mesh=mesh)
+        boundary_rows=st["boundary_rows"], mesh=mesh, send_rows=send_rows)
 
 
 def shard_planned_graph(g: Graph, mesh: Mesh, *,
@@ -367,7 +404,10 @@ def shard_planned_graph(g: Graph, mesh: Mesh, *,
     cache_dir: where given, the host build is loaded from there, keyed by
     the CSR's fingerprint, the shard count and the geometry (the JAX
     package's key), or built and stored (graphs/plan_cache.py::
-    cached_shard_host)."""
+    cached_shard_host). On a RankMesh every rank needs the whole host
+    build: shard 0 loads or builds and stores it while the others wait at
+    a barrier, then they load it (no two ranks write one entry); without
+    a cache_dir every rank builds it (the build is deterministic)."""
     d = mesh.num_shards
     kw = dict(src_block=src_block, dst_block=dst_block, window=window)
     if cache_dir:
@@ -377,8 +417,13 @@ def shard_planned_graph(g: Graph, mesh: Mesh, *,
                                          host_g["indices"]),
             "shard", f"d{d}", sym=int(g.symmetric), S=TILE_SLOTS,
             B=src_block, R=dst_block, W=window)
+        first = not isinstance(mesh, RankMesh) or mesh.shard == 0
+        if not first:
+            mesh.barrier()
         host = plan_cache.cached_shard_host(cache_dir, key,
                                             lambda: _shard_host(g, d, **kw))
+        if first and isinstance(mesh, RankMesh):
+            mesh.barrier()
     else:
         host = _shard_host(g, d, **kw)
     return _shard_host_to_device(host, g, mesh, dim, dtype)
@@ -407,6 +452,63 @@ def _halo_rows(spg: ShardedPlannedGraph, xs: torch.Tensor, k: int | None,
     return halo.view(d, -1, dim)
 
 
+class HaloExchange(torch.autograd.Function):
+    """The halo rounds of one rank (module docstring): each payload
+    [nps, w]'s rows of each live round go to shard + s and the rows of
+    shard - s arrive, [H, w] in round order. Integer payloads (the packed
+    channel ids) carry no gradient; a floating one's gradient is its
+    received cotangent sent back to the owner and `index_add_`ed at the
+    rows sent, consumers in ascending shard order."""
+
+    @staticmethod
+    def forward(ctx, spg: ShardedPlannedGraph, *payloads: torch.Tensor):
+        ctx.spg, ctx.rows = spg, [p.shape[0] for p in payloads]
+        ctx.floating = [p.is_floating_point() for p in payloads]
+        sends = [torch.cat([p.index_select(0, r) for r in spg.send_rows])
+                 for p in payloads]
+        outs = spg.mesh.exchange(sends, spg.live_rounds)
+        ctx.mark_non_differentiable(
+            *(o for o in outs if not o.is_floating_point()))
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        spg = ctx.spg
+        mesh, live = spg.mesh, spg.live_rounds
+        # an integer output's gradient is autograd's zeros: it goes nowhere
+        which = [i for i, f in enumerate(ctx.floating) if f]
+        back = mesh.exchange([grads[i] for i in which], live, reverse=True,
+                             kind="exchange_bwd")
+        offsets = np.cumsum([0] + [m for _, m in live])
+        # round s serves consumer shard + s: ascending consumer order
+        order = sorted(range(len(live)), key=lambda i: (
+            (mesh.shard + live[i][0]) % mesh.num_shards))
+        out = [None] * len(grads)
+        for i, got in zip(which, back):
+            dx = got.new_zeros((ctx.rows[i],) + tuple(got.shape[1:]))
+            for ri in order:
+                dx.index_add_(0, spg.send_rows[ri],
+                              got[offsets[ri]:offsets[ri + 1]])
+            out[i] = dx
+        return (None, *out)
+
+
+def _rank_halo(spg: ShardedPlannedGraph, xs: torch.Tensor, k: int | None,
+               halo_dtype: torch.dtype | None) -> torch.Tensor:
+    """This rank's halo, [H, dim] in xs's dtype: `_halo_rows`'s payload
+    and rounding points, through `HaloExchange`."""
+    dim = xs.shape[1]
+    if k is not None and k < dim:
+        vals, ch = CBSRCompact.apply(xs.contiguous(), k)
+        if halo_dtype is not None:
+            vals = vals.to(halo_dtype)
+        v, packed = HaloExchange.apply(spg, vals, pack_channels(ch, dim))
+        return cbsr_to_dense(v.to(xs.dtype), unpack_channels(packed, k, dim),
+                             dim)
+    (halo,) = HaloExchange.apply(spg, xs)
+    return halo
+
+
 def sharded_planned_aggregate(spg: ShardedPlannedGraph, x: torch.Tensor,
                               norm: str = "sum", k: int | None = None,
                               halo_dtype: torch.dtype | None = None
@@ -420,10 +522,21 @@ def sharded_planned_aggregate(spg: ShardedPlannedGraph, x: torch.Tensor,
     on the wire (2k + ids bytes a boundary row instead of 4k + ids); None
     keeps them exact. The JAX package's rounding points: xs = x ⊙ src_f
     in x's dtype, the local and halo outputs each in it (bf16 for bf16 x),
-    their sum, then ⊙ dst_f."""
+    their sum, then ⊙ dst_f.
+
+    On a RankMesh x and y are the rank's rows [nps, dim], and the halo
+    comes through `HaloExchange`: the values of the index copy."""
     src_f, dst_f = node_factors(spg, norm)
     d, nps = spg.num_shards, spg.nodes_per_shard
     xs = _scale(x, src_f).contiguous()
+    if isinstance(spg.mesh, RankMesh):
+        y = Aggregate.apply(xs, spg.fwd_local[0], spg.bwd_local[0], None,
+                            None, None, None)
+        if spg.fwd_halo is not None:
+            y = y + Aggregate.apply(_rank_halo(spg, xs, k, halo_dtype),
+                                    spg.fwd_halo[0], spg.bwd_halo[0], None,
+                                    None, None, None)
+        return _scale(y, dst_f)
     blocks = xs.view(d, nps, -1)
     halo = (_halo_rows(spg, xs, k, halo_dtype)
             if spg.fwd_halo is not None else None)

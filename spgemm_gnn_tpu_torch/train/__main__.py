@@ -22,6 +22,16 @@ Examples:
   python -m spgemm_gnn_tpu_torch.train --dataset flickr --synthetic \
       --epochs 20 --eval_every 5 --steps_per_call 4 --profile /tmp/trace \
       --timing --tensorboard --path /tmp/run
+  # two processes, one graph shard each (gloo on the CPU; on a machine with
+  # one GPU both ranks share cuda:0 over gloo), one command a rank
+  python -m spgemm_gnn_tpu_torch.train --dataset flickr --synthetic \
+      --epochs 20 --device cpu --multihost --coordinator 127.0.0.1:29500 \
+      --num_processes 2 --process_id 0 --mesh_shape 2 --path /tmp/run
+  python -m spgemm_gnn_tpu_torch.train ... --process_id 1 ...
+
+Across processes every rank logs to its own file (`<dataset>.log` for rank
+0, `<dataset>.rank<r>.log` for the others), and rank 0 writes results.json
+and the TensorBoard scalars.
 """
 from __future__ import annotations
 
@@ -66,14 +76,27 @@ def _profile(trainer, out_dir: str, logger) -> None:
 
 
 def main(argv=None) -> dict:
+    from spgemm_gnn_tpu_torch.parallel.multihost import (
+        initialize_multihost, process_summary)
     from spgemm_gnn_tpu_torch.train.config import check_supported, from_args
     from spgemm_gnn_tpu_torch.train.loop import Trainer
     from spgemm_gnn_tpu_torch.utils.logging import get_logger
 
     config = from_args(argv)
     check_supported(config)
+    rank, summary = 0, None
+    if config.multihost or config.coordinator:
+        # before the Trainer: its mesh is one shard a rank
+        initialize_multihost(config.coordinator, config.num_processes,
+                             config.process_id, config.device)
+        summary = process_summary(config.device)
+        rank = summary["process_index"]
     os.makedirs(config.path, exist_ok=True)
-    logger = get_logger(os.path.join(config.path, f"{config.dataset}.log"))
+    log_name = f"{config.dataset}.log" if rank == 0 else (
+        f"{config.dataset}.rank{rank}.log")
+    logger = get_logger(os.path.join(config.path, log_name))
+    if summary is not None:
+        logger.info("multihost runtime: %s", summary)
     config.print_params(logger.info)
     trainer = Trainer(config, logger=logger)
     if config.evaluate:
@@ -82,11 +105,13 @@ def main(argv=None) -> dict:
         logger.info("Eval-only: train %.4f | val %.4f | test %.4f",
                     tr, va, te)
         out = {"train_acc": tr, "val_acc": va, "test_acc": te}
-        with open(os.path.join(config.path, "results.json"), "w") as f:
-            json.dump(out, f)
+        if rank == 0:
+            with open(os.path.join(config.path, "results.json"), "w") as f:
+                json.dump(out, f)
         return out
     logger.info("Training...")
-    writer = _tensorboard(config, logger) if config.tensorboard else None
+    writer = (_tensorboard(config, logger)
+              if config.tensorboard and rank == 0 else None)
     try:
         return _train(config, trainer, logger, writer)
     finally:
@@ -128,8 +153,11 @@ def _train(config, trainer, logger, writer) -> dict:
                 "wall_time_s", "steady_epoch_s")}
     if "aggregation_stats" in results:
         summary["aggregation_stats"] = results["aggregation_stats"]
-    with open(os.path.join(config.path, "results.json"), "w") as f:
-        json.dump(summary, f, indent=2)
+    if results["collectives"]:
+        logger.info("Collectives: %s", results["collectives"])
+    if trainer.logs_epochs:       # rank 0 across ranks
+        with open(os.path.join(config.path, "results.json"), "w") as f:
+            json.dump(summary, f, indent=2)
     return results
 
 if __name__ == "__main__":

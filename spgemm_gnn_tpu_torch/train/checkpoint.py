@@ -16,6 +16,10 @@ A checkpoint is a dict of tensors and ints (`snapshot`):
 `snapshot` copies every tensor, so a snapshot taken at the best epoch keeps
 that epoch's values while training moves on. `load_snapshot` writes one into
 a live state in place (the optimizer keeps its parameters).
+
+One shard a rank (parallel/mesh.py::RankMesh), the state is replicated:
+shard 0 writes, and every rank waits at a barrier after the write, so
+that any rank may read the checkpoint next.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from typing import Any
 
 import torch
 
+from spgemm_gnn_tpu_torch.parallel.mesh import RankMesh
 from spgemm_gnn_tpu_torch.train.optim import Lookahead
 
 FILE = "state.pt"
@@ -109,20 +114,25 @@ def load_snapshot(state: dict[str, Any], snap: dict[str, Any]
 
 
 def save_checkpoint(path: str, state: dict[str, Any], step: int,
-                    is_best: bool = False) -> str:
+                    is_best: bool = False, mesh=None) -> str:
     """Save `state` (a Trainer state, or a `snapshot`) under
     <path>/checkpoints/<step>, and under /best too if `is_best`. Returns the
-    step's directory."""
+    step's directory. With a RankMesh `mesh`, shard 0 writes and every
+    rank waits at its barrier."""
     base = _ckpt_dir(path)
-    snap = state if "params" in state else snapshot(state)
     targets = [os.path.join(base, str(step))]
     if is_best:
         targets.append(os.path.join(base, "best"))
-    for t in targets:
-        os.makedirs(t, exist_ok=True)
-        tmp = os.path.join(t, f"{FILE}.{os.getpid()}.tmp")
-        torch.save(snap, tmp)
-        os.replace(tmp, os.path.join(t, FILE))   # atomic
+    on_ranks = isinstance(mesh, RankMesh)
+    if not on_ranks or mesh.shard == 0:
+        snap = state if "params" in state else snapshot(state)
+        for t in targets:
+            os.makedirs(t, exist_ok=True)
+            tmp = os.path.join(t, f"{FILE}.{os.getpid()}.tmp")
+            torch.save(snap, tmp)
+            os.replace(tmp, os.path.join(t, FILE))   # atomic
+    if on_ranks:
+        mesh.barrier()
     return targets[0]
 
 

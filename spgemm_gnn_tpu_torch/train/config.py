@@ -2,11 +2,12 @@
 the JAX package's flag names, plus `--device`.
 
 `--mesh_shape D` (D > 1) trains over a mesh of D graph shards in one
-process, every shard on the one device (parallel/mesh.py). Flags whose
-path the port does not have yet (more than one process: `--multihost`,
-`--coordinator`) raise NotImplementedError naming their ROADMAP item
-(`check_supported`), which also rejects a `dtype` other than float32 and
-bfloat16 (ValueError).
+process, every shard on the one device (parallel/mesh.py). With
+`--multihost` or `--coordinator`, the CLI starts a process group
+(parallel/multihost.py: `--num_processes`, `--process_id`, or their env
+vars) and trains one graph shard a rank; `--mesh_shape` then equals the
+number of processes. `check_supported` rejects a `dtype` other than
+float32 and bfloat16 (ValueError).
 """
 from __future__ import annotations
 
@@ -84,28 +85,14 @@ class TrainConfig:
         return dataclasses.replace(self, **kw)
 
 
-# (flag, test of a value this slice cannot run, ROADMAP item)
-_NOT_YET = (
-    ("multihost", bool, "Queue A13b (multi-process)"),
-    ("coordinator", bool, "Queue A13b (multi-process)"),
-)
-
-
 DTYPES = tuple(COMPUTE_DTYPES)
 
 
 def check_supported(config: TrainConfig) -> None:
-    """Raise NotImplementedError for a flag whose path is not ported yet,
-    and ValueError for a dtype the model does not compute in."""
+    """Raise ValueError for a dtype the model does not compute in."""
     if config.dtype not in DTYPES:
         raise ValueError(f"--dtype {config.dtype!r}: expected one of "
                          f"{DTYPES}")
-    for flag, not_yet, item in _NOT_YET:
-        value = getattr(config, flag)
-        if not_yet(value):
-            raise NotImplementedError(
-                f"--{flag} {value!r} is not ported to spgemm_gnn_tpu_torch "
-                f"yet (ROADMAP {item})")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -157,12 +144,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --synthetic: draw the stand-in's features and "
                         "labels on the device (no host payload)")
     p.add_argument("--mesh_shape", type=int, default=d.mesh_shape,
-                   help="graph shards (D > 1: the edge-partitioned path, "
-                        "every shard on the one device, one process)")
-    p.add_argument("--multihost", action="store_true")
-    p.add_argument("--coordinator", default=None, metavar="HOST:PORT")
-    p.add_argument("--num_processes", type=int, default=None)
-    p.add_argument("--process_id", type=int, default=None)
+                   help="graph shards (D > 1: the edge-partitioned path; in "
+                        "one process every shard on the one device, across "
+                        "processes one shard a rank and D = the processes)")
+    p.add_argument("--multihost", action="store_true",
+                   help="start a process group (torch.distributed) before "
+                        "training: one graph shard a rank")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="rank 0's address (tcp://HOST:PORT; an address "
+                        "with a scheme, e.g. file://PATH, as it is); else "
+                        "COORDINATOR_ADDRESS")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="the world size; else NUM_PROCESSES")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this process's rank; else PROCESS_ID")
     p.add_argument("--log_every", type=int, default=d.log_every)
     p.add_argument("--tensorboard", action="store_true",
                    help="scalars per logged epoch under <path>/tb")

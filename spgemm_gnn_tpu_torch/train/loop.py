@@ -58,6 +58,26 @@ it), and the node-wise layers run once on the whole padded tensor.
 `predict` serves from the unsharded graph, as the JAX Trainer does,
 moved to the device at its first call (the shards do not hold it).
 
+Across ranks (parallel/multihost.py started a process group of more than
+one rank; `mesh_shape` must equal its size): one graph shard a rank, the
+JAX Trainer's layout with one device a process (parallel/mesh.py::
+RankMesh). Each rank keeps its nps rows of the features (cast on the host,
+only those rows transferred), labels and masks, and its shard's plans. The
+model is replicated: every rank draws it from the same seed, and shard 0's
+parameters and buffers are broadcast once in `init_state`. The train
+loss on a rank is its rows' masked sum over the global train count
+(all-reduced once at set-up), so after `loss.backward()` one all-reduce
+(SUM) of the flattened gradients, in parameter order, with the loss
+appended, gives every rank the global gradients and loss (no DDP
+wrapper). Dropout and BatchNorm see the global rows (models/layers.py).
+Evaluation sums micro-F1's counts over the ranks, or all-gathers the
+logits for ROC-AUC (then the one-process computation on the padded rows),
+so best-val selection is identical on every rank. Shard 0 writes the
+checkpoints, behind a barrier; every rank restores; shard 0 logs the epoch
+lines. `steps_per_call` > 1 raises NotImplementedError: a CUDA graph
+cannot capture the exchange's host staging. `predict` reads the host's
+features of the whole graph (a rank's features are its rows only).
+
 Batched steps (`steps_per_call` n > 1, the JAX package's epoch batching):
 consecutive train epochs run in groups of up to n that never straddle an
 eval epoch or a checkpoint boundary (`group_size`), with no host sync
@@ -75,6 +95,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import os
 import time
 from typing import Any, Callable
@@ -91,14 +112,15 @@ from spgemm_gnn_tpu_torch.graphs.features import (DeviceFeatureStore,
 from spgemm_gnn_tpu_torch.kernels import _build, planned
 from spgemm_gnn_tpu_torch.models.layers import compute_dtype
 from spgemm_gnn_tpu_torch.models.models import build_model
-from spgemm_gnn_tpu_torch.parallel.mesh import make_mesh
+from spgemm_gnn_tpu_torch.parallel.mesh import RankMesh, make_mesh, world
 from spgemm_gnn_tpu_torch.parallel.planned_sharded import shard_planned_graph
 from spgemm_gnn_tpu_torch.parallel.sharded import shard_graph
 from spgemm_gnn_tpu_torch.train import checkpoint as ckpt
 from spgemm_gnn_tpu_torch.train.config import TrainConfig, check_supported
 from spgemm_gnn_tpu_torch.train.infer import predict_nodes
 from spgemm_gnn_tpu_torch.train.losses import loss_fn
-from spgemm_gnn_tpu_torch.train.metrics import micro_f1, rocauc_tensor
+from spgemm_gnn_tpu_torch.train.metrics import (f1_counts, f1_of_counts,
+                                                micro_f1, rocauc_tensor)
 from spgemm_gnn_tpu_torch.train.optim import build_optimizer
 from spgemm_gnn_tpu_torch.utils.device import resolve_device
 from spgemm_gnn_tpu_torch.utils.logging import get_logger, param_size
@@ -176,6 +198,11 @@ class Trainer:
     def __init__(self, config: TrainConfig, dataset: Dataset | None = None,
                  logger=None):
         check_supported(config)
+        if config.steps_per_call > 1 and world()[1] > 1:
+            raise NotImplementedError(
+                "--steps_per_call > 1 with more than one process: a CUDA "
+                "graph cannot capture the exchange's host staging; run "
+                "--steps_per_call 1")
         self.config = config
         self.logger = logger or get_logger(None)
         self.device = resolve_device(config.device)
@@ -206,7 +233,7 @@ class Trainer:
         # under a mesh, the unsharded device graph that `predict` serves
         # from, moved at its first call
         self._serve_graph = None
-        if config.mesh_shape > 1:
+        if config.mesh_shape > 1 or world()[1] > 1:
             self._init_mesh(dataset, dtype, cache)
         else:
             self._init_single(dataset, dataset.graph.to(self.device), dtype,
@@ -214,6 +241,32 @@ class Trainer:
         self._loss = loss_fn(dataset.multilabel)
         self._metric = (rocauc_tensor if dataset.name == "ogbn-proteins"
                         else micro_f1)
+        if self.on_ranks:
+            self._init_ranks()
+
+    @property
+    def on_ranks(self) -> bool:
+        """True where each rank holds one graph shard (RankMesh)."""
+        return isinstance(self.mesh, RankMesh)
+
+    @property
+    def logs_epochs(self) -> bool:
+        """Whether this process logs the epoch lines: shard 0 across
+        ranks, else always."""
+        return not self.on_ranks or self.mesh.shard == 0
+
+    def _init_ranks(self) -> None:
+        """Across ranks: the global train count the loss divides by, and
+        for ROC-AUC every rank's labels and masks (the logits are gathered
+        at each evaluation)."""
+        mesh = self.mesh
+        count = mesh.all_reduce(self.masks[0].sum().float(), kind="setup")
+        self._loss = functools.partial(self._loss, count=count)
+        if self._metric is rocauc_tensor:
+            self._all_labels = mesh.all_gather(self.labels, kind="setup")
+            self._all_masks = tuple(
+                mesh.all_gather(m.to(torch.uint8), kind="setup").bool()
+                for m in self.masks)
 
     def _init_single(self, dataset: Dataset, g, dtype: torch.dtype,
                      cache: str | None) -> None:
@@ -242,14 +295,17 @@ class Trainer:
     def _init_mesh(self, dataset: Dataset, dtype: torch.dtype,
                    cache: str | None) -> None:
         """The graph over a mesh of mesh_shape shards on the one device
-        (the JAX Trainer's mesh path): impl "torch" partitions it for the
-        plain `sharded_spmm`; "auto" and "cuda" build each shard's plan
-        pairs and the halo exchange (`shard_planned_graph`, cached under
+        (the JAX Trainer's mesh path), or one shard a rank across
+        processes: impl "torch" partitions it for the plain
+        `sharded_spmm`; "auto" and "cuda" build each shard's plan pairs
+        and the halo exchange (`shard_planned_graph`, cached under
         `<data_path>/plans` for npz datasets). Features (cast on the host
         first), labels and masks are padded to the mesh's padded_nodes
-        rows; the padding rows have no edges and no mask."""
+        rows, of which a rank keeps its own; the padding rows have no
+        edges and no mask."""
         cfg = self.config
         self.mesh = make_mesh(cfg.mesh_shape, self.device)
+        self.device = self.mesh.device
         if cfg.impl == "torch":
             self.g = shard_graph(dataset.graph, self.mesh)
         else:
@@ -265,10 +321,16 @@ class Trainer:
                                 "the padded features go to the device "
                                 "whole")
 
+        lo, hi = 0, n_pad
+        if self.on_ranks:
+            lo = self.mesh.shard * self.g.nodes_per_shard
+            hi = lo + self.g.nodes_per_shard
+
         def pad(a: np.ndarray, dtype=None) -> torch.Tensor:
-            t = torch.from_numpy(np.asarray(a))
+            """Rows [lo, hi) of a, padded with zeros past its end."""
+            t = torch.from_numpy(np.asarray(a)[lo:hi])
             t = t if dtype is None else t.to(dtype)
-            out = t.new_zeros((n_pad,) + tuple(t.shape[1:]))
+            out = t.new_zeros((hi - lo,) + tuple(t.shape[1:]))
             out[:t.shape[0]] = t
             return out.to(self.device)
 
@@ -317,36 +379,79 @@ class Trainer:
         if weights is not None:
             model.load_state_dict(weights)
         model.to(self.device)
+        if self.on_ranks:
+            self._broadcast(model)
         opt = build_optimizer(model.parameters(), cfg.w_lr,
                               cfg.w_weight_decay, cfg.enable_lookahead)
         return {"model": model, "optimizer": opt, "step": 0}
+
+    @torch.no_grad()
+    def _broadcast(self, model: torch.nn.Module) -> None:
+        """Shard 0's parameters and buffers into every rank's model, in
+        one flattened broadcast."""
+        tensors = list(model.parameters()) + list(model.buffers())
+        flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+        self.mesh.broadcast_(flat)
+        at = 0
+        for t in tensors:
+            t.copy_(flat[at:at + t.numel()].view_as(t))
+            at += t.numel()
+
+    def _all_reduce_grads(self, model: torch.nn.Module,
+                          loss: torch.Tensor) -> torch.Tensor:
+        """Across ranks: the gradients summed in place, in one all-reduce
+        of them flattened in parameter order with the loss appended;
+        returns the summed (global) loss."""
+        params = [p for p in model.parameters() if p.grad is not None]
+        flat = self.mesh.all_reduce(torch.cat(
+            [p.grad.reshape(-1) for p in params]
+            + [loss.detach().float().reshape(1)]), kind="grad_all_reduce")
+        at = 0
+        for p in params:
+            p.grad.copy_(flat[at:at + p.numel()].view_as(p.grad))
+            at += p.numel()
+        return flat[-1]
 
     # -- steps -----------------------------------------------------------------
 
     def train_step(self, state: dict[str, Any],
                    generator: torch.Generator | None) -> torch.Tensor:
         """One full-graph step; returns the loss before the update (a 0-d
-        device tensor)."""
+        device tensor). Across ranks the gradients and the loss are summed
+        over the ranks before the update."""
         model, opt = state["model"], state["optimizer"]
         model.train()
         opt.zero_grad(set_to_none=True)
         logits = model(self.g, self.features, generator)
         loss = self._loss(logits, self.labels, self.masks[0])
         loss.backward()
+        loss = loss.detach()
+        if self.on_ranks:
+            loss = self._all_reduce_grads(model, loss)
         opt.step()
         state["step"] += 1
-        return loss.detach()
+        return loss
 
     @torch.no_grad()
     def eval_step(self, state: dict[str, Any]
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(train, val, test) accuracy or micro-F1 (ROC-AUC for
-        ogbn-proteins), as 0-d device tensors."""
+        ogbn-proteins), as 0-d device tensors; across ranks, of every
+        rank's rows."""
         model = state["model"]
         model.eval()
         logits = model(self.g, self.features)
-        return tuple(self._metric(logits, self.labels, m)
-                     for m in self.masks)
+        if not self.on_ranks:
+            return tuple(self._metric(logits, self.labels, m)
+                         for m in self.masks)
+        if self._metric is rocauc_tensor:
+            logits = self.mesh.all_gather(logits, kind="metric")
+            return tuple(rocauc_tensor(logits, self._all_labels, m)
+                         for m in self._all_masks)
+        counts = self.mesh.all_reduce(torch.stack(
+            [f1_counts(logits, self.labels, m) for m in self.masks]),
+            kind="metric")
+        return tuple(f1_of_counts(c) for c in counts)
 
     # -- serving ---------------------------------------------------------------
 
@@ -368,7 +473,13 @@ class Trainer:
         `feature_store` (a DeviceFeatureStore of the features when there is
         none), the model on the induced subgraph."""
         store = self.feature_store
-        if store is None:
+        if store is None and self.on_ranks:
+            # a rank's features are its rows: serve the host's whole
+            store = DeviceFeatureStore(
+                torch.from_numpy(np.asarray(self.dataset.features,
+                                            np.float32)),
+                self.features.dtype, self.device)
+        elif store is None:
             store = DeviceFeatureStore(self.features, self.features.dtype,
                                        self.device)
         return predict_nodes(state["model"], None, self.graph, store,
@@ -434,7 +545,8 @@ class Trainer:
                 history.append(rec)
                 if on_epoch is not None:
                     on_epoch(rec)
-                if cfg.log_every and epoch % cfg.log_every == 0:
+                if (cfg.log_every and epoch % cfg.log_every == 0
+                        and self.logs_epochs):
                     self.logger.info(
                         "Epoch %04d/%04d| Loss %.4f | Train Accuracy %.4f | "
                         "Val Accuracy %.4f | Test Accuracy %.4f | "
@@ -495,7 +607,8 @@ class Trainer:
             if cfg.checkpoint_every and (last + 1) % cfg.checkpoint_every == 0:
                 flush()   # best_epoch must be current for is_best
                 ckpt.save_checkpoint(cfg.path, state, last + 1,
-                                     is_best=best_epoch == last)
+                                     is_best=best_epoch == last,
+                                     mesh=self.mesh)
             if t_steady is None:
                 self._sync()
                 t_steady = time.perf_counter()
@@ -509,10 +622,10 @@ class Trainer:
         if steady is not None:
             self.logger.info("Steady-state epoch time: %.3f s", steady)
         if cfg.checkpoint_every:
-            ckpt.save_checkpoint(cfg.path, state, epochs)
+            ckpt.save_checkpoint(cfg.path, state, epochs, mesh=self.mesh)
             if best_state is not None:
                 ckpt.save_checkpoint(cfg.path, best_state, best_epoch + 1,
-                                     is_best=True)
+                                     is_best=True, mesh=self.mesh)
         return {
             "best_val_accuracy": best_val,
             "best_test_accuracy": best_test,
@@ -525,6 +638,9 @@ class Trainer:
             # step's) and how often it was replayed
             "graph_launches": dict(graphed.launches) if graphed else {},
             "graph_replays": graphed.replays if graphed else 0,
+            # across ranks: the collectives' calls, bytes and host ms
+            # (parallel/mesh.py::RankMesh.stats)
+            "collectives": dict(self.mesh.stats) if self.on_ranks else {},
         }
 
 

@@ -1,6 +1,8 @@
 """Evaluation metrics (counterpart of `spgemm_gnn_tpu/train/metrics.py`).
 
-- `micro_f1`: masked accuracy (single-label) or micro-F1 (multilabel).
+- `micro_f1`: masked accuracy (single-label) or micro-F1 (multilabel), of
+  the counts `f1_counts` gives (`f1_of_counts`): one shard a rank, the
+  Trainer sums the ranks' counts before the division.
 - `rocauc`: per-class ROC-AUC on the host in numpy, averaged over the
   classes that have both a positive and a negative (ogb's "rocauc", the
   ogbn-proteins metric), with average ranks over ties.
@@ -14,22 +16,37 @@ import numpy as np
 import torch
 
 
+def f1_counts(logits: torch.Tensor, labels: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    """`micro_f1`'s counts, int64: (correct, masked rows) for single-label
+    (1-D int) labels; (TP, FP, FN) for multilabel ones (pred = logits > 0,
+    true = labels > 0.5)."""
+    if labels.dim() == 1:
+        correct = (logits.argmax(dim=-1) == labels) & mask
+        return torch.stack([correct.sum(), mask.sum()])
+    pred = logits > 0
+    true = labels > 0.5
+    m = mask[:, None]
+    return torch.stack([(true & pred & m).sum(), (~true & pred & m).sum(),
+                        (true & ~pred & m).sum()])
+
+
+def f1_of_counts(counts: torch.Tensor) -> torch.Tensor:
+    """Accuracy of (correct, rows), or micro-F1 of (TP, FP, FN): a 0-d
+    tensor."""
+    if counts.numel() == 2:
+        return counts[0] / counts[1].clamp(min=1)
+    tp, fp, fn = counts
+    denom = 2 * tp + fp + fn
+    return torch.where(denom > 0, 2 * tp / denom.clamp(min=1),
+                       torch.zeros((), device=counts.device))
+
+
 def micro_f1(logits: torch.Tensor, labels: torch.Tensor,
              mask: torch.Tensor) -> torch.Tensor:
     """Masked accuracy (single-label: 1-D int labels) or micro-F1
     (multilabel: pred = logits > 0, true = labels > 0.5). A 0-d tensor."""
-    if labels.dim() == 1:
-        correct = (logits.argmax(dim=-1) == labels) & mask
-        return correct.sum() / mask.sum().clamp(min=1)
-    pred = logits > 0
-    true = labels > 0.5
-    m = mask[:, None]
-    tp = (true & pred & m).sum()
-    fp = (~true & pred & m).sum()
-    fn = (true & ~pred & m).sum()
-    denom = 2 * tp + fp + fn
-    return torch.where(denom > 0, 2 * tp / denom.clamp(min=1),
-                       torch.zeros((), device=logits.device))
+    return f1_of_counts(f1_counts(logits, labels, mask))
 
 
 def rocauc(logits: np.ndarray, labels: np.ndarray, mask: np.ndarray) -> float:

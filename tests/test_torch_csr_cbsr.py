@@ -40,6 +40,20 @@ N, SEGMENT = 300, 64
 DIM_K = [(32, 4), (64, 8), (256, 32), (128, 40)]
 
 
+@pytest.fixture
+def one_torch_thread():
+    """One torch thread for the Trainer runs this file compares bit for
+    bit, as the other bit-equal Trainer tests run
+    (tests/test_torch_stream.py::one_torch_thread): no sum of the two runs
+    is split across an intra-op thread pool."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
 @pytest.fixture(autouse=True)
 def restore_flags(monkeypatch):
     """Both packages' DEFAULT_STREAM and STREAM_CBSR_FORWARD as they were
@@ -406,7 +420,8 @@ def test_aggregate_cbsr_on_the_new_route_matches_jax(values, norm,
 @pytest.mark.parametrize("dtype,stream", [("float32", "bf16x2"),
                                           ("bfloat16", "f32")])
 def test_trainer_with_the_rule_gives_the_flag_off_losses(dtype, stream,
-                                                         monkeypatch):
+                                                         monkeypatch,
+                                                         one_torch_thread):
     """The Trainer on the flickr stand-in at scale 0.004 (a windowed plan),
     MaxK k 8, dropout 0.5: at the default rule its MaxK forwards take
     csr_cbsr_spmm (the bf16 records of the compacted input), with the flag

@@ -44,6 +44,20 @@ BF16 = torch.bfloat16
 N, SEGMENT = 300, 64
 
 
+@pytest.fixture
+def one_torch_thread():
+    """One torch thread for the Trainer runs this file compares bit for
+    bit, as the other bit-equal Trainer tests run
+    (tests/test_torch_stream.py::one_torch_thread): no sum of the two runs
+    is split across an intra-op thread pool."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
 @pytest.fixture(autouse=True)
 def restore_flags(monkeypatch):
     """The planner's flags as they were after the test, starting from the
@@ -471,7 +485,8 @@ def test_model_sampled_backward_bit_equal(model, stream, dtype,
 @pytest.mark.parametrize("stream,dtype", [("bf16x2", "float32"),
                                           ("f32", "bfloat16")])
 def test_trainer_sampled_backward_losses_bit_equal(model, stream, dtype,
-                                                   monkeypatch):
+                                                   monkeypatch,
+                                                   one_torch_thread):
     """Two epochs of the Trainer on the Reddit stand-in at scale 0.004
     (windowed by the plan-kind rule), MaxK k 8, dropout 0.5: the losses
     with the rule on (the MaxK backwards on csr_sspmm, once a layer a

@@ -31,6 +31,20 @@ TINY = dict(dataset="flickr", model="sage", epochs=3, hidden_dim=32,
             log_every=0, seed=3)
 
 
+@pytest.fixture
+def one_torch_thread():
+    """One torch thread for the Trainer runs this file compares bit for
+    bit, as the other bit-equal Trainer tests run
+    (tests/test_torch_stream.py::one_torch_thread): no sum of the two runs
+    is split across an intra-op thread pool."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
 def _graph(kind: str, device="cpu"):
     g = powerlaw_graph(N, 3000, seed=7).to(device)
     return planned.plan_graph(g, kind=kind, dim=HID)
@@ -183,7 +197,7 @@ def _history(res):
 
 @pytest.mark.parametrize("over", [{}, {"dtype": "bfloat16"},
                                   {"model": "gnn_res"}])
-def test_trainer_remat_bit_equal(over):
+def test_trainer_remat_bit_equal(over, one_torch_thread):
     cfg = TrainConfig(**{**TINY, "device": "cpu", **over})
     plain = Trainer(cfg).run()
     rem = Trainer(cfg.replace(remat=True)).run()

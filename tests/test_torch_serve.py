@@ -483,10 +483,25 @@ def test_cli_checkpoint_resume_evaluate(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (dict(multihost=True), "A13b"), (dict(coordinator="h:1"), "A13b")])
-def test_unported_flags_name_their_item(flag, item):
-    with pytest.raises(NotImplementedError, match=f"Queue {item}"):
-        check_supported(TrainConfig(**{**COMMON, **flag}))
+    (["--multihost"], None),
+    (["--coordinator", "h:1"], "--num_processes")])
+def test_unported_flags_name_their_item(flag, item, tmp_path, monkeypatch):
+    """The multi-process flags through the CLI: --multihost alone trains
+    as one process, and a coordinator without a world size raises
+    ValueError naming the flag (`item`) before any training."""
+    from spgemm_gnn_tpu_torch.train.__main__ import main as tmain
+    for var in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
+    argv = ["--dataset", "flickr", "--synthetic", "--synthetic_scale",
+            "0.003", "--hidden_dim", "16", "--hidden_layers", "1", "--maxk",
+            "4", "--device", "cpu", "--epochs", "2", "--log_every", "0",
+            "--path", str(tmp_path), *flag]
+    if item is None:
+        assert len(tmain(argv)["history"]) == 2
+    else:
+        with pytest.raises(ValueError, match=item):
+            tmain(argv)
+        assert not (tmp_path / "results.json").exists()
 
 
 @pytest.mark.parametrize("flag", [
@@ -494,8 +509,8 @@ def test_unported_flags_name_their_item(flag, item):
     dict(remat=True), dict(mesh_shape=4)])
 def test_a7_a9c_a11_flags_pass_the_check(flag):
     """--device_inputs (A11), ogbn-proteins (A7), --remat (A9c) and
-    --mesh_shape (A13a) are ported: only the multi-process flags (A13b)
-    still raise."""
+    --mesh_shape (A13a) are ported, as are the multi-process flags (A13b):
+    no flag of the port raises NotImplementedError."""
     check_supported(TrainConfig(**{**COMMON, **flag}))
 
 

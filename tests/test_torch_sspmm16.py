@@ -41,6 +41,20 @@ BF16 = torch.bfloat16
 AGG_ULPS, AGG_SHARE = 1, 0.005
 
 
+@pytest.fixture
+def one_torch_thread():
+    """One torch thread for the Trainer runs this file compares bit for
+    bit, as the other bit-equal Trainer tests run
+    (tests/test_torch_stream.py::one_torch_thread): no sum of the two runs
+    is split across an intra-op thread pool."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
 @pytest.fixture(autouse=True)
 def restore_flags(monkeypatch):
     """The planner's flags as they were after the test, starting from the
@@ -441,7 +455,8 @@ def test_sage_sampled_backward_bit_equal(stream, dtype, monkeypatch):
 @pytest.mark.parametrize("stream,dtype", [("bf16x2", None),
                                           ("f32", "bfloat16")])
 def test_trainer_sampled_backward_losses_bit_equal(model, stream, dtype,
-                                                   monkeypatch):
+                                                   monkeypatch,
+                                                   one_torch_thread):
     """Two Trainer steps (dropout 0.5) on a stream plan, the first layer's
     top-k holding zeros (SAGE): the losses with the rule on bit-equal to
     the rule off, the sampled form run once a layer a step."""

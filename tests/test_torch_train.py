@@ -119,11 +119,22 @@ def test_default_device_without_gpu_raises():
 
 @pytest.mark.parametrize("flag", [
     dict(multihost=True), dict(coordinator="h:1")])
-def test_unported_flags_raise(flag):
-    """Only the multi-process flags (ROADMAP Queue A13b) are left
-    unported."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A13b"):
-        check_supported(TrainConfig(**{**COMMON, **flag}))
+def test_unported_flags_raise(flag, monkeypatch):
+    """The multi-process flags pass the check (no flag of the port raises
+    NotImplementedError), and reach `initialize_multihost`: --multihost
+    alone is a single process (no group starts), a coordinator without a
+    world size raises ValueError naming --num_processes."""
+    from spgemm_gnn_tpu_torch.parallel.multihost import initialize_multihost
+    for var in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
+    cfg = TrainConfig(**{**COMMON, **flag})
+    check_supported(cfg)
+    args = (cfg.coordinator, cfg.num_processes, cfg.process_id, "cpu")
+    if cfg.coordinator is None:
+        assert initialize_multihost(*args) is False
+    else:
+        with pytest.raises(ValueError, match="--num_processes"):
+            initialize_multihost(*args)
 
 
 @pytest.mark.parametrize("flag", [
