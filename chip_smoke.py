@@ -47,7 +47,14 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      bf16 ulp of its plain version; timed
      beside the dense form, the plain version, torch.sparse.mm bf16, the
      bound on the 96 B a record needs and its no-reuse gather (the 128-B
-     layout's on a line of its own); then B2's sampled forms (MaxK's
+     layout's on a line of its own); and the f32 form, csr_cbsr_spmm on
+     the same x's f32 records (160 B at k 32) at the dense f32 form's
+     schedule, with no pre and with GCN's deg^-1/2: bitwise equal to
+     csr_spmm on the densified rows and across two runs, bitwise its plain
+     version on integer values, within 1e-5 of max |y| of float64; timed
+     beside csr_spmm, cbsr_compact + records, the plain version,
+     torch.sparse.mm, the bound and the no-reuse gathers of the records
+     and of the 1-KB rows; then B2's sampled forms (MaxK's
      backward on Aᵀ): maxk_fwd and maxk_fwd_bf16 with their kept
      channels' ids at Reddit's shape (timed with and without), then
      csr_sspmm_bf16 and csr_sspmm_bf16_out on Aᵀ at those channels under
@@ -58,13 +65,25 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      output bitwise the rounding of the f32 form's sums times
      bf16(post)); timed beside the dense form and maxk_bwd after it, the
      plain version, the bound, the no-reuse gathers and torch.sparse.mm
-     then torch.gather;
+     then torch.gather; and the f32 form, csr_sspmm on the raw f32
+     cotangent at maxk_fwd's channels on seeded f32 rows, at the dense f32
+     form's schedule, under the sum (no pre), mean (pre) and gcn (pre and
+     post) factors: bitwise equal to csr_spmm on Aᵀ at the kept channels
+     and 0 elsewhere, across two runs and to its plain version on integer
+     messages, within 1e-5 of max |y| of the plain version; timed as the
+     bf16 forms;
   5. train: the Reddit recipe (SAGE, MaxK k=32, hidden 256, 4 layers,
      LayerNorm, dropout 0.5, lr 0.01): its first two train steps through the
      kernels within 1e-4 relative of the plain path's (same weights and
      dropout seed), then `Trainer` for 5 epochs; the losses must be finite
      and fall, and every kernel's launch count must match the model's
-     structure exactly; then the same with `--stream bf16x2`: its first two
+     structure exactly (cbsr_compact and csr_cbsr_spmm on the MaxK
+     forwards at the default rules, csr_sspmm on the MaxK backwards, no
+     csr_spmm), then 5 epochs with STREAM_CBSR_FORWARD off (csr_spmm
+     forward) and 5 with SAMPLED_BACKWARD off (csr_spmm on Aᵀ), the
+     default's losses bit-equal to both, the steady epochs and peak
+     memory of the three runs on one line; then the same with `--stream
+     bf16x2`: its first two
      steps within 1e-4 relative of the same planned path through the plain
      versions (both round the same messages), 5 epochs with finite losses
      and exact launch counts (round_rows, cbsr_compact and
@@ -127,12 +146,14 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      beside each other and one device's. NCCL is not run (one GPU);
  5b. timing and benches, on the Reddit graph: the aggregation share of a
      train step (utils/timing.py: step_s, aggregation_s, aggregation_pct)
-     at f32 and `--dtype bfloat16`; 5 epochs of the bfloat16 recipe with
-     `--steps_per_call 4` and evaluations every 5 epochs (a CUDA graph of
-     the step, replayed 4 times), its losses and final weights bit-equal to
-     the same run at steps_per_call 1 and its launches, captured once x
-     replays + eager, equal to that run's (this run stays out of the
-     kernels line's counts), both steady epochs printed; the bench harness
+     at f32 and `--dtype bfloat16`; 5 epochs of the f32 and of the
+     bfloat16 recipe with `--steps_per_call 4` and evaluations every 5
+     epochs (a CUDA graph of the step, replayed 4 times, holding the MaxK
+     pair's CBSR and sampled kernels), its losses and final weights
+     bit-equal to the same run at steps_per_call 1 and its launches,
+     captured once x replays + eager, equal to that run's (these runs stay
+     out of the kernels line's counts), both steady epochs printed; the
+     bench harness
      at `--scale medium` (29,121 nodes, E about 13.7M, dim 256, k 32):
      validate_numerics passing, the ELL baseline within 1e-5 of max |y| of
      a float64 plain sum, bench_aggregation with torch, ell and cuda (the
@@ -252,7 +273,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      kernels, B8 forward at the default) but on rows MaxK near-ties flip
      (at most 0.5 % of the seeds, argmax agreement on 99.5 %), every
      store's logits equal, exact launch
-     counts (maxk_fwd and csr_spmm once per layer, no stream_spmm); each
+     counts (maxk_fwd, cbsr_compact and csr_cbsr_spmm once per layer: the
+     closure's windowed plan; no stream_spmm); each
      request's closure per hop, host k-hop, schedule build, fetch (hit rate,
      host-to-device bytes), device forward and wall time are printed;
  12a. remat: the products recipe (f32 SAGE) 3 epochs without and with
@@ -1690,6 +1712,104 @@ def csr_cbsr16_check(torch, g, xs, post, out16: bool) -> dict:
     return r
 
 
+def csr_cbsr_check(torch, g, xs, post) -> dict:
+    """B2's f32 CBSR form, `csr_cbsr_spmm`, on A of the windowed graph, on
+    the f32 records of the k-sparse input `xs` as the planner makes them
+    (cbsr_compact, then cbsr_records: k values and the packed uint8 ids,
+    160 B at k 32), at the dense f32 form's schedule: with no pre factor
+    (the mean factors) and with GCN's deg^-1/2, bitwise equal to csr_spmm
+    on the densified rows (xs itself) and across two runs; within 1e-5 of
+    max |y| of the plain version in float64; on integer values at the same
+    channels, whose sums are exact in any order, bitwise its plain version
+    (`ops/spmm.py::csr_cbsr_plain`). Timed beside the dense form on the
+    same plan, the compaction and records that feed it, the plain version
+    and torch.sparse.mm on the densified rows; the bound counts the
+    records' bytes, and the no-reuse gather is E records."""
+    from spgemm_gnn_tpu_torch.graphs.tiles import CSRPlan
+    from spgemm_gnn_tpu_torch.kernels.cbsr import cbsr_compact
+    from spgemm_gnn_tpu_torch.kernels.spmm import csr_cbsr_spmm, csr_spmm
+    from spgemm_gnn_tpu_torch.ops.maxk import cbsr_records
+    from spgemm_gnn_tpu_torch.ops.norms import node_factors
+    from spgemm_gnn_tpu_torch.ops.spmm import csr_cbsr_plain, csr_spmm_plain
+
+    f32, name = torch.float32, "csr_cbsr_spmm"
+    n, e, dim = g.num_nodes, g.num_edges, xs.shape[1]
+    vals, ch = cbsr_compact(xs, K)
+    rec = cbsr_records(vals, ch, dim)
+    plan = CSRPlan(g.indptr, g.indices)
+    sched = plan.schedule(n, dim, 4)
+    gcn_pre, _ = node_factors(g, "gcn")
+
+    def run(r=rec, pre=None):
+        return csr_cbsr_spmm(plan, r, K, dim, post, pre=pre, value_dtype=f32)
+
+    def run_dense(pre=None):
+        return csr_spmm(plan, xs, pre, post)
+
+    def run_plain(r=rec):
+        return csr_cbsr_plain(sched.block_indptr, sched.indices, r, K, dim,
+                              post, value_dtype=f32)
+
+    for pre in (None, gcn_pre):
+        got, again, by_dense = run(pre=pre), run(pre=pre), run_dense(pre)
+        torch.cuda.synchronize()
+        what = "no pre" if pre is None else "gcn's pre"
+        if not bits_equal(torch, got, by_dense):
+            raise AssertionError(f"{name} ({what}) differs from csr_spmm on "
+                                 f"the densified rows")
+        if not bits_equal(torch, got, again):
+            raise AssertionError(f"{name} ({what}): two runs differ")
+    del again, by_dense
+    ints = torch.randint(-4, 5, vals.shape, generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 6), device="cuda").float()
+    rec_int = cbsr_records(ints, ch, dim)
+    if not bits_equal(torch, run(rec_int), run_plain(rec_int)):
+        raise AssertionError(f"{name} differs from its plain version on "
+                             f"integer values (exact sums)")
+    del ints, rec_int
+    got = run()
+    ref = csr_spmm_plain(g.indptr, g.indices, xs.double(), None, post)
+    err, rel = rel_err(got, ref)
+    if not rel <= 1e-5:
+        raise AssertionError(f"{name} error {rel:.3e} of max |y| > 1e-5")
+    del ref, got
+    row = rec.shape[1] * 4
+    gathered = torch.bincount(g.indices, minlength=n).double()
+    ops = 2.0 * float(((xs != 0).sum(1).double() * gathered).sum())
+    rest = e * 4 + (n + 1) * 4 + n * dim * 4 + 4 * n
+    b_ms, b_by = bound_ms(n * row + rest, ops)
+    a = torch.sparse_csr_tensor(g.indptr, g.indices, post[g.edge_dst.long()],
+                                size=(n, n))
+    r = dict(name=name, route="cuda",
+             source="spgemm_gnn_tpu_torch/csrc/spmm.cu",
+             replaces="spgemm_gnn_tpu/kernels/spgemm_pallas.py:97 composed "
+                      "with :285 _densify_t_kernel (call :329): "
+                      "planned.py:198 spgemm_forward, stream_dtype f32",
+             max_abs_err=err, rel=rel, ms=time_ms(torch, run, 10),
+             gcn_ms=time_ms(torch, lambda: run(pre=gcn_pre), 10),
+             dense_ms=time_ms(torch, run_dense, 10),
+             compact_ms=time_ms(torch, lambda: cbsr_records(
+                 *cbsr_compact(xs, K), dim), 10),
+             plain_ms=time_ms(torch, run_plain, 2), bound_ms=b_ms,
+             bound_by=b_by, library_ms=time_ms(
+                 torch, lambda: torch.sparse.mm(a, xs), 5),
+             record_bytes=row, no_reuse_gather_ms=e * row / PEAK_BYTES_S * 1e3,
+             dense_gather_ms=e * dim * 4 / PEAK_BYTES_S * 1e3, nb=sched.nb)
+    del a
+    log(f"kernel {name} (reddit, A, k-sparse x, dim {dim}, k {K}, {row}-B "
+        f"f32 records, {sched.nb} source blocks, the dense f32 form's "
+        f"schedule): bitwise equal to csr_spmm on the densified rows with "
+        f"no pre and with gcn's, across two runs and to its plain version on "
+        f"integer values; {err:.3e} max abs, {rel:.3e} of max |y| from "
+        f"float64; {r['ms']:.3f} ms, gcn's pre {r['gcn_ms']:.3f} (the dense "
+        f"form {r['dense_ms']:.3f}; cbsr_compact + records "
+        f"{r['compact_ms']:.3f}; plain {r['plain_ms']:.3f}; torch.sparse.mm "
+        f"{r['library_ms']:.3f}; bound {b_ms:.3f} by {b_by}; no-reuse gather "
+        f"{r['no_reuse_gather_ms']:.3f}, of 1-KB rows "
+        f"{r['dense_gather_ms']:.3f})")
+    return r
+
+
 def stream_cbsr16out_check(torch, g, dim: int, k: int, seed: int) -> dict:
     """stream_cbsr_spmm_bf16_out on A of the graph at (dim, k) under the
     mean and gcn factors, as the planner runs it on bf16 activations: the
@@ -2244,6 +2364,125 @@ def csr_sspmm16_check(torch, g, dim: int, k: int, seed: int) -> list[dict]:
     return entries
 
 
+def csr_sspmm_check(torch, g, dim: int, k: int, seed: int) -> dict:
+    """B2's f32 sampled form, `csr_sspmm` on f32 messages (MaxK's backward
+    on Aᵀ of the Reddit graph, the f32 path's), at the channels maxk_fwd
+    keeps on seeded f32 rows (rows with kept zeros among them), at the
+    dense f32 form's schedule: under the sum factors (no pre), the mean
+    factors (pre dst_f) and gcn's (pre dst_f, post src_f), as the planner
+    runs it on the raw cotangent: bitwise equal to csr_spmm on Aᵀ at the
+    kept channels and 0 elsewhere, and across two runs; within 1e-5 of
+    max |y| of the plain version; on integer messages with no pre,
+    bitwise its plain version. Timed (mean, and gcn under prefixed keys)
+    beside the dense form and maxk_bwd after it, the plain version, the
+    bound, the no-reuse gathers of the 4k bytes an edge needs and of the
+    1-KB row, and torch.sparse.mm then torch.gather."""
+    from spgemm_gnn_tpu_torch.graphs.tiles import CSRPlan
+    from spgemm_gnn_tpu_torch.kernels.maxk import maxk_bwd, maxk_fwd
+    from spgemm_gnn_tpu_torch.kernels.spmm import csr_spmm, csr_sspmm
+    from spgemm_gnn_tpu_torch.ops.norms import node_factors
+    from spgemm_gnn_tpu_torch.ops.spmm import csr_sspmm_plain
+
+    dev = g.indptr.device
+    n, e = g.num_nodes, g.num_edges
+    name = "csr_sspmm"
+    plan = CSRPlan(g.t_indptr, g.t_indices)
+    sched = plan.schedule(n, dim, 4)
+    x, gy = seeded_rows(torch, n, dim, k, seed + 9, dev)
+    _, meta, ch = maxk_fwd(x, k, with_ids=True)
+    keep = torch.zeros((n, dim), dtype=torch.bool, device=dev)
+    keep.scatter_(1, ch.long(), True)
+    kept_zero = int((torch.gather(x, 1, ch.long()) == 0).any(1).sum())
+    if not kept_zero:
+        raise AssertionError(f"{name}: no seeded row keeps a zero")
+    m_int = torch.randint(-4, 5, (n, dim), generator=torch.Generator(
+        device=dev).manual_seed(seed + 10), device=dev).float()
+    if not bits_equal(torch, csr_sspmm(plan, m_int, ch), csr_sspmm_plain(
+            sched.block_indptr, sched.indices, m_int, ch)):
+        raise AssertionError(f"{name} differs from its plain version on "
+                             f"integer messages (exact sums)")
+    del m_int
+    entry = dict(name=name, route="cuda",
+                 source="spgemm_gnn_tpu_torch/csrc/spmm.cu",
+                 replaces="spgemm_gnn_tpu/kernels/planned.py:233 "
+                          "sspmm_backward (stream_dtype f32) = "
+                          "spgemm_pallas.py:97 on Aᵀ then "
+                          "spgemm_pallas.py:385 sample_channels",
+                 nb=sched.nb)
+    for norm in ("sum", "mean", "gcn"):
+        src_f, dst_f = node_factors(g, norm)
+
+        def run():
+            return csr_sspmm(plan, gy, ch, src_f, pre=dst_f)
+
+        got, again = run(), run()
+        dense = csr_spmm(plan, gy, dst_f, src_f)
+        want = torch.where(keep, dense, torch.zeros((), device=dev))
+        torch.cuda.synchronize()
+        for other, against in ((want, "csr_spmm masked to the kept "
+                                "channels"), (again, "a second run")):
+            if not bits_equal(torch, got, other):
+                raise AssertionError(f"{name} ({norm}) differs from "
+                                     f"{against} in its bits")
+        del want, again
+        plain = csr_sspmm_plain(sched.block_indptr, sched.indices, gy, ch,
+                                src_f, pre=dst_f)
+        err = float((got - plain).abs().max())
+        top = float(plain.abs().max())
+        if not err <= 1e-5 * top:
+            raise AssertionError(f"{name} ({norm}): {err:.3e} from the plain "
+                                 f"version, above 1e-5 of max |y| {top:.3e}")
+        del plain, got
+        if norm == "sum":
+            del dense
+            continue
+        w = torch.ones(e, device=dev)
+        if dst_f is not None:
+            w = w * dst_f[g.t_indices.long()]
+        if src_f is not None:
+            w = w * src_f[g.t_edge_dst.long()]
+        a = torch.sparse_csr_tensor(g.t_indptr, g.t_indices, w, size=(n, n))
+        chl = ch.long()
+        n_bytes = (2 * n * dim * 4 + n * k + e * 4 + (n + 1) * 4
+                   + 4 * n * ((src_f is not None) + (dst_f is not None)))
+        b_ms, b_by = bound_ms(n_bytes, 2.0 * e * k)
+        r = dict(max_abs_err=err, ms=time_ms(torch, run, 10),
+                 dense_ms=time_ms(torch, lambda: csr_spmm(
+                     plan, gy, dst_f, src_f), 10),
+                 maxk_bwd_ms=time_ms(torch, lambda: maxk_bwd(x, meta, dense),
+                                     10),
+                 plain_ms=time_ms(torch, lambda: csr_sspmm_plain(
+                     sched.block_indptr, sched.indices, gy, ch, src_f,
+                     pre=dst_f), 2),
+                 library_ms=time_ms(torch, lambda: torch.gather(
+                     torch.sparse.mm(a, gy), 1, chl), 5),
+                 bound_ms=b_ms, bound_by=b_by,
+                 no_reuse_gather_ms=e * 4 * k / PEAK_BYTES_S * 1e3,
+                 dense_gather_ms=e * 4 * dim / PEAK_BYTES_S * 1e3)
+        r["dense_maxk_bwd_ms"] = r["dense_ms"] + r["maxk_bwd_ms"]
+        del a, dense
+        torch.cuda.empty_cache()
+        log(f"kernel {name} (reddit, A^T, f32 messages, {sched.nb} source "
+            f"blocks, {norm} factors, dim {dim}, k {k}, MaxK's channels, "
+            f"{kept_zero} rows keep a zero): bitwise equal to csr_spmm at "
+            f"the kept channels and 0 elsewhere under the sum, mean and gcn "
+            f"factors, across two runs and to its plain version on integer "
+            f"messages; {err:.3e} max abs from the plain version; "
+            f"{r['ms']:.3f} ms (csr_spmm {r['dense_ms']:.3f} and maxk_bwd "
+            f"after it {r['maxk_bwd_ms']:.3f}; plain {r['plain_ms']:.3f}; "
+            f"torch.sparse.mm then torch.gather {r['library_ms']:.3f}; bound "
+            f"{b_ms:.3f} by {b_by}; no-reuse gather {4 * k} B an edge "
+            f"{r['no_reuse_gather_ms']:.3f}, {4 * dim} B "
+            f"{r['dense_gather_ms']:.3f})")
+        if norm == "mean":
+            entry.update(r)
+        else:
+            entry.update({f"gcn_{key}": r[key] for key in (
+                "max_abs_err", "ms", "dense_ms", "bound_ms")})
+    del keep, ch, x, gy, meta
+    return entry
+
+
 def accuracy_check(torch) -> dict:
     """The 80-epoch accuracy check of the reference's trajectory gate
     (TRAJ_r03.json's config): the Reddit stand-in at scale 0.02, SAGE MaxK
@@ -2339,15 +2578,17 @@ def same_losses(run: dict, off: dict, what: str) -> None:
         f"{'bit-equal' if same else f'within {rel:.3e} relative'}")
 
 
-def bit_equal_losses(run: dict, dense: dict, what: str) -> None:
-    """The default's losses bit-equal to those of the run with
-    SAMPLED_BACKWARD off: the sampled backward gives the dense backward's
-    bits wherever MaxK's backward keeps them."""
+def bit_equal_losses(run: dict, dense: dict, what: str,
+                     off: str = "SAMPLED_BACKWARD off") -> None:
+    """The default's losses bit-equal to those of the run with a flag off
+    (`off`, by default SAMPLED_BACKWARD: the sampled backward gives the
+    dense backward's bits wherever MaxK's backward keeps them; on a
+    windowed plan STREAM_CBSR_FORWARD's forward gives the dense forward's
+    bits)."""
     if run["losses"] != dense["losses"]:
         raise AssertionError(f"{what}: default losses {run['losses']} vs "
-                             f"SAMPLED_BACKWARD off {dense['losses']}")
-    log(f"{what}: the default against SAMPLED_BACKWARD off: losses "
-        f"bit-equal")
+                             f"{off} {dense['losses']}")
+    log(f"{what}: the default against {off}: losses bit-equal")
 
 
 def log_against_dense(what: str, run: dict, dense: dict,
@@ -2824,7 +3065,8 @@ def serve_phase(torch, cfg, ds, workdir: str) -> None:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
             counts = dict(_build.launches)
-            if counts != {"maxk_fwd": layers, "csr_spmm": layers}:
+            if counts != {"maxk_fwd": layers, "cbsr_compact": layers,
+                          "csr_cbsr_spmm": layers}:
                 raise AssertionError(f"serve request of {size}, {name}: "
                                      f"launch counts {counts}")
             logits[name] = out
@@ -2916,8 +3158,9 @@ def device_inputs_phase(torch, cfg, with_payload_s: float) -> tuple:
                              "the card")
     run_training(torch, tr, {
         "maxk_fwd": epochs * 2 * layers, "maxk_bwd": epochs * layers,
-        "csr_spmm": epochs * 3 * layers}, "train reddit, device inputs",
-        epochs=epochs)
+        "cbsr_compact": epochs * 2 * layers,
+        "csr_cbsr_spmm": epochs * 2 * layers, "csr_sspmm": epochs * layers},
+        "train reddit, device inputs", epochs=epochs)
     del tr
     torch.cuda.empty_cache()
     return ds
@@ -3101,7 +3344,9 @@ def proteins_phase(torch) -> dict:
     tr = Trainer(cfg, dataset=ds)
     f32 = run_training(torch, tr, {
         "maxk_fwd": EPOCHS * 2 * layers, "maxk_bwd": EPOCHS * layers,
-        "csr_spmm": EPOCHS * 3 * layers}, "train proteins")
+        "cbsr_compact": EPOCHS * 2 * layers,
+        "csr_cbsr_spmm": EPOCHS * 2 * layers, "csr_sspmm": EPOCHS * layers},
+        "train proteins")
     state = f32["res"]["final_state"]
     model = state["model"].eval()
     with torch.no_grad():
@@ -3144,50 +3389,24 @@ BATCH_STEPS, BATCH_EVAL = 4, 5
 MEDIUM = (29_121, 14_325_000)
 
 
-def bench_phase(torch, cfg, ds) -> None:
-    """Timing and the benches on the Reddit recipe's graph (phase 5b): the
-    aggregation share of a step (utils/timing.py) at f32 and bfloat16; the
-    bfloat16 recipe for 5 epochs with steps_per_call 4 (a CUDA graph of the
-    step), its losses and final weights bit-equal to steps_per_call 1 and
-    its executed launches equal (captured × replays + eager); the harness
-    at medium scale (bench_aggregation with torch, ell and cuda; ELL within
-    1e-5 of max |y| of a float64 plain sum; validate_numerics passing);
-    then `python -m spgemm_gnn_tpu_torch.bench --scale medium` in a
-    subprocess, its one JSON line parsed. Each number beside the card's
-    name and power limit."""
-    from spgemm_gnn_tpu_torch.bench import harness
+def batched_steps(torch, ds, cfg, card: str) -> None:
+    """The recipe `cfg` (evaluations every BATCH_EVAL epochs) for EPOCHS
+    epochs at steps_per_call 1 and BATCH_STEPS (a CUDA graph of the step,
+    holding the MaxK pair's kernels): losses and final weights bit-equal,
+    and the launches of the batched run, captured once x replays + eager,
+    those of the unbatched run."""
     from spgemm_gnn_tpu_torch.kernels import _build
-    from spgemm_gnn_tpu_torch.kernels.api import aggregate
-    from spgemm_gnn_tpu_torch.ops.ell import ell_graph
-    from spgemm_gnn_tpu_torch.ops.spmm import spmm
     from spgemm_gnn_tpu_torch.train.loop import Trainer
-    from spgemm_gnn_tpu_torch.utils.timing import measure_aggregation_fraction
-
-    t_phase = time.perf_counter()
-    dev = ds.graph.device
-    card = harness.card(dev)
-    for dtype in ("float32", "bfloat16"):
-        tr = Trainer(cfg.replace(dtype=dtype), dataset=ds)
-        stats = measure_aggregation_fraction(tr)
-        if not (stats["step_s"] > 0 and stats["aggregation_s"] > 0
-                and 0 < stats["aggregation_pct"] <= 100):
-            raise AssertionError(f"timing reddit {dtype}: {stats}")
-        log(f"timing reddit {dtype}: step_s {stats['step_s']}, "
-            f"aggregation_s {stats['aggregation_s']}, aggregation_pct "
-            f"{stats['aggregation_pct']} ({card})")
-        del tr
-        torch.cuda.empty_cache()
-
-    cfg_b = cfg.replace(dtype="bfloat16", eval_every=BATCH_EVAL)
     runs = {}
     for spc in (1, BATCH_STEPS):
         _build.launches.clear()
-        res = Trainer(cfg_b.replace(steps_per_call=spc), dataset=ds).run()
+        res = Trainer(cfg.replace(steps_per_call=spc), dataset=ds).run()
         torch.cuda.synchronize()
         runs[spc] = dict(res=res, counts=collections.Counter(_build.launches),
                          losses=[r.loss for r in res["history"]])
-        log(f"batched steps {spc}: losses {runs[spc]['losses']}, steady "
-            f"epoch {res['steady_epoch_s']} s, graph replays "
+        log(f"batched steps {spc}, {cfg.dtype}: losses "
+            f"{runs[spc]['losses']}, steady epoch {res['steady_epoch_s']} s, "
+            f"graph replays "
             f"{res['graph_replays']}, captured launches "
             f"{res['graph_launches']} ({card})")
     one, four = runs[1], runs[BATCH_STEPS]
@@ -3214,13 +3433,56 @@ def bench_phase(torch, cfg, ds) -> None:
         raise AssertionError(f"batched steps: launches {dict(executed)} "
                              f"(captured x replays + eager) != "
                              f"{dict(one['counts'])} at steps_per_call 1")
-    log(f"batched steps: losses and final weights bit-equal to "
+    want = ({"csr_cbsr_spmm", "csr_sspmm"} if cfg.dtype == "float32" else
+            {"csr_cbsr_spmm_bf16_out", "csr_sspmm_bf16_out"})
+    if not want <= set(captured):
+        raise AssertionError(f"batched steps: the graph holds "
+                             f"{dict(captured)}, not {sorted(want)}")
+    log(f"batched steps, {cfg.dtype}: losses and final weights bit-equal to "
         f"steps_per_call 1; launches captured once x {replays} replays + "
         f"eager = {dict(executed)}, the unbatched run's; steady epoch "
         f"{four['res']['steady_epoch_s']} s at {BATCH_STEPS}, "
         f"{one['res']['steady_epoch_s']} s at 1 ({card})")
-    del runs, one, four, p1, p4
-    torch.cuda.empty_cache()
+
+
+def bench_phase(torch, cfg, ds) -> None:
+    """Timing and the benches on the Reddit recipe's graph (phase 5b): the
+    aggregation share of a step (utils/timing.py) at f32 and bfloat16; the
+    f32 and the bfloat16 recipe for 5 epochs with steps_per_call 4 (a CUDA
+    graph of the step, `batched_steps`), its losses and final weights
+    bit-equal to steps_per_call 1 and its executed launches equal
+    (captured × replays + eager); the harness
+    at medium scale (bench_aggregation with torch, ell and cuda; ELL within
+    1e-5 of max |y| of a float64 plain sum; validate_numerics passing);
+    then `python -m spgemm_gnn_tpu_torch.bench --scale medium` in a
+    subprocess, its one JSON line parsed. Each number beside the card's
+    name and power limit."""
+    from spgemm_gnn_tpu_torch.bench import harness
+    from spgemm_gnn_tpu_torch.kernels.api import aggregate
+    from spgemm_gnn_tpu_torch.ops.ell import ell_graph
+    from spgemm_gnn_tpu_torch.ops.spmm import spmm
+    from spgemm_gnn_tpu_torch.train.loop import Trainer
+    from spgemm_gnn_tpu_torch.utils.timing import measure_aggregation_fraction
+
+    t_phase = time.perf_counter()
+    dev = ds.graph.device
+    card = harness.card(dev)
+    for dtype in ("float32", "bfloat16"):
+        tr = Trainer(cfg.replace(dtype=dtype), dataset=ds)
+        stats = measure_aggregation_fraction(tr)
+        if not (stats["step_s"] > 0 and stats["aggregation_s"] > 0
+                and 0 < stats["aggregation_pct"] <= 100):
+            raise AssertionError(f"timing reddit {dtype}: {stats}")
+        log(f"timing reddit {dtype}: step_s {stats['step_s']}, "
+            f"aggregation_s {stats['aggregation_s']}, aggregation_pct "
+            f"{stats['aggregation_pct']} ({card})")
+        del tr
+        torch.cuda.empty_cache()
+
+    for dtype in ("float32", "bfloat16"):
+        batched_steps(torch, ds, cfg.replace(dtype=dtype,
+                                             eval_every=BATCH_EVAL), card)
+        torch.cuda.empty_cache()
 
     n, e = MEDIUM
     g, pg, xk, ct = harness._bench_inputs(n, e, HIDDEN, K, 0, None, dev)
@@ -3981,11 +4243,16 @@ def main() -> int:
     # at the dense bf16 form's schedule
     csr_cbsr16 = csr_cbsr16_check(torch, g, xs, post, False)
     csr_cbsr16o = csr_cbsr16_check(torch, g, xs, post, True)
+    # and its f32 form, on f32 records at the dense f32 form's schedule
+    csr_cbsr32 = csr_cbsr_check(torch, g, xs, post)
     del xs, gy
     torch.cuda.empty_cache()
     # B2's 16-bit forms on MaxK's backward: the sampled backward on Aᵀ at
     # the dense bf16 form's schedule
     csr_sspmm16_entries = csr_sspmm16_check(torch, g, HIDDEN, K, SEED)
+    torch.cuda.empty_cache()
+    # and its f32 form, on the raw cotangent at the dense f32 schedule
+    csr_sspmm32 = csr_sspmm_check(torch, g, HIDDEN, K, SEED)
     torch.cuda.empty_cache()
 
     cfg = TrainConfig(dataset="reddit", model="sage", nonlinear="maxk",
@@ -3995,14 +4262,38 @@ def main() -> int:
                       impl="auto", synthetic=True,
                       synthetic_scale=SCALE)
     first_steps(torch, cfg, ds, "train reddit")
-    # per epoch: a train step (forward + backward) and an eval forward
+    # per epoch: a train step (forward + backward) and an eval forward; at
+    # the default rules the MaxK forwards take csr_cbsr_spmm on the
+    # compacted input's f32 records and the MaxK backwards csr_sspmm on Aᵀ;
+    # then STREAM_CBSR_FORWARD off (csr_spmm forward), then
+    # SAMPLED_BACKWARD off (csr_spmm on Aᵀ): the same schedule, so the same
+    # losses bit for bit
+    dense32 = {"maxk_fwd": EPOCHS * 2 * layers, "maxk_bwd": EPOCHS * layers}
+    cbsr_fwd32 = {"cbsr_compact": EPOCHS * 2 * layers,
+                  "csr_cbsr_spmm": EPOCHS * 2 * layers}
     reddit = run_training(torch, Trainer(cfg, dataset=ds), {
-        "maxk_fwd": EPOCHS * 2 * layers, "maxk_bwd": EPOCHS * layers,
-        "csr_spmm": EPOCHS * 3 * layers}, "train reddit")
-    if not reddit["losses"][-1] < reddit["losses"][0]:
-        raise AssertionError(f"train reddit: loss did not fall: "
-                             f"{reddit['losses']}")
+        **dense32, **cbsr_fwd32, "csr_sspmm": EPOCHS * layers},
+        "train reddit")
+    require_fall(reddit, "train reddit")
+    planned.STREAM_CBSR_FORWARD = False
+    reddit_off = run_training(torch, Trainer(cfg, dataset=ds), {
+        **dense32, "csr_spmm": EPOCHS * 2 * layers,
+        "csr_sspmm": EPOCHS * layers},
+        "train reddit, STREAM_CBSR_FORWARD off")
+    planned.STREAM_CBSR_FORWARD = None
+    planned.SAMPLED_BACKWARD = False
+    reddit_dense = run_training(torch, Trainer(cfg, dataset=ds), {
+        **dense32, **cbsr_fwd32, "csr_spmm": EPOCHS * layers},
+        "train reddit, SAMPLED_BACKWARD off")
+    planned.SAMPLED_BACKWARD = None
+    bit_equal_losses(reddit, reddit_dense, "train reddit")
+    bit_equal_losses(reddit, reddit_off, "train reddit",
+                     "STREAM_CBSR_FORWARD off")
+    log_against_dense("train reddit", reddit, reddit_dense, reddit_off)
     reddit_counts = reddit["counts"]
+    reddit_off_counts = reddit_off["counts"]
+    reddit_dense_counts = reddit_dense["counts"]
+    del reddit_off, reddit_dense
     for entry in kernels:
         entry["launches"] = reddit_counts[entry["name"]]
         entry["launches_path"] = "train reddit"
@@ -4181,9 +4472,24 @@ def main() -> int:
 
     kernels.append(product_entry("csr_spmm", csr_a, csr_t,
                                  products_=csr_products))
-    kernels[-1].update(launches=reddit_counts["csr_spmm"],
-                       launches_path="train reddit")
+    # at the default the f32 MaxK forwards take csr_cbsr_spmm and the MaxK
+    # backwards csr_sspmm: this form runs on the paths with either flag off
+    # (and on the mesh and the ranks, whose shard pairs take no k)
+    kernels[-1].update(
+        launches=reddit_dense_counts["csr_spmm"],
+        launches_path="train reddit, SAMPLED_BACKWARD off",
+        default_launches=reddit_counts.get("csr_spmm", 0),
+        flag_off_launches=reddit_off_counts["csr_spmm"])
+    csr_cbsr32.update(launches=reddit_counts["csr_cbsr_spmm"],
+                      launches_path="train reddit")
+    csr_sspmm32.update(launches=reddit_counts["csr_sspmm"],
+                       launches_path="train reddit",
+                       flag_off_launches=reddit_off_counts["csr_sspmm"])
+    kernels += [csr_cbsr32, csr_sspmm32]
     kernels += cbsr_phase(torch, pg2, HIDDEN, K, SEED)
+    next(e for e in kernels if e["name"] == "cbsr_compact").update(
+        reddit_launches=reddit_counts["cbsr_compact"],
+        reddit_launches_path="train reddit")
     torch.cuda.empty_cache()
     cbsr16_entries = cbsr16_phase(torch, pg2, HIDDEN, K, SEED,
                                   {e["name"]: e for e in kernels})

@@ -70,53 +70,78 @@
 // below its own no-reuse gather (its source blocks keep the rows it
 // gathers in L2) at the rate L2 serves 512-byte rows, 58 GB a call: the
 // bytes an edge reads are what this kernel cuts, to one 128-byte record
-// (4.18 against 8.49 ms on the H100, PERF.md). Design: csr_spmm_bf16's
-// schedule, passes, fix-up and layers of the sum, unchanged; B8-bf16's stage
-// (csrc/stream.cu::stream_cbsr16_kernel) for the records: a warp's edges'
-// records are copied
-// by cp.async, 16 bytes a lane (four 128-byte records a warp copy), with
-// an L2 evict_last policy into a ring of stages in the warp's shared
-// memory, 32 edges ahead; an edge is then a shared-memory load a lane
-// (slot j to lane j) and the scatter of its nonzero value into a per-warp
-// f32 partial row of dim floats in shared memory. The partial holds one
-// batch of 32 edges in edge order, and at the batch's end each lane adds
-// its channels of it into the segment's sum in registers (BF16's layout)
-// and zeroes them: csr_spmm_bf16's batch sum, which adds every channel of
-// every edge, only without the additions of an exact zero, which leave an
-// f32 sum unchanged (a batch sum starts at +0 and never becomes -0). So at
-// the same schedule y is csr_spmm_bf16's on the densified rows bit for bit.
+// (4.18 against 8.49 ms on the H100, PERF.md). Design (csr_cbsr_kernel):
+// csr_spmm_bf16's schedule, passes, fix-up and layers of the sum,
+// unchanged; B8-bf16's stage (csrc/stream.cu::stream_cbsr16_kernel) for the
+// records: a warp's edges' records are copied by cp.async, 16 bytes a lane
+// (four 128-byte records a warp copy), with an L2 evict_last policy into a
+// ring of stages in the warp's shared memory, 32 edges ahead; an edge is
+// then a shared-memory load a lane (slot j to lane j) and the scatter of
+// its nonzero value into a per-warp f32 partial row of dim floats in shared
+// memory. The partial holds one batch of 32 edges in edge order, and at
+// the batch's end each lane adds its channels of it into the segment's sum
+// in registers (BF16's layout) and zeroes them: csr_spmm_bf16's batch sum,
+// which adds every channel of every edge, only without the additions of an
+// exact zero, which leave an f32 sum unchanged (a batch sum starts at +0
+// and never becomes -0). So at the same schedule y is csr_spmm_bf16's on
+// the densified rows bit for bit.
 //
-// csr_sspmm_bf16, the fourth export (with out16 the bf16 output; counted as
-// csr_sspmm_bf16 and csr_sspmm_bf16_out), is MaxK's backward on a windowed
-// plan: it replaces the TPU kernels' composition in
-// spgemm_gnn_tpu/kernels/planned.py:233 sspmm_backward (B2's packed branch,
-// spgemm_pallas.py:97, :124-129, :183-186, on Aᵀ, out_dtype planned.py:
-// 271-274, :300, then B4's channel sampling, spgemm_pallas.py:385), behind
-// the port's SAMPLED_BACKWARD rule. The cotangent of an aggregation whose
-// input is MaxK's output is needed only at the k channels ch[u, .] each row
-// kept: dx[u, ch[u, j]] = post[u] * sum_v m[v, ch[u, j]], 0 at the row's
-// other channels. Bound on this card at Reddit (k 32, dim 256): bytes, each
-// once (m 119.3 MB, the ids 7.5 MB, Aᵀ's indices 453.2 MB, y 238.6 MB f32
-// or 119.3 MB bf16), 0.244 ms (0.209 bf16 out); the 2 E k operations take
-// 0.108 ms; the 64 B an edge needs, gathered with no reuse, 2.16 ms. The
-// dense bf16 form reads a 512-B row an edge from L2 (its source blocks keep
-// the slab there) at the rate L2 serves such rows (8.49 ms) and keeps 1/8
-// of what it adds. Design: the dense form's schedule, passes, fix-up and
-// layers of the sum, at k channels (csr_sspmm16_kernel): a warp loads its
-// row's ids once a segment, and lane j adds the 2-byte m[v, ch[u, j]] of
+// csr_cbsr_spmm, the f32 form (the MaxK forward of the f32 path on a
+// windowed plan, Reddit's canonical recipe; the same composition in f32,
+// spgemm_gnn_tpu/kernels/planned.py:198 spgemm_forward with stream_dtype
+// f32: densify, then spgemm_pallas.py:97), is csr_cbsr_kernel on f32
+// records (ops/maxk.py::cbsr_records: k f32 values, then the uint8 ids
+// packed four to a word; 160 B at k 32) at csr_spmm's f32 schedule (10
+// source blocks at Reddit). The records are not prescaled: as
+// csr_segment_kernel applies pre[u] to each f32 row by an FMA, slot j adds
+// fmaf(pre[u], v, part[c]), so y is csr_spmm's on the densified rows bit
+// for bit (for GCN's deg^-1/2 as for no pre). A record of k % 16 == 0 is a
+// whole number of 16-byte chunks (ten at k 32, two records a warp copy);
+// another k copies 4 bytes a lane. Bound at Reddit: bytes, indices 453.2
+// MB, y 238.6 MB and the records 37.3 MB, 0.218 ms at 3.35 TB/s (the 2 E k
+// operations take 0.108 ms); the records' gather with no reuse, E * 160 B,
+// 5.41 ms, against the dense form's 1-KB rows read from L2 at 15.4 ms. On
+// the H100 it takes 9.16 ms against csr_spmm's 15.43; the records alone,
+// copied over the schedule and not scattered, 5.07 (PERF.md). Records of
+// 8-byte slots (256 B) gathered in 5.27 and 16 stages in flight in 6.14, so
+// the layout and the 8 stages stay.
+//
+// csr_sspmm_bf16 (with out16 the bf16 output; counted as csr_sspmm_bf16 and
+// csr_sspmm_bf16_out) and csr_sspmm (f32 messages) are MaxK's backward on a
+// windowed plan: they replace the TPU kernels' composition in
+// spgemm_gnn_tpu/kernels/planned.py:233 sspmm_backward (B2 on Aᵀ,
+// spgemm_pallas.py:97, the packed branch :124-129, :183-186 for bf16
+// messages, out_dtype planned.py:271-274, :300, then B4's channel sampling,
+// spgemm_pallas.py:385), behind the port's SAMPLED_BACKWARD rule. The
+// cotangent of an aggregation whose input is MaxK's output is needed only
+// at the k channels ch[u, .] each row kept: dx[u, ch[u, j]] = post[u] *
+// sum_v pre[v] m[v, ch[u, j]], 0 at the row's other channels. Bound on this
+// card at Reddit (k 32, dim 256): bytes, each once (m 119.3 MB bf16 or
+// 238.6 MB f32, the ids 7.5 MB, Aᵀ's indices 453.2 MB, y 238.6 MB f32 or
+// 119.3 MB bf16), 0.244 ms bf16, 0.280 ms f32 (0.209 bf16 out); the 2 E k
+// operations take 0.108 ms; the 2k or 4k bytes an edge needs, gathered
+// with no reuse, 2.16 or 4.33 ms. The dense forms read a 512-B or 1-KB row
+// an edge from L2 (their source blocks keep the slab there) at the rate L2
+// serves such rows (8.49 and 15.7 ms) and keep 1/8 of what they add; the
+// sampled forms take 6.60 and 9.89 ms on the H100 (PERF.md).
+// Design (csr_sspmm_kernel, over the message type): the dense form's
+// schedule, passes, fix-up and layers of the sum, at k channels: a warp
+// loads its row's ids once a segment, and lane j adds m[v, ch[u, j]] of
 // each edge from the L2-resident slab, so a warp load touches the sectors
-// of the k channels (about 14 of a row's 16 at k 32) and adds only what is
-// kept. A row's sums stay compact across the block passes, in an N x k f32
-// accumulator (30 MB at Reddit, which L2 holds beside the slab) in place of
-// the dense y's 2 GB of pass-to-pass traffic, and the dense output row is
-// written once, at the row's last block, through a shared-memory row. Each
-// kept channel's sum runs in the dense form's order (its FMA by a pre
-// factor of 1 is this add), so it is csr_spmm_bf16's value bit for bit,
+// of the k channels (about 14 of a bf16 row's 16 at k 32, 21 of an f32
+// row's 32) and adds only what is kept. bf16 messages carry pre (round_rows)
+// and each term is added, the dense bf16 kernel's FMA by 1; f32 messages
+// are the raw cotangent and each term is fmaf(pre[v], m[v, c], .), the
+// dense f32 kernel's step. A row's sums stay compact across the block
+// passes, in an N x k f32 accumulator (30 MB at Reddit, which L2 holds
+// beside the slab) in place of the dense y's 2 GB of pass-to-pass traffic,
+// and the dense output row is written once, at the row's last block,
+// through a shared-memory row. Each kept channel's sum runs in the dense
+// form's order, so it is csr_spmm_bf16's (csr_spmm's) value bit for bit,
 // and the bf16 output takes round_out's rule. Two two-pass forms
 // (stream_sspmm's 2k-byte slots, written in the schedule's order or in
-// A's) lost to it on the H100 (6.70 against 10.6 and 11.7 ms;
-// utils/csr_sweep.py --sampled_only, PERF.md); modes 1 and 2 keep their
-// second passes for that probe.
+// A's) lost to the bf16 form on the H100 (6.70 against 10.6 and 11.7 ms,
+// PERF.md) and were removed.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -432,25 +457,82 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-// One warp per segment (row, lo, hi, out) of csr_spmm's schedule, over bf16
-// records of 32 KV words a node (KV 128-byte lines). A stage is EPS records
-// (4 at KV 1: one 512-byte warp copy, 8 lanes a record; one record from KV
-// 4 on), S stages in flight (S EPS <= 32 edges). The ids of a batch of 32
-// edges are loaded a batch ahead; stage s + S is fetched once stage s has
-// been scattered. dim4 <= 64 (dim <= 256): BF16<1>'s two float4 sums a
-// lane hold channels 8 lane ... 8 lane + 7.
-template <int KV, int S>
+// 4 bytes from global to shared memory, asynchronously, with the L2 policy
+// pol (cp.async.ca: the copy that takes a record not aligned to 16 bytes).
+__device__ __forceinline__ void cp4(unsigned dst, const void* src,
+                                    uint64_t pol) {
+  asm volatile("cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 4, %2;"
+               :
+               : "r"(dst), "l"(src), "l"(pol)
+               : "memory");
+}
+
+// The record types of csr_cbsr_kernel: a record of words(k) 32-bit words a
+// node, copied CB bytes a lane at a time, EPS records a stage, and `add`,
+// one edge's record scattered into the warp's f32 partial row `part` (lane
+// j takes slot j, then j + 32, ...; the channels of a record are distinct,
+// so no two lanes touch one address). A slot whose value is zero adds
+// nothing: an f32 sum that starts at +0 never becomes -0, so leaving out
+// the FMA of an exact zero keeps its bits.
+// Bf16Rec: bf16 values, one word a slot (value bits high, channel low), 32
+// KV words (KV 128-byte lines); the pre factor is already in the values.
+template <int KV>
+struct Bf16Rec {
+  static constexpr int CB = 16, EPS = KV >= 4 ? 1 : 4 / KV;
+  static constexpr bool kPre = false;
+  __device__ __forceinline__ static int words(int) { return 32 * KV; }
+  __device__ __forceinline__ static void add(const unsigned* sr, float* part,
+                                             float, int, int lane) {
+#pragma unroll
+    for (int t = 0; t < KV; ++t) {
+      const unsigned wd = sr[lane + 32 * t];
+      const float v = __uint_as_float(wd & 0xffff0000u);
+      if (v != 0.f) part[wd & 0xffffu] += v;
+    }
+  }
+};
+
+// F32Rec: f32 values, k value words then ceil(k / 4) words of uint8 ids
+// (ops/maxk.py::cbsr_records, 160 B at k 32); slot j adds fmaf(s, v, part[c])
+// with s the edge's pre factor, csr_segment_kernel's F32 step. CB is 16 where
+// a record is a whole number of 16-byte chunks (k % 16 == 0), else 4.
+template <int CB_, int EPS_>
+struct F32Rec {
+  static constexpr int CB = CB_, EPS = EPS_;
+  static constexpr bool kPre = true;
+  __device__ __forceinline__ static int words(int k) { return k + (k + 3) / 4; }
+  __device__ __forceinline__ static void add(const unsigned* sr, float* part,
+                                             float s, int k, int lane) {
+    const uint8_t* ids = reinterpret_cast<const uint8_t*>(sr + k);
+    for (int j = lane; j < k; j += 32) {
+      const float v = __uint_as_float(sr[j]);
+      if (v != 0.f) {
+        const int c = ids[j];
+        part[c] = fmaf(s, v, part[c]);
+      }
+    }
+  }
+};
+
+// One warp per segment (row, lo, hi, out) of csr_spmm's schedule, over
+// records of type Rec. A stage is Rec::EPS records (32 / EPS lanes a
+// record, CB bytes a copy), S stages in flight (S EPS <= 32 edges). The
+// ids of a batch of 32 edges (and, with pre, their pre factors) are loaded
+// a batch ahead; stage s + S is fetched once stage s has been scattered.
+// dim4 <= 64 (dim <= 256): BF16<1>'s two float4 sums a lane hold channels
+// 8 lane ... 8 lane + 7.
+template <class Rec, int S>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-csr_cbsr16_kernel(const int4* __restrict__ seg, int64_t n_seg,
-                  const int* __restrict__ indices,
-                  const unsigned* __restrict__ rec,
-                  const float* __restrict__ post, float4* __restrict__ y,
-                  float4* __restrict__ scratch, int dim4) {
+csr_cbsr_kernel(const int4* __restrict__ seg, int64_t n_seg,
+                const int* __restrict__ indices,
+                const unsigned* __restrict__ rec,
+                const float* __restrict__ pre,
+                const float* __restrict__ post, float4* __restrict__ y,
+                float4* __restrict__ scratch, int k, int dim4) {
   using R = BF16<1>;
-  constexpr int EPS = KV >= 4 ? 1 : 4 / KV;  // edges a stage
-  constexpr int NL = KV > 4 ? KV / 4 : 1;    // 16-byte copies a lane a stage
-  constexpr int RW = 32 * KV;                // words a record
-  constexpr int SW = RW * EPS;               // words a stage
+  constexpr int EPS = Rec::EPS;
+  constexpr int LPR = 32 / EPS;  // lanes a record
+  constexpr int CW = Rec::CB / 4;  // words a copy
   static_assert(S * EPS <= 32 && (S & (S - 1)) == 0, "S stages ahead");
   extern __shared__ float4 cbsr_smem[];
   const int lane = threadIdx.x & 31;
@@ -459,27 +541,36 @@ csr_cbsr16_kernel(const int4* __restrict__ seg, int64_t n_seg,
   if (i >= n_seg) return;  // i is uniform across the warp
   const int4 s = seg[i];
   const int lo = s.y, hi = s.z;
-  float4* part4 = cbsr_smem + warp * (dim4 + S * SW / 4);
+  const int rw = Rec::words(k);  // words a record
+  const int sw = rw * EPS;       // words a stage
+  const int rc = rw / CW;        // copies a record
+  float4* part4 = cbsr_smem + warp * (dim4 + S * sw / 4);
   float* part = reinterpret_cast<float*>(part4);
   unsigned* ring = reinterpret_cast<unsigned*>(part4 + dim4);
   uint64_t keep;
   asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(keep));
 
-  // the current batch's ids (edge base + lane) and the next batch's
+  // the current batch's ids (edge base + lane) and the next batch's, and
+  // their pre factors (1 without pre)
   int cu = lo + lane < hi ? __ldcs(indices + lo + lane) : 0;
   int nu = lo + 32 + lane < hi ? __ldcs(indices + lo + 32 + lane) : 0;
+  float cs =
+      Rec::kPre && pre != nullptr && lo + lane < hi ? __ldg(pre + cu) : 1.f;
   // stage st (edges lo + EPS st ...) into ring slot st % S; `ids` holds the
   // batch of its edges, its first edge at index i0 there
   auto fetch = [&](int st, int ids, int i0) {
-    unsigned* slot = ring + (st % S) * SW;
-#pragma unroll
-    for (int c = 0; c < NL; ++c) {
-      const int wq = lane + 32 * c;  // the stage's 16-byte word
-      const int ri = wq / (8 * KV);  // of its record ri
-      const int u = __shfl_sync(kFull, ids, (i0 + ri) & 31);
-      if (lo + EPS * st + ri < hi)
-        cp16(smem_addr(slot + 4 * wq),
-             rec + (int64_t)u * RW + 4 * (wq % (8 * KV)), keep);
+    unsigned* slot = ring + (st % S) * sw;
+    const int ri = lane / LPR;  // the lane's record of the stage
+    const int u = __shfl_sync(kFull, ids, (i0 + ri) & 31);
+    if (lo + EPS * st + ri < hi) {
+      for (int q = lane % LPR; q < rc; q += LPR) {
+        const unsigned dst = smem_addr(slot + ri * rw + q * CW);
+        const unsigned* src = rec + (int64_t)u * rw + q * CW;
+        if (Rec::CB == 16)
+          cp16(dst, src, keep);
+        else
+          cp4(dst, src, keep);
+      }
     }
     cp_commit();
   };
@@ -493,15 +584,10 @@ csr_cbsr16_kernel(const int4* __restrict__ seg, int64_t n_seg,
   for (int a = 0; a < R::kAcc; ++a) acc[a] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncwarp();
 
-  // one edge's record: lane j adds slot j (then j + 32, ...) at its channel;
-  // the channels of a record are distinct, and slots past k hold 0
-  auto consume = [&](const unsigned* sr) {
-#pragma unroll
-    for (int t = 0; t < KV; ++t) {
-      const unsigned wd = sr[lane + 32 * t];
-      const float v = __uint_as_float(wd & 0xffff0000u);
-      if (v != 0.f) part[wd & 0xffffu] += v;
-    }
+  // edge i0 + e of the batch: its record's slots into the partial row
+  auto consume = [&](const unsigned* sr, int e) {
+    const float sv = Rec::kPre ? __shfl_sync(kFull, cs, e) : 1.f;
+    Rec::add(sr, part, sv, k, lane);
     __syncwarp();
   };
 
@@ -511,12 +597,12 @@ csr_cbsr16_kernel(const int4* __restrict__ seg, int64_t n_seg,
     for (int i0 = 0; i0 < cnt; i0 += EPS, ++st) {
       cp_wait<S - 1>();  // stage st has landed (one group a stage)
       __syncwarp();
-      const unsigned* sr = ring + (st % S) * SW;
+      const unsigned* sr = ring + (st % S) * sw;
       if (i0 + EPS <= cnt) {
 #pragma unroll
-        for (int e = 0; e < EPS; ++e) consume(sr + e * RW);
+        for (int e = 0; e < EPS; ++e) consume(sr + e * rw, i0 + e);
       } else {
-        for (int e = 0; e < cnt - i0; ++e) consume(sr + e * RW);
+        for (int e = 0; e < cnt - i0; ++e) consume(sr + e * rw, i0 + e);
       }
       const int ahead = i0 + EPS * S;
       fetch(st + S, ahead < 32 ? cu : nu, ahead & 31);
@@ -532,6 +618,9 @@ csr_cbsr16_kernel(const int4* __restrict__ seg, int64_t n_seg,
     }
     __syncwarp();
     cu = nu;
+    cs = Rec::kPre && pre != nullptr && base + 32 + lane < hi
+             ? __ldg(pre + cu)
+             : 1.f;
     nu = base + 64 + lane < hi ? __ldcs(indices + base + 64 + lane) : 0;
   }
   if (s.w < 0) {
@@ -546,22 +635,29 @@ csr_cbsr16_kernel(const int4* __restrict__ seg, int64_t n_seg,
   }
 }
 
-// csr_cbsr16_kernel's passes, as run's: each source block's segments, then
-// its split runs' fix-ups.
-template <int KV, int S>
-int run_cbsr16(const int4* seg, const int4* fix, const int64_t* pass_seg,
-               const int64_t* pass_fix, int nb, const int* indices,
-               const unsigned* rec, const float* post, float4* y,
-               float4* scratch, int dim4, cudaStream_t s) {
-  constexpr int EPS = KV >= 4 ? 1 : 4 / KV;
+// csr_cbsr_kernel's passes, as run's: each source block's segments, then
+// its split runs' fix-ups. rw: words a record.
+template <class Rec, int S>
+int run_cbsr(const int4* seg, const int4* fix, const int64_t* pass_seg,
+             const int64_t* pass_fix, int nb, const int* indices,
+             const unsigned* rec, const float* pre, const float* post,
+             float4* y, float4* scratch, int k, int rw, int dim4,
+             cudaStream_t s) {
   const size_t smem =
-      (size_t)kWarpsPerBlock * (dim4 * 16 + S * EPS * 128 * KV);
+      (size_t)kWarpsPerBlock * (dim4 * 16 + S * Rec::EPS * rw * 4);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        csr_cbsr_kernel<Rec, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   for (int b = 0; b < nb; ++b) {
     const int64_t n_seg = pass_seg[b + 1] - pass_seg[b];
     if (n_seg > 0) {
-      csr_cbsr16_kernel<KV, S>
+      csr_cbsr_kernel<Rec, S>
           <<<blocks_for(n_seg), kWarpsPerBlock * 32, smem, s>>>(
-              seg + pass_seg[b], n_seg, indices, rec, post, y, scratch, dim4);
+              seg + pass_seg[b], n_seg, indices, rec, pre, post, y, scratch,
+              k, dim4);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
@@ -575,13 +671,26 @@ int run_cbsr16(const int4* seg, const int4* fix, const int64_t* pass_seg,
   return (int)cudaGetLastError();
 }
 
-// ---- csr_sspmm_bf16: MaxK's backward at the kept channels --------------
+// ---- csr_sspmm: MaxK's backward at the kept channels --------------------
 
-// source loads of csr_sspmm16_kernel: MODE 0 gathers lane j's channel of a
-// message row (the product), 1 and 2 read a 2k-byte slot an edge (the
-// two-pass probes of utils/csr_sweep.py): 1 at the edge's position in the
-// schedule, 2 at the row where[position] names
-constexpr int kGather = 0, kSlotsInOrder = 1, kSlotsAt = 2;
+// The message types of csr_sspmm_kernel: a channel of a message row, widened
+// to f32 exactly. bf16 messages carry their pre factor (round_rows, or the
+// 16-bit model's bf16 product); f32 messages are the raw cotangent, and each
+// edge's term takes the pre factor of its source by an FMA, as
+// csr_segment_kernel's F32 rows do.
+struct Bf16Msg {
+  using T = uint16_t;
+  static constexpr bool kPre = false;
+  __device__ __forceinline__ static float widen(T q) {
+    return __uint_as_float((unsigned)q << 16);
+  }
+};
+
+struct F32Msg {
+  using T = float;
+  static constexpr bool kPre = true;
+  __device__ __forceinline__ static float widen(T q) { return q; }
+};
 
 // edges a warp has in flight: KT loads each, 16 a lane
 template <int KT>
@@ -642,23 +751,27 @@ __device__ __forceinline__ void finish_sampled(
 
 // One warp per segment (row, lo, hi, out) of csr_spmm's schedule, at the
 // row's k kept channels only: lane j sums channel c = ch[row, j] (then j +
-// 32, ...) of each edge's source, m[u, c] (MODE 0), batches of 32 edges
-// from +0 in edge order, each batch's sum added to the segment's: the
-// dense bf16 kernel's sums at that channel (its FMA by a pre factor of 1
-// is this add). The row's ids are loaded once a segment; the source ids a
-// batch ahead, as the dense kernel loads them; kAheadS edges' loads in
-// flight a lane. A whole segment finishes its row (finish_sampled), a
-// piece of a split run leaves its sums in compact scratch slot `out`.
-template <int KT, int MODE, bool OUT16>
+// 32, ...) of each edge's source message m[u, c] of type M, batches of 32
+// edges from +0 in edge order, each term fmaf(pre[u], m[u, c], ·) for f32
+// messages and an add for bf16 ones (the dense kernel's FMA by a pre factor
+// of 1), each batch's sum added to the segment's: the dense kernel's sums
+// at that channel. The row's ids are loaded once a segment; the source ids
+// (and pre factors) a batch ahead, as the dense kernel loads them; kAheadS
+// edges' loads in flight a lane. A whole segment finishes its row
+// (finish_sampled), a piece of a split run leaves its sums in compact
+// scratch slot `out`.
+template <class M, int KT, bool OUT16>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-csr_sspmm16_kernel(const int4* __restrict__ seg, int64_t n_seg,
-                   const int* __restrict__ ids,
-                   const uint16_t* __restrict__ src,
-                   const uint8_t* __restrict__ ch,
-                   const float* __restrict__ post, float* __restrict__ acc,
-                   float* __restrict__ scratch, void* __restrict__ y,
-                   int dim, int k) {
+csr_sspmm_kernel(const int4* __restrict__ seg, int64_t n_seg,
+                 const int* __restrict__ ids,
+                 const typename M::T* __restrict__ src,
+                 const float* __restrict__ pre,
+                 const uint8_t* __restrict__ ch,
+                 const float* __restrict__ post, float* __restrict__ acc,
+                 float* __restrict__ scratch, void* __restrict__ y, int dim,
+                 int k) {
   constexpr int D = kAheadS<KT>;
+  using T = typename M::T;
   extern __shared__ float4 sspmm_smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -673,39 +786,40 @@ csr_sspmm16_kernel(const int4* __restrict__ seg, int64_t n_seg,
     c[t] = j < k ? ch[(int64_t)s.x * k + j] : 0;
     v[t] = 0.f;
   }
-  // MODE 0: the batch's source ids; MODE 2: its slot rows
-  int un = MODE != kSlotsInOrder && s.y + lane < s.z ? ids[s.y + lane] : 0;
+  int un = s.y + lane < s.z ? ids[s.y + lane] : 0;
   for (int base = s.y; base < s.z; base += 32) {
     const int u = un;
-    un = MODE != kSlotsInOrder && base + 32 + lane < s.z
-             ? ids[base + 32 + lane]
-             : 0;
+    un = base + 32 + lane < s.z ? ids[base + 32 + lane] : 0;
+    const float sc =
+        M::kPre && pre != nullptr && base + lane < s.z ? pre[u] : 1.f;
     const int cnt = min(32, s.z - base);
     float part[KT];  // this batch's sums
 #pragma unroll
     for (int t = 0; t < KT; ++t) part[t] = 0.f;
     for (int jj = 0; jj < cnt; jj += D) {  // D divides 32: jj + d < 32
-      uint16_t q[D][KT];
+      T q[D][KT];
 #pragma unroll
       for (int d = 0; d < D; ++d) {
-        const int64_t r = MODE == kSlotsInOrder
-                              ? (int64_t)(base + jj + d)
-                              : (int64_t)__shfl_sync(kFull, u, jj + d);
+        const int64_t r = __shfl_sync(kFull, u, jj + d);
 #pragma unroll
         for (int t = 0; t < KT; ++t) {
           const int j = lane + 32 * t;
           q[d][t] = 0;
-          if (jj + d < cnt && j < k)
-            q[d][t] = __ldg(src + (MODE == kGather ? r * dim + c[t]
-                                                   : r * k + j));
+          if (jj + d < cnt && j < k) q[d][t] = __ldg(src + r * dim + c[t]);
         }
       }
 #pragma unroll
       for (int d = 0; d < D; ++d) {
-        if (jj + d < cnt) {
+        if (M::kPre) {
+          const float sd = __shfl_sync(kFull, sc, jj + d);
+          if (jj + d < cnt) {
 #pragma unroll
-          for (int t = 0; t < KT; ++t)
-            part[t] += __uint_as_float((unsigned)q[d][t] << 16);
+            for (int t = 0; t < KT; ++t)
+              part[t] = fmaf(sd, M::widen(q[d][t]), part[t]);
+          }
+        } else if (jj + d < cnt) {
+#pragma unroll
+          for (int t = 0; t < KT; ++t) part[t] += M::widen(q[d][t]);
         }
       }
     }
@@ -730,12 +844,12 @@ csr_sspmm16_kernel(const int4* __restrict__ seg, int64_t n_seg,
 // (csr_fixup_kernel on the kept channels).
 template <int KT, bool OUT16>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-csr_sspmm16_fixup_kernel(const int4* __restrict__ fix, int64_t n_fix,
-                         const uint8_t* __restrict__ ch,
-                         const float* __restrict__ post,
-                         const float* __restrict__ scratch,
-                         float* __restrict__ acc, void* __restrict__ y,
-                         int dim, int k) {
+csr_sspmm_fixup_kernel(const int4* __restrict__ fix, int64_t n_fix,
+                       const uint8_t* __restrict__ ch,
+                       const float* __restrict__ post,
+                       const float* __restrict__ scratch,
+                       float* __restrict__ acc, void* __restrict__ y, int dim,
+                       int k) {
   extern __shared__ float4 sspmm_smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -761,28 +875,28 @@ csr_sspmm16_fixup_kernel(const int4* __restrict__ fix, int64_t n_fix,
                             sspmm_smem + warp * (dim / 4), dim, k, lane);
 }
 
-// csr_sspmm16_kernel's passes, as run's: each source block's segments,
-// then its split runs' fix-ups.
-template <int KT, int MODE, bool OUT16>
-int run_sspmm16(const int4* seg, const int4* fix, const int64_t* pass_seg,
-                const int64_t* pass_fix, int nb, const int* ids,
-                const uint16_t* src, const uint8_t* ch, const float* post,
-                float* acc, float* scratch, void* y, int dim, int k,
-                cudaStream_t s) {
+// csr_sspmm_kernel's passes, as run's: each source block's segments, then
+// its split runs' fix-ups.
+template <class M, int KT, bool OUT16>
+int run_sspmm(const int4* seg, const int4* fix, const int64_t* pass_seg,
+              const int64_t* pass_fix, int nb, const int* ids,
+              const typename M::T* src, const float* pre, const uint8_t* ch,
+              const float* post, float* acc, float* scratch, void* y,
+              int dim, int k, cudaStream_t s) {
   const size_t smem = (size_t)kWarpsPerBlock * dim * 4;
   for (int b = 0; b < nb; ++b) {
     const int64_t n_seg = pass_seg[b + 1] - pass_seg[b];
     if (n_seg > 0) {
-      csr_sspmm16_kernel<KT, MODE, OUT16>
+      csr_sspmm_kernel<M, KT, OUT16>
           <<<blocks_for(n_seg), kWarpsPerBlock * 32, smem, s>>>(
-              seg + pass_seg[b], n_seg, ids, src, ch, post, acc, scratch, y,
-              dim, k);
+              seg + pass_seg[b], n_seg, ids, src, pre, ch, post, acc, scratch,
+              y, dim, k);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
     const int64_t n_fix = pass_fix[b + 1] - pass_fix[b];
     if (n_fix > 0) {
-      csr_sspmm16_fixup_kernel<KT, OUT16>
+      csr_sspmm_fixup_kernel<KT, OUT16>
           <<<blocks_for(n_fix), kWarpsPerBlock * 32, smem, s>>>(
               fix + pass_fix[b], n_fix, ch, post, scratch, acc, y, dim, k);
       const cudaError_t err = cudaGetLastError();
@@ -790,6 +904,36 @@ int run_sspmm16(const int4* seg, const int4* fix, const int64_t* pass_seg,
     }
   }
   return (int)cudaGetLastError();
+}
+
+// The sampled product on messages of type M, at KT slots a lane
+// (slices(k)); OUT16 only for bf16 messages.
+template <class M, bool OUT16>
+int sspmm(const void* seg, const void* fix, const void* pass_seg,
+          const void* pass_fix, int nb, const void* indices, const void* m,
+          const void* pre, const void* ch, const void* post, void* acc,
+          void* scratch, void* y, int k, int dim, void* stream) {
+#define SSPMM(KT_)                                                          \
+  run_sspmm<M, KT_, OUT16>(                                                 \
+      static_cast<const int4*>(seg), static_cast<const int4*>(fix),         \
+      static_cast<const int64_t*>(pass_seg),                                \
+      static_cast<const int64_t*>(pass_fix), nb,                            \
+      static_cast<const int*>(indices),                                     \
+      static_cast<const typename M::T*>(m), static_cast<const float*>(pre), \
+      static_cast<const uint8_t*>(ch), static_cast<const float*>(post),     \
+      static_cast<float*>(acc), static_cast<float*>(scratch), y, dim, k,    \
+      static_cast<cudaStream_t>(stream))
+  switch (slices(k)) {
+    case 1:
+      return SSPMM(1);
+    case 2:
+      return SSPMM(2);
+    case 4:
+      return SSPMM(4);
+    default:
+      return SSPMM(8);
+  }
+#undef SSPMM
 }
 
 }  // namespace
@@ -841,13 +985,14 @@ extern "C" int csr_cbsr_spmm_bf16(const void* seg, const void* fix,
   if (dim < 8 || dim % 8 != 0 || dim > 256 || k < 1 || k >= dim || nb < 1)
     return (int)cudaErrorInvalidValue;
 #define CBSR16(KV_, S_)                                                   \
-  run_cbsr16<KV_, S_>(                                                     \
+  run_cbsr<Bf16Rec<KV_>, S_>(                                              \
       static_cast<const int4*>(seg), static_cast<const int4*>(fix),        \
       static_cast<const int64_t*>(pass_seg),                               \
       static_cast<const int64_t*>(pass_fix), nb,                           \
       static_cast<const int*>(indices),                                    \
-      static_cast<const unsigned*>(records), static_cast<const float*>(post), \
-      static_cast<float4*>(y), static_cast<float4*>(scratch), dim / 4,     \
+      static_cast<const unsigned*>(records), nullptr,                      \
+      static_cast<const float*>(post), static_cast<float4*>(y),            \
+      static_cast<float4*>(scratch), k, 32 * KV_, dim / 4,                 \
       static_cast<cudaStream_t>(stream))
   switch (slices(k)) {
     case 1:
@@ -862,6 +1007,42 @@ extern "C" int csr_cbsr_spmm_bf16(const void* seg, const void* fix,
 #undef CBSR16
 }
 
+// y <- post * (A (pre * cbsr(records))) over a schedule, as csr_spmm on the
+// densified rows bit for bit: records int32 [n_src, k + ceil(k / 4)], k f32
+// values (their bits) then the uint8 channel ids packed four to a word
+// (ops/maxk.py::cbsr_records on f32 values), channels distinct within a
+// record; pre f32 [n_src] or null; the schedule (of f32 rows of width dim),
+// y, scratch and post as in csr_spmm. Needs dim % 4 == 0, 4 <= dim <= 256,
+// 1 <= k < dim and 16-byte aligned y and scratch (records 16-byte aligned
+// where k % 16 == 0).
+extern "C" int csr_cbsr_spmm(const void* seg, const void* fix,
+                             const void* pass_seg, const void* pass_fix,
+                             int nb, const void* indices, const void* records,
+                             const void* pre, const void* post, void* y,
+                             void* scratch, int k, int dim, void* stream) {
+  if (dim < 4 || dim % 4 != 0 || dim > 256 || k < 1 || k >= dim || nb < 1)
+    return (int)cudaErrorInvalidValue;
+  const int rw = k + (k + 3) / 4;
+  const bool wide = rw % 4 == 0;  // 16-byte copies
+  // two records a stage where 16 lanes copy one, 8 stages (16 edges) in
+  // flight: the 160-B records at k 32 took 5.07 ms to gather over Reddit's
+  // schedule at 8 stages, 6.14 at 16 (utils/csr_sweep.py --probes, PERF.md)
+  const bool two = (wide ? rw / 4 : rw) <= 16;
+#define CBSR32(CB_, EPS_)                                                 \
+  run_cbsr<F32Rec<CB_, EPS_>, 8>(                                          \
+      static_cast<const int4*>(seg), static_cast<const int4*>(fix),        \
+      static_cast<const int64_t*>(pass_seg),                               \
+      static_cast<const int64_t*>(pass_fix), nb,                           \
+      static_cast<const int*>(indices),                                    \
+      static_cast<const unsigned*>(records), static_cast<const float*>(pre), \
+      static_cast<const float*>(post), static_cast<float4*>(y),            \
+      static_cast<float4*>(scratch), k, rw, dim / 4,                       \
+      static_cast<cudaStream_t>(stream))
+  if (wide) return two ? CBSR32(16, 2) : CBSR32(16, 1);
+  return two ? CBSR32(4, 2) : CBSR32(4, 1);
+#undef CBSR32
+}
+
 // dx <- MaxK's backward product at its kept channels, over csr_spmm's
 // schedule of Aᵀ (seg, fix, pass_seg, pass_fix, nb, indices as in
 // csr_spmm): y[r, ch[r, j]] = post[r] * sum over r's edges of m[u, ch[r,
@@ -870,45 +1051,38 @@ extern "C" int csr_cbsr_spmm_bf16(const void* seg, const void* fix,
 // [n_rows, k] (distinct within a row), post f32 [n_rows] or null; acc f32
 // [n_rows, k] and scratch f32 [n_slots, k] (null without split runs) are
 // the compact sums; y f32 [n_rows, dim], or with out16 bf16(bf16(sum) *
-// bf16(post)). mode 0 is the product; 1 and 2 are the two-pass probes of
-// utils/csr_sweep.py (k <= 32): m is then a slot buffer bf16 [E, k],
-// read at each edge's position (1) or at the row where[position] (2,
-// `where` int32 [E], else unused). Needs dim % 8 == 0, 8 <= dim <= 256, 1
-// <= k < dim and a 16-byte aligned y.
+// bf16(post)). Needs dim % 8 == 0, 8 <= dim <= 256, 1 <= k < dim and a
+// 16-byte aligned y.
 extern "C" int csr_sspmm_bf16(const void* seg, const void* fix,
                               const void* pass_seg, const void* pass_fix,
                               int nb, const void* indices, const void* m,
-                              const void* where, const void* ch,
-                              const void* post, void* acc, void* scratch,
-                              void* y, int k, int dim, int out16, int mode,
-                              void* stream) {
-  if (dim < 8 || dim % 8 != 0 || dim > 256 || k < 1 || k >= dim || nb < 1 ||
-      mode < kGather || mode > kSlotsAt || (mode != kGather && k > 32))
+                              const void* ch, const void* post, void* acc,
+                              void* scratch, void* y, int k, int dim,
+                              int out16, void* stream) {
+  if (dim < 8 || dim % 8 != 0 || dim > 256 || k < 1 || k >= dim || nb < 1)
     return (int)cudaErrorInvalidValue;
-#define SSPMM16(KT_, M_, O_)                                                 \
-  run_sspmm16<KT_, M_, O_>(                                                  \
-      static_cast<const int4*>(seg), static_cast<const int4*>(fix),         \
-      static_cast<const int64_t*>(pass_seg),                                \
-      static_cast<const int64_t*>(pass_fix), nb,                            \
-      static_cast<const int*>(M_ == kSlotsAt ? where : indices),            \
-      static_cast<const uint16_t*>(m), static_cast<const uint8_t*>(ch),     \
-      static_cast<const float*>(post), static_cast<float*>(acc),            \
-      static_cast<float*>(scratch), y, dim, k,                              \
-      static_cast<cudaStream_t>(stream))
-#define SSPMM16_OUT(KT_, M_) \
-  (out16 ? SSPMM16(KT_, M_, true) : SSPMM16(KT_, M_, false))
-  if (mode == kSlotsInOrder) return SSPMM16_OUT(1, kSlotsInOrder);
-  if (mode == kSlotsAt) return SSPMM16_OUT(1, kSlotsAt);
-  switch (slices(k)) {
-    case 1:
-      return SSPMM16_OUT(1, kGather);
-    case 2:
-      return SSPMM16_OUT(2, kGather);
-    case 4:
-      return SSPMM16_OUT(4, kGather);
-    default:
-      return SSPMM16_OUT(8, kGather);
-  }
-#undef SSPMM16_OUT
-#undef SSPMM16
+  return out16 ? sspmm<Bf16Msg, true>(seg, fix, pass_seg, pass_fix, nb,
+                                      indices, m, nullptr, ch, post, acc,
+                                      scratch, y, k, dim, stream)
+               : sspmm<Bf16Msg, false>(seg, fix, pass_seg, pass_fix, nb,
+                                       indices, m, nullptr, ch, post, acc,
+                                       scratch, y, k, dim, stream);
+}
+
+// csr_sspmm_bf16 on f32 messages: y[r, ch[r, j]] = post[r] * sum over r's
+// edges of pre[u] * m[u, ch[r, j]], csr_spmm's value there bit for bit, 0
+// at r's other channels; m f32 [n_src, dim] (the cotangent), pre f32
+// [n_src] or null, y f32 [n_rows, dim]; the rest as in csr_sspmm_bf16.
+// Needs dim % 4 == 0, 4 <= dim <= 256, 1 <= k < dim and a 16-byte aligned
+// y.
+extern "C" int csr_sspmm(const void* seg, const void* fix,
+                         const void* pass_seg, const void* pass_fix, int nb,
+                         const void* indices, const void* m, const void* pre,
+                         const void* ch, const void* post, void* acc,
+                         void* scratch, void* y, int k, int dim,
+                         void* stream) {
+  if (dim < 4 || dim % 4 != 0 || dim > 256 || k < 1 || k >= dim || nb < 1)
+    return (int)cudaErrorInvalidValue;
+  return sspmm<F32Msg, false>(seg, fix, pass_seg, pass_fix, nb, indices, m,
+                              pre, ch, post, acc, scratch, y, k, dim, stream);
 }

@@ -43,8 +43,10 @@ SIGNATURES = {
                        _P] for name in ("csr_spmm", "csr_spmm_bf16")},
              "csr_cbsr_spmm_bf16": [_P, _P, _P, _P, _INT, _P, _P, _P, _P, _P,
                                     _INT, _INT, _P],
-             "csr_sspmm_bf16": [*[_P] * 4, _INT, *[_P] * 8, *[_INT] * 4,
-                                _P]},
+             "csr_cbsr_spmm": [*[_P] * 4, _INT, *[_P] * 6, _INT, _INT, _P],
+             "csr_sspmm_bf16": [*[_P] * 4, _INT, *[_P] * 7, *[_INT] * 3,
+                                _P],
+             "csr_sspmm": [*[_P] * 4, _INT, *[_P] * 8, _INT, _INT, _P]},
     "stream": {"stream_spmm": [*[_P] * 10, *[_I64] * 4, *[_INT] * 4, _P],
                "stream_spmm_bf16": [*[_P] * 10, *[_I64] * 4, *[_INT] * 4,
                                     _P],

@@ -21,12 +21,13 @@ Entry points:
 Where `STREAM_CBSR_FORWARD` takes it (`cbsr_forward`: by default a
 k-sparse input of k < dim <= 256), the forward of either entry point takes
 the CBSR form of the plan's kernel instead: `stream_cbsr_spmm` on a stream
-plan, and on a windowed plan, for bf16 records only, `csr_cbsr_spmm` (the
-models' path compacts its k-sparse input first). Where `SAMPLED_BACKWARD`
-takes it (`sampled_backward`: by default bf16 messages and the channel ids
-of the MaxK whose output x is, k < dim <= 256), the models' backward
-computes only the channels that MaxK kept (`stream_sspmm` on a stream
-plan, `csr_sspmm` on a windowed one), the dense backward's bits there.
+plan, `csr_cbsr_spmm` on a windowed one (the models' path compacts its
+k-sparse input first). Where `SAMPLED_BACKWARD` takes it
+(`sampled_backward`: by default the channel ids of the MaxK whose output x
+is, k < dim <= 256, and bf16 messages or a windowed plan), the models'
+backward computes only the channels that MaxK kept (`stream_sspmm` on a
+stream plan, `csr_sspmm` on a windowed one), the dense backward's bits
+there.
 
 `DEFAULT_STREAM` selects the feature stream of every product, forward on A
 and backward on Aᵀ: "f32" (exact), or "bf16x2", the reference's 16-bit
@@ -83,27 +84,25 @@ KIND_SRC_BLOCK = 256
 # read at each call (`cbsr_forward`), so a caller may set it on the module:
 # - None (the default): the rule. Take it where it applies: k < dim <= 256
 #   (the ids are packed as uint8, so yelp's hidden 384 stays dense), on f32
-#   or bf16 values (what a record holds) on a stream plan, and on bf16
-#   records only (bf16 activations or the bf16x2 stream) on a windowed one;
-# - True: force it (dim > 256 then raises, as the reference does) where a
-#   record can go: a windowed plan with f32 records keeps `csr_spmm`;
+#   or bf16 values (what a record holds), on either plan kind;
+# - True: force it (dim > 256 then raises, as the reference does);
 # - False: the dense-row forward (`stream_spmm`, `csr_spmm`) on both.
-# Every backward takes the dense kernel. The reference defaults to False
-# from a TPU v5e measurement, where its row gathers are tile-granular
-# (0.29x at k = 32, `spgemm_gnn_tpu/kernels/planned.py:180-186`). On the
-# card the CBSR forward is the faster one: one ogbn-products stand-in epoch
-# (SAGE recipe, k 32, dim 256) with it against without takes about 0.50
-# against 0.66 s in f32, 0.43 against 0.49 under bf16x2 and 0.24 against
-# 0.30 with bf16 activations, with the same losses, since the two forwards
-# are equal by value (chip_smoke.py's products phases on an NVIDIA H100
-# 80GB HBM3 at a 700 W power limit; PERF.md §5 holds the measured epochs
-# and the call that measured them). On a windowed plan too: on the Reddit
-# stand-in (k 32, dim 256, A, 5 source blocks) `csr_cbsr_spmm` on bf16
-# records takes 4.18 ms against `csr_spmm`'s 8.49 on the same rows, with
-# the same bits (utils/csr_sweep.py --stream bf16x2 --probes on an NVIDIA
-# H100 80GB HBM3 at a 700 W power limit; PERF.md §6). f32 records have no
-# windowed kernel yet: an f32 forward on a windowed plan keeps `csr_spmm`
-# (about 15.5 ms a call there) under every flag value.
+# The reference defaults to False from a TPU v5e measurement, where its row
+# gathers are tile-granular (0.29x at k = 32,
+# `spgemm_gnn_tpu/kernels/planned.py:180-186`). On the card the CBSR
+# forward is the faster one, with the same losses, since the two forwards
+# are equal by value (on a windowed plan, where it runs at the dense form's
+# schedule, bit for bit). On an NVIDIA H100 80GB HBM3 at a 700 W power
+# limit (k 32, dim 256; PERF.md §5-§6 hold the numbers and the calls that
+# measured them): one ogbn-products stand-in epoch (SAGE recipe) with it
+# against without takes about 0.50 against 0.66 s in f32, 0.43 against
+# 0.49 under bf16x2 and 0.24 against 0.30 with bf16 activations
+# (chip_smoke.py's products phases); on the Reddit stand-in's windowed plan
+# (A, k-sparse x) `csr_cbsr_spmm` takes 4.18 ms against `csr_spmm`'s 8.49 on
+# bf16 records (5 source blocks; utils/csr_sweep.py --stream bf16x2
+# --probes) and 9.16 against 15.43 on f32 records (10 source blocks;
+# chip_smoke.py), and the f32 recipe's epoch 0.157 s against 0.206 with
+# the flag off.
 STREAM_CBSR_FORWARD: bool | None = None
 
 # The sampled backward: an aggregation whose input x is the output of MaxK
@@ -119,20 +118,21 @@ STREAM_CBSR_FORWARD: bool | None = None
 # dense (`spgemm_gnn_tpu/kernels/planned.py:326`), and its `sspmm_backward`
 # (dense, then `sample_channels`) is this function at the CBSR API. Read
 # at each call (`sampled_backward`):
-# - None (the default): the rule. Take it on either plan kind, with bf16
-#   messages (the bf16x2 stream, or bf16 activations), MaxK's ids given,
-#   and k < dim <= 256 (uint8 ids);
+# - None (the default): the rule. Take it with MaxK's ids given and k <
+#   dim <= 256 (uint8 ids), on a windowed plan for f32 or bf16 messages,
+#   on a stream plan for bf16 messages (the bf16x2 stream, or bf16
+#   activations) only: f32 messages on a stream plan keep the dense
+#   backward (`stream_spmm` on Aᵀ), which has no f32 sampled kernel;
 # - True: the same, raising above dim 256;
 # - False: the dense backward (`stream_spmm` or `csr_spmm` on Aᵀ).
-# The f32 stream on f32 activations keeps the dense backward under every
-# value: it has no sampled kernel. Measured on an NVIDIA H100 80GB HBM3 at
-# a 700 W power limit (k 32, dim 256; PERF.md §5-§6): on the
-# ogbn-products stand-in (SAGE recipe) the dense bf16 backward takes 20.1
-# ms a layer, `stream_sspmm` 15.2 (chip_smoke.py's products phases); on
-# the Reddit stand-in's windowed plan `csr_spmm_bf16` then `maxk_bwd`
-# took 8.79 ms and `csr_sspmm` 6.70 in one call (`_out`: 9.53 against
-# 6.66), ahead of both two-pass forms (10.1-11.7 ms; utils/csr_sweep.py
-# --sampled_only).
+# Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit (k 32, dim
+# 256; PERF.md §5-§6): on the ogbn-products stand-in (SAGE recipe) the
+# dense bf16 backward takes 20.1 ms a layer, `stream_sspmm` 15.2
+# (chip_smoke.py's products phases); on the Reddit stand-in's windowed
+# plan `csr_spmm_bf16` then `maxk_bwd` took 8.79 ms and `csr_sspmm` 6.70
+# in one call (utils/csr_sweep.py --sampled_only), and on f32 messages
+# `csr_spmm` then `maxk_bwd` 15.95 ms against `csr_sspmm`'s 9.89, the f32
+# recipe's epoch 0.157 s against 0.181 with the flag off (chip_smoke.py).
 SAMPLED_BACKWARD: bool | None = None
 
 # The feature stream of the planned products: "f32" or "bf16x2" (the name,
@@ -151,17 +151,12 @@ KINDS = ("auto", "windowed", "stream", "windowed_classes")
 
 
 def cbsr_forward(plan, k: int | None, dim: int, dtype: torch.dtype) -> bool:
-    """Whether the forward on `plan` of a k-sparse input of width `dim` and
-    `dtype` takes the CBSR form of the plan's kernel (STREAM_CBSR_FORWARD's
-    rule): with k stated and k < dim; on a windowed plan only for bf16
-    records (bf16 values, or any values under the bf16x2 stream), since
-    f32 records have no windowed kernel; under the default (None) also dim
-    <= 256 and f32 or bf16 values, while True takes it regardless (and the
-    kernel's wrapper raises above dim 256)."""
+    """Whether the forward on `plan` (either kind) of a k-sparse input of
+    width `dim` and `dtype` takes the CBSR form of the plan's kernel
+    (STREAM_CBSR_FORWARD's rule): with k stated and k < dim; under the
+    default (None) also dim <= 256 and f32 or bf16 values, while True takes
+    it regardless (and the kernel's wrapper raises above dim 256)."""
     if STREAM_CBSR_FORWARD is False or k is None or k >= dim:
-        return False
-    if not isinstance(plan, StreamPlan) and not (
-            dtype == torch.bfloat16 or _stream16()):
         return False
     return STREAM_CBSR_FORWARD is True or (dim <= MAX_CBSR_DIM
                                            and dtype in STREAM_DTYPES)
@@ -173,13 +168,14 @@ def sampled_backward(plan, k: int | None, dim: int,
     of width `dim` and `dtype` is the output of a MaxK whose k kept
     channels are given (k None: none are) takes the sampled form,
     `stream_sspmm` on a stream plan and `csr_sspmm` on a windowed one
-    (SAMPLED_BACKWARD's rule): bf16 messages (bf16 activations or the
-    bf16x2 stream), k < dim; under the default (None) also dim <= 256,
-    while True takes it regardless (and the kernels' wrappers raise above
-    dim 256)."""
+    (SAMPLED_BACKWARD's rule): k < dim, and on a stream plan bf16 messages
+    (bf16 activations or the bf16x2 stream; f32 messages there have no
+    sampled kernel); under the default (None) also dim <= 256, while True
+    takes it regardless (and the kernels' wrappers raise above dim 256)."""
     if SAMPLED_BACKWARD is False or k is None or k >= dim:
         return False
-    if not (dtype == torch.bfloat16 or _stream16()):
+    if isinstance(plan, StreamPlan) and not (dtype == torch.bfloat16
+                                             or _stream16()):
         return False
     return SAMPLED_BACKWARD is True or dim <= MAX_CBSR_DIM
 
@@ -362,9 +358,10 @@ def plan_spmm(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
               post: torch.Tensor | None = None,
               k: int | None = None) -> torch.Tensor:
     """y = post ⊙ A (pre ⊙ x) through the plan's kernel. `k` states that x
-    has at most k nonzeros per row: where `cbsr_forward` says so, a stream
-    plan then compacts x to CBSR and takes `stream_cbsr_spmm` (the same y by
-    value). Under the 16-bit stream (DEFAULT_STREAM "bf16x2") the kernel
+    has at most k nonzeros per row: where `cbsr_forward` says so, x is then
+    compacted to CBSR and the plan's CBSR kernel takes its records
+    (`stream_cbsr_spmm`, the same y by value; `csr_cbsr_spmm`, the same y
+    bit for bit). Under the 16-bit stream (DEFAULT_STREAM "bf16x2") the kernel
     gathers bf16(pre ⊙ x), or the CBSR values so rounded, with no pre
     factor; a windowed plan then needs dim % 16 == 0, as the reference's
     packed stream does. bf16 x takes `_plan_spmm16`, and y is bf16."""
@@ -378,26 +375,28 @@ def plan_spmm(plan, x: torch.Tensor, pre: torch.Tensor | None = None,
     if cbsr_forward(plan, k, dim, x.dtype):
         vals, ch = cbsr_compact(x, k)
         if stream16:
-            return _cbsr16(plan, cbsr_records(round_rows(vals, pre), ch, dim),
-                           k, dim, post)
-        return stream_cbsr_spmm(plan, cbsr_records(vals, ch, dim), k, dim,
-                                pre, post)
+            return _cbsr(plan, cbsr_records(round_rows(vals, pre), ch, dim),
+                         k, dim, None, post, torch.bfloat16)
+        return _cbsr(plan, cbsr_records(vals, ch, dim), k, dim, pre, post,
+                     torch.float32)
     kernel = stream_spmm if isinstance(plan, StreamPlan) else csr_spmm
     if stream16:
         return kernel(plan, round_rows(x, pre), None, post)
     return kernel(plan, x, pre, post)
 
 
-def _cbsr16(plan, records: torch.Tensor, k: int, dim: int,
-            post: torch.Tensor | None,
-            out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """The CBSR form of the plan's kernel on bf16 records (the pre factor
-    in their values): `stream_cbsr_spmm` on a stream plan, `csr_cbsr_spmm`
-    on a windowed one."""
+def _cbsr(plan, records: torch.Tensor, k: int, dim: int,
+          pre: torch.Tensor | None, post: torch.Tensor | None,
+          value_dtype: torch.dtype,
+          out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The CBSR form of the plan's kernel on records of `value_dtype` (bf16
+    ones with the pre factor in their values): `stream_cbsr_spmm` on a
+    stream plan, `csr_cbsr_spmm` on a windowed one."""
     if isinstance(plan, StreamPlan):
-        return stream_cbsr_spmm(plan, records, k, dim, None, post,
-                                torch.bfloat16, out_dtype)
-    return csr_cbsr_spmm(plan, records, k, dim, post, out_dtype)
+        return stream_cbsr_spmm(plan, records, k, dim, pre, post,
+                                value_dtype, out_dtype)
+    return csr_cbsr_spmm(plan, records, k, dim, post, out_dtype, pre=pre,
+                         value_dtype=value_dtype)
 
 
 def _plan_spmm16(plan, x: torch.Tensor, post: torch.Tensor | None,
@@ -412,7 +411,8 @@ def _plan_spmm16(plan, x: torch.Tensor, post: torch.Tensor | None,
     dim = x.shape[1]
     if cbsr_forward(plan, k, dim, x.dtype):
         vals, ch = cbsr_compact(x, k)
-        return _cbsr16(plan, cbsr_records(vals, ch, dim), k, dim, post, bf16)
+        return _cbsr(plan, cbsr_records(vals, ch, dim), k, dim, None, post,
+                     bf16, bf16)
     kernel = stream_spmm if isinstance(plan, StreamPlan) else csr_spmm
     return kernel(plan, x, None, post, out_dtype=bf16)
 
@@ -424,9 +424,13 @@ def plan_sspmm(plan, fwd_plan, g: torch.Tensor, ids: torch.Tensor,
     `fwd_plan` at each row's channels ids[v] only, zeros elsewhere:
     `stream_sspmm` on a stream plan, `csr_sspmm` on a windowed one. The
     messages are the dense form's, bf16(pre ⊙ g) under the bf16x2 stream
-    (y f32), pre ⊙ g in bf16 for bf16 g (y bf16)."""
+    (y f32), pre ⊙ g in bf16 for bf16 g (y bf16), and under the f32 stream
+    (a windowed plan only) the f32 g itself, with pre applied per edge (y
+    f32)."""
     if g.dtype == torch.bfloat16:
         m, out_dtype = _scale(g, pre).contiguous(), torch.bfloat16
+    elif not _stream16():
+        return csr_sspmm(plan, g, ids, post, pre=pre)
     else:
         m, out_dtype = round_rows(g, pre), None
     if isinstance(plan, StreamPlan):
@@ -491,12 +495,10 @@ def spgemm_forward(dim: int, values: torch.Tensor, channels: torch.Tensor,
     if cbsr_forward(plans[0], k, dim, values.dtype):
         if _stream16() and not bf16:
             rec = cbsr_records(round_rows(values, src_f), channels, dim)
-            return _cbsr16(plans[0], rec, k, dim, dst_f)
+            return _cbsr(plans[0], rec, k, dim, None, dst_f, torch.bfloat16)
         v = _scale(values, src_f).contiguous()
-        rec = cbsr_records(v, channels, dim)
-        if bf16:
-            return _cbsr16(plans[0], rec, k, dim, dst_f)
-        return stream_cbsr_spmm(plans[0], rec, k, dim, None, dst_f)
+        return _cbsr(plans[0], cbsr_records(v, channels, dim), k, dim, None,
+                     dst_f, torch.bfloat16 if bf16 else torch.float32)
     v = _scale(values, src_f).contiguous()
     dense = cbsr_densify(v, channels, dim,
                          torch.float32 if bf16 else values.dtype)

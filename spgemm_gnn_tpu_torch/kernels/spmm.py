@@ -14,20 +14,25 @@ kernel's f32 sums with no post, then `round_out` (`csrc/round.cu`), one
 pass that rounds each sum to bf16 and multiplies it by bf16(post) in bf16.
 
 `csr_cbsr_spmm` is the same product on a MaxK (k-sparse) input given as one
-bf16 CBSR record per source node (`ops/maxk.py::cbsr_records`), through the
-schedule of the dense form (bf16 rows of the same width): the kernel
-`csr_cbsr_spmm_bf16` copies each edge's record instead of its dense row and
-gives `csr_spmm_bf16`'s y on the densified rows bit for bit. With `out_dtype=torch.bfloat16` it runs
+CBSR record per source node (`ops/maxk.py::cbsr_records`), through the
+schedule of the dense form of the same width and value type: the kernels
+copy each edge's record instead of its dense row and give the dense
+form's y on the densified rows bit for bit. On f32 records (the f32 path)
+it launches `csr_cbsr_spmm` (counted under that name), which takes the pre
+factor per edge as `csr_spmm` does; on bf16 records (the pre factor
+already in them) `csr_cbsr_spmm_bf16`, and with `out_dtype=torch.bfloat16`
 `csr_cbsr_spmm_bf16_out` (counted under that name): the same sums, then
 `round_out`, as `csr_spmm_bf16_out`. Plain version: `ops/spmm.py::
 csr_cbsr_plain`.
 
 `csr_sspmm` is MaxK's backward on a windowed plan (the sampled backward):
-the product on Aᵀ of bf16 messages at each row's k kept channels only, 0
-at the others, through the dense bf16 form's schedule: kernel
-`csr_sspmm_bf16` (counted as `csr_sspmm_bf16`, or `csr_sspmm_bf16_out`
-with a bf16 output, which it rounds itself), `csr_spmm`'s bits at the kept
-channels. Plain version: `ops/spmm.py::csr_sspmm_plain`.
+the product on Aᵀ at each row's k kept channels only, 0 at the others,
+through the dense form's schedule, `csr_spmm`'s bits at the kept channels.
+On f32 messages (the raw cotangent, with a pre factor applied per edge)
+it launches `csr_sspmm`; on bf16 messages (the pre factor already in them)
+`csr_sspmm_bf16`, or `csr_sspmm_bf16_out` with a bf16 output, which it
+rounds itself (each counted under its name). Plain version: `ops/spmm.py::
+csr_sspmm_plain`.
 """
 from __future__ import annotations
 
@@ -60,23 +65,34 @@ def check_out_dtype(in_dtype: torch.dtype, out_dtype: torch.dtype | None,
 
 
 def check_sampled(plan, m: torch.Tensor, ch: torch.Tensor,
-                  out_dtype: torch.dtype | None, what: str) -> bool:
-    """Raise unless m is bf16 [S, dim] (dim % 8 == 0, 8 <= dim <= 256) and
-    ch uint8 [plan.num_rows, k] with 1 <= k < dim, naming the sampled
-    backward `what`; True for a bf16 output."""
-    if m.dtype != torch.bfloat16 or m.dim() != 2:
-        raise ValueError(f"{what} takes bf16 messages [S, dim]; got "
-                         f"{m.dtype} {tuple(m.shape)}")
+                  out_dtype: torch.dtype | None, what: str,
+                  pre: torch.Tensor | None = None,
+                  f32: bool = False) -> bool:
+    """Raise unless m is bf16 (or, with `f32`, f32) [S, dim] with dim <=
+    256 and dim % 8 == 0 (dim % 4 == 0 for f32), ch uint8 [plan.num_rows,
+    k] with 1 <= k < dim, and a pre factor comes only with f32 messages
+    (bf16 ones carry it), naming the sampled backward `what`; True for a
+    bf16 output."""
+    dtypes = (torch.float32, torch.bfloat16) if f32 else (torch.bfloat16,)
+    if m.dtype not in dtypes or m.dim() != 2:
+        raise ValueError(f"{what} takes {'f32 or ' if f32 else ''}bf16 "
+                         f"messages [S, dim]; got {m.dtype} "
+                         f"{tuple(m.shape)}")
     out16 = check_out_dtype(m.dtype, out_dtype)
     dim = m.shape[1]
-    if dim % 8 or not 8 <= dim <= MAX_CBSR_DIM:
-        raise ValueError(f"{what} needs dim % 8 == 0 and 8 <= dim <= "
-                         f"{MAX_CBSR_DIM} (uint8 channel ids); got {dim}")
+    step = 8 if m.dtype == torch.bfloat16 else 4
+    if dim % step or not step <= dim <= MAX_CBSR_DIM:
+        raise ValueError(f"{what} needs dim % {step} == 0 and {step} <= dim "
+                         f"<= {MAX_CBSR_DIM} (uint8 channel ids) on "
+                         f"{m.dtype} messages; got {dim}")
     if (ch.dtype != torch.uint8 or ch.dim() != 2
             or ch.shape[0] != plan.num_rows or not 1 <= ch.shape[1] < dim):
         raise ValueError(f"{what} takes channel ids uint8 "
                          f"[{plan.num_rows}, k] with 1 <= k < {dim}; got "
                          f"{ch.dtype} {tuple(ch.shape)}")
+    if pre is not None and m.dtype == torch.bfloat16:
+        raise ValueError(f"{what}: bf16 messages carry their pre factor; "
+                         f"give pre with f32 messages only")
     return out16
 
 
@@ -165,95 +181,95 @@ def _require_schedule(plan: CSRPlan, sched, dev: torch.device,
         _build.require(post, "post", torch.float32, dev, (plan.num_rows,))
 
 
-def _check_records(records: torch.Tensor, k: int, dim: int) -> None:
-    if not 1 <= k < dim or dim > MAX_CBSR_DIM or dim % 8:
+def _check_records(records: torch.Tensor, k: int, dim: int,
+                   value_dtype: torch.dtype, pre: torch.Tensor | None
+                   ) -> None:
+    if value_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"csr_cbsr_spmm takes f32 or bf16 record values; "
+                         f"got {value_dtype}")
+    step = 8 if value_dtype == torch.bfloat16 else 4
+    if not 1 <= k < dim or dim > MAX_CBSR_DIM or dim % step:
         raise ValueError(f"csr_cbsr_spmm needs 1 <= k < dim <= "
-                         f"{MAX_CBSR_DIM} and dim % 8 == 0; got k={k}, "
-                         f"dim={dim}")
-    width = record_words(k, dim, torch.bfloat16)
+                         f"{MAX_CBSR_DIM} and dim % {step} == 0 on "
+                         f"{value_dtype} records; got k={k}, dim={dim}")
+    width = record_words(k, dim, value_dtype)
     if records.dim() != 2 or records.shape[1] != width:
         raise ValueError(f"records has shape {tuple(records.shape)}, expected "
-                         f"[S, {width}] (cbsr_records of k bf16 values)")
+                         f"[S, {width}] (cbsr_records of k {value_dtype} "
+                         f"values)")
+    if pre is not None and value_dtype == torch.bfloat16:
+        raise ValueError("csr_cbsr_spmm: bf16 records carry their pre "
+                         "factor; give pre with f32 records only")
 
 
 def csr_cbsr_spmm(plan: CSRPlan, records: torch.Tensor, k: int, dim: int,
                   post: torch.Tensor | None = None,
-                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """y = post ⊙ A · densify(records) over the plan's CSR (R rows):
-    records int32 [S, record_words(k, dim, bf16)] from `ops.maxk.
-    cbsr_records` of k bf16 values (the pre factor already in them) and
-    their channels (distinct within a row) → y f32 [R, dim], through the
-    schedule of bf16 rows of width dim: `csr_spmm`'s y on the densified bf16
-    rows, bit for bit. out_dtype bf16: y bf16 = bf16(bf16(Σ) · bf16(post)).
-    Needs 1 <= k < dim <= 256 and dim % 8 == 0, on the CPU too."""
-    out16 = check_out_dtype(torch.bfloat16, out_dtype)
-    _check_records(records, k, dim)
+                  out_dtype: torch.dtype | None = None, *,
+                  pre: torch.Tensor | None = None,
+                  value_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """y = post ⊙ A (pre ⊙ densify(records)) over the plan's CSR (R rows):
+    records int32 [S, record_words(k, dim, value_dtype)] from `ops.maxk.
+    cbsr_records` of k values of `value_dtype` and their channels (distinct
+    within a row) → y f32 [R, dim], through the schedule of rows of width
+    dim and that type: `csr_spmm(plan, densified, pre, post)`'s y bit for
+    bit. f32 values take an optional pre factor f32 [S]; bf16 values carry
+    it already (none is taken), and out_dtype bf16 gives y bf16 =
+    bf16(bf16(Σ) · bf16(post)). Needs 1 <= k < dim <= 256 and dim % 8 == 0
+    (bf16) or dim % 4 == 0 (f32), on the CPU too."""
+    out16 = check_out_dtype(value_dtype, out_dtype, "record values")
+    _check_records(records, k, dim, value_dtype, pre)
     _build.require_sources(plan, records.shape[0], "csr_cbsr_spmm")
-    sched = plan.schedule(records.shape[0], dim, 2)
+    f32 = value_dtype == torch.float32
+    sched = plan.schedule(records.shape[0], dim, 4 if f32 else 2)
     if _build.on_cpu(records):
         return csr_cbsr_plain(sched.block_indptr, sched.indices, records, k,
-                              dim, post, out_dtype)
+                              dim, post, out_dtype, pre=pre,
+                              value_dtype=value_dtype)
     dev = records.device
     _build.require(records, "records", torch.int32, dev, (None, None))
     _build.require_aligned(records, "records")
     _require_schedule(plan, sched, dev, post)
-    return _launch(plan, sched, "csr_cbsr_spmm_bf16", records,
-                   (records.data_ptr(),), post, out16, (k, dim))
+    if not f32:
+        return _launch(plan, sched, "csr_cbsr_spmm_bf16", records,
+                       (records.data_ptr(),), post, out16, (k, dim))
+    if pre is not None:
+        _build.require(pre, "pre", torch.float32, dev, (records.shape[0],))
+    return _launch(plan, sched, "csr_cbsr_spmm", records,
+                   (records.data_ptr(),
+                    None if pre is None else pre.data_ptr()),
+                   post, False, (k, dim))
 
 
 def csr_sspmm(plan: CSRPlan, m: torch.Tensor, ch: torch.Tensor,
               post: torch.Tensor | None = None,
-              out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """dx[r, c] = post[r] · Σ_{u ∈ in(r)} m[u, c] for the k channels c =
-    ch[r, :] of each row r of the plan's CSR (Aᵀ of the forward), 0 at r's
-    other channels: m bf16 [S, dim] (the messages, a pre factor already in
-    them), ch uint8 [plan.num_rows, k] (distinct within a row, from
-    `kernels.maxk.maxk_fwd(..., with_ids=True)`) → dx f32 [R, dim], or
-    with out_dtype bf16, bf16(bf16(Σ) · bf16(post)). At each kept channel
-    the bits of `csr_spmm(plan, m, None, post, out_dtype)`, through the
-    same schedule."""
-    check_sampled(plan, m, ch, out_dtype, "csr_sspmm")
-    _build.require_sources(plan, m.shape[0], "csr_sspmm")
-    if _build.on_cpu(m):
-        sched = plan.schedule(m.shape[0], m.shape[1], 2)
-        return csr_sspmm_plain(sched.block_indptr, sched.indices, m, ch,
-                               post, out_dtype)
-    return csr_sspmm_at(plan, m, ch, post, out_dtype=out_dtype)
-
-
-def csr_sspmm_at(plan: CSRPlan, m: torch.Tensor, ch: torch.Tensor,
-                 post: torch.Tensor | None = None, *,
-                 out_dtype: torch.dtype | None = None,
-                 slots: torch.Tensor | None = None,
-                 where: torch.Tensor | None = None) -> torch.Tensor:
-    """`csr_sspmm`'s kernel on CUDA tensors. With `slots` (bf16 [E, k], k
-    <= 32), the second pass of the two-pass probes of utils/csr_sweep.py
-    instead: each edge's k terms read from its slot at the edge's position
-    in the schedule's indices, or, with `where` (int32 [E]), from slot
-    where[position]; m then only sizes the schedule. Only the product is
-    counted."""
-    out16 = check_sampled(plan, m, ch, out_dtype, "csr_sspmm")
-    dev = m.device
+              out_dtype: torch.dtype | None = None, *,
+              pre: torch.Tensor | None = None) -> torch.Tensor:
+    """dx[r, c] = post[r] · Σ_{u ∈ in(r)} pre[u] · m[u, c] for the k
+    channels c = ch[r, :] of each row r of the plan's CSR (Aᵀ of the
+    forward), 0 at r's other channels: m f32 or bf16 [S, dim] (the
+    messages: the f32 cotangent, with an optional pre factor f32 [S]; or
+    bf16 messages, the pre factor already in them), ch uint8
+    [plan.num_rows, k] (distinct within a row, from
+    `kernels.maxk.maxk_fwd(..., with_ids=True)`) → dx f32 [R, dim], or for
+    bf16 messages with out_dtype bf16, bf16(bf16(Σ) · bf16(post)). At each
+    kept channel the bits of `csr_spmm(plan, m, pre, post, out_dtype)`,
+    through the same schedule."""
+    out16 = check_sampled(plan, m, ch, out_dtype, "csr_sspmm", pre,
+                          f32=True)
     n_src, dim = m.shape
-    k = ch.shape[1]
     _build.require_sources(plan, n_src, "csr_sspmm")
-    sched = plan.schedule(n_src, dim, 2)
-    _build.require(m, "m", torch.bfloat16, dev, (n_src, dim))
+    sched = plan.schedule(n_src, dim, m.element_size())
+    if _build.on_cpu(m):
+        return csr_sspmm_plain(sched.block_indptr, sched.indices, m, ch,
+                               post, out_dtype, pre=pre)
+    dev = m.device
+    k = ch.shape[1]
+    _build.require(m, "m", m.dtype, dev, (n_src, dim))
     _build.require(ch, "ch", torch.uint8, dev, (plan.num_rows, k))
     _require_schedule(plan, sched, dev, post)
-    mode = 0
-    if slots is not None:
-        if k > 32:
-            raise ValueError(f"the slot probes take k <= 32; got {k}")
-        _build.require(slots, "slots", torch.bfloat16, dev,
-                       (sched.indices.numel(), k))
-        mode = 1
-        if where is not None:
-            _build.require(where, "where", torch.int32, dev,
-                           (sched.indices.numel(),))
-            mode = 2
-    elif where is not None:
-        raise ValueError("where names slot rows: give slots too")
+    f32 = m.dtype == torch.float32
+    if pre is not None:
+        _build.require(pre, "pre", torch.float32, dev, (n_src,))
     n_rows = plan.num_rows
     y = torch.empty((n_rows, dim),
                     dtype=torch.bfloat16 if out16 else torch.float32,
@@ -262,18 +278,23 @@ def csr_sspmm_at(plan: CSRPlan, m: torch.Tensor, ch: torch.Tensor,
     scratch = _scratch(sched, k, dev)
     if not n_rows:
         return y
-    name = "csr_sspmm_bf16_out" if out16 else "csr_sspmm_bf16"
-    with torch.cuda.device(dev):
-        status = _build.library("spmm").csr_sspmm_bf16(
-            sched.seg.data_ptr(), sched.fix.data_ptr(),
+    name = ("csr_sspmm" if f32 else
+            "csr_sspmm_bf16_out" if out16 else "csr_sspmm_bf16")
+    head = (sched.seg.data_ptr(), sched.fix.data_ptr(),
             sched.pass_seg.data_ptr(), sched.pass_fix.data_ptr(), sched.nb,
-            sched.indices.data_ptr(),
-            (m if slots is None else slots).data_ptr(),
-            None if where is None else where.data_ptr(), ch.data_ptr(),
-            None if post is None else post.data_ptr(), acc.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), y.data_ptr(),
-            k, dim, int(out16), mode, _build.stream_of(m))
+            sched.indices.data_ptr(), m.data_ptr())
+    tail = (ch.data_ptr(), None if post is None else post.data_ptr(),
+            acc.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            y.data_ptr(), k, dim)
+    with torch.cuda.device(dev):
+        lib = _build.library("spmm")
+        if f32:
+            status = lib.csr_sspmm(*head,
+                                   None if pre is None else pre.data_ptr(),
+                                   *tail, _build.stream_of(m))
+        else:
+            status = lib.csr_sspmm_bf16(*head, *tail, int(out16),
+                                        _build.stream_of(m))
         _build.check(status, name)
-    if not mode:
-        _build.launches[name] += 1
+    _build.launches[name] += 1
     return y

@@ -18,11 +18,11 @@ x) (the plain version of the `round_rows` kernel, kernels/round.py); the
 plain sums take bf16 rows by widening them exactly to f32 first, so that
 they sum what the bf16 kernels gather.
 
-`csr_cbsr_plain` is the plain version of the `csr_cbsr_spmm` CUDA kernel
+`csr_cbsr_plain` is the plain version of the `csr_cbsr_spmm` CUDA kernels
 (kernels/spmm.py): the same blocked sum on a k-sparse input given as one
-bf16 CBSR record per node (`ops/maxk.py::cbsr_records`), densified first.
-`csr_sspmm_plain` is the plain version of the `csr_sspmm` kernels (MaxK's
-backward on a windowed plan): the blocked sum kept at each row's k
+f32 or bf16 CBSR record per node (`ops/maxk.py::cbsr_records`), densified
+first. `csr_sspmm_plain` is the plain version of the `csr_sspmm` kernels
+(MaxK's backward on a windowed plan): the blocked sum kept at each row's k
 channels, zeros elsewhere.
 
 The 16-bit model (`--dtype bfloat16`): with `out_dtype=torch.bfloat16` the
@@ -116,24 +116,29 @@ def csr_blocked_plain(block_indptr: torch.Tensor, indices: torch.Tensor,
 def csr_cbsr_plain(block_indptr: torch.Tensor, indices: torch.Tensor,
                    records: torch.Tensor, k: int, dim: int,
                    post: torch.Tensor | None = None,
-                   out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """`csr_blocked_plain` on the rows the bf16 records (`cbsr_records` of
-    k bf16 values, the pre factor folded in) densify to, f32 [S, dim]:
-    split, densified, then summed block by block with no pre factor."""
-    values, ch = split_records(records, k, dim, torch.bfloat16)
+                   out_dtype: torch.dtype | None = None, *,
+                   pre: torch.Tensor | None = None,
+                   value_dtype: torch.dtype = torch.bfloat16
+                   ) -> torch.Tensor:
+    """`csr_blocked_plain` on the rows the records (`cbsr_records` of k
+    values of `value_dtype`) densify to, f32 [S, dim]: split, densified,
+    then summed block by block with the pre factor (f32 values; bf16
+    values carry it already, and take none)."""
+    values, ch = split_records(records, k, dim, value_dtype)
     return csr_blocked_plain(block_indptr, indices,
-                             cbsr_to_dense(_widen(values), ch, dim), None,
+                             cbsr_to_dense(_widen(values), ch, dim), pre,
                              post, out_dtype)
 
 
 def csr_sspmm_plain(block_indptr: torch.Tensor, indices: torch.Tensor,
                     m: torch.Tensor, ch: torch.Tensor,
                     post: torch.Tensor | None = None,
-                    out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """`csr_blocked_plain(block_indptr, indices, m, None, post,
-    out_dtype)` with each row r kept at its channels ch[r] (uint8 [R, k])
-    and 0 elsewhere."""
-    y = csr_blocked_plain(block_indptr, indices, m, None, post, out_dtype)
+                    out_dtype: torch.dtype | None = None, *,
+                    pre: torch.Tensor | None = None) -> torch.Tensor:
+    """`csr_blocked_plain(block_indptr, indices, m, pre, post, out_dtype)`
+    with each row r kept at its channels ch[r] (uint8 [R, k]) and 0
+    elsewhere."""
+    y = csr_blocked_plain(block_indptr, indices, m, pre, post, out_dtype)
     keep = torch.zeros(y.shape, dtype=torch.bool, device=y.device)
     keep.scatter_(1, ch.long(), True)
     return torch.where(keep, y, torch.zeros((), dtype=y.dtype,

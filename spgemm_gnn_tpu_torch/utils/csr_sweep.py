@@ -17,29 +17,28 @@ same product. "auto" is the rule (`graphs/tiles.py::auto_src_blocks`);
 into them, as the planner does; "auto" then sizes blocks for 2-byte
 channels), held to the plain version on the same bf16 rows.
 
-`--probes` (A only, with `--stream bf16x2`) also times a record-gather
-probe of this script at each schedule: the bf16 CBSR records of the same
-input (`ops/maxk.py::cbsr_records` of bf16(x) at k 32: 128 B a node)
-gathered over the schedule's segments as `csr_cbsr_spmm_bf16`
-gathers them, and nothing scattered, so that the records' share of the
+`--probes` (A only) also times a record-gather probe of this script at
+each schedule: the CBSR records of the same input (at k 32) gathered over
+the schedule's segments as `csr_cbsr_spmm`'s kernels gather them (cp.async
+into a ring of stages in each warp's shared memory, with an L2 evict_last
+policy), and nothing scattered, so that the records' share of the
 product's time is on record; and beside it the CBSR forms themselves
-(`csr_cbsr_spmm`, f32 and bf16 out) on those records at that schedule,
-each first checked bit for bit against csr_spmm's bf16 form on the rows.
+(`csr_cbsr_spmm`) on those records at that schedule, each first checked
+bit for bit against csr_spmm on the rows. Under `--stream bf16x2` the
+records are `ops/maxk.py::cbsr_records` of bf16(x), 128 B a node, and the
+forms f32 and bf16 out; under the f32 stream two layouts of the f32
+records at the f32 schedule: `cbsr_records`' 160 B (k values, then the
+uint8 ids; 8 and 16 stages in flight) and 256 B of 8-byte slots (a value
+and its id), and the f32 form.
 
 `--sampled_only` times the forms of MaxK's backward on Aᵀ instead, on bf16
 messages (the 16-bit stream's bf16(dst_f ⊙ g), f32 out, and the 16-bit
 model's dst_f ⊙ g in bf16, bf16 out; mean factors) at k 32 with the ids of
 `maxk_fwd(..., with_ids=True)` on bf16 rows, the schedule of bf16 rows
-(about 90 s with the Reddit build): (i) the dense form (`csr_spmm_bf16` /
+(about 70 s with the Reddit build): (i) the dense form (`csr_spmm_bf16` /
 `_out`) then `maxk_bwd` / `maxk_bwd_bf16`; (ii) `csr_sspmm`, the k-channel
-gather on B2's schedule; (iii) two passes: pass 1 (stream_sspmm's
-`sspmm_slots_bf16` on a StreamPlan of A) writes each edge's 2k-byte slot at
-its position in the Aᵀ schedule's indices, pass 2 (`csr_sspmm_at(...,
-slots=)`) reads them in order over the schedule; (iv) pass 1 writes the
-slots in A's edge order and pass 2 reads slot where[position]. Each pass
-is also timed alone, and pass 1 with no slot stored; (ii)-(iv) are each
-first checked bitwise against the dense form at the kept channels, and
-maxk_fwd is timed with and without ids.
+gather on B2's schedule, first checked bitwise against the dense form at
+the kept channels; and maxk_fwd with and without ids.
 Prints the card's name and power limit first.
 """
 from __future__ import annotations
@@ -58,11 +57,12 @@ PROBE_SRC = r"""
 #include <stdint.h>
 // Record-gather probe over csr_spmm's schedule: one warp per segment (row,
 // lo, hi, out) of a pass, its source ids loaded 32 at a time, coalesced and
-// one batch ahead, and each edge's 128-byte record copied by cp.async, 16
-// bytes a lane (four records a warp copy), into a ring of S stages in the
-// warp's shared memory, with an L2 evict_last policy: as csr_cbsr_spmm_bf16
-// copies them (csrc/spmm.cu). Nothing is scattered: each lane XORs the word
-// of its slot of every edge and stores it at the segment's end.
+// one batch ahead, and each edge's record of RW words copied by cp.async,
+// 16 bytes a lane (32 / EPS lanes a record, EPS records a stage), into a
+// ring of S stages in the warp's shared memory, with an L2 evict_last
+// policy: as csr_cbsr_kernel copies them (csrc/spmm.cu). Nothing is
+// scattered: each lane XORs word `lane` of every edge's record and stores
+// it at the segment's end.
 namespace {
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -70,12 +70,15 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 
-constexpr int S = 8, EPS = 4, RW = 32, SW = RW * EPS;
-
+template <int RW, int S>
 __global__ void __launch_bounds__(256)
 record_probe(const int4* __restrict__ seg, int64_t n_seg,
              const int* __restrict__ indices, const unsigned* __restrict__ rec,
              unsigned* __restrict__ out) {
+  constexpr int RC = RW / 4;  // 16-byte copies a record
+  constexpr int LPR = RC <= 8 ? 8 : RC <= 16 ? 16 : 32;  // lanes a record
+  constexpr int EPS = 32 / LPR, SW = RW * EPS;
+  static_assert(S * EPS <= 32, "a batch ahead at most");
   __shared__ __align__(16) unsigned ring_all[8][S * SW];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t i = (int64_t)blockIdx.x * 8 + warp;
@@ -88,15 +91,16 @@ record_probe(const int4* __restrict__ seg, int64_t n_seg,
   int cu = lo + lane < hi ? __ldcs(indices + lo + lane) : 0;
   int nu = lo + 32 + lane < hi ? __ldcs(indices + lo + 32 + lane) : 0;
   auto fetch = [&](int st, int ids, int i0) {
-    const int ri = lane / 8;  // the lane's record of the stage
+    const int ri = lane / LPR;  // the lane's record of the stage
     const int u = __shfl_sync(kFull, ids, (i0 + ri) & 31);
     if (lo + EPS * st + ri < hi)
-      asm volatile(
-          "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;"
-          :
-          : "r"(smem_addr(ring + (st % S) * SW + 4 * lane)),
-            "l"(rec + (int64_t)u * RW + 4 * (lane % 8)), "l"(keep)
-          : "memory");
+      for (int q = lane % LPR; q < RC; q += LPR)
+        asm volatile(
+            "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;"
+            :
+            : "r"(smem_addr(ring + (st % S) * SW + ri * RW + 4 * q)),
+              "l"(rec + (int64_t)u * RW + 4 * q), "l"(keep)
+            : "memory");
     asm volatile("cp.async.commit_group;" ::: "memory");
   };
 #pragma unroll
@@ -111,7 +115,8 @@ record_probe(const int4* __restrict__ seg, int64_t n_seg,
       const int n = min(EPS, hi - base - i0);
       for (int e = 0; e < n; ++e) fold ^= sr[e * RW + lane];
       __syncwarp();
-      fetch(st + S, nu, i0);  // S EPS = 32: a batch ahead
+      const int ahead = i0 + EPS * S;
+      fetch(st + S, ahead < 32 ? cu : nu, ahead & 31);
     }
     cu = nu;
     nu = base + 64 + lane < hi ? __ldcs(indices + base + 64 + lane) : 0;
@@ -121,18 +126,45 @@ record_probe(const int4* __restrict__ seg, int64_t n_seg,
 }  // namespace
 
 // seg int32 [n_seg, 4] (one pass's segments), indices int32 [E], rec int32
-// [n_src, 32] (k <= 32), out int32 [n_seg, 32].
+// [n_src, rw] with (rw, stages) one of (32, 8), (40, 8), (40, 16), (64, 8),
+// out int32 [n_seg, 32].
 extern "C" int gather_records_csr(const void* seg, int64_t n_seg,
                                   const void* indices, const void* rec,
-                                  void* out, void* stream) {
+                                  void* out, int rw, int stages,
+                                  void* stream) {
   if (n_seg == 0) return 0;
-  record_probe<<<(unsigned)((n_seg + 7) / 8), 256, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int4*>(seg), n_seg, static_cast<const int*>(indices),
-      static_cast<const unsigned*>(rec), static_cast<unsigned*>(out));
+  const unsigned blocks = (unsigned)((n_seg + 7) / 8);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int4* sp = static_cast<const int4*>(seg);
+  const int* ip = static_cast<const int*>(indices);
+  const unsigned* rp = static_cast<const unsigned*>(rec);
+  unsigned* op = static_cast<unsigned*>(out);
+  if (rw == 32 && stages == 8)
+    record_probe<32, 8><<<blocks, 256, 0, st>>>(sp, n_seg, ip, rp, op);
+  else if (rw == 40 && stages == 8)
+    record_probe<40, 8><<<blocks, 256, 0, st>>>(sp, n_seg, ip, rp, op);
+  else if (rw == 40 && stages == 16)
+    record_probe<40, 16><<<blocks, 256, 0, st>>>(sp, n_seg, ip, rp, op);
+  else if (rw == 64 && stages == 8)
+    record_probe<64, 8><<<blocks, 256, 0, st>>>(sp, n_seg, ip, rp, op);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 """
+
+# the probe's (layout, stages) under each stream at k 32: the bf16 records'
+# 128 B; cbsr_records' 160-B f32 records and 8-byte slots of 256 B
+PROBES = {"bf16x2": (("128-B bf16 records", 8),),
+          "f32": (("160-B cbsr_records", 8), ("160-B cbsr_records", 16),
+                  ("256-B 8-byte slots", 8))}
+
+
+def slot_records(vals: torch.Tensor, ch: torch.Tensor) -> torch.Tensor:
+    """The 8-byte-slot layout of f32 records: int32 [N, 2k], slot j the
+    bits of value j then its channel."""
+    return torch.stack([vals.float().contiguous().view(torch.int32),
+                        ch.int()], dim=2).reshape(vals.shape[0], -1)
 
 
 def time_ms(fn, iters: int) -> float:
@@ -148,15 +180,17 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def probe(sched, rec: torch.Tensor, iters: int) -> float:
+def probe(sched, rec: torch.Tensor, stages: int, iters: int) -> float:
     """ms of the record-gather probe (PROBE_SRC) over the schedule's passes,
-    in block order, on the records `rec` (int32 [S, 32])."""
+    in block order, on the records `rec` (int32 [S, 32], [S, 40] or
+    [S, 64]) with `stages` stages in flight."""
     from spgemm_gnn_tpu_torch.kernels import _build
     from spgemm_gnn_tpu_torch.utils.maxk_sweep import build
     fn = build({"csr_record_probe": PROBE_SRC})["csr_record_probe"] \
         .gather_records_csr
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = torch.empty((sched.num_segments, 32), dtype=torch.int32,
                       device="cuda")
@@ -169,7 +203,8 @@ def probe(sched, rec: torch.Tensor, iters: int) -> float:
                 continue
             _build.check(fn(sched.seg[ps[b]].data_ptr(), ps[b + 1] - ps[b],
                             sched.indices.data_ptr(), rec.data_ptr(),
-                            out[ps[b]].data_ptr(), stream),
+                            out[ps[b]].data_ptr(), rec.shape[1], stages,
+                            stream),
                          "gather_records_csr")
     return time_ms(run, iters)
 
@@ -202,13 +237,15 @@ def sweep(dataset: str, blocks: list, segments: list[int], dim: int,
     xs = torch.where(keep, y / 0.5, torch.zeros_like(y))
     gy = torch.randn((n, dim), generator=gen, device="cuda")
     _, post = node_factors(g, "mean")
-    rec = None
+    layouts = {}
     if with_probes:
-        if stream != "bf16x2":
-            raise ValueError("--probes gathers bf16 records: give --stream "
-                             "bf16x2")
         vals, ch = cbsr_compact(xs, k)
-        rec = cbsr_records(round_rows(vals), ch, dim)
+        if stream == "bf16x2":
+            layouts["128-B bf16 records"] = cbsr_records(round_rows(vals), ch,
+                                                         dim)
+        else:
+            layouts["160-B cbsr_records"] = cbsr_records(vals, ch, dim)
+            layouts["256-B 8-byte slots"] = slot_records(vals, ch)
         del vals, ch
     for what, indptr, indices, rows, x, pre, pst in (
             ("A", g.indptr, g.indices, g.edge_dst, xs, None, post),
@@ -245,25 +282,35 @@ def sweep(dataset: str, blocks: list, segments: list[int], dim: int,
                       f"slots {s.n_slots}, extra "
                       f"{s.extra_bytes(indices) / 2**20:.1f} MiB, build "
                       f"{build_s:.2f} s", flush=True)
-                if rec is not None and what == "A":
-                    p_ms = probe(s, rec, iters)
-                    rb = 4 * rec.shape[1]
-                    print(f"{what} blocks {s.nb} segment {seg}: record "
-                          f"probe ({rb}-B records, no scatter) {p_ms:.3f} "
-                          f"ms, {e / p_ms / 1e6:.3f} G edges/s (no-reuse "
-                          f"gather {e * rb / PEAK_BYTES_S * 1e3:.3f} ms)",
-                          flush=True)
-                    for od in (None, torch.bfloat16):
+                if layouts and what == "A":
+                    for name, stages in PROBES[stream]:
+                        rec = layouts[name]
+                        p_ms = probe(s, rec, stages, iters)
+                        rb = 4 * rec.shape[1]
+                        print(f"{what} blocks {s.nb} segment {seg}: record "
+                              f"probe ({name}, {stages} stages, no "
+                              f"scatter) {p_ms:.3f} ms, "
+                              f"{e / p_ms / 1e6:.3f} G edges/s (no-reuse "
+                              f"gather {e * rb / PEAK_BYTES_S * 1e3:.3f} "
+                              f"ms)", flush=True)
+                    f32 = stream == "f32"
+                    rec = layouts["160-B cbsr_records" if f32
+                                  else "128-B bf16 records"]
+                    for od in ((None,) if f32 else (None, torch.bfloat16)):
                         def run(od=od):
-                            return csr_cbsr_spmm(plan, rec, k, dim, pst, od)
-                        if not torch.equal(run().view(torch.int16), csr_spmm(
+                            return csr_cbsr_spmm(
+                                plan, rec, k, dim, pst, od, value_dtype=(
+                                    torch.float32 if f32 else
+                                    torch.bfloat16))
+                        ints = torch.int16 if od is not None else torch.int32
+                        if not torch.equal(run().view(ints), csr_spmm(
                                 plan, x, None, pst, out_dtype=od)
-                                .view(torch.int16)):
+                                .view(ints)):
                             raise AssertionError(
                                 f"csr_cbsr_spmm at nb {s.nb} ({od}): bits "
-                                f"differ from csr_spmm's bf16 form")
+                                f"differ from csr_spmm's form on the rows")
                         print(f"{what} blocks {s.nb} segment {seg}: "
-                              f"csr_cbsr_spmm_bf16"
+                              f"csr_cbsr_spmm{'' if f32 else '_bf16'}"
                               f"{'_out' if od is not None else ''} "
                               f"{time_ms(run, iters):.3f} ms (bitwise equal "
                               f"to the dense form)", flush=True)
@@ -272,34 +319,14 @@ def sweep(dataset: str, blocks: list, segments: list[int], dim: int,
         del ref
 
 
-def schedule_positions(g, sched) -> torch.Tensor:
-    """int32 [E]: for each edge of g's in-CSR (A), in its order, the
-    position of its transposed edge in the indices of `sched`, a schedule
-    of the transpose CSR (Aᵀ re-bucketed by source block, stably)."""
-    from spgemm_gnn_tpu_torch.graphs.stream_tiles import transpose_positions
-    tp = transpose_positions(g.indptr, g.indices, g.t_indptr,
-                             g.t_indices).long()
-    if sched.nb == 1:
-        return tp.int()
-    order = torch.sort(g.t_indices.long() // sched.block_rows,
-                       stable=True).indices
-    at = torch.empty_like(order)
-    at[order] = torch.arange(order.numel(), device=order.device)
-    return at[tp].int()
-
-
 def sampled(dataset: str, dim: int, iters: int, seed: int) -> None:
     """`--sampled_only`: the forms of MaxK's backward on Aᵀ (module
     docstring), each checked and timed in this one process."""
     from spgemm_gnn_tpu_torch.graphs.datasets import load_dataset
-    from spgemm_gnn_tpu_torch.graphs.stream_tiles import build_stream_plan
     from spgemm_gnn_tpu_torch.graphs.tiles import CSRPlan
-    from spgemm_gnn_tpu_torch.kernels import _build
     from spgemm_gnn_tpu_torch.kernels.maxk import maxk_bwd, maxk_fwd
     from spgemm_gnn_tpu_torch.kernels.round import round_rows
-    from spgemm_gnn_tpu_torch.kernels.spmm import (csr_spmm, csr_sspmm,
-                                                   csr_sspmm_at)
-    from spgemm_gnn_tpu_torch.kernels.stream import new_slots
+    from spgemm_gnn_tpu_torch.kernels.spmm import csr_spmm, csr_sspmm
     from spgemm_gnn_tpu_torch.ops.norms import node_factors
     from spgemm_gnn_tpu_torch.ops.spmm import _scale
 
@@ -330,27 +357,6 @@ def sampled(dataset: str, dim: int, iters: int, seed: int) -> None:
     sched = plan.schedule(n, dim, 2)
     print(f"A^T schedule: {sched.nb} source blocks, {sched.num_segments} "
           f"segments, {sched.num_split_runs} split runs", flush=True)
-    fwd = build_stream_plan(g.indptr, g.indices)
-    t0 = time.perf_counter()
-    pos = schedule_positions(g, sched)
-    where = torch.empty_like(pos)
-    where[pos.long()] = torch.arange(e, dtype=torch.int32, device="cuda")
-    torch.cuda.synchronize()
-    print(f"positions: {time.perf_counter() - t0:.2f} s "
-          f"({2 * e * 4 / 2**30:.2f} GiB with their inverse)", flush=True)
-    slots = new_slots(e, k, torch.device("cuda"))
-    in_order = torch.arange(e, dtype=torch.int32, device="cuda")
-    lib = _build.library("stream")
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def pass1(m, perm, mode=0):
-        _build.check(lib.sspmm_slots_bf16(
-            fwd.indptr.data_ptr(), fwd.indices.data_ptr(),
-            fwd.chunk_row0.data_ptr(), perm.data_ptr(), m.data_ptr(),
-            ch.data_ptr(), slots.data_ptr(), fwd.num_rows, fwd.num_chunks,
-            e, fwd.chunk, fwd.warp_chunks, dim, k, mode, stream),
-            "sspmm_slots_bf16")
-
     out_bytes = {None: 4, bf16: 2}
     for od in (None, bf16):
         m = (_scale(gy.to(bf16), dst_f).contiguous() if od is not None
@@ -361,49 +367,26 @@ def sampled(dataset: str, dim: int, iters: int, seed: int) -> None:
         want = torch.where(keep, dense, torch.zeros((), dtype=dense.dtype,
                                                     device="cuda"))
         ints = torch.int16 if od is not None else torch.int32
-
-        def same(got, what):
-            if not torch.equal(got.view(ints), want.view(ints)):
-                raise AssertionError(f"{what}{tag}: bits differ from the "
-                                     f"dense form at the kept channels")
-
-        same(csr_sspmm(plan, m, ch, src_f, od), "(ii) csr_sspmm")
-        pass1(m, pos)
-        same(csr_sspmm_at(plan, m, ch, src_f, out_dtype=od, slots=slots),
-             "(iii) slots in schedule order")
-        pass1(m, in_order, 2)
-        same(csr_sspmm_at(plan, m, ch, src_f, out_dtype=od, slots=slots,
-                          where=where), "(iv) slots in A's order")
+        if not torch.equal(csr_sspmm(plan, m, ch, src_f, od).view(ints),
+                           want.view(ints)):
+            raise AssertionError(f"(ii) csr_sspmm{tag}: bits differ from "
+                                 f"the dense form at the kept channels")
         t = dict(
             dense=time_ms(lambda: csr_spmm(plan, m, None, src_f,
                                            out_dtype=od), iters),
             maxk_bwd=time_ms(lambda: maxk_bwd(mk, meta, dense), iters),
-            gather=time_ms(lambda: csr_sspmm(plan, m, ch, src_f, od), iters),
-            p1_sched=time_ms(lambda: pass1(m, pos), iters),
-            p2_sched=time_ms(lambda: csr_sspmm_at(
-                plan, m, ch, src_f, out_dtype=od, slots=slots), iters),
-            p1_in_order=time_ms(lambda: pass1(m, in_order, 2), iters),
-            p2_at=time_ms(lambda: csr_sspmm_at(
-                plan, m, ch, src_f, out_dtype=od, slots=slots, where=where),
-                iters),
-            p1_no_store=time_ms(lambda: pass1(m, pos, 1), iters))
+            gather=time_ms(lambda: csr_sspmm(plan, m, ch, src_f, od), iters))
         n_bytes = (n * dim * 2 + n * k + e * 4 + (n + 1) * 4
                    + n * dim * out_bytes[od])
-        print(f"sampled{tag}: bitwise the dense form at the kept channels "
-              f"((ii), (iii), (iv)); bound {n_bytes / PEAK_BYTES_S * 1e3:.3f}"
-              f" ms by bytes, {2 * e * k / 67e12 * 1e3:.3f} by operations; "
-              f"no-reuse gather {2 * k} B an edge "
+        print(f"sampled{tag}: (ii) bitwise the dense form at the kept "
+              f"channels; bound {n_bytes / PEAK_BYTES_S * 1e3:.3f} ms by "
+              f"bytes, {2 * e * k / 67e12 * 1e3:.3f} by operations; no-reuse "
+              f"gather {2 * k} B an edge "
               f"{e * 2 * k / PEAK_BYTES_S * 1e3:.3f} ms, {2 * dim} B "
               f"{e * 2 * dim / PEAK_BYTES_S * 1e3:.3f}", flush=True)
         print(f"sampled{tag}: (i) dense {t['dense']:.3f} + maxk_bwd "
               f"{t['maxk_bwd']:.3f} = {t['dense'] + t['maxk_bwd']:.3f} ms; "
-              f"(ii) gather {t['gather']:.3f}; (iii) pass 1 "
-              f"{t['p1_sched']:.3f} + pass 2 {t['p2_sched']:.3f} = "
-              f"{t['p1_sched'] + t['p2_sched']:.3f}; (iv) pass 1 in order "
-              f"{t['p1_in_order']:.3f} + pass 2 at where "
-              f"{t['p2_at']:.3f} = {t['p1_in_order'] + t['p2_at']:.3f}; "
-              f"pass 1 with no slot stored {t['p1_no_store']:.3f}",
-              flush=True)
+              f"(ii) gather {t['gather']:.3f}", flush=True)
         del m, mk, dense, want
         torch.cuda.empty_cache()
 

@@ -176,7 +176,7 @@ def test_wrapper_checks_its_input():
 
 
 # ---------------------------------------------------------------------------
-# CPU: the kernel's walk, emulated (csrc/spmm.cu::csr_cbsr16_kernel)
+# CPU: the kernel's walk, emulated (csrc/spmm.cu::csr_cbsr_kernel)
 # ---------------------------------------------------------------------------
 
 def walk(s, post, dim: int, edge_add) -> np.ndarray:
@@ -265,10 +265,10 @@ def test_record_walk_is_the_dense_walk_bit_for_bit(nb, dim, k, with_post):
 @pytest.mark.parametrize("acts", ["f32", "bf16x2", "bf16", "bf16-bf16x2"])
 @pytest.mark.parametrize("dim,k", [(256, 32), (256, 256), (384, 32)])
 def test_windowed_rule(dim, k, acts, flag, monkeypatch):
-    """cbsr_forward on a windowed plan: bf16 records only (bf16 activations
-    under either stream, or f32 activations under bf16x2), k < dim; None
-    also dim <= 256, True regardless (the wrapper then raises above 256),
-    False never; f32 records (f32 activations, f32 stream) never."""
+    """cbsr_forward on a windowed plan: bf16 records (bf16 activations
+    under either stream, or f32 activations under bf16x2) and f32 records
+    (f32 activations, f32 stream) alike, k < dim; None also dim <= 256,
+    True regardless (the wrapper then raises above 256), False never."""
     g = tplanned.plan_graph(tsyn.random_graph(40, 200, seed=3),
                             kind="windowed")
     monkeypatch.setattr(tplanned, "DEFAULT_STREAM",
@@ -276,9 +276,7 @@ def test_windowed_rule(dim, k, acts, flag, monkeypatch):
     monkeypatch.setattr(tplanned, "STREAM_CBSR_FORWARD", flag)
     dtype = BF16 if acts.startswith("bf16-") or acts == "bf16" else \
         torch.float32
-    records16 = acts != "f32"
-    want = records16 and k < dim and (
-        flag is True or flag is None and dim <= 256)
+    want = k < dim and (flag is True or flag is None and dim <= 256)
     assert tplanned.cbsr_forward(g.fwd_plan, k, dim, dtype) == want
     assert not tplanned.cbsr_forward(g.fwd_plan, None, dim, dtype)
 

@@ -10,14 +10,14 @@ row written at the row's last block, split runs through compact slots)
 emulated in numpy f32 and bit-equal to the dense walk; the plain version
 against JAX `sspmm_backward(stream_dtype=bfloat16)` and against
 `_planned_aggregate_bwd` then `sample_channels` on windowed plans (the
-Pallas kernels in interpret mode) within 1 bf16 ulp; the probes'
-schedule positions against brute force; the rule; SAGE and GCN models and
-Trainers on a small Reddit stand-in (windowed by rule), the rule on
-against off, bit for bit. GPU (marker `gpu`, skipped without a card, no
+Pallas kernels in interpret mode) within 1 bf16 ulp; the rule; SAGE and
+GCN models and Trainers on a small Reddit stand-in (windowed by rule),
+the rule on against off, bit for bit. GPU (marker `gpu`, skipped without a card, no
 JAX): the kernels bit for bit the dense forms at the kept channels and 0
 elsewhere, equal to their plain versions, on hub rows, split runs and
-empty rows at k 8, 32 and 255; the slot probes; the wrapper's checks; a
-SAGE model with the rule on against off.
+empty rows at k 8, 32 and 255; the wrapper's checks; a SAGE model with
+the rule on against off. The f32 form (`csr_sspmm` on f32 messages) is
+tests/test_torch_csr_f32_maxk.py.
 
     python -m pytest tests/test_torch_csr_sspmm16.py
     python -m pytest --noconftest -p no:cacheprovider -m gpu \\
@@ -34,8 +34,7 @@ from spgemm_gnn_tpu_torch.kernels import _build
 from spgemm_gnn_tpu_torch.kernels import planned as tplanned
 from spgemm_gnn_tpu_torch.kernels.maxk import maxk_fwd
 from spgemm_gnn_tpu_torch.kernels.round import round_rows
-from spgemm_gnn_tpu_torch.kernels.spmm import (csr_spmm, csr_sspmm,
-                                               csr_sspmm_at)
+from spgemm_gnn_tpu_torch.kernels.spmm import csr_spmm, csr_sspmm
 from spgemm_gnn_tpu_torch.ops.norms import node_factors
 from spgemm_gnn_tpu_torch.ops.spmm import (_scale, csr_blocked_plain,
                                            csr_sspmm_plain)
@@ -171,8 +170,14 @@ def test_wrapper_checks_its_inputs():
     plan = CSRPlan(g.t_indptr, g.t_indices)
     m = torch.zeros((N, 32), dtype=BF16)
     ch = torch.zeros((N, 8), dtype=torch.uint8)
-    with pytest.raises(ValueError, match="bf16 messages"):
-        csr_sspmm(plan, m.float(), ch)
+    with pytest.raises(ValueError, match="f32 or bf16 messages"):
+        csr_sspmm(plan, m.half(), ch)
+    with pytest.raises(ValueError, match="pre factor"):
+        csr_sspmm(plan, m, ch, pre=torch.ones(N))
+    with pytest.raises(ValueError, match="bf16 output needs bf16"):
+        csr_sspmm(plan, m.float(), ch, out_dtype=BF16)
+    with pytest.raises(ValueError, match="dim % 4"):
+        csr_sspmm(plan, torch.zeros((N, 34)), ch)
     with pytest.raises(ValueError, match="uint8"):
         csr_sspmm(plan, m, ch.int())
     with pytest.raises(ValueError, match="k < 32"):
@@ -186,7 +191,7 @@ def test_wrapper_checks_its_inputs():
 
 
 def walk(s, post, dim: int, n: int, cols, src, out16: bool) -> np.ndarray:
-    """The output of csr_sspmm16_kernel's walk (csrc/spmm.cu) in numpy
+    """The output of csr_sspmm_kernel's walk (csrc/spmm.cu) in numpy
     f32, step for step, at the columns cols[r] of each row r (every column
     for the dense kernel's walk): per pass a warp per segment, a batch of
     32 edges summed from +0 and added to the segment's sum; a whole
@@ -357,39 +362,6 @@ def test_sampled_plain_matches_jax_aggregate_bwd_bf16(norm):
 
 
 # ---------------------------------------------------------------------------
-# CPU: the probes' schedule positions
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("nb", [1, 3])
-def test_schedule_positions_against_brute_force(nb):
-    """utils/csr_sweep.py's positions (the two-pass probes' slots): for
-    each edge of A, the position of its transposed edge in the Aᵀ
-    schedule's indices, repeated pairs matched in order, equal to a Python
-    walk over the schedule; a permutation."""
-    from spgemm_gnn_tpu_torch.utils.csr_sweep import schedule_positions
-    rng = np.random.default_rng(nb)
-    src = np.concatenate([rng.integers(0, 70, 600), [3, 3, 3]])
-    dst = np.concatenate([rng.integers(0, 70, 600), [5, 5, 5]])
-    g = from_edges(src, dst, 90, symmetric=False)
-    s = CSRPlan(g.t_indptr, g.t_indices, nb, 8).schedule(90, 32, 2)
-    pos = schedule_positions(g, s).numpy()
-    # the schedule's edges: block by block, each row's in its CSR order
-    slots: dict = {}
-    bptr = s.block_indptr.numpy()
-    ix = s.indices.numpy()
-    for b in range(s.nb):
-        for r in range(90):
-            for p in range(bptr[b, r], bptr[b, r + 1]):
-                slots.setdefault((r, int(ix[p])), []).append(p)
-    rows, cols = g.edge_dst.numpy(), g.indices.numpy()
-    want = np.empty(rows.size, np.int64)
-    for e in np.lexsort((np.arange(rows.size), rows, cols)):
-        want[e] = slots[(int(cols[e]), int(rows[e]))].pop(0)
-    np.testing.assert_array_equal(pos, want)
-    assert np.array_equal(np.sort(pos), np.arange(rows.size))
-
-
-# ---------------------------------------------------------------------------
 # CPU: the rule, a model and the Trainer
 # ---------------------------------------------------------------------------
 
@@ -398,10 +370,11 @@ def test_schedule_positions_against_brute_force(nb):
 @pytest.mark.parametrize("dim,k", [(256, 32), (256, 256), (384, 32),
                                    (256, None)])
 def test_windowed_rule(dim, k, acts, flag, monkeypatch):
-    """sampled_backward on a windowed plan: bf16 messages only (bf16
-    activations under either stream, or f32 activations under bf16x2),
-    MaxK's ids given and k < dim; None also dim <= 256, True regardless
-    (the wrapper then raises above 256), False never."""
+    """sampled_backward on a windowed plan: bf16 messages (bf16
+    activations under either stream, or f32 activations under bf16x2) and
+    f32 messages (f32 activations, f32 stream) alike, MaxK's ids given and
+    k < dim; None also dim <= 256, True regardless (the wrapper then
+    raises above 256), False never."""
     g = tplanned.plan_graph(tsyn.random_graph(40, 200, seed=3),
                             kind="windowed")
     monkeypatch.setattr(tplanned, "DEFAULT_STREAM",
@@ -409,7 +382,7 @@ def test_windowed_rule(dim, k, acts, flag, monkeypatch):
     monkeypatch.setattr(tplanned, "SAMPLED_BACKWARD", flag)
     dtype = BF16 if acts.startswith("bf16-") or acts == "bf16" else \
         torch.float32
-    want = acts != "f32" and k is not None and k < dim and (
+    want = k is not None and k < dim and (
         flag is True or flag is None and dim <= 256)
     assert tplanned.sampled_backward(g.bwd_plan, k, dim, dtype) == want
     x = torch.zeros((40, dim), dtype=dtype, requires_grad=True)
@@ -563,36 +536,6 @@ def test_csr_sspmm_is_the_dense_form_on_gpu(cuda, k, nb):
             else:
                 near16(y.float().cpu(), plain.float().cpu())
             assert (y[g.t_indptr.diff() == 0] == 0).all()
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("nb", [1, 3])
-def test_slot_probes_give_the_product_on_gpu(cuda, nb):
-    """The two-pass probes' second pass (csr_sspmm_at with slots built in
-    torch: each edge's k terms at its schedule position, or in A's edge
-    order read through `where`) bit for bit csr_sspmm, and not counted."""
-    from spgemm_gnn_tpu_torch.utils.csr_sweep import schedule_positions
-    dim, k = 64, 32
-    g = hub_graph(700, seed=nb, hub_edges=3000).to(cuda)
-    rng = np.random.default_rng(nb)
-    m, ch = messages(rng, 700, dim, k, cuda)
-    plan = CSRPlan(g.t_indptr, g.t_indices, nb)
-    s = plan.schedule(700, dim, 2)
-    pos = schedule_positions(g, s).long()
-    terms = m[g.edge_dst.long()[:, None], ch.long()[g.indices.long()]]
-    in_sched = torch.empty_like(terms)
-    in_sched[pos] = terms
-    where = torch.empty_like(pos)
-    where[pos] = torch.arange(g.num_edges, device=cuda)
-    for od in (None, BF16):
-        want = bits(csr_sspmm(plan, m, ch, None, od))
-        _build.launches.clear()
-        np.testing.assert_array_equal(want, bits(csr_sspmm_at(
-            plan, m, ch, out_dtype=od, slots=in_sched)))
-        np.testing.assert_array_equal(want, bits(csr_sspmm_at(
-            plan, m, ch, out_dtype=od, slots=terms.contiguous(),
-            where=where.int())))
-        assert not _build.launches
 
 
 @pytest.mark.gpu

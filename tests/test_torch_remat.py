@@ -113,11 +113,15 @@ def test_remat_keeps_the_aggregation_and_reruns_the_rest(monkeypatch):
     forward and backward products once each with remat as without it (the
     rerun takes its kept output), MaxK's forward runs twice a layer with
     remat (the rerun) and once without; evaluation under no_grad reruns
-    nothing."""
+    nothing. The backward product is `plan_sspmm` where the sampled
+    backward takes it (f32 on this windowed plan), and counts as one."""
     calls = collections.Counter()
     spmm, fwd = planned.plan_spmm, kmaxk.maxk_fwd
+    sspmm = planned.plan_sspmm
     monkeypatch.setattr(planned, "plan_spmm", lambda *a, **k: (
         calls.update(["spmm"]), spmm(*a, **k))[1])
+    monkeypatch.setattr(planned, "plan_sspmm", lambda *a, **k: (
+        calls.update(["spmm"]), sspmm(*a, **k))[1])
     monkeypatch.setattr(kmaxk, "maxk_fwd", lambda *a, **k: (
         calls.update(["maxk"]), fwd(*a, **k))[1])
     g = _graph("windowed")

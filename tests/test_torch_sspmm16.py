@@ -340,8 +340,9 @@ def test_sampled_backward_rule(monkeypatch):
     """SAMPLED_BACKWARD's rule, both sides: a stream or a windowed plan
     with bf16 messages (bf16 activations, or the bf16x2 stream) and MaxK's
     k < dim <= 256 takes the sampled form under None and True; the f32
-    stream on f32 activations, no ids or k = dim never do; False never
-    does; dim 384 only under True. `wants_channel_ids` asks MaxK for its
+    stream on f32 activations does on a windowed plan only (`csr_sspmm`
+    on f32 messages; a stream plan has no f32 sampled kernel); no ids or k
+    = dim never do; False never does; dim 384 only under True. `wants_channel_ids` asks MaxK for its
     ids only where the rule holds and a backward runs."""
     g = tsyn.random_graph(100, 800, seed=3, symmetric=False)
     stream = tplanned.plan_graph(g, kind="stream")
@@ -362,7 +363,7 @@ def test_sampled_backward_rule(monkeypatch):
                 assert rule(stream.bwd_plan, 32, 384, dt) is (flag is True)
         monkeypatch.setattr(tplanned, "DEFAULT_STREAM", "f32")
         assert rule(stream.bwd_plan, 32, 256, torch.float32) is False
-        assert rule(windowed.bwd_plan, 32, 256, torch.float32) is False
+        assert rule(windowed.bwd_plan, 32, 256, torch.float32) is on
     monkeypatch.setattr(tplanned, "SAMPLED_BACKWARD", None)
     x = torch.zeros((100, 256), dtype=BF16, requires_grad=True)
     assert tplanned.wants_channel_ids(stream, 32, x)

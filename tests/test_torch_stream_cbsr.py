@@ -200,11 +200,10 @@ def test_cbsr_forward_rule(dim, k, kind, flag, acts, monkeypatch):
     """STREAM_CBSR_FORWARD's three states on plan_spmm: None (the default)
     takes the CBSR form of the plan's kernel where k < dim <= 256, True
     wherever k < dim (raising above dim 256, as the reference does), False
-    never: stream_cbsr_spmm on a stream plan (f32 activations, the bf16x2
-    stream and bf16 activations alike), csr_cbsr_spmm on a windowed plan
-    for bf16 records only (the bf16x2 stream and bf16 activations; f32
-    activations keep csr_spmm under every flag). y equals the dense
-    forward's by value."""
+    never: stream_cbsr_spmm on a stream plan, csr_cbsr_spmm on a windowed
+    plan (f32 activations, the bf16x2 stream and bf16 activations alike:
+    f32 records on f32 activations). y equals the dense forward's by
+    value."""
     k = dim if k == "dim" else k
     g = tplanned.plan_graph(tsyn.random_graph(40, 200, seed=3), kind=kind,
                             chunk=16)
@@ -218,8 +217,7 @@ def test_cbsr_forward_rule(dim, k, kind, flag, acts, monkeypatch):
     names = ("stream_cbsr_spmm", "stream_spmm", "csr_cbsr_spmm", "csr_spmm")
     calls = {name: _spy(monkeypatch, name) for name in names}
     _, post = node_factors(g, "mean")
-    cbsr = (kind == "stream" or acts != "f32") and k < dim and (
-        flag is True or flag is None and dim <= 256)
+    cbsr = k < dim and (flag is True or flag is None and dim <= 256)
     if cbsr and dim > 256:
         with pytest.raises(ValueError, match="dim <= 256"):
             tplanned.plan_spmm(g.fwd_plan, x, None, post, k)
@@ -320,14 +318,16 @@ def test_aggregate_cbsr_with_flag_matches_jax(norm, monkeypatch):
 
 def test_flag_at_dim_above_256_raises_on_stream_plans_only(monkeypatch):
     """yelp's hidden 384: with the flag set a stream plan raises as the
-    reference does (no quiet route to stream_spmm); a windowed plan on f32
-    activations (f32 records, which have no windowed kernel) keeps
-    csr_spmm whatever the flag."""
+    reference does (no quiet route to stream_spmm), and so does a windowed
+    plan, whose f32 records now have a kernel (csr_cbsr_spmm, dim <= 256);
+    at the default rule both keep their dense forwards."""
     g = tsyn.random_graph(40, 200, seed=3)
     x = tmaxk_plain.maxk(torch.randn(40, 384), 8)
     monkeypatch.setattr(tplanned, "STREAM_CBSR_FORWARD", True)
-    with pytest.raises(ValueError, match="dim <= 256"):
-        tapi.aggregate(tplanned.plan_graph(g, kind="stream"), x, "mean", k=8)
+    for kind in ("stream", "windowed"):
+        with pytest.raises(ValueError, match="dim <= 256"):
+            tapi.aggregate(tplanned.plan_graph(g, kind=kind), x, "mean", k=8)
+    monkeypatch.setattr(tplanned, "STREAM_CBSR_FORWARD", None)
     y = tapi.aggregate(tplanned.plan_graph(g, kind="windowed"), x, "mean",
                        k=8)
     assert torch.allclose(y, tapi.aggregate(g, x, "mean", impl="torch"),
