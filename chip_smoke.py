@@ -217,7 +217,15 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      times bf16(post), and those sums' rounding within 1 ulp); timed with each
      pass alone, beside the dense form and maxk_bwd after it, the gather
      probe, the plain version, the bound, the no-reuse gathers and
-     torch.sparse.mm then torch.gather;
+     torch.sparse.mm then torch.gather; then its f32 form, stream_sspmm on
+     the f32 cotangent (the f32 path's MaxK backward) at the channels
+     maxk_fwd keeps, under the sum, mean and gcn factors: bitwise equal to
+     stream_spmm f32 on Aᵀ at the kept channels and 0 elsewhere, across
+     two runs, within 1e-5 of max |y| of the plain version; timed whole
+     and by pass, beside
+     stream_spmm and maxk_bwd after it, the plain version, the bound, the
+     no-reuse gathers of 128-B slots and 1-KB rows and torch.sparse.mm
+     then torch.gather, with the slot buffer's bytes and its own seconds;
   9. CBSR: cbsr_compact, cbsr_densify and cbsr_sample at the products shapes
      (dim 256, k 32), bitwise against their plain versions and timed; then
      `aggregate_cbsr` forward and backward through the kernels, with its
@@ -241,8 +249,12 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      kernels within 1e-4 relative of the plain path's (same weights and
      dropout seed), then 5 epochs with finite losses and exact launch counts
      at the default (STREAM_CBSR_FORWARD None: the MaxK forward takes
-     stream_cbsr_spmm); then 5 epochs more with the flag off (the dense
-     forward), the default's losses within 1e-6 relative of theirs; then
+     stream_cbsr_spmm; SAMPLED_BACKWARD None: the MaxK backward takes
+     stream_sspmm on f32 messages, stream_spmm not at all); then 5 epochs
+     more with STREAM_CBSR_FORWARD off (the dense forward), the default's
+     losses within 1e-6 relative of theirs, and 5 with SAMPLED_BACKWARD off
+     (stream_spmm on Aᵀ), the default's losses bit-equal to theirs, the
+     three runs' steady epochs and peaks on one line; then
      both runs again with `--stream bf16x2` (first steps against the plain
      versions with the same stream, exact launch counts of round_rows and
      the bf16 kernels: at the default the MaxK backwards on
@@ -257,7 +269,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
  11. train 3: the products recipe with GCN and self-loops (`--model gcn
      --selfloop`) at the default rule: its first two train steps
      within 1e-4 relative of the plain path's, then 5 epochs with finite
-     losses and exact launch counts (stream_cbsr_spmm forward, stream_spmm
+     losses and exact launch counts (stream_cbsr_spmm forward, stream_sspmm
      backward); then the same with `--dtype bfloat16` (both node factors in
      bf16, the bf16-output forms, stream_sspmm_bf16_out on the backwards),
      and again with SAMPLED_BACKWARD off, the losses bit-equal;
@@ -279,8 +291,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      host-to-device bytes), device forward and wall time are printed;
  12a. remat: the products recipe (f32 SAGE) 3 epochs without and with
      `--remat`: losses and final weights bit-equal, exact launch counts
-     (MaxK's forward rerun once a layer a step, no aggregation rerun), peak
-     memory lower with it, both steady epochs and peaks printed;
+     (MaxK's forward rerun once a layer a step, no aggregation rerun; the
+     backwards on stream_sspmm), peak memory lower with it, both steady
+     epochs and peaks printed;
  12b. plan cache: products' plans (f32 and bf16 rows) built with no
      cache, built and stored, then loaded from a temporary directory: every
      plan tensor equal, the aggregation forward and backward on the loaded
@@ -2161,6 +2174,143 @@ def sspmm16_check(torch, g, dim: int, k: int, seed: int) -> list[dict]:
     return entries
 
 
+def sspmm32_check(torch, g, dim: int, k: int, seed: int) -> dict:
+    """B3's f32 sampled form, `stream_sspmm` on f32 messages (MaxK's
+    backward on Aᵀ of the products graph, the f32 path's), at the channels
+    maxk_fwd keeps on seeded f32 rows (rows with kept zeros among them):
+    under the sum factors (no pre), the mean factors (pre dst_f) and gcn's
+    (pre dst_f, post src_f), as the planner runs it on the raw cotangent:
+    bitwise equal to stream_spmm f32 on Aᵀ masked to the kept channels (0
+    elsewhere) and across two runs; within 1e-5 of max |y| of the plain
+    version. Timed (mean, and gcn under prefixed keys) whole and by pass,
+    beside stream_spmm
+    on Aᵀ and maxk_bwd after it, the plain version, the bound, the
+    no-reuse gathers of the 4k bytes an edge needs and of the 1-KB row,
+    and torch.sparse.mm then torch.gather (the nearest library pair); the
+    slot buffer's bytes. Prints its own seconds."""
+    from spgemm_gnn_tpu_torch.graphs.stream_tiles import build_stream_plan
+    from spgemm_gnn_tpu_torch.kernels.maxk import maxk_bwd, maxk_fwd
+    from spgemm_gnn_tpu_torch.kernels.stream import (stream_spmm,
+                                                     stream_sspmm,
+                                                     stream_sspmm_at)
+    from spgemm_gnn_tpu_torch.ops.norms import node_factors
+    from spgemm_gnn_tpu_torch.ops.stream import stream_sspmm_plain
+
+    t_phase = time.perf_counter()
+    dev = g.indptr.device
+    n, e = g.num_nodes, g.num_edges
+    name = "stream_sspmm"
+    fwd = build_stream_plan(g.indptr, g.indices)
+    plan = build_stream_plan(g.t_indptr, g.t_indices)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan.transpose_positions(fwd)
+    torch.cuda.synchronize()
+    perm_s = time.perf_counter() - t0
+    x, gy = seeded_rows(torch, n, dim, k, seed + 13, dev)
+    _, meta, ch = maxk_fwd(x, k, with_ids=True)
+    keep = torch.zeros((n, dim), dtype=torch.bool, device=dev)
+    keep.scatter_(1, ch.long(), True)
+    kept_zero = int((torch.gather(x, 1, ch.long()) == 0).any(1).sum())
+    if not kept_zero:
+        raise AssertionError(f"{name}: no seeded row keeps a zero")
+    slot_bytes = e * k * 4 + 16
+    entry = dict(name=name, route="cuda",
+                 source="spgemm_gnn_tpu_torch/csrc/stream.cu",
+                 replaces="spgemm_gnn_tpu/kernels/planned.py:233 "
+                          "sspmm_backward (stream_dtype f32) = "
+                          "stream_pallas.py:37 on Aᵀ then "
+                          "spgemm_pallas.py:385 sample_channels",
+                 perm_build_s=perm_s, slot_bytes=slot_bytes)
+    for norm in ("sum", "mean", "gcn"):
+        src_f, dst_f = node_factors(g, norm)
+        pre, post = dst_f, src_f     # the backward's factors
+
+        def run():
+            return stream_sspmm_at(plan, fwd, gy, ch, post, pre=pre)
+
+        got = stream_sspmm(plan, fwd, gy, ch, post, pre=pre)
+        dense = stream_spmm(plan, gy, pre, post)
+        want = torch.where(keep, dense, torch.zeros((), device=dev))
+        torch.cuda.synchronize()
+        for other, against in ((want, "stream_spmm on Aᵀ masked to the "
+                                "kept channels"), (run(), "a second run")):
+            torch.cuda.synchronize()
+            if not bits_equal(torch, got, other):
+                raise AssertionError(f"{name} ({norm}) differs from "
+                                     f"{against} in its bits")
+            del other
+        del want
+        plain = stream_sspmm_plain(plan, gy, ch, post, None, pre)
+        err = float((got - plain).abs().max())
+        top = float(plain.abs().max())
+        if not err <= 1e-5 * top:
+            raise AssertionError(f"{name} ({norm}): {err:.3e} from the plain "
+                                 f"version, above 1e-5 of max |y| {top:.3e}")
+        del plain, got
+        if norm == "sum":
+            del dense
+            continue
+        w = torch.ones(e, device=dev)
+        if pre is not None:
+            w = w * pre[g.t_indices.long()]
+        if post is not None:
+            w = w * post[g.t_edge_dst.long()]
+        a = torch.sparse_csr_tensor(g.t_indptr, g.t_indices, w, size=(n, n))
+        chl = ch.long()
+        n_bytes = (2 * n * dim * 4 + n * k + e * 4 + (n + 1) * 4
+                   + 4 * n * ((pre is not None) + (post is not None)))
+        b_ms, b_by = bound_ms(n_bytes, 2.0 * e * k)
+        slots = stream_sspmm_at(plan, fwd, gy, ch, pre=pre, passes=(1,))
+        r = dict(max_abs_err=err, ms=time_ms(torch, run, 10),
+                 pass1_ms=time_ms(torch, lambda: stream_sspmm_at(
+                     plan, fwd, gy, ch, pre=pre, passes=(1,), slots=slots),
+                     10),
+                 pass2_ms=time_ms(torch, lambda: stream_sspmm_at(
+                     plan, fwd, gy, ch, post, pre=pre, passes=(2,),
+                     slots=slots), 10),
+                 dense_ms=time_ms(torch, lambda: stream_spmm(
+                     plan, gy, pre, post), 10),
+                 maxk_bwd_ms=time_ms(torch, lambda: maxk_bwd(x, meta, dense),
+                                     10),
+                 plain_ms=time_ms(torch, lambda: stream_sspmm_plain(
+                     plan, gy, ch, post, None, pre), 2),
+                 library_ms=time_ms(torch, lambda: torch.gather(
+                     torch.sparse.mm(a, gy), 1, chl), 5),
+                 bound_ms=b_ms, bound_by=b_by,
+                 no_reuse_gather_ms=e * 4 * k / PEAK_BYTES_S * 1e3,
+                 dense_gather_ms=e * 4 * dim / PEAK_BYTES_S * 1e3)
+        r["dense_maxk_bwd_ms"] = r["dense_ms"] + r["maxk_bwd_ms"]
+        del slots, a, dense
+        torch.cuda.empty_cache()
+        log(f"kernel {name} (products, A^T, f32 messages, {norm} factors, "
+            f"dim {dim}, k {k}, MaxK's channels, {kept_zero} rows keep a "
+            f"zero): bitwise equal to stream_spmm f32 at the kept channels "
+            f"and 0 elsewhere under the sum, mean and gcn factors, across "
+            f"two runs; {err:.3e} max abs from the plain version; "
+            f"{r['ms']:.3f} ms (pass 1 {r['pass1_ms']:.3f}, pass 2 "
+            f"{r['pass2_ms']:.3f}; stream_spmm "
+            f"{r['dense_ms']:.3f} and maxk_bwd after it "
+            f"{r['maxk_bwd_ms']:.3f}; plain {r['plain_ms']:.3f}; "
+            f"torch.sparse.mm then torch.gather {r['library_ms']:.3f}; bound "
+            f"{b_ms:.3f} by {b_by}; no-reuse gather {4 * k} B an edge "
+            f"{r['no_reuse_gather_ms']:.3f}, {4 * dim} B "
+            f"{r['dense_gather_ms']:.3f}; slots {slot_bytes} B; transpose "
+            f"positions "
+            f"{perm_s:.2f} s)")
+        if norm == "mean":
+            entry.update(r)
+        else:
+            entry.update({f"gcn_{key}": r[key] for key in (
+                "max_abs_err", "ms", "pass1_ms", "pass2_ms", "dense_ms",
+                "bound_ms")})
+    del keep, ch, x, gy, meta
+    plan._hot.clear()
+    entry["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase sampled backward f32 (products): {entry['phase_s']:.1f} s")
+    return entry
+
+
 def csr_sspmm16_check(torch, g, dim: int, k: int, seed: int) -> list[dict]:
     """B2's 16-bit forms on MaxK's backward on a windowed plan (the sampled
     backward on B2's schedule): csr_sspmm_bf16 and csr_sspmm_bf16_out on
@@ -3258,7 +3408,7 @@ def remat_phase(torch, cfg2, ds2) -> None:
     base = {"maxk_fwd": epochs * 2 * layers, "maxk_bwd": epochs * layers,
             "cbsr_compact": epochs * 2 * layers,
             "stream_cbsr_spmm": epochs * 2 * layers,
-            "stream_spmm": epochs * layers}
+            "stream_sspmm": epochs * layers}
     runs, held = {}, {}
     for remat in (False, True):
         gc.collect()
@@ -4469,6 +4619,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     sspmm16_entries = sspmm16_check(torch, g2, HIDDEN, K, SEED)
     torch.cuda.empty_cache()
+    # and its f32 form, on the raw cotangent with pre per edge
+    sspmm32_entry = sspmm32_check(torch, g2, HIDDEN, K, SEED)
+    torch.cuda.empty_cache()
 
     kernels.append(product_entry("csr_spmm", csr_a, csr_t,
                                  products_=csr_products))
@@ -4509,13 +4662,17 @@ def main() -> int:
                        device="cuda", impl="auto", synthetic=True,
                        synthetic_scale=SCALE)
     # the default (STREAM_CBSR_FORWARD None: the rule gives the MaxK
-    # forward stream_cbsr_spmm at hidden 256), then the dense forward (the
-    # flag off): the same losses
+    # forward stream_cbsr_spmm at hidden 256; SAMPLED_BACKWARD None: the
+    # MaxK backwards take stream_sspmm on the f32 cotangent), then the
+    # dense forward (STREAM_CBSR_FORWARD off; the backwards keep their own
+    # rule): the same losses; then the dense backward (SAMPLED_BACKWARD
+    # off, stream_spmm on Aᵀ) on the same graph: the same losses bit for
+    # bit
     first_steps(torch, cfg2, ds2, "train products")
-    flag_on = {"maxk_fwd": EPOCHS * 2 * layers2, "maxk_bwd": EPOCHS * layers2,
-               "cbsr_compact": EPOCHS * 2 * layers2,
-               "stream_cbsr_spmm": EPOCHS * 2 * layers2,
-               "stream_spmm": EPOCHS * layers2}
+    mk32 = {"maxk_fwd": EPOCHS * 2 * layers2, "maxk_bwd": EPOCHS * layers2}
+    fwd32 = {"cbsr_compact": EPOCHS * 2 * layers2,
+             "stream_cbsr_spmm": EPOCHS * 2 * layers2}
+    flag_on = {**mk32, **fwd32, "stream_sspmm": EPOCHS * layers2}
     products = run_training(torch, Trainer(cfg2, dataset=ds2), flag_on,
                             "train products")
     fell = products["losses"][-1] < products["losses"][0]
@@ -4523,27 +4680,45 @@ def main() -> int:
         f"over {EPOCHS} epochs at lr {cfg2.w_lr}")
     planned.STREAM_CBSR_FORWARD = False
     products_off = run_training(torch, Trainer(cfg2, dataset=ds2), {
-        "maxk_fwd": EPOCHS * 2 * layers2, "maxk_bwd": EPOCHS * layers2,
-        "stream_spmm": EPOCHS * 3 * layers2},
+        **mk32, "stream_spmm": EPOCHS * 2 * layers2,
+        "stream_sspmm": EPOCHS * layers2},
         "train products, STREAM_CBSR_FORWARD off")
     planned.STREAM_CBSR_FORWARD = None
     same_losses(products, products_off, "train products")
-    log(f"train products: steady epoch {products['res']['steady_epoch_s']} "
-        f"s default (stream_cbsr_spmm forward), "
-        f"{products_off['res']['steady_epoch_s']} s off")
+    t0 = time.perf_counter()
+    planned.SAMPLED_BACKWARD = False
+    products_dense = run_training(torch, Trainer(cfg2, dataset=ds2), {
+        **mk32, **fwd32, "stream_spmm": EPOCHS * layers2},
+        "train products, SAMPLED_BACKWARD off")
+    planned.SAMPLED_BACKWARD = None
+    bit_equal_losses(products, products_dense, "train products")
+    log_against_dense("train products", products, products_dense,
+                      products_off)
+    log(f"phase products f32 with SAMPLED_BACKWARD off: "
+        f"{time.perf_counter() - t0:.1f} s")
     for entry in kernels[:2]:
         entry["products_launches"] = products["counts"][entry["name"]]
     stream_entry = product_entry("stream_spmm", stream_a, stream_t,
                                  reddit_=stream_reddit)
+    # at the default the MaxK backwards take stream_sspmm: this form runs
+    # on the paths with either flag off
     stream_entry.update(
-        launches=products["counts"]["stream_spmm"],
-        launches_path="train products",
+        launches=products_dense["counts"]["stream_spmm"],
+        launches_path="train products, SAMPLED_BACKWARD off",
+        default_launches=products["counts"].get("stream_spmm", 0),
         flag_off_launches=products_off["counts"]["stream_spmm"])
     kernels.insert(3, stream_entry)
     cbsr_entry.update(launches=products["counts"]["stream_cbsr_spmm"],
                       launches_path="train products")
     kernels.insert(4, cbsr_entry)
-    del products, products_off
+    sspmm32_entry.update(
+        launches=products["counts"]["stream_sspmm"],
+        launches_path="train products",
+        flag_off_launches=products_off["counts"]["stream_sspmm"],
+        peak_gib=products["peak_gib"],
+        dense_peak_gib=products_dense["peak_gib"])
+    kernels.insert(5, sspmm32_entry)
+    del products, products_off, products_dense
     torch.cuda.empty_cache()
 
     # the products recipe with the 16-bit stream: the default (the MaxK
@@ -4638,6 +4813,7 @@ def main() -> int:
     gcn = run_training(torch, Trainer(cfg3, dataset=ds3), flag_on,
                        "train 3 (GCN, products, self-loops)")
     cbsr_entry.update(gcn_launches=gcn["counts"]["stream_cbsr_spmm"])
+    sspmm32_entry.update(gcn_launches=gcn["counts"]["stream_sspmm"])
     del gcn
     torch.cuda.empty_cache()
     # the same as the 16-bit model: GCN has both node factors, so its bf16

@@ -134,6 +134,26 @@
 // Aᵀ's indices and the f32 output once), 1.3 ms; the slots add E 2k bytes
 // written at random and read in order (7.9 GB each way at k 32), and pass
 // 1's random writes and id reads are what hold it (PERF.md).
+//
+// stream_sspmm on f32 messages (counted as stream_sspmm) is the same pair
+// for the f32 path: the raw f32 cotangent g with the pre factor applied per
+// edge, as B3-f32 on Aᵀ applies it (DenseRows::consume forms fmaf(pre[u],
+// g[u, c], acc)). So pass 1 writes the raw terms g[u, ch[v, .]], 4k bytes a
+// slot (one 128-byte line at k 32), and never pre · g: a product rounded in
+// pass 1 and then added is not the bits of the FMA. Pass 2 takes each
+// edge's factor pre[u] from Aᵀ's indices, read in order, a batch of 32
+// edges' ids two batches ahead and their factors one batch ahead, as B3's
+// walk loads them (pre is 9.8 MB at ogbn-products, and stays in L2); each
+// term is then fmaf(pre[u], term, acc), so each sum is stream_spmm's at
+// that channel bit for bit. Both passes are the bf16 form's kernels, as
+// templates over the term type; a pass-2 tile holds at most 2 KB of slots
+// in either (16 edges at k <= 32 in f32, 32 in bf16), so a block's shared
+// memory stays under 48 KB at every k. (Storing pre[u] beside the terms
+// instead, 4 (k + 1) bytes rounded up to 16 a slot, gave the same bits and
+// lost: 43.98 ms against 24.57 at ogbn-products, PERF.md.) Bound at
+// ogbn-products (k 32): bytes, about 5.6 GB (g and the output 2.5 GB each,
+// the ids, Aᵀ's indices and pre once), 1.67 ms; the slots add E 4k bytes
+// each way, 15.8 GB or 4.7 ms at 3.35 TB/s.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -162,6 +182,13 @@ __device__ __forceinline__ float4 add4(const float4& a, const float4& b) {
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
+
+// a sampled backward's term as f32: a bf16 value (its bits) widened
+// exactly, or an f32 value
+__device__ __forceinline__ float term(uint16_t v) {
+  return __uint_as_float((unsigned)v << 16);
+}
+__device__ __forceinline__ float term(float v) { return v; }
 
 __device__ __forceinline__ unsigned pack2(float a, float b) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
@@ -525,23 +552,24 @@ struct CbsrRecords {
   }
 };
 
-// stream_sspmm_bf16's rows: a row v of Aᵀ sums only its k channels ch[v,
-// .], lane j channel ch[v, j] (then j + 32, ...), each term a bf16 value
-// widened exactly and added as Bf16Rows adds it (an fma by the edge's
-// factor, 1, in edge order; a segment's sum joins the row's by one add),
-// so each sum is bit for bit the one B3 forms at that channel. Pass 2
-// (sspmm_walk_kernel) adds edge e's k terms from its slot at e k of
-// `slots`, which pass 1 filled. On stream_walk_kernel (the k-channel gather
-// probe) `load` gathers them, m[u, ch[row(e), j]] for the edge's source u
-// and row (edge_row), from the messages. Partial sums (carry slots, span
-// heads) are compact rows of k floats padded to a float4 (w.dim4 =
-// ceil(k / 4)); a finished row goes to the dense output (w.y f32 or w.y16
-// bf16, dim channels) through the warp's staging row in shared memory:
-// zeros, then the k sums at their channels.
-template <int KV>
+// stream_sspmm's rows: a row v of Aᵀ sums only its k channels ch[v, .],
+// lane j channel ch[v, j] (then j + 32, ...), each term (T: a bf16 value,
+// widened exactly, or an f32 value) added as B3's rows add it (an fma by
+// the edge's factor, 1 for bf16 terms or pre[u] for f32 ones, in edge
+// order; a segment's sum joins the row's by one add), so each sum is bit
+// for bit the one B3 forms at that channel. Pass 2 (sspmm_walk_kernel)
+// adds edge e's k terms from its slot at e k of `slots`, which pass 1
+// filled. On stream_walk_kernel (the k-channel gather probe, bf16 only)
+// `load` gathers them, m[u, ch[row(e), j]] for the edge's source u and row
+// (edge_row), from the messages. Partial sums (carry slots, span heads)
+// are compact rows of k floats padded to a float4 (w.dim4 = ceil(k / 4));
+// a finished row goes to the dense output (w.y f32 or w.y16 bf16, dim
+// channels) through the warp's staging row in shared memory: zeros, then
+// the k sums at their channels.
+template <int KV, class T = uint16_t>
 struct SampledRows {
   struct Src {
-    const uint16_t* slots;  // pass 2: [n_edges, k], edge e's terms at e k
+    const T* slots;         // pass 2: [n_edges, k], edge e's terms at e k
     const uint16_t* m;      // the probe: the messages, bf16 [n_src, dim]
     const int* edge_row;    // the probe: each edge's row [n_edges]
     const uint8_t* ch;      // the rows' channels [n_rows, k]
@@ -1076,15 +1104,17 @@ stream_cbsr16_kernel(const Walk w, const unsigned* __restrict__ rec) {
   }
 }
 
-// stream_sspmm_bf16's pass 1: for each edge u <- v of A (row u of A's CSR,
-// source v), the k terms m[u, ch[v, j]] into the 2k-byte slot of the same
-// edge's position in Aᵀ's edge order, perm[e]. A warp walks a span of
+// stream_sspmm's pass 1: for each edge u <- v of A (row u of A's CSR,
+// source v), the k terms m[u, ch[v, j]] into the slot of the same edge's
+// position in Aᵀ's edge order, perm[e], k terms of T a slot (2k bytes for
+// bf16 messages, 4k for f32 ones). A warp walks a span of
 // warp_chunks chunks of A's plan (so a long row is split across warps, as
 // the walk splits it), with the rows' bounds from a window of 32 indptr
-// entries across its lanes. It keeps the bf16 row m[u] in its shared memory
-// and the next row's in registers, loaded a row ahead. Lane j takes slot j
-// (then j + 32, ...): a slot is one contiguous warp store of 2k bytes,
-// evict-first. No sum is formed here.
+// entries across its lanes. It keeps the row m[u] in its shared memory and
+// the next row's in registers, loaded a row ahead (NR 16-byte words a lane:
+// 1 for a bf16 row, 2 for an f32 row of dim <= 256). Lane j takes slot j
+// (then j + 32, ...): a slot is one contiguous warp store, evict-first. No
+// sum is formed here; f32 terms are g's own values, the factor is pass 2's.
 //
 // The id rows ch[v, .] are this pass's random reads, and the first version
 // (a byte a lane, a warp load an edge) waited on them: with no id loaded
@@ -1101,19 +1131,20 @@ stream_cbsr16_kernel(const Walk w, const unsigned* __restrict__ rec) {
 // with wrong slots by design: 1 stores nothing (the ids and rows folded
 // into one word a lane), 2 stores each slot at its own edge e (in order,
 // not at perm[e]), 3 loads no id (lane j reads channel j).
-template <int KV, int L, int MODE>
+template <class T, int KV, int L, int MODE>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, 4)
 sspmm_slots_kernel(const int* __restrict__ indptr,
                    const int* __restrict__ indices,
                    const int* __restrict__ chunk_row0,
                    const int* __restrict__ perm, const uint4* __restrict__ m,
                    const uint8_t* __restrict__ ch,
-                   uint16_t* __restrict__ slots, int n_rows, int n_chunks,
+                   T* __restrict__ slots, int n_rows, int n_chunks,
                    int n_edges, int chunk, int warp_chunks, int dim, int k) {
   constexpr bool WORDS = L > 0;
   constexpr int R = WORDS ? 32 / L : 1;  // id rows a warp load (WORDS)
   constexpr int NW = WORDS ? L : 1;      // id words of a batch, a lane
   constexpr int EB = 32 / KV;            // edges a group (BYTES)
+  constexpr int NR = sizeof(T) / 2;      // a row's 16-byte words a lane
   extern __shared__ uint4 slots_smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -1123,14 +1154,16 @@ sspmm_slots_kernel(const int* __restrict__ indptr,
   const int c0 = (int)c0l;
   const int lo = c0 * chunk;
   const int hi = min(min(c0 + warp_chunks, n_chunks) * chunk, n_edges);
-  const int dim8 = dim / 8;  // <= 32: a row is one 16-byte word a lane
-  uint4* row = slots_smem + warp * dim8;
-  const uint16_t* row16 = reinterpret_cast<const uint16_t*>(row);
+  const int words = dim * (int)sizeof(T) / 16;  // a row's, <= 32 NR
+  uint4* row = slots_smem + warp * words;
+  const T* rowt = reinterpret_cast<const T*>(row);
   const uint64_t keep = l2_policy(true);
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  auto m_row = [&](int rr) -> uint4 {
-    return (lane < dim8 && rr < n_rows) ? __ldcs(m + (int64_t)rr * dim8 + lane)
-                                        : zero;
+  // word lane + 32 q of row rr
+  auto m_row = [&](int rr, int q) -> uint4 {
+    const int wd = lane + 32 * q;
+    return (wd < words && rr < n_rows) ? __ldcs(m + (int64_t)rr * words + wd)
+                                       : zero;
   };
   int r = chunk_row0[c0];  // the row of edge lo
   int wb = r;              // indptr[wb + lane] across the lanes
@@ -1143,9 +1176,13 @@ sspmm_slots_kernel(const int* __restrict__ indptr,
     return __shfl_sync(kFull, ipw, i - wb);
   };
   int re = ip(r + 1);
-  if (lane < dim8) row[lane] = m_row(r);
+#pragma unroll
+  for (int q = 0; q < NR; ++q)
+    if (lane + 32 * q < words) row[lane + 32 * q] = m_row(r, q);
   int ahead = r + 1;  // the row in `next`
-  uint4 next = m_row(ahead);
+  uint4 next[NR];
+#pragma unroll
+  for (int q = 0; q < NR; ++q) next[q] = m_row(ahead, q);
   __syncwarp();
   unsigned fold = 0u;  // MODE 1's word
 
@@ -1156,10 +1193,14 @@ sspmm_slots_kernel(const int* __restrict__ indptr,
       re = ip(r + 1);
     } while (re <= e);
     __syncwarp();
-    if (lane < dim8) row[lane] = r == ahead ? next : m_row(r);
+#pragma unroll
+    for (int q = 0; q < NR; ++q)
+      if (lane + 32 * q < words)
+        row[lane + 32 * q] = r == ahead ? next[q] : m_row(r, q);
     __syncwarp();
     ahead = r + 1;
-    next = m_row(ahead);
+#pragma unroll
+    for (int q = 0; q < NR; ++q) next[q] = m_row(ahead, q);
   };
   // edge e's slot at position p from its ids c[0..KV) for this lane
   auto store = [&](int64_t p, const unsigned* c) {
@@ -1168,9 +1209,9 @@ sspmm_slots_kernel(const int* __restrict__ indptr,
       const int j = lane + 32 * t;
       if (j < k) {
         if constexpr (MODE == 1)
-          fold ^= row16[c[t]] + (unsigned)p;
+          fold ^= rowt[c[t]] + (unsigned)p;  // bf16 terms only
         else
-          __stcs(slots + p * k + j, row16[c[t]]);
+          __stcs(slots + p * k + j, rowt[c[t]]);
       }
     }
   };
@@ -1263,21 +1304,30 @@ sspmm_slots_kernel(const int* __restrict__ indptr,
     if (fold == 0x9e3779b9u) slots[lane] = 0;  // keeps the loads
 }
 
-// stream_sspmm_bf16's pass 2: B3's walk over Aᵀ's spans (SpanRows: the same
+// stream_sspmm's pass 2: B3's walk over Aᵀ's spans (SpanRows: the same
 // row rules, carry slots and span heads) reading each edge's k terms from
 // its slot in order. The slots of TE edges (one tile of at most 2 KB: 32
-// edges at k <= 32) come by cp.async into a ring of S tiles in the warp's
-// shared memory, S tiles ahead; an edge is then a shared-memory load and an
-// add a lane (lane j, term j), with the segment test, and no shuffle,
-// global load or hot bit. (The first version ran stream_walk_kernel's
-// one-edge step over the slots: 10.1 ms against this loop's 4.0 at
-// ogbn-products, k 32, held by the step's instructions; S = 4 measured
-// slower than 2, utils/stream_sweep.py, PERF.md.) The sums, their order and
-// what is written are those of SampledRows (so B3's, bit for bit).
-template <int KV, int S, bool OUT16>
+// edges at k <= 32 for bf16 terms, 16 for f32 ones) come by cp.async into
+// a ring of S tiles in the warp's shared memory, S tiles ahead; an edge is
+// then a shared-memory load and an fma a lane (lane j, term j), with the
+// segment test, and no global load of the terms. (The first version ran
+// stream_walk_kernel's one-edge step over the slots: 10.1 ms against this
+// loop's 4.0 at ogbn-products, k 32, held by the step's instructions; S = 4
+// measured slower than 2, utils/stream_sweep.py, PERF.md.) An edge's factor
+// is 1 for bf16 terms (the messages carry it); for f32 terms pre[u] of its
+// source u (Aᵀ's indices), the ids two batches of 32 edges ahead and the
+// factors one batch ahead in registers (B3's loads). The sums, their order and what is written are those of
+// SampledRows (so B3's, bit for bit).
+template <class T, int KV>
+__host__ __device__ constexpr int tile_edges() {  // pass 2's: <= 2 KB at k
+  return 32 / KV / (int)(sizeof(T) / 2);
+}
+
+template <class T, int KV, int S, bool OUT16>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-sspmm_walk_kernel(const Walk w, const typename SampledRows<KV>::Src src) {
-  constexpr int TE = 32 / KV;  // edges a tile
+sspmm_walk_kernel(const Walk w, const typename SampledRows<KV, T>::Src src) {
+  constexpr int TE = tile_edges<T, KV>();
+  constexpr bool F32 = sizeof(T) == 4;
   extern __shared__ float4 walk_smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -1290,22 +1340,23 @@ sspmm_walk_kernel(const Walk w, const typename SampledRows<KV>::Src src) {
                      w.n_edges);
   const int k = src.k;
   const int dim4 = src.dim / 4;
+  const int slot_bytes = k * (int)sizeof(T);
   // a tile's bytes, and a stage's: one 16-byte word more, for a tile that
   // does not start on a 16-byte boundary
-  const int stage16 = (TE * k * 2 + 15) / 16 + 1;
+  const int stage16 = (TE * slot_bytes + 15) / 16 + 1;
   float4* staging = walk_smem + warp * (dim4 + S * stage16);
   float4* ring = staging + dim4;
   const uint64_t drop = l2_policy(false);
   const char* bytes = reinterpret_cast<const char*>(src.slots);
-  SampledRows<KV> op(src, staging, w.dim4, lane);
+  SampledRows<KV, T> op(src, staging, w.dim4, lane);
 
   // the tile of edges [b, b + TE) into stage s % S (16-byte words from the
   // one that holds its first byte; past the last edge the slots buffer is
   // padded by 16 bytes); one commit group a tile
   auto fetch = [&](int s, int b) {
     if (b < hi) {
-      const int64_t start = (int64_t)b * k * 2;
-      const int64_t end = (int64_t)min(b + TE, hi) * k * 2;
+      const int64_t start = (int64_t)b * slot_bytes;
+      const int64_t end = (int64_t)min(b + TE, hi) * slot_bytes;
       const int64_t a0 = start & ~(int64_t)15;
       const int words = (int)((end - a0 + 15) / 16);
       const unsigned dst = smem_addr(ring + (s % S) * stage16);
@@ -1317,23 +1368,44 @@ sspmm_walk_kernel(const Walk w, const typename SampledRows<KV>::Src src) {
 #pragma unroll
   for (int s = 0; s < S; ++s) fetch(s, lo + s * TE);
 
+  // f32 terms, factors from Aᵀ's indices: edge base + lane's factor (cs),
+  // base + 32 + lane's (ns) and base + 64 + lane's id (nnu), base the
+  // current batch of 32 edges
+  const bool gather = F32 && w.pre != nullptr;
+  auto id_at = [&](int e) -> int { return e < hi ? __ldcs(w.indices + e) : 0; };
+  auto pre_at = [&](int u, int e) -> float {
+    return e < hi ? __ldg(w.pre + u) : 1.f;
+  };
+  float cs = 1.f, ns = 1.f;
+  int nnu = 0;
+  if (gather) {
+    cs = pre_at(id_at(lo + lane), lo + lane);
+    ns = pre_at(id_at(lo + 32 + lane), lo + 32 + lane);
+    nnu = id_at(lo + 64 + lane);
+  }
+
   SpanRows rows(w, c0, lo, hi, lane);
   int s = 0;
   for (int base = lo; base < hi; base += TE, ++s) {
+    if (gather && base > lo && ((base - lo) & 31) == 0) {  // the next batch
+      cs = ns;
+      ns = pre_at(nnu, base + 32 + lane);
+      nnu = id_at(base + 64 + lane);
+    }
     cp_wait<S - 1>();  // tile s has landed (one group a tile)
     __syncwarp();
-    const uint16_t* tile = reinterpret_cast<const uint16_t*>(
+    const T* tile = reinterpret_cast<const T*>(
         reinterpret_cast<const char*>(ring + (s % S) * stage16) +
-        (((int64_t)base * k * 2) & 15));
+        (((int64_t)base * slot_bytes) & 15));
     const int n = min(TE, hi - base);
     for (int i = 0; i < n; ++i) {
+      float f = 1.f;
+      if constexpr (F32)
+        f = gather ? __shfl_sync(kFull, cs, (base - lo + i) & 31) : 1.f;
 #pragma unroll
       for (int t = 0; t < KV; ++t) {
         const int j = lane + 32 * t;
-        if (j < k)
-          op.acc[t] = fmaf(1.f, __uint_as_float((unsigned)tile[i * k + j]
-                                                << 16),
-                           op.acc[t]);
+        if (j < k) op.acc[t] = fmaf(f, term(tile[i * k + j]), op.acc[t]);
       }
       if (base + i + 1 == rows.seg_end) rows.end_segment<OUT16>(op, base + i);
     }
@@ -1723,16 +1795,22 @@ namespace {
 // pass 2's tiles in flight a warp (2 measured faster than 4)
 constexpr int kSampledStages = 2;
 
-template <int KV, bool OUT16>
-void launch_tiles(const Walk& w, const SampledRows<1>::Src& src,
-                  cudaStream_t s) {
+template <class T>
+using SampledSrc = typename SampledRows<1, T>::Src;
+
+// pass 2 on slots of k terms of T; a block's shared memory: the staging
+// rows and S tiles of at most 2 KB of terms a warp, under 48 KB at dim <=
+// 256
+template <class T, int KV, bool OUT16>
+void launch_tiles(const Walk& w, const SampledSrc<T>& src, cudaStream_t s) {
   constexpr int S = kSampledStages;
   if (w.n_chunks == 0) return;
   const int64_t warps = (w.n_chunks + w.warp_chunks - 1) / w.warp_chunks;
-  const int stage16 = (32 / KV * src.k * 2 + 15) / 16 + 1;
+  const int stage16 =
+      (tile_edges<T, KV>() * src.k * (int)sizeof(T) + 15) / 16 + 1;
   const size_t smem = (size_t)kWarpsPerBlock * (src.dim / 4 + S * stage16) *
                       sizeof(float4);
-  sspmm_walk_kernel<KV, S, OUT16>
+  sspmm_walk_kernel<T, KV, S, OUT16>
       <<<blocks_for(warps), kWarpsPerBlock * 32, smem, s>>>(
           w, {src.slots, src.m, src.edge_row, src.ch, src.k, src.dim});
 }
@@ -1740,68 +1818,75 @@ void launch_tiles(const Walk& w, const SampledRows<1>::Src& src,
 // pass 2 of stream_sspmm_bf16 at k (mode 0) or the gather probe (mode 1, k
 // <= 32), OUT16 as in spmm16: false when (k, mode) has no instance
 template <bool OUT16>
-bool launch_sampled(const Walk& w, const SampledRows<1>::Src& src, int mode,
+bool launch_sampled(const Walk& w, const SampledSrc<uint16_t>& src, int mode,
                     cudaStream_t s) {
   const int kv = slices(src.k);
-  if (mode == 0 && kv == 1) launch_tiles<1, OUT16>(w, src, s);
-  else if (mode == 0 && kv == 2) launch_tiles<2, OUT16>(w, src, s);
-  else if (mode == 0 && kv == 4) launch_tiles<4, OUT16>(w, src, s);
-  else if (mode == 0 && kv == 8) launch_tiles<8, OUT16>(w, src, s);
+  if (mode == 0 && kv == 1) launch_tiles<uint16_t, 1, OUT16>(w, src, s);
+  else if (mode == 0 && kv == 2)
+    launch_tiles<uint16_t, 2, OUT16>(w, src, s);
+  else if (mode == 0 && kv == 4)
+    launch_tiles<uint16_t, 4, OUT16>(w, src, s);
+  else if (mode == 0 && kv == 8)
+    launch_tiles<uint16_t, 8, OUT16>(w, src, s);
   else if (mode == 1 && kv == 1)
     launch_walk<SampledRows<1>, 16, OUT16>(w, src, s);
   else return false;
   return true;
 }
 
-}  // namespace
+// pass 1's checks: rows of dim T values (16-byte words: dim % 8 == 0 for
+// bf16, dim % 4 == 0 for f32), dim <= 256 (uint8 ids), 1 <= k < dim
+template <class T>
+bool slots_args_ok(int64_t n_rows, int64_t n_edges, int chunk,
+                   int warp_chunks, int dim, int k) {
+  const int step = 16 / (int)sizeof(T);
+  return dim >= step && dim % step == 0 && dim <= 256 && k >= 1 && k < dim &&
+         chunk >= 1 && chunk <= 512 && warp_chunks >= 1 &&
+         fits_int(n_rows, n_edges);
+}
 
-// stream_sspmm_bf16's pass 1 (sspmm_slots_kernel): slots bf16 [n_edges, k]
-// <- for each edge e of A's StreamPlan (indptr int32 [n_rows + 1], indices
-// int32 [n_edges], chunk_row0 int32 [n_chunks], warp spans of warp_chunks
-// chunks), m[row(e), ch[indices[e], j]] at slot perm[e] (int32 [n_edges],
-// e's position in Aᵀ's edge order); m bf16 [n_rows, dim], ch uint8
-// [n_src, k]. mode 0; 1-3 the timing variants of sspmm_slots_kernel (k
-// 32).
-// Needs dim % 8 == 0, 8 <= dim <= 256, 1 <= k < dim, 1 <= chunk <= 512
-// and a 16-byte aligned m.
-extern "C" int sspmm_slots_bf16(const void* indptr, const void* indices,
-                                const void* chunk_row0, const void* perm,
-                                const void* m, const void* ch, void* slots,
-                                int64_t n_rows, int64_t n_chunks,
-                                int64_t n_edges, int chunk, int warp_chunks,
-                                int dim, int k, int mode, void* stream) {
-  if (dim < 8 || dim % 8 != 0 || dim > 256 || k < 1 || k >= dim ||
-      chunk < 1 || chunk > 512 || warp_chunks < 1 ||
-      !fits_int(n_rows, n_edges) || mode < 0 || mode > 3)
-    return (int)cudaErrorInvalidValue;
+// pass 1 (sspmm_slots_kernel) on rows of T at (k, mode), slots of k terms
+template <class T>
+int launch_slots(const void* indptr, const void* indices,
+                 const void* chunk_row0, const void* perm, const void* m,
+                 const void* ch, void* slots, int64_t n_rows,
+                 int64_t n_chunks, int64_t n_edges, int chunk,
+                 int warp_chunks, int dim, int k, int mode, void* stream) {
   if (n_chunks == 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t warps = (n_chunks + warp_chunks - 1) / warp_chunks;
-  const size_t smem = (size_t)kWarpsPerBlock * dim * 2;
+  const size_t smem = (size_t)kWarpsPerBlock * dim * sizeof(T);
   // WORDS: L lanes an id row, k / 4 rounded up to a power of two
   const int lanes = k % 4 || k > 128 ? 0
                     : k <= 4 ? 1 : k <= 8 ? 2 : k <= 16 ? 4 : k <= 32 ? 8
                     : k <= 64 ? 16 : 32;
   const int kv = slices(k);
 #define SLOTS(KV_, L_, M_)                                                  \
-  sspmm_slots_kernel<KV_, L_, M_><<<blocks_for(warps),                     \
-                                    kWarpsPerBlock * 32, smem, s>>>(       \
-      static_cast<const int*>(indptr), static_cast<const int*>(indices),  \
-      static_cast<const int*>(chunk_row0), static_cast<const int*>(perm), \
-      static_cast<const uint4*>(m), static_cast<const uint8_t*>(ch),      \
-      static_cast<uint16_t*>(slots), (int)n_rows, (int)n_chunks,          \
-      (int)n_edges, chunk, warp_chunks, dim, k)
+  sspmm_slots_kernel<T, KV_, L_, M_>                                   \
+      <<<blocks_for(warps), kWarpsPerBlock * 32, smem, s>>>(           \
+          static_cast<const int*>(indptr),                             \
+          static_cast<const int*>(indices),                            \
+          static_cast<const int*>(chunk_row0),                         \
+          static_cast<const int*>(perm), static_cast<const uint4*>(m), \
+          static_cast<const uint8_t*>(ch), static_cast<T*>(slots),     \
+          (int)n_rows, (int)n_chunks, (int)n_edges, chunk, warp_chunks, \
+          dim, k)
   if (lanes == 8 && mode == 0)
     SLOTS(1, 8, 0);
-  else if (lanes == 8 && mode == 1)
-    SLOTS(1, 8, 1);
-  else if (lanes == 8 && mode == 2)
-    SLOTS(1, 8, 2);
-  else if (lanes == 8 && mode == 3)
-    SLOTS(1, 8, 3);
-  else if (mode != 0)
-    return (int)cudaErrorInvalidValue;
-  else if (lanes == 1)
+  else if (mode != 0) {  // the timing variants: bf16 rows, k 20 to 32
+    if constexpr (sizeof(T) == 2) {
+      if (lanes == 8 && mode == 1)
+        SLOTS(1, 8, 1);
+      else if (lanes == 8 && mode == 2)
+        SLOTS(1, 8, 2);
+      else if (lanes == 8 && mode == 3)
+        SLOTS(1, 8, 3);
+      else
+        return (int)cudaErrorInvalidValue;
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  } else if (lanes == 1)
     SLOTS(1, 1, 0);
   else if (lanes == 2)
     SLOTS(1, 2, 0);
@@ -1821,6 +1906,47 @@ extern "C" int sspmm_slots_bf16(const void* indptr, const void* indices,
     SLOTS(8, 0, 0);
 #undef SLOTS
   return (int)cudaGetLastError();
+}
+
+// the carry pass of a sampled backward (f32 or, out16, bf16 output)
+int sampled_carry(const Walk& w, bool out16, const void* carry_rows,
+                  int64_t n_carry, const uint8_t* ch, int k, int dim,
+                  cudaStream_t s) {
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int* cr = static_cast<const int*>(carry_rows);
+  const int kw4 = (k + 3) / 4;
+  if (out16)
+    launch_carry<true, true>(slices(kw4), w, cr, n_carry, s, ch, k, dim / 4);
+  else
+    launch_carry<false, true>(slices(kw4), w, cr, n_carry, s, ch, k,
+                              dim / 4);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// stream_sspmm_bf16's pass 1 (sspmm_slots_kernel): slots bf16 [n_edges, k]
+// <- for each edge e of A's StreamPlan (indptr int32 [n_rows + 1], indices
+// int32 [n_edges], chunk_row0 int32 [n_chunks], warp spans of warp_chunks
+// chunks), m[row(e), ch[indices[e], j]] at slot perm[e] (int32 [n_edges],
+// e's position in Aᵀ's edge order); m bf16 [n_rows, dim], ch uint8
+// [n_src, k]. mode 0; 1-3 the timing variants of sspmm_slots_kernel (k
+// 32).
+// Needs dim % 8 == 0, 8 <= dim <= 256, 1 <= k < dim, 1 <= chunk <= 512
+// and a 16-byte aligned m.
+extern "C" int sspmm_slots_bf16(const void* indptr, const void* indices,
+                                const void* chunk_row0, const void* perm,
+                                const void* m, const void* ch, void* slots,
+                                int64_t n_rows, int64_t n_chunks,
+                                int64_t n_edges, int chunk, int warp_chunks,
+                                int dim, int k, int mode, void* stream) {
+  if (!slots_args_ok<uint16_t>(n_rows, n_edges, chunk, warp_chunks, dim, k) ||
+      mode < 0 || mode > 3)
+    return (int)cudaErrorInvalidValue;
+  return launch_slots<uint16_t>(indptr, indices, chunk_row0, perm, m, ch,
+                                slots, n_rows, n_chunks, n_edges, chunk,
+                                warp_chunks, dim, k, mode, stream);
 }
 
 // stream_sspmm_bf16's pass 2 and carry pass over Aᵀ's StreamPlan (indptr,
@@ -1844,18 +1970,16 @@ extern "C" int stream_sspmm_bf16(
     void* y, void* carry, void* heads, int64_t n_rows, int64_t n_chunks,
     int64_t n_carry, int64_t n_edges, int chunk, int warp_chunks, int dim,
     int k, int out16, int mode, void* stream) {
-  if (dim < 8 || dim % 8 != 0 || dim > 256 || k < 1 || k >= dim ||
-      chunk < 1 || chunk > 512 || warp_chunks < 1 ||
-      !fits_int(n_rows, n_edges) || (heads == nullptr && n_chunks > 0) ||
-      (mode != 0 && mode != 1))
+  if (!slots_args_ok<uint16_t>(n_rows, n_edges, chunk, warp_chunks, dim, k) ||
+      (heads == nullptr && n_chunks > 0) || (mode != 0 && mode != 1))
     return (int)cudaErrorInvalidValue;
-  const int kw4 = (k + 3) / 4;
   Walk w = make_walk(indptr, indices, nullptr, post, chunk_row0,
                      mode == 1 ? hot : nullptr, out16 ? nullptr : y, carry,
-                     n_rows, n_chunks, n_edges, chunk, warp_chunks, kw4);
+                     n_rows, n_chunks, n_edges, chunk, warp_chunks,
+                     (k + 3) / 4);
   if (out16) w.y16 = static_cast<uint2*>(y);
   w.heads = static_cast<float4*>(heads);
-  const SampledRows<1>::Src src{
+  const SampledSrc<uint16_t> src{
       static_cast<const uint16_t*>(slots), static_cast<const uint16_t*>(m),
       static_cast<const int*>(edge_row), static_cast<const uint8_t*>(ch), k,
       dim};
@@ -1863,16 +1987,63 @@ extern "C" int stream_sspmm_bf16(
   const bool ok = out16 ? launch_sampled<true>(w, src, mode, s)
                         : launch_sampled<false>(w, src, mode, s);
   if (!ok) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int* cr = static_cast<const int*>(carry_rows);
-  if (out16)
-    launch_carry<true, true>(slices(kw4), w, cr, n_carry, s, src.ch, k,
-                             dim / 4);
+  return sampled_carry(w, out16, carry_rows, n_carry, src.ch, k, dim, s);
+}
+
+// stream_sspmm's pass 1 on f32 messages: slots f32 [n_edges, k] <- for
+// each edge e of A's StreamPlan (as in sspmm_slots_bf16), the raw terms
+// g[row(e), ch[indices[e], j]] at slot perm[e]; g f32 [n_rows, dim] (the
+// cotangent, no factor in it). Needs dim % 4 == 0, 4 <= dim <= 256, 1 <= k
+// < dim, 1 <= chunk <= 512 and a 16-byte aligned g.
+extern "C" int sspmm_slots_f32(const void* indptr, const void* indices,
+                               const void* chunk_row0, const void* perm,
+                               const void* g, const void* ch, void* slots,
+                               int64_t n_rows, int64_t n_chunks,
+                               int64_t n_edges, int chunk, int warp_chunks,
+                               int dim, int k, void* stream) {
+  if (!slots_args_ok<float>(n_rows, n_edges, chunk, warp_chunks, dim, k))
+    return (int)cudaErrorInvalidValue;
+  return launch_slots<float>(indptr, indices, chunk_row0, perm, g, ch, slots,
+                             n_rows, n_chunks, n_edges, chunk, warp_chunks,
+                             dim, k, 0, stream);
+}
+
+// stream_sspmm's pass 2 and carry pass on f32 slots, over Aᵀ's StreamPlan
+// (indptr, indices, chunk_row0, carry_rows as in stream_spmm): y[v, ch[v,
+// j]] <- post[v] * the sum over v's edges e, source u = indices[e], of
+// pre[u] * slots[e k + j], each term an fma in B3's order (stream_spmm's
+// sums on g with pre and post at those channels, bit for bit), and 0 at the
+// row's other channels; y f32 [n_rows, dim]; pre f32 [n_src] and post f32
+// [n_rows], or null. slots f32 [n_edges, k] and 16 bytes more; carry and
+// heads as in stream_sspmm_bf16. Needs dim % 4 == 0, 4 <= dim <= 256, 1 <= k < dim,
+// 1 <= chunk <= 512 and 16-byte aligned y, carry and heads.
+extern "C" int stream_sspmm_f32(
+    const void* indptr, const void* indices, const void* chunk_row0,
+    const void* carry_rows, const void* slots, const void* ch,
+    const void* pre, const void* post, void* y, void* carry, void* heads,
+    int64_t n_rows, int64_t n_chunks, int64_t n_carry, int64_t n_edges,
+    int chunk, int warp_chunks, int dim, int k, void* stream) {
+  if (!slots_args_ok<float>(n_rows, n_edges, chunk, warp_chunks, dim, k) ||
+      (heads == nullptr && n_chunks > 0))
+    return (int)cudaErrorInvalidValue;
+  Walk w = make_walk(indptr, indices, pre, post, chunk_row0, nullptr, y,
+                     carry, n_rows, n_chunks, n_edges, chunk, warp_chunks,
+                     (k + 3) / 4);
+  w.heads = static_cast<float4*>(heads);
+  const SampledSrc<float> src{static_cast<const float*>(slots), nullptr,
+                              nullptr, static_cast<const uint8_t*>(ch), k,
+                              dim};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int kv = slices(k);
+  if (kv == 1)
+    launch_tiles<float, 1, false>(w, src, s);
+  else if (kv == 2)
+    launch_tiles<float, 2, false>(w, src, s);
+  else if (kv == 4)
+    launch_tiles<float, 4, false>(w, src, s);
   else
-    launch_carry<false, true>(slices(kw4), w, cr, n_carry, s, src.ch, k,
-                              dim / 4);
-  return (int)cudaGetLastError();
+    launch_tiles<float, 8, false>(w, src, s);
+  return sampled_carry(w, false, carry_rows, n_carry, src.ch, k, dim, s);
 }
 
 // The kernel that stream_cbsr_spmm_bf16 (out16 0) or _out (1) runs at (k,

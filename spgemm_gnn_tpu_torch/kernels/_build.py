@@ -62,7 +62,10 @@ SIGNATURES = {
                "sspmm_slots_bf16": [*[_P] * 7, *[_I64] * 3, *[_INT] * 5,
                                     _P],
                "stream_sspmm_bf16": [*[_P] * 13, *[_I64] * 4, *[_INT] * 6,
-                                     _P]},
+                                     _P],
+               "sspmm_slots_f32": [*[_P] * 7, *[_I64] * 3, *[_INT] * 4, _P],
+               "stream_sspmm_f32": [*[_P] * 11, *[_I64] * 4, *[_INT] * 4,
+                                    _P]},
     "round": {name: [_P, _P, _P, _I64, _INT, _P]
               for name in ("round_rows", "round_out")},
     "norm": {"layer_norm16_fwd": [*[_P] * 6, _I64, _INT, ctypes.c_float,

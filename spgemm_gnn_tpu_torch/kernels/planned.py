@@ -24,10 +24,10 @@ the CBSR form of the plan's kernel instead: `stream_cbsr_spmm` on a stream
 plan, `csr_cbsr_spmm` on a windowed one (the models' path compacts its
 k-sparse input first). Where `SAMPLED_BACKWARD` takes it
 (`sampled_backward`: by default the channel ids of the MaxK whose output x
-is, k < dim <= 256, and bf16 messages or a windowed plan), the models'
-backward computes only the channels that MaxK kept (`stream_sspmm` on a
-stream plan, `csr_sspmm` on a windowed one), the dense backward's bits
-there.
+is and k < dim <= 256, on either plan kind, f32 or bf16 messages), the
+models' backward computes only the channels that MaxK kept (`stream_sspmm`
+on a stream plan, `csr_sspmm` on a windowed one), the dense backward's
+bits there.
 
 `DEFAULT_STREAM` selects the feature stream of every product, forward on A
 and backward on Aᵀ: "f32" (exact), or "bf16x2", the reference's 16-bit
@@ -119,18 +119,20 @@ STREAM_CBSR_FORWARD: bool | None = None
 # (dense, then `sample_channels`) is this function at the CBSR API. Read
 # at each call (`sampled_backward`):
 # - None (the default): the rule. Take it with MaxK's ids given and k <
-#   dim <= 256 (uint8 ids), on a windowed plan for f32 or bf16 messages,
-#   on a stream plan for bf16 messages (the bf16x2 stream, or bf16
-#   activations) only: f32 messages on a stream plan keep the dense
-#   backward (`stream_spmm` on Aᵀ), which has no f32 sampled kernel;
+#   dim <= 256 (uint8 ids), on either plan kind, for f32 messages (the raw
+#   cotangent on f32 activations, the pre factor applied per edge) or bf16
+#   ones (the bf16x2 stream, or bf16 activations);
 # - True: the same, raising above dim 256;
 # - False: the dense backward (`stream_spmm` or `csr_spmm` on Aᵀ).
 # Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit (k 32, dim
 # 256; PERF.md §5-§6): on the ogbn-products stand-in (SAGE recipe) the
-# dense bf16 backward takes 20.1 ms a layer, `stream_sspmm` 15.2
-# (chip_smoke.py's products phases); on the Reddit stand-in's windowed
-# plan `csr_spmm_bf16` then `maxk_bwd` took 8.79 ms and `csr_sspmm` 6.70
-# in one call (utils/csr_sweep.py --sampled_only), and on f32 messages
+# dense bf16 backward takes 20.1 ms a layer, `stream_sspmm` 15.2, and on
+# f32 messages `stream_spmm` on Aᵀ then `maxk_bwd` 41.0 + 2.4 ms against
+# `stream_sspmm`'s 24.6, the f32 recipe's epoch 0.453 s against 0.502
+# with the flag off (chip_smoke.py's products phases); on the Reddit
+# stand-in's windowed plan `csr_spmm_bf16` then `maxk_bwd` took 8.79 ms
+# and `csr_sspmm` 6.70 in one call (utils/csr_sweep.py --sampled_only),
+# and on f32 messages
 # `csr_spmm` then `maxk_bwd` 15.95 ms against `csr_sspmm`'s 9.89, the f32
 # recipe's epoch 0.157 s against 0.181 with the flag off (chip_smoke.py).
 SAMPLED_BACKWARD: bool | None = None
@@ -168,14 +170,11 @@ def sampled_backward(plan, k: int | None, dim: int,
     of width `dim` and `dtype` is the output of a MaxK whose k kept
     channels are given (k None: none are) takes the sampled form,
     `stream_sspmm` on a stream plan and `csr_sspmm` on a windowed one
-    (SAMPLED_BACKWARD's rule): k < dim, and on a stream plan bf16 messages
-    (bf16 activations or the bf16x2 stream; f32 messages there have no
-    sampled kernel); under the default (None) also dim <= 256, while True
-    takes it regardless (and the kernels' wrappers raise above dim 256)."""
+    (SAMPLED_BACKWARD's rule): k < dim, on either plan kind and for f32
+    or bf16 messages (`dtype`, the plan and the stream decide which form
+    runs); under the default (None) also dim <= 256, while True takes it
+    regardless (and the kernels' wrappers raise above dim 256)."""
     if SAMPLED_BACKWARD is False or k is None or k >= dim:
-        return False
-    if isinstance(plan, StreamPlan) and not (dtype == torch.bfloat16
-                                             or _stream16()):
         return False
     return SAMPLED_BACKWARD is True or dim <= MAX_CBSR_DIM
 
@@ -276,6 +275,7 @@ def build_plan(indptr: torch.Tensor, indices: torch.Tensor, kind: str, *,
 def plan_graph(g: Graph, *, kind: str = "auto", chunk: int = CHUNK,
                dim: int | None = None,
                dtype: torch.dtype = torch.float32,
+               k: int | None = None,
                cache_dir: str | None = None) -> PlannedGraph:
     """Both plans of a graph, on its device. kind: "auto" (the reference's
     rule, `plan_kind`), "windowed", "stream", or "windowed_classes" (the
@@ -284,10 +284,12 @@ def plan_graph(g: Graph, *, kind: str = "auto", chunk: int = CHUNK,
     built here for the rows the kernels gather when `dim` is given (else at
     the first product of each row size): rows of width `dim` of activations
     of `dtype` in DEFAULT_STREAM's feature stream, 2 B a channel for bf16
-    activations or the "bf16x2" stream, else 4; for 2-B channels on a
-    stream plan also the backward plan's transpose positions (the sampled
-    backward's, else built at its first call). A symmetric graph's backward
-    plan is its forward plan.
+    activations or the "bf16x2" stream, else 4; on a stream plan also the
+    backward plan's transpose positions (the sampled backward's, else built
+    at its first call) for 2-B channels, and for 4-B ones where a MaxK of
+    width `k` on those rows takes the sampled backward (`sampled_backward`;
+    k None: the model runs no MaxK). A symmetric graph's backward plan is
+    its forward plan.
 
     cache_dir: where given, each plan is loaded from a file there keyed by
     its CSR's fingerprint and every parameter above that shapes it (the
@@ -303,7 +305,8 @@ def plan_graph(g: Graph, *, kind: str = "auto", chunk: int = CHUNK,
     elif kind == "windowed_classes":
         kind = "windowed"
     elem = row_elem(dtype)
-    positions = kind == "stream" and dim is not None and elem == 2
+    positions = kind == "stream" and dim is not None and (
+        elem == 2 or sampled_backward(None, k, dim, dtype))
 
     def build(transpose: bool, fwd=None):
         ip, ix = ((g.t_indptr, g.t_indices) if transpose
@@ -425,15 +428,17 @@ def plan_sspmm(plan, fwd_plan, g: torch.Tensor, ids: torch.Tensor,
     `stream_sspmm` on a stream plan, `csr_sspmm` on a windowed one. The
     messages are the dense form's, bf16(pre ⊙ g) under the bf16x2 stream
     (y f32), pre ⊙ g in bf16 for bf16 g (y bf16), and under the f32 stream
-    (a windowed plan only) the f32 g itself, with pre applied per edge (y
-    f32)."""
+    the f32 g itself, with pre applied per edge (y f32)."""
+    stream = isinstance(plan, StreamPlan)
     if g.dtype == torch.bfloat16:
         m, out_dtype = _scale(g, pre).contiguous(), torch.bfloat16
     elif not _stream16():
+        if stream:
+            return stream_sspmm(plan, fwd_plan, g, ids, post, pre=pre)
         return csr_sspmm(plan, g, ids, post, pre=pre)
     else:
         m, out_dtype = round_rows(g, pre), None
-    if isinstance(plan, StreamPlan):
+    if stream:
         return stream_sspmm(plan, fwd_plan, m, ids, post, out_dtype)
     return csr_sspmm(plan, m, ids, post, out_dtype)
 

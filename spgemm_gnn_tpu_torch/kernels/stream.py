@@ -20,18 +20,20 @@ input only) they launch the bf16-output forms (`stream_spmm_bf16_out`,
 `stream_cbsr_spmm_bf16_out`): the same sums, y rounded once to bf16 where a
 row's sum is whole, then times bf16(post) in bf16.
 
-`stream_sspmm` is the sampled backward of a MaxK aggregation on bf16
-messages (B3 on Aᵀ, then B4's channel sampling, as one kernel pair): for
-each row v of the plan (Aᵀ) only the k channels ch[v] that v's MaxK kept,
-dx[v, ch[v, j]] = post[v] · Σ_u m[u, ch[v, j]], zeros elsewhere, each sum
-bit for bit `stream_spmm`'s at that channel (`stream_sspmm_bf16`, and with
-a bf16 output `stream_sspmm_bf16_out`, `stream_spmm_bf16_out`'s). Pass 1
-walks A once (the forward plan): each edge's k terms go to a 2k-byte slot
-at the edge's position in Aᵀ's order (`StreamPlan.transpose_positions`);
-pass 2 is B3's walk on Aᵀ over those slots. `stream_sspmm_at` runs either
-pass alone and `stream_ksample_at` the k-channel gather probe (the same
-sums, gathered from the messages), for utils/stream_sweep.py and
-chip_smoke.py.
+`stream_sspmm` is the sampled backward of a MaxK aggregation (B3 on Aᵀ,
+then B4's channel sampling, as one kernel pair): for each row v of the plan
+(Aᵀ) only the k channels ch[v] that v's MaxK kept, dx[v, ch[v, j]] =
+post[v] · Σ_u pre[u] · m[u, ch[v, j]], zeros elsewhere, each sum bit for
+bit `stream_spmm`'s at that channel. On bf16 messages (the pre factor
+already in them) it launches `stream_sspmm_bf16`, and with a bf16 output
+`stream_sspmm_bf16_out` (`stream_spmm_bf16_out`'s bits); on f32 messages
+(the raw cotangent, the pre factor applied per edge as `stream_spmm`
+applies it) `stream_sspmm`. Pass 1 walks A once (the forward plan): each
+edge's k terms go to a slot (2k bytes, or 4k for f32 terms) at the edge's
+position in Aᵀ's order (`StreamPlan.transpose_positions`); pass 2 is B3's
+walk on Aᵀ over those slots. `stream_sspmm_at` runs either pass alone and
+`stream_ksample_at` the k-channel gather probe (the same sums, gathered
+from bf16 messages), for utils/stream_sweep.py and chip_smoke.py.
 """
 from __future__ import annotations
 
@@ -57,7 +59,8 @@ from spgemm_gnn_tpu_torch.ops.stream import (stream_cbsr_spmm_plain,
 DEPTHS = {1: (8, 4, 16), 2: (8, 4, 16), 4: (4,), 8: (2,)}
 BATCHES = {1: (8, 4, 16), 2: (8,), 4: (4,), 8: (4,)}
 BATCHES16 = {1: (32,), 2: (16,), 4: (8,), 8: (4,)}
-# stream_sspmm_at's timing variants of pass 1 -> the C entry point's mode
+# stream_sspmm_at's timing variants of pass 1 on bf16 messages -> the C
+# entry point's mode (wrong slots by design)
 VARIANTS_SAMPLED = {None: 0, "no_store": 1, "in_order": 2, "no_ids": 3}
 
 
@@ -311,20 +314,24 @@ def stream_cbsr16_attrs(k: int, dim: int, batch: int | None = None,
 
 def stream_sspmm(plan, fwd_plan, m: torch.Tensor, ch: torch.Tensor,
                  post: torch.Tensor | None = None,
-                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """dx[v, c] = post[v] · Σ_{u ∈ in(v)} m[u, c] for the k channels c =
-    ch[v, :] of each row v of `plan` (the transpose of `fwd_plan`'s CSR),
-    0 at v's other channels: m bf16 [S, dim] (the messages, a pre factor
-    already in them), ch uint8 [plan.num_rows, k] (distinct within a row,
-    from `kernels.maxk.maxk_fwd(..., with_ids=True)`) → dx f32
-    [plan.num_rows, dim], or with out_dtype bf16, bf16(bf16(Σ) ·
+                 out_dtype: torch.dtype | None = None, *,
+                 pre: torch.Tensor | None = None) -> torch.Tensor:
+    """dx[v, c] = post[v] · Σ_{u ∈ in(v)} pre[u] · m[u, c] for the k
+    channels c = ch[v, :] of each row v of `plan` (the transpose of
+    `fwd_plan`'s CSR), 0 at v's other channels: m bf16 [S, dim] (messages
+    that carry their pre factor: none is taken) or f32 [S, dim] (the raw
+    cotangent, with an optional pre factor f32 [S] applied per edge), ch
+    uint8 [plan.num_rows, k] (distinct within a row, from
+    `kernels.maxk.maxk_fwd(..., with_ids=True)`) → dx f32 [plan.num_rows,
+    dim], or for bf16 messages with out_dtype bf16, bf16(bf16(Σ) ·
     bf16(post)). At each kept channel the bits of `stream_spmm(plan, m,
-    None, post, out_dtype)`."""
-    check_sampled(plan, m, ch, out_dtype, "stream_sspmm")
+    pre, post, out_dtype)`."""
+    check_sampled(plan, m, ch, out_dtype, "stream_sspmm", pre, f32=True)
     _build.require_sources(plan, m.shape[0], "stream_sspmm")
     if _build.on_cpu(m):
-        return stream_sspmm_plain(plan, m, ch, post, out_dtype)
-    return stream_sspmm_at(plan, fwd_plan, m, ch, post, out_dtype=out_dtype)
+        return stream_sspmm_plain(plan, m, ch, post, out_dtype, pre)
+    return stream_sspmm_at(plan, fwd_plan, m, ch, post, out_dtype=out_dtype,
+                           pre=pre)
 
 
 def _sampled_outputs(plan, dim: int, kw: int, dev: torch.device,
@@ -341,79 +348,99 @@ def _sampled_outputs(plan, dim: int, kw: int, dev: torch.device,
     return y, carry, heads
 
 
-def new_slots(n_edges: int, k: int, dev: torch.device) -> torch.Tensor:
-    """stream_sspmm's slot buffer: bf16 [n_edges, k], in a flat buffer 16
-    bytes longer (pass 2 copies whole 16-byte words)."""
-    return torch.empty(n_edges * k + 8, dtype=torch.bfloat16,
+def new_slots(n_edges: int, k: int, dev: torch.device,
+              dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """stream_sspmm's slot buffer for messages of `dtype` (bf16 or f32
+    terms): [n_edges, k], in a flat buffer 16 bytes longer (pass 2 copies
+    whole 16-byte words)."""
+    pad = 16 // torch.empty((), dtype=dtype).element_size()
+    return torch.empty(n_edges * k + pad, dtype=dtype,
                        device=dev)[:n_edges * k].view(n_edges, k)
 
 
 def stream_sspmm_at(plan, fwd_plan, m: torch.Tensor, ch: torch.Tensor,
                     post: torch.Tensor | None = None, *,
                     out_dtype: torch.dtype | None = None,
+                    pre: torch.Tensor | None = None,
                     passes: tuple = (1, 2),
                     slots: torch.Tensor | None = None,
                     variant: str | None = None) -> torch.Tensor:
     """`stream_sspmm`'s kernels on CUDA tensors. `passes` (1,) runs pass 1
     alone and returns the slots (into `slots`, from `new_slots`, when
     given); (2,) runs pass 2 alone on `slots` (pass 1's) and returns dx.
-    `variant` names a timing variant of pass 1 for utils/stream_sweep.py
-    (passes (1,) only, k 20 to 32 and a multiple of 4; wrong slots by
-    design): "no_store" (no slot stored), "in_order" (each slot at its own
+    `variant` names a timing variant of pass 1 on bf16 messages for
+    utils/stream_sweep.py, at k 20, 24, 28 or 32, with wrong slots by
+    design: "no_store" (no slot stored), "in_order" (each slot at its own
     edge) or "no_ids" (no id loaded)."""
-    out16 = check_sampled(plan, m, ch, out_dtype, "stream_sspmm")
+    out16 = check_sampled(plan, m, ch, out_dtype, "stream_sspmm", pre,
+                          f32=True)
     dev = m.device
     n_src, dim = m.shape
     k = ch.shape[1]
+    f32 = m.dtype == torch.float32
     if passes not in ((1, 2), (1,), (2,)):
         raise ValueError(f"passes must be (1, 2), (1,) or (2,); got {passes}")
-    if variant not in VARIANTS_SAMPLED:
-        raise ValueError(f"variant must be one of {tuple(VARIANTS_SAMPLED)}; "
-                         f"got {variant!r}")
+    if variant not in VARIANTS_SAMPLED or (f32 and variant is not None):
+        raise ValueError(f"variant must be one of {tuple(VARIANTS_SAMPLED)} "
+                         f"on bf16 messages, None on f32; got {variant!r}")
     if variant is not None and (passes != (1,) or k % 4
                                 or not 16 < k <= 32):
         raise ValueError(f"variant {variant!r} runs pass 1 alone, at k 20, "
                          f"24, 28 or 32")
     _build.require(ch, "ch", torch.uint8, dev, (plan.num_rows, k))
-    _build.require(m, "m", torch.bfloat16, dev, (fwd_plan.num_rows, dim))
+    _build.require(m, "m", m.dtype, dev, (fwd_plan.num_rows, dim))
     _build.require_aligned(m, "m")
-    _require_plan(plan, dev, n_src, None, post)
+    _require_plan(plan, dev, n_src, pre, post)
     _require_plan(fwd_plan, dev, plan.num_rows, None, None)
     if fwd_plan.num_edges != plan.num_edges:
         raise ValueError("stream_sspmm: plan must be fwd_plan's transpose")
     n_edges = plan.num_edges
     if slots is None:
-        slots = new_slots(n_edges, k, dev)
-    _build.require(slots, "slots", torch.bfloat16, dev, (n_edges, k))
-    if slots.untyped_storage().nbytes() - slots.storage_offset() * 2 < (
-            n_edges * k * 2 + 16):
+        slots = new_slots(n_edges, k, dev, m.dtype)
+    _build.require(slots, "slots", m.dtype, dev, (n_edges, k))
+    esize = slots.element_size()
+    if slots.untyped_storage().nbytes() - slots.storage_offset() * esize < (
+            n_edges * k * esize + 16):
         raise ValueError("slots needs 16 bytes past its end (new_slots)")
     lib = _build.library("stream")
     stream = _build.stream_of(m)
-    name = "stream_sspmm_bf16_out" if out16 else "stream_sspmm_bf16"
+    name = ("stream_sspmm" if f32 else "stream_sspmm_bf16_out" if out16
+            else "stream_sspmm_bf16")
     with torch.cuda.device(dev):
         if 1 in passes:
             perm = plan.transpose_positions(fwd_plan)
-            status = lib.sspmm_slots_bf16(
-                fwd_plan.indptr.data_ptr(), fwd_plan.indices.data_ptr(),
-                fwd_plan.chunk_row0.data_ptr(), perm.data_ptr(),
-                m.data_ptr(), ch.data_ptr(), slots.data_ptr(),
-                fwd_plan.num_rows, fwd_plan.num_chunks, n_edges,
-                fwd_plan.chunk, fwd_plan.warp_chunks, dim, k,
-                VARIANTS_SAMPLED[variant], stream)
-            _build.check(status, "sspmm_slots_bf16")
+            head = (fwd_plan.indptr.data_ptr(), fwd_plan.indices.data_ptr(),
+                    fwd_plan.chunk_row0.data_ptr(), perm.data_ptr(),
+                    m.data_ptr(), ch.data_ptr())
+            tail = (fwd_plan.num_rows, fwd_plan.num_chunks, n_edges,
+                    fwd_plan.chunk, fwd_plan.warp_chunks, dim, k)
+            if f32:
+                status = lib.sspmm_slots_f32(*head, slots.data_ptr(), *tail,
+                                             stream)
+                _build.check(status, "sspmm_slots_f32")
+            else:
+                status = lib.sspmm_slots_bf16(
+                    *head, slots.data_ptr(), *tail, VARIANTS_SAMPLED[variant],
+                    stream)
+                _build.check(status, "sspmm_slots_bf16")
             if passes == (1,):
                 return slots
         outs = _sampled_outputs(plan, dim, 4 * -(-k // 4), dev, out16)
         if plan.num_rows:
-            status = lib.stream_sspmm_bf16(
-                plan.indptr.data_ptr(), plan.indices.data_ptr(),
-                plan.chunk_row0.data_ptr(), plan.carry_rows.data_ptr(),
-                slots.data_ptr(), None, None, ch.data_ptr(), _ptr(post),
-                None, *(t.data_ptr() for t in outs), plan.num_rows,
-                plan.num_chunks, plan.carry_rows.numel(), n_edges,
-                plan.chunk, plan.warp_chunks, dim, k, int(out16), 0,
-                stream)
+            head = (plan.indptr.data_ptr(), plan.indices.data_ptr(),
+                    plan.chunk_row0.data_ptr(), plan.carry_rows.data_ptr(),
+                    slots.data_ptr())
+            sizes = (plan.num_rows, plan.num_chunks, plan.carry_rows.numel(),
+                     n_edges, plan.chunk, plan.warp_chunks, dim, k)
+            if f32:
+                status = lib.stream_sspmm_f32(
+                    *head, ch.data_ptr(), _ptr(pre), _ptr(post),
+                    *(t.data_ptr() for t in outs), *sizes, stream)
+            else:
+                status = lib.stream_sspmm_bf16(
+                    *head, None, None, ch.data_ptr(), _ptr(post), None,
+                    *(t.data_ptr() for t in outs), *sizes, int(out16), 0,
+                    stream)
             _build.check(status, name)
             _build.launches[name] += 1
     return outs[0]

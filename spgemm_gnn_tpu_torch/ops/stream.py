@@ -22,8 +22,8 @@ product with the input given as one CBSR record per node (values and packed
 channel ids, `ops/maxk.py::cbsr_records`).
 
 `stream_sspmm_plain` is the plain version of the `stream_sspmm` kernels
-(the sampled backward on Aᵀ): `stream_spmm_plain` on the plan, each row
-masked to its k channels.
+(the sampled backward on Aᵀ, bf16 or f32 messages): `stream_spmm_plain` on
+the plan, each row masked to its k channels.
 
 All take the 16-bit stream's input as the bf16 kernels do: bf16 rows, or
 records with bf16 values, widened exactly to f32 before the f32 sums. With
@@ -115,12 +115,13 @@ def stream_cbsr_spmm_plain(plan, records: torch.Tensor, k: int, dim: int,
 
 def stream_sspmm_plain(plan, m: torch.Tensor, ch: torch.Tensor,
                        post: torch.Tensor | None = None,
-                       out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                       out_dtype: torch.dtype | None = None,
+                       pre: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of the `stream_sspmm` kernels (kernels/stream.py):
-    `stream_spmm_plain(plan, m, None, post, out_dtype)` with each row v
+    `stream_spmm_plain(plan, m, pre, post, out_dtype)` with each row v
     kept at its channels ch[v] (uint8 [plan.num_rows, k]) and 0
-    elsewhere."""
-    y = stream_spmm_plain(plan, m, None, post, out_dtype)
+    elsewhere (pre: f32 messages only, as the wrapper checks)."""
+    y = stream_spmm_plain(plan, m, pre, post, out_dtype)
     keep = torch.zeros(y.shape, dtype=torch.bool, device=y.device)
     keep.scatter_(1, ch.long(), True)
     return torch.where(keep, y, torch.zeros((), dtype=y.dtype,

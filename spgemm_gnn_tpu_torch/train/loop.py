@@ -276,8 +276,10 @@ class Trainer:
         # reference's kernel (csr_spmm, or stream_spmm at low degree), for
         # the gathered rows' size; the plain ops read the raw graph
         self.g = (g if cfg.impl == "torch"
-                  else planned.plan_graph(g, dim=cfg.hidden_dim,
-                                          dtype=dtype, cache_dir=cache))
+                  else planned.plan_graph(
+                      g, dim=cfg.hidden_dim, dtype=dtype,
+                      k=cfg.maxk if cfg.nonlinear == "maxk" else None,
+                      cache_dir=cache))
         if self._device_inputs:
             self.logger.info("device_inputs: features and labels drawn on "
                              "the device (no host feature transfer)")

@@ -21,8 +21,8 @@ kernel: stream_cbsr_spmm on a stream plan, csr_cbsr_spmm on a windowed one
 for bf16 records, under `--stream bf16x2` or `--dtype bfloat16`), "on"
 (True; the flag alone) or "off" (False: the dense forward);
 `--sampled_backward` sets `kernels.planned.SAMPLED_BACKWARD` the same way
-("auto": its rule, which gives MaxK's backward with bf16 messages its
-sampled form, `stream_sspmm` on a stream plan and `csr_sspmm` on a
+("auto": its rule, which gives MaxK's backward its sampled form, on f32
+or bf16 messages, `stream_sspmm` on a stream plan and `csr_sspmm` on a
 windowed one; "off": the dense backward, `stream_spmm` or `csr_spmm`);
 `--stream bf16x2` runs the 16-bit feature stream (the Trainer's
 `--stream`: round_rows and the bf16 forms of the kernels);

@@ -13,8 +13,8 @@ plain versions against JAX `spgemm_forward` and `sspmm_backward` with
 `stream_dtype=float32` (Pallas kernels in interpret mode);
 `planned_aggregate` in f32 with k and MaxK's ids on a windowed plan
 against JAX `planned_aggregate`, forward and gradient; the Trainer with
-each flag on and off, losses bit-equal; a stream plan in f32 keeps the
-dense backward. GPU (marker `gpu`, skipped without a card, no JAX): both
+each flag on and off, losses bit-equal; a stream plan in f32 takes
+`stream_sspmm` on f32 messages. GPU (marker `gpu`, skipped without a card, no JAX): both
 kernels bit for bit the dense `csr_spmm` at nb None/1/3 with and without
 pre, their launch counts, and the wrappers' raises.
 
@@ -417,9 +417,9 @@ def test_f32_planned_aggregate_matches_jax(kind, norm, monkeypatch):
     windowed plan the forward takes csr_cbsr_spmm and the backward
     csr_sspmm (dx 0 at the other channels, which MaxK's backward zeroes);
     on a stream plan the forward takes stream_cbsr_spmm and the backward
-    stays dense (stream_spmm on Aᵀ: no f32 sampled kernel there), and
-    `wants_channel_ids` says so. Each forward equals its flag-off forward
-    bit for bit (windowed) or by value (stream)."""
+    stream_sspmm on the f32 cotangent (dx 0 at the other channels too),
+    and `wants_channel_ids` says so on both. Each forward equals its
+    flag-off forward bit for bit (windowed) or by value (stream)."""
     import importlib
 
     import jax
@@ -441,17 +441,16 @@ def test_f32_planned_aggregate_matches_jax(kind, norm, monkeypatch):
 
     tpg = tplanned.plan_graph(tg, kind=kind, dim=dim, chunk=16)
     xt = x.clone().requires_grad_(True)
-    assert tplanned.wants_channel_ids(tpg, k, xt) == (kind == "windowed")
+    assert tplanned.wants_channel_ids(tpg, k, xt)
     calls = _spy(monkeypatch, "csr_cbsr_spmm", "csr_sspmm", "csr_spmm",
                  "stream_cbsr_spmm", "stream_sspmm", "stream_spmm")
     y = tapi.aggregate(tpg, xt, norm=norm, k=k, ids=ids)
     y.backward(ct)
     if kind == "windowed":
         assert calls == ["csr_cbsr_spmm", "csr_sspmm"]
-        np.testing.assert_array_equal(bits(xt.grad),
-                                      bits(kept(xt.grad, ids)))
     else:
-        assert calls == ["stream_cbsr_spmm", "stream_spmm"]
+        assert calls == ["stream_cbsr_spmm", "stream_sspmm"]
+    np.testing.assert_array_equal(bits(xt.grad), bits(kept(xt.grad, ids)))
     near(y.detach().numpy(), np.asarray(y_j))
     near(kept(xt.grad, ids).numpy(),
          kept(torch.tensor(dx_j), ids).numpy())

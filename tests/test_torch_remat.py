@@ -100,8 +100,8 @@ def test_remat_bit_equal_every_family(model, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_remat_bit_equal_on_a_stream_plan(dtype, monkeypatch):
-    """SAGE on a stream plan with the CBSR forward forced (and, at bf16,
-    the sampled backward's transpose positions): bit-equal."""
+    """SAGE on a stream plan with the CBSR forward forced (and the sampled
+    backward on its transpose positions, f32 and bf16): bit-equal."""
     monkeypatch.setattr(planned, "STREAM_CBSR_FORWARD", True)
     g = _graph("stream")
     _assert_bit_equal(_train_twice("sage", True, g, dtype),

@@ -339,10 +339,10 @@ def test_sampled_plain_matches_jax_aggregate_bwd_bf16(norm):
 def test_sampled_backward_rule(monkeypatch):
     """SAMPLED_BACKWARD's rule, both sides: a stream or a windowed plan
     with bf16 messages (bf16 activations, or the bf16x2 stream) and MaxK's
-    k < dim <= 256 takes the sampled form under None and True; the f32
-    stream on f32 activations does on a windowed plan only (`csr_sspmm`
-    on f32 messages; a stream plan has no f32 sampled kernel); no ids or k
-    = dim never do; False never does; dim 384 only under True. `wants_channel_ids` asks MaxK for its
+    k < dim <= 256 takes the sampled form under None and True; so does the
+    f32 stream on f32 activations, on either plan kind (`stream_sspmm` and
+    `csr_sspmm` on f32 messages); no ids or k = dim never do; False never
+    does; dim 384 only under True. `wants_channel_ids` asks MaxK for its
     ids only where the rule holds and a backward runs."""
     g = tsyn.random_graph(100, 800, seed=3, symmetric=False)
     stream = tplanned.plan_graph(g, kind="stream")
@@ -362,12 +362,18 @@ def test_sampled_backward_rule(monkeypatch):
                 assert rule(stream.bwd_plan, 256, 256, dt) is False
                 assert rule(stream.bwd_plan, 32, 384, dt) is (flag is True)
         monkeypatch.setattr(tplanned, "DEFAULT_STREAM", "f32")
-        assert rule(stream.bwd_plan, 32, 256, torch.float32) is False
+        assert rule(stream.bwd_plan, 32, 256, torch.float32) is on
         assert rule(windowed.bwd_plan, 32, 256, torch.float32) is on
+        assert rule(stream.bwd_plan, None, 256, torch.float32) is False
+        assert rule(stream.bwd_plan, 256, 256, torch.float32) is False
+        assert rule(stream.bwd_plan, 32, 384, torch.float32) is (
+            flag is True)
     monkeypatch.setattr(tplanned, "SAMPLED_BACKWARD", None)
     x = torch.zeros((100, 256), dtype=BF16, requires_grad=True)
     assert tplanned.wants_channel_ids(stream, 32, x)
     assert tplanned.wants_channel_ids(windowed, 32, x)
+    assert tplanned.wants_channel_ids(stream, 32, x.detach().float()
+                                      .requires_grad_(True))
     assert not tplanned.wants_channel_ids(g, 32, x)
     assert not tplanned.wants_channel_ids(stream, 32, x.detach())
     with torch.no_grad():
@@ -380,7 +386,7 @@ def test_sampled_wrapper_checks_its_inputs():
     m = torch.zeros((50, 32), dtype=BF16)
     ch = torch.zeros((50, 8), dtype=torch.uint8)
     with pytest.raises(ValueError, match="bf16 messages"):
-        tstream.stream_sspmm(pg.bwd_plan, pg.fwd_plan, m.float(), ch)
+        tstream.stream_sspmm(pg.bwd_plan, pg.fwd_plan, m.double(), ch)
     with pytest.raises(ValueError, match="uint8"):
         tstream.stream_sspmm(pg.bwd_plan, pg.fwd_plan, m, ch.int())
     with pytest.raises(ValueError, match="k < 32"):
