@@ -1,0 +1,8 @@
+"""fwd_ms (whole step): device ms an epoch of the `step.forward` spans
+(`Trainer.train_step`: the model forward and the loss) in the traced call,
+between each span's stream events."""
+from benchmark.program_spans import device_ms_per_epoch
+
+
+def read(ctx):
+    return device_ms_per_epoch(ctx, "step.forward")

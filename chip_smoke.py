@@ -145,7 +145,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
      ranks' first f32 loss within 1e-5 relative of its, the steady epochs
      beside each other and one device's. NCCL is not run (one GPU);
  5b. timing and benches, on the Reddit graph: the aggregation share of a
-     train step (utils/timing.py: step_s, aggregation_s, aggregation_pct)
+     train step inside the step's spans (utils/spans.py; step_s,
+     aggregation_s, aggregation_pct over a recorded 4-epoch run)
      at f32 and `--dtype bfloat16`; 5 epochs of the f32 and of the
      bfloat16 recipe with `--steps_per_call 4` and evaluations every 5
      epochs (a CUDA graph of the step, replayed 4 times, holding the MaxK
@@ -3597,7 +3598,8 @@ def batched_steps(torch, ds, cfg, card: str) -> None:
 
 def bench_phase(torch, cfg, ds) -> None:
     """Timing and the benches on the Reddit recipe's graph (phase 5b): the
-    aggregation share of a step (utils/timing.py) at f32 and bfloat16; the
+    aggregation share of a step, from the spans of a recorded 4-epoch run
+    (`train/__main__.py::timing_stats`), at f32 and bfloat16; the
     f32 and the bfloat16 recipe for 5 epochs with steps_per_call 4 (a CUDA
     graph of the step, `batched_steps`), its losses and final weights
     bit-equal to steps_per_call 1 and its executed launches equal
@@ -3611,21 +3613,29 @@ def bench_phase(torch, cfg, ds) -> None:
     from spgemm_gnn_tpu_torch.kernels.api import aggregate
     from spgemm_gnn_tpu_torch.ops.ell import ell_graph
     from spgemm_gnn_tpu_torch.ops.spmm import spmm
+    from spgemm_gnn_tpu_torch.train.__main__ import timing_stats
     from spgemm_gnn_tpu_torch.train.loop import Trainer
-    from spgemm_gnn_tpu_torch.utils.timing import measure_aggregation_fraction
+    from spgemm_gnn_tpu_torch.utils import spans
 
     t_phase = time.perf_counter()
     dev = ds.graph.device
     card = harness.card(dev)
     for dtype in ("float32", "bfloat16"):
+        spans.reset()
         tr = Trainer(cfg.replace(dtype=dtype), dataset=ds)
-        stats = measure_aggregation_fraction(tr)
+        with spans.recording():
+            tr.run(epochs=4)
+        timing = timing_stats(spans.record())
+        stats = timing["aggregation_stats"]
         if not (stats["step_s"] > 0 and stats["aggregation_s"] > 0
                 and 0 < stats["aggregation_pct"] <= 100):
             raise AssertionError(f"timing reddit {dtype}: {stats}")
         log(f"timing reddit {dtype}: step_s {stats['step_s']}, "
             f"aggregation_s {stats['aggregation_s']}, aggregation_pct "
-            f"{stats['aggregation_pct']} ({card})")
+            f"{stats['aggregation_pct']}; device ms an epoch "
+            + ", ".join(f"{n} {p['device_ms']}"
+                        for n, p in timing["phases"].items())
+            + f"; host syncs {timing['host_syncs']} ({card})")
         del tr
         torch.cuda.empty_cache()
 

@@ -22,6 +22,8 @@ from pathlib import Path
 
 import torch
 
+from spgemm_gnn_tpu_torch.utils import spans
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -100,9 +102,15 @@ def _target(name: str) -> Path:
 
 def build_all() -> dict[str, ctypes.CDLL]:
     """Compile the sources not built yet (in parallel) and load every
-    library. Raises RuntimeError with the compiler's output on failure."""
+    library, inside the set-up span `setup.kernels`. Raises RuntimeError
+    with the compiler's output on failure."""
     if len(_libs) == len(SIGNATURES):
         return _libs
+    with spans.setup("setup.kernels"):
+        return _load_all()
+
+
+def _load_all() -> dict[str, ctypes.CDLL]:
     targets = {name: _target(name) for name in SIGNATURES}
     todo = {n: t for n, t in targets.items() if not t.exists()}
     if todo:

@@ -29,6 +29,7 @@ from spgemm_gnn_tpu_torch.ops.norms import node_factors
 from spgemm_gnn_tpu_torch.parallel.planned_sharded import (
     ShardedPlannedGraph, sharded_planned_aggregate)
 from spgemm_gnn_tpu_torch.parallel.sharded import ShardedGraph, sharded_spmm
+from spgemm_gnn_tpu_torch.utils import spans
 
 IMPLS = ("auto", "torch", "cuda")
 AGGREGATE_IMPLS = (*IMPLS, "ell")
@@ -125,7 +126,15 @@ def aggregate(g, x: torch.Tensor, norm: str = "sum", k: int | None = None,
     through its shards' kernel pairs and the halo exchange
     (`sharded_planned_aggregate`, impl "cuda" or "auto"; the kernels on
     CUDA tensors, their plain versions on CPU ones); any other impl raises.
+    Its span is `aggregate`; the backward of each autograd Function it
+    reaches, `aggregate.backward` (utils/spans.py).
     """
+    with spans.span("aggregate"):
+        return _aggregate(g, x, norm, k, impl, ids)
+
+
+def _aggregate(g, x: torch.Tensor, norm: str, k: int | None, impl: str,
+               ids: torch.Tensor | None) -> torch.Tensor:
     if isinstance(g, (ShardedGraph, ShardedPlannedGraph)):
         _check_impl(impl, x)
         if isinstance(g, ShardedGraph):
@@ -165,7 +174,8 @@ class SpGEMM(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         channels, src_f, dst_f = ctx.saved_tensors
-        dv = ctx.ops.sspmm_backward(g, channels, src_f, dst_f, ctx.plans)
+        with spans.span("aggregate.backward"):
+            dv = ctx.ops.sspmm_backward(g, channels, src_f, dst_f, ctx.plans)
         return dv.to(ctx.v_dtype), None, None, None, None, None, None
 
 

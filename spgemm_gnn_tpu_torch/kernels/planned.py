@@ -71,6 +71,7 @@ from spgemm_gnn_tpu_torch.models.remat import saved_output
 from spgemm_gnn_tpu_torch.ops.maxk import cbsr_records
 from spgemm_gnn_tpu_torch.ops.norms import node_factors
 from spgemm_gnn_tpu_torch.ops.spmm import _scale
+from spgemm_gnn_tpu_torch.utils import spans
 
 # below this predicted chunk fill of the TPU's windowed plan the reference
 # switches to the stream plan (the JAX package's cutover and source block)
@@ -461,15 +462,16 @@ class Aggregate(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        pre, post, ids = ctx.saved_tensors
-        fwd_plan, bwd_plan = ctx.plans
-        g = g.contiguous()
-        k = None if ids is None else ids.shape[1]
-        if sampled_backward(bwd_plan, k, g.shape[1], g.dtype):
-            dx = plan_sspmm(bwd_plan, fwd_plan, g, ids, post, pre)
-        else:
-            dx = plan_spmm(bwd_plan, g, post, pre)
-        return dx.to(ctx.x_dtype), None, None, None, None, None, None
+        with spans.span("aggregate.backward"):
+            pre, post, ids = ctx.saved_tensors
+            fwd_plan, bwd_plan = ctx.plans
+            g = g.contiguous()
+            k = None if ids is None else ids.shape[1]
+            if sampled_backward(bwd_plan, k, g.shape[1], g.dtype):
+                dx = plan_sspmm(bwd_plan, fwd_plan, g, ids, post, pre)
+            else:
+                dx = plan_spmm(bwd_plan, g, post, pre)
+            return dx.to(ctx.x_dtype), None, None, None, None, None, None
 
 
 def planned_aggregate(g, x: torch.Tensor, norm: str = "sum",

@@ -34,6 +34,7 @@ from spgemm_gnn_tpu_torch.graphs.csr import Graph
 from spgemm_gnn_tpu_torch.ops.maxk import cbsr_to_dense
 from spgemm_gnn_tpu_torch.ops.norms import node_factors
 from spgemm_gnn_tpu_torch.ops.spmm import _MSG_BYTES_CAP, _scale
+from spgemm_gnn_tpu_torch.utils import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,7 +153,8 @@ class _ELLAggregate(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         src_f, dst_f = ctx.saved_tensors
-        dx = _scale(ell_spmm_raw(ctx.eg.bwd, _scale(g, dst_f)), src_f)
+        with spans.span("aggregate.backward"):
+            dx = _scale(ell_spmm_raw(ctx.eg.bwd, _scale(g, dst_f)), src_f)
         return dx, None, None, None
 
 

@@ -32,6 +32,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from spgemm_gnn_tpu_torch.utils import spans
 from spgemm_gnn_tpu_torch.utils.device import resolve_device
 
 
@@ -95,6 +96,7 @@ class RankMesh:
     # -- staging ---------------------------------------------------------------
 
     def _sync(self) -> None:
+        spans.count("host_syncs")
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 

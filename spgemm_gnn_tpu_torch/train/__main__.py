@@ -18,7 +18,8 @@ Examples:
   python -m spgemm_gnn_tpu_torch.train --dataset flickr --synthetic \
       --evaluate /tmp/run/checkpoints/best --path /tmp/run
   # 4 train epochs a group (a CUDA graph of the step on the GPU), a trace
-  # of 3 steps in /tmp/trace, the aggregation share, TensorBoard scalars
+  # of 3 steps in /tmp/trace (the program's spans among its annotations),
+  # the run's time by phase and its aggregation share, TensorBoard scalars
   python -m spgemm_gnn_tpu_torch.train --dataset flickr --synthetic \
       --epochs 20 --eval_every 5 --steps_per_call 4 --profile /tmp/trace \
       --timing --tensorboard --path /tmp/run
@@ -35,8 +36,66 @@ and the TensorBoard scalars.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+
+from spgemm_gnn_tpu_torch.utils import spans
+
+# the spans of a train step and their share of it, for --timing
+STEP_PHASES = ("step.forward", "step.backward", "step.optimizer",
+               "step.replay")
+PHASES = (*STEP_PHASES, "eval", "fetch", "aggregate", "aggregate.backward")
+AGGREGATION = ("aggregate", "aggregate.backward")
+
+
+def timing_stats(record: list) -> dict:
+    """The time of a run by phase, from the spans of a `Trainer.run`
+    recorded whole (`utils/spans.py::recording`), over its steps after the
+    Trainer's first (`setup.first_step`, which builds kernels and plans):
+
+      phases: {span: {device_ms, host_ms}} an epoch (device_ms None where
+        the spans placed no events: on the CPU, or inside a CUDA graph);
+      setup_s: {set-up span: its self seconds, less the set-up spans
+        inside it (the first step's phases are recorded too)};
+      host_syncs: the run's waits on the device;
+      aggregation_stats: step_s (forward, backward and optimizer an
+        epoch), aggregation_s (`aggregate` and `aggregate.backward` inside
+        them) and aggregation_pct, on the device's clock where the spans
+        have it, else the host's.
+    """
+    first = {s.id for s in spans.under(record, "setup.first_step")}
+    run = [s for s in spans.under(record, "trainer.run")
+           if s.id not in first]
+    epochs = max(sum(s.name == "step.optimizer" for s in run), 1)
+    on_device = any(s.device_ms is not None for s in run)
+
+    def ms(names, within) -> float:
+        """ms an epoch of the spans of `names` in `within`, on the
+        device's clock where the spans have it."""
+        got = [spans.device_ms(n, within) if on_device
+               else spans.host_s(n, spans=within) for n in names]
+        scale = 1.0 if on_device else 1e3
+        return sum(g * scale for g in got if g is not None) / epochs
+
+    phases = {}
+    for name in PHASES:
+        host = spans.host_s(name, spans=run)
+        if host is not None:
+            dev = spans.device_ms(name, run)
+            phases[name] = {"device_ms": None if dev is None else dev / epochs,
+                            "host_ms": host * 1e3 / epochs}
+    step_ms = ms(STEP_PHASES, run)
+    agg_ms = ms(AGGREGATION, spans.under(run, *STEP_PHASES))
+    setup = [s for s in record if s.name.startswith("setup.")]
+    return {
+        "phases": phases,
+        "setup_s": {n: spans.host_s(n, own=True, spans=setup)
+                    for n in sorted({s.name for s in setup})},
+        "host_syncs": spans.counters["host_syncs"],
+        "aggregation_stats": {
+            "step_s": step_ms / 1e3, "aggregation_s": agg_ms / 1e3,
+            "aggregation_pct": 100.0 * agg_ms / step_ms if step_ms else 0.0}}
 
 
 def _tensorboard(config, logger):
@@ -84,6 +143,9 @@ def main(argv=None) -> dict:
 
     config = from_args(argv)
     check_supported(config)
+    if config.timing:
+        # the record holds this run's spans alone, its set-up's included
+        spans.reset()
     rank, summary = 0, None
     if config.multihost or config.coordinator:
         # before the Trainer: its mesh is one shard a rank
@@ -120,8 +182,8 @@ def main(argv=None) -> dict:
 
 
 def _train(config, trainer, logger, writer) -> dict:
-    """The training run of `main`, its optional profile before it and
-    timing probe after it; results.json under config.path."""
+    """The training run of `main`, its optional profile before it, its
+    spans recorded with --timing; results.json under config.path."""
     def on_epoch(rec):
         if writer is not None:
             writer.add_scalar("train/loss", rec.loss, rec.epoch)
@@ -131,27 +193,38 @@ def _train(config, trainer, logger, writer) -> dict:
 
     if config.profile:
         _profile(trainer, config.profile, logger)
-    results = trainer.run(on_epoch=on_epoch)
+    with (spans.recording() if config.timing
+          else contextlib.nullcontext()):
+        results = trainer.run(on_epoch=on_epoch)
     logger.info("Best val accuracy: %.4f (epoch %d)",
                 results["best_val_accuracy"], results["best_epoch"])
     logger.info("Best test accuracy: %.4f", results["best_test_accuracy"])
     logger.info("Total training time: %.1fs", results["wall_time_s"])
     if config.timing:
-        # the aggregation share of a train step (the reference's Amdahl
-        # stat); a failing probe fails the run
-        from spgemm_gnn_tpu_torch.utils.timing import (
-            measure_aggregation_fraction)
-        stats = measure_aggregation_fraction(trainer)
+        # the run's phases and the aggregation share of its steps (the
+        # reference's Amdahl stat), from the spans inside them
+        timing = timing_stats(spans.record())
+        for name, p in timing["phases"].items():
+            dev = ("-" if p["device_ms"] is None
+                   else f"{p['device_ms']:.3f}")
+            logger.info("Phase %s: device %s ms, host %.3f ms an epoch",
+                        name, dev, p["host_ms"])
+        for name, sec in timing["setup_s"].items():
+            logger.info("Set-up %s: %.3f s (self)", name, sec)
+        logger.info("Host syncs: %d", timing["host_syncs"])
+        stats = timing.pop("aggregation_stats")
         logger.info("Train step time: %.4fs", stats["step_s"])
         logger.info("Forward+backward aggregation time: %.4fs",
                     stats["aggregation_s"])
         logger.info("Aggregation percentage: %.2f%%",
                     stats["aggregation_pct"])
+        results["timing"] = timing
         results["aggregation_stats"] = stats
     summary = {k: results[k] for k in
                ("best_val_accuracy", "best_test_accuracy", "best_epoch",
                 "wall_time_s", "steady_epoch_s")}
-    if "aggregation_stats" in results:
+    if config.timing:
+        summary["timing"] = results["timing"]
         summary["aggregation_stats"] = results["aggregation_stats"]
     if results["collectives"]:
         logger.info("Collectives: %s", results["collectives"])

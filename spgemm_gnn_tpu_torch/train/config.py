@@ -162,11 +162,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tensorboard", action="store_true",
                    help="scalars per logged epoch under <path>/tb")
     p.add_argument("--timing", action="store_true",
-                   help="after training, the aggregation share of a step "
-                        "(utils/timing.py) into the log and results.json")
+                   help="record the run's spans (utils/spans.py): its "
+                        "time by phase, its set-up and the aggregation "
+                        "share of its steps into the log and results.json")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="before training, a torch.profiler Chrome trace of "
-                        "3 steps on a separate state, written into DIR")
+                        "3 steps on a separate state, with the program's "
+                        "spans (utils/spans.py), written into DIR")
     p.add_argument("--cache-strategy", dest="cache_strategy", default="none",
                    choices=["none", "direct", "static-outd", "fifo", "lru"])
     p.add_argument("--cache-size-ratio", dest="cache_size_ratio", type=float,

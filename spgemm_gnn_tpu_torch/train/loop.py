@@ -122,6 +122,7 @@ from spgemm_gnn_tpu_torch.train.losses import loss_fn
 from spgemm_gnn_tpu_torch.train.metrics import (f1_counts, f1_of_counts,
                                                 micro_f1, rocauc_tensor)
 from spgemm_gnn_tpu_torch.train.optim import build_optimizer
+from spgemm_gnn_tpu_torch.utils import spans
 from spgemm_gnn_tpu_torch.utils.device import resolve_device
 from spgemm_gnn_tpu_torch.utils.logging import get_logger, param_size
 
@@ -184,9 +185,12 @@ class GraphedStep:
     def step(self) -> torch.Tensor:
         """Replay the graph, then step the optimizer; returns the loss
         before the update (the graph's static buffer)."""
-        self.graph.replay()
+        step = self.state["step"]
+        with spans.span("step.replay", step):
+            self.graph.replay()
         self.replays += 1
-        self.state["optimizer"].step()
+        with spans.span("step.optimizer", step):
+            self.state["optimizer"].step()
         self.state["step"] += 1
         return self.loss
 
@@ -233,11 +237,15 @@ class Trainer:
         # under a mesh, the unsharded device graph that `predict` serves
         # from, moved at its first call
         self._serve_graph = None
-        if config.mesh_shape > 1 or world()[1] > 1:
-            self._init_mesh(dataset, dtype, cache)
-        else:
-            self._init_single(dataset, dataset.graph.to(self.device), dtype,
-                              cache)
+        # the first train_step is set-up too (kernels and plans built at
+        # first use): its span is `setup.first_step`
+        self._stepped = False
+        with spans.setup("setup.graph"):
+            if config.mesh_shape > 1 or world()[1] > 1:
+                self._init_mesh(dataset, dtype, cache)
+            else:
+                self._init_single(dataset, dataset.graph.to(self.device),
+                                  dtype, cache)
         self._loss = loss_fn(dataset.multilabel)
         self._metric = (rocauc_tensor if dataset.name == "ogbn-proteins"
                         else micro_f1)
@@ -368,24 +376,25 @@ class Trainer:
                    ) -> dict[str, Any]:
         """A fresh model and optimizer: weights drawn from `seed` (default
         config.seed), or loaded from the state_dict `weights`."""
-        cfg = self.config
-        seed = cfg.seed if seed is None else seed
-        model = build_model(
-            cfg.model, in_dim=self.features.shape[1],
-            hidden_dim=cfg.hidden_dim, num_layers=cfg.hidden_layers,
-            out_dim=self.dataset.num_classes, maxk=cfg.maxk,
-            feat_drop=cfg.dropout, use_norm=cfg.norm,
-            nonlinear=cfg.nonlinear, impl=cfg.impl, remat=cfg.remat,
-            dtype=cfg.dtype)
-        model.reset_parameters(torch.Generator().manual_seed(seed))
-        if weights is not None:
-            model.load_state_dict(weights)
-        model.to(self.device)
-        if self.on_ranks:
-            self._broadcast(model)
-        opt = build_optimizer(model.parameters(), cfg.w_lr,
-                              cfg.w_weight_decay, cfg.enable_lookahead)
-        return {"model": model, "optimizer": opt, "step": 0}
+        with spans.setup("setup.state"):
+            cfg = self.config
+            seed = cfg.seed if seed is None else seed
+            model = build_model(
+                cfg.model, in_dim=self.features.shape[1],
+                hidden_dim=cfg.hidden_dim, num_layers=cfg.hidden_layers,
+                out_dim=self.dataset.num_classes, maxk=cfg.maxk,
+                feat_drop=cfg.dropout, use_norm=cfg.norm,
+                nonlinear=cfg.nonlinear, impl=cfg.impl, remat=cfg.remat,
+                dtype=cfg.dtype)
+            model.reset_parameters(torch.Generator().manual_seed(seed))
+            if weights is not None:
+                model.load_state_dict(weights)
+            model.to(self.device)
+            if self.on_ranks:
+                self._broadcast(model)
+            opt = build_optimizer(model.parameters(), cfg.w_lr,
+                                  cfg.w_weight_decay, cfg.enable_lookahead)
+            return {"model": model, "optimizer": opt, "step": 0}
 
     @torch.no_grad()
     def _broadcast(self, model: torch.nn.Module) -> None:
@@ -420,17 +429,32 @@ class Trainer:
                    generator: torch.Generator | None) -> torch.Tensor:
         """One full-graph step; returns the loss before the update (a 0-d
         device tensor). Across ranks the gradients and the loss are summed
-        over the ranks before the update."""
+        over the ranks before the update. Spans: `step.forward` (forward
+        and loss), `step.backward` (across ranks the all-reduce too),
+        `step.optimizer`; the Trainer's first step is `setup.first_step`
+        besides."""
+        if self._stepped:
+            return self._train_step(state, generator)
+        self._stepped = True
+        with spans.setup("setup.first_step"):
+            return self._train_step(state, generator)
+
+    def _train_step(self, state: dict[str, Any],
+                    generator: torch.Generator | None) -> torch.Tensor:
         model, opt = state["model"], state["optimizer"]
-        model.train()
-        opt.zero_grad(set_to_none=True)
-        logits = model(self.g, self.features, generator)
-        loss = self._loss(logits, self.labels, self.masks[0])
-        loss.backward()
-        loss = loss.detach()
-        if self.on_ranks:
-            loss = self._all_reduce_grads(model, loss)
-        opt.step()
+        step = state["step"]
+        with spans.span("step.forward", step):
+            model.train()
+            opt.zero_grad(set_to_none=True)
+            logits = model(self.g, self.features, generator)
+            loss = self._loss(logits, self.labels, self.masks[0])
+        with spans.span("step.backward", step):
+            loss.backward()
+            loss = loss.detach()
+            if self.on_ranks:
+                loss = self._all_reduce_grads(model, loss)
+        with spans.span("step.optimizer", step):
+            opt.step()
         state["step"] += 1
         return loss
 
@@ -439,21 +463,23 @@ class Trainer:
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(train, val, test) accuracy or micro-F1 (ROC-AUC for
         ogbn-proteins), as 0-d device tensors; across ranks, of every
-        rank's rows."""
-        model = state["model"]
-        model.eval()
-        logits = model(self.g, self.features)
-        if not self.on_ranks:
-            return tuple(self._metric(logits, self.labels, m)
-                         for m in self.masks)
-        if self._metric is rocauc_tensor:
-            logits = self.mesh.all_gather(logits, kind="metric")
-            return tuple(rocauc_tensor(logits, self._all_labels, m)
-                         for m in self._all_masks)
-        counts = self.mesh.all_reduce(torch.stack(
-            [f1_counts(logits, self.labels, m) for m in self.masks]),
-            kind="metric")
-        return tuple(f1_of_counts(c) for c in counts)
+        rank's rows. Its span, `eval`, belongs to the step whose result it
+        evaluates."""
+        with spans.span("eval", state["step"] - 1):
+            model = state["model"]
+            model.eval()
+            logits = model(self.g, self.features)
+            if not self.on_ranks:
+                return tuple(self._metric(logits, self.labels, m)
+                             for m in self.masks)
+            if self._metric is rocauc_tensor:
+                logits = self.mesh.all_gather(logits, kind="metric")
+                return tuple(rocauc_tensor(logits, self._all_labels, m)
+                             for m in self._all_masks)
+            counts = self.mesh.all_reduce(torch.stack(
+                [f1_counts(logits, self.labels, m) for m in self.masks]),
+                kind="metric")
+            return tuple(f1_of_counts(c) for c in counts)
 
     # -- serving ---------------------------------------------------------------
 
@@ -495,6 +521,7 @@ class Trainer:
         return float(tr), float(va), float(te)
 
     def _sync(self) -> None:
+        spans.count("host_syncs")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -505,7 +532,14 @@ class Trainer:
             state: dict[str, Any] | None = None) -> dict[str, Any]:
         """Train for `epochs` (default config.epochs) from `state` (default
         `init_state()`), or with `resume` from the latest checkpoint under
-        config.path, to epoch `epochs`."""
+        config.path, to epoch `epochs`. Its span is `trainer.run`; the
+        metrics' trips to the host, `fetch`."""
+        with spans.span("trainer.run"):
+            return self._run(epochs, on_epoch, state)
+
+    def _run(self, epochs: int | None,
+             on_epoch: Callable[[EpochRecord], None] | None,
+             state: dict[str, Any] | None) -> dict[str, Any]:
         cfg = self.config
         epochs = cfg.epochs if epochs is None else epochs
         state = self.init_state() if state is None else state
@@ -537,7 +571,9 @@ class Trainer:
             nonlocal best_val, best_test, best_epoch, best_state
             if not pending:
                 return
-            rows = torch.stack([p[1] for p in pending]).cpu().tolist()
+            with spans.span("fetch", state["step"] - 1):
+                rows = torch.stack([p[1] for p in pending]).cpu().tolist()
+                spans.count("host_syncs")
             for (epoch, _), (loss, tr, va, te) in zip(pending, rows):
                 if va > best_val:
                     best_val, best_test, best_epoch = va, te, epoch

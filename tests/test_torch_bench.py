@@ -1,4 +1,4 @@
-"""The port's timing and benches (utils/timing.py, bench/harness.py, the two
+"""The port's benches (bench/harness.py, the two
 CLIs `python -m spgemm_gnn_tpu_torch.bench` and `.bench.kernels`), batched
 train steps (`--steps_per_call`) and the train CLI's `--timing`,
 `--profile` and `--tensorboard`, on the CPU; the JAX package's Trainer and
@@ -26,8 +26,6 @@ from spgemm_gnn_tpu_torch.train.__main__ import main as tmain
 from spgemm_gnn_tpu_torch.train.config import (TrainConfig, check_supported,
                                                from_args)
 from spgemm_gnn_tpu_torch.train.loop import Trainer, train_and_evaluate
-from spgemm_gnn_tpu_torch.utils.timing import (EpochTimer,
-                                               measure_aggregation_fraction)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(dataset="flickr", model="sage", epochs=4, hidden_dim=16,
@@ -181,30 +179,6 @@ def test_card_on_the_cpu():
 
 
 # ---------------------------------------------------------------------------
-# utils/timing.py
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("over", [
-    {}, {"dtype": "bfloat16"}, {"nonlinear": "relu"},
-    {"stream": "bf16x2"}, {"impl": "torch"}])
-def test_measure_aggregation_fraction(over):
-    tr = Trainer(TrainConfig(**{**TINY, **over}))
-    stats = measure_aggregation_fraction(tr, iters=2)
-    assert set(stats) == {"step_s", "aggregation_s", "aggregation_pct"}
-    assert stats["step_s"] > 0 and stats["aggregation_s"] > 0
-    assert 0 < stats["aggregation_pct"] <= 100.0
-
-
-def test_epoch_timer():
-    t = EpochTimer()
-    assert t.mean == 0.0
-    for _ in range(3):
-        with t:
-            pass
-    assert t.count == 3 and t.mean >= 0.0 and t.total >= 0.0
-
-
-# ---------------------------------------------------------------------------
 # batched steps (--steps_per_call)
 # ---------------------------------------------------------------------------
 
@@ -302,12 +276,17 @@ def test_as_markdown():
 
 
 def test_cli_timing(tmp_path):
+    """--timing: the run's phases from its spans, and the aggregation
+    share of its steps measured inside them (on the CPU, host time)."""
     res = tmain(CLI + ["--epochs", "2", "--timing", "--path",
                        str(tmp_path)])
     stats = res["aggregation_stats"]
     assert set(stats) == {"step_s", "aggregation_s", "aggregation_pct"}
+    assert stats["step_s"] > 0 and stats["aggregation_s"] > 0
+    assert 0 < stats["aggregation_pct"] <= 100.0
     summary = json.loads((tmp_path / "results.json").read_text())
     assert summary["aggregation_stats"] == stats
+    assert summary["timing"] == res["timing"]
     assert "Aggregation percentage" in (tmp_path / "flickr.log").read_text()
 
 
@@ -438,7 +417,7 @@ def test_corpus_names():
 
 def test_new_modules_import_no_jax():
     modules = ("bench", "bench.harness", "bench.kernels", "bench.__main__",
-               "ops.ell", "utils.timing", "train.__main__",
+               "ops.ell", "utils.spans", "train.__main__",
                "graphs.synthetic")
     code = "".join(f"import spgemm_gnn_tpu_torch.{m}\n" for m in modules) + (
         "import sys\n"
