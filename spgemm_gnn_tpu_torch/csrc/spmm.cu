@@ -71,15 +71,32 @@
 // gathers in L2) at the rate L2 serves 512-byte rows, 58 GB a call: the
 // bytes an edge reads are what this kernel cuts, to one 128-byte record
 // (4.18 against 8.49 ms on the H100, PERF.md). Design (csr_cbsr_kernel):
-// csr_spmm_bf16's schedule, passes, fix-up and layers of the sum,
-// unchanged; B8-bf16's stage (csrc/stream.cu::stream_cbsr16_kernel) for the
-// records: a warp's edges' records are copied by cp.async, 16 bytes a lane
+// csr_spmm_bf16's schedule and layers of the sum, unchanged, but not its
+// passes: csr_spmm runs one pass a source block because a block's slab of
+// dense rows is what fits L2, while all of Reddit's records (29.8 MB bf16,
+// 37.3 MB f32) nearly fit it whole. So the blocks are grouped into record
+// passes of as many blocks as whose records fit half of L2
+// (graphs/tiles.py::RecordWalk: 2 passes at Reddit in bf16 and in f32,
+// against 5 and 10 block passes), and a pass is two launches: a warp per
+// piece of a split run (its sum to a scratch slot), then a warp per row,
+// which walks the row's runs in the pass's blocks in block order, each
+// run's sum (a whole run's batches, or a split run's slots in order) added
+// to the row's, and writes y once a pass; the block passes' fix-ups and
+// their reads and writes of y go. Each sum keeps its order, so y is the
+// block passes' bit for bit. On the H100 that took the bf16 form from
+// 4.21 to 4.18 ms and the f32 form from 9.22 to 8.72 (PERF.md): the block
+// passes' y traffic was mostly hidden under the scatter. A stream of
+// records across a row's runs (a lane a run, each id's run found by a
+// search over the lanes) measured 4.6-5.2 ms in bf16 and 12.1-15.1 in
+// f32, and was dropped: more registers and more work a stage. B8-bf16's
+// stage (csrc/stream.cu::stream_cbsr16_kernel) for the records: a warp's
+// edges' records are copied by cp.async, 16 bytes a lane
 // (four 128-byte records a warp copy), with an L2 evict_last policy into a
 // ring of stages in the warp's shared memory, 32 edges ahead; an edge is
 // then a shared-memory load a lane (slot j to lane j) and the scatter of
 // its nonzero value into a per-warp f32 partial row of dim floats in shared
 // memory. The partial holds one batch of 32 edges in edge order, and at
-// the batch's end each lane adds its channels of it into the segment's sum
+// the batch's end each lane adds its channels of it into the run's sum
 // in registers (BF16's layout) and zeroes them: csr_spmm_bf16's batch sum,
 // which adds every channel of every edge, only without the additions of an
 // exact zero, which leave an f32 sum unchanged (a batch sum starts at +0
@@ -92,7 +109,8 @@
 // f32: densify, then spgemm_pallas.py:97), is csr_cbsr_kernel on f32
 // records (ops/maxk.py::cbsr_records: k f32 values, then the uint8 ids
 // packed four to a word; 160 B at k 32) at csr_spmm's f32 schedule (10
-// source blocks at Reddit). The records are not prescaled: as
+// source blocks at Reddit, in 2 record passes of 6 and 4). The records are
+// not prescaled: as
 // csr_segment_kernel applies pre[u] to each f32 row by an FMA, slot j adds
 // fmaf(pre[u], v, part[c]), so y is csr_spmm's on the densified rows bit
 // for bit (for GCN's deg^-1/2 as for no pre). A record of k % 16 == 0 is a
@@ -101,10 +119,10 @@
 // MB, y 238.6 MB and the records 37.3 MB, 0.218 ms at 3.35 TB/s (the 2 E k
 // operations take 0.108 ms); the records' gather with no reuse, E * 160 B,
 // 5.41 ms, against the dense form's 1-KB rows read from L2 at 15.4 ms. On
-// the H100 it takes 9.16 ms against csr_spmm's 15.43; the records alone,
-// copied over the schedule and not scattered, 5.07 (PERF.md). Records of
-// 8-byte slots (256 B) gathered in 5.27 and 16 stages in flight in 6.14, so
-// the layout and the 8 stages stay.
+// the H100 it takes 8.72 ms (9.22 in block passes) against csr_spmm's
+// 15.49; the records alone, copied over the schedule and not scattered,
+// 5.11 (PERF.md). Records of 8-byte slots (256 B) gathered in 5.27 and 16
+// stages in flight in 6.14, so the layout and the 8 stages stay.
 //
 // csr_sspmm_bf16 (with out16 the bf16 output; counted as csr_sspmm_bf16 and
 // csr_sspmm_bf16_out) and csr_sspmm (f32 messages) are MaxK's backward on a
@@ -473,13 +491,17 @@ __device__ __forceinline__ void cp4(unsigned dst, const void* src,
 // j takes slot j, then j + 32, ...; the channels of a record are distinct,
 // so no two lanes touch one address). A slot whose value is zero adds
 // nothing: an f32 sum that starts at +0 never becomes -0, so leaving out
-// the FMA of an exact zero keeps its bits.
+// the FMA of an exact zero keeps its bits. kSharedSum: the kernel keeps an
+// entry's sum in the warp's shared memory, not in registers. On the H100
+// at Reddit's k 32 that took 160-B f32 records from 8.90 to 8.72 ms (48
+// registers, fewer spills, at the same 5 blocks an SM), and 128-B bf16
+// ones from 4.18 to 4.50 (the larger ring leaves room for 4 blocks, not 5).
 // Bf16Rec: bf16 values, one word a slot (value bits high, channel low), 32
 // KV words (KV 128-byte lines); the pre factor is already in the values.
 template <int KV>
 struct Bf16Rec {
   static constexpr int CB = 16, EPS = KV >= 4 ? 1 : 4 / KV;
-  static constexpr bool kPre = false;
+  static constexpr bool kPre = false, kSharedSum = false;
   __device__ __forceinline__ static int words(int) { return 32 * KV; }
   __device__ __forceinline__ static void add(const unsigned* sr, float* part,
                                              float, int, int lane) {
@@ -499,7 +521,7 @@ struct Bf16Rec {
 template <int CB_, int EPS_>
 struct F32Rec {
   static constexpr int CB = CB_, EPS = EPS_;
-  static constexpr bool kPre = true;
+  static constexpr bool kPre = true, kSharedSum = true;
   __device__ __forceinline__ static int words(int k) { return k + (k + 3) / 4; }
   __device__ __forceinline__ static void add(const unsigned* sr, float* part,
                                              float s, int k, int lane) {
@@ -514,16 +536,33 @@ struct F32Rec {
   }
 };
 
-// One warp per segment (row, lo, hi, out) of csr_spmm's schedule, over
-// records of type Rec. A stage is Rec::EPS records (32 / EPS lanes a
-// record, CB bytes a copy), S stages in flight (S EPS <= 32 edges). The
-// ids of a batch of 32 edges (and, with pre, their pre factors) are loaded
-// a batch ahead; stage s + S is fetched once stage s has been scattered.
-// dim4 <= 64 (dim <= 256): BF16<1>'s two float4 sums a lane hold channels
-// 8 lane ... 8 lane + 7.
+constexpr int kPiece = 4;  // graphs/tiles.py::PIECE
+
+// One warp per entry (out, run_lo, run_hi, flags) of a record pass
+// (graphs/tiles.py::RecordWalk), over records of type Rec: the runs
+// runs[run_lo:run_hi] in order. A whole run (lo, hi) is summed as a
+// segment of csr_spmm's schedule is: batches of 32 edges from lo, each
+// scattered edge by edge into the warp's f32 partial row, then added to the
+// run's sum. A split run (-1 - slot_lo, slot_hi) is the sum of its pieces'
+// scratch slots in order, as csr_fixup_kernel adds them. Each run's sum is
+// added to the entry's (from +0 on FIRST, else from what y holds of the
+// row's earlier blocks), and the entry's sum written once: to scratch slot
+// `out` for a piece (PIECE), else to y[out], times post[out] on LAST. An
+// f32 sum from +0 is never -0, so adding the first run's sum to +0 gives its
+// bits: y is the per-block passes' left fold bit for bit.
+//
+// A run's records go through a ring of S stages in the warp's shared
+// memory, Rec::EPS records a stage (32 / EPS lanes a record, CB bytes a
+// copy, S EPS <= 32 edges ahead), and the ids of a batch of 32 edges (and,
+// with pre, their pre factors) are loaded a batch ahead, as csr_spmm's
+// segments load them. dim4 <= 64 (dim <= 256): BF16<1>'s two float4 sums a
+// lane hold channels 8 lane ... 8 lane + 7. At most 48 registers, for 5
+// blocks an SM: unbounded, the walk took 64 and 4 blocks, and the f32 form
+// 9.02 ms against 8.89 (H100, Reddit, the entry's sum in registers).
 template <class Rec, int S>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-csr_cbsr_kernel(const int4* __restrict__ seg, int64_t n_seg,
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, 5)
+csr_cbsr_kernel(const int4* __restrict__ entries, int64_t n_entries,
+                const int2* __restrict__ runs,
                 const int* __restrict__ indices,
                 const unsigned* __restrict__ rec,
                 const float* __restrict__ pre,
@@ -538,132 +577,176 @@ csr_cbsr_kernel(const int4* __restrict__ seg, int64_t n_seg,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t i = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
-  if (i >= n_seg) return;  // i is uniform across the warp
-  const int4 s = seg[i];
-  const int lo = s.y, hi = s.z;
+  if (i >= n_entries) return;  // i is uniform across the warp
+  const int4 w = entries[i];
   const int rw = Rec::words(k);  // words a record
   const int sw = rw * EPS;       // words a stage
   const int rc = rw / CW;        // copies a record
-  float4* part4 = cbsr_smem + warp * (dim4 + S * sw / 4);
+  constexpr int RS = Rec::kSharedSum ? 2 : 1;  // rows: the partial, the sum
+  float4* part4 = cbsr_smem + warp * (RS * dim4 + S * sw / 4);
   float* part = reinterpret_cast<float*>(part4);
-  unsigned* ring = reinterpret_cast<unsigned*>(part4 + dim4);
+  float4* shared_sum = part4 + dim4;
+  unsigned* ring = reinterpret_cast<unsigned*>(part4 + RS * dim4);
   uint64_t keep;
   asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(keep));
 
-  // the current batch's ids (edge base + lane) and the next batch's, and
-  // their pre factors (1 without pre)
-  int cu = lo + lane < hi ? __ldcs(indices + lo + lane) : 0;
-  int nu = lo + 32 + lane < hi ? __ldcs(indices + lo + 32 + lane) : 0;
-  float cs =
-      Rec::kPre && pre != nullptr && lo + lane < hi ? __ldg(pre + cu) : 1.f;
-  // stage st (edges lo + EPS st ...) into ring slot st % S; `ids` holds the
-  // batch of its edges, its first edge at index i0 there
-  auto fetch = [&](int st, int ids, int i0) {
-    unsigned* slot = ring + (st % S) * sw;
-    const int ri = lane / LPR;  // the lane's record of the stage
-    const int u = __shfl_sync(kFull, ids, (i0 + ri) & 31);
-    if (lo + EPS * st + ri < hi) {
-      for (int q = lane % LPR; q < rc; q += LPR) {
-        const unsigned dst = smem_addr(slot + ri * rw + q * CW);
-        const unsigned* src = rec + (int64_t)u * rw + q * CW;
-        if (Rec::CB == 16)
-          cp16(dst, src, keep);
-        else
-          cp4(dst, src, keep);
-      }
+  float4* out = ((w.w & kPiece) ? scratch : y) + (int64_t)w.x * dim4;
+  // the entry's sum, float4 c = R::pos(a, lane) of it a lane's own
+  float4 sum[R::kAcc];
+  auto add_sum = [&](int a, int c, const float4& v) {
+    if constexpr (Rec::kSharedSum) {
+      float4 t = shared_sum[c];
+      add4(t, v);
+      shared_sum[c] = t;
+    } else {
+      add4(sum[a], v);
     }
-    cp_commit();
   };
-#pragma unroll
-  for (int st = 0; st < S; ++st) fetch(st, cu, EPS * st);
-
-  for (int q = lane; q < dim4; q += 32)
-    part4[q] = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 acc[R::kAcc];
-#pragma unroll
-  for (int a = 0; a < R::kAcc; ++a) acc[a] = make_float4(0.f, 0.f, 0.f, 0.f);
-  __syncwarp();
-
-  // edge i0 + e of the batch: its record's slots into the partial row
-  auto consume = [&](const unsigned* sr, int e) {
-    const float sv = Rec::kPre ? __shfl_sync(kFull, cs, e) : 1.f;
-    Rec::add(sr, part, sv, k, lane);
-    __syncwarp();
-  };
-
-  int st = 0;  // the stage at hand: edges lo + EPS st ...
-  for (int base = lo; base < hi; base += 32) {
-    const int cnt = min(32, hi - base);
-    for (int i0 = 0; i0 < cnt; i0 += EPS, ++st) {
-      cp_wait<S - 1>();  // stage st has landed (one group a stage)
-      __syncwarp();
-      const unsigned* sr = ring + (st % S) * sw;
-      if (i0 + EPS <= cnt) {
-#pragma unroll
-        for (int e = 0; e < EPS; ++e) consume(sr + e * rw, i0 + e);
-      } else {
-        for (int e = 0; e < cnt - i0; ++e) consume(sr + e * rw, i0 + e);
-      }
-      const int ahead = i0 + EPS * S;
-      fetch(st + S, ahead < 32 ? cu : nu, ahead & 31);
-    }
-    // the batch's sum joins the segment's (csr_segment_kernel's layers)
-#pragma unroll
-    for (int a = 0; a < R::kAcc; ++a) {
-      const int c = R::pos(a, lane);
-      if (c < dim4) {
-        add4(acc[a], part4[c]);
-        part4[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
-    __syncwarp();
-    cu = nu;
-    cs = Rec::kPre && pre != nullptr && base + 32 + lane < hi
-             ? __ldg(pre + cu)
-             : 1.f;
-    nu = base + 64 + lane < hi ? __ldcs(indices + base + 64 + lane) : 0;
-  }
-  if (s.w < 0) {
-    store_row<R>(acc, s.x, -1 - s.w, post, y, dim4, lane);
-    return;
-  }
-  float4* out = scratch + (int64_t)s.w * dim4;
 #pragma unroll
   for (int a = 0; a < R::kAcc; ++a) {
     const int c = R::pos(a, lane);
-    if (c < dim4) out[c] = acc[a];
+    const float4 v = (w.w & kFirst) || c >= dim4
+                         ? make_float4(0.f, 0.f, 0.f, 0.f)
+                         : out[c];
+    if constexpr (Rec::kSharedSum) {
+      if (c < dim4) shared_sum[c] = v;
+    } else {
+      sum[a] = v;
+    }
+  }
+  for (int q = lane; q < dim4; q += 32)
+    part4[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncwarp();
+
+  // run d's first two batches of ids, if it is whole
+  auto first_ids = [&](int2 d, int& a, int& b) {
+    a = d.x >= 0 && d.x + lane < d.y ? __ldcs(indices + d.x + lane) : 0;
+    b = d.x >= 0 && d.x + 32 + lane < d.y ? __ldcs(indices + d.x + 32 + lane)
+                                          : 0;
+  };
+  for (int r = w.y; r < w.z; ++r) {
+    const int2 d = runs[r];
+    int cu, nu;
+    first_ids(d, cu, nu);
+    if (d.x < 0) {  // a split run: its slots in order
+#pragma unroll
+      for (int a = 0; a < R::kAcc; ++a) {
+        const int c = R::pos(a, lane);
+        if (c < dim4) {
+          float4 v = scratch[(int64_t)(-1 - d.x) * dim4 + c];
+          for (int q = -d.x; q < d.y; ++q)
+            add4(v, scratch[(int64_t)q * dim4 + c]);
+          add_sum(a, c, v);
+        }
+      }
+    } else {
+      const int lo = d.x, hi = d.y;
+      float cs = Rec::kPre && pre != nullptr && lo + lane < hi
+                     ? __ldg(pre + cu)
+                     : 1.f;
+      // stage st (edges lo + EPS st ...) into ring slot st % S; `ids` holds
+      // the batch of its edges, its first edge at index i0 there
+      auto fetch = [&](int st, int ids, int i0) {
+        unsigned* slot = ring + (st % S) * sw;
+        const int ri = lane / LPR;  // the lane's record of the stage
+        const int u = __shfl_sync(kFull, ids, (i0 + ri) & 31);
+        if (lo + EPS * st + ri < hi) {
+          for (int q = lane % LPR; q < rc; q += LPR) {
+            const unsigned dst = smem_addr(slot + ri * rw + q * CW);
+            const unsigned* src = rec + (int64_t)u * rw + q * CW;
+            if (Rec::CB == 16)
+              cp16(dst, src, keep);
+            else
+              cp4(dst, src, keep);
+          }
+        }
+        cp_commit();
+      };
+#pragma unroll
+      for (int st = 0; st < S; ++st) fetch(st, cu, EPS * st);
+      // edge i0 + e of the batch: its record's slots into the partial row
+      auto consume = [&](const unsigned* sr, int e) {
+        const float sv = Rec::kPre ? __shfl_sync(kFull, cs, e) : 1.f;
+        Rec::add(sr, part, sv, k, lane);
+        __syncwarp();
+      };
+      float4 acc[R::kAcc];  // the run's
+#pragma unroll
+      for (int a = 0; a < R::kAcc; ++a)
+        acc[a] = make_float4(0.f, 0.f, 0.f, 0.f);
+      int st = 0;  // the stage at hand: edges lo + EPS st ...
+      for (int base = lo; base < hi; base += 32) {
+        const int cnt = min(32, hi - base);
+        for (int i0 = 0; i0 < cnt; i0 += EPS, ++st) {
+          cp_wait<S - 1>();  // stage st has landed (one group a stage)
+          __syncwarp();
+          const unsigned* sr = ring + (st % S) * sw;
+          if (i0 + EPS <= cnt) {
+#pragma unroll
+            for (int e = 0; e < EPS; ++e) consume(sr + e * rw, i0 + e);
+          } else {
+            for (int e = 0; e < cnt - i0; ++e) consume(sr + e * rw, i0 + e);
+          }
+          const int ahead = i0 + EPS * S;
+          fetch(st + S, ahead < 32 ? cu : nu, ahead & 31);
+        }
+        // the batch's sum joins the run's (csr_segment_kernel's layers)
+#pragma unroll
+        for (int a = 0; a < R::kAcc; ++a) {
+          const int c = R::pos(a, lane);
+          if (c < dim4) {
+            add4(acc[a], part4[c]);
+            part4[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+        }
+        __syncwarp();
+        cu = nu;
+        cs = Rec::kPre && pre != nullptr && base + 32 + lane < hi
+                 ? __ldg(pre + cu)
+                 : 1.f;
+        nu = base + 64 + lane < hi ? __ldcs(indices + base + 64 + lane) : 0;
+      }
+#pragma unroll
+      for (int a = 0; a < R::kAcc; ++a) {
+        const int c = R::pos(a, lane);
+        if (c < dim4) add_sum(a, c, acc[a]);
+      }
+    }
+  }
+  const float p = ((w.w & kLast) && post != nullptr) ? post[w.x] : 1.f;
+#pragma unroll
+  for (int a = 0; a < R::kAcc; ++a) {
+    const int c = R::pos(a, lane);
+    if (c < dim4) {
+      float4 v = Rec::kSharedSum ? shared_sum[c] : sum[a];
+      if (w.w & kLast) v = make_float4(v.x * p, v.y * p, v.z * p, v.w * p);
+      out[c] = v;
+    }
   }
 }
 
-// csr_cbsr_kernel's passes, as run's: each source block's segments, then
-// its split runs' fix-ups. rw: words a record.
+// csr_cbsr_kernel over a record walk: each record pass's pieces, then its
+// rows, two launches at most a pass. rw: words a record.
 template <class Rec, int S>
-int run_cbsr(const int4* seg, const int4* fix, const int64_t* pass_seg,
-             const int64_t* pass_fix, int nb, const int* indices,
-             const unsigned* rec, const float* pre, const float* post,
-             float4* y, float4* scratch, int k, int rw, int dim4,
-             cudaStream_t s) {
-  const size_t smem =
-      (size_t)kWarpsPerBlock * (dim4 * 16 + S * Rec::EPS * rw * 4);
+int run_cbsr(const int4* entries, const int2* runs, const int64_t* offsets,
+             int passes, const int* indices, const unsigned* rec,
+             const float* pre, const float* post, float4* y, float4* scratch,
+             int k, int rw, int dim4, cudaStream_t s) {
+  const size_t smem = (size_t)kWarpsPerBlock *
+                      ((Rec::kSharedSum ? 2 : 1) * dim4 * 16 +
+                       S * Rec::EPS * rw * 4);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         csr_cbsr_kernel<Rec, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  for (int b = 0; b < nb; ++b) {
-    const int64_t n_seg = pass_seg[b + 1] - pass_seg[b];
-    if (n_seg > 0) {
-      csr_cbsr_kernel<Rec, S>
-          <<<blocks_for(n_seg), kWarpsPerBlock * 32, smem, s>>>(
-              seg + pass_seg[b], n_seg, indices, rec, pre, post, y, scratch,
-              k, dim4);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
-    const int64_t n_fix = pass_fix[b + 1] - pass_fix[b];
-    if (n_fix > 0) {
-      launch_fixup(fix + pass_fix[b], n_fix, post, scratch, y, dim4, s);
+  for (int l = 0; l < 2 * passes; ++l) {
+    const int64_t n = offsets[l + 1] - offsets[l];
+    if (n > 0) {
+      csr_cbsr_kernel<Rec, S><<<blocks_for(n), kWarpsPerBlock * 32, smem, s>>>(
+          entries + offsets[l], n, runs, indices, rec, pre, post, y, scratch,
+          k, dim4);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
@@ -969,26 +1052,29 @@ extern "C" int csr_spmm_bf16(const void* seg, const void* fix,
                         post, y, scratch, dim / 8, dim / 4, stream);
 }
 
-// y <- post * (A cbsr(records)) over a schedule, as csr_spmm_bf16 on the
-// densified rows: records int32 [n_src, 32 ceil(k / 32) rounded up to 1, 2,
-// 4 or 8 lines], word j the bf16 bits of value j (pre already folded in) in
-// its high half and channel j in its low, zero past k (ops/maxk.py::
-// cbsr_records on bf16 values), channels distinct within a record; the
-// schedule, y, scratch and post as in csr_spmm. Needs dim % 8 == 0, 8 <=
-// dim <= 256, 1 <= k < dim and 16-byte aligned records, y and scratch.
-extern "C" int csr_cbsr_spmm_bf16(const void* seg, const void* fix,
-                                  const void* pass_seg, const void* pass_fix,
-                                  int nb, const void* indices,
-                                  const void* records, const void* post,
-                                  void* y, void* scratch, int k, int dim,
-                                  void* stream) {
-  if (dim < 8 || dim % 8 != 0 || dim > 256 || k < 1 || k >= dim || nb < 1)
+// y <- post * (A cbsr(records)) over a schedule's record walk
+// (graphs/tiles.py::RecordWalk: entries int32 [n, 4] and runs int32
+// [n_runs, 2] on the device, offsets int64 [2 passes + 1] on the host;
+// indices int32 [E], the schedule's), as csr_spmm_bf16 on the densified
+// rows at that schedule: records int32 [n_src, 32 ceil(k / 32) rounded up
+// to 1, 2, 4 or 8 lines], word j the bf16 bits of value j (pre already
+// folded in) in its high half and channel j in its low, zero past k
+// (ops/maxk.py::cbsr_records on bf16 values), channels distinct within a
+// record; y f32 [n_rows, dim], scratch f32 [n_slots, dim] (or null without
+// split runs), post f32 [n_rows] or null. Needs dim % 8 == 0, 8 <= dim <=
+// 256, 1 <= k < dim and 16-byte aligned records, y and scratch.
+extern "C" int csr_cbsr_spmm_bf16(const void* entries, const void* runs,
+                                  const void* offsets, int passes,
+                                  const void* indices, const void* records,
+                                  const void* post, void* y, void* scratch,
+                                  int k, int dim, void* stream) {
+  if (dim < 8 || dim % 8 != 0 || dim > 256 || k < 1 || k >= dim ||
+      passes < 1)
     return (int)cudaErrorInvalidValue;
 #define CBSR16(KV_, S_)                                                   \
   run_cbsr<Bf16Rec<KV_>, S_>(                                              \
-      static_cast<const int4*>(seg), static_cast<const int4*>(fix),        \
-      static_cast<const int64_t*>(pass_seg),                               \
-      static_cast<const int64_t*>(pass_fix), nb,                           \
+      static_cast<const int4*>(entries), static_cast<const int2*>(runs),   \
+      static_cast<const int64_t*>(offsets), passes,                        \
       static_cast<const int*>(indices),                                    \
       static_cast<const unsigned*>(records), nullptr,                      \
       static_cast<const float*>(post), static_cast<float4*>(y),            \
@@ -1007,20 +1093,21 @@ extern "C" int csr_cbsr_spmm_bf16(const void* seg, const void* fix,
 #undef CBSR16
 }
 
-// y <- post * (A (pre * cbsr(records))) over a schedule, as csr_spmm on the
-// densified rows bit for bit: records int32 [n_src, k + ceil(k / 4)], k f32
-// values (their bits) then the uint8 channel ids packed four to a word
-// (ops/maxk.py::cbsr_records on f32 values), channels distinct within a
-// record; pre f32 [n_src] or null; the schedule (of f32 rows of width dim),
-// y, scratch and post as in csr_spmm. Needs dim % 4 == 0, 4 <= dim <= 256,
-// 1 <= k < dim and 16-byte aligned y and scratch (records 16-byte aligned
-// where k % 16 == 0).
-extern "C" int csr_cbsr_spmm(const void* seg, const void* fix,
-                             const void* pass_seg, const void* pass_fix,
-                             int nb, const void* indices, const void* records,
+// y <- post * (A (pre * cbsr(records))) over a schedule's record walk, as
+// csr_spmm on the densified rows at that schedule bit for bit: records
+// int32 [n_src, k + ceil(k / 4)], k f32 values (their bits) then the uint8
+// channel ids packed four to a word (ops/maxk.py::cbsr_records on f32
+// values), channels distinct within a record; pre f32 [n_src] or null; the
+// walk, y, scratch and post as in csr_cbsr_spmm_bf16. Needs dim % 4 == 0,
+// 4 <= dim <= 256, 1 <= k < dim and 16-byte aligned y and scratch (records
+// 16-byte aligned where k % 16 == 0).
+extern "C" int csr_cbsr_spmm(const void* entries, const void* runs,
+                             const void* offsets, int passes,
+                             const void* indices, const void* records,
                              const void* pre, const void* post, void* y,
                              void* scratch, int k, int dim, void* stream) {
-  if (dim < 4 || dim % 4 != 0 || dim > 256 || k < 1 || k >= dim || nb < 1)
+  if (dim < 4 || dim % 4 != 0 || dim > 256 || k < 1 || k >= dim ||
+      passes < 1)
     return (int)cudaErrorInvalidValue;
   const int rw = k + (k + 3) / 4;
   const bool wide = rw % 4 == 0;  // 16-byte copies
@@ -1030,9 +1117,8 @@ extern "C" int csr_cbsr_spmm(const void* seg, const void* fix,
   const bool two = (wide ? rw / 4 : rw) <= 16;
 #define CBSR32(CB_, EPS_)                                                 \
   run_cbsr<F32Rec<CB_, EPS_>, 8>(                                          \
-      static_cast<const int4*>(seg), static_cast<const int4*>(fix),        \
-      static_cast<const int64_t*>(pass_seg),                               \
-      static_cast<const int64_t*>(pass_fix), nb,                           \
+      static_cast<const int4*>(entries), static_cast<const int2*>(runs),   \
+      static_cast<const int64_t*>(offsets), passes,                        \
       static_cast<const int*>(indices),                                    \
       static_cast<const unsigned*>(records), static_cast<const float*>(pre), \
       static_cast<const float*>(post), static_cast<float4*>(y),            \

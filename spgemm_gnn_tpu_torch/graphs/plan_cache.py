@@ -7,7 +7,8 @@ CSR itself (a loaded plan takes the graph's own `indptr` and `indices`
 tensors, so nothing is held twice):
 - a windowed plan (`CSRPlan`): each `CSRSchedule` it has built (the
   re-bucketed sources, the block row pointers, the segments and fix-ups,
-  the passes' offsets);
+  the passes' offsets) and each `RecordWalk` built over it (the entries,
+  runs and offsets of `csr_cbsr_spmm`'s record passes);
 - a stream plan (`StreamPlan`): its chunk rows and carry rows, and what it
   keeps in `_hot`: the gather order, each `HotSet`, and the transpose
   positions.
@@ -37,12 +38,13 @@ import numpy as np
 import torch
 
 from spgemm_gnn_tpu_torch.graphs.stream_tiles import HotSet, StreamPlan
-from spgemm_gnn_tpu_torch.graphs.tiles import CSRPlan, CSRSchedule
+from spgemm_gnn_tpu_torch.graphs.tiles import (CSRPlan, CSRSchedule,
+                                               RecordWalk)
 
 # bump when a rule that shapes a port plan changes without a parameter in
 # the key saying so (the source-block rule, the segment order, the hot
 # set's tie order, ...): a key carries the parameters, not the rules
-PLANNER_VERSION = 1
+PLANNER_VERSION = 2
 
 
 def _host(a) -> np.ndarray:
@@ -80,12 +82,17 @@ def _windowed_parts(plan: CSRPlan) -> tuple[dict, dict]:
         shares = s.indices.data_ptr() == plan.indices.data_ptr()
         statics["schedules"].append(dict(
             nb=nb, n_src=n_src, block_rows=s.block_rows, segment=s.segment,
-            n_slots=s.n_slots, shares_csr=shares))
+            n_slots=s.n_slots, shares_csr=shares,
+            walks=[dict(group=w.group, passes=w.passes, n_slots=w.n_slots)
+                   for w in s._walks.values()]))
         fields = ["seg", "fix", "pass_seg", "pass_fix"]
         if not shares:
             fields += ["indices", "block_indptr"]
         for f in fields:
             arrays[f"s{i}_{f}"] = _host(getattr(s, f))
+        for w in s._walks.values():
+            for f in ("entries", "runs", "offsets"):
+                arrays[f"s{i}_w{w.group}_{f}"] = _host(getattr(w, f))
     return statics, arrays
 
 
@@ -160,12 +167,17 @@ def load_plan(path: str, indptr: torch.Tensor,
                 ix, bptr = indices, indptr[None]
             else:
                 ix, bptr = t(f"s{i}_indices"), t(f"s{i}_block_indptr")
-            plan._schedules[(s["nb"], s["n_src"])] = CSRSchedule(
+            sched = plan._schedules[(s["nb"], s["n_src"])] = CSRSchedule(
                 nb=s["nb"], block_rows=s["block_rows"],
                 segment=s["segment"], indices=ix, block_indptr=bptr,
                 seg=t(f"s{i}_seg"), fix=t(f"s{i}_fix"),
                 pass_seg=t(f"s{i}_pass_seg", "cpu"),
                 pass_fix=t(f"s{i}_pass_fix", "cpu"), n_slots=s["n_slots"])
+            for w in s["walks"]:
+                at = f"s{i}_w{w['group']}"
+                sched._walks[w["group"]] = RecordWalk(
+                    entries=t(f"{at}_entries"), runs=t(f"{at}_runs"),
+                    offsets=t(f"{at}_offsets", "cpu"), **w)
         return plan
 
 

@@ -21,6 +21,13 @@ On the card the "windowed" kind is `CSRPlan`: the CSR, and the schedule the
   hub row's degree. A run of one piece is a "whole" segment; the pieces of a
   longer run write partial sums to scratch slots, which a fix-up entry adds
   in order. Segments are listed heaviest first within each pass.
+
+`csr_cbsr_spmm` gathers records, not dense rows, over the same schedule
+(`RecordWalk`, built once per schedule and record size): its source blocks
+grouped into record passes, as many whole blocks a pass as the records of
+fit in L2_BLOCK_BYTES (`record_group`), and in each pass a warp per row
+that walks the row's runs in block order, so that y is written once a
+record pass, not once a block, with the same sums.
 """
 from __future__ import annotations
 
@@ -48,6 +55,9 @@ SEGMENT = 512
 # flags of a row's last write in a pass (whole segment or fix-up entry)
 FIRST = 1   # the row's first block with edges: write, do not add to y
 LAST = 2    # the row's last block with edges: multiply by post
+# a record walk's entry that sums one piece of a split run into its
+# scratch slot
+PIECE = 4
 
 
 def auto_src_blocks(num_rows: int, num_edges: int, dim: int,
@@ -64,6 +74,144 @@ def auto_src_blocks(num_rows: int, num_edges: int, dim: int,
     if num_edges / max(num_rows, 1) / nb < MIN_EDGES_PER_BLOCK_ROW:
         return 1
     return nb
+
+
+def record_group(block_rows: int, record_bytes: int) -> int:
+    """Source blocks a record pass of `csr_cbsr_spmm` takes: as many whole
+    blocks of `block_rows` sources as whose records, `record_bytes` each,
+    fit in L2_BLOCK_BYTES, at least one and at most 32 (a row's runs in a
+    pass, one a block, sit one a lane of its warp). At Reddit: 6 of the
+    f32 schedule's 10 blocks for 160-B f32 records, 4 of the bf16
+    schedule's 5 for 128-B bf16 ones."""
+    return min(max(L2_BLOCK_BYTES // (record_bytes * block_rows), 1), 32)
+
+
+@dataclasses.dataclass(frozen=True)
+class RecordWalk:
+    """What `csr_cbsr_spmm` runs over a CSRSchedule: the schedule's source
+    blocks in record passes of `group` blocks (the last may hold fewer),
+    and in each pass two launches, the pieces of its split runs, then its
+    rows.
+
+    Attributes:
+      group, passes: source blocks a record pass, and record passes.
+      entries: int32 [n, 4] (out, run_lo, run_hi, flags), a warp each, that
+               sums the runs runs[run_lo:run_hi] in order. With flags PIECE
+               (and FIRST): one piece of a split run, its sum to scratch
+               slot `out`. Else `out` is a row and the runs are its runs in
+               the pass's blocks, in block order; each run's sum is added
+               to the row's (from +0 with FIRST, else from y) and the row
+               written to y once (times post with LAST). A row with no
+               edges has no runs and FIRST | LAST, in pass 0. Heaviest
+               first in each launch.
+      runs: int32 [n_runs, 2]: (lo, hi) with lo >= 0, the edges
+            indices[lo:hi], in batches of 32 from lo as a segment sums
+            them; or (-1 - slot_lo, slot_hi), a split run: scratch slots
+            [slot_lo, slot_hi) added in order, as its fix-up entry adds
+            them.
+      offsets: int64 [2 passes + 1] on the host: pass p's pieces are
+               entries[offsets[2p]:offsets[2p + 1]], its rows
+               entries[offsets[2p + 1]:offsets[2p + 2]].
+      n_slots: scratch slots (rows of dim floats) the busiest pass needs.
+    """
+    group: int
+    passes: int
+    entries: torch.Tensor
+    runs: torch.Tensor
+    offsets: torch.Tensor
+    n_slots: int
+    # the record passes with anything to launch (`record_passes` counts
+    # them a call)
+    launched: int = dataclasses.field(default=0, init=False)
+
+    def __post_init__(self):
+        # frozen: set once, here
+        object.__setattr__(self, "launched", int(
+            (self.offsets[2::2] > self.offsets[:-1:2]).sum()))
+
+
+def build_record_walk(s: CSRSchedule, group: int) -> RecordWalk:
+    """The record walk of schedule s in passes of `group` source blocks, on
+    the schedule's device: s's runs, pieces and flags, each pass's slots
+    those of its blocks' passes one after another, so that every sum is
+    the per-block passes' bit for bit."""
+    nb, dev = s.nb, s.seg.device
+    passes = -(-nb // group)
+    bptr = s.block_indptr.long()
+    n_rows = bptr.shape[1] - 1
+    cnt = bptr[:, 1:] - bptr[:, :-1]                        # [nb, R]
+    has = cnt > 0
+    runs_b, runs_row = has.nonzero(as_tuple=True)           # block-major
+    lo, c = bptr[runs_b, runs_row], cnt[runs_b, runs_row]
+    split = c > s.segment
+
+    def owner(offsets):   # the block of each entry of a block pass
+        return torch.repeat_interleave(torch.arange(nb), offsets.diff()).to(
+            dev)
+
+    seg = s.seg.long()
+    seg_b = owner(s.pass_seg)
+    is_piece = seg[:, 3] >= 0
+    per_block = torch.zeros(nb, dtype=torch.long, device=dev)
+    per_block.index_add_(0, seg_b, is_piece.long())
+    before = torch.cumsum(per_block, 0) - per_block
+    first_block = torch.arange(nb, device=dev) // group * group
+    shift = before - before[first_block]   # slots of the pass's earlier blocks
+    # the fix-up entries are the split runs, in the same block-major order
+    fix = s.fix.long()
+    fix_shift = shift[owner(s.pass_fix)]
+    run_a, run_z = lo.clone(), lo + c
+    run_a[split] = -1 - (fix[:, 1] + fix_shift)
+    run_z[split] = fix[:, 2] + fix_shift
+    weight = torch.where(split, -(-c // s.segment), c)
+
+    # a row's runs in a pass: sorted by (pass, row), stably, so in block order
+    row_key = runs_b // group * n_rows + runs_row
+    order = torch.sort(row_key, stable=True).indices
+    keys, counts = torch.unique_consecutive(row_key[order],
+                                            return_counts=True)
+    run_hi = torch.cumsum(counts, 0)
+    entry = torch.repeat_interleave(torch.arange(keys.numel(), device=dev),
+                                    counts)
+    row_w = torch.zeros(keys.numel(), dtype=torch.long, device=dev)
+    row_w.index_add_(0, entry, weight[order])
+    rows, row_pass = keys % n_rows, keys // n_rows
+    first_b = torch.where(has.any(0), has.int().argmax(0), 0)
+    last_b = nb - 1 - has.flip(0).int().argmax(0)
+    flags = (FIRST * (first_b[rows] // group == row_pass)
+             + LAST * (last_b[rows] // group == row_pass))
+    empty = (~has.any(0)).nonzero().flatten()
+    none = torch.zeros_like(empty)
+    n_row_runs = order.numel()
+    row_entries = torch.stack([
+        torch.cat([empty, rows]), torch.cat([none, run_hi - counts]),
+        torch.cat([none, run_hi]),
+        torch.cat([none + (FIRST | LAST), flags])], 1)
+
+    pieces = seg[is_piece]
+    piece_b = seg_b[is_piece]
+    n_pieces = pieces.shape[0]
+    at = n_row_runs + torch.arange(n_pieces, device=dev)
+    piece_entries = torch.stack([pieces[:, 3] + shift[piece_b], at, at + 1,
+                                 torch.full_like(at, PIECE | FIRST)], 1)
+    runs = torch.cat([torch.stack([run_a[order], run_z[order]], 1),
+                      pieces[:, 1:3]])
+
+    # launch l = 2 pass + (0: pieces, 1: rows); heaviest first within each
+    launch = torch.cat([piece_b // group * 2,
+                        torch.cat([none, row_pass]) * 2 + 1])
+    w = torch.cat([pieces[:, 2] - pieces[:, 1], none, row_w])
+    top = int(w.max()) + 1 if w.numel() else 1
+    by = torch.sort(launch * top + (top - 1 - w), stable=True).indices
+    entries = torch.cat([piece_entries, row_entries])[by]
+    per_launch = torch.bincount(launch, minlength=2 * passes).cpu()
+    slots = torch.bincount(piece_b // group, minlength=passes)
+    return RecordWalk(
+        group=group, passes=passes, entries=entries.int().contiguous(),
+        runs=runs.int().contiguous(),
+        offsets=torch.cat([torch.zeros(1, dtype=torch.long),
+                           torch.cumsum(per_launch, 0)]),
+        n_slots=int(slots.max()) if passes else 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +237,7 @@ class CSRSchedule:
            seg[pass_seg[b]:pass_seg[b + 1]] (heaviest first) and
            fix[pass_fix[b]:pass_fix[b + 1]].
       n_slots: scratch slots (rows of dim floats) the busiest pass needs.
+    The record walks built over it (`record_walk`) are kept by group.
     """
     nb: int
     block_rows: int
@@ -100,6 +249,17 @@ class CSRSchedule:
     pass_seg: torch.Tensor
     pass_fix: torch.Tensor
     n_slots: int
+    _walks: dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
+
+    def record_walk(self, record_bytes: int) -> RecordWalk:
+        """The record walk for records of `record_bytes` a source, in
+        passes of `record_group` blocks (built at the first call with that
+        group, then kept)."""
+        group = min(record_group(self.block_rows, record_bytes), self.nb)
+        if group not in self._walks:
+            self._walks[group] = build_record_walk(self, group)
+        return self._walks[group]
 
     @property
     def num_segments(self) -> int:

@@ -43,9 +43,9 @@ SIGNATURES = {
                 for name in ("maxk_bwd", "maxk_bwd_bf16")}},
     "spmm": {**{name: [_P, _P, _P, _P, _INT, _P, _P, _P, _P, _P, _P, _INT,
                        _P] for name in ("csr_spmm", "csr_spmm_bf16")},
-             "csr_cbsr_spmm_bf16": [_P, _P, _P, _P, _INT, _P, _P, _P, _P, _P,
-                                    _INT, _INT, _P],
-             "csr_cbsr_spmm": [*[_P] * 4, _INT, *[_P] * 6, _INT, _INT, _P],
+             "csr_cbsr_spmm_bf16": [*[_P] * 3, _INT, *[_P] * 5, _INT, _INT,
+                                    _P],
+             "csr_cbsr_spmm": [*[_P] * 3, _INT, *[_P] * 6, _INT, _INT, _P],
              "csr_sspmm_bf16": [*[_P] * 4, _INT, *[_P] * 7, *[_INT] * 3,
                                 _P],
              "csr_sspmm": [*[_P] * 4, _INT, *[_P] * 8, _INT, _INT, _P]},

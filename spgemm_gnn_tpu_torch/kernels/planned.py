@@ -68,7 +68,7 @@ from spgemm_gnn_tpu_torch.kernels.stream import (MAX_CBSR_DIM,
                                                  stream_cbsr_spmm, stream_spmm,
                                                  stream_sspmm)
 from spgemm_gnn_tpu_torch.models.remat import saved_output
-from spgemm_gnn_tpu_torch.ops.maxk import cbsr_records
+from spgemm_gnn_tpu_torch.ops.maxk import cbsr_records, record_words
 from spgemm_gnn_tpu_torch.ops.norms import node_factors
 from spgemm_gnn_tpu_torch.ops.spmm import _scale
 from spgemm_gnn_tpu_torch.utils import spans
@@ -254,13 +254,15 @@ def row_elem(dtype: torch.dtype) -> int:
 
 def build_plan(indptr: torch.Tensor, indices: torch.Tensor, kind: str, *,
                num_src: int | None = None, chunk: int = CHUNK,
-               dim: int | None = None, elem: int = 4
-               ) -> CSRPlan | StreamPlan:
+               dim: int | None = None, elem: int = 4,
+               record_bytes: int | None = None) -> CSRPlan | StreamPlan:
     """One plan of `kind` ("windowed" or "stream") over the CSR (indptr,
     indices), on its device, for num_src sources (None: as many as rows;
     a shard's halo pair is rectangular, parallel/planned_sharded.py):
     where `dim` is given, with the windowed plan's `csr_spmm` schedule, or
-    the stream plan's hot set, built for rows of dim × elem bytes."""
+    the stream plan's hot set, built for rows of dim × elem bytes, and on
+    the schedule, where `record_bytes` is given, `csr_cbsr_spmm`'s record
+    walk for records of that size."""
     if kind == "stream":
         plan = build_stream_plan(indptr, indices, chunk=chunk,
                                  num_src=num_src)
@@ -269,7 +271,9 @@ def build_plan(indptr: torch.Tensor, indices: torch.Tensor, kind: str, *,
         return plan
     plan = CSRPlan(indptr, indices, num_src=num_src)
     if dim is not None:
-        plan.schedule(plan.num_src, dim, elem)
+        sched = plan.schedule(plan.num_src, dim, elem)
+        if record_bytes is not None:
+            sched.record_walk(record_bytes)
     return plan
 
 
@@ -289,13 +293,15 @@ def plan_graph(g: Graph, *, kind: str = "auto", chunk: int = CHUNK,
     backward plan's transpose positions (the sampled backward's, else built
     at its first call) for 2-B channels, and for 4-B ones where a MaxK of
     width `k` on those rows takes the sampled backward (`sampled_backward`;
-    k None: the model runs no MaxK). A symmetric graph's backward plan is
-    its forward plan.
+    k None: the model runs no MaxK); on a windowed plan also the forward
+    plan's record walk where such a MaxK's forward takes `csr_cbsr_spmm`
+    (`cbsr_forward`). A symmetric graph's backward plan is its forward
+    plan.
 
     cache_dir: where given, each plan is loaded from a file there keyed by
     its CSR's fingerprint and every parameter above that shapes it (the
     resolved kind, the chunk, dim and the channel bytes, the source blocks
-    and segment size, the hot budget), or built and stored
+    and segment size, the record size, the hot budget), or built and stored
     (graphs/plan_cache.py); a loaded plan is the built one tensor for
     tensor."""
     if kind not in KINDS:
@@ -308,12 +314,19 @@ def plan_graph(g: Graph, *, kind: str = "auto", chunk: int = CHUNK,
     elem = row_elem(dtype)
     positions = kind == "stream" and dim is not None and (
         elem == 2 or sampled_backward(None, k, dim, dtype))
+    # the MaxK forward's records on the forward plan: bf16 values on 2-byte
+    # channels, else f32
+    record_bytes = 4 * record_words(
+        k, dim, torch.bfloat16 if elem == 2 else torch.float32) if (
+        kind == "windowed" and dim is not None
+        and cbsr_forward(None, k, dim, dtype)) else None
 
     def build(transpose: bool, fwd=None):
         ip, ix = ((g.t_indptr, g.t_indices) if transpose
                   else (g.indptr, g.indices))
         plan = build_plan(ip, ix, kind, num_src=g.num_nodes, chunk=chunk,
-                          dim=dim, elem=elem)
+                          dim=dim, elem=elem,
+                          record_bytes=None if transpose else record_bytes)
         if positions and (transpose or g.symmetric):
             # the sampled backward's, on the backward plan
             plan.transpose_positions(plan if fwd is None else fwd)
@@ -333,7 +346,8 @@ def plan_graph(g: Graph, *, kind: str = "auto", chunk: int = CHUNK,
         else:
             params.update(segment=SEGMENT, nb=None if dim is None else
                           auto_src_blocks(g.num_nodes, ix.numel(), dim,
-                                          g.num_nodes, elem))
+                                          g.num_nodes, elem),
+                          rec=None if transpose else record_bytes)
         key = plan_cache.plan_key(plan_cache.graph_fingerprint(ip, ix),
                                   "t" if transpose else "f", kind, **params)
         return plan_cache.cached_plan(cache_dir, key,

@@ -17,7 +17,11 @@ pass that rounds each sum to bf16 and multiplies it by bf16(post) in bf16.
 CBSR record per source node (`ops/maxk.py::cbsr_records`), through the
 schedule of the dense form of the same width and value type: the kernels
 copy each edge's record instead of its dense row and give the dense
-form's y on the densified rows bit for bit. On f32 records (the f32 path)
+form's y on the densified rows bit for bit. It walks the schedule in
+record passes (`graphs/tiles.py::RecordWalk`: as many source blocks a pass
+as whose records fit half of L2, each row's runs in block order in one
+warp, y written once a pass), two launches a pass, and counts the passes
+in the program's counter `record_passes`. On f32 records (the f32 path)
 it launches `csr_cbsr_spmm` (counted under that name), which takes the pre
 factor per edge as `csr_spmm` does; on bf16 records (the pre factor
 already in them) `csr_cbsr_spmm_bf16`, and with `out_dtype=torch.bfloat16`
@@ -43,6 +47,7 @@ from spgemm_gnn_tpu_torch.kernels import _build
 from spgemm_gnn_tpu_torch.ops.maxk import record_words
 from spgemm_gnn_tpu_torch.ops.spmm import (csr_blocked_plain, csr_cbsr_plain,
                                            csr_sspmm_plain)
+from spgemm_gnn_tpu_torch.utils import spans
 
 MAX_DIM = 1024   # a row's accumulators live in one warp's registers
 # the CBSR kernels take dim <= 256: f32 records pack their ids as uint8 (the
@@ -128,29 +133,32 @@ def csr_spmm(plan: CSRPlan, x: torch.Tensor, pre: torch.Tensor | None = None,
     if pre is not None:
         _build.require(pre, "pre", torch.float32, dev, (n_src,))
     _build.require_aligned(x, "x")
-    return _launch(plan, sched, "csr_spmm_bf16" if bf16 else "csr_spmm", x,
+    head = (sched.seg.data_ptr(), sched.fix.data_ptr(),
+            sched.pass_seg.data_ptr(), sched.pass_fix.data_ptr(), sched.nb,
+            sched.indices.data_ptr())
+    return _launch(plan, head, sched.n_slots,
+                   "csr_spmm_bf16" if bf16 else "csr_spmm", x,
                    (x.data_ptr(), None if pre is None else pre.data_ptr()),
                    post, out16, (dim,))
 
 
-def _launch(plan: CSRPlan, sched, kernel: str, src: torch.Tensor,
-            inputs: tuple, post: torch.Tensor | None, out16: bool,
-            tail: tuple) -> torch.Tensor:
-    """Launch `kernel` of the spmm library over the schedule on the source
-    tensor `src` (`inputs`: the C call's pointers between the indices and
-    post; `tail`: its ints, the last one dim), then, for a bf16 output,
+def _launch(plan: CSRPlan, head: tuple, n_slots: int, kernel: str,
+            src: torch.Tensor, inputs: tuple, post: torch.Tensor | None,
+            out16: bool, tail: tuple) -> torch.Tensor:
+    """Launch `kernel` of the spmm library on the source tensor `src`
+    (`head`: the C call's schedule arguments, up to the indices; `inputs`:
+    its pointers between the indices and post; `n_slots`: its scratch
+    rows; `tail`: its ints, the last one dim), then, for a bf16 output,
     `round_out` on its f32 sums; counts the launch under `kernel` or its
     `_out` name."""
     dev, n_rows, dim = src.device, plan.num_rows, tail[-1]
     y = torch.empty((n_rows, dim), dtype=torch.float32, device=dev)
-    scratch = _scratch(sched, dim, dev)
+    scratch = _scratch(n_slots, dim, dev)
     if not n_rows:
         return y.to(torch.bfloat16) if out16 else y
     with torch.cuda.device(dev):
         status = getattr(_build.library("spmm"), kernel)(
-            sched.seg.data_ptr(), sched.fix.data_ptr(),
-            sched.pass_seg.data_ptr(), sched.pass_fix.data_ptr(), sched.nb,
-            sched.indices.data_ptr(), *inputs,
+            *head, *inputs,
             None if post is None or out16 else post.data_ptr(), y.data_ptr(),
             None if scratch is None else scratch.data_ptr(), *tail,
             _build.stream_of(src))
@@ -166,10 +174,11 @@ def _launch(plan: CSRPlan, sched, kernel: str, src: torch.Tensor,
     return y
 
 
-def _scratch(sched, width: int, dev: torch.device) -> torch.Tensor | None:
+def _scratch(n_slots: int, width: int,
+             dev: torch.device) -> torch.Tensor | None:
     """The split runs' slots of a pass: f32 [n_slots, width], or None."""
-    return torch.empty((sched.n_slots, width), dtype=torch.float32,
-                       device=dev) if sched.n_slots else None
+    return torch.empty((n_slots, width), dtype=torch.float32,
+                       device=dev) if n_slots else None
 
 
 def _require_schedule(plan: CSRPlan, sched, dev: torch.device,
@@ -229,15 +238,24 @@ def csr_cbsr_spmm(plan: CSRPlan, records: torch.Tensor, k: int, dim: int,
     _build.require(records, "records", torch.int32, dev, (None, None))
     _build.require_aligned(records, "records")
     _require_schedule(plan, sched, dev, post)
-    if not f32:
-        return _launch(plan, sched, "csr_cbsr_spmm_bf16", records,
-                       (records.data_ptr(),), post, out16, (k, dim))
-    if pre is not None:
-        _build.require(pre, "pre", torch.float32, dev, (records.shape[0],))
-    return _launch(plan, sched, "csr_cbsr_spmm", records,
-                   (records.data_ptr(),
-                    None if pre is None else pre.data_ptr()),
-                   post, False, (k, dim))
+    walk = sched.record_walk(records.shape[1] * records.element_size())
+    for t, what in ((walk.entries, "entries"), (walk.runs, "runs")):
+        _build.require(t, what, torch.int32, dev)
+    head = (walk.entries.data_ptr(), walk.runs.data_ptr(),
+            walk.offsets.data_ptr(), walk.passes, sched.indices.data_ptr())
+    if f32:
+        if pre is not None:
+            _build.require(pre, "pre", torch.float32, dev,
+                           (records.shape[0],))
+        y = _launch(plan, head, walk.n_slots, "csr_cbsr_spmm", records,
+                    (records.data_ptr(),
+                     None if pre is None else pre.data_ptr()),
+                    post, False, (k, dim))
+    else:
+        y = _launch(plan, head, walk.n_slots, "csr_cbsr_spmm_bf16", records,
+                    (records.data_ptr(),), post, out16, (k, dim))
+    spans.count("record_passes", walk.launched)
+    return y
 
 
 def csr_sspmm(plan: CSRPlan, m: torch.Tensor, ch: torch.Tensor,
@@ -275,7 +293,7 @@ def csr_sspmm(plan: CSRPlan, m: torch.Tensor, ch: torch.Tensor,
                     dtype=torch.bfloat16 if out16 else torch.float32,
                     device=dev)
     acc = torch.empty((n_rows, k), dtype=torch.float32, device=dev)
-    scratch = _scratch(sched, k, dev)
+    scratch = _scratch(sched.n_slots, k, dev)
     if not n_rows:
         return y
     name = ("csr_sspmm" if f32 else

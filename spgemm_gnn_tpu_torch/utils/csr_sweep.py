@@ -23,10 +23,11 @@ the schedule's segments as `csr_cbsr_spmm`'s kernels gather them (cp.async
 into a ring of stages in each warp's shared memory, with an L2 evict_last
 policy), and nothing scattered, so that the records' share of the
 product's time is on record; and beside it the CBSR forms themselves
-(`csr_cbsr_spmm`) on those records at that schedule, each first checked
-bit for bit against csr_spmm on the rows. Under `--stream bf16x2` the
-records are `ops/maxk.py::cbsr_records` of bf16(x), 128 B a node, and the
-forms f32 and bf16 out; under the f32 stream two layouts of the f32
+(`csr_cbsr_spmm`, in its record passes) on those records at that
+schedule, each first checked bit for bit against csr_spmm on the rows.
+Under `--stream bf16x2` the records are `ops/maxk.py::cbsr_records` of
+bf16(x), 128 B a node, and the forms f32 and bf16 out; under the f32
+stream two layouts of the f32
 records at the f32 schedule: `cbsr_records`' 160 B (k values, then the
 uint8 ids; 8 and 16 stages in flight) and 256 B of 8-byte slots (a value
 and its id), and the f32 form.
@@ -309,11 +310,13 @@ def sweep(dataset: str, blocks: list, segments: list[int], dim: int,
                             raise AssertionError(
                                 f"csr_cbsr_spmm at nb {s.nb} ({od}): bits "
                                 f"differ from csr_spmm's form on the rows")
+                        passes = s.record_walk(4 * rec.shape[1]).passes
                         print(f"{what} blocks {s.nb} segment {seg}: "
                               f"csr_cbsr_spmm{'' if f32 else '_bf16'}"
                               f"{'_out' if od is not None else ''} "
-                              f"{time_ms(run, iters):.3f} ms (bitwise equal "
-                              f"to the dense form)", flush=True)
+                              f"{time_ms(run, iters):.3f} ms in {passes} "
+                              f"record passes (bitwise equal to the dense "
+                              f"form)", flush=True)
                 del plan, s
                 torch.cuda.empty_cache()
         del ref

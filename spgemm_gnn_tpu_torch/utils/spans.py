@@ -24,7 +24,9 @@ When it is off, `span` returns a shared null context after one check, and
 always, so that a traced run can read the set-up it followed.
 
 Counters (`count(name)`) count where the work happens, while recording:
-`host_syncs` is every wait of the program on the device. The kernels'
+`host_syncs` is every wait of the program on the device, `record_passes`
+every record pass `csr_cbsr_spmm` launches (`graphs/tiles.py::
+RecordWalk`). The kernels'
 launches are counted apart, always, by `kernels/_build.py::launches`.
 
 The record: `record()` the finished spans, `counters`, `reset()` to clear
@@ -101,10 +103,10 @@ def setup(name: str):
     return _Open(name, None, recording_now())
 
 
-def count(name: str) -> None:
+def count(name: str, n: int = 1) -> None:
     if _forced or _profiling():
         with _lock:
-            counters[name] += 1
+            counters[name] += n
 
 
 def _cuda_events() -> bool:

@@ -12,8 +12,8 @@ plans; `planned_aggregate` and `aggregate_cbsr` through the new route
 against the JAX package (its Pallas kernels in interpret mode); the Trainer
 with the rule on against off. GPU (marker `gpu`, skipped without a card,
 no JAX): the kernels against `csr_spmm`'s bf16 forms on the densified rows
-(bit for bit at the same schedule), against the plain version, repeatable,
-and their launch counts.
+(bit for bit at the same schedule, in one record pass and in three),
+against the plain version, repeatable, and their launch counts.
 
     python -m pytest tests/test_torch_csr_cbsr.py
     python -m pytest --noconftest -p no:cacheprovider -m gpu \\
@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from spgemm_gnn_tpu_torch.graphs import synthetic as tsyn
+from spgemm_gnn_tpu_torch.graphs import tiles
 from spgemm_gnn_tpu_torch.graphs.csr import from_edges
 from spgemm_gnn_tpu_torch.graphs.tiles import FIRST, LAST, CSRPlan
 from spgemm_gnn_tpu_torch.kernels import _build
@@ -460,28 +461,40 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nb", [None, 1, 3])
+@pytest.mark.parametrize("nb", [None, 1, 3, 5])
 @pytest.mark.parametrize("k", [8, 32, 64, 200])
-def test_csr_cbsr_spmm_is_the_dense_form_on_gpu(cuda, k, nb):
+def test_csr_cbsr_spmm_is_the_dense_form_on_gpu(cuda, k, nb, monkeypatch):
     """dim 256 on A and Aᵀ of a directed graph with rows without in-edges
     and a hub row of 3000 edges (6 pieces of 512 in a block): both forms
     bit for bit csr_spmm_bf16 / csr_spmm_bf16_out on the densified rows at
-    the same schedule, repeatable, the bf16 output the rounding of the f32
-    one; the f32 output within 1e-5 of max |y| of the plain version in
-    float64; on integer values, whose f32 sums are exact in any order, bit
-    for bit the plain version (f32 and bf16 out)."""
+    the same schedule, repeatable, one launch a call, the bf16 output the
+    rounding of the f32 one; the f32 output within 1e-5 of max |y| of the
+    plain version in float64; on integer values, whose f32 sums are exact
+    in any order, bit for bit the plain version (f32 and bf16 out). At nb 5
+    L2_BLOCK_BYTES is shrunk to 2 blocks' records a record pass: 3 passes,
+    more than one and fewer than the blocks; else the test's shapes take
+    one."""
     dim = 256
     g = hub_graph(700, seed=k).to(cuda)
     rng = np.random.default_rng(k)
     post = torch.tensor(rng.random(700).astype(np.float32) + 0.5,
                         device=cuda)
+    record_bytes = 4 * tmaxk.record_words(k, dim, BF16)
+    if nb == 5:
+        monkeypatch.setattr(tiles, "L2_BLOCK_BYTES",
+                            2 * record_bytes * -(-700 // nb))
     for indptr, indices in ((g.indptr, g.indices), (g.t_indptr, g.t_indices)):
         plan = CSRPlan(indptr, indices, nb)
         s = plan.schedule(700, dim, 2)
+        assert s.record_walk(record_bytes).passes == (3 if nb == 5 else 1)
         for ints in (False, True):
             dense, rec = records_of(rng, 700, dim, k, cuda, ints)
             for od in (None, BF16):
+                _build.launches.clear()
                 y = csr_cbsr_spmm(plan, rec, k, dim, post, od)
+                assert dict(_build.launches) == {
+                    "csr_cbsr_spmm_bf16_out" if od else "csr_cbsr_spmm_bf16":
+                    1}
                 again = csr_cbsr_spmm(plan, rec, k, dim, post, od)
                 np.testing.assert_array_equal(_bits(y), _bits(again))
                 np.testing.assert_array_equal(

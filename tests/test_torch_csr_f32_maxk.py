@@ -16,7 +16,10 @@ against JAX `planned_aggregate`, forward and gradient; the Trainer with
 each flag on and off, losses bit-equal; a stream plan in f32 takes
 `stream_sspmm` on f32 messages. GPU (marker `gpu`, skipped without a card, no JAX): both
 kernels bit for bit the dense `csr_spmm` at nb None/1/3 with and without
-pre, their launch counts, and the wrappers' raises.
+pre (csr_cbsr_spmm also at nb 5 in 3 record passes), their launch counts,
+`record_passes`, and the wrappers' raises. CPU, besides: the record-pass
+walk (`graphs/tiles.py::RecordWalk`) in numpy bit-equal to the per-block
+walk at every grouping, and the grouping rule at the recipes' shapes.
 
     python -m pytest tests/test_torch_csr_f32_maxk.py
     python -m pytest --noconftest -p no:cacheprovider -m gpu \\
@@ -27,8 +30,13 @@ import pytest
 import torch
 
 from spgemm_gnn_tpu_torch.graphs import synthetic as tsyn
+from spgemm_gnn_tpu_torch.graphs import tiles
 from spgemm_gnn_tpu_torch.graphs.csr import from_edges
-from spgemm_gnn_tpu_torch.graphs.tiles import FIRST, LAST, CSRPlan
+from spgemm_gnn_tpu_torch.graphs.datasets import SYNTH_SPECS
+from spgemm_gnn_tpu_torch.graphs.tiles import (FIRST, LAST, PIECE, CSRPlan,
+                                               auto_src_blocks,
+                                               build_record_walk,
+                                               record_group)
 from spgemm_gnn_tpu_torch.kernels import _build
 from spgemm_gnn_tpu_torch.kernels import planned as tplanned
 from spgemm_gnn_tpu_torch.kernels.maxk import maxk_fwd
@@ -349,6 +357,113 @@ def test_f32_walks_are_the_dense_walk_bit_for_bit(nb, pre_kind):
     near(got, kept(ref, ids).numpy())
 
 
+def record_pass_walk(w, post, dim: int, n: int, edge_add) -> np.ndarray:
+    """csr_cbsr_kernel's record walk (graphs/tiles.py::RecordWalk) in f32,
+    step for step: per record pass, a warp per piece, then a warp per row;
+    each whole run summed in batches of 32 edges from +0 (`edge_add(part,
+    e)` adds edge e), each batch's sum added to the run's; each split run
+    its slots in order; each run's sum added to the entry's, which starts
+    at +0 (FIRST) or at y; a piece's sum to its slot, a row's to y, times
+    post on LAST. Unwritten rows stay NaN."""
+    f32 = np.float32
+    ent, runs, off = w.entries.numpy(), w.runs.numpy(), w.offsets.numpy()
+    y = np.full((n, dim), np.nan, f32)
+    scratch = {}
+    for out, lo, hi, flags in ent[off[0]:off[-1]]:
+        total = np.zeros(dim, f32) if flags & FIRST else y[out].copy()
+        for a, z in runs[lo:hi]:
+            if a >= 0:
+                v = np.zeros(dim, f32)
+                for base in range(a, z, 32):
+                    part = np.zeros(dim, f32)
+                    for e in range(base, min(base + 32, z)):
+                        part = edge_add(part, e)
+                    v = v + part
+            else:
+                v = scratch[-1 - a].copy()
+                for q in range(-a, z):
+                    v = v + scratch[q]
+            total = total + v
+        if flags & PIECE:
+            scratch[out] = total
+        else:
+            y[out] = total * (f32(1) if post is None or not flags & LAST
+                              else post[out])
+    return y
+
+
+@pytest.mark.parametrize("rec", ["f32", "f32-gcn", "bf16"])
+@pytest.mark.parametrize("nb", [1, 3, 5])
+def test_record_passes_are_the_block_walk_bit_for_bit(nb, rec):
+    """The record-pass walk at every grouping of the schedule's nb blocks
+    (1 block a pass to all of them) against the per-block walk of
+    csr_spmm's segments and fix-ups, on the same records: the same bits,
+    for f32 records with no pre and with GCN's, and bf16 records; the hub's
+    runs split into pieces of 64 in every block. A pass's slots are those
+    of its blocks' passes one after another, and it launches its pieces
+    (when it has any), then its rows."""
+    g = hub_graph()
+    dim, k = 32, 8
+    rng = np.random.default_rng(nb * 7 + len(rec))
+    dense, records = records_of(rng, N, dim, k)
+    value = F32
+    if rec == "bf16":
+        value = torch.bfloat16
+        vals, ch = tmaxk.split_records(records, k, dim, F32)
+        records = tmaxk.cbsr_records(vals.to(value), ch, dim)
+    pre = factor(rng, N, "gcn" if rec == "f32-gcn" else "none")
+    post = rng.random(N).astype(np.float32) + 0.5
+    pre_np = np.ones(N, np.float32) if pre is None else pre.numpy()
+    s = CSRPlan(g.indptr, g.indices, nb, SEGMENT).schedule(N, dim, 4)
+    assert s.num_split_runs > 0
+    ix = s.indices.numpy()
+    vals, ch = tmaxk.split_records(records, k, dim, value)
+    vals, ch = vals.float().numpy(), ch.numpy()
+
+    def record_add(part, e, r=None):
+        u = ix[e]
+        for v, c in zip(vals[u], ch[u]):
+            if v != 0:
+                part[c] = fma(pre_np[u], v, part[c])
+        return part
+
+    want = walk(s, pre, post, dim, N, [np.arange(dim)] * N, record_add)
+    assert not np.isnan(want).any()
+    for group in range(1, nb + 1):
+        w = build_record_walk(s, group)
+        assert w.passes == -(-nb // group)
+        launches = (w.offsets[1:] > w.offsets[:-1]).view(-1, 2)
+        assert launches[:, 1].all()
+        assert w.launched == w.passes
+        got = record_pass_walk(w, post, dim, N, record_add)
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+
+
+@pytest.mark.parametrize("name,elem,record_bytes,passes", [
+    ("reddit", 4, 160, 2), ("reddit", 2, 128, 2),
+    ("ogbn-proteins", 4, 160, 1), ("ogbn-proteins", 2, 128, 1),
+    ("flickr", 4, 160, 1)])
+def test_record_group_rule(name, elem, record_bytes, passes):
+    """The grouping at the recipes' shapes (dim 256, k 32: 160-B f32
+    records on f32 rows' schedule, 128-B bf16 ones on bf16 rows'): Reddit
+    6 of 10 blocks a pass (2 passes) in f32 and 4 of 5 (2) in bf16;
+    proteins and the flickr stand-in one pass; and a schedule's walk
+    keeps to that rule, once built."""
+    spec = SYNTH_SPECS[name]
+    nb = auto_src_blocks(spec["n"], spec["e"], 256, spec["n"], elem)
+    block_rows = -(-spec["n"] // nb)
+    group = min(record_group(block_rows, record_bytes), nb)
+    assert -(-nb // group) == passes
+    if name == "reddit":
+        assert (nb, group) == ((10, 6) if elem == 4 else (5, 4))
+    g = hub_graph()
+    s = CSRPlan(g.indptr, g.indices, 3, SEGMENT).schedule(N, 32, 4)
+    w = s.record_walk(record_bytes)
+    assert w is s.record_walk(record_bytes)
+    assert w.group == min(record_group(s.block_rows, record_bytes), 3)
+
+
 # ---------------------------------------------------------------------------
 # CPU: against the JAX package
 # ---------------------------------------------------------------------------
@@ -512,10 +627,19 @@ def cuda():
     return torch.device("cuda")
 
 
+def two_block_passes(monkeypatch, nb: int, rows: int,
+                     record_bytes: int) -> None:
+    """Shrink L2_BLOCK_BYTES so that a schedule of nb forced blocks over
+    `rows` sources groups 2 blocks a record pass: 3 passes at nb 5."""
+    monkeypatch.setattr(tiles, "L2_BLOCK_BYTES",
+                        2 * record_bytes * -(-rows // nb))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("nb", [None, 1, 3])
+@pytest.mark.parametrize("nb", [None, 1, 3, 5])
 @pytest.mark.parametrize("k", [8, 32, 64, 255])
-def test_csr_cbsr_spmm_f32_is_the_dense_form_on_gpu(cuda, k, nb):
+def test_csr_cbsr_spmm_f32_is_the_dense_form_on_gpu(cuda, k, nb,
+                                                    monkeypatch):
     """dim 256 on A and Aᵀ of a directed graph with rows without edges and
     a hub row of 3000 edges (pieces of 512 in a block): csr_cbsr_spmm on
     f32 records bit for bit csr_spmm on the densified rows at the same
@@ -523,15 +647,21 @@ def test_csr_cbsr_spmm_f32_is_the_dense_form_on_gpu(cuda, k, nb):
     within 1e-5 of max |y| of the plain version in float64; on integer
     values, whose sums are exact in any order, bit for bit the plain
     version. k 8 and 255 copy 4 bytes a lane (255's stages need more than
-    48 KB of shared memory a block), 32 and 64 16."""
+    48 KB of shared memory a block), 32 and 64 16. At nb 5 the budget is
+    shrunk to 2 blocks a record pass: 3 record passes, more than one and
+    fewer than the blocks; else the test's shapes take one."""
     dim = 256
     g = hub_graph(700, seed=k, hub_edges=3000).to(cuda)
     rng = np.random.default_rng(k)
     post = torch.tensor(rng.random(700).astype(np.float32) + 0.5,
                         device=cuda)
+    record_bytes = 4 * tmaxk.record_words(k, dim, F32)
+    if nb == 5:
+        two_block_passes(monkeypatch, nb, 700, record_bytes)
     for indptr, indices in ((g.indptr, g.indices), (g.t_indptr, g.t_indices)):
         plan = CSRPlan(indptr, indices, nb)
         s = plan.schedule(700, dim, 4)
+        assert s.record_walk(record_bytes).passes == (3 if nb == 5 else 1)
         for pre_kind in ("none", "gcn"):
             pre = factor(rng, 700, pre_kind, cuda)
             for ints in (False, True):
@@ -597,6 +727,39 @@ def test_csr_sspmm_f32_is_the_dense_form_on_gpu(cuda, k, nb):
             else:
                 near(y.cpu(), plain.cpu())
             assert (y[g.t_indptr.diff() == 0] == 0).all()
+
+
+@pytest.mark.gpu
+def test_record_passes_are_counted_on_gpu(cuda, monkeypatch):
+    """`record_passes` counts each record pass csr_cbsr_spmm launches while
+    spans record, and nothing outside them: on f32 and bf16 records, one
+    pass at the test's budget, three with 2 blocks of 5 a pass; the launch
+    count stays one a call."""
+    from spgemm_gnn_tpu_torch.utils import spans
+    dim, k = 256, 32
+    g = hub_graph(700, seed=5, hub_edges=3000).to(cuda)
+    rng = np.random.default_rng(5)
+    _, rec = records_of(rng, 700, dim, k, cuda)
+    vals, ch = tmaxk.split_records(rec, k, dim, F32)
+    rec16 = tmaxk.cbsr_records(vals.to(torch.bfloat16), ch, dim)
+    for records, value in ((rec, F32), (rec16, torch.bfloat16)):
+        for shrink, passes in ((False, 1), (True, 3)):
+            with monkeypatch.context() as m:
+                if shrink:
+                    two_block_passes(m, 5, 700, 4 * records.shape[1])
+                plan = CSRPlan(g.indptr, g.indices, 5)
+                spans.reset()
+                _build.launches.clear()
+                csr_cbsr_spmm(plan, records, k, dim, value_dtype=value)
+                assert spans.counters["record_passes"] == 0
+                with spans.recording():
+                    csr_cbsr_spmm(plan, records, k, dim, value_dtype=value)
+                    csr_cbsr_spmm(plan, records, k, dim, value_dtype=value)
+                assert spans.counters["record_passes"] == 2 * passes
+                name = ("csr_cbsr_spmm" if value == F32
+                        else "csr_cbsr_spmm_bf16")
+                assert dict(_build.launches) == {name: 3}
+    spans.reset()
 
 
 @pytest.mark.gpu

@@ -15,6 +15,7 @@ from spgemm_gnn_tpu.graphs import plan_cache as jcache
 from spgemm_gnn_tpu_torch.graphs import plan_cache as tcache
 from spgemm_gnn_tpu_torch.graphs.csr import from_edges
 from spgemm_gnn_tpu_torch.graphs.synthetic import powerlaw_graph
+from spgemm_gnn_tpu_torch.graphs import tiles
 from spgemm_gnn_tpu_torch.graphs.tiles import CSRPlan
 from spgemm_gnn_tpu_torch.kernels import planned
 from spgemm_gnn_tpu_torch.kernels.planned import plan_graph, planned_aggregate
@@ -38,6 +39,11 @@ def plan_tensors(plan) -> dict:
                       "pass_fix"):
                 out[f"{key}.{f}"] = getattr(s, f)
             out[f"{key}.meta"] = (s.nb, s.block_rows, s.segment, s.n_slots)
+            for group, w in s._walks.items():
+                for f in ("entries", "runs", "offsets"):
+                    out[f"{key}.w{group}.{f}"] = getattr(w, f)
+                out[f"{key}.w{group}.meta"] = (w.group, w.passes, w.n_slots,
+                                              w.launched)
         return out
     out.update(chunk_row0=plan.chunk_row0, carry_rows=plan.carry_rows,
                meta=(plan.chunk, plan.warp_chunks))
@@ -124,6 +130,35 @@ def test_cached_plan_round_trips(which, kind, dtype, tmp_path):
         outs.append((y.detach(), xt.grad))
     for u, v in zip(*outs):
         assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_record_walks_round_trip(dtype, tmp_path):
+    """With a MaxK of k 8 < dim the windowed forward plan carries
+    `csr_cbsr_spmm`'s record walk for its records (40-B f32 or 128-B bf16
+    ones), built with the plan and not on the backward plan; the file is
+    keyed by the record size, and a warm load gives the walk tensor for
+    tensor, its offsets on the host."""
+    g = _graphs()["directed"]
+    cold = plan_graph(g, kind="windowed", dim=DIM, dtype=dtype, k=8,
+                      cache_dir=str(tmp_path))
+    (sched,) = cold.fwd_plan._schedules.values()
+    (walk,) = sched._walks.values()
+    assert walk.group == min(tiles.record_group(
+        sched.block_rows, 40 if dtype == torch.float32 else 128), sched.nb)
+    assert all(not s._walks for s in cold.bwd_plan._schedules.values())
+    warm = plan_graph(g, kind="windowed", dim=DIM, dtype=dtype, k=8,
+                      cache_dir=str(tmp_path))
+    fresh = plan_graph(g, kind="windowed", dim=DIM, dtype=dtype, k=8)
+    for a, b, what in ((warm.fwd_plan, fresh.fwd_plan, "warm"),
+                       (cold.fwd_plan, fresh.fwd_plan, "cold")):
+        assert_plans_equal(a, b, what)
+    (loaded,) = warm.fwd_plan._schedules.values()
+    assert loaded._walks[walk.group].offsets.device.type == "cpu"
+    files = len(os.listdir(tmp_path))
+    plan_graph(g, kind="windowed", dim=DIM, dtype=dtype,
+               cache_dir=str(tmp_path))
+    assert len(os.listdir(tmp_path)) == files + 1
 
 
 def test_windowed_schedules_of_several_blocks_round_trip(tmp_path):
