@@ -48,8 +48,8 @@ def reference_steps(config, traffic, seed, device, indptr, indices, host,
     out = reference.train_steps(
         torch.from_numpy(indptr.astype("int32")), torch.from_numpy(indices),
         host.to(device), config["model"], dropout_seed=seed + 1,
-        steps=traffic["compared_steps"], precision=precision,
-        dtype=traffic["dtype"])
+        model_file=cells.model_file(config), steps=traffic["compared_steps"],
+        precision=precision, dtype=traffic["dtype"])
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -58,7 +58,7 @@ def reference_steps(config, traffic, seed, device, indptr, indices, host,
 
 def calibrate(config, traffic, seeds, n_faults, device, emit):
     """Readings of every seed (emitted as they come); returns the summary."""
-    indptr, indices, _ = graphgen.load_csr(config)
+    indptr, indices, _ = graphgen.load_graph(config)
     graph = run.build_graph(indptr, indices, device)
     control = CONTROL[traffic["dtype"]]
     sound, ctrl, planted = [], [], {f: [] for f in faults.FAULTS}

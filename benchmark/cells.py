@@ -6,7 +6,10 @@ limits or a per-layer metric is added by adding files and entries.
 - a traffic mix: `traffic/<name>.json`;
 - a cell's correctness limits: `limits/<cell>.json`;
 - a per-layer metric: `metrics/<name>.py`, whose `read(ctx)` returns the
-  value or None (`context.Context`).
+  value or None (`context.Context`);
+- a model family: `models/<model>.py`, by the configuration's
+  `model["model"]`: its weights, its plain forward and its counts
+  (`models/sage.py` says what such a file provides).
 """
 from __future__ import annotations
 
@@ -16,6 +19,14 @@ from pathlib import Path
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
+# the family of a configuration whose model group names none: the port's
+# default (`train/config.py::TrainConfig.model`)
+DEFAULT_MODEL = "sage"
+_MODEL_FILES: dict[Path, object] = {}
+
+
+class NoModelFile(LookupError):
+    """A configuration's model family has no file under `models/`."""
 
 
 def load_benchmark(root: Path = ROOT) -> dict:
@@ -57,11 +68,28 @@ def metrics_of(bench: dict, cell: str, kind: str) -> list[dict]:
             if "workloads" not in m or cell in m["workloads"]]
 
 
-def reader(name: str, bench_dir: Path = BENCH):
-    """The `read` function of `metrics/<name>.py`."""
-    path = bench_dir / "metrics" / f"{name}.py"
+def _load(path: Path, prefix: str, name: str):
     spec = importlib.util.spec_from_file_location(
-        "benchmark_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        prefix + name.replace(".", "_").replace("-", "_"), path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def reader(name: str, bench_dir: Path = BENCH):
+    """The `read` function of `metrics/<name>.py`."""
+    return _load(bench_dir / "metrics" / f"{name}.py", "benchmark_metric_",
+                 name).read
+
+
+def model_file(config: dict, bench_dir: Path = BENCH):
+    """The module `models/<model>.py` of the configuration's model family
+    (its `model["model"]`, else DEFAULT_MODEL), loaded once a path; raises
+    NoModelFile, naming the file, where there is none."""
+    name = config["model"].get("model", DEFAULT_MODEL)
+    path = bench_dir / "models" / f"{name}.py"
+    if path not in _MODEL_FILES:
+        if not path.is_file():
+            raise NoModelFile(f"model {name!r}: no model file {path}")
+        _MODEL_FILES[path] = _load(path, "benchmark_model_", name)
+    return _MODEL_FILES[path]

@@ -11,6 +11,11 @@ The first run of a configuration in a checkout draws the graph and keeps
 its CSR (row = destination, sources sorted within a row) under
 `benchmark/cache/graphs/`; later runs load it. The file name carries a hash
 of everything the draw depends on, so a changed configuration draws anew.
+
+A configuration whose `graph.self_loops` is true (default false) runs the
+graph with self-loops, as the recipes' `--selfloop` does: `load_graph`
+removes every self-loop of the cached CSR and adds one per node, keeping
+rows sorted (`add_self_loops`); the cache keeps the drawn graph.
 """
 from __future__ import annotations
 
@@ -84,3 +89,36 @@ def load_csr(config: dict, cache: Path | None = None
         np.savez(f, indptr=indptr, indices=indices)
     os.replace(tmp, path)
     return indptr, indices, True
+
+
+def add_self_loops(indptr: np.ndarray, indices: np.ndarray
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """(indptr int64, indices) of the CSR with every self-loop removed and
+    one added per node (DGL's AddSelfLoop: remove, then add), each row's
+    sources still sorted."""
+    n = indptr.shape[0] - 1
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+    keep = indices != rows
+    rows, src = rows[keep], indices[keep]
+    counts = np.bincount(rows, minlength=n) + 1
+    out_ptr = np.zeros(n + 1, np.int64)
+    np.cumsum(counts, out=out_ptr[1:])
+    # node v's loop goes after the sources of row v below v
+    loop_at = out_ptr[:-1] + np.bincount(rows[src < rows], minlength=n)
+    del rows
+    out = np.empty(out_ptr[-1], indices.dtype)
+    rest = np.ones(out.shape[0], bool)
+    rest[loop_at] = False
+    out[loop_at] = np.arange(n, dtype=indices.dtype)
+    out[rest] = src
+    return out_ptr, out
+
+
+def load_graph(config: dict, cache: Path | None = None
+               ) -> tuple[np.ndarray, np.ndarray, bool]:
+    """`load_csr`, with the self-loops of `graph.self_loops` added: the
+    graph as the cell runs it."""
+    indptr, indices, drawn = load_csr(config, cache)
+    if config["graph"].get("self_loops", False):
+        indptr, indices = add_self_loops(indptr, indices)
+    return indptr, indices, drawn

@@ -6,12 +6,10 @@ with `--seed`, in a few large calls, so that the same seed gives the same
 inputs on the same device. The rule is the stand-in's: standard normal
 features, uniform labels, class centroids (scale 2.5) added to the first 16
 feature channels, a 60/20/20 split from one permutation. The weights follow
-the models' initialisation: Xavier-uniform (gain sqrt(2) on the SAGE
-layers' projections, 1 on `lin_in` and `lin_out`), zero biases, LayerNorm
-scale 1 and bias 0.
-
-The weights are named as the port's SAGE model names its parameters, since
-they enter the program through `Trainer.init_state(weights=...)`.
+the model family's initialisation, which its model file states
+(`models/<model>.py::weight_shapes`: names, shapes, initialisers and gains
+in the order they are drawn): Xavier-uniform from one draw of them all,
+zero biases, LayerNorm scale 1 and bias 0.
 """
 from __future__ import annotations
 
@@ -19,6 +17,8 @@ import dataclasses
 import math
 
 import torch
+
+from benchmark import cells
 
 CENTROID_DIMS = 16
 CENTROID_SCALE = 2.5
@@ -35,27 +35,6 @@ class Inputs:
         return Inputs(self.features.to(device), self.labels.to(device),
                       tuple(m.to(device) for m in self.masks),
                       {k: v.to(device) for k, v in self.weights.items()})
-
-
-def weight_shapes(model: dict, num_features: int, num_classes: int
-                  ) -> list[tuple[str, tuple[int, ...], str, float]]:
-    """(name, shape, init, gain) of every parameter of the SAGE model, in
-    the order they are drawn; init is "xavier", "zeros" or "ones"."""
-    if model["model"] != "sage":
-        raise ValueError(f"no initialisation for model {model['model']!r}")
-    h = model["hidden_dim"]
-    out = [("lin_in.weight", (h, num_features), "xavier", 1.0),
-           ("lin_in.bias", (h,), "zeros", 0.0)]
-    for i in range(model["hidden_layers"]):
-        out += [(f"layer{i}.fc_neigh.weight", (h, h), "xavier", math.sqrt(2)),
-                (f"layer{i}.fc_self.weight", (h, h), "xavier", math.sqrt(2)),
-                (f"layer{i}.fc_self.bias", (h,), "zeros", 0.0)]
-        if model["norm"]:
-            out += [(f"layer{i}.norm.weight", (h,), "ones", 0.0),
-                    (f"layer{i}.norm.bias", (h,), "zeros", 0.0)]
-    out += [("lin_out.weight", (num_classes, h), "xavier", 1.0),
-            ("lin_out.bias", (num_classes,), "zeros", 0.0)]
-    return out
 
 
 def draw(config: dict, seed: int, device) -> Inputs:
@@ -75,7 +54,7 @@ def draw(config: dict, seed: int, device) -> Inputs:
         m = torch.zeros(n, dtype=torch.bool, device=device)
         m[perm[lo:hi]] = True
         masks.append(m)
-    shapes = weight_shapes(model, f, c)
+    shapes = cells.model_file(config).weight_shapes(model, f, c)
     u = torch.rand(sum(math.prod(shape) for _, shape, init, _ in shapes
                        if init == "xavier"), generator=gen, device=device)
     weights, at = {}, 0

@@ -1,32 +1,37 @@
-"""The plain reference: MaxK-GNN's SAGE model trained full-graph, in plain
+"""The plain reference: a MaxK-GNN model trained full-graph, in plain
 PyTorch, for the first steps of a run.
 
-It follows the published model (MaxK-GNN, ASPLOS'24; DGL's SAGEConv with
-the mean aggregator): lin_in, then per layer MaxK (the k largest entries of
-each row kept, ties to the lowest channel), inverted dropout, the mean over
-in-neighbours, fc_self(x) + fc_neigh(mean), LayerNorm; then lin_out, and
-cross-entropy averaged over the training rows; Adam (betas 0.9 / 0.999,
-eps 1e-8, no weight decay).
+This file keeps what every model family shares; the family's own forward
+pass, from the features to the logits, is its model file's `forward(net,
+features, model)` (`models/<model>.py`, found by `cells.model_file`),
+which builds on the pieces of `Net`: the dense layer at the compute dtype
+and precision, MaxK (the k largest entries of each row kept, ties to the
+lowest channel), inverted dropout, LayerNorm, and the graph as its
+product A x (`CSR`) with its degrees. `train_steps` runs that forward, the
+cross-entropy averaged over the training rows, and Adam (betas 0.9 /
+0.999, eps 1e-8, no weight decay).
 
 `dtype` is the traffic's compute dtype. "float32" computes every
 activation in f32. "bfloat16" is the 16-bit model as the configuration
 states it (flax's mixed precision, which the port follows): the features
 cast to bf16; every hidden dense layer casts its input, weight and bias to
 bf16 and rounds its product to bf16; MaxK and dropout act on the bf16 rows;
-the mean sums the bf16 rows in f32 and gives bf16(bf16(sum) * bf16(1/deg)),
-its backward sums the messages bf16(g / deg) in f32 and rounds to bf16;
 LayerNorm takes its statistics and computes (x - mean) * (rstd * scale) +
 bias in f32 and rounds once to bf16; lin_out, the loss and the parameters
-stay f32.
+stay f32. Each model file states its aggregation's bf16 rule.
 
 It imports nothing of the program. The graph enters as the benchmark's own
-CSR, the inputs and weights as the benchmark drew them. The aggregation is a
-sparse CSR product (`torch.sparse`), so that no E x dim block of messages is
-ever held; the graph is symmetric by construction (`graphgen.py`), so the
-backward of the mean, A^T (g / deg), is A (g / deg). The dropout masks are
-drawn as the program's Trainer draws them: a generator on the device seeded
-with the run's seed + 1, one `torch.rand` of [N, dim] per layer and train
-step, in layer order.
+CSR, the inputs and weights as the benchmark drew them. The aggregation's
+product A x (`CSR`) gathers the rows of x edge by edge in blocks of rows,
+so that no E x dim block of messages is ever held, and sums each row's
+messages in f32 in the CSR's order (`torch.segment_reduce`), so that the
+same inputs give the same bits on every run; cuSPARSE's product
+(`torch.sparse`), which it replaces, did not on the card, and one run in
+a few of the same seed then read a gap at the control's level. The graph
+is symmetric by construction (`graphgen.py`, and its self-loops transform
+keeps it so), so the backward of A x is A g. The dropout masks are drawn as the program's Trainer draws them: a generator on
+the device seeded with the run's seed + 1, one `torch.rand` of [N, dim] per
+dropout and train step, in the order the forward meets them.
 
 `precision` sets every dense product: "f32" exact (TF32 off), "tf32" with
 both operands of each product (forward and backward) rounded to TF32's
@@ -37,7 +42,6 @@ comparison in `compare.py`.
 from __future__ import annotations
 
 import dataclasses
-import warnings
 
 import torch
 import torch.nn.functional as F
@@ -46,6 +50,8 @@ ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
 LN_EPS = 1e-5
 FP8_MAX = 448.0
+# edges whose rows a product gathers at once: 2 GiB of f32 rows of 256
+EDGE_BLOCK = 1 << 21
 
 
 def round_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -85,26 +91,6 @@ class _LowLinear(torch.autograd.Function):
                 (gq.t() @ q(x.float())).to(w.dtype), None)
 
 
-class _MeanAgg(torch.autograd.Function):
-    """y = D^-1 A x over the symmetric graph A (sparse CSR, ones), summed
-    in f32; on bf16 rows as the module docstring says."""
-
-    @staticmethod
-    def forward(ctx, x, adj, inv_deg):
-        ctx.adj, ctx.inv_deg = adj, inv_deg
-        if x.dtype == torch.float32:
-            return (adj @ x) * inv_deg[:, None]
-        y = (adj @ x.float()).to(x.dtype)
-        return y * inv_deg.to(x.dtype)[:, None]
-
-    @staticmethod
-    def backward(ctx, g):
-        if g.dtype == torch.float32:
-            return ctx.adj @ (g * ctx.inv_deg[:, None]), None, None
-        m = (g.float() * ctx.inv_deg[:, None]).to(g.dtype)
-        return (ctx.adj @ m.float()).to(g.dtype), None, None
-
-
 def _layer_norm(h, weight, bias):
     """LayerNorm over the last axis: f32 statistics and arithmetic, one
     rounding to h's dtype."""
@@ -124,6 +110,33 @@ def maxk(h: torch.Tensor, k: int) -> torch.Tensor:
     return torch.zeros_like(h).scatter(1, idx, h.gather(1, idx))
 
 
+class CSR:
+    """The product A x over a CSR graph of ones (row = destination), in
+    blocks of about EDGE_BLOCK edges: the block's source rows gathered,
+    then each destination's sum by `torch.segment_reduce`, one sequential
+    sum an output element, the same bits on every run."""
+
+    def __init__(self, indptr: torch.Tensor, indices: torch.Tensor):
+        ptr = indptr.to("cpu", torch.int64)
+        self.n = ptr.shape[0] - 1
+        self.indices = indices.long()
+        self.lengths = (indptr[1:] - indptr[:-1]).long()
+        cuts = torch.searchsorted(ptr, torch.arange(0, int(ptr[-1]),
+                                                    EDGE_BLOCK))
+        rows = sorted(set(cuts.tolist()) | {0, self.n})
+        self.blocks = [(r0, r1, int(ptr[r0]), int(ptr[r1]))
+                       for r0, r1 in zip(rows[:-1], rows[1:]) if r1 > r0]
+
+    def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
+        out = torch.empty((self.n, x.shape[1]), dtype=x.dtype,
+                          device=x.device)
+        for r0, r1, e0, e1 in self.blocks:
+            out[r0:r1] = torch.segment_reduce(
+                x.index_select(0, self.indices[e0:e1]), "sum",
+                lengths=self.lengths[r0:r1], axis=0, unsafe=True)
+        return out
+
+
 @dataclasses.dataclass
 class Steps:
     """What the first steps give: each step's loss, each leaf's gradient
@@ -133,61 +146,77 @@ class Steps:
     change_norms: dict[str, float]
 
 
+class Net:
+    """The pieces a model file's forward builds on, for one run of the
+    reference: its parameters, the graph, the compute dtype, the precision
+    of its dense products and its dropout generator."""
+
+    def __init__(self, params: dict[str, torch.Tensor], adj: CSR,
+                 deg: torch.Tensor, model: dict, dtype: torch.dtype, q,
+                 gen: torch.Generator):
+        self.params = params
+        self.adj = adj          # CSR: adj @ x is A x
+        self.deg = deg          # f32 [N] degrees, not clamped
+        self.dtype = dtype      # the hidden stack's compute dtype
+        self.k = model["maxk"]
+        self.p_drop = model["dropout"]
+        self._q = q
+        self._gen = gen
+
+    def linear(self, x, name: str, bias: bool = True, dt=None):
+        """The dense layer `name` computing in dt (default the compute
+        dtype): input, weight and bias cast to it, the product rounded to
+        it, the bias added in it."""
+        dt = self.dtype if dt is None else dt
+        x, w = x.to(dt), self.params[f"{name}.weight"].to(dt)
+        y = F.linear(x, w) if self._q is None else _LowLinear.apply(x, w,
+                                                                    self._q)
+        return y + self.params[f"{name}.bias"].to(dt) if bias else y
+
+    def maxk(self, h: torch.Tensor) -> torch.Tensor:
+        return maxk(h, self.k)
+
+    def dropout(self, x: torch.Tensor) -> torch.Tensor:
+        """Inverted dropout with the next [N, dim] draw of the run's
+        generator."""
+        noise = torch.rand(x.shape, generator=self._gen, device=x.device)
+        return torch.where(noise >= self.p_drop, x / (1.0 - self.p_drop),
+                           torch.zeros_like(x))
+
+    def layer_norm(self, h: torch.Tensor, name: str) -> torch.Tensor:
+        return _layer_norm(h, self.params[f"{name}.weight"],
+                           self.params[f"{name}.bias"])
+
+
 def train_steps(indptr: torch.Tensor, indices: torch.Tensor, inputs,
-                model: dict, dropout_seed: int, steps: int = 3,
+                model: dict, dropout_seed: int, model_file, steps: int = 3,
                 precision: str = "f32", dtype: str = "float32") -> Steps:
-    """`steps` full-graph train steps of the SAGE-MaxK model of `model`
-    (a configuration's "model" group) from `inputs` (features, labels,
-    masks and weights on one device), at the compute dtype `dtype`."""
-    q = ROUNDINGS[precision]
+    """`steps` full-graph train steps of the model of `model` (a
+    configuration's "model" group), whose forward is `model_file.forward`,
+    from `inputs` (features, labels, masks and weights on one device), at
+    the compute dtype `dtype`."""
     cd = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
     dev = inputs.features.device
-    n = inputs.features.shape[0]
     deg = (indptr[1:] - indptr[:-1]).to(dev, torch.float32)
-    inv_deg = 1.0 / deg.clamp(min=1.0)
-    with warnings.catch_warnings():    # "sparse CSR support is in beta"
-        warnings.simplefilter("ignore", UserWarning)
-        adj = torch.sparse_csr_tensor(
-            indptr.to(dev, torch.int32), indices.to(dev, torch.int32),
-            torch.ones(indices.shape[0], device=dev), size=(n, n),
-            check_invariants=False)
+    adj = CSR(indptr.to(dev), indices.to(dev))
     params = {k: v.detach().clone().requires_grad_(True)
               for k, v in inputs.weights.items()}
     start = {k: v.detach().clone() for k, v in params.items()}
     moments = {k: (torch.zeros_like(v), torch.zeros_like(v))
                for k, v in params.items()}
-    p_drop, k = model["dropout"], model["maxk"]
     lr = model["w_lr"]
-    gen = torch.Generator(device=dev).manual_seed(int(dropout_seed))
+    net = Net(params, adj, deg, model, cd, ROUNDINGS[precision],
+              torch.Generator(device=dev).manual_seed(int(dropout_seed)))
     train = inputs.masks[0]
-
-    def linear(x, name, bias=True, dt=cd):
-        """A dense layer computing in dt: input, weight and bias cast to
-        it, the product rounded to it, the bias added in it."""
-        x, w = x.to(dt), params[f"{name}.weight"].to(dt)
-        y = F.linear(x, w) if q is None else _LowLinear.apply(x, w, q)
-        return y + params[f"{name}.bias"].to(dt) if bias else y
 
     losses, grad_norms = [], {}
     b1, b2 = ADAM_BETAS
     for t in range(1, steps + 1):
-        h = linear(inputs.features.to(cd), "lin_in")
-        for i in range(model["hidden_layers"]):
-            x = maxk(h, k)
-            noise = torch.rand(x.shape, generator=gen, device=dev)
-            x = torch.where(noise >= p_drop, x / (1.0 - p_drop),
-                            torch.zeros_like(x))
-            agg = _MeanAgg.apply(x, adj, inv_deg)
-            h = (linear(x, f"layer{i}.fc_self")
-                 + linear(agg, f"layer{i}.fc_neigh", bias=False))
-            if model["norm"]:
-                h = _layer_norm(h, params[f"layer{i}.norm.weight"],
-                                params[f"layer{i}.norm.bias"])
-        logits = linear(h, "lin_out", dt=torch.float32)
+        logits = model_file.forward(net, inputs.features, model)
         per_node = F.cross_entropy(logits, inputs.labels, reduction="none")
         m = train.to(per_node.dtype)
         loss = (per_node * m).sum() / m.sum().clamp(min=1.0)
-        del h, x, agg, logits, per_node
+        del logits, per_node
         loss.backward()
         losses.append(loss.item())
         with torch.no_grad():

@@ -5,17 +5,20 @@
 
 from the root of a checkout. A cell is full-graph MaxK-GNN training with
 `spgemm_gnn_tpu_torch`'s Trainer on one configuration (`configs/`) under
-one traffic mix (`traffic/`: the precision and the training flags).
+one traffic mix (`traffic/`: the precision and the training flags). The
+configuration's model family has a file of its own (`models/<model>.py`):
+its weights, its plain forward and its counts.
 
 Set-up, from the process's start to the first timed epoch: the graph
-(drawn once per checkout, then loaded from `benchmark/cache/`), the
-features, labels, split and initial weights drawn from `--seed` on the
-card, the Trainer (the graph's plans on the card, the kernels loaded, or
-built with nvcc at the first run in a checkout), and one call of
-`Trainer.run(epochs=E)` (E = the mix's `epochs_per_call`, the recipe's
-`eval_fetch_every`). That first call is the run's first steps: an
-optimizer hook reads the first gradient from Adam's state after step 1
-and the parameters after the last compared step.
+(drawn once per checkout, then loaded from `benchmark/cache/`; with
+self-loops added where the configuration asks), the features, labels,
+split and initial weights drawn from `--seed` on the card, the Trainer
+(the graph's plans on the card, the kernels loaded, or built with nvcc at
+the first run in a checkout), and one call of `Trainer.run(epochs=E)` (E
+= the mix's `epochs_per_call`, the recipe's `eval_fetch_every`). That
+first call is the run's first steps: an optimizer hook reads the first
+gradient from Adam's state after step 1 and the parameters after the last
+compared step.
 
 The window then calls `Trainer.run(epochs=E)` on the same state until
 `--seconds` have passed; each call ends in the program's synchronise.
@@ -24,14 +27,16 @@ The window then calls `Trainer.run(epochs=E)` on the same state until
 are read from it (`metrics/<name>.py`).
 
 After the window, the program's state is freed and the plain reference
-(`reference.py`) recomputes the first steps from the same inputs; the
-numbers of `compare.py` against the cell's limits decide `correct`. The
-last line of standard output is the result, as one JSON object.
+(`reference.py` with the model file's forward) recomputes the first steps
+from the same inputs; the numbers of `compare.py` against the cell's
+limits decide `correct`. The last line of standard output is the result,
+as one JSON object.
 
 Exit codes: 0 with a result; 2 without the card(s) the cell asks for; 3
 when JAX or the JAX package is loaded once everything that runs after the
 window (the metric readers, the reference, the comparison) has run; 1 on
-any other failure. None of them but 0 prints a result.
+any other failure, at once where the configuration's model family has no
+model file. None of them but 0 prints a result.
 """
 import os
 import sys
@@ -239,8 +244,9 @@ def run_cell(config: dict, traffic: dict, limits: dict, seed: int,
     from spgemm_gnn_tpu_torch.kernels import _build
 
     log(f"imports and the card: {time.perf_counter() - t_start:.2f} s")
+    model_file = cells.model_file(config)
     t = time.perf_counter()
-    indptr, indices, drawn = graphgen.load_csr(config)
+    indptr, indices, drawn = graphgen.load_graph(config)
     log(f"graph {'drawn and stored' if drawn else 'loaded'}: N "
         f"{indptr.shape[0] - 1}, E {indices.shape[0]} "
         f"({time.perf_counter() - t:.2f} s)")
@@ -333,7 +339,8 @@ def run_cell(config: dict, traffic: dict, limits: dict, seed: int,
     ref = reference.train_steps(
         torch.from_numpy(indptr.astype("int32")),
         torch.from_numpy(indices), host.to(device), config["model"],
-        dropout_seed=seed + 1, steps=steps, dtype=traffic["dtype"])
+        dropout_seed=seed + 1, model_file=model_file, steps=steps,
+        dtype=traffic["dtype"])
     log(f"reference, {steps} steps: {time.perf_counter() - t:.2f} s")
     values = compare.readings(prog, ref)
     ok, checks = compare.judge(values, limits)
@@ -360,6 +367,11 @@ def main(argv=None) -> int:
     bench = cells.load_benchmark()
     cell = cells.workload(bench, args.workload)
     config = cells.config(bench, cell["config"])
+    try:
+        cells.model_file(config)
+    except cells.NoModelFile as exc:
+        log(f"no result: {exc}")
+        return 1
     try:
         result = run_cell(
             config, cells.traffic(cell["traffic"]),

@@ -38,7 +38,9 @@ def test_names_units_and_keys(bench):
             assert NAME.match(m["name"]) and UNIT.match(m["unit"])
             assert m["better"] in ("lower", "higher")
     assert {m["name"] for m in bench["end_to_end"]} == {"epoch_s", "setup_s"}
-    assert all(m["moves"] == "epoch_s" for m in bench["per_layer"])
+    for m in bench["per_layer"]:
+        setup = m["name"].startswith("setup_")
+        assert m["moves"] == ("setup_s" if setup else "epoch_s"), m
 
 
 @pytest.mark.parametrize("index", range(4))
@@ -67,8 +69,16 @@ def test_published_widths(bench):
         assert cfg["reduced"] == [] and cfg["assumed"]
 
 
+PER_LAYER = ["launches_per_epoch", "agg_ms", "agg_roofline", "model_ms",
+             "device_idle_pct", "peak_mem_gib", "mfu", "fwd_ms", "bwd_ms",
+             "optim_ms", "eval_ms", "agg_span_ms", "host_syncs_per_epoch",
+             "setup_kernels_s", "setup_graph_s", "setup_state_s",
+             "setup_first_step_s", "record_passes_per_epoch"]
+
+
 def test_added_cell_is_found_from_files_alone(bench, tmp_path):
-    """A new configuration, traffic mix, limits and metric, added as files
+    """A new configuration, traffic mix, limits and metric, and a
+    configuration of another model family with self-loops, added as files
     and BENCHMARK.json entries, are found with no file of the harness
     edited."""
     root = tmp_path / "checkout"
@@ -80,19 +90,31 @@ def test_added_cell_is_found_from_files_alone(bench, tmp_path):
     cfg["model"]["maxk"] = 16
     (root / "benchmark/configs/reddit-sage-maxk-k16.json").write_text(
         json.dumps(cfg))
+    gcn = cells.config(bench, "products-sage-maxk")
+    gcn["name"] = "products-gcn-maxk"
+    gcn["model"]["model"] = "gcn"
+    gcn["graph"]["self_loops"] = True
+    (root / "benchmark/configs/products-gcn-maxk.json").write_text(
+        json.dumps(gcn))
     (root / "benchmark/traffic/train-f32-long.json").write_text(
         json.dumps(dict(cells.traffic("train-f32"), epochs_per_call=16)))
-    (root / "benchmark/limits/reddit-sage-maxk-k16.train-f32-long.json"
-     ).write_text(json.dumps(cells.limits("reddit-sage-maxk.train-f32")))
+    for cell in ("reddit-sage-maxk-k16.train-f32-long",
+                 "products-gcn-maxk.train-f32"):
+        (root / f"benchmark/limits/{cell}.json").write_text(
+            json.dumps(cells.limits("reddit-sage-maxk.train-f32")))
     (root / "benchmark/metrics/epochs_traced.py").write_text(
         "def read(ctx):\n    return ctx.traced_epochs or None\n")
-    new["configs"].append({"name": "reddit-sage-maxk-k16", "source": "x",
-                           "file": "benchmark/configs/reddit-sage-maxk-k16"
-                                   ".json", "reduced": [], "why": "x"})
+    for name in ("reddit-sage-maxk-k16", "products-gcn-maxk"):
+        new["configs"].append({"name": name, "source": "x",
+                               "file": f"benchmark/configs/{name}.json",
+                               "reduced": [], "why": "x"})
     new["workloads"].append({"name": "reddit-sage-maxk-k16.train-f32-long",
                              "config": "reddit-sage-maxk-k16",
                              "traffic": "train-f32-long", "chips": 1,
                              "why": "x"})
+    new["workloads"].append({"name": "products-gcn-maxk.train-f32",
+                             "config": "products-gcn-maxk",
+                             "traffic": "train-f32", "chips": 1, "why": "x"})
     new["per_layer"].append({"name": "epochs_traced", "unit": "epochs",
                              "better": "higher", "source": "host_clock",
                              "layer": "x", "moves": "epoch_s",
@@ -107,9 +129,24 @@ def test_added_cell_is_found_from_files_alone(bench, tmp_path):
     assert cells.limits(w["name"], bdir)["loss_gap"] > 0
     names = [m["name"] for m in cells.metrics_of(loaded, w["name"],
                                                  "per_layer")]
-    # SAGE-MaxK's counts (mfu, agg_roofline) list their cells; the rest
-    # are read in every cell
-    assert names == ["launches_per_epoch", "agg_ms", "model_ms",
-                     "device_idle_pct", "peak_mem_gib", "epochs_traced"]
+    # every cell reads every per-layer metric but those that list cells
+    assert names == PER_LAYER + ["epochs_traced"]
     assert cells.reader("epochs_traced", bdir)(
         type("Ctx", (), {"traced_epochs": 8})()) == 8
+    g = cells.workload(loaded, "products-gcn-maxk.train-f32")
+    config = cells.config(loaded, g["config"], root)
+    assert config["graph"]["self_loops"] is True
+    assert cells.limits(g["name"], bdir)["loss_gap"] > 0
+    assert [m["name"] for m in cells.metrics_of(loaded, g["name"],
+                                                "per_layer")] == PER_LAYER
+    model = cells.model_file(config, bdir)
+    assert model.__file__ == str(bdir / "models" / "gcn.py")
+    names = [s[0] for s in model.weight_shapes(config["model"], 100, 47)]
+    assert names[2:7] == ["lin0.weight", "lin0.bias", "conv0.bias",
+                          "norm0.weight", "norm0.bias"]
+
+
+def test_a_model_without_a_file_is_named(tiny_config):
+    config = dict(tiny_config, model=dict(tiny_config["model"], model="gat"))
+    with pytest.raises(cells.NoModelFile, match="models/gat.py"):
+        cells.model_file(config)

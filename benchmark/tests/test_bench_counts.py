@@ -48,3 +48,41 @@ def test_products_epoch_is_8_39_tflop():
               "model": {"hidden_dim": 256, "hidden_layers": 3, "maxk": 32}}
     assert counts.epoch_flops(config, 123683730) == pytest.approx(8.39e12,
                                                                   rel=2e-3)
+
+
+GCN_PRODUCTS = {"dataset": {"num_nodes": 2449029, "num_features": 100,
+                            "num_classes": 47},
+                "model": {"model": "gcn", "hidden_dim": 256,
+                          "hidden_layers": 3, "maxk": 32}}
+# the products stand-in's 123,683,730 edges and a self-loop per node
+GCN_EDGES = 123683730 + 2449029
+
+
+def test_gcn_products_epoch_flops_by_hand():
+    # N 2449029, F 100, H 256, C 47, L 3, E 126132759, k 32
+    n, e = 2449029, GCN_EDGES
+    lin_in = 2 * n * 100 * 256                  # 125,390,284,800
+    layer = 2 * n * 256 * 256                   # lin{i}: 320,999,129,088
+    lin_out = 2 * n * 256 * 47
+    agg = 2 * e * 32                            # 8,072,496,576
+    forward = lin_in + 3 * (layer + agg) + lin_out
+    backward = lin_in + 3 * (2 * layer + agg) + 2 * lin_out
+    assert (forward, backward) == (1171538595648, 2193469416768)
+    assert counts.epoch_flops(GCN_PRODUCTS, GCN_EDGES) == 4536546608064
+
+
+@pytest.mark.parametrize("dtype,b", [("float32", 4), ("bfloat16", 2)])
+def test_gcn_products_aggregation_floors_by_hand(dtype, b):
+    n, e = 2449029, GCN_EDGES
+    # row pointers, sources, and the two f32 degree factors: 533,919,388
+    fixed = (n + 1) * 4 + e * 4 + 2 * n * 4
+    fwd = fixed + n * 32 * (b + 1) + n * 256 * b
+    bwd = fixed + n * 256 * b + n * 32 * 1 + n * 32 * b
+    assert fixed == 533919388
+    assert fwd == bwd == {4: 3433569724, 2: 2022929020}[b]
+    floor = counts.aggregation_floor_s(GCN_PRODUCTS, GCN_EDGES, dtype)
+    # bytes bound both: 2·E·k = 8.07 GFLOP is 0.12 ms at the f32 peak
+    assert floor == {"forward": fwd / 3.35e12, "backward": bwd / 3.35e12}
+    assert counts.epoch_aggregation_floor_s(GCN_PRODUCTS, GCN_EDGES,
+                                            dtype) == pytest.approx(
+        (6 * fwd + 3 * bwd) / 3.35e12)

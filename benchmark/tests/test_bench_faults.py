@@ -7,7 +7,7 @@ import sys
 
 import pytest
 
-from benchmark import cells, faults, run
+from benchmark import cells, faults, graphgen, run
 
 PER_LAYER = [{"name": "launches_per_epoch", "unit": "launches/epoch"},
              {"name": "peak_mem_gib", "unit": "GiB"}]
@@ -34,13 +34,23 @@ def _run(config, cell, traffic, fault=None, trace=False, monkeypatch=None):
 def test_sound_run_is_correct(tiny_config, cell, traffic):
     """(The bf16 cells' limits are set at their full size, where a loss is
     a mean over 10^5 rows; at the tiny size here the sound bf16 run's
-    loss gap reads 3e-3 to 5e-3, above them.)"""
+    loss gap reads 3e-3 to 5e-3, at or above them.)"""
     res = _run(tiny_config, cell, traffic, trace=True)
     assert res["correct"], res["checks"]
     assert list(res)[-1] == "checks" and res["failed"] == 0
     assert res["attempted"] >= 16
     assert set(res["metrics"]) == {"launches_per_epoch"}
     assert res["device"]["window_s"] > 0 and "breakdown" in res
+
+
+def test_sound_gcn_run_is_correct(tiny_gcn_config):
+    """A configuration of the `gcn` family, with self-loops, runs through
+    the harness from its model file alone (no GCN cell has limits yet:
+    the f32 products cell's are used)."""
+    res = _run(tiny_gcn_config, "products-sage-maxk.train-f32", "train-f32")
+    assert res["correct"], res["checks"]
+    assert res["failed"] == 0 and res["attempted"] >= 16
+    assert res["checks"]["loss_gap"]["value"] < 1e-6
 
 
 @pytest.mark.parametrize("fault", sorted(faults.FAULTS))
@@ -63,6 +73,24 @@ def test_a_run_without_a_card_prints_nothing(capsys):
     rc = run.main(["--workload", "reddit-sage-maxk.train-f32", "--seed",
                    "1", "--seconds", "1"])
     assert rc == 2 and capsys.readouterr().out == ""
+
+
+def test_a_model_without_a_file_fails_before_the_graph(tiny_config,
+                                                       monkeypatch, capsys):
+    """A configuration whose model family has no file under `models/`
+    exits 1 at once, naming the file, before the graph loads or a card is
+    looked for."""
+    config = dict(tiny_config, model=dict(tiny_config["model"], model="gat"))
+    monkeypatch.setattr(cells, "config", lambda bench, name: config)
+
+    def loaded(*args, **kwargs):
+        raise AssertionError("the graph loaded")
+
+    monkeypatch.setattr(graphgen, "load_graph", loaded)
+    rc = run.main(["--workload", "reddit-sage-maxk.train-f32", "--seed",
+                   "1", "--seconds", "1"])
+    out = capsys.readouterr()
+    assert rc == 1 and out.out == "" and "models/gat.py" in out.err
 
 
 def test_jax_loaded_after_the_window_prints_nothing(tiny_config, monkeypatch,

@@ -1,7 +1,8 @@
 """What the benchmark's modules import, by top-level name compared whole:
-the reference nothing of JAX, the JAX package or the port; nothing under
-benchmark/ JAX or the JAX package (the port's own name begins with the
-JAX package's, and is allowed there)."""
+the reference and the model files nothing of JAX, the JAX package or the
+port (a model file at most the reference and the counts' arithmetic);
+nothing under benchmark/ JAX or the JAX package (the port's own name
+begins with the JAX package's, and is allowed there)."""
 import ast
 from pathlib import Path
 
@@ -19,6 +20,35 @@ def top_level_imports(path: Path) -> set[str]:
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.add(node.module.split(".")[0])
     return names
+
+
+def benchmark_imports(path: Path) -> set[str]:
+    """The modules of the benchmark that `path` imports, by full name."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names
+                      if a.name.split(".")[0] == "benchmark"}
+        elif (isinstance(node, ast.ImportFrom) and node.level == 0
+              and node.module.split(".")[0] == "benchmark"):
+            names |= ({node.module} if node.module != "benchmark" else
+                      {f"benchmark.{a.name}" for a in node.names})
+    return names
+
+
+@pytest.mark.parametrize("path", sorted((BENCH / "models").glob("*.py")),
+                         ids=lambda p: p.name)
+def test_model_files_import_only_plain_libraries(path):
+    found = top_level_imports(path)
+    assert not found & (JAX_SIDE | {"spgemm_gnn_tpu_torch"})
+    assert found <= {"__future__", "math", "torch", "benchmark"}
+    assert benchmark_imports(path) <= {"benchmark.reference",
+                                       "benchmark.counts"}
+
+
+def test_model_files_are_there():
+    assert {"sage.py", "gcn.py"} <= {p.name for p in
+                                     (BENCH / "models").glob("*.py")}
 
 
 def test_reference_imports_only_plain_libraries():
